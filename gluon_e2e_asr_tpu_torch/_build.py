@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled for
 Hopper (``sm_90a``) into ``build/torch_kernels/lib<name>.<digest>.so``
-at the root of the checkout, on first use. The digest is of the source
-and the flags, so an edited source is rebuilt and a stale library is
-never loaded. Nothing here runs at import time: the CPU tests import
-every module on a machine with no ``nvcc``.
+at the root of the checkout, on first use. The digest is of the source,
+the headers it includes from ``csrc/`` and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.
+Nothing here runs at import time: the CPU tests import every module on
+a machine with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -13,10 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Tuple
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -43,10 +46,33 @@ def _nvcc() -> str:
     return path
 
 
-def lib_path(name: str) -> str:
-    src = os.path.join(SRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: str, seen: Dict[str, bytes]) -> None:
+    """``path`` and, recursively, every file it includes with quotes,
+    resolved beside the including file (as nvcc resolves them)."""
+    path = os.path.realpath(path)
+    if path in seen:
+        return
+    with open(path, "rb") as f:
+        seen[path] = f.read()
+    for inc in _INCLUDE.findall(seen[path]):
+        dep = os.path.join(os.path.dirname(path), inc.decode())
+        if os.path.exists(dep):
+            _sources(dep, seen)
+
+
+def lib_path(name: str, src_dir: str = SRC_DIR) -> str:
+    """Where ``<src_dir>/<name>.cu`` is built: the name carries a digest
+    of the source, of every header it includes from the checkout, and of
+    the flags, so an edit to any of them builds a new library."""
+    seen: Dict[str, bytes] = {}
+    _sources(os.path.join(src_dir, f"{name}.cu"), seen)
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(seen):
+        digest.update(os.path.relpath(path, src_dir).encode() + b"\0")
+        digest.update(seen[path])
     return os.path.join(BUILD_DIR, f"lib{name}.{digest.hexdigest()[:16]}.so")
 
 
@@ -68,6 +94,15 @@ def _compile(name: str, out: str) -> None:
     with open(out + ".ptxas.txt", "w") as f:
         f.write(report + "\n")
     build_info[name] = (time.perf_counter() - t0, report)
+
+
+def build_all(names) -> None:
+    """Build every library of ``names`` that is not built yet, one nvcc
+    for each, all started together."""
+    todo = [n for n in names if not os.path.exists(lib_path(n))]
+    with _lock, ThreadPoolExecutor(max(len(todo), 1)) as pool:
+        for f in [pool.submit(_compile, n, lib_path(n)) for n in todo]:
+            f.result()
 
 
 def load_library(name: str) -> ctypes.CDLL:

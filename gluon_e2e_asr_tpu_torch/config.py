@@ -13,6 +13,7 @@ from gluon_e2e_asr_tpu.config import (  # noqa: F401
     DecodeConfig,
     FrontendConfig,
     ModelConfig,
+    TrainConfig,
     apply_overrides,
     load_config,
 )

@@ -13,6 +13,16 @@
 //   y = concat(fwd, bwd) [B,T,2H] f32, 0 at t >= lens[b]; the backward
 //   direction sweeps t = T-1 .. 0 from zero state.
 //
+// Training form (a non-null c output): the recurrence also writes the c
+// stream [B,T,2H] f32, and overwrites xg in place with the gate
+// activations (sig(i), sig(f+1), tanh(g), sig(o)) in xg's layout, all 0
+// at t >= lens[b]. K1-bwd (bilstm_bwd.cu) reads both, so it needs no gate
+// recompute. The TPU kernel recomputes the gates instead
+// (_v2_bwd_kernel); keeping them costs the xg buffer's B*T*8H*4 bytes
+// from the forward to the backward (0.39 GB for the flagship's first
+// layer at the 4.0 s bucket, B=96, T=398, H=320). Serving passes a null
+// c output and runs exactly the kernel it ran before.
+//
 // Two kernels on the caller's stream, no allocation, no synchronisation:
 //
 //   (a) the projection, a tiled shared-memory GEMM (128x128 tile) that
@@ -53,27 +63,13 @@
 
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// The four gate weights (i,f,g,o) of one hidden unit, adjacent in the
-// gate-interleaved W_h layout: one 16-byte (f32) or 8-byte (bf16) load.
-__device__ __forceinline__ float4 load_gates(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load_gates(const __nv_bfloat16* p) {
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
+using port::load4;
+using port::round_bf16;
+using port::sigmoid;
 
 // ---------------------------------------------------------------------------
 // (a) input projection
@@ -311,13 +307,17 @@ __device__ __forceinline__ void fma_rows(const float* h, const float4 w,
 // Grid (ceil(B/kRows), 2): blockIdx.y is the direction. blockDim.x >= H.
 // Dynamic shared memory: h as [2 buffers][H][kRows] f32 (already rounded
 // to the compute dtype, since it only feeds the product).
-template <typename WT>
-__global__ void recur_kernel(const float* __restrict__ xg,
+// TRAIN (the training form): thread u also overwrites its four entries of
+// xg at (b, t, dir) with the gate activations (si, sf, tg, so) and writes
+// the c stream cs [B,T,2H]; both are 0 at t >= lens[b]. Each xg entry is
+// read and written by the one thread that owns it.
+template <typename WT, bool TRAIN>
+__global__ void recur_kernel(float* __restrict__ xg,
                              const int* __restrict__ lens,
                              const WT* __restrict__ whf,
                              const WT* __restrict__ whb,
-                             float* __restrict__ y, int B, int T, int H,
-                             int cd_bf16) {
+                             float* __restrict__ y, float* __restrict__ cs,
+                             int B, int T, int H, int cd_bf16) {
   extern __shared__ __align__(16) float hs[];
   const int dir = blockIdx.y;
   const int b0 = blockIdx.x * kRows;
@@ -371,12 +371,12 @@ __global__ void recur_kernel(const float* __restrict__ xg,
         float4 w[kUnroll];
 #pragma unroll
         for (int kk = 0; kk < kUnroll; ++kk)
-          w[kk] = load_gates(wu + (size_t)(k + kk) * H4);
+          w[kk] = load4(wu + (size_t)(k + kk) * H4);
 #pragma unroll
         for (int kk = 0; kk < kUnroll; ++kk)
           fma_rows(hc + (k + kk) * kRows, w[kk], acc);
       }
-      for (; k < H; ++k) fma_rows(hc + k * kRows, load_gates(wu + (size_t)k * H4), acc);
+      for (; k < H; ++k) fma_rows(hc + k * kRows, load4(wu + (size_t)k * H4), acc);
 
       float* hn = hs + (cur ^ 1) * H * kRows;
 #pragma unroll
@@ -392,8 +392,22 @@ __global__ void recur_kernel(const float* __restrict__ xg,
           h_out = so * tanhf(cn);
           c[r] = cn;
           hn[u * kRows + r] = cd_bf16 ? round_bf16(h_out) : h_out;
+          if (TRAIN) {
+            float* xr = xg + (size_t)(b * T + t) * xg_row + dir * H4;
+            xr[u] = si;
+            xr[H + u] = sf;
+            xr[2 * H + u] = tg;
+            xr[3 * H + u] = so;
+            cs[(size_t)(b * T + t) * y_row + dir * H + u] = cn;
+          }
         } else {
           hn[u * kRows + r] = hc[u * kRows + r];  // hold the state
+          if (TRAIN && b < B) {
+            float* xr = xg + (size_t)(b * T + t) * xg_row + dir * H4;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) xr[g * H + u] = 0.0f;
+            cs[(size_t)(b * T + t) * y_row + dir * H + u] = 0.0f;
+          }
         }
         if (b < B) y[(size_t)(b * T + t) * y_row + dir * H + u] = h_out;
       }
@@ -404,17 +418,23 @@ __global__ void recur_kernel(const float* __restrict__ xg,
 }
 
 template <typename WT>
-cudaError_t launch_recur(const float* xg, const int* lens, const void* whf,
-                         const void* whb, float* y, int B, int T, int H,
-                         int cd_bf16, cudaStream_t stream) {
+cudaError_t launch_recur(float* xg, const int* lens, const void* whf,
+                         const void* whb, float* y, float* cs, int B, int T,
+                         int H, int cd_bf16, cudaStream_t stream) {
   // At most 16 KB (H <= 1024): under the 48 KB a launch gets without
   // cudaFuncSetAttribute.
   const size_t smem = sizeof(float) * 2 * (size_t)H * kRows;
   const dim3 grid((B + kRows - 1) / kRows, 2);
   const int threads = ((H + 31) / 32) * 32;
-  recur_kernel<WT><<<grid, threads, smem, stream>>>(
-      xg, lens, static_cast<const WT*>(whf), static_cast<const WT*>(whb), y,
-      B, T, H, cd_bf16);
+  const WT* wf = static_cast<const WT*>(whf);
+  const WT* wb = static_cast<const WT*>(whb);
+  if (cs) {
+    recur_kernel<WT, true><<<grid, threads, smem, stream>>>(
+        xg, lens, wf, wb, y, cs, B, T, H, cd_bf16);
+  } else {
+    recur_kernel<WT, false><<<grid, threads, smem, stream>>>(
+        xg, lens, wf, wb, y, cs, B, T, H, cd_bf16);
+  }
   return cudaGetLastError();
 }
 
@@ -422,12 +442,14 @@ cudaError_t launch_recur(const float* xg, const int* lens, const void* whf,
 
 // Plain C interface (loaded with ctypes). Pointers are device pointers;
 // whf/whb are float when cd_bf16 == 0 and __nv_bfloat16 when cd_bf16 == 1;
-// xg is caller-allocated scratch [B,T,8H] f32. Returns cudaGetLastError()
-// after the launches (0 on success).
+// xg is caller-allocated scratch [B,T,8H] f32. cs may be null (serving);
+// otherwise it receives the c stream [B,T,2H] f32 and xg ends up holding
+// the gate activations (the training form, see recur_kernel). Returns
+// cudaGetLastError() after the launches (0 on success).
 extern "C" int bilstm_fwd(const float* x, const int* lens, const float* wx,
                           const float* bx, const void* whf, const void* whb,
-                          float* xg, float* y, int B, int T, int D, int H,
-                          int cd_bf16, int round_xg, void* stream) {
+                          float* xg, float* y, float* cs, int B, int T, int D,
+                          int H, int cd_bf16, int round_xg, void* stream) {
   if (B <= 0 || T <= 0 || D <= 0 || H <= 0 || H > 1024) {
     return (int)cudaErrorInvalidValue;
   }
@@ -449,9 +471,9 @@ extern "C" int bilstm_fwd(const float* x, const int* lens, const float* wx,
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = cd_bf16 ? launch_recur<__nv_bfloat16>(xg, lens, whf, whb, y, B, T, H,
-                                            1, st)
-              : launch_recur<float>(xg, lens, whf, whb, y, B, T, H, 0, st);
+  e = cd_bf16 ? launch_recur<__nv_bfloat16>(xg, lens, whf, whb, y, cs, B, T,
+                                            H, 1, st)
+              : launch_recur<float>(xg, lens, whf, whb, y, cs, B, T, H, 0, st);
   return (int)e;
 }
 

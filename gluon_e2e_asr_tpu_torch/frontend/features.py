@@ -1,7 +1,7 @@
 """Acoustic frontend: framing -> STFT -> log-Mel -> CMVN -> deltas.
 
 Counterpart of ``gluon_e2e_asr_tpu/frontend/features.py`` (the
-``impl: jnp`` path, eval mode). The STFT is a framed matmul against a
+``impl: jnp`` path), with SpecAugment in training. The STFT is a framed matmul against a
 DFT basis with the Hann window folded in, applied per hop-aligned
 window segment, then power spectrum, mel matmul and log. Those are
 plain large matmuls, left to ``torch.matmul`` as the JAX package leaves
@@ -9,12 +9,16 @@ them to XLA, and they must run in true f32: log-domain features amplify
 the cancellation noise of reduced-precision products near the power
 floor, so on a CUDA tensor TF32 matmuls must be off
 (``torch.backends.cuda.matmul.allow_tf32 = False``).
+
+SpecAugment's mask geometry is an input: ``draw_spec_augment`` draws the
+four raw values from a ``torch.Generator``, and ``spec_augment`` applies
+the JAX package's formulas to them, so a test can feed it the JAX draws.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -182,28 +186,104 @@ def add_deltas(feats: torch.Tensor, feat_len: torch.Tensor, order: int,
     return torch.where(valid, out, torch.zeros_like(out))
 
 
+class SpecAugDraws(NamedTuple):
+    """The raw draws of SpecAugment, each [B, n_masks, 1] int64 (None
+    where that kind of mask is off): mask widths in [0, width], frequency
+    starts below max(n_mels - w + 1, 1), time starts in [0, F) before the
+    per-utterance wrap."""
+    freq_width: Optional[torch.Tensor]
+    freq_start: Optional[torch.Tensor]
+    time_width: Optional[torch.Tensor]
+    time_start: Optional[torch.Tensor]
+
+
+def specaug_on(cfg: FrontendConfig) -> bool:
+    return cfg.specaug_freq_masks > 0 or cfg.specaug_time_masks > 0
+
+
+def draw_spec_augment(cfg: FrontendConfig, batch: int, frames: int,
+                      generator: torch.Generator,
+                      device: torch.device = torch.device("cpu")
+                      ) -> SpecAugDraws:
+    """SpecAugment's raw draws for ``batch`` utterances of ``frames``
+    frames, from ``generator`` (drawn on its device, moved to
+    ``device``)."""
+    def randint(high, n):
+        return torch.randint(0, high, (batch, n, 1), generator=generator)
+
+    fw = fs = tw = ts = None
+    if cfg.specaug_freq_masks > 0 and cfg.specaug_freq_width > 0:
+        fw = randint(cfg.specaug_freq_width + 1, cfg.specaug_freq_masks)
+        span = torch.clamp(cfg.n_mels - fw + 1, min=1)
+        u = torch.rand(fw.shape, generator=generator, dtype=torch.float64)
+        fs = torch.minimum((u * span).long(), span - 1)
+    if cfg.specaug_time_masks > 0 and cfg.specaug_time_width > 0:
+        tw = randint(cfg.specaug_time_width + 1, cfg.specaug_time_masks)
+        ts = randint(max(frames, 1), cfg.specaug_time_masks)
+    return SpecAugDraws(*(None if d is None else d.to(device)
+                          for d in (fw, fs, tw, ts)))
+
+
+def spec_augment(feats: torch.Tensor, feat_len: torch.Tensor,
+                 draws: SpecAugDraws, time_width: int) -> torch.Tensor:
+    """SpecAugment time/frequency masking with the geometry in ``draws``:
+    masked cells are zeroed (post-CMVN zero is the feature mean). Each
+    time mask is capped at min(time_width, max(len // 5, 1)) and starts
+    at ``time_start % max(len - w + 1, 1)``, as in the JAX package."""
+    B, F, M = feats.shape
+    if draws.freq_width is not None:
+        fidx = torch.arange(M, device=feats.device)[None, None, :]
+        hit = (fidx >= draws.freq_start) & (
+            fidx < draws.freq_start + draws.freq_width)
+        fmask = ~torch.any(hit, dim=1)  # [B,M]
+        feats = feats * fmask[:, None, :].to(feats.dtype)
+    if draws.time_width is not None:
+        lens = feat_len.long()[:, None, None]
+        max_w = torch.clamp(torch.clamp(lens // 5, min=1), max=time_width)
+        w = torch.minimum(draws.time_width, max_w)
+        span = torch.clamp(lens - w + 1, min=1)
+        start = draws.time_start % span
+        tidx = torch.arange(F, device=feats.device)[None, None, :]
+        hit = (tidx >= start) & (tidx < start + w)
+        tmask = ~torch.any(hit, dim=1)  # [B,F]
+        feats = feats * tmask[:, :, None].to(feats.dtype)
+    return feats
+
+
 def compute_features(
     cfg: FrontendConfig,
     audio: torch.Tensor,
     audio_len: torch.Tensor,
     *,
+    train: bool = False,
+    spec_draws: Optional[SpecAugDraws] = None,
     cmvn_stats=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B,S] audio -> ([B,F,n_mels], feat_len int32), eval mode (no
-    SpecAugment). Frames past ``feat_len`` are zeroed."""
+    """[B,S] audio -> ([B,F,n_mels], feat_len int32). In training with
+    SpecAugment on, ``spec_draws`` gives the masks. Frames past
+    ``feat_len`` are zeroed."""
     feats = log_mel_spectrogram(audio, cfg)
     feat_len = num_frames(audio_len, cfg.win_length,
                           cfg.hop_length).to(torch.int32)
     feats = apply_cmvn(feats, feat_len, cfg.cmvn, cmvn_stats)
+    if train and specaug_on(cfg):
+        if spec_draws is None:
+            raise ValueError("SpecAugment in training needs spec_draws "
+                             "(draw_spec_augment)")
+        feats = spec_augment(feats, feat_len, spec_draws,
+                             cfg.specaug_time_width)
     valid = _frame_mask(feats.shape[1], feat_len)[..., None]
     return torch.where(valid, feats, torch.zeros_like(feats)), feat_len
 
 
 def frontend_apply(cfg: FrontendConfig, audio: torch.Tensor,
-                   audio_len: torch.Tensor, *, cmvn_stats=None):
-    """Implementation-selecting wrapper, eval mode. int16 audio (the
-    loader's ``data.transfer_dtype: int16``) is dequantized by the exact
-    power-of-two scale 2^-15 first."""
+                   audio_len: torch.Tensor, *, train: bool = False,
+                   spec_draws: Optional[SpecAugDraws] = None,
+                   cmvn_stats=None):
+    """Implementation-selecting wrapper. int16 audio (the loader's
+    ``data.transfer_dtype: int16``) is dequantized by the exact
+    power-of-two scale 2^-15 first. ``train`` applies SpecAugment with
+    ``spec_draws``."""
     if audio.dtype == torch.int16:
         audio = audio.to(torch.float32) * (2.0 ** -15)
     if cfg.impl in ("pallas", "pallas_regrid"):
@@ -217,6 +297,7 @@ def frontend_apply(cfg: FrontendConfig, audio: torch.Tensor,
             f"frontend.impl={cfg.impl!r} not in ('jnp', 'pallas', "
             "'pallas_regrid')")
     feats, feat_len = compute_features(cfg, audio.float(), audio_len,
+                                       train=train, spec_draws=spec_draws,
                                        cmvn_stats=cmvn_stats)
     if cfg.deltas > 0:
         feats = add_deltas(feats, feat_len, cfg.deltas, cfg.delta_window)

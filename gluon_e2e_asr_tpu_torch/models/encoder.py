@@ -6,8 +6,9 @@ Counterpart of ``gluon_e2e_asr_tpu/models/encoder.py`` for
 [8H], ``l{n}_rec_f`` / ``l{n}_rec_b`` [H, 4H], ``ctc_head.kernel``
 [in, out]), so ``bridge.py`` maps a JAX tree by name alone. Every layer
 runs ``ops/bilstm.py::bilstm_fused``: the kernel on a CUDA tensor, the
-plain version on a CPU tensor. ``lstm_impl`` selects the semantics of
-the JAX path it stands for (see that module).
+plain version on a CPU tensor, with its gradient (K1-bwd or the plain
+backward) when the parameters require one. ``lstm_impl`` selects the
+semantics of the JAX path it stands for (see that module).
 """
 
 from __future__ import annotations
@@ -107,10 +108,15 @@ class BiLSTMEncoder(nn.Module):
         lecun_normal_(self.ctc_head.kernel, generator)
         self.ctc_head.bias.zero_()
 
-    def forward(self, feats: torch.Tensor, feat_len: torch.Tensor
+    def forward(self, feats: torch.Tensor, feat_len: torch.Tensor,
+                train: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """feats [B,T,in_dim] f32, feat_len [B] -> (enc [B,T',2H] f32,
         enc_len [B] int32, ctc_logits [B,T',V] f32)."""
+        if train and self.cfg.enc_dropout > 0.0:
+            raise NotImplementedError(
+                f"model.enc_dropout={self.cfg.enc_dropout} in training: "
+                "encoder dropout is not ported yet (ROADMAP.md)")
         x, lens = feats, feat_len.to(torch.int32)
         for layer in range(self.cfg.enc_layers):
             x, lens = subsample_concat(x, lens, self.subsample[layer])

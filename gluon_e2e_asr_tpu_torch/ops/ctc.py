@@ -1,10 +1,334 @@
-"""CTC operations. Counterpart of ``gluon_e2e_asr_tpu/ops/ctc.py``;
-this slice needs greedy decoding only (the loss and its kernels K2/K3
-arrive with training)."""
+"""CTC operations: the loss with its analytic gradient (K2, K3) and greedy
+decoding.
+
+Counterpart of ``gluon_e2e_asr_tpu/ops/ctc.py`` and
+``gluon_e2e_asr_tpu/ops/pallas_ctc.py``. The labels are expanded to the
+blank-interleaved lattice of S = 2L+1 states; the alpha recursion (K2)
+runs in the forward, and the backward runs the beta recursion fused with
+the state posterior (K3), whose gradient with respect to the logits is
+softmax(logits) - posterior. Each recursion has two versions:
+
+- ``_alpha_plain`` / ``_beta_post_plain``: a torch loop over time with
+  the TPU kernels' formulas. The CPU path, and the references the
+  kernels are held against on the card.
+- ``ctc_alpha_kernel`` / ``ctc_beta_post_kernel``: ``csrc/ctc.cu``,
+  one block per utterance and one thread per state.
+
+``ctc_alpha`` and ``ctc_beta_post`` dispatch on the device (``_route``):
+the plain version for a CPU tensor, the kernel for a CUDA tensor,
+nothing else.
+Rows with ``input_len`` 0 or an infeasible label sequence carry a loss
+and a gradient of exactly 0 (like torch's ``zero_infinity``).
+"""
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from gluon_e2e_asr_tpu_torch import _build
+
+NEG_INF = -1e30
+MAX_STATES = 1024  # one thread per lattice state in the kernels
+
+
+def _expand_labels(labels: torch.Tensor, blank_id: int) -> torch.Tensor:
+    """[B, L] -> blank-interleaved state labels [B, 2L+1]:
+    (blank, l1, blank, l2, ..., lL, blank)."""
+    B, L = labels.shape
+    ext = torch.full((B, 2 * L + 1), blank_id, dtype=labels.dtype,
+                     device=labels.device)
+    ext[:, 1::2] = labels
+    return ext
+
+
+def _transition_mask(ext: torch.Tensor, blank_id: int) -> torch.Tensor:
+    """allow_skip[b, s]: whether s-2 -> s is legal (lab(s) != blank and
+    lab(s) != lab(s-2))."""
+    lab_m2 = torch.nn.functional.pad(ext, (2, 0), value=blank_id)[:, :-2]
+    return (ext != blank_id) & (ext != lab_m2)
+
+
+def _gather_states(logp: torch.Tensor, ext: torch.Tensor) -> torch.Tensor:
+    """[B,T,V] log-probs + [B,S] state labels -> [T,B,S] emissions (an
+    exact gather; the JAX package's one-hot product gives the same values
+    in f32)."""
+    B, T, _ = logp.shape
+    idx = ext.long()[:, None, :].expand(B, T, ext.shape[1])
+    return torch.gather(logp, 2, idx).permute(1, 0, 2).contiguous()
+
+
+def _feasible(input_lens, labels, label_lens):
+    """A CTC alignment exists iff T >= L + (# adjacent repeated labels)."""
+    L = labels.shape[1]
+    pos = torch.arange(1, L, device=labels.device)[None, :]
+    rep = (labels[:, 1:] == labels[:, :-1]) & (pos < label_lens[:, None])
+    needed = label_lens + rep.sum(dim=1)
+    return (input_lens > 0) & (input_lens >= needed)
+
+
+def _logsumexp3(a0, a1, a2):
+    m = torch.maximum(torch.maximum(a0, a1), a2)
+    msafe = torch.clamp(m, min=NEG_INF)
+    return msafe + torch.log(torch.exp(a0 - msafe) + torch.exp(a1 - msafe)
+                             + torch.exp(a2 - msafe))
+
+
+def _shift(a: torch.Tensor, n: int) -> torch.Tensor:
+    """a[:, s] -> a[:, s-n] (n > 0) or a[:, s+|n|] (n < 0), NEG_INF filled."""
+    if n > 0:
+        return torch.nn.functional.pad(a, (n, 0), value=NEG_INF)[:, :-n]
+    return torch.nn.functional.pad(a, (0, -n), value=NEG_INF)[:, -n:]
+
+
+def _beta_inputs(time_mask, allow_skip, last_state):
+    """skipf2, finalok [B,S] and is_last [T,B], as pallas_ctc.py computes
+    them outside its kernel."""
+    T, _ = time_mask.shape
+    S = allow_skip.shape[1]
+    skipf2 = torch.nn.functional.pad(allow_skip, (0, 2))[:, 2:]
+    s_idx = torch.arange(S, device=allow_skip.device)[None, :]
+    finalok = (s_idx == last_state[:, None]) | (s_idx == last_state[:, None] - 1)
+    t_lens = time_mask.sum(dim=0)
+    is_last = torch.arange(T, device=time_mask.device)[:, None] == (t_lens[None, :] - 1)
+    return skipf2, finalok, is_last
+
+
+def _alpha_plain(emit, time_mask, allow_skip, state_valid):
+    """emit [T,B,S] f32, time_mask [T,B], allow_skip and state_valid
+    [B,S] bool -> alpha [T,B,S] (log space)."""
+    _alpha_plain.calls += 1
+    T, B, S = emit.shape
+    s_idx = torch.arange(S, device=emit.device)[None, :]
+    first_ok = (s_idx <= 1) & state_valid
+    a = torch.full((B, S), NEG_INF, device=emit.device, dtype=emit.dtype)
+    a[:, 0] = 0.0
+    out = []
+    for t in range(T):
+        if t == 0:
+            new = torch.where(first_ok, emit[0], NEG_INF)
+        else:
+            a2 = torch.where(allow_skip, _shift(a, 2), NEG_INF)
+            new = _logsumexp3(a, _shift(a, 1), a2) + emit[t]
+            new = torch.where(state_valid, new, NEG_INF)
+        a = torch.where(time_mask[t][:, None], new, a)
+        out.append(a)
+    return torch.stack(out)
+
+
+_alpha_plain.calls = 0
+
+
+def _beta_post_plain(emit, time_mask, allow_skip, state_valid, last_state,
+                     alpha, ll):
+    """The beta recursion fused with the state posterior: post [T,B,S] =
+    exp(clip(alpha + beta - emit - ll, 2*NEG_INF, 0)), 0 on invalid
+    states and past each row's length."""
+    _beta_post_plain.calls += 1
+    T, B, S = emit.shape
+    skipf2, finalok, is_last = _beta_inputs(time_mask, allow_skip, last_state)
+    b = torch.full((B, S), NEG_INF, device=emit.device, dtype=emit.dtype)
+    post = torch.empty_like(emit)
+    for t in range(T - 1, -1, -1):
+        b2 = torch.where(skipf2, _shift(b, -2), NEG_INF)
+        new = emit[t] + _logsumexp3(b, _shift(b, -1), b2)
+        new = torch.where(is_last[t][:, None],
+                          torch.where(finalok, emit[t], NEG_INF), new)
+        new = torch.where(state_valid, new, NEG_INF)
+        tm = time_mask[t][:, None]
+        b = torch.where(tm, new, b)
+        gamma = alpha[t] + b - emit[t]
+        p = torch.exp(torch.clamp(gamma - ll[:, None], 2 * NEG_INF, 0.0))
+        post[t] = torch.where(state_valid & tm, p, 0.0)
+    return post
+
+
+_beta_post_plain.calls = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load_library("ctc")
+    if lib.ctc_alpha.argtypes is None:
+        # Without argtypes ctypes passes each pointer as a 32-bit int.
+        lib.ctc_alpha.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        lib.ctc_alpha.restype = ctypes.c_int
+        lib.ctc_beta_post.argtypes = [ctypes.c_void_p] * 9 \
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.ctc_beta_post.restype = ctypes.c_int
+        lib.ctc_error_string.argtypes = [ctypes.c_int]
+        lib.ctc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _kernel_shape(emit: torch.Tensor, who: str):
+    if emit.device.type != "cuda":
+        raise ValueError(f"{who} needs CUDA tensors, got {emit.device}")
+    if emit.dim() != 3 or emit.dtype != torch.float32:
+        raise ValueError(f"emit must be [T,B,S] float32, got "
+                         f"{tuple(emit.shape)} {emit.dtype}")
+    T, B, S = emit.shape
+    if S > MAX_STATES:
+        raise ValueError(f"{S} lattice states exceed the kernel's "
+                         f"{MAX_STATES} (one thread per state)")
+    return T, B, S
+
+
+def _u8(t: torch.Tensor, shape, dev) -> torch.Tensor:
+    if tuple(t.shape) != tuple(shape) or t.device != dev:
+        raise ValueError(f"mask of shape {tuple(t.shape)} on {t.device}, "
+                         f"expected {tuple(shape)} on {dev}")
+    return t.to(torch.uint8).contiguous()
+
+
+def _launched(lib, rc: int, what: str, T, B, S) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.ctc_error_string(rc).decode()} "
+                           f"(T={T} B={B} S={S})")
+
+
+def ctc_alpha_kernel(emit, time_mask, allow_skip, state_valid):
+    """K2 on the card; the contract of ``_alpha_plain``."""
+    T, B, S = _kernel_shape(emit, "ctc_alpha_kernel")
+    dev = emit.device
+    alpha = torch.empty_like(emit)
+    if T == 0 or B == 0 or S == 0:
+        return alpha
+    tm = _u8(time_mask, (T, B), dev)
+    sk, sv = _u8(allow_skip, (B, S), dev), _u8(state_valid, (B, S), dev)
+    emit = emit.contiguous()
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.ctc_alpha(emit.data_ptr(), tm.data_ptr(), sk.data_ptr(),
+                           sv.data_ptr(), alpha.data_ptr(), T, B, S,
+                           torch.cuda.current_stream(dev).cuda_stream)
+    _launched(lib, rc, "ctc_alpha", T, B, S)
+    ctc_alpha_kernel.launches += 1
+    return alpha
+
+
+ctc_alpha_kernel.launches = 0
+
+
+def ctc_beta_post_kernel(emit, time_mask, allow_skip, state_valid,
+                         last_state, alpha, ll):
+    """K3 on the card; the contract of ``_beta_post_plain``."""
+    T, B, S = _kernel_shape(emit, "ctc_beta_post_kernel")
+    dev = emit.device
+    post = torch.empty_like(emit)
+    if T == 0 or B == 0 or S == 0:
+        return post
+    skipf2, finalok, is_last = _beta_inputs(time_mask, allow_skip, last_state)
+    masks = [_u8(time_mask, (T, B), dev), _u8(is_last, (T, B), dev),
+             _u8(skipf2, (B, S), dev), _u8(state_valid, (B, S), dev),
+             _u8(finalok, (B, S), dev)]
+    if alpha.shape != emit.shape or ll.shape != (B,):
+        raise ValueError(f"alpha {tuple(alpha.shape)} / ll {tuple(ll.shape)} "
+                         f"do not match emit {tuple(emit.shape)}")
+    emit = emit.contiguous()
+    alpha = alpha.to(torch.float32).contiguous()
+    ll = ll.to(torch.float32).contiguous()
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.ctc_beta_post(
+            emit.data_ptr(), *(m.data_ptr() for m in masks), alpha.data_ptr(),
+            ll.data_ptr(), post.data_ptr(), T, B, S,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _launched(lib, rc, "ctc_beta_post", T, B, S)
+    ctc_beta_post_kernel.launches += 1
+    return post
+
+
+ctc_beta_post_kernel.launches = 0
+
+
+def _route(emit: torch.Tensor) -> str:
+    """"plain" for a CPU tensor, "kernel" for a CUDA tensor."""
+    if emit.device.type == "cpu":
+        return "plain"
+    if emit.device.type == "cuda":
+        return "kernel"
+    raise ValueError(f"ctc: no implementation for device {emit.device}")
+
+
+def ctc_alpha(emit, time_mask, allow_skip, state_valid):
+    fn = _alpha_plain if _route(emit) == "plain" else ctc_alpha_kernel
+    return fn(emit, time_mask, allow_skip, state_valid)
+
+
+def ctc_beta_post(emit, time_mask, allow_skip, state_valid, last_state,
+                  alpha, ll):
+    fn = _beta_post_plain if _route(emit) == "plain" else ctc_beta_post_kernel
+    return fn(emit, time_mask, allow_skip, state_valid, last_state, alpha, ll)
+
+
+def _lattice(T, input_lens, labels, label_lens, blank_id):
+    """(ext, allow_skip, state_valid [B,S], time_mask [T,B])."""
+    S = 2 * labels.shape[1] + 1
+    ext = _expand_labels(labels, blank_id)
+    allow_skip = _transition_mask(ext, blank_id)
+    state_valid = (torch.arange(S, device=labels.device)[None, :]
+                   < (2 * label_lens + 1)[:, None])
+    time_mask = (torch.arange(T, device=labels.device)[:, None]
+                 < input_lens[None, :])
+    return ext, allow_skip, state_valid, time_mask
+
+
+def _log_likelihood(alpha, label_lens):
+    """log p(labels | x) [B] from the last alpha row (frozen at each
+    row's last frame)."""
+    a_last = alpha[-1]
+    last = (2 * label_lens).long()
+    aL = torch.gather(a_last, 1, last[:, None])[:, 0]
+    aLm1 = torch.gather(a_last, 1, torch.clamp(last - 1, min=0)[:, None])[:, 0]
+    aLm1 = torch.where(label_lens > 0, aLm1, NEG_INF)
+    m = torch.maximum(aL, aLm1)
+    return m + torch.log(torch.exp(aL - m) + torch.exp(aLm1 - m))
+
+
+class CTCLoss(torch.autograd.Function):
+    """Per-sample CTC negative log likelihood with the analytic gradient
+    (softmax - posterior) of ``ops/ctc.py::_ctc_bwd`` in the JAX
+    package."""
+
+    @staticmethod
+    def forward(ctx, logits, input_lens, labels, label_lens, blank_id):
+        B, T, V = logits.shape
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ext, allow_skip, state_valid, time_mask = _lattice(
+            T, input_lens, labels, label_lens, blank_id)
+        emit = _gather_states(logp, ext)
+        alpha = ctc_alpha(emit, time_mask, allow_skip, state_valid)
+        ll = _log_likelihood(alpha, label_lens)
+        ok = _feasible(input_lens, labels, label_lens)
+        ctx.save_for_backward(logp, emit, alpha, ll, ok, ext, allow_skip,
+                              state_valid, time_mask, label_lens)
+        return torch.where(ok, -ll, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (logp, emit, alpha, ll, ok, ext, allow_skip, state_valid, time_mask,
+         label_lens) = ctx.saved_tensors
+        B, T, V = logp.shape
+        post = ctc_beta_post(emit, time_mask, allow_skip, state_valid,
+                             2 * label_lens, alpha, ll)  # [T,B,S]
+        # States -> vocabulary: the JAX package's one-hot product.
+        posterior = torch.zeros_like(logp).scatter_add_(
+            2, ext.long()[:, None, :].expand(B, T, ext.shape[1]),
+            post.permute(1, 0, 2))
+        grad = (torch.exp(logp) - posterior) * time_mask.T[:, :, None]
+        grad = torch.where(ok[:, None, None], grad * g[:, None, None], 0.0)
+        return grad, None, None, None, None
+
+
+def ctc_loss(logits, input_lens, labels, label_lens, blank_id: int = 0):
+    """Per-sample CTC negative log likelihood [B] from raw logits
+    [B, T, V]. Ragged time/label lengths are handled by masking; rows
+    with input_len == 0 or an infeasible label sequence contribute
+    exactly 0 loss and 0 gradient."""
+    return CTCLoss.apply(logits, input_lens, labels, label_lens, blank_id)
 
 
 def ctc_greedy_decode(logits: torch.Tensor, input_lens: torch.Tensor,
