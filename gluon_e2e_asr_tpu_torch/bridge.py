@@ -5,8 +5,9 @@ numpy arrays (``training/checkpoint.py::restore_checkpoint`` there, or
 ``model.init``) and returns the port's state dict; ``params_to_jax`` is
 its inverse. The layouts are the same on both sides (flax Dense kernels
 [in, out], ``l{n}_in_w`` [D, 8H] with the forward gates first, gate
-order (i,f,g,o) with the forget bias inside the cell), so the bridge
-maps names and copies bits. It imports no flax.
+order (i,f,g,o) with the forget bias inside the cell, the decoder's
+parameters under their flax names), so the bridge maps names and copies
+bits. An unknown name raises. It imports no flax.
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ import numpy as np
 import torch
 
 _LAYER_PARAM = re.compile(r"l\d+_(in_w|in_b|rec_f|rec_b)")
+# models/decoder.py (JAX): the attention decoder's parameters, for every
+# att_type and dec_layers.
+_DECODER_PARAM = re.compile(
+    r"embed|cell\d+_(wx|b|wh)|att_(q|k|b|v)|loc_(filter|proj)|out_(w|b)")
 _DENSE = ("kernel", "bias")
 
 
@@ -26,8 +31,10 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
     for top, sub in tree.items():
         if top == "decoder":
-            # The attention decoder is mapped by the port's decoder, which
-            # arrives with beam search; greedy CTC decoding does not use it.
+            for name, leaf in sub.items():
+                if not _DECODER_PARAM.fullmatch(name):
+                    raise KeyError(f"unknown decoder parameter {name!r}")
+                state[f"decoder.{name}"] = _tensor(leaf)
             continue
         if top != "encoder":
             raise KeyError(f"unknown parameter subtree {top!r}")
@@ -60,4 +67,7 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 
 
 def _tensor(leaf) -> torch.Tensor:
+    if isinstance(leaf, Mapping):
+        raise KeyError(f"expected an array, got a subtree with keys "
+                       f"{sorted(leaf)}")
     return torch.from_numpy(np.array(leaf, copy=True))

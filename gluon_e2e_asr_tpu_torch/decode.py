@@ -2,9 +2,10 @@
 --ckpt <path> [--device cuda]``.
 
 Counterpart of ``gluon_e2e_asr_tpu/decode.py`` for greedy CTC decoding:
-restore the port's checkpoint and its vocab, run the bucketed dev batches
-through frontend -> encoder -> CTC head -> greedy collapse ->
-detokenize, write per-utterance JSONL {utt_id, hyp, ref, score,
+restore the port's checkpoint (with or without an attention decoder,
+which greedy CTC decoding does not run) and its vocab, run the bucketed
+dev batches through frontend -> encoder -> CTC head -> greedy collapse
+-> detokenize, write per-utterance JSONL {utt_id, hyp, ref, score,
 latency_s}, and print one ``decode_done`` JSON line with WER/CER and
 p50 latency. Each bucket gets one untimed warm pass first. A JAX
 checkpoint is converted with ``bridge.py`` and saved with
@@ -19,16 +20,16 @@ import time
 
 import torch
 
-from gluon_e2e_asr_tpu.data.loader import DataLoader
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import CharTokenizer, tokenizer_from_json
-from gluon_e2e_asr_tpu.eval.metrics import cer, error_report, wer
-from gluon_e2e_asr_tpu.utils.logging import JsonlLogger, percentile
 from gluon_e2e_asr_tpu_torch.config import Config, apply_overrides, load_config
+from gluon_e2e_asr_tpu_torch.data.loader import DataLoader
+from gluon_e2e_asr_tpu_torch.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr_tpu_torch.data.tokenizer import CharTokenizer, tokenizer_from_json
 from gluon_e2e_asr_tpu_torch.decoding.greedy import ids_to_texts, make_greedy_decoder
+from gluon_e2e_asr_tpu_torch.eval.metrics import cer, error_report, wer
 from gluon_e2e_asr_tpu_torch.models.asr import build_model
 from gluon_e2e_asr_tpu_torch.training.checkpoint import restore_checkpoint
 from gluon_e2e_asr_tpu_torch.training.trainer import build_datasets
+from gluon_e2e_asr_tpu_torch.utils.logging import JsonlLogger, percentile
 
 
 def make_eval_loader(config: Config, utts, tokenizer) -> DataLoader:
@@ -96,7 +97,8 @@ def main(argv=None):
             f"--min-dur {args.min_dur} left no dev utterances to decode")
     loader = make_eval_loader(config, dev_utts, tokenizer)
 
-    model = build_model(config, tokenizer.vocab_size)
+    model = build_model(config, tokenizer.vocab_size,
+                        use_decoder=any(k.startswith("decoder.") for k in params))
     model.load_state_dict(params)
     model.to(device).eval()
     decoder = make_greedy_decoder(model, config, cmvn_stats, device)

@@ -1,49 +1,65 @@
-"""The ASR model: encoder + CTC head.
+"""The hybrid CTC/attention ASR model: encoder + CTC head + LAS decoder.
 
-Counterpart of ``gluon_e2e_asr_tpu/models/asr.py``. Greedy CTC decoding
-and CTC-only training (``loss.mtl_alpha: 1.0``) need no attention
-decoder; the decoder (TPU kernel K4, and the ``decoder_*`` methods of
-the JAX model) arrives with hybrid training. The frontend stays a pure
-function (``frontend.features``).
+Counterpart of ``gluon_e2e_asr_tpu/models/asr.py``. The decoder is part
+of the model when ``loss.mtl_alpha < 1`` (the hybrid objective), as
+``build_model`` there decides. The frontend stays a pure function
+(``frontend.features``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from gluon_e2e_asr_tpu_torch.config import Config, ModelConfig
+from gluon_e2e_asr_tpu_torch.models.decoder import AttentionDecoder, check_ported
 from gluon_e2e_asr_tpu_torch.models.encoder import BiLSTMEncoder
 
 
 class ASRModel(nn.Module):
-    def __init__(self, cfg: ModelConfig, vocab_size: int, in_dim: int):
+    """Encoder and CTC head, and with ``use_decoder`` the attention
+    decoder (``build_model`` decides as the JAX package does)."""
+
+    def __init__(self, cfg: ModelConfig, vocab_size: int, in_dim: int,
+                 sos_id: int = 2, eos_id: int = 3, use_decoder: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.sos_id, self.eos_id = sos_id, eos_id
+        self.use_decoder = use_decoder
         self.encoder = BiLSTMEncoder(cfg, vocab_size, in_dim)
+        if use_decoder:
+            self.decoder = AttentionDecoder(cfg, vocab_size, sos_id, eos_id)
 
     def forward(self, feats: torch.Tensor, feat_len: torch.Tensor,
+                tokens_in: Optional[torch.Tensor] = None,
+                coins: Optional[torch.Tensor] = None,
                 train: bool = False) -> Dict[str, torch.Tensor]:
+        """``coins`` [L,B] bool: the scheduled-sampling draws (None: gold
+        tokens only)."""
         enc, enc_len, ctc_logits = self.encoder(feats, feat_len, train)
-        return {"enc": enc, "enc_len": enc_len, "ctc_logits": ctc_logits}
+        out = {"enc": enc, "enc_len": enc_len, "ctc_logits": ctc_logits}
+        if self.use_decoder and tokens_in is not None:
+            out["att_logits"] = self.decoder(enc, enc_len, tokens_in, coins)
+        return out
 
     def encode(self, feats: torch.Tensor, feat_len: torch.Tensor):
         return self.encoder(feats, feat_len)
 
 
-def build_model(config: Config, vocab_size: int,
-                train: bool = False) -> ASRModel:
+def build_model(config: Config, vocab_size: int, train: bool = False,
+                sos_id: int = 2, eos_id: int = 3,
+                use_decoder: Optional[bool] = None) -> ASRModel:
     """The model for ``config``, parameters initialized as flax would
-    (call ``model.encoder.reset_parameters(generator)`` for a seed).
-    Training (``train``) is ported for the CTC objective alone."""
-    if train and config.loss.mtl_alpha < 1.0:
-        raise NotImplementedError(
-            f"loss.mtl_alpha={config.loss.mtl_alpha}: hybrid CTC/attention "
-            "training needs the attention decoder and its TPU kernel K4 "
-            "(ops/pallas_decoder.py::las_decoder_fused), which come with the "
-            "next slice of the port (ROADMAP.md); set loss.mtl_alpha=1.0 "
-            "for CTC-only training")
+    (``reset_parameters(generator)`` of the encoder and the decoder for a
+    seed). The decoder is built when ``use_decoder``, by default when
+    ``loss.mtl_alpha < 1``; training (``train``) checks that the port
+    runs its configuration."""
+    if use_decoder is None:
+        use_decoder = config.loss.mtl_alpha < 1.0
+    if train and use_decoder:
+        check_ported(config.model)
     in_dim = config.frontend.n_mels * (1 + int(config.frontend.deltas))
-    return ASRModel(config.model, vocab_size, in_dim)
+    return ASRModel(config.model, vocab_size, in_dim, sos_id, eos_id,
+                    use_decoder)

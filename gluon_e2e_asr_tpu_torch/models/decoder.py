@@ -1,0 +1,159 @@
+"""LAS-style attention decoder (unidirectional LSTM + attention).
+
+Counterpart of ``gluon_e2e_asr_tpu/models/decoder.py``. The parameters
+keep the flax names and layouts of every ``att_type`` (``embed`` [V,E],
+``cell0_wx`` [E+D,4H], ``cell0_b``, ``cell0_wh`` [H,4H], ``att_q``
+[H,A], ``att_k`` [D,A], ``att_b``/``att_v`` for add and loc,
+``loc_filter``/``loc_proj`` for loc, ``out_w`` [H+D,V], ``out_b``), so
+every checkpoint of the repo bridges by name (``bridge.py``).
+
+- ``precompute``: the encoder key projection enc . att_k, once per
+  utterance (a large product outside the decoder kernel).
+- ``step``: one decode step over an explicit state, the JAX signature
+  (``ops/las_decoder.py::decoder_step``).
+- ``forward``: the teacher-forced pass over L steps with the
+  scheduled-sampling coins as an input, through
+  ``ops/las_decoder.py::las_decoder`` (K4-fwd/K4-bwd on a CUDA tensor,
+  the plain loop over ``step`` on a CPU tensor).
+
+``dec_impl`` keeps its meaning: ``pallas`` rounds every decoder
+product's operands to ``compute_dtype``; ``scan`` rounds only those of
+``precompute`` and runs the steps in f32. Location-aware attention
+(``att_type: loc``) and ``dec_layers > 1`` raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from gluon_e2e_asr_tpu_torch.config import ModelConfig
+from gluon_e2e_asr_tpu_torch.models.encoder import lecun_normal_
+from gluon_e2e_asr_tpu_torch.models.lstm import matmul_cd
+from gluon_e2e_asr_tpu_torch.ops.las_decoder import (
+    Weights, decoder_step, init_state, las_decoder)
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for the decoder configurations the port does not run yet."""
+    if cfg.att_type == "loc":
+        raise NotImplementedError(
+            "model.att_type='loc': location-aware attention (build_loc_band, "
+            "the band product and K4's loc mode) is not ported yet "
+            "(ROADMAP.md); use dot or add")
+    if cfg.att_type not in ("dot", "add"):
+        raise ValueError(f"unknown att_type {cfg.att_type!r}")
+    if cfg.dec_layers != 1:
+        raise NotImplementedError(
+            f"model.dec_layers={cfg.dec_layers}: K4 and the port's decoder "
+            "take one layer; stacked decoder layers are not ported yet "
+            "(ROADMAP.md)")
+    if cfg.dec_impl not in ("scan", "pallas"):
+        raise ValueError(f"unknown dec_impl {cfg.dec_impl!r}")
+
+
+def _lecun_normal(t: torch.Tensor, generator) -> torch.Tensor:
+    """flax ``lecun_normal`` for any rank: fan_in is the product of every
+    axis but the last (a conv kernel's window times its input channels)."""
+    flat = t.view(-1, t.shape[-1])
+    lecun_normal_(flat, generator)
+    return t
+
+
+class AttentionDecoder(nn.Module):
+    def __init__(self, cfg: ModelConfig, vocab_size: int, sos_id: int = 2,
+                 eos_id: int = 3):
+        super().__init__()
+        self.cfg = cfg
+        self.vocab_size = vocab_size
+        self.sos_id, self.eos_id = sos_id, eos_id
+        V, E, H, A = vocab_size, cfg.dec_embed, cfg.dec_hidden, cfg.att_dim
+        D = 2 * cfg.enc_hidden
+        shapes = {"embed": (V, E)}
+        in_dims = [E + D] + [H] * (cfg.dec_layers - 1)
+        for layer in range(cfg.dec_layers):
+            shapes[f"cell{layer}_wx"] = (in_dims[layer], 4 * H)
+            shapes[f"cell{layer}_b"] = (4 * H,)
+            shapes[f"cell{layer}_wh"] = (H, 4 * H)
+        shapes["att_q"] = (H, A)
+        shapes["att_k"] = (D, A)
+        if cfg.att_type in ("add", "loc"):
+            shapes["att_b"] = (A,)
+            shapes["att_v"] = (A, 1)
+        if cfg.att_type == "loc":
+            shapes["loc_filter"] = (cfg.loc_conv_width, 1, cfg.loc_conv_channels)
+            shapes["loc_proj"] = (cfg.loc_conv_channels, A)
+        shapes["out_w"] = (H + D, V)
+        shapes["out_b"] = (V,)
+        for name, shape in shapes.items():
+            self.register_parameter(name, nn.Parameter(torch.zeros(shape)))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """The flax initializers: normal(1/sqrt(E)) for the embedding,
+        lecun_normal for the dense and conv kernels, orthogonal for the
+        recurrent kernels, zeros for the biases."""
+        for name, p in self.named_parameters():
+            if name == "embed":
+                p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)
+            elif name.endswith("_wh"):
+                nn.init.orthogonal_(p, generator=generator)
+            elif name.endswith("_b") or name == "out_b":
+                p.zero_()
+            else:
+                _lecun_normal(p, generator)
+
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.compute_dtype)
+
+    def weights(self) -> Weights:
+        """The one layer's parameters in ``ops/las_decoder.py``'s order;
+        dot attention passes constant zeros for att_b and att_v."""
+        A = self.cfg.att_dim
+        has_av = self.cfg.att_type in ("add", "loc")
+        dev = self.att_q.device
+        return Weights(
+            self.embed, self.cell0_wx, self.cell0_b, self.cell0_wh,
+            self.att_q,
+            self.att_b if has_av else torch.zeros(A, device=dev),
+            self.att_v if has_av else torch.zeros(A, 1, device=dev),
+            self.out_w, self.out_b)
+
+    def precompute(self, enc: torch.Tensor) -> torch.Tensor:
+        """Encoder key projection [B,T,A], f32 sums of compute-dtype
+        operands."""
+        return matmul_cd(enc, self.att_k, self.compute_dtype())
+
+    def init_state(self, batch: int, enc_frames: int) -> Dict[str, torch.Tensor]:
+        return init_state(batch, enc_frames, self.cfg.dec_hidden,
+                          2 * self.cfg.enc_hidden, self.att_q.device)
+
+    def step(self, state, token, enc, enc_proj, enc_mask, loc_band=None):
+        """One decode step. token [B] -> (new_state, logits [B,V]); the
+        products in f32, as the JAX ``step``."""
+        check_ported(self.cfg)
+        if loc_band is not None:
+            raise NotImplementedError("loc_band: location-aware attention "
+                                      "is not ported yet (ROADMAP.md)")
+        return decoder_step(self.weights(), state, token, enc, enc_proj,
+                            enc_mask, torch.float32, self.cfg.att_type)
+
+    def forward(self, enc: torch.Tensor, enc_len: torch.Tensor,
+                tokens_in: torch.Tensor,
+                coins: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """enc [B,T,D], enc_len [B], tokens_in [B,L] (tokens_in[:,0] is
+        sos), coins [L,B] bool (feed the previous step's argmax; None for
+        none; step 0 always takes sos). Returns logits [B,L,V] predicting
+        tokens_in shifted by one."""
+        check_ported(self.cfg)
+        B, L = tokens_in.shape
+        coins_bl = (torch.zeros(B, L, dtype=torch.bool, device=enc.device)
+                    if coins is None else coins.T.to(enc.device).bool().clone())
+        coins_bl[:, 0] = False
+        cd = self.compute_dtype() if self.cfg.dec_impl == "pallas" else torch.float32
+        return las_decoder(tokens_in, coins_bl, enc, self.precompute(enc),
+                           enc_len, self.weights(), cd, self.cfg.att_type)

@@ -1,11 +1,14 @@
 """Train CLI: ``python -m gluon_e2e_asr_tpu_torch.train --config <yaml>
---set loss.mtl_alpha=1.0 [--device cuda]``.
+[--set train.dp=false] [--device cuda]``.
 
-Counterpart of ``gluon_e2e_asr_tpu/train.py`` for CTC-only training: the
-same flags (``--config``, ``--workdir``, ``--max-steps``, ``--set``) and
-``--device``. On a CUDA device the encoder runs the hand-written kernels
-K1-fwd and K1-bwd and the loss K2 and K3; on the CPU their plain
-versions. Writes ``<workdir>/metrics.jsonl`` and checkpoints under
+Counterpart of ``gluon_e2e_asr_tpu/train.py``: the same flags
+(``--config``, ``--workdir``, ``--max-steps``, ``--set``) and
+``--device``. Hybrid CTC/attention training (``loss.mtl_alpha < 1``,
+dot or add attention, one decoder layer), or CTC alone at
+``loss.mtl_alpha=1.0``. On a CUDA device the encoder runs the
+hand-written kernels K1-fwd and K1-bwd, the CTC loss K2 and K3, and the
+attention decoder K4-fwd and K4-bwd (dot attention); on the CPU their
+plain versions. Writes ``<workdir>/metrics.jsonl`` and checkpoints under
 ``<workdir>/<train.ckpt_dir>/`` (``ckpt_<step>.pt``, ``best.pt``), which
 ``gluon_e2e_asr_tpu_torch.decode`` reads; prints one ``done`` JSON line.
 """
@@ -30,7 +33,7 @@ def main(argv=None):
     p.add_argument("--max-steps", type=int, default=0,
                    help="override train.max_steps (0 = keep config)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VAL",
-                   help="dotted config override, e.g. loss.mtl_alpha=1.0 "
+                   help="dotted config override, e.g. train.dp=false "
                         "(repeatable)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (the kernels) or cpu (their "

@@ -1,7 +1,10 @@
-"""The training step: frontend -> encoder -> CTC loss -> clip -> Adam.
+"""The training step: frontend -> encoder -> CTC loss and the attention
+decoder's CE -> clip -> Adam.
 
-Counterpart of ``gluon_e2e_asr_tpu/training/train_step.py`` for CTC-only
-training (``loss.mtl_alpha: 1.0``). The optimizer is the JAX package's
+Counterpart of ``gluon_e2e_asr_tpu/training/train_step.py``: the hybrid
+objective mtl_alpha * CTC + (1 - mtl_alpha) * CE (label-smoothed,
+padding- and pad-row-masked), or CTC alone at ``loss.mtl_alpha: 1.0``,
+where the model has no decoder. The optimizer is the JAX package's
 optax chain written out, because torch's defaults differ from it:
 
 - the LR schedule is evaluated at the update count *before* the
@@ -15,8 +18,9 @@ optax chain written out, because torch's defaults differ from it:
   bias-corrected), with decoupled weight decay as ``optax.adamw``.
 
 The values follow optax's float32 arithmetic. The step's randomness
-(SpecAugment) comes from an explicit ``torch.Generator`` in the
-``TrainState``.
+(SpecAugment's masks, then the scheduled-sampling coins) comes from an
+explicit ``torch.Generator`` in the ``TrainState``; ``compute_loss``
+takes both as inputs.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from gluon_e2e_asr_tpu_torch.frontend.features import (
     draw_spec_augment, frontend_apply, num_frames, specaug_on)
 from gluon_e2e_asr_tpu_torch.models.asr import ASRModel
 from gluon_e2e_asr_tpu_torch.ops.ctc import ctc_loss
-from gluon_e2e_asr_tpu_torch.ops.losses import hybrid_loss
+from gluon_e2e_asr_tpu_torch.ops.losses import (
+    ce_label_smoothing_loss, hybrid_loss, make_decoder_io)
 
 Params = Mapping[str, torch.Tensor]
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -107,57 +112,105 @@ def make_optimizer(config: Config) -> Optimizer:
 class TrainState:
     step: int
     opt_state: Dict[str, Any]
-    generator: torch.Generator  # SpecAugment's draws
+    generator: torch.Generator  # SpecAugment's draws, then the coins
 
 
 def create_train_state(config: Config, model: ASRModel, optimizer: Optimizer,
                        device: torch.device = torch.device("cpu")
                        ) -> TrainState:
     """A fresh state: ``model``'s parameters drawn on the CPU from
-    ``train.seed`` and moved to ``device`` (in place), a zero optimizer
-    state and the step's generator."""
+    ``train.seed`` (the encoder's first, then the decoder's) and moved to
+    ``device`` (in place), a zero optimizer state and the step's
+    generator."""
     seed = int(config.train.seed)
-    model.encoder.reset_parameters(torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    model.encoder.reset_parameters(gen)
+    if model.use_decoder:
+        model.decoder.reset_parameters(gen)
     model.to(device)
     return TrainState(step=0,
                       opt_state=optimizer.init(dict(model.named_parameters())),
                       generator=torch.Generator().manual_seed(seed + 1))
 
 
+def ss_prob(config: Config, step: int) -> float:
+    """The scheduled-sampling probability of the update made at ``step``
+    updates: ``loss.scheduled_sampling``, ramped linearly from 0 over
+    ``loss.scheduled_sampling_warmup_steps`` (f32, as the JAX step
+    computes it)."""
+    lc = config.loss
+    p = float(lc.scheduled_sampling)
+    warmup = int(lc.scheduled_sampling_warmup_steps)
+    if p > 0.0 and warmup > 0:
+        f32 = np.float32
+        p = float(f32(p) * min(f32(step) / f32(warmup), f32(1.0)))
+    return p
+
+
+def draw_coins(config: Config, step: int, batch: int, max_labels: int,
+               generator: torch.Generator, device: torch.device):
+    """The scheduled-sampling coins [L+1, B] bool (True: feed the
+    previous step's argmax), row 0 False; None when the probability is 0
+    (no draw is taken from ``generator`` then)."""
+    p = ss_prob(config, step)
+    if p <= 0.0:
+        return None
+    coins = torch.rand(max_labels + 1, batch, generator=generator) < p
+    coins[0] = False
+    return coins.to(device)
+
+
 def compute_loss(model: ASRModel, batch: Mapping[str, torch.Tensor],
-                 config: Config, *, spec_draws=None, cmvn_stats=None,
-                 train: bool = True
+                 config: Config, *, spec_draws=None, coins=None,
+                 cmvn_stats=None, train: bool = True
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward and the joint loss of ``batch`` (tensors on the model's
     device: audio, audio_len, labels, label_len), normalized by the real
-    (non-pad) row count. The model has no attention decoder, so the
-    attention part is 0."""
+    (non-pad) row count. SpecAugment's masks (``spec_draws``) and the
+    scheduled-sampling coins [L+1,B] are inputs. A model without the
+    attention decoder has an attention part of 0."""
     feats, feat_len = frontend_apply(
         config.frontend, batch["audio"], batch["audio_len"], train=train,
         spec_draws=spec_draws, cmvn_stats=cmvn_stats)
     labels, label_len = batch["labels"], batch["label_len"]
     num_real = (batch["audio_len"] > 0).sum()
-    out = model(feats, feat_len, train=train)
+    tokens_in = None
+    if model.use_decoder:
+        tokens_in, targets, tgt_mask = make_decoder_io(
+            labels, label_len, model.sos_id, model.eos_id)
+    out = model(feats, feat_len, tokens_in, coins if train else None,
+                train=train)
     mtl_alpha = config.loss.mtl_alpha
     if mtl_alpha > 0.0:
         ctc_nll = ctc_loss(out["ctc_logits"], out["enc_len"], labels,
                            label_len, blank_id=0)
     else:
         ctc_nll = torch.zeros(labels.shape[0], device=labels.device)
-    parts = hybrid_loss(ctc_nll, torch.zeros_like(ctc_nll), label_len,
-                        mtl_alpha, num_real)
+    att_acc = torch.zeros((), device=labels.device)
+    if model.use_decoder:
+        # Pad rows are masked out of the attention CE.
+        row_mask = (batch["audio_len"] > 0).float()[:, None]
+        att_ce, acc = ce_label_smoothing_loss(
+            out["att_logits"], targets, tgt_mask * row_mask,
+            config.loss.label_smoothing)
+        att_acc = (acc * row_mask[:, 0]).sum() / torch.clamp(row_mask.sum(),
+                                                             min=1.0)
+    else:
+        att_ce = torch.zeros_like(ctc_nll)
+    parts = hybrid_loss(ctc_nll, att_ce, label_len, mtl_alpha, num_real)
     metrics = dict(parts)
-    metrics["att_acc"] = torch.zeros((), device=ctc_nll.device)
+    metrics["att_acc"] = att_acc
     metrics["num_real"] = num_real
     return parts["loss"], metrics
 
 
 def make_train_step(model: ASRModel, config: Config, optimizer: Optimizer,
                     cmvn_stats=None) -> Callable:
-    """``step_fn(state, batch) -> metrics``: draws SpecAugment's masks from
-    ``state.generator``, takes the loss and its gradient, and updates the
-    model's parameters in place. Metrics stay on the device; ``grad_norm``
-    is the norm before clipping."""
+    """``step_fn(state, batch) -> metrics``: draws SpecAugment's masks and
+    then the scheduled-sampling coins from ``state.generator``, takes the
+    loss and its gradient, and updates the model's parameters in place.
+    Metrics stay on the device; ``grad_norm`` is the norm before
+    clipping."""
     params = dict(model.named_parameters())
     fc = config.frontend
 
@@ -169,10 +222,16 @@ def make_train_step(model: ASRModel, config: Config, optimizer: Optimizer,
             frames = num_frames(audio.shape[1], fc.win_length, fc.hop_length)
             draws = draw_spec_augment(fc, audio.shape[0], frames,
                                       state.generator, audio.device)
+        coins = None
+        if model.use_decoder:
+            coins = draw_coins(config, state.step, audio.shape[0],
+                               batch["labels"].shape[1], state.generator,
+                               audio.device)
         for p in params.values():
             p.grad = None
         loss, metrics = compute_loss(model, batch, config, spec_draws=draws,
-                                     cmvn_stats=cmvn_stats, train=True)
+                                     coins=coins, cmvn_stats=cmvn_stats,
+                                     train=True)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}

@@ -2,13 +2,13 @@
 
 Counterpart of ``gluon_e2e_asr_tpu/training/trainer.py``:
 ``build_datasets`` and ``Trainer``, the host epoch loop around the
-train step for CTC-only training. The vocab, manifests, bucketed
-sampler and loader come from the JAX package's jax-free ``data/``
-modules, as there. ``metrics.jsonl`` gets the same ``train`` and
-``epoch`` lines. The dev evaluation at each epoch's end decodes
-greedily with the port's decoder, whatever ``decode.method`` says (beam
-search is not ported yet). Options whose code paths are not ported
-raise and name ROADMAP.md.
+train step (hybrid CTC/attention, or CTC alone at ``loss.mtl_alpha:
+1.0``). The vocab, manifests, bucketed sampler and loader are the
+port's copies of the JAX package's (``data/``). ``metrics.jsonl`` gets
+the same ``train`` and ``epoch`` lines. The dev evaluation at each
+epoch's end decodes greedily with the port's decoder, whatever
+``decode.method`` says (beam search is not ported yet). Options whose
+code paths are not ported raise and name ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -20,23 +20,23 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from gluon_e2e_asr_tpu.data.loader import DataLoader
-from gluon_e2e_asr_tpu.data.manifest import (
+from gluon_e2e_asr_tpu_torch.config import Config
+from gluon_e2e_asr_tpu_torch.data.loader import DataLoader
+from gluon_e2e_asr_tpu_torch.data.manifest import (
     Utterance,
     build_librispeech_manifest,
     build_synthetic_manifest,
     load_manifest,
 )
-from gluon_e2e_asr_tpu.data.sampler import BucketSampler, make_bucket_specs
-from gluon_e2e_asr_tpu.data.tokenizer import build_tokenizer
-from gluon_e2e_asr_tpu.eval.metrics import cer, wer
-from gluon_e2e_asr_tpu.utils.logging import JsonlLogger
-from gluon_e2e_asr_tpu_torch.config import Config
+from gluon_e2e_asr_tpu_torch.data.sampler import BucketSampler, make_bucket_specs
+from gluon_e2e_asr_tpu_torch.data.tokenizer import build_tokenizer
 from gluon_e2e_asr_tpu_torch.decoding.greedy import ids_to_texts, make_greedy_decoder
+from gluon_e2e_asr_tpu_torch.eval.metrics import cer, wer
 from gluon_e2e_asr_tpu_torch.models.asr import build_model
 from gluon_e2e_asr_tpu_torch.training.checkpoint import save_train_checkpoint
 from gluon_e2e_asr_tpu_torch.training.train_step import (
     batch_to_device, create_train_state, make_optimizer, make_train_step)
+from gluon_e2e_asr_tpu_torch.utils.logging import JsonlLogger
 
 
 def build_datasets(config: Config) -> Tuple[List[Utterance], List[Utterance]]:
@@ -161,7 +161,9 @@ class Trainer:
                 torch.as_tensor(blob[k], dtype=torch.float32,
                                 device=self.device) for k in ("mean", "std"))
 
-        self.model = build_model(config, self.tokenizer.vocab_size, train=True)
+        self.model = build_model(config, self.tokenizer.vocab_size, train=True,
+                                 sos_id=self.tokenizer.sos_id,
+                                 eos_id=self.tokenizer.eos_id)
         self.optimizer = make_optimizer(config)
         self.state = create_train_state(config, self.model, self.optimizer,
                                         self.device)

@@ -1,12 +1,13 @@
 """PyTorch port: the weight bridge, the port's checkpoints and the greedy
 decode CLI on the blessed tiny golden.
 
-The golden checkpoint is read through the JAX package's own
+The golden checkpoint (a hybrid model: encoder, CTC head and an
+add-attention decoder) is read through the JAX package's own
 ``restore_checkpoint`` (with the decode CLI's restore template), bridged
-to the port, saved with the port's checkpoint module and decoded by the
-port's CLI on the CPU: every hypothesis of ``golden_greedy.jsonl`` must
-come back exactly. One run does so in a process where importing jax or
-flax fails.
+to the port whole, saved with the port's checkpoint module and decoded
+by the port's CLI on the CPU: every hypothesis of ``golden_greedy.jsonl``
+must come back exactly. One run does so in a process where importing jax,
+flax or the JAX package fails.
 """
 
 import importlib.util
@@ -32,6 +33,7 @@ from gluon_e2e_asr_tpu.training.train_step import (
 from gluon_e2e_asr_tpu.training.trainer import build_datasets as jax_datasets
 from gluon_e2e_asr_tpu_torch import decode
 from gluon_e2e_asr_tpu_torch.bridge import params_from_jax, params_to_jax
+from gluon_e2e_asr_tpu_torch.models.asr import build_model
 from gluon_e2e_asr_tpu_torch.training.checkpoint import (
     restore_checkpoint, save_checkpoint)
 from gluon_e2e_asr_tpu_torch.training.trainer import build_datasets
@@ -86,17 +88,24 @@ def port_ckpt(golden, tmp_path_factory):
 
 
 def test_bridge_round_trip_is_bit_exact(golden):
+    """Every leaf comes back bit for bit, the add-attention decoder's
+    included, and the port's model loads the bridged state strictly."""
     params = golden[0]
-    back = params_to_jax(params_from_jax(params))
-    assert set(back) == {"encoder"}  # the decoder subtree is passed over
-    flat = jax.tree_util.tree_flatten_with_path(params["encoder"])[0]
-    assert len(flat) == len(jax.tree_util.tree_leaves(back["encoder"]))
+    assert set(params["decoder"]) >= {"att_b", "att_v", "embed", "out_w"}
+    state = params_from_jax(params)
+    back = params_to_jax(state)
+    assert set(back) == {"encoder", "decoder"}
+    flat = jax.tree_util.tree_flatten_with_path(params)[0]
+    assert len(flat) == len(jax.tree_util.tree_leaves(back))
     for path, leaf in flat:
-        node = back["encoder"]
+        node = back
         for k in path:
             node = node[k.key]
         assert node.dtype == leaf.dtype and node.shape == leaf.shape
         assert node.tobytes() == np.asarray(leaf).tobytes()
+    config = load_config(CONFIG)
+    vocab = params["decoder"]["embed"].shape[0]
+    build_model(config, vocab).load_state_dict(state)
 
 
 @pytest.mark.parametrize("tree,match", [
@@ -104,6 +113,8 @@ def test_bridge_round_trip_is_bit_exact(golden):
     ({"encoder": {"vgg": {"conv1_1": {}}}}, "vgg"),
     ({"encoder": {"ctc_head": {"kernel": np.zeros(1)}}}, "ctc_head"),
     ({"lm": {}}, "lm"),
+    ({"decoder": {"att_w": np.zeros(1)}}, "att_w"),
+    ({"decoder": {"embed": {"kernel": np.zeros(1)}}}, "subtree"),
 ])
 def test_bridge_unknown_keys_raise(tree, match):
     with pytest.raises(KeyError, match=match):
@@ -162,8 +173,8 @@ def test_decode_runs_without_jax(port_ckpt, tmp_path):
     out = tmp_path / "nojax.jsonl"
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
+        "for m in ('jax', 'flax', 'gluon_e2e_asr_tpu'):\n"
+        "    sys.modules[m] = None\n"
         f"sys.path.insert(0, {REPO!r})\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"

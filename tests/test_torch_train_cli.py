@@ -4,8 +4,11 @@ kernel), its checkpoints, and the options that are not ported yet.
 A CTC-only run of the tiny golden config (``loss.mtl_alpha=1.0``)
 trains past one epoch end (dev evaluation, ``epoch`` line, best
 checkpoint) and stops mid-epoch at ``--max-steps``; its checkpoint
-decodes through the port's decode CLI. One run happens in a process
-where importing jax or flax fails.
+decodes through the port's decode CLI. A hybrid run of the same config
+as shipped (``mtl_alpha`` 0.5, an add-attention decoder) with
+scheduled sampling takes a few steps and logs the attention loss and
+accuracy; so does a dot-attention run. One CTC-only and one hybrid run
+happen in a process where importing jax, flax or the JAX package fails.
 """
 
 import json
@@ -29,10 +32,12 @@ TRAIN_KEYS = {"event", "step", "epoch", "bucket", "loss", "loss_ctc",
               "tokens_per_sec", "ts"}
 
 
-def _train_args(workdir, steps, *extra):
-    return ["--config", CONFIG, "--workdir", str(workdir), "--max-steps",
-            str(steps), "--device", "cpu", "--set", "loss.mtl_alpha=1.0",
-            "--set", "train.log_every_steps=1", *extra]
+def _train_args(workdir, steps, *extra, ctc_only=True):
+    args = ["--config", CONFIG, "--workdir", str(workdir), "--max-steps",
+            str(steps), "--device", "cpu", "--set", "train.log_every_steps=1"]
+    if ctc_only:
+        args += ["--set", "loss.mtl_alpha=1.0"]
+    return args + list(extra)
 
 
 @pytest.fixture(scope="module")
@@ -84,16 +89,36 @@ def test_checkpoint_decodes_through_the_port(run, tmp_path):
     assert result["num_utts"] == 16
 
 
-def test_train_runs_without_jax(tmp_path):
+@pytest.mark.parametrize("att_type", ["add", "dot"])
+def test_hybrid_training_runs(tmp_path, att_type):
+    trainer = train.main(_train_args(
+        tmp_path, 3, "--set", f"model.att_type={att_type}", "--set",
+        "loss.scheduled_sampling=0.5", ctc_only=False))
+    assert trainer.model.use_decoder and trainer.state.step == 3
+    with open(tmp_path / "metrics.jsonl") as f:
+        steps = [json.loads(line) for line in f]
+    steps = [r for r in steps if r["event"] == "train"]
+    assert [r["step"] for r in steps] == [1, 2, 3]
+    for r in steps:
+        assert set(r) == TRAIN_KEYS
+        assert r["loss_att"] > 0 and 0.0 <= r["att_acc"] <= 1.0
+    payload = torch.load(tmp_path / trainer.config.train.ckpt_dir / "ckpt_3.pt",
+                         weights_only=True)
+    assert any(k.startswith("decoder.") for k in payload["params"])
+
+
+def _train_without_jax(tmp_path, ctc_only):
+    """Three steps through the CLI in a process where importing jax, flax
+    or the JAX package fails."""
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
+        "for m in ('jax', 'flax', 'gluon_e2e_asr_tpu'):\n"
+        "    sys.modules[m] = None\n"
         f"sys.path.insert(0, {REPO!r})\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
         "from gluon_e2e_asr_tpu_torch import train\n"
-        f"t = train.main({_train_args(tmp_path, 3)!r})\n"
+        f"t = train.main({_train_args(tmp_path, 3, ctc_only=ctc_only)!r})\n"
         "assert t.state.step == 3\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
@@ -105,6 +130,14 @@ def test_train_runs_without_jax(tmp_path):
     assert (tmp_path / "metrics.jsonl").exists()
 
 
+def test_train_runs_without_jax(tmp_path):
+    _train_without_jax(tmp_path, ctc_only=True)
+
+
+def test_hybrid_train_runs_without_jax(tmp_path):
+    _train_without_jax(tmp_path, ctc_only=False)
+
+
 @pytest.mark.parametrize("override,match", [
     ("train.dp=true", "item 11"),
     ("train.accum_grad_steps=2", "accumulation"),
@@ -114,11 +147,14 @@ def test_train_runs_without_jax(tmp_path):
     ("train.ckpt_every_steps=10", "ckpt_every_steps"),
     ("train.profile_dir=prof", "profiling"),
     ("train.optimizer=adadelta", "adadelta"),
-    ("loss.mtl_alpha=0.5", "K4"),
+    # Hybrid training is ported; K4's location-aware mode is not.
+    pytest.param("loss.mtl_alpha=0.5,model.att_type=loc", "K4",
+                 id="loss.mtl_alpha=0.5-K4"),
 ])
 def test_unported_options_raise(tmp_path, override, match):
+    sets = [a for o in override.split(",") for a in ("--set", o)]
     with pytest.raises(NotImplementedError, match=match):
-        train.main(_train_args(tmp_path, 1, "--set", override))
+        train.main(_train_args(tmp_path, 1, *sets))
 
 
 def test_resume_raises(tmp_path):

@@ -1,11 +1,14 @@
-"""PyTorch port: one CTC-only training step against the JAX package's
+"""PyTorch port: training steps against the JAX package's
 ``make_train_step`` on the CPU.
 
-A tiny CTC-only config (``loss.mtl_alpha: 1.0``), f32, SpecAugment masks
-0 (the deterministic setup of ``__graft_entry__.py``), the JAX
-parameters bridged into the port and a fresh optimizer state on both
-sides. The JAX encoder runs ``lstm_impl: pallas`` (``bilstm_fused`` and
-the CTC kernels in interpret mode); the port runs its plain versions.
+A tiny CTC-only config (``loss.mtl_alpha: 1.0``) and a tiny hybrid one
+(``mtl_alpha: 0.3``, a dot-attention decoder with ``dec_impl: pallas``,
+label smoothing 0.1, scheduled sampling 0), f32, SpecAugment masks 0
+(the deterministic setup of ``__graft_entry__.py``), the JAX parameters
+bridged into the port and a fresh optimizer state on both sides. The
+JAX model runs ``lstm_impl: pallas`` (``bilstm_fused``, the CTC kernels
+and the fused decoder in interpret mode); the port runs its plain
+versions.
 Tolerances: the loss rtol 1e-5; gradients rtol 1e-4 / atol 1e-5 (the
 JAX suite's pallas-against-scan tolerance); parameters after Adam: the
 update divides by sqrt(nu), so a gradient entry near 0 with a different
@@ -30,6 +33,7 @@ from gluon_e2e_asr_tpu.training import train_step as jts
 from gluon_e2e_asr_tpu_torch.bridge import params_from_jax
 from gluon_e2e_asr_tpu_torch.models.asr import build_model
 from gluon_e2e_asr_tpu_torch.ops.losses import hybrid_loss
+from gluon_e2e_asr_tpu_torch.training.train_step import draw_coins, ss_prob
 from gluon_e2e_asr_tpu_torch.training import train_step as T
 
 torch.set_num_threads(1)
@@ -51,7 +55,19 @@ def _config(**train):
     return c
 
 
-def _batch(seed=0):
+def _hybrid_config():
+    c = _config()
+    c.model = ModelConfig(enc_hidden=8, enc_layers=2, enc_subsample=(1, 2),
+                          lstm_impl="pallas", compute_dtype="float32",
+                          dec_hidden=8, dec_embed=6, att_dim=8,
+                          att_type="dot", dec_impl="pallas")
+    c.loss.mtl_alpha = 0.3
+    c.loss.label_smoothing = 0.1
+    c.loss.scheduled_sampling = 0.0
+    return c
+
+
+def _batch(seed=0, pad_row=False):
     rng = np.random.RandomState(seed)
     B, S, L = 3, 4800, 5
     audio = (rng.randn(B, S) * 0.1).astype(np.float32)
@@ -59,13 +75,18 @@ def _batch(seed=0):
     labels = rng.randint(1, VOCAB, size=(B, L)).astype(np.int32)
     label_len = np.array([5, 3, 2], np.int32)
     labels[1, 3:] = labels[2, 2:] = 0
+    if pad_row:  # a row of the batch that holds no utterance
+        audio = np.concatenate([audio, np.zeros((1, S), np.float32)])
+        audio_len = np.append(audio_len, 0).astype(np.int32)
+        labels = np.concatenate([labels, np.zeros((1, L), np.int32)])
+        label_len = np.append(label_len, 0).astype(np.int32)
     return {"audio": audio, "audio_len": audio_len, "labels": labels,
             "label_len": label_len}
 
 
 def _jax_setup(config, batch):
     model = jax_build_model(config, VOCAB)
-    assert not model.use_decoder
+    assert model.use_decoder == (config.loss.mtl_alpha < 1.0)
     tx = jts.make_optimizer(config)
     state = jts.create_train_state(config, model, tx, batch)
     return model, tx, state
@@ -86,11 +107,8 @@ def _flat(tree):
     return {k: v.numpy() for k, v in flat.items()}
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _three_steps(config, batch):
     """Three JAX steps and three port steps from the same parameters."""
-    config = _config()
-    batch = _batch()
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     jmodel, tx, jstate = _jax_setup(config, batch)
@@ -120,6 +138,16 @@ def runs():
                 port_grads=port_grads, port_params=port_params,
                 port_metrics=port_metrics, init=_flat(init), config=config,
                 opt=opt)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return _three_steps(_config(), _batch())
+
+
+@pytest.fixture(scope="module")
+def hybrid_runs():
+    return _three_steps(_hybrid_config(), _batch(pad_row=True))
 
 
 def test_loss_and_metrics_match(runs):
@@ -246,11 +274,96 @@ def test_unported_optimizers_raise(optimizer):
 
 
 def test_hybrid_training_raises_naming_k4():
-    config = copy.deepcopy(_config())
-    config.loss.mtl_alpha = 0.3
-    with pytest.raises(NotImplementedError, match="K4"):
-        build_model(config, VOCAB, train=True)
-    build_model(config, VOCAB)  # the decoder-free model still serves
+    """Hybrid training builds the decoder; its configurations that K4 does
+    not take yet (location-aware attention, stacked layers) raise."""
+    config = copy.deepcopy(_hybrid_config())
+    assert build_model(config, VOCAB, train=True).use_decoder
+    assert not build_model(_config(), VOCAB, train=True).use_decoder
+    for field, value in (("att_type", "loc"), ("dec_layers", 2)):
+        bad = copy.deepcopy(config)
+        setattr(bad.model, field, value)
+        with pytest.raises(NotImplementedError, match="K4"):
+            build_model(bad, VOCAB, train=True)
+        build_model(bad, VOCAB)  # its parameters still load for serving
+
+
+def test_hybrid_loss_and_metrics_match(hybrid_runs):
+    m, jm = hybrid_runs["port_metrics"][0], hybrid_runs["jax_metrics"][0]
+    np.testing.assert_allclose(m["loss"], hybrid_runs["jax_loss"], rtol=1e-5)
+    for k in ("loss", "loss_ctc", "loss_att", "att_acc", "num_real"):
+        np.testing.assert_allclose(m[k], jm[k], rtol=1e-5, atol=1e-7, err_msg=k)
+    assert m["loss_att"] > 0 and m["num_real"] == 3
+
+
+def test_hybrid_every_gradient_leaf_matches(hybrid_runs):
+    grads = hybrid_runs["port_grads"]
+    assert set(grads) == set(hybrid_runs["jax_grads"])
+    assert any(k.startswith("decoder.") for k in grads)
+    for k, g in grads.items():
+        np.testing.assert_allclose(g, hybrid_runs["jax_grads"][k], rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+
+
+def test_hybrid_grad_norm_matches(hybrid_runs):
+    for m, jm in zip(hybrid_runs["port_metrics"], hybrid_runs["jax_metrics"]):
+        np.testing.assert_allclose(m["grad_norm"], jm["grad_norm"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_hybrid_parameters_after_adam_match(hybrid_runs, n):
+    opt = hybrid_runs["opt"]
+    atol = 0.01 * sum(opt.lr(i) for i in range(n)) + 1e-7
+    for k, v in hybrid_runs["port_params"][n - 1].items():
+        np.testing.assert_allclose(v, hybrid_runs["jax_params"][n - 1][k],
+                                   rtol=0, atol=atol, err_msg=k)
+
+
+def test_scheduled_sampling_coins():
+    """The coins: Bernoulli(ss_prob) per (step, row), step 0 never; no
+    draw at all when the probability is 0."""
+    config = _hybrid_config()
+    config.loss.scheduled_sampling = 0.1
+    gen = torch.Generator().manual_seed(3)
+    coins = draw_coins(config, 0, 64, 99, gen, torch.device("cpu"))
+    assert coins.shape == (100, 64) and coins.dtype == torch.bool
+    assert not coins[0].any()
+    np.testing.assert_allclose(coins[1:].float().mean().item(), 0.1, atol=0.015)
+    config.loss.scheduled_sampling = 0.0
+    state = gen.get_state()
+    assert draw_coins(config, 0, 64, 99, gen, torch.device("cpu")) is None
+    assert torch.equal(gen.get_state(), state)
+
+
+def test_scheduled_sampling_ramp_matches_jax():
+    """``loss.scheduled_sampling_warmup_steps``: the JAX step's
+    ``ss * min(step / warmup, 1)`` in f32 (training/train_step.py:208-214
+    there)."""
+    config = _hybrid_config()
+    config.loss.scheduled_sampling, warmup = 0.1, 7
+    config.loss.scheduled_sampling_warmup_steps = warmup
+    for step in (0, 1, 3, 6, 7, 20):
+        ref = 0.1 * jnp.minimum(jnp.asarray(step, jnp.int32).astype(jnp.float32)
+                                / float(warmup), 1.0)
+        assert ss_prob(config, step) == float(ref), step
+    config.loss.scheduled_sampling_warmup_steps = 0
+    assert ss_prob(config, 0) == 0.1
+
+
+def test_hybrid_step_with_scheduled_sampling_runs():
+    """With scheduled sampling on, the step draws the coins after
+    SpecAugment's masks and trains on the fed-back tokens."""
+    config = _hybrid_config()
+    config.loss.scheduled_sampling = 1.0
+    model = build_model(config, VOCAB, train=True)
+    opt = T.make_optimizer(config)
+    state = T.create_train_state(config, model, opt)
+    fn = T.make_train_step(model, config, opt)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(pad_row=True).items()}
+    before = state.generator.get_state()
+    m = fn(state, batch)
+    assert np.isfinite(float(m["loss"])) and float(m["loss_att"]) > 0
+    assert not torch.equal(state.generator.get_state(), before)
+    assert state.step == 1
 
 
 def test_encoder_dropout_in_training_raises():
