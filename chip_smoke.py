@@ -14,30 +14,43 @@ each printing JSON lines:
    (``configs/english_flagship.yaml``, the 4.0 s bucket, B=96) gives it:
    K1-fwd in f32 and bf16 in its serving and training forms, K1-bwd in
    f32 and bf16, K2 and K3 on a real training batch's lattice, K4-fwd
-   and K4-bwd in f32 and bf16 with the scheduled-sampling coins off and
-   on, on that batch's labels and encoder lengths;
+   and K4-bwd in dot mode in f32 and bf16 with the scheduled-sampling
+   coins off and on, on that batch's labels and encoder lengths; then
+   K4-fwd and K4-bwd in add and loc mode the same way at the shapes of
+   the location-aware flagship (``configs/flagship_bf16.yaml``: C=10
+   channels of a width-100 filter), every cotangent checked, the
+   filter's through the band; and loc once at bench.py's T'=320;
 4. serving slice: a seeded random full-width checkpoint of that model,
    decoded greedily through ``gluon_e2e_asr_tpu_torch.decode.main`` over
    the config's dev set; every kernel must have been launched, and only
    the kernels; the encoder output on the card is held against the
    plain versions on the CPU for a few utterances;
 5. serving timing: CUDA events, median of 10 runs after warm-up;
-6. training slices: ``gluon_e2e_asr_tpu_torch.train.main`` on the
-   flagship config as shipped (hybrid CTC/attention, ``train.dp=false``)
-   for 40 steps at full width: the launch counts of all six kernels, no
-   plain call, a finite and falling loss, the attention loss and
-   accuracy logged, a checkpoint; then a CTC-only run
-   (``loss.mtl_alpha=1.0``) of a few steps;
-7. training reference: one hybrid step of the trained model (scheduled
-   sampling off) through the kernels and through the plain versions on
-   the card (same batch, parameters, optimizer state and SpecAugment
-   draws): loss, every gradient and the parameters after Adam;
+6. training slices: ``gluon_e2e_asr_tpu_torch.train.main`` at full
+   width on the flagship config as shipped (hybrid CTC/attention, dot
+   attention, ``train.dp=false``) for two epochs: the launch counts of
+   all six kernels, no plain call, a finite and falling loss, the
+   attention loss and accuracy logged, a checkpoint; a CTC-only run
+   (``loss.mtl_alpha=1.0``) of a few steps; the location-aware flagship
+   (``flagship_bf16.yaml``) for two epochs, K4 in loc mode on every step
+   and each epoch's dev evaluation through the beam as shipped (K=10,
+   ctc_weight 0.3); and a few steps of it with add attention;
+7. training reference: one hybrid step of the trained dot and loc models
+   (scheduled sampling off) through the kernels and through the plain
+   versions on the card (same batch, parameters, optimizer state and
+   SpecAugment draws): loss, every gradient and the parameters after
+   Adam;
 8. training timing: each training kernel against its plain version and
    beside the one PyTorch call that computes the same function where
-   there is one (cuDNN's LSTM for K1, ``F.ctc_loss`` for K2/K3), the
-   hybrid train step at the 4.0 s bucket and at bench.py's shape (B=96,
-   12.8 s, 96 labels), and a torch.profiler breakdown of the latter by
-   kernel.
+   there is one (cuDNN's LSTM for K1, ``F.ctc_loss`` for K2/K3), K4 in
+   its three modes, the dot and loc hybrid train steps at the 4.0 s
+   bucket and at bench.py's shape (B=96, 12.8 s, 96 labels), and a
+   torch.profiler breakdown of both at the latter by kernel;
+9. beam search: the blessed tiny golden (read from its JAX checkpoint
+   without JAX) decoded with ``--method beam`` through the decode CLI on
+   the card must reproduce ``tests/goldens/golden_beam.jsonl``; and one
+   beam decode of a 96-utterance 4.0 s batch of the trained loc model,
+   timed as frontend, encoder and search.
 
 Then the kernels line (each kernel's launches on the main path, error,
 time, plain time, bound and library time) and, last, ``{"ok": true,
@@ -55,12 +68,15 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 CONFIG = os.path.join(REPO, "configs", "english_flagship.yaml")
+LOC_CONFIG = os.path.join(REPO, "configs", "flagship_bf16.yaml")
+GOLD = os.path.join(REPO, "tests", "goldens")
 SEED = 0
 BUCKET_SEC = 4.0  # the flagship config's longest bucket
 # Kernel against plain version, max abs difference of the [B,T,2H]
@@ -104,8 +120,15 @@ TOL_DEC = {"float32": 1e-4, "bfloat16": 2e-2}
 # f32). Sound runs read 1.0 at T'=100 and T'=320, so a bf16-only fault in
 # the argmax or the feedback that parts more than a tenth of the rows fails.
 MIN_ROWS_AGREE_BF16 = 0.9
-TRAIN_STEPS = 40
+# The beam on the card against the golden the JAX package blessed on the
+# CPU: every hypothesis identical, the scores (sums of f32 log-
+# probabilities over tens of steps, the encoder's sums taken in another
+# order on the card) within this.
+TOL_GOLDEN_SCORE = 1e-3
+TRAIN_EPOCHS = 2  # the hybrid slices train this many epochs
 CTC_ONLY_STEPS = 5
+ADD_STEPS = 3
+N_BEAM_TIMED = 3
 N_TIMED = 10
 N_TIMED_PLAIN_STEP = 3  # the plain train step takes seconds
 BENCH_SEC, BENCH_LABELS = 12.8, 96  # bench.py's shape
@@ -208,6 +231,9 @@ def plain_route():
             m._route = r
 
 
+ATT_MODES = ("dot", "add", "loc")
+
+
 def counters():
     """name -> the object whose launches/calls count that version."""
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
@@ -233,14 +259,21 @@ def reset_counts() -> None:
     kernels, plains = counters()
     for f in kernels.values():
         f.launches = 0
+        if hasattr(f, "by_mode"):
+            f.by_mode.update(dict.fromkeys(f.by_mode, 0))
     for f in plains.values():
         f.calls = 0
 
 
 def read_counts():
+    """(launches by kernel, with K4's by mode as ``<name>_<mode>``; calls
+    of the plain versions)."""
     kernels, plains = counters()
-    return ({k: f.launches for k, f in kernels.items()},
-            {k: f.calls for k, f in plains.items()})
+    launches = {k: f.launches for k, f in kernels.items()}
+    for k in ("las_decoder_fwd", "las_decoder_bwd"):
+        for m in ATT_MODES:
+            launches[f"{k}_{m}"] = kernels[k].by_mode[m]
+    return launches, {k: f.calls for k, f in plains.items()}
 
 
 def layer_shapes(config, T):
@@ -253,6 +286,9 @@ def layer_shapes(config, T):
         shapes.append((layer, T, D))
         D = 2 * mc.enc_hidden
     return shapes
+
+
+T_START = time.perf_counter()
 
 
 def main() -> None:
@@ -326,6 +362,11 @@ def main() -> None:
                       f"{layer} {cd_name} round_xg={round_xg}: {err}")
     bwd_errs = check_training_kernels(torch, config, shapes, dev)
     dec_errs = check_decoder_kernels(torch, config, dev)
+    loc_config = load_config(LOC_CONFIG)
+    mode_errs = {m: check_decoder_kernels(torch, loc_config, dev, m)
+                 for m in ("add", "loc")}
+    check_decoder_kernels(torch, loc_config, dev, "loc",
+                          cases=[("bfloat16", 0.0, True)])
 
     # 4. the slice: a seeded checkpoint through the decode CLI
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -437,13 +478,23 @@ def main() -> None:
           "card": card, "after_timing_sm_clock_power_limit_temp": clocks})
     del model_gpu, model, decoder
 
-    # 6-8. training: the hybrid main path, then the CTC-only path
-    trainer, train_counts = train_slice(torch, config)
-    _, ctc_counts = train_slice(torch, config, ctc_only=True)
+    # 6-8. training: the dot hybrid path, the CTC-only path, the
+    # location-aware flagship and its add-attention variant
+    trainer, train_counts = train_slice(torch, CONFIG, "train")
+    _, ctc_counts = train_slice(torch, CONFIG, "train_ctc_only",
+                                CTC_ONLY_STEPS, ctc_only=True)
+    loc_trainer, loc_counts = train_slice(torch, LOC_CONFIG, "train_loc")
+    _, add_counts = train_slice(torch, LOC_CONFIG, "train_add", ADD_STEPS,
+                                ["--set", "model.att_type=add"])
     step_errs = train_reference(torch, trainer, dev)
+    loc_step_errs = train_reference(torch, loc_trainer, dev)
     train_ms = train_timing(torch, trainer, shapes, dev, card)
+    train_ms.update(loc_timing(torch, loc_trainer, dev, card))
     lib_ms = library_timing(torch, config, shapes, dev, card)
-    bounds = kernel_bounds(config, shapes, dev)
+    # 9. beam search
+    golden_beam(torch)
+    beam_timing(torch, loc_trainer, dev, card)
+    bounds = kernel_bounds(config, shapes, dev, loc_config)
 
     bf16 = [(layer, "bfloat16") for layer, _, _ in shapes]
     timed = {
@@ -476,6 +527,21 @@ def main() -> None:
         "las_decoder_bwd": ("las_decoder.cu", "pallas_decoder.py:462",
                             "as K4-fwd; error: max abs over every cotangent"),
     }
+    # K4's add and loc modes: one row each, at flagship_bf16's 4.0 s bucket;
+    # launches from the loc and add training slices.
+    launches = dict(train_counts)
+    for m, counts in (("add", add_counts), ("loc", loc_counts)):
+        for d, tpu in (("fwd", "pallas_decoder.py:161"),
+                       ("bwd", "pallas_decoder.py:462")):
+            name = f"las_decoder_{d}_{m}"
+            where[name] = ("las_decoder.cu", tpu,
+                           f"{m} attention, flagship_bf16, bf16, B=96, T'=100; "
+                           "error: " + ("logits" if d == "fwd" else
+                                        "max abs over every cotangent") +
+                           ", coins off")
+            timed[name] = train_ms[name]
+            errors[name] = mode_errs[m][f"las_decoder_{d}"]
+            launches[name] = counts[name]
     rows = []
     for name, (src, tpu, at) in where.items():
         bound_ms, bound_by = bounds[name]
@@ -483,13 +549,15 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": f"gluon_e2e_asr_tpu_torch/csrc/{src}",
             "replaces": f"gluon_e2e_asr_tpu/ops/{tpu}",
-            "launches": train_counts[name], "max_abs_err": errors[name],
+            "launches": launches[name], "max_abs_err": errors[name],
             "ms": timed[name][0], "plain_ms": timed[name][1],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms.get(name), "at": at,
-            "ctc_only_launches": ctc_counts[name]})
+            "ctc_only_launches": ctc_counts.get(name, 0)})
     rows[0]["decode_launches"] = decode_launches
-    emit({"kernels": rows, "train_step": step_errs})
+    emit({"kernels": rows, "train_step": step_errs,
+          "train_step_loc": loc_step_errs,
+          "seconds": round(time.perf_counter() - T_START, 1)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 
@@ -498,8 +566,12 @@ _BATCH = {}
 
 
 def bucket_batch(torch, config):
-    """The first 4.0 s training batch of the flagship config (unshuffled
-    buckets): (batch, tokenizer, encoder lengths [B], encoder frames)."""
+    """The first training batch of the config's longest bucket, 4.0 s
+    (unshuffled buckets), or, where its data fill no such batch (the
+    location-aware flagship's utterances are all under 2 s), bench.py's
+    synthetic batch at that bucket's shape (its seconds and label budget,
+    the labels folded into the vocabulary): (batch, tokenizer, encoder
+    lengths [B], encoder frames)."""
     key = config.fingerprint()
     if key not in _BATCH:
         from gluon_e2e_asr_tpu_torch.decode import make_eval_loader
@@ -512,7 +584,15 @@ def bucket_batch(torch, config):
         fc = config.frontend
         loader = make_eval_loader(config, train_utts, tok)
         last = len(loader.sampler.specs) - 1
-        b = next(x for x in loader.epoch(0) if x.bucket == last)
+        b = next((x for x in loader.epoch(0) if x.bucket == last), None)
+        if b is None:
+            spec = loader.sampler.specs[last]
+            sb = synth_batch(spec.batch_size, config.data.bucket_bounds_sec[-1],
+                             spec.max_labels, SEED)
+            sb["labels"] = np.where(sb["labels"] > 0,
+                                    4 + sb["labels"] % (tok.vocab_size - 4), 0)
+            b = types.SimpleNamespace(**sb, num_real=spec.batch_size,
+                                      bucket=last)
         lens = num_frames(torch.from_numpy(b.audio_len), fc.win_length,
                           fc.hop_length)
         T = num_frames(b.audio.shape[1], fc.win_length, fc.hop_length)
@@ -539,21 +619,38 @@ def real_ctc_batch(torch, config, dev):
     return C._gather_states(logp, ext), tmask, skip, svalid, label_lens
 
 
-def decoder_case(torch, config, dev, coin_p: float, seed: int = SEED):
+def decoder_case(torch, config, dev, coin_p: float, seed: int = SEED,
+                 att_type=None, bench: bool = False):
     """K4's inputs as the hybrid train step gives them at the 4.0 s
     bucket: the batch's teacher-forcing tokens (labels padded to the
     bucket's label budget, L = that + 1) and encoder lengths, a seeded
-    encoder output and seeded decoder weights at the flagship's width,
-    coins [B,L] drawn with probability ``coin_p`` (step 0 off)."""
+    encoder output and seeded decoder weights at the config's width
+    (``att_type`` overrides its attention), coins [B,L] drawn with
+    probability ``coin_p`` (step 0 off). With ``bench``: bench.py's batch
+    (B=96, 12.8 s, 96 labels). Returns ((tokens, coins, enc, enc_proj,
+    enc_len, weights), the loc filter [w,1,C] or None, the longest label)."""
+    from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
     from gluon_e2e_asr_tpu_torch.models.decoder import AttentionDecoder
     from gluon_e2e_asr_tpu_torch.ops.losses import make_decoder_io
 
     b, tok, lens, T = bucket_batch(torch, config)
-    mc = config.model
+    labels, label_len = b.labels, b.label_len
+    mc = copy.deepcopy(config.model)
+    mc.att_type = att_type or mc.att_type
+    if bench:
+        sb = synth_batch(config.data.batch_size, BENCH_SEC, BENCH_LABELS, SEED)
+        labels, label_len = sb["labels"], sb["label_len"]
+        fc = config.frontend
+        lens = num_frames(torch.from_numpy(sb["audio_len"]), fc.win_length,
+                          fc.hop_length)
+        T = num_frames(sb["audio"].shape[1], fc.win_length, fc.hop_length)
+        for f in mc.enc_subsample:
+            lens, T = (lens + int(f) - 1) // int(f), -(-T // int(f))
+        lens = lens.int()
     rng = np.random.RandomState(seed)
-    B = b.audio.shape[0]
-    tokens_in, _, _ = make_decoder_io(torch.from_numpy(b.labels),
-                                      torch.from_numpy(b.label_len),
+    B = labels.shape[0]
+    tokens_in, _, _ = make_decoder_io(torch.from_numpy(labels),
+                                      torch.from_numpy(label_len),
                                       tok.sos_id, tok.eos_id)
     L = tokens_in.shape[1]
     coins = rng.rand(B, L) < coin_p
@@ -566,68 +663,92 @@ def decoder_case(torch, config, dev, coin_p: float, seed: int = SEED):
     with torch.no_grad():
         enc_proj = dec.precompute(enc)
         w = type(dec.weights())(*(t.detach() for t in dec.weights()))
-    return (tokens_in.to(dev), torch.from_numpy(coins).to(dev), enc, enc_proj,
-            lens.to(dev), w), int(b.label_len.max())
+    filt = dec.loc_filter.detach() if mc.att_type == "loc" else None
+    return ((tokens_in.to(dev), torch.from_numpy(coins).to(dev), enc, enc_proj,
+             lens.to(dev), w), filt, int(label_len.max()))
 
 
-def check_decoder_kernels(torch, config, dev):
-    """Phase 3, K4: K4-fwd (logits and residuals) and K4-bwd (every
-    cotangent of dot mode) against the plain versions, f32 and bf16,
-    coins off and at the config's scheduled-sampling rate."""
+def decoder_grads(torch, LD, streams, resid, dl, w, filt, T):
+    """Every cotangent of one K4-bwd (kernel or plain) call: the streams'
+    products, d_enc_proj, d_att_v, d_loc_proj and the filter's gradient
+    through the band (autograd through build_loc_band_cmajor)."""
+    g = dict(LD.weight_grads(streams, resid, dl, w), enc_proj=streams["d_encp"])
+    if streams["d_att_v"] is not None:
+        g["att_v"] = streams["d_att_v"]
+    if filt is not None:
+        g["loc_proj"] = streams["d_loc_proj"]
+        f = filt.detach().clone().requires_grad_(True)
+        with torch.enable_grad():
+            (g["loc_filter"],) = torch.autograd.grad(
+                LD.build_loc_band_cmajor(f, T), f, g.pop("band"))
+    return g
+
+
+def check_decoder_kernels(torch, config, dev, kind="dot", cases=None):
+    """Phase 3, K4 in mode ``kind``: K4-fwd (logits and residuals) and
+    K4-bwd (every cotangent) against the plain versions. ``cases``: (dtype,
+    coin probability, bench shape) triples; by default f32 and bf16 with
+    the coins off and at the config's scheduled-sampling rate, at the 4.0 s
+    bucket. Returns the max abs errors of the bf16, coins-off case at the
+    4.0 s bucket."""
     from gluon_e2e_asr_tpu_torch.ops import las_decoder as LD
 
     errs = {"las_decoder_fwd": 0.0, "las_decoder_bwd": 0.0}
-    for cd_name in ("float32", "bfloat16"):
+    if cases is None:
+        cases = [(cd, p, False) for cd in ("float32", "bfloat16")
+                 for p in (0.0, config.loss.scheduled_sampling)]
+    for cd_name, coin_p, bench in cases:
         cd = getattr(torch, cd_name)
         tol = TOL_DEC[cd_name]
-        for coin_p in (0.0, config.loss.scheduled_sampling):
-            args, longest = decoder_case(torch, config, dev, coin_p)
-            tokens, coins, enc, enc_proj, enc_len, w = args
-            logits, resid, extras = LD.las_decoder_fwd_kernel(*args, cd, "dot")
-            ref, ref_resid = LD.las_decoder_fwd_plain(*args, cd, "dot")
-            torch.cuda.synchronize()
-            same = (resid[4].long() == ref_resid[4].long()).all(1)
-            share = float(same.float().mean())
-            need = 1.0 if cd_name == "float32" or coin_p == 0.0 \
-                else MIN_ROWS_AGREE_BF16
-            check(share >= need,
-                  f"las_decoder_fwd fed back other tokens: {share} of rows "
-                  f"agree ({cd_name}, coins {coin_p})")
-            fwd = {name: rel_err(a[same], r[same]) for name, a, r in zip(
-                ("logits", "h", "c", "att", "ctx"), (logits, *resid[:4]),
-                (ref, *ref_resid[:4]))}
-            B, L = tokens.shape
-            V = w.embed.shape[0]
-            dl = torch.from_numpy(np.random.RandomState(SEED + 7).randn(B, L, V)
-                                  .astype(np.float32) * 0.05).to(dev)
-            got = LD.las_decoder_bwd_kernel(dl, resid, extras, enc, enc_proj,
-                                            enc_len, w, cd, "dot")
-            want = LD.las_decoder_bwd_plain(dl, resid, enc, enc_proj, enc_len,
-                                            w, cd, "dot")
-            gk, gp = (dict(LD.weight_grads(g, resid, dl, w), enc_proj=g["d_encp"])
-                      for g in (got, want))
-            torch.cuda.synchronize()
-            bwd = {k: rel_err(gk[k], gp[k]) for k in (
-                "enc", "enc_proj", "embed", "w_x", "b_x", "w_h", "att_q",
-                "w_out", "b_out")}
-            finite = bool(torch.isfinite(logits).all()) and all(
-                bool(torch.isfinite(v).all()) for v in gk.values())
-            emit({"phase": "kernel_check", "kernel": "las_decoder_fwd+bwd",
-                  "B": B, "L": L, "T": enc.shape[1], "longest_label": longest,
-                  "compute_dtype": cd_name, "coin_p": coin_p,
-                  "rows_tokens_agree": share, "fwd_rel_err": fwd,
-                  "bwd_rel_err": bwd, "tol_rel": tol, "finite": finite})
-            check(finite, f"las_decoder non-finite output ({cd_name})")
-            check(max(fwd.values()) <= tol,
-                  f"las_decoder_fwd disagrees with its plain version "
-                  f"({cd_name}, coins {coin_p}): {fwd}")
-            check(max(bwd.values()) <= tol,
-                  f"las_decoder_bwd disagrees with its plain version "
-                  f"({cd_name}, coins {coin_p}): {bwd}")
-            if cd_name == "bfloat16" and coin_p == 0.0:
-                errs["las_decoder_fwd"] = float((logits - ref).abs().max())
-                errs["las_decoder_bwd"] = max(
-                    float((gk[k] - gp[k]).abs().max()) for k in bwd)
+        args, filt, longest = decoder_case(torch, config, dev, coin_p,
+                                           att_type=kind, bench=bench)
+        tokens, coins, enc, enc_proj, enc_len, w = args
+        T = enc.shape[1]
+        band = None if filt is None else LD.build_loc_band_cmajor(filt, T)
+        logits, resid, extras = LD.las_decoder_fwd_kernel(*args, cd, kind, filt)
+        ref, ref_resid = LD.las_decoder_fwd_plain(*args, cd, kind, band)
+        torch.cuda.synchronize()
+        same = (resid[4].long() == ref_resid[4].long()).all(1)
+        share = float(same.float().mean())
+        need = 1.0 if cd_name == "float32" or coin_p == 0.0 \
+            else MIN_ROWS_AGREE_BF16
+        check(share >= need,
+              f"las_decoder_fwd ({kind}) fed back other tokens: {share} of "
+              f"rows agree ({cd_name}, coins {coin_p})")
+        fwd = {name: rel_err(a[same], r[same]) for name, a, r in zip(
+            ("logits", "h", "c", "att", "ctx"), (logits, *resid[:4]),
+            (ref, *ref_resid[:4]))}
+        B, L = tokens.shape
+        V = w.embed.shape[0]
+        dl = torch.from_numpy(np.random.RandomState(SEED + 7).randn(B, L, V)
+                              .astype(np.float32) * 0.05).to(dev)
+        got = LD.las_decoder_bwd_kernel(dl, resid, extras, enc, enc_proj,
+                                        enc_len, w, cd, kind, filt)
+        want = LD.las_decoder_bwd_plain(dl, resid, enc, enc_proj, enc_len,
+                                        w, cd, kind, band)
+        gk = decoder_grads(torch, LD, got, resid, dl, w, filt, T)
+        gp = decoder_grads(torch, LD, want, resid, dl, w, filt, T)
+        torch.cuda.synchronize()
+        bwd = {k: rel_err(gk[k], gp[k]) for k in gp}
+        finite = bool(torch.isfinite(logits).all()) and all(
+            bool(torch.isfinite(v).all()) for v in gk.values())
+        emit({"phase": "kernel_check", "kernel": "las_decoder_fwd+bwd",
+              "att_type": kind, "B": B, "L": L, "T": T,
+              "longest_label": longest, "shape": "bench.py" if bench
+              else "4.0 s bucket", "compute_dtype": cd_name, "coin_p": coin_p,
+              "rows_tokens_agree": share, "fwd_rel_err": fwd,
+              "bwd_rel_err": bwd, "tol_rel": tol, "finite": finite})
+        check(finite, f"las_decoder ({kind}) non-finite output ({cd_name})")
+        check(max(fwd.values()) <= tol,
+              f"las_decoder_fwd ({kind}) disagrees with its plain version "
+              f"({cd_name}, coins {coin_p}): {fwd}")
+        check(max(bwd.values()) <= tol,
+              f"las_decoder_bwd ({kind}) disagrees with its plain version "
+              f"({cd_name}, coins {coin_p}): {bwd}")
+        if cd_name == "bfloat16" and coin_p == 0.0 and not bench:
+            errs["las_decoder_fwd"] = float((logits - ref).abs().max())
+            errs["las_decoder_bwd"] = max(
+                float((gk[k] - gp[k]).abs().max()) for k in bwd)
     return errs
 
 
@@ -708,23 +829,50 @@ def check_training_kernels(torch, config, shapes, dev):
     return errs
 
 
-def train_slice(torch, config, ctc_only: bool = False):
-    """Phase 6: the training CLI at full width. The hybrid main path: the
-    flagship config as shipped (only ``train.dp=false``, and a train line
-    every step), TRAIN_STEPS steps, every kernel launched and no plain
-    version; with ``ctc_only``, ``loss.mtl_alpha=1.0`` for CTC_ONLY_STEPS
-    steps, and K4 not launched."""
-    from gluon_e2e_asr_tpu_torch import train
+def epoch_steps(config, epochs: int) -> int:
+    """The train steps of the first ``epochs`` epochs of ``config``, as the
+    trainer's sampler deals them."""
+    from gluon_e2e_asr_tpu_torch.data.sampler import BucketSampler, make_bucket_specs
+    from gluon_e2e_asr_tpu_torch.training.trainer import build_datasets
 
-    name = "train_ctc_only" if ctc_only else "train"
-    steps = CTC_ONLY_STEPS if ctc_only else TRAIN_STEPS
+    dc, tc = config.data, config.train
+    specs = make_bucket_specs(dc.bucket_bounds_sec, dc.sample_rate,
+                              dc.batch_size, dc.max_label_len,
+                              config.frontend.hop_length, dc.dynamic_batch)
+    sampler = BucketSampler(
+        build_datasets(config)[0], specs, dc.sample_rate, seed=tc.seed,
+        shuffle=dc.shuffle, drop_last=dc.drop_last,
+        sortagrad_epochs=dc.sortagrad_epochs,
+        speed_perturb=tuple(dc.speed_perturb or ()), perturb_seed=tc.seed,
+        static_placement=dc.static_placement)
+    return sum(len(list(sampler.epoch_batches(e))) for e in range(epochs))
+
+
+def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False):
+    """Phase 6: the training CLI at full width on the config at ``path``
+    as shipped (only ``train.dp=false`` and a train line every step, and
+    ``extra`` overrides), for ``steps`` steps or TRAIN_EPOCHS epochs:
+    every kernel of the path launched (K4 in the config's attention mode
+    on every step) and no plain version; with ``ctc_only``,
+    ``loss.mtl_alpha=1.0`` and a greedy dev evaluation (a model without a
+    decoder has no beam), and K4 not launched. Each epoch's dev evaluation
+    decodes as the config's ``decode.method`` says."""
+    from gluon_e2e_asr_tpu_torch import train
+    from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
+
+    extra = list(extra)
+    if ctc_only:
+        extra += ["--set", "loss.mtl_alpha=1.0", "--set", "decode.method=greedy"]
+    config = load_config(path)
+    apply_overrides(config, extra[1::2])
+    if steps is None:
+        steps = epoch_steps(config, TRAIN_EPOCHS)
     workdir = os.path.join(OUT_DIR, name)
     shutil.rmtree(workdir, ignore_errors=True)
-    extra = ["--set", "loss.mtl_alpha=1.0"] if ctc_only else []
     reset_counts()
     t0 = time.perf_counter()
     trainer = train.main([
-        "--config", CONFIG, "--set", "train.dp=false",
+        "--config", path, "--set", "train.dp=false",
         "--set", "train.log_every_steps=1", *extra,
         "--max-steps", str(steps), "--workdir", workdir, "--device", "cuda"])
     torch.cuda.synchronize()
@@ -737,22 +885,33 @@ def train_slice(torch, config, ctc_only: bool = False):
     epochs = [r for r in lines if r["event"] == "epoch"]
     dev_batches = len(list(trainer.dev_loader.sampler.epoch_batches(0)))
     layers = config.model.enc_layers
+    kind = None if ctc_only else config.model.att_type
     dec = 0 if ctc_only else steps
     expect = {"bilstm_fwd": layers * (steps + dev_batches * len(epochs)),
               "bilstm_bwd": layers * steps,
               "ctc_alpha": steps, "ctc_beta_post": steps,
               "las_decoder_fwd": dec, "las_decoder_bwd": dec}
+    for k in ("las_decoder_fwd", "las_decoder_bwd"):
+        for m in ATT_MODES:
+            expect[f"{k}_{m}"] = dec if m == kind else 0
     ckpt = os.path.join(workdir, config.train.ckpt_dir, f"ckpt_{steps}.pt")
     k = min(5, max(1, steps // 2))
     first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
-    emit({"phase": "train_slice", "objective": "ctc" if ctc_only else "hybrid",
-          "mtl_alpha": trainer.config.loss.mtl_alpha,
+    dc = trainer.config.decode
+    evaluation = ({"method": dc.method, "beam_size": dc.beam_size,
+                   "ctc_weight": dc.ctc_weight} if trainer._beam is not None
+                  else {"method": "greedy"})
+    emit({"phase": "train_slice", "config": os.path.relpath(path, REPO),
+          "name": name, "objective": "ctc" if ctc_only else "hybrid",
+          "att_type": kind, "mtl_alpha": trainer.config.loss.mtl_alpha,
           "scheduled_sampling": trainer.config.loss.scheduled_sampling,
           "steps": trainer.state.step,
           "wall_s": round(wall, 2), "launches": launches,
           "expected_launches": expect, "plain_calls": plain,
+          "dev_evaluation": evaluation,
           "epochs": [{k_: r[k_] for k_ in ("epoch", "step", "dev_wer",
-                                           "dev_cer", "utt_per_sec_per_chip")}
+                                           "dev_cer", "epoch_time_s",
+                                           "utt_per_sec_per_chip")}
                      for r in epochs],
           "dev_batches_per_eval": dev_batches, "losses": losses,
           "loss_att": [r["loss_att"] for r in train_lines],
@@ -769,6 +928,8 @@ def train_slice(torch, config, ctc_only: bool = False):
     if not ctc_only:
         check(all(r["loss_att"] > 0 and 0.0 <= r["att_acc"] <= 1.0
                   for r in train_lines), "loss_att / att_acc not logged")
+    check(all("dev_wer" in r and "dev_cer" in r for r in epochs),
+          "an epoch line without dev_wer / dev_cer")
     check(os.path.exists(ckpt), f"no checkpoint at {ckpt}")
     return trainer, launches
 
@@ -784,8 +945,7 @@ def train_reference(torch, trainer, dev):
     # an argmax and with it the decoder's later inputs (phase 3 covers it).
     config = copy.deepcopy(trainer.config)
     config.loss.scheduled_sampling = 0.0
-    b = next(x for x in trainer.loader.epoch(0)
-             if x.bucket == len(trainer.sampler.specs) - 1)
+    b = bucket_batch(torch, trainer.config)[0]
     batch = batch_to_device(b, dev)
     params0 = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
     runs = {}
@@ -888,7 +1048,7 @@ def train_timing(torch, trainer, shapes, dev, card):
               "kernel_ms": out[name][0], "plain_ms": out[name][1],
               "card": card})
 
-    args, _ = decoder_case(torch, config, dev, 0.0)
+    args, _, _ = decoder_case(torch, config, dev, 0.0)
     bf = torch.bfloat16
     _, resid, extras = LD.las_decoder_fwd_kernel(*args, bf, "dot")
     tokens, _, enc, enc_proj, enc_len, w = args
@@ -910,57 +1070,197 @@ def train_timing(torch, trainer, shapes, dev, card):
               "compute_dtype": "bfloat16", "kernel_ms": out[name][0],
               "plain_ms": out[name][1], "plain_runs": 5, "card": card})
 
-    def stepper(route="kernel"):
-        """A step function and state on a copy of the trained model."""
-        from gluon_e2e_asr_tpu_torch.models.asr import build_model
+    out["step_4s"], out["step_12s"] = step_timing(torch, trainer, dev, card)
+    return out
 
-        tok = trainer.tokenizer
-        model = build_model(config, tok.vocab_size, train=True,
-                            sos_id=tok.sos_id, eos_id=tok.eos_id)
-        model.load_state_dict(trainer.model.state_dict())
-        model.to(dev)
-        state = TrainState(step=trainer.state.step,
-                           opt_state=copy.deepcopy(trainer.state.opt_state),
-                           generator=torch.Generator().manual_seed(SEED))
-        fn = make_train_step(model, config, trainer.optimizer)
-        if route == "plain":
-            def run(batch):
-                with plain_route():
-                    return fn(state, batch)
-            return run
-        return lambda batch: fn(state, batch)
 
-    b4 = next(x for x in trainer.loader.epoch(0)
-              if x.bucket == len(trainer.sampler.specs) - 1)
+def stepper(torch, trainer, dev, route="kernel"):
+    """A train step function on a copy of the trained model and its
+    optimizer state: the kernels, or (``route`` "plain") the plain
+    versions."""
+    from gluon_e2e_asr_tpu_torch.models.asr import build_model
+    from gluon_e2e_asr_tpu_torch.training.train_step import (
+        TrainState, make_train_step)
+
+    config, tok = trainer.config, trainer.tokenizer
+    model = build_model(config, tok.vocab_size, train=True,
+                        sos_id=tok.sos_id, eos_id=tok.eos_id)
+    model.load_state_dict(trainer.model.state_dict())
+    model.to(dev)
+    state = TrainState(step=trainer.state.step,
+                       opt_state=copy.deepcopy(trainer.state.opt_state),
+                       generator=torch.Generator().manual_seed(SEED))
+    fn = make_train_step(model, config, trainer.optimizer)
+    if route == "plain":
+        def run(batch):
+            with plain_route():
+                return fn(state, batch)
+        return run
+    return lambda batch: fn(state, batch)
+
+
+def step_timing(torch, trainer, dev, card):
+    """The hybrid train step of ``trainer``'s config at the 4.0 s bucket
+    (kernels and plain versions) and at bench.py's shape (kernels), and a
+    torch.profiler breakdown of the latter. Returns ((4 s kernel ms, 4 s
+    plain ms), bench-shape kernel ms)."""
+    from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
+
+    config = trainer.config
+    B = config.data.batch_size
+    att = config.model.att_type
+    b4 = bucket_batch(torch, trainer.config)[0]
     batch4 = batch_to_device(b4, dev)
-    step_k = stepper()
-    step_p = stepper("plain")
+    step_k = stepper(torch, trainer, dev)
+    step_p = stepper(torch, trainer, dev, "plain")
     k4 = time_ms(torch, lambda: step_k(batch4))
     p4 = time_ms(torch, lambda: step_p(batch4), n=N_TIMED_PLAIN_STEP, warm=1)
     emit({"phase": "timing", "what": "train_step", "shape": "4.0 s bucket",
-          "objective": "hybrid", "mtl_alpha": config.loss.mtl_alpha,
+          "objective": "hybrid", "att_type": att,
+          "mtl_alpha": config.loss.mtl_alpha,
           "B": int(b4.audio.shape[0]), "samples": int(b4.audio.shape[1]),
           "max_labels": int(b4.labels.shape[1]), "kernel_ms": k4,
           "plain_ms": p4, "plain_runs": N_TIMED_PLAIN_STEP,
           "utt_per_s": b4.num_real / (k4 / 1e3), "card": card})
+    del step_k, step_p
 
     bench = synth_batch(B, BENCH_SEC, BENCH_LABELS, SEED)
     batch12 = {k: torch.from_numpy(v).to(dev) for k, v in bench.items()}
-    step12 = stepper()
+    step12 = stepper(torch, trainer, dev)
     torch.cuda.reset_peak_memory_stats()
     k12 = time_ms(torch, lambda: step12(batch12))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     emit({"phase": "timing", "what": "train_step", "shape": "bench.py",
-          "objective": "hybrid", "mtl_alpha": config.loss.mtl_alpha,
+          "objective": "hybrid", "att_type": att,
+          "mtl_alpha": config.loss.mtl_alpha,
           "B": B, "seconds": BENCH_SEC, "max_labels": BENCH_LABELS,
           "dtype": config.model.compute_dtype, "kernel_ms": k12,
           "utt_per_s": B / (k12 / 1e3), "peak_mem_gib": round(peak, 2),
           "card": card,
           "sm_clock_power_limit_temp": nvidia_smi(
               "clocks.sm,power.draw,power.limit,temperature.gpu")})
-    out["step_4s"], out["step_12s"] = (k4, p4), k12
-    profile_step(torch, lambda: step12(batch12), card)
+    profile_step(torch, lambda: step12(batch12), card, att)
+    return (k4, p4), k12
+
+
+def loc_timing(torch, trainer, dev, card):
+    """Phase 8 for the location-aware flagship (``trainer``'s config): K4 in
+    add and loc mode (bf16, the 4.0 s bucket; loc also at bench.py's
+    T'=320) against the plain versions, then the loc train step. Returns
+    name -> (kernel ms, plain ms) of the add and loc rows."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as LD
+
+    config = trainer.config
+    bf = torch.bfloat16
+    out = {}
+    for m, bench in (("add", False), ("loc", False), ("loc", True)):
+        args, filt, _ = decoder_case(torch, config, dev, 0.0, att_type=m,
+                                     bench=bench)
+        tokens, _, enc, enc_proj, enc_len, w = args
+        band = None if filt is None else LD.build_loc_band_cmajor(
+            filt, enc.shape[1])
+        _, resid, extras = LD.las_decoder_fwd_kernel(*args, bf, m, filt)
+        dl = torch.from_numpy(np.random.RandomState(SEED + 7).randn(
+            *tokens.shape, w.embed.shape[0]).astype(np.float32) * 0.05).to(dev)
+        bwd = (enc, enc_proj, enc_len, w, bf, m)
+        n_plain = 2 if bench else 5
+        f = (time_ms(torch, lambda: LD.las_decoder_fwd_kernel(*args, bf, m, filt)),
+             time_ms(torch, lambda: LD.las_decoder_fwd_plain(*args, bf, m, band),
+                     n=n_plain, warm=1))
+        b = (time_ms(torch, lambda: LD.las_decoder_bwd_kernel(
+                dl, resid, extras, *bwd, filt)),
+             time_ms(torch, lambda: LD.las_decoder_bwd_plain(
+                dl, resid, *bwd, band), n=n_plain, warm=1))
+        for d, (k_ms, p_ms) in (("fwd", f), ("bwd", b)):
+            emit({"phase": "timing", "what": f"las_decoder_{d}",
+                  "att_type": m, "B": int(tokens.shape[0]),
+                  "L": int(tokens.shape[1]), "T": int(enc.shape[1]),
+                  "shape": "bench.py" if bench else "4.0 s bucket",
+                  "compute_dtype": "bfloat16", "kernel_ms": k_ms,
+                  "plain_ms": p_ms, "plain_runs": n_plain, "card": card})
+            if not bench:
+                out[f"las_decoder_{d}_{m}"] = (k_ms, p_ms)
+        del resid, extras
+    step_timing(torch, trainer, dev, card)
     return out
+
+
+def golden_beam(torch, device="cuda"):
+    """Phase 9: the blessed tiny golden (its JAX checkpoint read by the
+    port's own msgpack reader, bridged, saved as a port checkpoint)
+    decoded with the beam on the card through the decode CLI: every
+    hypothesis of golden_beam.jsonl, the scores within TOL_GOLDEN_SCORE."""
+    from gluon_e2e_asr_tpu_torch import decode
+    from gluon_e2e_asr_tpu_torch.bridge import params_from_jax, read_jax_checkpoint
+    from gluon_e2e_asr_tpu_torch.training.checkpoint import save_checkpoint
+
+    params, cmvn, meta = read_jax_checkpoint(
+        os.path.join(GOLD, "tiny_golden.msgpack"))
+    ckpt = save_checkpoint(os.path.join(OUT_DIR, "golden.pt"),
+                           params_from_jax(params), meta, cmvn)
+    out = os.path.join(OUT_DIR, "golden_beam.jsonl")
+    reset_counts()
+    result = decode.main(["--config", os.path.join(GOLD, "tiny_golden.yaml"),
+                          "--ckpt", ckpt, "--method", "beam", "--output", out,
+                          "--device", device])
+    launches, plain = read_counts()
+
+    def records(path):
+        with open(path) as f:
+            return {r["utt_id"]: r for r in map(json.loads, f)}
+
+    gold, got = records(os.path.join(GOLD, "golden_beam.jsonl")), records(out)
+    same = [u for u in gold if u in got and got[u]["hyp"] == gold[u]["hyp"]]
+    dscore = max((abs(got[u]["score"] - gold[u]["score"]) for u in same),
+                 default=float("inf"))
+    emit({"phase": "golden_beam", "decode_done": result,
+          "hypotheses": len(gold), "identical": len(same),
+          "max_abs_score_diff": dscore, "tol_score": TOL_GOLDEN_SCORE,
+          "launches": launches, "plain_calls": plain})
+    check(len(got) == len(gold) == len(same) == 16,
+          f"golden beam: {len(same)} of {len(gold)} hypotheses identical")
+    check(dscore <= TOL_GOLDEN_SCORE, f"golden beam scores differ by {dscore}")
+    check(not plain["bilstm_fwd"], "the plain BiLSTM ran in the beam decode")
+
+
+def beam_timing(torch, trainer, dev, card):
+    """Phase 9: one beam decode (the config's: K=10, ctc_weight 0.3) of a
+    96-utterance 4.0 s batch of the trained loc model: the frontend and
+    the encoder timed with CUDA events, the whole decode (host audio in,
+    hypotheses on the host) with the host clock; the search is the rest."""
+    from gluon_e2e_asr_tpu_torch.decoding.beam import make_beam_decoder
+    from gluon_e2e_asr_tpu_torch.frontend.features import frontend_apply
+
+    config = trainer.config
+    b, _, _, _ = bucket_batch(torch, config)
+    model = trainer.model.eval()
+    decoder = make_beam_decoder(model, config, trainer.tokenizer,
+                                trainer.cmvn_stats, device=dev)
+    with torch.inference_mode():
+        audio = torch.from_numpy(b.audio).to(dev)
+        alen = torch.from_numpy(b.audio_len).to(dev)
+        fe_ms = time_ms(torch, lambda: frontend_apply(config.frontend, audio, alen))
+        feats, flen = frontend_apply(config.frontend, audio, alen)
+        enc_ms = time_ms(torch, lambda: model.encode(feats, flen))
+    decoder(b.audio, b.audio_len)
+    times = []
+    for _ in range(N_BEAM_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        texts, scores = decoder(b.audio, b.audio_len)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    total = float(np.median(times))
+    emit({"phase": "timing", "what": "beam_decode", "B": int(b.audio.shape[0]),
+          "samples": int(b.audio.shape[1]), "beam_size": config.decode.beam_size,
+          "ctc_weight": config.decode.ctc_weight, "frontend_ms": fe_ms,
+          "encoder_ms": enc_ms, "decode_total_ms": total,
+          "search_ms": total - fe_ms - enc_ms, "runs": N_BEAM_TIMED,
+          "output_steps": decoder.last_steps,
+          "basis": "frontend and encoder CUDA events; total host clock, "
+                   "host audio in, hypotheses on the host", "card": card})
+    check(len(texts) == b.audio.shape[0] and bool(np.isfinite(scores).all()),
+          "the beam decode returned no hypothesis or a non-finite score")
 
 
 def library_timing(torch, config, shapes, dev, card):
@@ -1031,13 +1331,79 @@ def library_timing(torch, config, shapes, dev, card):
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
-def _bound(flops: float, rate: float, nbytes: float):
-    t_ops, t_bytes = flops / rate, nbytes / PEAK_BYTES
+def _bound(flops: float, rate: float, nbytes: float, f32_ops: float = 0.0):
+    """(ms, "operations" or "bytes"): ``flops`` at ``rate`` plus ``f32_ops``
+    on the CUDA cores, or ``nbytes`` at the memory rate, the larger."""
+    t_ops = flops / rate + f32_ops / PEAK_F32
+    t_bytes = nbytes / PEAK_BYTES
     return (t_ops * 1e3, "operations") if t_ops >= t_bytes \
         else (t_bytes * 1e3, "bytes")
 
 
-def kernel_bounds(config, shapes, dev):
+def loc_taps(enc_len, T: int, W: int) -> float:
+    """Multiply-adds of one channel of the location convolution over one
+    step of a batch: for each row's live frames t, the filter taps that
+    land on a live frame (the feature and, in the backward, its carry)."""
+    pad = (W - 1) // 2
+    t = np.arange(T)[None, :]
+    n = np.asarray(enc_len, np.int64)[:, None]
+    taps = np.minimum(W, n - t + pad) - np.maximum(0, pad - t)
+    return float(np.where(t < n, np.maximum(taps, 0), 0).sum())
+
+
+def k4_bounds(torch, config, att):
+    """(K4-fwd bound, K4-bwd bound) in mode ``att`` at ``config``'s 4.0 s
+    bucket (see kernel_bounds)."""
+    (tokens, _, enc, _, enc_len, w), filt, _ = decoder_case(
+        torch, config, "cpu", 0.0, att_type=att)
+    H = w.w_h.shape[0]
+    Bd, L = tokens.shape
+    T, D = enc.shape[1], enc.shape[2]
+    A, E, V = w.att_q.shape[1], w.embed.shape[1], w.embed.shape[0]
+    f4, cd = 4, 2
+    live = float(enc_len.sum())  # frames of the batch
+    frames = live * L  # attended frames over all steps
+    gate_k = E + D + H
+    step_ops = 2.0 * (gate_k * 4 * H + H * A + (H + D) * V)
+    w_bytes = cd * (gate_k * 4 * H + H * A + (H + D) * V + V * E) \
+        + f4 * (4 * H + V)
+    encs = cd * live * (D + A) + 4 * Bd
+    # in: tokens (int32), coins (bool); out: logits and the residuals
+    # h, c, att, ctx (f32) and tok (int32)
+    fwd_io = 5 * Bd * L + f4 * Bd * L * (V + 2 * H + T + D + 1)
+    bwd_ops = 2.0 * (V * (H + D) + A * H + 4 * H * gate_k)
+    # in: dlogits and those residuals (att over the live frames); out:
+    # dgates, dctx, dqb, demb per step and d_enc_proj
+    bwd_in = f4 * (Bd * L * (V + 2 * H + D + 1) + frames)
+    bwd_out = f4 * (Bd * L * (4 * H + D + A + E) + Bd * T * A)
+    if att == "dot":
+        return (_bound(Bd * L * step_ops + 2.0 * frames * (A + D), PEAK_BF16,
+                       encs + w_bytes + fwd_io),
+                _bound(Bd * L * bwd_ops + 2.0 * frames * (D + A + A),
+                       PEAK_BF16, encs + w_bytes + bwd_in + bwd_out))
+    # The energies on the CUDA cores, per attended (frame, column): add
+    # forward 4 (the query's add, tanh, v's multiply-add), backward 10
+    # (the recomputed energy, tanh, d_att_v, de, dqb, d_enc_proj); loc
+    # adds the feature's product (2C + 1), and in the backward d_loc_proj
+    # and dfct (4C), and the convolution's taps (forward 2C per tap; the
+    # backward's recomputed feature and its carry, 4C per tap).
+    e_fwd, e_bwd = 4.0, 10.0
+    conv = 0.0
+    extra_out = 0.0
+    if att == "loc":
+        C = filt.shape[2]
+        e_fwd += 2 * C + 1
+        e_bwd += 6 * C + 1
+        conv = 2.0 * C * L * loc_taps(enc_len.numpy(), T, filt.shape[0])
+        extra_out = f4 * Bd * L * C * T  # the dfct stream
+    return (_bound(Bd * L * step_ops + 2.0 * frames * D, PEAK_BF16,
+                   encs + w_bytes + fwd_io, e_fwd * frames * A + conv),
+            _bound(Bd * L * bwd_ops + 2.0 * frames * D, PEAK_BF16,
+                   encs + w_bytes + bwd_in + bwd_out + extra_out,
+                   e_bwd * frames * A + 2 * conv))
+
+
+def kernel_bounds(config, shapes, dev, loc_config):
     """name -> (bound_ms, bound_by): the least time the card could take
     for each timed call, from this run's inputs: the operations over the
     peak rate of their type (bf16 products for K1 and K4; f32 for the CTC
@@ -1052,7 +1418,10 @@ def kernel_bounds(config, shapes, dev):
     needed); outputs count their whole size. Products take bf16 operands
     (2 bytes), as the timed calls do; states, residuals and gradients are
     f32. K1 sums its 3 layer shapes (K1-fwd in its serving form, as
-    timed: y only)."""
+    timed: y only). K4's add and loc modes (at ``loc_config``'s shapes) add
+    their energies and location convolution as f32 work on the CUDA cores
+    (67 TFLOP/s, counting a tanh as one operation; see k4_bounds) to the
+    bf16 products' time, and the loc backward writes its dfct stream."""
     import torch
 
     H, B = config.model.enc_hidden, config.data.batch_size
@@ -1085,35 +1454,14 @@ def kernel_bounds(config, shapes, dev):
     out["ctc_alpha"] = _bound(10 * live, PEAK_F32, 2 * table + masks)
     out["ctc_beta_post"] = _bound(12 * live, PEAK_F32, 3 * table + masks + f4 * Bc)
 
-    (tokens, _, enc, _, enc_len, w), _ = decoder_case(torch, config, "cpu", 0.0)
-    Bd, L = tokens.shape
-    T, D = enc.shape[1], enc.shape[2]
-    A, E, V = w.att_q.shape[1], w.embed.shape[1], w.embed.shape[0]
-    live = float(enc_len.sum())  # frames of the batch
-    frames = live * L  # attended frames over all steps
-    gate_k = E + D + H
-    step_ops = 2.0 * (gate_k * 4 * H + H * A + (H + D) * V)
-    w_bytes = cd * (gate_k * 4 * H + H * A + (H + D) * V + V * E) \
-        + f4 * (4 * H + V)
-    encs = cd * live * (D + A) + 4 * Bd
-    # in: tokens (int32), coins (bool); out: logits and the residuals
-    # h, c, att, ctx (f32) and tok (int32)
-    fwd_io = 5 * Bd * L + f4 * Bd * L * (V + 2 * H + T + D + 1)
-    out["las_decoder_fwd"] = _bound(
-        Bd * L * step_ops + 2.0 * frames * (A + D), PEAK_BF16,
-        encs + w_bytes + fwd_io)
-    bwd_ops = 2.0 * (V * (H + D) + A * H + 4 * H * gate_k)
-    # in: dlogits and those residuals (att over the live frames); out:
-    # dgates, dctx, dqb, demb per step and d_enc_proj
-    bwd_in = f4 * (Bd * L * (V + 2 * H + D + 1) + frames)
-    bwd_out = f4 * (Bd * L * (4 * H + D + A + E) + Bd * T * A)
-    out["las_decoder_bwd"] = _bound(
-        Bd * L * bwd_ops + 2.0 * frames * (D + A + A), PEAK_BF16,
-        encs + w_bytes + bwd_in + bwd_out)
+    out["las_decoder_fwd"], out["las_decoder_bwd"] = k4_bounds(torch, config, "dot")
+    for att in ("add", "loc"):
+        out[f"las_decoder_fwd_{att}"], out[f"las_decoder_bwd_{att}"] = \
+            k4_bounds(torch, loc_config, att)
     return out
 
 
-def profile_step(torch, fn, card, steps=3):
+def profile_step(torch, fn, card, att="dot", steps=3):
     """torch.profiler over ``steps`` train steps: device time by kernel
     and the device's idle share of the window's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1138,8 +1486,9 @@ def profile_step(torch, fn, card, steps=3):
     busy = sum(r[1] for r in rows)
     wall = wall_ms / steps
     os.makedirs(OUT_DIR, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(OUT_DIR, "train_step_trace.json"))
+    prof.export_chrome_trace(os.path.join(OUT_DIR, f"train_step_{att}_trace.json"))
     emit({"phase": "profile", "what": "train_step at bench.py's shape",
+          "att_type": att,
           "steps": steps, "wall_ms_per_step": wall,
           "device_busy_ms_per_step": busy,
           "idle_share": 1.0 - busy / wall if wall > 0 else None,

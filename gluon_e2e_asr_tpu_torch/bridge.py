@@ -8,12 +8,20 @@ its inverse. The layouts are the same on both sides (flax Dense kernels
 order (i,f,g,o) with the forget bias inside the cell, the decoder's
 parameters under their flax names), so the bridge maps names and copies
 bits. An unknown name raises. It imports no flax.
+
+``read_jax_checkpoint`` reads the JAX trainer's checkpoint file (a flax
+msgpack snapshot, ``training/checkpoint.py`` there) with its own small
+msgpack reader, so that a JAX checkpoint converts where neither flax nor
+the ``msgpack`` package is installed.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
-from typing import Any, Dict, Mapping
+import struct
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,3 +79,99 @@ def _tensor(leaf) -> torch.Tensor:
         raise KeyError(f"expected an array, got a subtree with keys "
                        f"{sorted(leaf)}")
     return torch.from_numpy(np.array(leaf, copy=True))
+
+
+# ---------------------------------------------------------------------------
+# The JAX trainer's checkpoint files
+# ---------------------------------------------------------------------------
+
+# flax.serialization's msgpack extension types.
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+
+
+class _Reader:
+    """A msgpack decoder for what flax writes: maps, arrays, strings,
+    binaries, numbers, nil, booleans, and extension types (arrays and
+    numpy scalars)."""
+
+    def __init__(self, buf: bytes):
+        self.buf, self.pos = buf, 0
+
+    def _take(self, n: int) -> bytes:
+        out = self.buf[self.pos:self.pos + n]
+        if len(out) != n:
+            raise ValueError("truncated msgpack data")
+        self.pos += n
+        return out
+
+    def _num(self, fmt: str):
+        return struct.unpack(">" + fmt, self._take(struct.calcsize(fmt)))[0]
+
+    def read(self):
+        b = self._take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self._map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return [self.read() for _ in range(b & 0x0F)]
+        if 0xA0 <= b <= 0xBF:
+            return self._take(b & 0x1F).decode()
+        fixed = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in fixed:
+            return fixed[b]
+        if b in (0xC4, 0xC5, 0xC6):  # bin 8/16/32
+            return bytes(self._take(self._num("BHI"[b - 0xC4])))
+        if b in (0xC7, 0xC8, 0xC9):  # ext 8/16/32
+            n = self._num("BHI"[b - 0xC7])
+            return self._ext(self._num("b"), n)
+        if b in (0xCA, 0xCB):
+            return self._num("fd"[b - 0xCA])
+        if 0xCC <= b <= 0xD3:  # uint 8..64, int 8..64
+            return self._num("BHIQbhiq"[b - 0xCC])
+        if 0xD4 <= b <= 0xD8:  # fixext 1..16
+            code = self._num("b")
+            return self._ext(code, 1 << (b - 0xD4))
+        if b in (0xD9, 0xDA, 0xDB):  # str 8/16/32
+            return self._take(self._num("BHI"[b - 0xD9])).decode()
+        if b in (0xDC, 0xDD):  # array 16/32
+            return [self.read() for _ in range(self._num("HI"[b - 0xDC]))]
+        if b in (0xDE, 0xDF):  # map 16/32
+            return self._map(self._num("HI"[b - 0xDE]))
+        raise ValueError(f"msgpack type byte {b:#x} not supported")
+
+    def _map(self, n: int) -> Dict[Any, Any]:
+        out = {}
+        for _ in range(n):
+            k = self.read()
+            out[k] = self.read()
+        return out
+
+    def _ext(self, code: int, n: int):
+        inner = _Reader(self._take(n)).read()
+        if code == _EXT_NDARRAY:
+            shape, dtype, data = inner
+            return np.frombuffer(data, dtype=np.dtype(dtype)).reshape(shape).copy()
+        if code == _EXT_NPSCALAR:
+            dtype, data = inner
+            return np.frombuffer(data, dtype=np.dtype(dtype))[0]
+        raise ValueError(f"flax msgpack extension {code} not supported")
+
+
+def read_jax_checkpoint(path: str) -> Tuple[Dict[str, Any], Optional[tuple],
+                                            Dict[str, Any]]:
+    """(params tree of numpy arrays, cmvn stats or None, meta) of a JAX
+    trainer checkpoint (``<dir>/ckpt_<step>.msgpack`` with its ``.json``
+    sidecar). Feed the tree to ``params_from_jax``."""
+    with open(path, "rb") as f:
+        payload = _Reader(f.read()).read()
+    cmvn = payload.get("cmvn")
+    if cmvn is not None:
+        cmvn = tuple(np.asarray(x) for x in cmvn)
+    meta = {}
+    if os.path.exists(path + ".json"):
+        with open(path + ".json") as f:
+            meta = json.load(f)
+    return payload["state"]["params"], cmvn, meta

@@ -1,15 +1,17 @@
 """Decode CLI: ``python -m gluon_e2e_asr_tpu_torch.decode --config <yaml>
---ckpt <path> [--device cuda]``.
+--ckpt <path> [--method greedy|beam|ctc_beam] [--device cuda]``.
 
-Counterpart of ``gluon_e2e_asr_tpu/decode.py`` for greedy CTC decoding:
-restore the port's checkpoint (with or without an attention decoder,
-which greedy CTC decoding does not run) and its vocab, run the bucketed
-dev batches through frontend -> encoder -> CTC head -> greedy collapse
--> detokenize, write per-utterance JSONL {utt_id, hyp, ref, score,
-latency_s}, and print one ``decode_done`` JSON line with WER/CER and
-p50 latency. Each bucket gets one untimed warm pass first. A JAX
-checkpoint is converted with ``bridge.py`` and saved with
-``training/checkpoint.py``.
+Counterpart of ``gluon_e2e_asr_tpu/decode.py``: restore the port's
+checkpoint (with or without an attention decoder) and its vocab, run the
+bucketed dev batches through frontend -> encoder -> greedy CTC collapse
+(``greedy``) or the batched joint CTC/attention beam search (``beam``;
+``ctc_beam`` without the decoder) -> detokenize, write per-utterance
+JSONL {utt_id, hyp, ref, score, latency_s} (and ``nbest`` with
+``decode.nbest > 1``), and print one ``decode_done`` JSON line with
+WER/CER, p50 latency and, for the beams, the output steps run. At B=1 the
+beams take the serving defaults of ``decoding/serving.py``. Each bucket
+gets one untimed warm pass first. A JAX checkpoint is converted with
+``bridge.py`` and saved with ``training/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -24,8 +26,11 @@ from gluon_e2e_asr_tpu_torch.config import Config, apply_overrides, load_config
 from gluon_e2e_asr_tpu_torch.data.loader import DataLoader
 from gluon_e2e_asr_tpu_torch.data.sampler import BucketSampler, make_bucket_specs
 from gluon_e2e_asr_tpu_torch.data.tokenizer import CharTokenizer, tokenizer_from_json
+from gluon_e2e_asr_tpu_torch.decoding.beam import NEG_INF as BEAM_NEG_INF
+from gluon_e2e_asr_tpu_torch.decoding.beam import make_beam_decoder
 from gluon_e2e_asr_tpu_torch.decoding.greedy import ids_to_texts, make_greedy_decoder
-from gluon_e2e_asr_tpu_torch.eval.metrics import cer, error_report, wer
+from gluon_e2e_asr_tpu_torch.decoding.serving import apply_b1_serving_defaults
+from gluon_e2e_asr_tpu_torch.eval.metrics import cer, edit_distance, error_report, wer
 from gluon_e2e_asr_tpu_torch.models.asr import build_model
 from gluon_e2e_asr_tpu_torch.training.checkpoint import restore_checkpoint
 from gluon_e2e_asr_tpu_torch.training.trainer import build_datasets
@@ -43,6 +48,12 @@ def make_eval_loader(config: Config, utts, tokenizer) -> DataLoader:
                             seed=0, shuffle=False)
     return DataLoader(utts, sampler, tokenizer, config.data.sample_rate,
                       transfer_dtype=config.data.transfer_dtype)
+
+
+def filled_nbest(nbest_row):
+    """Drop unfilled n-best slots: the beam pads them with its NEG_INF
+    sentinel (-1e30), which is finite."""
+    return [(t, s) for t, s in nbest_row if s > BEAM_NEG_INF / 2]
 
 
 def main(argv=None):
@@ -70,10 +81,6 @@ def main(argv=None):
     apply_overrides(config, args.set)
     if args.method:
         config.decode.method = args.method
-    if config.decode.method != "greedy":
-        raise NotImplementedError(
-            f"decode.method={config.decode.method!r}: the port decodes "
-            "greedily only so far; beam search is next (ROADMAP.md)")
     if config.decode.dp:
         raise NotImplementedError(
             "decode.dp: data-parallel decoding is not ported yet "
@@ -96,16 +103,39 @@ def main(argv=None):
         raise SystemExit(
             f"--min-dur {args.min_dur} left no dev utterances to decode")
     loader = make_eval_loader(config, dev_utts, tokenizer)
+    # Interactive serving at B=1: partial CTC scoring and end detection
+    # (explicit --set values win; batched decoding is unchanged).
+    apply_b1_serving_defaults(config, args.set)
 
     model = build_model(config, tokenizer.vocab_size,
+                        sos_id=tokenizer.sos_id, eos_id=tokenizer.eos_id,
                         use_decoder=any(k.startswith("decoder.") for k in params))
     model.load_state_dict(params)
     model.to(device).eval()
-    decoder = make_greedy_decoder(model, config, cmvn_stats, device)
+    is_beam = config.decode.method in ("beam", "ctc_beam")
+    if is_beam:
+        decoder = make_beam_decoder(model, config, tokenizer, cmvn_stats,
+                                    device=device)
+    else:
+        decoder = make_greedy_decoder(model, config, cmvn_stats, device)
+
+    def run(b):
+        """(texts, scores, n-best lists or None) of one batch, on the host."""
+        if is_beam and config.decode.nbest > 1:
+            nbest = decoder.nbest(b.audio, b.audio_len)
+            return [nb[0][0] for nb in nbest], [nb[0][1] for nb in nbest], nbest
+        if is_beam:
+            texts, scores = decoder(b.audio, b.audio_len)
+            return texts, [float(s) for s in scores], None
+        ids, lens = decoder(b.audio, b.audio_len)
+        return (ids_to_texts(ids.cpu().numpy(), lens.cpu().numpy(), tokenizer),
+                [0.0] * len(b.utt_ids), None)
 
     # "w": each decode run owns its output file.
     logger = JsonlLogger(out_path, also_stdout=False, mode="w")
     refs, hyps, latencies = [], [], []
+    beam_steps = []  # output steps run per batch (the beams)
+    oracle_hyps = []  # per utterance, the n-best entry with the fewest word errors
     by_id = {u.utt_id: u for u in dev_utts}
     warmed = set()
     num_batches = 0
@@ -114,29 +144,38 @@ def main(argv=None):
             # One untimed pass per bucket shape, so p50 latency measures
             # steady-state time, not the kernels' first-use build or the
             # allocator's warm-up.
-            ids, lens = decoder(b.audio, b.audio_len)
-            ids.cpu(), lens.cpu()
+            run(b)
             warmed.add(b.bucket)
         t0 = time.perf_counter()
-        ids, lens = decoder(b.audio, b.audio_len)
+        texts, scores, nbest_lists = run(b)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        texts = ids_to_texts(ids.cpu().numpy(), lens.cpu().numpy(), tokenizer)
         dt = time.perf_counter() - t0
         num_batches += 1
+        if is_beam:
+            beam_steps.append(int(decoder.last_steps))
         per_utt = dt / max(b.num_real, 1)
         for row, utt_id in enumerate(b.utt_ids):
             ref = by_id[utt_id].text
             refs.append(ref)
             hyps.append(texts[row])
             latencies.append(per_utt)
-            logger.log({
+            rec = {
                 "utt_id": utt_id,
                 "hyp": texts[row],
                 "ref": ref,
-                "score": 0.0,
+                "score": float(scores[row]),
                 "latency_s": round(per_utt, 5),
-            })
+            }
+            if nbest_lists is not None:
+                filled = filled_nbest(nbest_lists[row])
+                rec["nbest"] = [{"hyp": t, "score": round(s, 4)}
+                                for t, s in filled]
+                rw = ref.split()
+                oracle_hyps.append(min(
+                    [t for t, _ in filled] or [""],
+                    key=lambda t: edit_distance(rw, t.split())))
+            logger.log(rec)
     result = {
         "event": "decode_done",
         "method": config.decode.method,
@@ -152,11 +191,17 @@ def main(argv=None):
         "p50_latency_s": round(percentile(latencies, 50), 5),
         "output": out_path,
     }
+    if beam_steps:
+        result["beam_steps_total"] = int(sum(beam_steps))
+        result["beam_steps_max"] = int(max(beam_steps))
     rep = error_report(refs, hyps, unit="word")
     result["errors"] = {
         k: (round(v, 4) if isinstance(v, float) else v)
         for k, v in rep.items() if k != "unit"
     }
+    if oracle_hyps:
+        # The best WER a per-utterance pick from the n-best list reaches.
+        result["oracle_wer"] = round(wer(refs, oracle_hyps), 4)
     print(json.dumps(result))
     logger.close()
     return result

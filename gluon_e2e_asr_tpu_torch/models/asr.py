@@ -44,8 +44,33 @@ class ASRModel(nn.Module):
             out["att_logits"] = self.decoder(enc, enc_len, tokens_in, coins)
         return out
 
+    # The sub-paths of decoding, as the JAX model exposes them.
     def encode(self, feats: torch.Tensor, feat_len: torch.Tensor):
         return self.encoder(feats, feat_len)
+
+    def decoder_precompute(self, enc):
+        return self.decoder.precompute(enc)
+
+    def decoder_init_state(self, batch, enc_frames):
+        return self.decoder.init_state(batch, enc_frames)
+
+    def decoder_step(self, state, token, enc, enc_proj, enc_mask,
+                     loc_band=None):
+        return self.decoder.step(state, token, enc, enc_proj, enc_mask,
+                                 loc_band)
+
+    def decoder_init_state_beam(self, batch, beams, enc_frames):
+        return self.decoder.init_state_beam(batch, beams, enc_frames)
+
+    def decoder_step_beam(self, state, token, enc, enc_proj, enc_mask,
+                          beams, loc_band=None):
+        return self.decoder.step_beam(state, token, enc, enc_proj, enc_mask,
+                                      beams, loc_band)
+
+    def decoder_loc_band(self, enc_frames):
+        if self.cfg.att_type != "loc":
+            return None
+        return self.decoder.build_loc_band(enc_frames)
 
 
 def build_model(config: Config, vocab_size: int, train: bool = False,

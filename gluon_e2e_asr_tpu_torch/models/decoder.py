@@ -4,13 +4,19 @@ Counterpart of ``gluon_e2e_asr_tpu/models/decoder.py``. The parameters
 keep the flax names and layouts of every ``att_type`` (``embed`` [V,E],
 ``cell0_wx`` [E+D,4H], ``cell0_b``, ``cell0_wh`` [H,4H], ``att_q``
 [H,A], ``att_k`` [D,A], ``att_b``/``att_v`` for add and loc,
-``loc_filter``/``loc_proj`` for loc, ``out_w`` [H+D,V], ``out_b``), so
-every checkpoint of the repo bridges by name (``bridge.py``).
+``loc_filter`` [w,1,C]/``loc_proj`` [C,A] for loc, ``out_w`` [H+D,V],
+``out_b``), so every checkpoint of the repo bridges by name
+(``bridge.py``).
 
 - ``precompute``: the encoder key projection enc . att_k, once per
   utterance (a large product outside the decoder kernel).
-- ``step``: one decode step over an explicit state, the JAX signature
-  (``ops/las_decoder.py::decoder_step``).
+- ``build_loc_band`` / ``_loc_feature``: the location feature of the
+  previous attention weights, as a product with the banded filter
+  matrix, or a convolution where the band would be too large.
+- ``step`` / ``step_beam``: one decode step over an explicit state, the
+  JAX signatures (``ops/las_decoder.py::decoder_step``); the beam layout
+  keeps the encoder tensors [B,T,*] and puts the beam axis on the
+  decoder state only.
 - ``forward``: the teacher-forced pass over L steps with the
   scheduled-sampling coins as an input, through
   ``ops/las_decoder.py::las_decoder`` (K4-fwd/K4-bwd on a CUDA tensor,
@@ -18,8 +24,7 @@ every checkpoint of the repo bridges by name (``bridge.py``).
 
 ``dec_impl`` keeps its meaning: ``pallas`` rounds every decoder
 product's operands to ``compute_dtype``; ``scan`` rounds only those of
-``precompute`` and runs the steps in f32. Location-aware attention
-(``att_type: loc``) and ``dec_layers > 1`` raise.
+``precompute`` and runs the steps in f32. ``dec_layers > 1`` raises.
 """
 
 from __future__ import annotations
@@ -28,23 +33,23 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gluon_e2e_asr_tpu_torch.config import ModelConfig
 from gluon_e2e_asr_tpu_torch.models.encoder import lecun_normal_
 from gluon_e2e_asr_tpu_torch.models.lstm import matmul_cd
 from gluon_e2e_asr_tpu_torch.ops.las_decoder import (
-    Weights, decoder_step, init_state, las_decoder)
+    ATT_KINDS, Weights, decoder_step, init_state, las_decoder)
+
+# build_loc_band returns None above this many band entries (T*T*C, 64 MB
+# of f32), as the JAX decoder does; the convolution runs instead.
+MAX_BAND_ENTRIES = 16_000_000
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for the decoder configurations the port does not run yet."""
-    if cfg.att_type == "loc":
-        raise NotImplementedError(
-            "model.att_type='loc': location-aware attention (build_loc_band, "
-            "the band product and K4's loc mode) is not ported yet "
-            "(ROADMAP.md); use dot or add")
-    if cfg.att_type not in ("dot", "add"):
+    if cfg.att_type not in ATT_KINDS:
         raise ValueError(f"unknown att_type {cfg.att_type!r}")
     if cfg.dec_layers != 1:
         raise NotImplementedError(
@@ -112,7 +117,8 @@ class AttentionDecoder(nn.Module):
 
     def weights(self) -> Weights:
         """The one layer's parameters in ``ops/las_decoder.py``'s order;
-        dot attention passes constant zeros for att_b and att_v."""
+        constant zeros for what the attention type has not (att_b and
+        att_v for dot, loc_proj unless loc)."""
         A = self.cfg.att_dim
         has_av = self.cfg.att_type in ("add", "loc")
         dev = self.att_q.device
@@ -121,6 +127,8 @@ class AttentionDecoder(nn.Module):
             self.att_q,
             self.att_b if has_av else torch.zeros(A, device=dev),
             self.att_v if has_av else torch.zeros(A, 1, device=dev),
+            self.loc_proj if self.cfg.att_type == "loc"
+            else torch.zeros(1, A, device=dev),
             self.out_w, self.out_b)
 
     def precompute(self, enc: torch.Tensor) -> torch.Tensor:
@@ -128,19 +136,77 @@ class AttentionDecoder(nn.Module):
         operands."""
         return matmul_cd(enc, self.att_k, self.compute_dtype())
 
+    # ------------------------------------------------------------------
+    # The location feature
+    # ------------------------------------------------------------------
+    def build_loc_band(self, T: int) -> Optional[torch.Tensor]:
+        """The location convolution as a banded matrix [T, T*C], (t,c)
+        minor: band[s, t*C + c] = filter[s - t + (w-1)//2, 0, c]. None
+        when T*T*C exceeds MAX_BAND_ENTRIES (the JAX ``build_loc_band``)."""
+        C, w = self.cfg.loc_conv_channels, self.cfg.loc_conv_width
+        if T * T * C > MAX_BAND_ENTRIES:
+            return None
+        dev = self.loc_filter.device
+        k = (torch.arange(T, device=dev)[:, None]
+             - torch.arange(T, device=dev)[None, :] + (w - 1) // 2)
+        valid = (k >= 0) & (k < w)
+        band = torch.where(valid[..., None],
+                           self.loc_filter[k.clamp(0, w - 1), 0, :],
+                           torch.zeros((), device=dev))
+        return band.reshape(T, T * C)
+
+    def _loc_feature(self, att_prev: torch.Tensor,
+                     loc_band: Optional[torch.Tensor]) -> torch.Tensor:
+        """att_prev [N,T] -> [N,T,C]: the band product when there is a
+        band, else the convolution with XLA's SAME padding ((w-1)//2 frames
+        before, the rest after), in true f32 (cuDNN's TF32 off)."""
+        N, T = att_prev.shape
+        if loc_band is not None:
+            return torch.matmul(att_prev, loc_band).view(N, T, -1)
+        w = self.cfg.loc_conv_width
+        x = F.pad(att_prev[:, None, :], ((w - 1) // 2, w - 1 - (w - 1) // 2))
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            f = F.conv1d(x, self.loc_filter.permute(2, 1, 0))  # [N,C,T]
+        return f.transpose(1, 2)
+
+    # ------------------------------------------------------------------
+    # Single decode steps (greedy and beam search)
+    # ------------------------------------------------------------------
     def init_state(self, batch: int, enc_frames: int) -> Dict[str, torch.Tensor]:
         return init_state(batch, enc_frames, self.cfg.dec_hidden,
                           2 * self.cfg.enc_hidden, self.att_q.device)
 
+    def init_state_beam(self, batch: int, beams: int, enc_frames: int
+                        ) -> Dict[str, torch.Tensor]:
+        """The beam layout's zeros: h, c [1,B*K,H], att_w [B,K,T], context
+        [B*K,D]."""
+        state = self.init_state(batch * beams, enc_frames)
+        state["att_w"] = state["att_w"].view(batch, beams, enc_frames)
+        return state
+
+    def _step(self, state, token, enc, enc_proj, enc_mask, loc_band, beams):
+        check_ported(self.cfg)
+        feature = None
+        if self.cfg.att_type == "loc":
+            feature = lambda a: self._loc_feature(a, loc_band)  # noqa: E731
+        return decoder_step(self.weights(), state, token, enc, enc_proj,
+                            enc_mask, torch.float32, self.cfg.att_type,
+                            feature, beams)
+
     def step(self, state, token, enc, enc_proj, enc_mask, loc_band=None):
         """One decode step. token [B] -> (new_state, logits [B,V]); the
-        products in f32, as the JAX ``step``."""
-        check_ported(self.cfg)
-        if loc_band is not None:
-            raise NotImplementedError("loc_band: location-aware attention "
-                                      "is not ported yet (ROADMAP.md)")
-        return decoder_step(self.weights(), state, token, enc, enc_proj,
-                            enc_mask, torch.float32, self.cfg.att_type)
+        products in f32, as the JAX ``step``. ``loc_band`` (loc only):
+        ``build_loc_band``'s matrix, built once outside the loop; None
+        runs the convolution."""
+        return self._step(state, token, enc, enc_proj, enc_mask, loc_band,
+                          None)
+
+    def step_beam(self, state, token, enc, enc_proj, enc_mask, beams: int,
+                  loc_band=None):
+        """One decode step over B*K flattened beams with shared encoder
+        tensors. token [B*K] -> (new_state, logits [B*K,V])."""
+        return self._step(state, token, enc, enc_proj, enc_mask, loc_band,
+                          beams)
 
     def forward(self, enc: torch.Tensor, enc_len: torch.Tensor,
                 tokens_in: torch.Tensor,
@@ -155,5 +221,7 @@ class AttentionDecoder(nn.Module):
                     if coins is None else coins.T.to(enc.device).bool().clone())
         coins_bl[:, 0] = False
         cd = self.compute_dtype() if self.cfg.dec_impl == "pallas" else torch.float32
-        return las_decoder(tokens_in, coins_bl, enc, self.precompute(enc),
-                           enc_len, self.weights(), cd, self.cfg.att_type)
+        return las_decoder(
+            tokens_in, coins_bl, enc, self.precompute(enc), enc_len,
+            self.weights(), cd, self.cfg.att_type,
+            self.loc_filter if self.cfg.att_type == "loc" else None)

@@ -5,56 +5,76 @@ las_decoder_fused`` (forward ``las_decoder_fwd``, VJP
 ``las_decoder_bwd``). Each step: the embedding of the step's token (the
 gold one, or the previous step's argmax where the scheduled-sampling
 coin says so), one LSTM cell on [embedding; previous context], the
-attention query, the masked softmax over the encoder frames, the
-context, and the output logits. Each direction has two versions:
+attention query, the attention scores (``dot``: scaled dot product;
+``add``: v . tanh(enc_proj + q); ``loc``: as add, plus the location
+feature of the previous step's attention weights projected by
+``loc_proj``), the masked softmax over the encoder frames, the context,
+and the output logits. Each direction has two versions:
 
 - plain PyTorch: ``las_decoder_fwd_plain`` (a loop over
   ``decoder_step``, which ``models/decoder.py`` also uses for one step)
   and ``las_decoder_bwd_plain`` (an explicit reverse loop with the TPU
   backward kernel's formulas, not autograd). The CPU path, and the
-  references the kernels are held against on the card. They do ``dot``
-  and ``add`` attention.
+  references the kernels are held against on the card. They compute
+  the location feature as the TPU kernel does, as a product with the
+  channel-major band (``build_loc_band_cmajor``).
 - hand-written Hopper kernels: ``las_decoder_fwd_kernel`` and
-  ``las_decoder_bwd_kernel`` (``csrc/las_decoder.cu``), ``dot``
-  attention only; ``add`` on a CUDA tensor raises.
+  ``las_decoder_bwd_kernel`` (``csrc/las_decoder.cu``), every mode; the
+  location feature is a convolution with the filter there.
 
 ``las_decoder`` dispatches on the device of ``enc`` (``_route``): the
 plain versions for a CPU tensor, the kernels for a CUDA tensor, and
 nothing else; with gradients enabled it runs through ``LASDecoderFused``,
 a ``torch.autograd.Function`` whose forward and backward dispatch the
 same way. The weight gradients that the JAX package computes outside its
-kernel as XLA einsums (``pallas_decoder.py:856-869``) are
-``torch.matmul`` / ``index_add_`` here, for both routes; the gradient of
+kernel as XLA einsums (``pallas_decoder.py:856-874``) are
+``torch.matmul`` / ``index_add_`` here, for both routes, the band's
+among them; the filter's gradient comes from the band's by autograd
+through ``build_loc_band_cmajor``, as JAX's does. The gradient of
 ``enc_proj`` is accumulated inside the kernels.
 
 Precision (``pallas_decoder.py:30-35``): every product takes operands
-rounded to ``compute_dtype`` and sums in f32; state, softmax and gate
-math stay f32. The dot-attention scores multiply the rounded
-``enc_proj`` by the f32 query, as the TPU kernel does. Gate order
-(i, f, g, o) with the forget bias +1 inside the cell. The TPU's
-``_T_CHUNK`` padding and VMEM admission (``pick_block_batch``) have no
-counterpart: a shape the kernel cannot take raises.
+rounded to ``compute_dtype`` and sums in f32; state, softmax, gate math,
+the energies and their tanh stay f32. The dot-attention scores multiply
+the rounded ``enc_proj`` by the f32 query, as the TPU kernel does; the
+energies add the f32 query to the rounded ``enc_proj``. The location
+feature is the product of the rounded previous attention weights with
+the rounded band, kept in f32 and rounded again as the operand of
+``loc_proj``. Gate order (i, f, g, o) with the forget bias +1 inside the
+cell. The TPU's ``_T_CHUNK`` padding and VMEM admission
+(``pick_block_batch``) have no counterpart: a shape the kernel cannot
+take raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from gluon_e2e_asr_tpu_torch import _build
 
 NEG = -1e30
-ATT_KINDS = ("dot", "add")
+ATT_KINDS = ("dot", "add", "loc")
+MODES = {"dot": 0, "add": 1, "loc": 2}
 MAX_HIDDEN = 1024
+# The kernels' limits of the energy modes (csrc/las_decoder.cu): one
+# thread per (row, attention column) of a block's two rows, the backward's
+# energy lanes 4 columns at a time, and the location channels' sums in
+# registers.
+MAX_ATT_ENERGY = 512
+ATT_ENERGY_MULTIPLE = 4
+MAX_LOC_CHANNELS = 16
 
 
 class Weights(NamedTuple):
     """The decoder's parameters in the JAX layouts: embed [V,E], w_x
     [E+D,4H], b_x [4H], w_h [H,4H], att_q [H,A], att_b [A], att_v [A,1]
-    (zeros for dot attention), w_out [H+D,V], b_out [V]."""
+    (zeros for dot attention), loc_proj [C,A] (zeros [1,A] unless loc),
+    w_out [H+D,V], b_out [V]."""
     embed: torch.Tensor
     w_x: torch.Tensor
     b_x: torch.Tensor
@@ -62,6 +82,7 @@ class Weights(NamedTuple):
     att_q: torch.Tensor
     att_b: torch.Tensor
     att_v: torch.Tensor
+    loc_proj: torch.Tensor
     w_out: torch.Tensor
     b_out: torch.Tensor
 
@@ -80,6 +101,40 @@ def _mask(enc_len: torch.Tensor, T: int) -> torch.Tensor:
             < enc_len[:, None]).float()
 
 
+def build_loc_band_cmajor(loc_filter: torch.Tensor, T: int) -> torch.Tensor:
+    """The location convolution as a matrix, channel-major: band [T,
+    C*T] with band[s, c*T + t] = filter[s - t + (w-1)//2, 0, c] (zero off
+    the band). Counterpart of ``pallas_decoder.py::build_loc_band_cmajor``;
+    differentiable in ``loc_filter`` [w,1,C].
+
+    Each channel's block is a Toeplitz matrix, built as the reversed
+    windows of the zero-padded filter u (u[m] = filter[m - T + 1 +
+    (w-1)//2], so block[s, t] = u[s - t + T - 1]): its gradient is then a
+    sum over the windows (``unfold``'s backward), not a scatter of T*T*C
+    entries onto w*C."""
+    w, _, C = loc_filter.shape
+    off = T - 1 - (w - 1) // 2
+    u = F.pad(loc_filter[:, 0, :].T, (off, 2 * T - 1 - off - w))  # [C,2T-1]
+    blocks = u.flip(-1).unfold(-1, T, 1).flip(1)  # [C,T(s),T(t)]
+    return blocks.permute(1, 0, 2).reshape(T, C * T)
+
+
+def band_feature(band: torch.Tensor, compute_dtype: torch.dtype
+                 ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """att_prev [N,T] -> the location feature [N,T,C] as the TPU kernel
+    forms it: rounded weights times the rounded channel-major band, f32
+    sums (``pallas_decoder.py:238-243``)."""
+    r = _rounder(compute_dtype)
+    band_r = r(band)
+    T = band.shape[0]
+
+    def feature(att_prev: torch.Tensor) -> torch.Tensor:
+        f = torch.matmul(r(att_prev), band_r)
+        return f.view(att_prev.shape[0], -1, T).transpose(1, 2)
+
+    return feature
+
+
 def init_state(batch: int, enc_frames: int, hidden: int, enc_dim: int,
                device) -> Dict[str, torch.Tensor]:
     """The JAX ``init_state`` of one decoder layer: zeros."""
@@ -90,13 +145,21 @@ def init_state(batch: int, enc_frames: int, hidden: int, enc_dim: int,
 
 def decoder_step(w: Weights, state, token, enc, enc_proj, enc_mask,
                  compute_dtype: torch.dtype = torch.float32,
-                 att_kind: str = "dot"):
+                 att_kind: str = "dot",
+                 loc_feature: Optional[Callable] = None,
+                 beams: Optional[int] = None):
     """One decode step (one layer). token [B] -> (new_state, logits
     [B,V]); the JAX ``AttentionDecoder.step`` with the fused kernel's
-    arithmetic."""
+    arithmetic. ``loc_feature`` maps the previous attention weights [N,T]
+    to the location feature [N,T,C] (loc only). With ``beams`` = K the
+    step is the JAX ``step_beam``: token, h, c and the context carry B*K
+    rows, the attention weights [B,K,T], and the encoder tensors stay
+    [B,T,*]."""
     r = _rounder(compute_dtype)
     H = w.w_h.shape[0]
+    B, T = enc.shape[0], enc.shape[1]
     A = w.att_q.shape[1]
+    K = beams or 1
     emb = r(w.embed[token.long()])
     x = torch.cat([emb, state["context"]], dim=-1)
     gates = (torch.matmul(r(x), r(w.w_x)) + w.b_x
@@ -104,42 +167,51 @@ def decoder_step(w: Weights, state, token, enc, enc_proj, enc_mask,
     gi, gf, gg, go = torch.split(gates, H, dim=-1)
     c = torch.sigmoid(gf + 1.0) * state["c"][0] + torch.sigmoid(gi) * torch.tanh(gg)
     h = torch.sigmoid(go) * torch.tanh(c)
-    qb = torch.matmul(r(h), r(w.att_q)) + w.att_b
-    encp = r(enc_proj)
+    qb = (torch.matmul(r(h), r(w.att_q)) + w.att_b).view(B, K, 1, A)
+    encp = r(enc_proj)[:, None]  # [B,1,T,A]
     if att_kind == "dot":
-        scores = (encp * qb[:, None, :]).sum(-1) * float(
+        scores = (encp * qb).sum(-1) * float(
             torch.tensor(1.0 / math.sqrt(A), dtype=torch.float32))
-    elif att_kind == "add":
-        scores = (torch.tanh(encp + qb[:, None, :]) * w.att_v[:, 0]).sum(-1)
+    elif att_kind in ("add", "loc"):
+        e = encp + qb
+        if att_kind == "loc":
+            f = loc_feature(state["att_w"].reshape(B * K, T))
+            e = e + torch.matmul(r(f), r(w.loc_proj)).view(B, K, T, A)
+        scores = (torch.tanh(e) * w.att_v[:, 0]).sum(-1)
     else:
         raise ValueError(f"att_kind must be one of {ATT_KINDS}, got {att_kind!r}")
-    scores = torch.where(enc_mask > 0, scores, NEG)
+    mask = enc_mask[:, None, :]
+    scores = torch.where(mask > 0, scores, NEG)
     p = torch.exp(scores - scores.max(dim=-1, keepdim=True).values)
-    att = p / p.sum(dim=-1, keepdim=True) * enc_mask
-    ctx = torch.bmm(r(att)[:, None, :], r(enc))[:, 0]
+    att = p / p.sum(dim=-1, keepdim=True) * mask  # [B,K,T]
+    ctx = torch.bmm(r(att), r(enc)).reshape(B * K, -1)
     logits = torch.matmul(r(torch.cat([h, ctx], dim=-1)), r(w.w_out)) + w.b_out
-    return {"h": h[None], "c": c[None], "att_w": att, "context": ctx}, logits
+    return ({"h": h[None], "c": c[None], "att_w": att if beams else att[:, 0],
+             "context": ctx}, logits)
 
 
 def las_decoder_fwd_plain(tokens, coins, enc, enc_proj, enc_len, w: Weights,
                           compute_dtype: torch.dtype = torch.float32,
-                          att_kind: str = "dot"):
+                          att_kind: str = "dot",
+                          band: Optional[torch.Tensor] = None):
     """tokens [B,L] int (gold inputs; [:,0] is sos), coins [B,L] bool
     (feed the previous step's argmax), enc [B,T,D], enc_proj [B,T,A],
-    enc_len [B]. Returns (logits [B,L,V] f32, (h_seq, c_seq, att_seq,
-    ctx_seq, tok_seq)), the residuals of the TPU forward kernel."""
+    enc_len [B], band [T,C*T] (loc only). Returns (logits [B,L,V] f32,
+    (h_seq, c_seq, att_seq, ctx_seq, tok_seq)), the residuals of the TPU
+    forward kernel."""
     las_decoder_fwd_plain.calls += 1
     B, L = tokens.shape
     T, D = enc.shape[1], enc.shape[2]
     H = w.w_h.shape[0]
     mask = _mask(enc_len, T)
+    feature = band_feature(band, compute_dtype) if att_kind == "loc" else None
     state = init_state(B, T, H, D, enc.device)
     pred = torch.zeros(B, dtype=tokens.dtype, device=tokens.device)
     outs = {k: [] for k in ("logits", "h", "c", "att", "ctx", "tok")}
     for i in range(L):
         tok = torch.where(coins[:, i].bool(), pred, tokens[:, i])
         state, logits = decoder_step(w, state, tok, enc, enc_proj, mask,
-                                     compute_dtype, att_kind)
+                                     compute_dtype, att_kind, feature)
         pred = torch.argmax(logits, dim=-1).to(tokens.dtype)
         for k, v in (("logits", logits), ("h", state["h"][0]),
                      ("c", state["c"][0]), ("att", state["att_w"]),
@@ -160,32 +232,46 @@ def _shift_right(x: torch.Tensor) -> torch.Tensor:
 
 def las_decoder_bwd_plain(dlogits, resid, enc, enc_proj, enc_len, w: Weights,
                           compute_dtype: torch.dtype = torch.float32,
-                          att_kind: str = "dot"):
+                          att_kind: str = "dot",
+                          band: Optional[torch.Tensor] = None):
     """The reverse sweep of the TPU backward kernel
     (``pallas_decoder.py:510-664``), the gates recomputed from the
     residuals. dlogits [B,L,V]. Returns the per-step streams dgates
     [B,L,4H] (i,f,g,o), dctx [B,L,D], dqb [B,L,A], demb [B,L,E], the
-    accumulated d_enc_proj [B,T,A], and d_att_v [A,1] (None for dot)."""
+    accumulated d_enc_proj [B,T,A], d_att_v [A,1] (None for dot), and in
+    loc mode d_loc_proj [C,A] and the location feature's gradient dfct
+    [B,L,C*T] (channel-major; None otherwise). In loc mode step i's
+    scores depend on step i-1's attention weights, so the sweep carries
+    dfct . band^T into the previous step's softmax backward."""
     las_decoder_bwd_plain.calls += 1
     h_seq, c_seq, att_seq, ctx_seq, tok_seq = resid
     B, L, _ = dlogits.shape
     T, D = enc.shape[1], enc.shape[2]
     H, E, A = w.w_h.shape[0], w.embed.shape[1], w.att_q.shape[1]
+    is_loc = att_kind == "loc"
     r = _rounder(compute_dtype)
     mask = _mask(enc_len, T)
     enc_r, encp_r = r(enc), r(enc_proj)
     w_out_r, att_q_r, w_x_r, w_h_r = r(w.w_out), r(w.att_q), r(w.w_x), r(w.w_h)
-    h_prev, c_prev, ctx_prev = (_shift_right(s) for s in (h_seq, c_seq, ctx_seq))
+    h_prev, c_prev, ctx_prev, att_prev = (
+        _shift_right(s) for s in (h_seq, c_seq, ctx_seq, att_seq))
     f32 = dict(device=enc.device, dtype=torch.float32)
     dh = torch.zeros(B, H, **f32)
     dc = torch.zeros(B, H, **f32)
     dctx_c = torch.zeros(B, D, **f32)
+    datt_c = torch.zeros(B, T, **f32)  # loc: d(previous attention weights)
     d_encp = torch.zeros(B, T, A, **f32)
     d_v = torch.zeros(A, **f32)
     dgates = torch.empty(B, L, 4 * H, **f32)
     dctx = torch.empty(B, L, D, **f32)
     dqb = torch.empty(B, L, A, **f32)
     demb = torch.empty(B, L, E, **f32)
+    if is_loc:
+        C = w.loc_proj.shape[0]
+        feature = band_feature(band, compute_dtype)
+        band_r, locp_r = r(band), r(w.loc_proj)
+        d_locp = torch.zeros(C, A, **f32)
+        dfct = torch.empty(B, L, C * T, **f32)
     scale = float(torch.tensor(1.0 / math.sqrt(A), dtype=torch.float32))
     for i in range(L - 1, -1, -1):
         # output head: d[h; ctx] = dlogits . W_out^T
@@ -195,6 +281,8 @@ def las_decoder_bwd_plain(dlogits, resid, enc, enc_proj, enc_len, w: Weights,
         dctx[:, i] = dctx_tot
         # context -> attention weights -> softmax backward
         datt = torch.bmm(r(dctx_tot)[:, None, :], enc_r.transpose(1, 2))[:, 0]
+        if is_loc:
+            datt = datt_c + datt
         alpha = att_seq[:, i]
         dsm = datt * mask
         ds = alpha * (dsm - (dsm * alpha).sum(-1, keepdim=True))
@@ -204,11 +292,21 @@ def las_decoder_bwd_plain(dlogits, resid, enc, enc_proj, enc_len, w: Weights,
             dq = (encp_r * dsn[..., None]).sum(1)
             d_encp += dsn[..., None] * qb[:, None, :]
         else:
-            th = torch.tanh(encp_r + qb[:, None, :])
+            e = encp_r + qb[:, None, :]
+            if is_loc:
+                f_r = r(feature(att_prev[:, i]))  # [B,T,C]
+                e = e + torch.matmul(f_r, locp_r)
+            th = torch.tanh(e)
             d_v += (th * ds[..., None]).sum((0, 1))
             de = (1.0 - th * th) * ds[..., None] * w.att_v[:, 0]
             d_encp += de
             dq = de.sum(1)
+            if is_loc:
+                de_r = r(de)
+                d_locp += torch.einsum("btc,bta->ca", f_r, de_r)
+                dft = torch.matmul(de_r, locp_r.T)  # [B,T,C]
+                dfct[:, i] = dft.transpose(1, 2).reshape(B, C * T)
+                datt_c = torch.matmul(r(dfct[:, i]), band_r.T)
         dqb[:, i] = dq
         dh_tot = dh_tot + torch.matmul(r(dq), att_q_r.T)
         # LSTM cell, gates recomputed
@@ -233,7 +331,9 @@ def las_decoder_bwd_plain(dlogits, resid, enc, enc_proj, enc_len, w: Weights,
         dctx_c = dx[:, E:]
     return {"dgates": dgates, "dctx": dctx, "dqb": dqb, "demb": demb,
             "d_encp": d_encp,
-            "d_att_v": d_v[:, None] if att_kind == "add" else None}
+            "d_att_v": None if att_kind == "dot" else d_v[:, None],
+            "d_loc_proj": d_locp if is_loc else None,
+            "dfct": dfct if is_loc else None}
 
 
 las_decoder_bwd_plain.calls = 0
@@ -241,15 +341,16 @@ las_decoder_bwd_plain.calls = 0
 
 def weight_grads(streams, resid, dlogits, w: Weights) -> Dict[str, torch.Tensor]:
     """The gradients the JAX package forms outside its backward kernel
-    (``pallas_decoder.py:856-869``), from the kernel's per-step streams:
-    one product (or scatter) each, in f32."""
+    (``pallas_decoder.py:856-874``), from the kernel's per-step streams:
+    one product (or scatter) each, in f32. In loc mode also the band's,
+    d_band[s, k] = sum over (b, i) of att[b,i-1,s] dfct[b,i,k]."""
     h_seq, _, att_seq, ctx_seq, tok_seq = resid
     dgates, dqb = streams["dgates"], streams["dqb"]
     H4, A, V = dgates.shape[-1], dqb.shape[-1], dlogits.shape[-1]
     E = w.embed.shape[1]
     flat = lambda x: x.reshape(-1, x.shape[-1])  # noqa: E731
     x_seq = torch.cat([w.embed[tok_seq.long()].float(), _shift_right(ctx_seq)], -1)
-    return {
+    g = {
         "w_x": flat(x_seq).T @ flat(dgates),
         "b_x": dgates.reshape(-1, H4).sum(0),
         "w_h": flat(_shift_right(h_seq)).T @ flat(dgates),
@@ -261,6 +362,9 @@ def weight_grads(streams, resid, dlogits, w: Weights) -> Dict[str, torch.Tensor]
             0, tok_seq.reshape(-1).long(), streams["demb"].reshape(-1, E)),
         "enc": torch.bmm(att_seq.transpose(1, 2), streams["dctx"]),
     }
+    if streams.get("dfct") is not None:
+        g["band"] = flat(_shift_right(att_seq)).T @ flat(streams["dfct"])
+    return g
 
 
 # ---------------------------------------------------------------------------
@@ -272,13 +376,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library("las_decoder")
     if lib.las_decoder_fwd.argtypes is None:
         # Without argtypes ctypes passes each pointer as a 32-bit int.
-        lib.las_decoder_fwd.argtypes = [ctypes.c_void_p] * 20 \
-            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
-                                    ctypes.c_void_p]
+        tail = [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_void_p]
+        lib.las_decoder_fwd.argtypes = [ctypes.c_void_p] * 23 + tail
         lib.las_decoder_fwd.restype = ctypes.c_int
-        lib.las_decoder_bwd.argtypes = [ctypes.c_void_p] * 17 \
-            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
-                                    ctypes.c_void_p]
+        lib.las_decoder_bwd.argtypes = [ctypes.c_void_p] * 23 + tail
         lib.las_decoder_bwd.restype = ctypes.c_int
         lib.las_decoder_error_string.argtypes = [ctypes.c_int]
         lib.las_decoder_error_string.restype = ctypes.c_char_p
@@ -286,15 +388,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check_kernel_args(tokens, coins, enc, enc_proj, enc_len, w: Weights,
-                       compute_dtype, att_kind, who: str):
-    """(B, L, T, D, A, E, H, V) of a call the kernels can take; raises
-    otherwise."""
+                       compute_dtype, att_kind, loc_filter, who: str):
+    """(B, L, T, D, A, E, H, V, C, W) of a call the kernels can take
+    (C = W = 0 unless loc); raises otherwise."""
     if enc.device.type != "cuda":
         raise ValueError(f"{who} needs CUDA tensors, got {enc.device}")
-    if att_kind != "dot":
-        raise NotImplementedError(
-            f"att_type={att_kind!r} on the card: K4's add and loc modes are "
-            "not ported to CUDA yet, only dot attention (ROADMAP.md)")
+    if att_kind not in MODES:
+        raise ValueError(f"att_kind must be one of {ATT_KINDS}, got {att_kind!r}")
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                          f"got {compute_dtype}")
@@ -304,17 +404,32 @@ def _check_kernel_args(tokens, coins, enc, enc_proj, enc_len, w: Weights,
     V = w.embed.shape[0]
     if not 0 < H <= MAX_HIDDEN:
         raise ValueError(f"hidden size {H} outside the kernel's 1..{MAX_HIDDEN}")
+    if att_kind != "dot" and (A > MAX_ATT_ENERGY
+                              or A % ATT_ENERGY_MULTIPLE):
+        raise ValueError(f"att_dim {A} not a multiple of "
+                         f"{ATT_ENERGY_MULTIPLE} up to {MAX_ATT_ENERGY}, as "
+                         f"the kernel takes for {att_kind} attention")
     dev = enc.device
     want = {"coins": (coins, (B, L)), "enc_proj": (enc_proj, (B, T, A)),
             "enc_len": (enc_len, (B,)), "w_x": (w.w_x, (E + D, 4 * H)),
             "b_x": (w.b_x, (4 * H,)), "w_h": (w.w_h, (H, 4 * H)),
-            "att_b": (w.att_b, (A,)), "w_out": (w.w_out, (H + D, V)),
-            "b_out": (w.b_out, (V,))}
+            "att_b": (w.att_b, (A,)), "att_v": (w.att_v, (A, 1)),
+            "w_out": (w.w_out, (H + D, V)), "b_out": (w.b_out, (V,))}
+    C = W = 0
+    if att_kind == "loc":
+        if loc_filter is None or loc_filter.dim() != 3:
+            raise ValueError("loc attention needs loc_filter [w,1,C]")
+        W, C = loc_filter.shape[0], loc_filter.shape[2]
+        if not 0 < C <= MAX_LOC_CHANNELS:
+            raise ValueError(f"{C} location channels outside the kernel's "
+                             f"1..{MAX_LOC_CHANNELS}")
+        want["loc_filter"] = (loc_filter, (W, 1, C))
+        want["loc_proj"] = (w.loc_proj, (C, A))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"{name} must be {shape} on {dev}, got "
                              f"{tuple(t.shape)} on {t.device}")
-    return B, L, T, D, A, E, H, V
+    return B, L, T, D, A, E, H, V, C, W
 
 
 def _operand(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -324,27 +439,56 @@ def _operand(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _energy_operands(w: Weights, att_kind, loc_filter, cd):
+    """att_v, the filter [W,C] and loc_proj [C,A] as the energy modes
+    read them (f32; the products' operands rounded to ``cd``), or NULL
+    pointers where the mode reads none."""
+    if att_kind == "dot":
+        return [None, None, None]
+    r = _rounder(cd)
+    f32 = torch.float32
+    ops = [_operand(w.att_v[:, 0], f32)]
+    if att_kind == "loc":
+        ops += [_operand(r(loc_filter.detach()[:, 0, :]), f32),
+                _operand(r(w.loc_proj.detach()), f32)]
+    else:
+        ops += [None, None]
+    return ops
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def _launched(lib, rc: int, what: str, dims) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: "
                            f"{lib.las_decoder_error_string(rc).decode()} "
-                           f"(B,L,T,D,A,E,H,V = {dims})")
+                           f"(B,L,T,D,A,E,H,V,C,W = {dims})")
 
 
 def _scale(A: int) -> float:
     return float(torch.tensor(1.0 / math.sqrt(A), dtype=torch.float32))
 
 
+def _count(fn, att_kind: str) -> None:
+    fn.launches += 1
+    fn.by_mode[att_kind] += 1
+
+
 def las_decoder_fwd_kernel(tokens, coins, enc, enc_proj, enc_len, w: Weights,
                            compute_dtype: torch.dtype = torch.float32,
-                           att_kind: str = "dot"):
-    """K4-fwd on the card. The contract of ``las_decoder_fwd_plain``,
-    plus what K4-bwd reads instead of recomputing: (acts [B,L,4H], the
-    gate activations sig(i), sig(f+1), tanh(g), sig(o) in w_x's column
-    layout; q_seq [B,L,A], the attention query)."""
+                           att_kind: str = "dot",
+                           loc_filter: Optional[torch.Tensor] = None):
+    """K4-fwd on the card. The contract of ``las_decoder_fwd_plain`` (loc
+    mode takes the filter [w,1,C], not the band), plus what K4-bwd reads
+    instead of recomputing: (acts [B,L,4H], the gate activations sig(i),
+    sig(f+1), tanh(g), sig(o) in w_x's column layout; q_seq [B,L,A], the
+    attention query with its bias)."""
     dims = _check_kernel_args(tokens, coins, enc, enc_proj, enc_len, w,
-                              compute_dtype, att_kind, "las_decoder_fwd_kernel")
-    B, L, T, D, A, E, H, V = dims
+                              compute_dtype, att_kind, loc_filter,
+                              "las_decoder_fwd_kernel")
+    B, L, T, D, A, E, H, V, C, W = dims
     dev, cd = enc.device, compute_dtype
     f32 = dict(device=dev, dtype=torch.float32)
     logits = torch.empty(B, L, V, **f32)
@@ -364,69 +508,93 @@ def las_decoder_fwd_kernel(tokens, coins, enc, enc_proj, enc_len, w: Weights,
            _operand(enc_proj, cd), _operand(w.embed, cd),
            _operand(torch.cat([w.w_x, w.w_h], 0), cd), _operand(w.b_x, f32),
            _operand(w.att_q, cd), _operand(w.att_b, f32),
+           *_energy_operands(w, att_kind, loc_filter, cd),
            _operand(w.w_out, cd), _operand(w.b_out, f32)]
     outs = [logits, h_seq, c_seq, acts, q_seq, att_seq, ctx_seq, tok_seq]
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.las_decoder_fwd(
-            *(t.data_ptr() for t in ops + outs), B, L, T, D, A, E, H, V,
-            _scale(A), int(cd == torch.bfloat16),
+            *(_ptr(t) for t in ops + outs), B, L, T, D, A, E, H, V, C, W,
+            MODES[att_kind], _scale(A), int(cd == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _launched(lib, rc, "las_decoder_fwd", dims)
-    las_decoder_fwd_kernel.launches += 1
+    _count(las_decoder_fwd_kernel, att_kind)
     return logits, resid, (acts, q_seq)
 
 
 las_decoder_fwd_kernel.launches = 0
+las_decoder_fwd_kernel.by_mode = dict.fromkeys(ATT_KINDS, 0)
 
 
 def las_decoder_bwd_kernel(dlogits, resid, extras, enc, enc_proj, enc_len,
                            w: Weights, compute_dtype: torch.dtype = torch.float32,
-                           att_kind: str = "dot"):
+                           att_kind: str = "dot",
+                           loc_filter: Optional[torch.Tensor] = None):
     """K4-bwd on the card: the reverse sweep from K4-fwd's residuals and
     saved activations (``extras``), and the d_enc_proj accumulation.
-    Returns what ``las_decoder_bwd_plain`` returns."""
+    Returns what ``las_decoder_bwd_plain`` returns. d_att_v and d_loc_proj
+    come from the kernel as partial sums (per batch row; per block of
+    rows, in its first row's slot), which this wrapper adds up (a fixed
+    order: the same bits every run)."""
     h_seq, c_seq, att_seq, ctx_seq, tok_seq = resid
     acts, q_seq = extras
     dims = _check_kernel_args(tok_seq, tok_seq, enc, enc_proj, enc_len, w,
-                              compute_dtype, att_kind, "las_decoder_bwd_kernel")
-    B, L, T, D, A, E, H, V = dims
+                              compute_dtype, att_kind, loc_filter,
+                              "las_decoder_bwd_kernel")
+    B, L, T, D, A, E, H, V, C, W = dims
     dev, cd = enc.device, compute_dtype
     if dlogits.shape != (B, L, V) or dlogits.device != dev:
         raise ValueError(f"dlogits must be {(B, L, V)} on {dev}, got "
                          f"{tuple(dlogits.shape)} on {dlogits.device}")
     f32 = dict(device=dev, dtype=torch.float32)
+    dot = att_kind == "dot"
     out = {"dgates": torch.empty(B, L, 4 * H, **f32),
            "dctx": torch.empty(B, L, D, **f32),
            "dqb": torch.empty(B, L, A, **f32),
            "demb": torch.empty(B, L, E, **f32),
-           "d_encp": torch.empty(B, T, A, **f32), "d_att_v": None}
+           # Written whole by the dot mode; accumulated by the others.
+           "d_encp": (torch.empty if dot else torch.zeros)(B, T, A, **f32),
+           "d_att_v": None, "d_loc_proj": None, "dfct": None}
+    dsn = dv_part = dlocp_part = None
+    if dot:
+        dsn = torch.empty(B, L, T, **f32)  # scratch: the scaled score gradient
+    else:
+        dv_part = torch.zeros(B, A, **f32)
+    if att_kind == "loc":
+        dlocp_part = torch.zeros(B, C, A, **f32)
+        out["dfct"] = torch.zeros(B, L, C * T, **f32)
     if B == 0 or L == 0:
         out["d_encp"].zero_()
-        return out
-    dsn = torch.empty(B, L, T, **f32)  # scratch: the scaled score gradient
-    # The transposed weights, so that each output column's weights lie
-    # along the threads that own neighbouring columns (see the .cu).
-    f32 = torch.float32
-    ops = [_operand(dlogits, f32), _operand(enc_len, torch.int32),
-           _operand(enc, cd), _operand(enc_proj, cd), _operand(w.w_out.T, cd),
-           _operand(w.att_q.T, cd), _operand(torch.cat([w.w_x, w.w_h], 0).T, cd),
-           _operand(c_seq, f32), _operand(acts, f32), _operand(att_seq, f32),
-           _operand(q_seq, f32)]
-    outs = [out["dgates"], out["dctx"], out["dqb"], out["demb"], dsn,
-            out["d_encp"]]
-    lib = _lib()
-    with torch.cuda.device(dev):
-        rc = lib.las_decoder_bwd(
-            *(t.data_ptr() for t in ops + outs), B, L, T, D, A, E, H, V,
-            _scale(A), int(cd == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _launched(lib, rc, "las_decoder_bwd", dims)
-    las_decoder_bwd_kernel.launches += 1
+    else:
+        # The transposed weights, so that each output column's weights lie
+        # along the threads that own neighbouring columns (see the .cu).
+        f32 = torch.float32
+        ops = [_operand(dlogits, f32), _operand(enc_len, torch.int32),
+               _operand(enc, cd), _operand(enc_proj, cd),
+               _operand(w.w_out.T, cd), _operand(w.att_q.T, cd),
+               _operand(torch.cat([w.w_x, w.w_h], 0).T, cd),
+               *_energy_operands(w, att_kind, loc_filter, cd),
+               _operand(c_seq, f32), _operand(acts, f32),
+               _operand(att_seq, f32), _operand(q_seq, f32)]
+        outs = [out["dgates"], out["dctx"], out["dqb"], out["demb"], dsn,
+                out["d_encp"], out["dfct"], dv_part, dlocp_part]
+        lib = _lib()
+        with torch.cuda.device(dev):
+            rc = lib.las_decoder_bwd(
+                *(_ptr(t) for t in ops + outs), B, L, T, D, A, E, H, V, C, W,
+                MODES[att_kind], _scale(A), int(cd == torch.bfloat16),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _launched(lib, rc, "las_decoder_bwd", dims)
+        _count(las_decoder_bwd_kernel, att_kind)
+    if not dot:
+        out["d_att_v"] = dv_part.sum(0)[:, None]
+    if att_kind == "loc":
+        out["d_loc_proj"] = dlocp_part.sum(0)
     return out
 
 
 las_decoder_bwd_kernel.launches = 0
+las_decoder_bwd_kernel.by_mode = dict.fromkeys(ATT_KINDS, 0)
 
 
 def _route(t: torch.Tensor) -> str:
@@ -441,55 +609,70 @@ def _route(t: torch.Tensor) -> str:
 class LASDecoderFused(torch.autograd.Function):
     """``las_decoder`` with its gradient: the plain forward and backward
     for CPU tensors, K4-fwd and K4-bwd for CUDA tensors. Gradients for
-    enc, enc_proj and every weight; none for the tokens, coins and
-    lengths."""
+    enc, enc_proj, the loc band and every weight; none for the tokens,
+    coins, lengths and the filter (the kernels' copy of what the band is
+    built from: its gradient comes through the band)."""
 
     @staticmethod
     def forward(ctx, tokens, coins, enc, enc_proj, enc_len, compute_dtype,
-                att_kind, *weights):
+                att_kind, loc_filter, band, *weights):
         w = Weights(*weights)
         args = (tokens, coins, enc, enc_proj, enc_len, w, compute_dtype,
                 att_kind)
         if _route(enc) == "plain":
-            (logits, resid), extras = las_decoder_fwd_plain(*args), (None, None)
+            (logits, resid), extras = (las_decoder_fwd_plain(*args, band),
+                                       (None, None))
         else:
-            logits, resid, extras = las_decoder_fwd_kernel(*args)
-        ctx.save_for_backward(enc, enc_proj, enc_len, *resid, *extras, *weights)
+            logits, resid, extras = las_decoder_fwd_kernel(*args, loc_filter)
+        ctx.save_for_backward(enc, enc_proj, enc_len, loc_filter, band,
+                              *resid, *extras, *weights)
         ctx.compute_dtype, ctx.att_kind = compute_dtype, att_kind
         return logits
 
     @staticmethod
     def backward(ctx, dlogits):
         saved = ctx.saved_tensors
-        enc, enc_proj, enc_len = saved[:3]
-        resid, extras, w = saved[3:8], saved[8:10], Weights(*saved[10:])
+        enc, enc_proj, enc_len, loc_filter, band = saved[:5]
+        resid, extras, w = saved[5:10], saved[10:12], Weights(*saved[12:])
         dlogits = dlogits.float().contiguous()
         args = (enc, enc_proj, enc_len, w, ctx.compute_dtype, ctx.att_kind)
         if _route(enc) == "plain":
-            streams = las_decoder_bwd_plain(dlogits, resid, *args)
+            streams = las_decoder_bwd_plain(dlogits, resid, *args, band)
         else:
-            streams = las_decoder_bwd_kernel(dlogits, resid, extras, *args)
+            streams = las_decoder_bwd_kernel(dlogits, resid, extras, *args,
+                                             loc_filter)
         g = weight_grads(streams, resid, dlogits, w)
         grads = (g["embed"], g["w_x"], g["b_x"], g["w_h"], g["att_q"],
-                 g["att_b"], streams["d_att_v"], g["w_out"], g["b_out"])
+                 g["att_b"], streams["d_att_v"], streams["d_loc_proj"],
+                 g["w_out"], g["b_out"])
         return (None, None, g["enc"], streams["d_encp"], None, None, None,
+                None, g.get("band"),
                 *(gr if t.requires_grad else None
                   for gr, t in zip(grads, w)))
 
 
 def las_decoder(tokens, coins, enc, enc_proj, enc_len, w: Weights,
                 compute_dtype: torch.dtype = torch.float32,
-                att_kind: str = "dot") -> torch.Tensor:
+                att_kind: str = "dot",
+                loc_filter: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Logits [B,L,V] of the teacher-forced decoder: the plain version for
     CPU tensors, the kernel for CUDA tensors; through ``LASDecoderFused``
-    when a gradient is wanted."""
+    when a gradient is wanted. ``loc_filter`` [w,1,C]: the location
+    filter (loc only), differentiable through the band built from it."""
     if att_kind not in ATT_KINDS:
         raise ValueError(f"att_kind must be one of {ATT_KINDS}, got {att_kind!r}")
+    band = filt = None
+    if att_kind == "loc":
+        if loc_filter is None:
+            raise ValueError("loc attention needs loc_filter")
+        band = build_loc_band_cmajor(loc_filter, enc.shape[1])
+        filt = loc_filter.detach()
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (enc, enc_proj, *w)):
+            t.requires_grad for t in (enc, enc_proj, *w)
+            + ((band,) if band is not None else ())):
         return LASDecoderFused.apply(tokens, coins, enc, enc_proj, enc_len,
-                                     compute_dtype, att_kind, *w)
+                                     compute_dtype, att_kind, filt, band, *w)
     args = (tokens, coins, enc, enc_proj, enc_len, w, compute_dtype, att_kind)
     if _route(enc) == "plain":
-        return las_decoder_fwd_plain(*args)[0]
-    return las_decoder_fwd_kernel(*args)[0]
+        return las_decoder_fwd_plain(*args, band)[0]
+    return las_decoder_fwd_kernel(*args, filt)[0]

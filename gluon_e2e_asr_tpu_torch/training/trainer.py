@@ -6,9 +6,9 @@ train step (hybrid CTC/attention, or CTC alone at ``loss.mtl_alpha:
 1.0``). The vocab, manifests, bucketed sampler and loader are the
 port's copies of the JAX package's (``data/``). ``metrics.jsonl`` gets
 the same ``train`` and ``epoch`` lines. The dev evaluation at each
-epoch's end decodes greedily with the port's decoder, whatever
-``decode.method`` says (beam search is not ported yet). Options whose
-code paths are not ported raise and name ROADMAP.md.
+epoch's end follows ``decode.method``, as the JAX trainer's does: the
+batched beam search for ``beam`` / ``ctc_beam``, greedy CTC otherwise.
+Options whose code paths are not ported raise and name ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from gluon_e2e_asr_tpu_torch.data.manifest import (
 )
 from gluon_e2e_asr_tpu_torch.data.sampler import BucketSampler, make_bucket_specs
 from gluon_e2e_asr_tpu_torch.data.tokenizer import build_tokenizer
+from gluon_e2e_asr_tpu_torch.decoding.beam import make_beam_decoder
 from gluon_e2e_asr_tpu_torch.decoding.greedy import ids_to_texts, make_greedy_decoder
 from gluon_e2e_asr_tpu_torch.eval.metrics import cer, wer
 from gluon_e2e_asr_tpu_torch.models.asr import build_model
@@ -169,8 +170,15 @@ class Trainer:
                                         self.device)
         self.train_step = make_train_step(self.model, config, self.optimizer,
                                           self.cmvn_stats)
-        self.greedy = make_greedy_decoder(self.model, config, self.cmvn_stats,
-                                          self.device)
+        # The dev evaluation's decoder follows decode.method (a CTC-only
+        # model with method beam raises here, as in the JAX trainer).
+        self.greedy = self._beam = None
+        if config.decode.method in ("beam", "ctc_beam"):
+            self._beam = make_beam_decoder(self.model, config, self.tokenizer,
+                                           self.cmvn_stats, device=self.device)
+        else:
+            self.greedy = make_greedy_decoder(self.model, config,
+                                              self.cmvn_stats, self.device)
         self.best_wer = float("inf")
 
     def train(self) -> Dict[str, float]:
@@ -282,13 +290,17 @@ class Trainer:
         return path
 
     def evaluate(self) -> Dict[str, float]:
-        """Greedy-decode the dev set and score WER/CER."""
+        """Decode the dev set (beam or greedy, as ``decode.method`` says)
+        and score WER/CER."""
         refs, hyps = [], []
         by_id = {u.utt_id: u for u in self.dev_utts}
         for b in self.dev_loader.epoch(0):
-            ids, lens = self.greedy(b.audio, b.audio_len)
-            texts = ids_to_texts(ids.cpu().numpy(), lens.cpu().numpy(),
-                                 self.tokenizer)
+            if self._beam is not None:
+                texts, _ = self._beam(b.audio, b.audio_len)
+            else:
+                ids, lens = self.greedy(b.audio, b.audio_len)
+                texts = ids_to_texts(ids.cpu().numpy(), lens.cpu().numpy(),
+                                     self.tokenizer)
             for row, utt_id in enumerate(b.utt_ids):
                 refs.append(by_id[utt_id].text)
                 hyps.append(texts[row])

@@ -1,12 +1,14 @@
-"""PyTorch port: the weight bridge, the port's checkpoints and the greedy
-decode CLI on the blessed tiny golden.
+"""PyTorch port: the weight bridge, the port's checkpoints and the decode
+CLI on the blessed tiny golden.
 
 The golden checkpoint (a hybrid model: encoder, CTC head and an
 add-attention decoder) is read through the JAX package's own
 ``restore_checkpoint`` (with the decode CLI's restore template), bridged
 to the port whole, saved with the port's checkpoint module and decoded
-by the port's CLI on the CPU: every hypothesis of ``golden_greedy.jsonl``
-must come back exactly. One run does so in a process where importing jax,
+by the port's CLI on the CPU, greedily and with the batched beam: every
+hypothesis of ``golden_greedy.jsonl`` and ``golden_beam.jsonl`` must come
+back exactly, the beam's scores within 1e-4 (``tools/fidelity_diff.py``'s
+tolerance). One run of each does so in a process where importing jax,
 flax or the JAX package fails.
 """
 
@@ -32,7 +34,8 @@ from gluon_e2e_asr_tpu.training.train_step import (
     create_template_state, make_optimizer)
 from gluon_e2e_asr_tpu.training.trainer import build_datasets as jax_datasets
 from gluon_e2e_asr_tpu_torch import decode
-from gluon_e2e_asr_tpu_torch.bridge import params_from_jax, params_to_jax
+from gluon_e2e_asr_tpu_torch.bridge import (
+    params_from_jax, params_to_jax, read_jax_checkpoint)
 from gluon_e2e_asr_tpu_torch.models.asr import build_model
 from gluon_e2e_asr_tpu_torch.training.checkpoint import (
     restore_checkpoint, save_checkpoint)
@@ -108,6 +111,24 @@ def test_bridge_round_trip_is_bit_exact(golden):
     build_model(config, vocab).load_state_dict(state)
 
 
+def test_jax_checkpoint_reader_matches_flax(golden):
+    """``read_jax_checkpoint`` (the port's own msgpack reader) returns the
+    golden's parameters bit for bit as the JAX package restores them, its
+    cmvn and its sidecar."""
+    params, cmvn, meta = golden
+    got, got_cmvn, got_meta = read_jax_checkpoint(
+        os.path.join(GOLD, "tiny_golden.msgpack"))
+    assert got_meta == meta and got_cmvn is None and cmvn is None
+    flat = jax.tree_util.tree_flatten_with_path(params)[0]
+    assert len(flat) == len(jax.tree_util.tree_leaves(got))
+    for path, leaf in flat:
+        node = got
+        for k in path:
+            node = node[k.key]
+        assert node.dtype == leaf.dtype and node.shape == leaf.shape
+        assert node.tobytes() == np.asarray(leaf).tobytes()
+
+
 @pytest.mark.parametrize("tree,match", [
     ({"encoder": {"l0_in_v": np.zeros(1)}}, "l0_in_v"),
     ({"encoder": {"vgg": {"conv1_1": {}}}}, "vgg"),
@@ -140,8 +161,8 @@ def test_build_datasets_matches_jax():
         assert [u.text for u in ours] == [u.text for u in ref]
 
 
-def _decode_args(ckpt, out):
-    return ["--config", CONFIG, "--ckpt", ckpt, "--method", "greedy",
+def _decode_args(ckpt, out, method="greedy"):
+    return ["--config", CONFIG, "--ckpt", ckpt, "--method", method,
             "--output", str(out), "--device", "cpu"]
 
 
@@ -155,12 +176,22 @@ def test_greedy_decode_reproduces_golden(port_ckpt, tmp_path):
     assert rc == 0, "the port's greedy decode diverged from the golden"
 
 
+def test_beam_decode_reproduces_golden(port_ckpt, tmp_path):
+    out = tmp_path / "beam.jsonl"
+    result = decode.main(_decode_args(port_ckpt, out, "beam"))
+    assert result["num_utts"] == 16 and result["method"] == "beam"
+    assert result["beam_steps_total"] > 0
+    rc = fidelity_diff.main([os.path.join(GOLD, "golden_beam.jsonl"),
+                             str(out)])
+    assert rc == 0, "the port's beam decode diverged from the golden"
+
+
 @pytest.mark.parametrize("method", ["beam", "ctc_beam"])
 def test_beam_methods_are_not_ported_yet(port_ckpt, tmp_path, method):
-    args = _decode_args(port_ckpt, tmp_path / "b.jsonl")
-    args[args.index("greedy")] = method
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode.main(args)
+    """The beams run; their LM shallow fusion is not ported yet."""
+    args = _decode_args(port_ckpt, tmp_path / "b.jsonl", method)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
+        decode.main(args + ["--set", "decode.lm_weight=0.3"])
 
 
 def test_data_parallel_decode_is_not_ported_yet(port_ckpt, tmp_path):
@@ -169,7 +200,9 @@ def test_data_parallel_decode_is_not_ported_yet(port_ckpt, tmp_path):
         decode.main(args + ["--set", "decode.dp=true"])
 
 
-def test_decode_runs_without_jax(port_ckpt, tmp_path):
+def _decode_without_jax(port_ckpt, tmp_path, method, golden):
+    """The decode CLI in a process where importing jax, flax or the JAX
+    package fails; its records against the golden."""
     out = tmp_path / "nojax.jsonl"
     code = (
         "import sys\n"
@@ -179,7 +212,7 @@ def test_decode_runs_without_jax(port_ckpt, tmp_path):
         "import torch\n"
         "torch.set_num_threads(1)\n"
         "from gluon_e2e_asr_tpu_torch import decode\n"
-        f"decode.main({_decode_args(port_ckpt, out)!r})\n"
+        f"decode.main({_decode_args(port_ckpt, out, method)!r})\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
     )
@@ -188,6 +221,13 @@ def test_decode_runs_without_jax(port_ckpt, tmp_path):
                           capture_output=True, text=True, timeout=300,
                           env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    rc = fidelity_diff.main([os.path.join(GOLD, "golden_greedy.jsonl"),
-                             str(out)])
+    rc = fidelity_diff.main([os.path.join(GOLD, golden), str(out)])
     assert rc == 0
+
+
+def test_decode_runs_without_jax(port_ckpt, tmp_path):
+    _decode_without_jax(port_ckpt, tmp_path, "greedy", "golden_greedy.jsonl")
+
+
+def test_beam_decode_runs_without_jax(port_ckpt, tmp_path):
+    _decode_without_jax(port_ckpt, tmp_path, "beam", "golden_beam.jsonl")

@@ -7,7 +7,9 @@ checkpoint) and stops mid-epoch at ``--max-steps``; its checkpoint
 decodes through the port's decode CLI. A hybrid run of the same config
 as shipped (``mtl_alpha`` 0.5, an add-attention decoder) with
 scheduled sampling takes a few steps and logs the attention loss and
-accuracy; so does a dot-attention run. One CTC-only and one hybrid run
+accuracy; so do a dot- and a location-aware run, and a location-aware run
+past an epoch end evaluates with the config's beam. (The CTC-only runs
+evaluate greedily: a model without a decoder has no beam.) One CTC-only and one hybrid run
 happen in a process where importing jax, flax or the JAX package fails.
 """
 
@@ -33,10 +35,13 @@ TRAIN_KEYS = {"event", "step", "epoch", "bucket", "loss", "loss_ctc",
 
 
 def _train_args(workdir, steps, *extra, ctc_only=True):
+    """The CLI's arguments. A CTC-only model has no decoder for the
+    config's beam, so its dev evaluation decodes greedily (the JAX trainer
+    refuses a CTC-only model with decode.method beam, as the port does)."""
     args = ["--config", CONFIG, "--workdir", str(workdir), "--max-steps",
             str(steps), "--device", "cpu", "--set", "train.log_every_steps=1"]
     if ctc_only:
-        args += ["--set", "loss.mtl_alpha=1.0"]
+        args += ["--set", "loss.mtl_alpha=1.0", "--set", "decode.method=greedy"]
     return args + list(extra)
 
 
@@ -89,7 +94,7 @@ def test_checkpoint_decodes_through_the_port(run, tmp_path):
     assert result["num_utts"] == 16
 
 
-@pytest.mark.parametrize("att_type", ["add", "dot"])
+@pytest.mark.parametrize("att_type", ["add", "dot", "loc"])
 def test_hybrid_training_runs(tmp_path, att_type):
     trainer = train.main(_train_args(
         tmp_path, 3, "--set", f"model.att_type={att_type}", "--set",
@@ -105,6 +110,18 @@ def test_hybrid_training_runs(tmp_path, att_type):
     payload = torch.load(tmp_path / trainer.config.train.ckpt_dir / "ckpt_3.pt",
                          weights_only=True)
     assert any(k.startswith("decoder.") for k in payload["params"])
+
+
+def test_hybrid_training_evaluates_with_the_beam(tmp_path):
+    """A location-aware run past one epoch end: the dev evaluation follows
+    the config's decode.method (beam, K=4) and logs WER and CER."""
+    trainer = train.main(_train_args(
+        tmp_path, 4, "--set", "model.att_type=loc", ctc_only=False))
+    assert trainer._beam is not None and trainer.greedy is None
+    with open(tmp_path / "metrics.jsonl") as f:
+        epochs = [r for r in map(json.loads, f) if r["event"] == "epoch"]
+    assert len(epochs) == 1 and epochs[0]["step"] == 4
+    assert 0.0 <= epochs[0]["dev_cer"] and 0.0 <= epochs[0]["dev_wer"]
 
 
 def _train_without_jax(tmp_path, ctc_only):
@@ -147,8 +164,9 @@ def test_hybrid_train_runs_without_jax(tmp_path):
     ("train.ckpt_every_steps=10", "ckpt_every_steps"),
     ("train.profile_dir=prof", "profiling"),
     ("train.optimizer=adadelta", "adadelta"),
-    # Hybrid training is ported; K4's location-aware mode is not.
-    pytest.param("loss.mtl_alpha=0.5,model.att_type=loc", "K4",
+    # Hybrid training is ported in every attention mode; K4 takes one
+    # decoder layer.
+    pytest.param("loss.mtl_alpha=0.5,model.dec_layers=2", "K4",
                  id="loss.mtl_alpha=0.5-K4"),
 ])
 def test_unported_options_raise(tmp_path, override, match):

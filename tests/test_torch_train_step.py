@@ -1,9 +1,10 @@
 """PyTorch port: training steps against the JAX package's
 ``make_train_step`` on the CPU.
 
-A tiny CTC-only config (``loss.mtl_alpha: 1.0``) and a tiny hybrid one
-(``mtl_alpha: 0.3``, a dot-attention decoder with ``dec_impl: pallas``,
-label smoothing 0.1, scheduled sampling 0), f32, SpecAugment masks 0
+A tiny CTC-only config (``loss.mtl_alpha: 1.0``) and tiny hybrid ones
+(``mtl_alpha: 0.3``, a dot-attention, and a location-aware (4 channels, a
+width-7 filter) decoder with ``dec_impl: pallas``, label smoothing 0.1,
+scheduled sampling 0), f32, SpecAugment masks 0
 (the deterministic setup of ``__graft_entry__.py``), the JAX parameters
 bridged into the port and a fresh optimizer state on both sides. The
 JAX model runs ``lstm_impl: pallas`` (``bilstm_fused``, the CTC kernels
@@ -64,6 +65,13 @@ def _hybrid_config():
     c.loss.mtl_alpha = 0.3
     c.loss.label_smoothing = 0.1
     c.loss.scheduled_sampling = 0.0
+    return c
+
+
+def _loc_config():
+    c = _hybrid_config()
+    c.model.att_type = "loc"
+    c.model.loc_conv_channels, c.model.loc_conv_width = 4, 7
     return c
 
 
@@ -148,6 +156,11 @@ def runs():
 @pytest.fixture(scope="module")
 def hybrid_runs():
     return _three_steps(_hybrid_config(), _batch(pad_row=True))
+
+
+@pytest.fixture(scope="module")
+def loc_runs():
+    return _three_steps(_loc_config(), _batch(pad_row=True))
 
 
 def test_loss_and_metrics_match(runs):
@@ -274,14 +287,14 @@ def test_unported_optimizers_raise(optimizer):
 
 
 def test_hybrid_training_raises_naming_k4():
-    """Hybrid training builds the decoder; its configurations that K4 does
-    not take yet (location-aware attention, stacked layers) raise."""
+    """Hybrid training builds the decoder; the configuration that K4 does
+    not take yet (stacked decoder layers) raises, in every attention mode."""
     config = copy.deepcopy(_hybrid_config())
     assert build_model(config, VOCAB, train=True).use_decoder
     assert not build_model(_config(), VOCAB, train=True).use_decoder
-    for field, value in (("att_type", "loc"), ("dec_layers", 2)):
+    for att_type in ("dot", "loc"):
         bad = copy.deepcopy(config)
-        setattr(bad.model, field, value)
+        bad.model.att_type, bad.model.dec_layers = att_type, 2
         with pytest.raises(NotImplementedError, match="K4"):
             build_model(bad, VOCAB, train=True)
         build_model(bad, VOCAB)  # its parameters still load for serving
@@ -372,3 +385,35 @@ def test_encoder_dropout_in_training_raises():
     model = build_model(config, VOCAB, train=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model(torch.zeros(1, 8, 80), torch.tensor([8]), train=True)
+
+
+def test_loc_hybrid_loss_and_metrics_match(loc_runs):
+    m, jm = loc_runs["port_metrics"][0], loc_runs["jax_metrics"][0]
+    np.testing.assert_allclose(m["loss"], loc_runs["jax_loss"], rtol=1e-5)
+    for k in ("loss", "loss_ctc", "loss_att", "att_acc", "num_real"):
+        np.testing.assert_allclose(m[k], jm[k], rtol=1e-5, atol=1e-7, err_msg=k)
+
+
+def test_loc_every_gradient_leaf_matches(loc_runs):
+    """Every leaf, the location filter (through the band) and its
+    projection among them."""
+    grads = loc_runs["port_grads"]
+    assert set(grads) == set(loc_runs["jax_grads"])
+    assert {"decoder.loc_filter", "decoder.loc_proj"} <= set(grads)
+    for k, g in grads.items():
+        np.testing.assert_allclose(g, loc_runs["jax_grads"][k], rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    assert np.abs(grads["decoder.loc_filter"]).max() > 0
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_loc_parameters_after_adam_match(loc_runs, n):
+    """The loc parameters go through clip and Adam like every other leaf."""
+    opt = loc_runs["opt"]
+    atol = 0.01 * sum(opt.lr(i) for i in range(n)) + 1e-7
+    for k, v in loc_runs["port_params"][n - 1].items():
+        np.testing.assert_allclose(v, loc_runs["jax_params"][n - 1][k],
+                                   rtol=0, atol=atol, err_msg=k)
+    moved = np.abs(loc_runs["port_params"][n - 1]["decoder.loc_filter"]
+                   - loc_runs["init"]["decoder.loc_filter"]).max()
+    assert (moved > 0) == (n > 1)
