@@ -7,8 +7,8 @@ each printing JSON lines:
 
 1. device: the card, and ``nvidia-smi``'s name and power limit;
 2. build: every CUDA library of the port's paths (``bilstm_fwd``,
-   ``bilstm_bwd``, ``ctc``, ``las_decoder``) from ``csrc/``, one nvcc
-   each, in parallel;
+   ``bilstm_bwd``, ``ctc``, ``las_decoder``, ``frontend``) from
+   ``csrc/``, one nvcc each, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card,
    within stated tolerances, at the shapes the flagship model
    (``configs/english_flagship.yaml``, the 4.0 s bucket, B=96) gives it:
@@ -19,7 +19,11 @@ each printing JSON lines:
    K4-fwd and K4-bwd in add and loc mode the same way at the shapes of
    the location-aware flagship (``configs/flagship_bf16.yaml``: C=10
    channels of a width-100 filter), every cotangent checked, the
-   filter's through the band; and loc once at bench.py's T'=320;
+   filter's through the band; and loc once at bench.py's T'=320; K5 and
+   K6 (the fused frontend) at milestone 2's two buckets, the flagship's
+   4.0 s bucket and bench.py's shape, in every CMVN mode, eval and train;
+   K7-fwd and K7-bwd (the v1 layer) at the flagship's layer-0 shape in
+   f32 and bf16;
 4. serving slice: a seeded random full-width checkpoint of that model,
    decoded greedily through ``gluon_e2e_asr_tpu_torch.decode.main`` over
    the config's dev set; every kernel must have been launched, and only
@@ -34,7 +38,12 @@ each printing JSON lines:
    (``loss.mtl_alpha=1.0``) of a few steps; the location-aware flagship
    (``flagship_bf16.yaml``) for two epochs, K4 in loc mode on every step
    and each epoch's dev evaluation through the beam as shipped (K=10,
-   ctc_weight 0.3); and a few steps of it with add attention;
+   ctc_weight 0.3); a few steps of it with add attention; milestone 2
+   (``configs/milestone2_fused_frontend.yaml``, K5 on every step and dev
+   batch) for two epochs and a greedy decode of its checkpoint, and a few
+   steps with ``frontend.impl=pallas_regrid`` (K6); the tiny golden
+   decoded greedily through K5 (``golden_greedy.jsonl``, 16/16); and K7's
+   own path, ``bilstm_pallas`` forward and backward;
 7. training reference: one hybrid step of the trained dot and loc models
    (scheduled sampling off) through the kernels and through the plain
    versions on the card (same batch, parameters, optimizer state and
@@ -43,7 +52,9 @@ each printing JSON lines:
 8. training timing: each training kernel against its plain version and
    beside the one PyTorch call that computes the same function where
    there is one (cuDNN's LSTM for K1, ``F.ctc_loss`` for K2/K3), K4 in
-   its three modes, the dot and loc hybrid train steps at the 4.0 s
+   its three modes, K5 and K6 beside the jnp path and ``torch.stft``, K7,
+   the milestone 2 step and its frontend's share, the dot and loc hybrid
+   train steps at the 4.0 s
    bucket and at bench.py's shape (B=96, 12.8 s, 96 labels), and a
    torch.profiler breakdown of both at the latter by kernel;
 9. beam search: the blessed tiny golden (read from its JAX checkpoint
@@ -76,6 +87,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 CONFIG = os.path.join(REPO, "configs", "english_flagship.yaml")
 LOC_CONFIG = os.path.join(REPO, "configs", "flagship_bf16.yaml")
+M2_CONFIG = os.path.join(REPO, "configs", "milestone2_fused_frontend.yaml")
 GOLD = os.path.join(REPO, "tests", "goldens")
 SEED = 0
 BUCKET_SEC = 4.0  # the flagship config's longest bucket
@@ -125,7 +137,18 @@ MIN_ROWS_AGREE_BF16 = 0.9
 # probabilities over tens of steps, the encoder's sums taken in another
 # order on the card) within this.
 TOL_GOLDEN_SCORE = 1e-3
-TRAIN_EPOCHS = 2  # the hybrid slices train this many epochs
+# K5 and K6 against their plain versions: the JAX suite's frontend
+# tolerance (tests/test_pallas_frontend.py; two implementations of true-f32
+# products, log-domain features), |kernel - plain| <= atol + rtol * |plain|;
+# masked cells exactly 0 in both.
+TOL_FE_RTOL, TOL_FE_ATOL = 1e-3, 2e-3
+# K7-fwd and K7-bwd against their plain versions, max abs difference over
+# each output's largest magnitude, as TOL_BWD: the plain backward
+# recomputes the gates from the rounded streams, the kernel reuses the
+# forward's activations (the same values up to the order of the sums).
+TOL_V1 = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_EPOCHS = 2  # the hybrid and milestone 2 slices train this many epochs
+M2_REGRID_STEPS = 5
 CTC_ONLY_STEPS = 5
 ADD_STEPS = 3
 N_BEAM_TIMED = 3
@@ -218,9 +241,10 @@ def synth_batch(batch: int, seconds: float, max_labels: int, seed: int = 0):
 def plain_route():
     """Send CUDA tensors through the plain versions: the reference side of
     this script's comparisons only (the port never does)."""
+    from gluon_e2e_asr_tpu_torch.frontend import fused
     from gluon_e2e_asr_tpu_torch.ops import bilstm, ctc, las_decoder
 
-    mods = (bilstm, ctc, las_decoder)
+    mods = (bilstm, ctc, las_decoder, fused)
     saved = [m._route for m in mods]
     for m in mods:
         m._route = lambda t: "plain"
@@ -236,6 +260,7 @@ ATT_MODES = ("dot", "add", "loc")
 
 def counters():
     """name -> the object whose launches/calls count that version."""
+    from gluon_e2e_asr_tpu_torch.frontend import fused as FE
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
     from gluon_e2e_asr_tpu_torch.ops import ctc as C
     from gluon_e2e_asr_tpu_torch.ops import las_decoder as LD
@@ -245,13 +270,21 @@ def counters():
                "ctc_alpha": C.ctc_alpha_kernel,
                "ctc_beta_post": C.ctc_beta_post_kernel,
                "las_decoder_fwd": LD.las_decoder_fwd_kernel,
-               "las_decoder_bwd": LD.las_decoder_bwd_kernel}
+               "las_decoder_bwd": LD.las_decoder_bwd_kernel,
+               "frontend_k5": FE.compute_features_pallas_kernel,
+               "frontend_k6": FE.compute_features_pallas_regrid_kernel,
+               "bilstm_v1_fwd": K.bilstm_pallas_kernel,
+               "bilstm_v1_bwd": K.bilstm_pallas_bwd_kernel}
     plains = {"bilstm_fwd": K.bilstm_fused_plain,
               "bilstm_bwd": K.bilstm_fused_bwd_plain,
               "ctc_alpha": C._alpha_plain,
               "ctc_beta_post": C._beta_post_plain,
               "las_decoder_fwd": LD.las_decoder_fwd_plain,
-              "las_decoder_bwd": LD.las_decoder_bwd_plain}
+              "las_decoder_bwd": LD.las_decoder_bwd_plain,
+              "frontend_k5": FE.compute_features_pallas_plain,
+              "frontend_k6": FE.compute_features_pallas_regrid_plain,
+              "bilstm_v1_fwd": K.bilstm_pallas_plain,
+              "bilstm_v1_bwd": K.bilstm_pallas_bwd_plain}
     return kernels, plains
 
 
@@ -320,7 +353,7 @@ def main() -> None:
         build_datasets, build_tokenizer)
 
     # 2. build
-    libs = ("bilstm_fwd", "bilstm_bwd", "ctc", "las_decoder")
+    libs = ("bilstm_fwd", "bilstm_bwd", "ctc", "las_decoder", "frontend")
     t0 = time.perf_counter()
     _build.build_all(libs)
     for name in libs:
@@ -367,6 +400,9 @@ def main() -> None:
                  for m in ("add", "loc")}
     check_decoder_kernels(torch, loc_config, dev, "loc",
                           cases=[("bfloat16", 0.0, True)])
+    m2_config = load_config(M2_CONFIG)
+    fe_errs = check_frontend_kernels(torch, m2_config, config, dev)
+    v1_errs = check_v1_kernels(torch, config, shapes[0], dev)
 
     # 4. the slice: a seeded checkpoint through the decode CLI
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -486,53 +522,81 @@ def main() -> None:
     loc_trainer, loc_counts = train_slice(torch, LOC_CONFIG, "train_loc")
     _, add_counts = train_slice(torch, LOC_CONFIG, "train_add", ADD_STEPS,
                                 ["--set", "model.att_type=add"])
+    # the milestone 2 config (K5 on every step and dev batch), a greedy
+    # decode of its checkpoint, a few steps through K6, the tiny golden
+    # through K5, and K7's own path
+    m2_trainer, m2_counts = train_slice(torch, M2_CONFIG, "train_m2",
+                                        ctc_only=True)
+    m2_decode_counts = decode_slice(torch, m2_trainer, M2_CONFIG, "train_m2")
+    _, regrid_counts = train_slice(
+        torch, M2_CONFIG, "train_m2_regrid", M2_REGRID_STEPS,
+        ["--set", "frontend.impl=pallas_regrid"], ctc_only=True, falls=False)
+    golden_greedy(torch)
+    v1_counts = v1_path(torch, shapes[0], config, dev)
     step_errs = train_reference(torch, trainer, dev)
     loc_step_errs = train_reference(torch, loc_trainer, dev)
     train_ms = train_timing(torch, trainer, shapes, dev, card)
     train_ms.update(loc_timing(torch, loc_trainer, dev, card))
     lib_ms = library_timing(torch, config, shapes, dev, card)
+    fe_ms, fe_notes = frontend_timing(torch, m2_trainer, config, dev, card)
+    train_ms.update(fe_ms)
+    train_ms.update(v1_timing(torch, config, shapes[0], dev, card))
     # 9. beam search
     golden_beam(torch)
     beam_timing(torch, loc_trainer, dev, card)
-    bounds = kernel_bounds(config, shapes, dev, loc_config)
+    bounds = kernel_bounds(config, shapes, dev, loc_config, m2_config)
 
     bf16 = [(layer, "bfloat16") for layer, _, _ in shapes]
     timed = {
         "bilstm_fwd": (sum(kernel_ms[k] for k in bf16),
                        sum(plain_ms[k] for k in bf16)),
         **{k: train_ms[k] for k in ("bilstm_bwd", "ctc_alpha", "ctc_beta_post",
-                                     "las_decoder_fwd", "las_decoder_bwd")}}
+                                     "las_decoder_fwd", "las_decoder_bwd",
+                                     "frontend_k5", "frontend_k6",
+                                     "bilstm_v1_fwd", "bilstm_v1_bwd")}}
     errors = {"bilstm_fwd": max(v for k, v in errs.items() if k[1] == "bfloat16"),
               "bilstm_bwd": max(bwd_errs["bilstm_bwd"]),
               "ctc_alpha": bwd_errs["ctc_alpha"],
               "ctc_beta_post": bwd_errs["ctc_beta_post"],
               "las_decoder_fwd": dec_errs["las_decoder_fwd"],
-              "las_decoder_bwd": dec_errs["las_decoder_bwd"]}
+              "las_decoder_bwd": dec_errs["las_decoder_bwd"],
+              **fe_errs, **v1_errs}
     where = {
-        "bilstm_fwd": ("bilstm_fwd.cu", "pallas_lstm.py:411",
+        "bilstm_fwd": ("bilstm_fwd.cu", "ops/pallas_lstm.py:411",
                        "serving form, sum over the flagship's 3 layer shapes, "
                        "bf16, B=96, 4.0 s"),
-        "bilstm_bwd": ("bilstm_bwd.cu", "pallas_lstm.py:484",
+        "bilstm_bwd": ("bilstm_bwd.cu", "ops/pallas_lstm.py:484",
                        "sum over the flagship's 3 layer shapes, bf16, B=96, "
                        "4.0 s; error: max abs over dx, dW_x, db, dW_h"),
-        "ctc_alpha": ("ctc.cu", "pallas_ctc.py:55",
+        "ctc_alpha": ("ctc.cu", "ops/pallas_ctc.py:55",
                       "T=100, B=96, S of a 4.0 s training batch; error over "
                       "live cells"),
-        "ctc_beta_post": ("ctc.cu", "pallas_ctc.py:81",
+        "ctc_beta_post": ("ctc.cu", "ops/pallas_ctc.py:81",
                           "T=100, B=96, S of a 4.0 s training batch"),
-        "las_decoder_fwd": ("las_decoder.cu", "pallas_decoder.py:161",
+        "las_decoder_fwd": ("las_decoder.cu", "ops/pallas_decoder.py:161",
                             "dot attention, bf16, B=96, T'=100, L=81 (the 4.0 s "
                             "bucket's label budget + 1); error: logits, coins "
                             "off"),
-        "las_decoder_bwd": ("las_decoder.cu", "pallas_decoder.py:462",
+        "las_decoder_bwd": ("las_decoder.cu", "ops/pallas_decoder.py:462",
                             "as K4-fwd; error: max abs over every cotangent"),
+        "frontend_k5": ("frontend.cu", "frontend/pallas_frontend.py:56",
+                        "impl pallas, cmvn utterance (milestone 2), eval, B=16, "
+                        "4.0 s bucket; error: max abs over every shape, CMVN "
+                        "mode, eval and train"),
+        "frontend_k6": ("frontend.cu", "frontend/pallas_frontend.py:181",
+                        "impl pallas_regrid, as K5"),
+        "bilstm_v1_fwd": ("bilstm_fwd.cu", "ops/pallas_lstm.py:77",
+                          "the flagship's layer-0 shape, bf16 streams and "
+                          "products, B=96, T=398, H=320; error: max abs of h"),
+        "bilstm_v1_bwd": ("bilstm_bwd.cu", "ops/pallas_lstm.py:102",
+                          "as K7-fwd; error: max abs over d(xg), dW_h"),
     }
     # K4's add and loc modes: one row each, at flagship_bf16's 4.0 s bucket;
     # launches from the loc and add training slices.
     launches = dict(train_counts)
     for m, counts in (("add", add_counts), ("loc", loc_counts)):
-        for d, tpu in (("fwd", "pallas_decoder.py:161"),
-                       ("bwd", "pallas_decoder.py:462")):
+        for d, tpu in (("fwd", "ops/pallas_decoder.py:161"),
+                       ("bwd", "ops/pallas_decoder.py:462")):
             name = f"las_decoder_{d}_{m}"
             where[name] = ("las_decoder.cu", tpu,
                            f"{m} attention, flagship_bf16, bf16, B=96, T'=100; "
@@ -542,19 +606,29 @@ def main() -> None:
             timed[name] = train_ms[name]
             errors[name] = mode_errs[m][f"las_decoder_{d}"]
             launches[name] = counts[name]
+    # K5 from the milestone 2 slice, K6 from its pallas_regrid steps, K7
+    # from its own path
+    launches["frontend_k5"] = m2_counts["frontend_k5"]
+    launches["frontend_k6"] = regrid_counts["frontend_k6"]
+    for name in ("bilstm_v1_fwd", "bilstm_v1_bwd"):
+        launches[name] = v1_counts[name]
     rows = []
     for name, (src, tpu, at) in where.items():
         bound_ms, bound_by = bounds[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"gluon_e2e_asr_tpu_torch/csrc/{src}",
-            "replaces": f"gluon_e2e_asr_tpu/ops/{tpu}",
+            "replaces": f"gluon_e2e_asr_tpu/{tpu}",
             "launches": launches[name], "max_abs_err": errors[name],
             "ms": timed[name][0], "plain_ms": timed[name][1],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms.get(name), "at": at,
             "ctc_only_launches": ctc_counts.get(name, 0)})
+        if name in fe_notes:
+            rows[-1]["library_note"] = fe_notes[name]
     rows[0]["decode_launches"] = decode_launches
+    next(r for r in rows if r["name"] == "frontend_k5")["decode_launches"] = \
+        m2_decode_counts["frontend_k5"]
     emit({"kernels": rows, "train_step": step_errs,
           "train_step_loc": loc_step_errs,
           "seconds": round(time.perf_counter() - T_START, 1)})
@@ -752,6 +826,259 @@ def check_decoder_kernels(torch, config, dev, kind="dot", cases=None):
     return errs
 
 
+def frontend_cases(m2_config, config):
+    """(name, frontend config, batch, seconds): the shapes K5 and K6 are
+    held and timed at: milestone 2's two buckets (B=16), the flagship's
+    4.0 s bucket (B=96) and bench.py's shape (B=96, 12.8 s)."""
+    return [("milestone2 2.0 s", m2_config.frontend, 16, 2.0),
+            ("milestone2 4.0 s", m2_config.frontend, 16, 4.0),
+            ("flagship 4.0 s", config.frontend, 96, BUCKET_SEC),
+            ("bench.py", config.frontend, 96, BENCH_SEC)]
+
+
+def frontend_audio(torch, batch, seconds, dev):
+    """bench.py's seeded batch (rows from half to all of ``seconds``)."""
+    sb = synth_batch(batch, seconds, 1, SEED)
+    return (torch.from_numpy(sb["audio"]).to(dev),
+            torch.from_numpy(sb["audio_len"]).to(dev))
+
+
+def batch_cmvn_stats(torch, fc, audio, audio_len):
+    """Global CMVN stats from the batch itself: (mean, std) of the raw
+    log-mel over every valid frame (the JAX compute_global_cmvn)."""
+    from gluon_e2e_asr_tpu_torch.frontend.features import (
+        log_mel_spectrogram, num_frames)
+
+    raw = log_mel_spectrogram(audio, fc)
+    flen = num_frames(audio_len, fc.win_length, fc.hop_length)
+    mask = (torch.arange(raw.shape[1], device=raw.device)[None, :]
+            < flen[:, None]).float()[..., None]
+    n = mask.sum().clamp(min=1.0)
+    mean = (raw * mask).sum((0, 1)) / n
+    var = ((raw - mean) ** 2 * mask).sum((0, 1)) / n
+    return mean, torch.sqrt(var + 1e-10)
+
+
+def masked_cells(torch, fc, feat_len, F, draws):
+    """[B,F,M] bool: the cells the frontend must zero, frames at or past
+    feat_len and, with ``draws``, SpecAugment's masks. (Elsewhere a value
+    may be 0 in one version only: a global-CMVN cell whose log-mel equals
+    the mean to the last bit in one and not the other.)"""
+    from gluon_e2e_asr_tpu_torch.frontend.features import spec_augment
+
+    B = feat_len.shape[0]
+    keep = (torch.arange(F, device=feat_len.device)[None, :]
+            < feat_len[:, None])[..., None].expand(B, F, fc.n_mels).float()
+    if draws is not None:
+        keep = spec_augment(keep, feat_len, draws, fc.specaug_time_width)
+    return keep == 0
+
+
+def check_frontend_kernels(torch, m2_config, config, dev):
+    """Phase 3, K5 and K6 against their plain versions at every shape of
+    frontend_cases, each CMVN mode (utterance, global with the batch's
+    own stats, none), eval and train (the same SpecAugment draws on both
+    sides), rows of different lengths: |kernel - plain| within TOL_FE
+    and the masked cells exactly 0 in both. Returns each kernel's max abs
+    error over all of them."""
+    from gluon_e2e_asr_tpu_torch.frontend import fused as FE
+    from gluon_e2e_asr_tpu_torch.frontend.features import (
+        draw_spec_augment, num_frames)
+
+    errs = {"frontend_k5": 0.0, "frontend_k6": 0.0}
+    pairs = {"frontend_k5": (FE.compute_features_pallas_kernel,
+                             FE.compute_features_pallas_plain),
+             "frontend_k6": (FE.compute_features_pallas_regrid_kernel,
+                             FE.compute_features_pallas_regrid_plain)}
+    for case, fc0, B, sec in frontend_cases(m2_config, config):
+        audio, alen = frontend_audio(torch, B, sec, dev)
+        F = num_frames(audio.shape[1], fc0.win_length, fc0.hop_length)
+        rec = {"phase": "kernel_check", "kernel": "frontend_k5+frontend_k6",
+               "shape": case, "B": B, "samples": int(audio.shape[1]), "F": F,
+               "tol": {"rtol": TOL_FE_RTOL, "atol": TOL_FE_ATOL}, "cases": []}
+        for cmvn in ("utterance", "global", "none"):
+            fc = copy.deepcopy(fc0)
+            fc.cmvn = cmvn
+            stats = batch_cmvn_stats(torch, fc, audio, alen) \
+                if cmvn == "global" else None
+            for train in (False, True):
+                draws = draw_spec_augment(
+                    fc, B, F, torch.Generator().manual_seed(SEED), dev) \
+                    if train else None
+                for name, (kernel, plain) in pairs.items():
+                    kw = dict(train=train, spec_draws=draws, cmvn_stats=stats)
+                    got, got_len = kernel(fc, audio, alen, **kw)
+                    ref, ref_len = plain(fc, audio, alen, **kw)
+                    torch.cuda.synchronize()
+                    diff = (got - ref).abs()
+                    over = float((diff - TOL_FE_RTOL * ref.abs()).max())
+                    mask = masked_cells(torch, fc, ref_len, F, draws)
+                    zeros = not bool(got[mask].any() or ref[mask].any())
+                    err = float(diff.max())
+                    errs[name] = max(errs[name], err)
+                    rec["cases"].append({
+                        "kernel": name, "cmvn": cmvn, "train": train,
+                        "max_abs_err": err, "masked_cells_zero": zeros,
+                        "masked_share": float(mask.float().mean())})
+                    check(bool(torch.isfinite(got).all()) and zeros
+                          and over <= TOL_FE_ATOL
+                          and torch.equal(got_len, ref_len),
+                          f"{name} disagrees with its plain version at {case}, "
+                          f"cmvn {cmvn}, train {train}: max abs {err}, masked "
+                          f"cells zero {zeros}")
+        emit(rec)
+    return errs
+
+
+def v1_case(torch, config, shape, dev, cd_name):
+    """K7's inputs at one layer shape of ``config``: the projections of
+    layer_inputs (x . w_x + b_x, split by direction) in the stream dtype
+    ``cd_name``, lens, W_h, and a seeded cotangent."""
+    layer, T, D = shape
+    H, B = config.model.enc_hidden, config.data.batch_size
+    x, lens, w_x, b_x, w_hf, w_hb = layer_inputs(torch, B, T, D, H, layer, dev)
+    cd = getattr(torch, cd_name)
+    xg = torch.matmul(x, w_x) + b_x
+    xg_f = xg[..., :4 * H].contiguous().to(cd)
+    xg_b = xg[..., 4 * H:].contiguous().to(cd)
+    dy = layer_cotangent(torch, B, T, H, layer, dev).to(cd)
+    return (xg_f, xg_b, lens, w_hf, w_hb), dy, cd
+
+
+def check_v1_kernels(torch, config, shape, dev):
+    """Phase 3, K7-fwd (h and c streams) and K7-bwd (d(xg) of both
+    directions, dW_h of both) against their plain versions at the
+    flagship's layer-0 shape, f32 and bf16. Returns the bf16 max abs
+    errors."""
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    errs = {}
+    for cd_name in ("float32", "bfloat16"):
+        args, dy, cd = v1_case(torch, config, shape, dev, cd_name)
+        y, c, acts = K.bilstm_pallas_kernel(*args, cd, with_cell=True)
+        yp, cp = K.bilstm_pallas_plain(*args, cd, with_cell=True)
+        got = K.bilstm_pallas_bwd_kernel(args[2], args[3], args[4], y, c, acts,
+                                         dy, cd, cd)
+        ref = K.bilstm_pallas_bwd_plain(*args, yp, cp, dy, cd)
+        torch.cuda.synchronize()
+        outs = {"h": (y, yp), "c": (c, cp)}
+        outs.update(zip(("dxg_f", "dxg_b", "dw_hf", "dw_hb"), zip(got, ref)))
+        rel = {k: rel_err(a.float(), b.float()) for k, (a, b) in outs.items()}
+        absd = {k: float((a.float() - b.float()).abs().max())
+                for k, (a, b) in outs.items()}
+        finite = all(bool(torch.isfinite(a).all()) for a, _ in outs.values())
+        emit({"phase": "kernel_check", "kernel": "bilstm_v1_fwd+bwd",
+              "B": int(y.shape[0]), "T": int(y.shape[1]),
+              "H": int(y.shape[2] // 2), "dtype": cd_name, "rel_err": rel,
+              "max_abs_err": absd, "tol_rel": TOL_V1[cd_name],
+              "finite": finite})
+        check(finite and max(rel.values()) <= TOL_V1[cd_name],
+              f"bilstm_v1 disagrees with its plain version ({cd_name}): {rel}")
+        if cd_name == "bfloat16":
+            errs["bilstm_v1_fwd"] = absd["h"]
+            errs["bilstm_v1_bwd"] = max(absd[k] for k in
+                                        ("dxg_f", "dxg_b", "dw_hf", "dw_hb"))
+    return errs
+
+
+def v1_path(torch, shape, config, dev):
+    """K7's own path (as in JAX, no model calls the v1 layer): the public
+    ``bilstm_pallas`` forward and, through autograd, backward at the
+    flagship's layer-0 shape in bf16, the counts reset just before and read
+    just after: one launch of each kernel, no plain call, finite
+    gradients."""
+    from gluon_e2e_asr_tpu_torch.ops.bilstm import bilstm_pallas
+
+    args, dy, cd = v1_case(torch, config, shape, dev, "bfloat16")
+    xg_f, xg_b, lens, w_hf, w_hb = args
+    leaves = [t.detach().requires_grad_(True) for t in (xg_f, xg_b, w_hf, w_hb)]
+    reset_counts()
+    out = bilstm_pallas(leaves[0], leaves[1], lens, leaves[2], leaves[3], cd)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    finite = bool(torch.isfinite(out).all()) and all(
+        bool(torch.isfinite(t.grad).all()) for t in leaves)
+    emit({"phase": "v1_path", "B": int(out.shape[0]), "T": int(out.shape[1]),
+          "out_dtype": str(out.dtype), "launches": launches,
+          "plain_calls": plain, "finite": finite})
+    check(launches["bilstm_v1_fwd"] == 1 and launches["bilstm_v1_bwd"] == 1,
+          f"the v1 path launched {launches}")
+    check(not any(plain.values()), f"plain versions ran on the v1 path: {plain}")
+    check(finite and out.dtype == cd, "the v1 path's output or gradients")
+    return launches
+
+
+def decode_slice(torch, trainer, path, name):
+    """A greedy decode of the last checkpoint of ``trainer``'s run (of the
+    config at ``path``, in OUT_DIR/``name``) through the decode CLI on the
+    card: the frontend kernel of its config on every batch (and warm
+    pass), no plain version, a hypothesis per dev utterance."""
+    from gluon_e2e_asr_tpu_torch import decode
+
+    config, steps = trainer.config, trainer.state.step
+    workdir = os.path.join(OUT_DIR, name)
+    ckpt = os.path.join(workdir, config.train.ckpt_dir, f"ckpt_{steps}.pt")
+    out = os.path.join(workdir, "decode.jsonl")
+    impl = config.frontend.impl
+    reset_counts()
+    result = decode.main(["--config", path, "--ckpt", ckpt,
+                          "--method", "greedy", "--output", out,
+                          "--device", "cuda"])
+    launches, plain = read_counts()
+    with open(out) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    batches = result["num_batches"] + result["warm_passes"]
+    emit({"phase": "decode_slice", "config": os.path.relpath(path, REPO),
+          "checkpoint": os.path.relpath(ckpt, REPO), "frontend_impl": impl,
+          "decode_done": result, "launches": launches, "plain_calls": plain,
+          "records": len(recs)})
+    key = {"pallas": "frontend_k5", "pallas_regrid": "frontend_k6"}[impl]
+    check(launches[key] == batches,
+          f"{key} launched {launches[key]} times in the decode, expected {batches}")
+    check(launches["bilstm_fwd"] == config.model.enc_layers * batches,
+          f"bilstm_fwd launched {launches['bilstm_fwd']} times in the decode")
+    check(not any(plain.values()), f"plain versions ran in the decode: {plain}")
+    check(result["num_utts"] == len(recs) > 0
+          and all(isinstance(r["hyp"], str) for r in recs),
+          "the decode wrote no hypothesis per utterance")
+    return launches
+
+
+def golden_greedy(torch, impl="pallas"):
+    """The blessed tiny golden decoded greedily on the card with
+    ``frontend.impl`` ``impl`` (K5): every hypothesis of
+    golden_greedy.jsonl."""
+    from gluon_e2e_asr_tpu_torch import decode
+    from gluon_e2e_asr_tpu_torch.bridge import params_from_jax, read_jax_checkpoint
+    from gluon_e2e_asr_tpu_torch.training.checkpoint import save_checkpoint
+
+    params, cmvn, meta = read_jax_checkpoint(
+        os.path.join(GOLD, "tiny_golden.msgpack"))
+    ckpt = save_checkpoint(os.path.join(OUT_DIR, "golden_greedy.pt"),
+                           params_from_jax(params), meta, cmvn)
+    out = os.path.join(OUT_DIR, f"golden_greedy_{impl}.jsonl")
+    reset_counts()
+    result = decode.main(["--config", os.path.join(GOLD, "tiny_golden.yaml"),
+                          "--ckpt", ckpt, "--method", "greedy", "--output", out,
+                          "--set", f"frontend.impl={impl}", "--device", "cuda"])
+    launches, plain = read_counts()
+
+    def hyps(path):
+        with open(path) as f:
+            return {r["utt_id"]: r["hyp"] for r in map(json.loads, f)}
+
+    gold, got = hyps(os.path.join(GOLD, "golden_greedy.jsonl")), hyps(out)
+    same = [u for u in gold if got.get(u) == gold[u]]
+    emit({"phase": "golden_greedy", "frontend_impl": impl,
+          "decode_done": result, "hypotheses": len(gold),
+          "identical": len(same), "launches": launches, "plain_calls": plain})
+    check(len(got) == len(gold) == len(same) == 16,
+          f"golden greedy ({impl}): {len(same)} of {len(gold)} identical")
+    check(launches["frontend_k5"] > 0 and not any(plain.values()),
+          f"golden greedy ({impl}): launches {launches}, plain {plain}")
+
+
 def check_training_kernels(torch, config, shapes, dev):
     """Phase 3, the training kernels: K1-fwd's training form and K1-bwd at
     the flagship's layer shapes, K2 and K3 on a real batch's lattice."""
@@ -848,7 +1175,8 @@ def epoch_steps(config, epochs: int) -> int:
     return sum(len(list(sampler.epoch_batches(e))) for e in range(epochs))
 
 
-def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False):
+def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
+                falls=True):
     """Phase 6: the training CLI at full width on the config at ``path``
     as shipped (only ``train.dp=false`` and a train line every step, and
     ``extra`` overrides), for ``steps`` steps or TRAIN_EPOCHS epochs:
@@ -856,7 +1184,10 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False):
     on every step) and no plain version; with ``ctc_only``,
     ``loss.mtl_alpha=1.0`` and a greedy dev evaluation (a model without a
     decoder has no beam), and K4 not launched. Each epoch's dev evaluation
-    decodes as the config's ``decode.method`` says."""
+    decodes as the config's ``decode.method`` says. The frontend kernel
+    of the config's ``frontend.impl`` (K5 for pallas, K6 for
+    pallas_regrid, none for jnp) runs on every step and dev batch. With
+    ``falls``, the loss must fall."""
     from gluon_e2e_asr_tpu_torch import train
     from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
 
@@ -894,6 +1225,11 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False):
     for k in ("las_decoder_fwd", "las_decoder_bwd"):
         for m in ATT_MODES:
             expect[f"{k}_{m}"] = dec if m == kind else 0
+    fe = steps + dev_batches * len(epochs)
+    impl = config.frontend.impl
+    expect.update(frontend_k5=fe if impl == "pallas" else 0,
+                  frontend_k6=fe if impl == "pallas_regrid" else 0,
+                  bilstm_v1_fwd=0, bilstm_v1_bwd=0)
     ckpt = os.path.join(workdir, config.train.ckpt_dir, f"ckpt_{steps}.pt")
     k = min(5, max(1, steps // 2))
     first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
@@ -903,6 +1239,7 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False):
                   else {"method": "greedy"})
     emit({"phase": "train_slice", "config": os.path.relpath(path, REPO),
           "name": name, "objective": "ctc" if ctc_only else "hybrid",
+          "frontend_impl": impl,
           "att_type": kind, "mtl_alpha": trainer.config.loss.mtl_alpha,
           "scheduled_sampling": trainer.config.loss.scheduled_sampling,
           "steps": trainer.state.step,
@@ -924,7 +1261,8 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False):
     check(launches == expect, f"training launches {launches}, expected {expect}")
     check(not any(plain.values()), f"plain versions ran in training: {plain}")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
-    check(last < first, f"the loss did not fall: first {first}, last {last}")
+    check(last < first or not falls,
+          f"the loss did not fall: first {first}, last {last}")
     if not ctc_only:
         check(all(r["loss_att"] > 0 and 0.0 <= r["att_acc"] <= 1.0
                   for r in train_lines), "loss_att / att_acc not logged")
@@ -1263,6 +1601,97 @@ def beam_timing(torch, trainer, dev, card):
           "the beam decode returned no hypothesis or a non-finite score")
 
 
+def frontend_timing(torch, m2_trainer, config, dev, card):
+    """Phase 8 for the frontend: at each shape of frontend_cases (cmvn
+    utterance, eval), K5 and K6 against their plain versions, which are
+    the ``impl: jnp`` path (cuBLAS f32 products), and torch.stft (cuFFT)
+    for the STFT alone; no one PyTorch call computes log-mel. Then the
+    milestone 2 train step at its 4.0 s bucket, through K5, and the
+    frontend's share of it. Returns (name -> (kernel ms, plain ms) at
+    milestone 2's 4.0 s bucket, name -> library note)."""
+    from gluon_e2e_asr_tpu_torch.frontend import fused as FE
+    from gluon_e2e_asr_tpu_torch.frontend.features import (
+        draw_spec_augment, frontend_apply, num_frames)
+    from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
+
+    m2_config = m2_trainer.config
+    out, notes = {}, {}
+    for case, fc, B, sec in frontend_cases(m2_config, config):
+        audio, alen = frontend_audio(torch, B, sec, dev)
+        k5 = time_ms(torch, lambda: FE.compute_features_pallas_kernel(fc, audio, alen))
+        k6 = time_ms(torch, lambda: FE.compute_features_pallas_regrid_kernel(
+            fc, audio, alen))
+        p5 = time_ms(torch, lambda: FE.compute_features_pallas_plain(fc, audio, alen))
+        p6 = time_ms(torch, lambda: FE.compute_features_pallas_regrid_plain(
+            fc, audio, alen))
+        window = torch.hann_window(fc.win_length, periodic=True, device=dev)
+        stft = time_ms(torch, lambda: torch.stft(
+            audio, fc.n_fft, fc.hop_length, fc.win_length, window,
+            center=False, return_complex=True))
+        F = num_frames(audio.shape[1], fc.win_length, fc.hop_length)
+        emit({"phase": "timing", "what": "frontend", "shape": case, "B": B,
+              "samples": int(audio.shape[1]), "F": F, "cmvn": fc.cmvn,
+              "k5_kernel_ms": k5, "k6_kernel_ms": k6, "k5_plain_ms": p5,
+              "k6_plain_ms": p6, "plain_is": "the impl: jnp path",
+              "torch_stft_ms": stft, "card": card})
+        if case == "milestone2 4.0 s":
+            out["frontend_k5"], out["frontend_k6"] = (k5, p5), (k6, p6)
+            for name in ("frontend_k5", "frontend_k6"):
+                notes[name] = (f"no single PyTorch call computes log-mel; the "
+                               f"jnp path (cuBLAS f32) {p5 if name == 'frontend_k5' else p6} ms, "
+                               f"torch.stft (cuFFT, the STFT alone) {stft} ms")
+
+    b4 = bucket_batch(torch, m2_config)[0]
+    batch4 = batch_to_device(b4, dev)
+    step = stepper(torch, m2_trainer, dev)
+    step_ms = time_ms(torch, lambda: step(batch4))
+    fc = m2_config.frontend
+    F = num_frames(b4.audio.shape[1], fc.win_length, fc.hop_length)
+    draws = draw_spec_augment(fc, b4.audio.shape[0], F,
+                              torch.Generator().manual_seed(SEED), dev)
+    fe_ms = time_ms(torch, lambda: frontend_apply(
+        fc, batch4["audio"], batch4["audio_len"], train=True, spec_draws=draws))
+    emit({"phase": "timing", "what": "train_step", "config": "milestone2",
+          "shape": "4.0 s bucket", "B": int(b4.audio.shape[0]),
+          "samples": int(b4.audio.shape[1]), "frontend_impl": fc.impl,
+          "kernel_ms": step_ms, "frontend_train_ms": fe_ms,
+          "frontend_share": fe_ms / step_ms,
+          "utt_per_s": b4.num_real / (step_ms / 1e3), "card": card})
+    return out, notes
+
+
+def v1_timing(torch, config, shape, dev, card):
+    """Phase 8 for K7 at the flagship's layer-0 shape, bf16 and f32: the
+    forward's training form and the backward against their plain
+    versions. Returns the bf16 (kernel ms, plain ms) of each."""
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    out = {}
+    for cd_name in ("float32", "bfloat16"):
+        args, dy, cd = v1_case(torch, config, shape, dev, cd_name)
+        y, c, acts = K.bilstm_pallas_kernel(*args, cd, with_cell=True)
+        yp, cp = K.bilstm_pallas_plain(*args, cd, with_cell=True)
+        f = (time_ms(torch, lambda: K.bilstm_pallas_kernel(*args, cd,
+                                                           with_cell=True)),
+             time_ms(torch, lambda: K.bilstm_pallas_plain(*args, cd,
+                                                          with_cell=True),
+                     n=5, warm=1))
+        b = (time_ms(torch, lambda: K.bilstm_pallas_bwd_kernel(
+                args[2], args[3], args[4], y, c, acts, dy, cd, cd)),
+             time_ms(torch, lambda: K.bilstm_pallas_bwd_plain(
+                *args, yp, cp, dy, cd), n=5, warm=1))
+        for d, (k_ms, p_ms) in (("fwd", f), ("bwd", b)):
+            emit({"phase": "timing", "what": f"bilstm_v1_{d}",
+                  "B": int(y.shape[0]), "T": int(y.shape[1]),
+                  "H": int(y.shape[2] // 2), "dtype": cd_name,
+                  "kernel_ms": k_ms, "plain_ms": p_ms, "plain_runs": 5,
+                  "card": card})
+            if cd_name == "bfloat16":
+                out[f"bilstm_v1_{d}"] = (k_ms, p_ms)
+        del y, c, acts, yp, cp
+    return out
+
+
 def library_timing(torch, config, shapes, dev, card):
     """The one PyTorch call that computes each kernel's function, timed on
     the same inputs beside it and never called by the port: cuDNN's
@@ -1403,7 +1832,7 @@ def k4_bounds(torch, config, att):
                    e_bwd * frames * A + 2 * conv))
 
 
-def kernel_bounds(config, shapes, dev, loc_config):
+def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     """name -> (bound_ms, bound_by): the least time the card could take
     for each timed call, from this run's inputs: the operations over the
     peak rate of their type (bf16 products for K1 and K4; f32 for the CTC
@@ -1421,7 +1850,17 @@ def kernel_bounds(config, shapes, dev, loc_config):
     timed: y only). K4's add and loc modes (at ``loc_config``'s shapes) add
     their energies and location convolution as f32 work on the CUDA cores
     (67 TFLOP/s, counting a tanh as one operation; see k4_bounds) to the
-    bf16 products' time, and the loc backward writes its dfct stream."""
+    bf16 products' time, and the loc backward writes its dfct stream.
+
+    K5 and K6 (at milestone 2's 4.0 s bucket, B=16, as timed): the f32
+    products on the CUDA cores for every valid frame (the DFT, 2 * win *
+    2 * n_freq, and the mel, 2 * n_freq * n_mels; a tile past a row's
+    length computes nothing), against the audio in, the features out and
+    the two constant matrices. K7 (the flagship's layer 0, bf16 as timed):
+    the recurrent products of the valid frames, forward h . W_h per
+    direction, backward dg . W_h^T and h^T . dg; the projections in and
+    the streams out (the backward: projections, h, c and dy in, d(xg) and
+    dW_h out)."""
     import torch
 
     H, B = config.model.enc_hidden, config.data.batch_size
@@ -1455,6 +1894,33 @@ def kernel_bounds(config, shapes, dev, loc_config):
     out["ctc_beta_post"] = _bound(12 * live, PEAK_F32, 3 * table + masks + f4 * Bc)
 
     out["las_decoder_fwd"], out["las_decoder_bwd"] = k4_bounds(torch, config, "dot")
+
+    from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
+    _, fc, Bf, sec = frontend_cases(m2_config, config)[1]
+    sb = synth_batch(Bf, sec, 1, SEED)
+    S = sb["audio"].shape[1]
+    F = num_frames(S, fc.win_length, fc.hop_length)
+    n_freq = fc.n_fft // 2 + 1
+    valid = float(num_frames(torch.from_numpy(sb["audio_len"]), fc.win_length,
+                             fc.hop_length).sum())
+    fe_ops = valid * (2.0 * fc.win_length * 2 * n_freq + 2.0 * n_freq * fc.n_mels)
+    fe_bytes = f4 * (Bf * S + Bf * F * fc.n_mels + fc.win_length * 2 * n_freq
+                     + n_freq * fc.n_mels) + 4 * Bf
+    out["frontend_k5"] = out["frontend_k6"] = _bound(0.0, PEAK_BF16, fe_bytes,
+                                                     fe_ops)
+
+    layer, T, D = shapes[0]
+    lens = layer_inputs(torch, B, T, D, H, layer, "cpu")[1]
+    frames = float(lens.sum())
+    v1_ops = 2 * 2.0 * frames * H * 4 * H  # both directions
+    w_bytes = cd * 2 * H * 4 * H
+    xg_in = cd * frames * 8 * H
+    streams = cd * B * T * 2 * H  # one [B,T,2H] stream in xg's dtype
+    out["bilstm_v1_fwd"] = _bound(v1_ops, PEAK_BF16,
+                                  xg_in + w_bytes + 4 * B + 2 * streams)
+    out["bilstm_v1_bwd"] = _bound(2 * v1_ops, PEAK_BF16,
+                                  xg_in + w_bytes + 4 * B + 3 * cd * frames * 2 * H
+                                  + cd * B * T * 8 * H + f4 * 2 * H * 4 * H)
     for att in ("add", "loc"):
         out[f"las_decoder_fwd_{att}"], out[f"las_decoder_bwd_{att}"] = \
             k4_bounds(torch, loc_config, att)

@@ -300,6 +300,49 @@ extern "C" int bilstm_bwd(const float* x, const int* lens, const float* wx,
   return (int)cudaGetLastError();
 }
 
+// K7-bwd: the VJP of the v1 layer (gluon_e2e_asr_tpu/ops/pallas_lstm.py::
+// bilstm_pallas -> _bilstm_vjp_bwd -> pl.pallas_call -> _bwd_kernel):
+// bwd_recur_kernel and the two dW_h products, without K1's projection
+// products. y, cs and acts come from bilstm_v1_fwd's training form, y and
+// cs rounded as the TPU kernel's streams in xg's dtype (the recurrence
+// then reads the rounded c, as _bwd_kernel does). The TPU kernel
+// recomputes the gate activations from xg and the rounded h stream; that
+// recompute is the forward's own product of the same rounded h, so the
+// saved activations are the same values (up to the order of the sums).
+// dg [B,T,8H] f32 receives d(xg) of both directions (forward at columns
+// 0..4H); dwhf, dwhb [H,4H] f32. Returns cudaGetLastError().
+extern "C" int bilstm_v1_bwd(const int* lens, const void* wtf,
+                             const void* wtb, const float* y, const float* cs,
+                             const float* acts, const float* dy, float* dg,
+                             float* dwhf, float* dwhb, int B, int T, int H,
+                             int cd_bf16, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || H > 1024) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * T;
+  const int N8 = 8 * H, N4 = 4 * H;
+  const bool bf16 = cd_bf16 != 0;
+  cudaError_t e = bf16
+      ? launch_bwd_recur<__nv_bfloat16>(dy, lens, acts, cs, wtf, wtb, dg, B,
+                                        T, H, 1, st)
+      : launch_bwd_recur<float>(dy, lens, acts, cs, wtf, wtb, dg, B, T, H, 0,
+                                st);
+  if (e != cudaSuccess) return (int)e;
+  const size_t f = sizeof(float);
+  if ((e = cudaMemsetAsync(dwhf, 0, f * H * N4, st)) != cudaSuccess) return (int)e;
+  if ((e = cudaMemsetAsync(dwhb, 0, f * H * N4, st)) != cudaSuccess) return (int)e;
+  for (int dir = 0; dir < 2; ++dir) {
+    const float* dgd = dg + dir * N4;
+    e = gemm::launch(HPrevT{y, T, H, M, dir, gemm::vec_ok(y + dir * H, 2 * H)},
+                     gemm::RowMajor{dgd, N8, M, N4, gemm::vec_ok(dgd, N8)},
+                     gemm::AtomicAdd{dir ? dwhb : dwhf, N4}, H, N4, M,
+                     gemm::split_k(H, N4, M), bf16, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
+
 extern "C" const char* bilstm_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

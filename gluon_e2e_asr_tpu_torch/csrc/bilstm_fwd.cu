@@ -23,6 +23,12 @@
 // layer at the 4.0 s bucket, B=96, T=398, H=320). Serving passes a null
 // c output and runs exactly the kernel it ran before.
 //
+// K7-fwd (bilstm_v1_fwd below, the v1 layer of pallas_lstm.py::bilstm_pallas)
+// is recur_kernel alone, reading the caller's projections xg_f, xg_b
+// [B,T,4H] (f32 or bf16) instead of K1's xg buffer, and writing the
+// activations to a buffer of its own; its h and c streams may be rounded
+// to bf16, as the TPU kernel emits them in xg's dtype.
+//
 // Two kernels on the caller's stream, no allocation, no synchronisation:
 //
 //   (a) the projection, a tiled shared-memory GEMM (128x128 tile) that
@@ -303,29 +309,51 @@ __device__ __forceinline__ void fma_rows(const float* h, const float4 w,
   }
 }
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Where a recurrence block reads its projections and writes its streams.
+// Row (b, t) of direction d's projections starts at (d ? xb : xf) +
+// (b*T + t) * x_row: K1 passes its xg buffer (xf = xg, xb = xg + 4H,
+// x_row = 8H), K7 its two inputs (x_row = 4H, f32 or bf16). acts is the
+// training form's [B,T,8H] f32 activation stream: K1's xg buffer itself
+// (each entry read, then overwritten, by the one thread that owns it, so
+// xf and acts are not marked __restrict__), K7's own buffer. round_out
+// rounds the y and c streams to bf16 (K7's streams in xg's dtype).
+template <typename XT>
+struct RecurIO {
+  const XT* xf;
+  const XT* xb;
+  int x_row;
+  float* acts;
+  float* cs;
+  int round_out;
+};
+
 // W_h comes gate-interleaved (see the header).
 // Grid (ceil(B/kRows), 2): blockIdx.y is the direction. blockDim.x >= H.
 // Dynamic shared memory: h as [2 buffers][H][kRows] f32 (already rounded
 // to the compute dtype, since it only feeds the product).
-// TRAIN (the training form): thread u also overwrites its four entries of
-// xg at (b, t, dir) with the gate activations (si, sf, tg, so) and writes
-// the c stream cs [B,T,2H]; both are 0 at t >= lens[b]. Each xg entry is
-// read and written by the one thread that owns it.
-template <typename WT, bool TRAIN>
-__global__ void recur_kernel(float* __restrict__ xg,
-                             const int* __restrict__ lens,
+// TRAIN (the training form): thread u also writes its four entries of
+// acts at (b, t, dir) with the gate activations (si, sf, tg, so) and the
+// c stream cs [B,T,2H]; both are 0 at t >= lens[b].
+template <typename WT, typename XT, bool TRAIN>
+__global__ void recur_kernel(RecurIO<XT> io, const int* __restrict__ lens,
                              const WT* __restrict__ whf,
                              const WT* __restrict__ whb,
-                             float* __restrict__ y, float* __restrict__ cs,
-                             int B, int T, int H, int cd_bf16) {
+                             float* __restrict__ y, int B, int T, int H,
+                             int cd_bf16) {
   extern __shared__ __align__(16) float hs[];
   const int dir = blockIdx.y;
   const int b0 = blockIdx.x * kRows;
   const int u = threadIdx.x;
   const bool active = u < H;
   const WT* __restrict__ wh = dir ? whb : whf;
+  const XT* xd = dir ? io.xb : io.xf;
   const int H4 = 4 * H;
-  const size_t xg_row = (size_t)8 * H;
+  const size_t a_row = (size_t)8 * H;
   const size_t y_row = (size_t)2 * H;
 
   int len[kRows];
@@ -348,9 +376,9 @@ __global__ void recur_kernel(float* __restrict__ xg,
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         if (t < len[r]) {
-          const float* xr = xg + (size_t)((b0 + r) * T + t) * xg_row + dir * H4;
+          const XT* xr = xd + (size_t)((b0 + r) * T + t) * io.x_row;
 #pragma unroll
-          for (int g = 0; g < 4; ++g) xv[r][g] = xr[g * H + u];
+          for (int g = 0; g < 4; ++g) xv[r][g] = to_float(xr[g * H + u]);
         } else {
 #pragma unroll
           for (int g = 0; g < 4; ++g) xv[r][g] = 0.0f;
@@ -393,23 +421,26 @@ __global__ void recur_kernel(float* __restrict__ xg,
           c[r] = cn;
           hn[u * kRows + r] = cd_bf16 ? round_bf16(h_out) : h_out;
           if (TRAIN) {
-            float* xr = xg + (size_t)(b * T + t) * xg_row + dir * H4;
-            xr[u] = si;
-            xr[H + u] = sf;
-            xr[2 * H + u] = tg;
-            xr[3 * H + u] = so;
-            cs[(size_t)(b * T + t) * y_row + dir * H + u] = cn;
+            float* ar = io.acts + (size_t)(b * T + t) * a_row + dir * H4;
+            ar[u] = si;
+            ar[H + u] = sf;
+            ar[2 * H + u] = tg;
+            ar[3 * H + u] = so;
+            io.cs[(size_t)(b * T + t) * y_row + dir * H + u] =
+                io.round_out ? round_bf16(cn) : cn;
           }
         } else {
           hn[u * kRows + r] = hc[u * kRows + r];  // hold the state
           if (TRAIN && b < B) {
-            float* xr = xg + (size_t)(b * T + t) * xg_row + dir * H4;
+            float* ar = io.acts + (size_t)(b * T + t) * a_row + dir * H4;
 #pragma unroll
-            for (int g = 0; g < 4; ++g) xr[g * H + u] = 0.0f;
-            cs[(size_t)(b * T + t) * y_row + dir * H + u] = 0.0f;
+            for (int g = 0; g < 4; ++g) ar[g * H + u] = 0.0f;
+            io.cs[(size_t)(b * T + t) * y_row + dir * H + u] = 0.0f;
           }
         }
-        if (b < B) y[(size_t)(b * T + t) * y_row + dir * H + u] = h_out;
+        if (b < B)
+          y[(size_t)(b * T + t) * y_row + dir * H + u] =
+              io.round_out ? round_bf16(h_out) : h_out;
       }
     }
     __syncthreads();
@@ -417,10 +448,10 @@ __global__ void recur_kernel(float* __restrict__ xg,
   }
 }
 
-template <typename WT>
-cudaError_t launch_recur(float* xg, const int* lens, const void* whf,
-                         const void* whb, float* y, float* cs, int B, int T,
-                         int H, int cd_bf16, cudaStream_t stream) {
+template <typename WT, typename XT>
+cudaError_t launch_recur(const RecurIO<XT>& io, const int* lens,
+                         const void* whf, const void* whb, float* y, int B,
+                         int T, int H, int cd_bf16, cudaStream_t stream) {
   // At most 16 KB (H <= 1024): under the 48 KB a launch gets without
   // cudaFuncSetAttribute.
   const size_t smem = sizeof(float) * 2 * (size_t)H * kRows;
@@ -428,14 +459,23 @@ cudaError_t launch_recur(float* xg, const int* lens, const void* whf,
   const int threads = ((H + 31) / 32) * 32;
   const WT* wf = static_cast<const WT*>(whf);
   const WT* wb = static_cast<const WT*>(whb);
-  if (cs) {
-    recur_kernel<WT, true><<<grid, threads, smem, stream>>>(
-        xg, lens, wf, wb, y, cs, B, T, H, cd_bf16);
+  if (io.cs) {
+    recur_kernel<WT, XT, true><<<grid, threads, smem, stream>>>(
+        io, lens, wf, wb, y, B, T, H, cd_bf16);
   } else {
-    recur_kernel<WT, false><<<grid, threads, smem, stream>>>(
-        xg, lens, wf, wb, y, cs, B, T, H, cd_bf16);
+    recur_kernel<WT, XT, false><<<grid, threads, smem, stream>>>(
+        io, lens, wf, wb, y, B, T, H, cd_bf16);
   }
   return cudaGetLastError();
+}
+
+template <typename XT>
+cudaError_t launch_recur_cd(const RecurIO<XT>& io, const int* lens,
+                            const void* whf, const void* whb, float* y, int B,
+                            int T, int H, int cd_bf16, cudaStream_t st) {
+  return cd_bf16
+      ? launch_recur<__nv_bfloat16, XT>(io, lens, whf, whb, y, B, T, H, 1, st)
+      : launch_recur<float, XT>(io, lens, whf, whb, y, B, T, H, 0, st);
 }
 
 }  // namespace
@@ -471,10 +511,37 @@ extern "C" int bilstm_fwd(const float* x, const int* lens, const float* wx,
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  e = cd_bf16 ? launch_recur<__nv_bfloat16>(xg, lens, whf, whb, y, cs, B, T,
-                                            H, 1, st)
-              : launch_recur<float>(xg, lens, whf, whb, y, cs, B, T, H, 0, st);
-  return (int)e;
+  const RecurIO<float> io{xg, xg + 4 * H, 8 * H, xg, cs, 0};
+  return (int)launch_recur_cd(io, lens, whf, whb, y, B, T, H, cd_bf16, st);
+}
+
+// K7-fwd: the recurrence alone, over given projections (v1 layer,
+// gluon_e2e_asr_tpu/ops/pallas_lstm.py::bilstm_pallas -> _bilstm_fwd_impl
+// -> pl.pallas_call -> _fwd_kernel). xf, xb [B,T,4H] are float when
+// x_bf16 == 0 and __nv_bfloat16 when x_bf16 == 1; whf/whb as for
+// bilstm_fwd. y [B,T,2H] f32; cs and acts null (inference) or the c stream
+// [B,T,2H] f32 and the gate activations [B,T,8H] f32 (training, for
+// bilstm_v1_bwd). round_out rounds y and cs to bf16: the TPU kernel emits
+// its h and c streams in xg's dtype. Returns cudaGetLastError().
+extern "C" int bilstm_v1_fwd(const void* xf, const void* xb, const int* lens,
+                             const void* whf, const void* whb, float* y,
+                             float* cs, float* acts, int B, int T, int H,
+                             int cd_bf16, int x_bf16, int round_out,
+                             void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || H > 1024 || (cs == nullptr) != (acts == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16) {
+    const RecurIO<__nv_bfloat16> io{static_cast<const __nv_bfloat16*>(xf),
+                                    static_cast<const __nv_bfloat16*>(xb),
+                                    4 * H, acts, cs, round_out};
+    return (int)launch_recur_cd(io, lens, whf, whb, y, B, T, H, cd_bf16, st);
+  }
+  const RecurIO<float> io{static_cast<const float*>(xf),
+                          static_cast<const float*>(xb), 4 * H, acts, cs,
+                          round_out};
+  return (int)launch_recur_cd(io, lens, whf, whb, y, B, T, H, cd_bf16, st);
 }
 
 extern "C" const char* bilstm_error_string(int code) {

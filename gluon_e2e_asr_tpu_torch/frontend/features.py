@@ -280,25 +280,27 @@ def frontend_apply(cfg: FrontendConfig, audio: torch.Tensor,
                    audio_len: torch.Tensor, *, train: bool = False,
                    spec_draws: Optional[SpecAugDraws] = None,
                    cmvn_stats=None):
-    """Implementation-selecting wrapper. int16 audio (the loader's
+    """Implementation-selecting wrapper: ``cfg.impl`` "jnp"
+    (``compute_features``), "pallas" (K5) or "pallas_regrid" (K6; both in
+    ``frontend/fused.py``). int16 audio (the loader's
     ``data.transfer_dtype: int16``) is dequantized by the exact
-    power-of-two scale 2^-15 first. ``train`` applies SpecAugment with
-    ``spec_draws``."""
+    power-of-two scale 2^-15 first, and deltas follow, for every impl.
+    ``train`` applies SpecAugment with ``spec_draws``."""
     if audio.dtype == torch.int16:
         audio = audio.to(torch.float32) * (2.0 ** -15)
     if cfg.impl in ("pallas", "pallas_regrid"):
-        kernel = "K5" if cfg.impl == "pallas" else "K6"
-        raise NotImplementedError(
-            f"frontend.impl={cfg.impl!r} runs TPU kernel {kernel} "
-            "(frontend/pallas_frontend.py), not yet ported to the card; "
-            "use frontend.impl: jnp (see ROADMAP.md)")
-    if cfg.impl != "jnp":
+        from gluon_e2e_asr_tpu_torch.frontend import fused
+
+        fn = (fused.compute_features_pallas if cfg.impl == "pallas"
+              else fused.compute_features_pallas_regrid)
+    elif cfg.impl == "jnp":
+        fn = compute_features
+    else:
         raise ValueError(
             f"frontend.impl={cfg.impl!r} not in ('jnp', 'pallas', "
             "'pallas_regrid')")
-    feats, feat_len = compute_features(cfg, audio.float(), audio_len,
-                                       train=train, spec_draws=spec_draws,
-                                       cmvn_stats=cmvn_stats)
+    feats, feat_len = fn(cfg, audio.float(), audio_len, train=train,
+                         spec_draws=spec_draws, cmvn_stats=cmvn_stats)
     if cfg.deltas > 0:
         feats = add_deltas(feats, feat_len, cfg.deltas, cfg.delta_window)
     return feats, feat_len

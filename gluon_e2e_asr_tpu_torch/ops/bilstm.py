@@ -1,7 +1,9 @@
-"""One BiLSTM layer with the input projection fused: K1-fwd and K1-bwd.
+"""One BiLSTM layer: K1-fwd and K1-bwd (projection fused), K7-fwd and
+K7-bwd (the v1 layer over given projections).
 
-Counterpart of ``gluon_e2e_asr_tpu/ops/pallas_lstm.py::bilstm_fused``
-(forward and VJP). Each direction of the computation has two versions:
+Counterpart of ``gluon_e2e_asr_tpu/ops/pallas_lstm.py``: ``bilstm_fused``
+(forward and VJP) and ``bilstm_pallas`` (forward and VJP), below. Each
+direction of ``bilstm_fused`` has two versions:
 
 - plain PyTorch: ``bilstm_fused_plain`` (a projection matmul and the
   time loop of ``models/lstm.py``) and ``bilstm_fused_bwd_plain`` (an
@@ -29,6 +31,17 @@ what the JAX scan path does (``lstm_impl: scan``,
 ``models/encoder.py`` there). In f32 the two are identical.
 ``lstm_time_chunk`` and the TPU's VMEM admission model have no
 counterpart: a shape the kernel cannot take raises.
+
+``bilstm_pallas`` (K7, the v1 layer) takes the projections xg_f, xg_b
+[B,T,4H] and runs the same recurrence; as in JAX, nothing in ``models/``
+calls it. Its h and c streams come out in xg's dtype, and its backward
+reads those rounded streams (``_bilstm_vjp_bwd``). Plain versions:
+``bilstm_pallas_plain`` (``models/lstm.py::bilstm_scan``) and
+``bilstm_pallas_bwd_plain`` (the reverse sweep of
+``bilstm_fused_bwd_plain``); kernels: ``bilstm_pallas_kernel``
+(``csrc/bilstm_fwd.cu::bilstm_v1_fwd``) and ``bilstm_pallas_bwd_kernel``
+(``csrc/bilstm_bwd.cu::bilstm_v1_bwd``), dispatched by ``_route`` as
+above.
 """
 
 from __future__ import annotations
@@ -71,23 +84,21 @@ def bilstm_fused_plain(x, lens, w_x, b_x, w_hf, w_hb,
 bilstm_fused_plain.calls = 0
 
 
-def bilstm_fused_bwd_plain(x, lens, w_x, b_x, w_hf, w_hb, y, c, dy,
-                           compute_dtype: torch.dtype = torch.float32,
-                           round_xg: bool = False):
-    """The VJP of ``bilstm_fused``, as the TPU backward kernel computes it:
-    the gates recomputed from x and the stored h stream, then a reverse
-    sweep per direction. y and c are the forward's h and c streams
-    [B,T,2H], dy the cotangent of y. Returns (dx [B,T,D], dw_x [D,8H],
-    db [8H], dw_hf [H,4H], dw_hb [H,4H])."""
-    bilstm_fused_bwd_plain.calls += 1
-    B, T, D = x.shape
+def _bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, compute_dtype):
+    """The reverse sweep of the TPU backward kernels (``_bwd_kernel``,
+    ``_v2_bwd_kernel``), shared by K1's and K7's plain backward: the gates
+    recomputed from the projections xg [B,T,8H] and the h stream y, c_prev
+    from the c stream c (both [B,T,2H], as stored), then per direction,
+    against its time order, the cell's derivatives. Returns (dg [B,T,8H],
+    dw_hf, dw_hb)."""
+    B, T, _ = xg.shape
     H = w_hf.shape[0]
-    work = work_dtype(x, y)
-    valid = (torch.arange(T, device=x.device)[None, :] < lens[:, None])
+    work = work_dtype(xg, y)
+    valid = (torch.arange(T, device=xg.device)[None, :] < lens[:, None])
     vm = valid[..., None].to(work)
-    xg = torch.cat(_project(x, lens, w_x, b_x, compute_dtype, round_xg), -1)
     dy = dy.to(work) * vm
-    zero = torch.zeros(B, 1, H, device=x.device, dtype=work)
+    y, c = y.to(work), c.to(work)
+    zero = torch.zeros(B, 1, H, device=xg.device, dtype=work)
     dgs, dwh = [], []
     for d, w_h in enumerate((w_hf, w_hb)):
         hs, cs = y[..., d * H:(d + 1) * H], c[..., d * H:(d + 1) * H]
@@ -104,9 +115,9 @@ def bilstm_fused_bwd_plain(x, lens, w_x, b_x, w_hf, w_hb, y, c, dy,
         si, sf = torch.sigmoid(gi) * vm, torch.sigmoid(gf + 1.0) * vm
         tg, so = torch.tanh(gg) * vm, torch.sigmoid(go) * vm
         th = torch.tanh(cs)
-        dh_rec = torch.zeros(B, H, device=x.device, dtype=work)
+        dh_rec = torch.zeros(B, H, device=xg.device, dtype=work)
         dc_carry = torch.zeros_like(dh_rec)
-        dg = torch.empty(B, T, 4 * H, device=x.device, dtype=work)
+        dg = torch.empty(B, T, 4 * H, device=xg.device, dtype=work)
         for t in (range(T - 1, -1, -1) if d == 0 else range(T)):
             dh = dy[:, t, d * H:(d + 1) * H] + dh_rec
             d_o = dh * th[:, t]
@@ -123,29 +134,64 @@ def bilstm_fused_bwd_plain(x, lens, w_x, b_x, w_hf, w_hb, y, c, dy,
         dgs.append(dg)
         dwh.append(matmul_cd(h_prev.reshape(-1, H).T, dg.reshape(-1, 4 * H),
                              compute_dtype))
-    dg = torch.cat(dgs, -1)  # [B,T,8H]
+    return torch.cat(dgs, -1), dwh[0], dwh[1]
+
+
+def bilstm_fused_bwd_plain(x, lens, w_x, b_x, w_hf, w_hb, y, c, dy,
+                           compute_dtype: torch.dtype = torch.float32,
+                           round_xg: bool = False):
+    """The VJP of ``bilstm_fused``, as the TPU backward kernel computes it:
+    the gates recomputed from x and the stored h stream, then a reverse
+    sweep per direction. y and c are the forward's h and c streams
+    [B,T,2H], dy the cotangent of y. Returns (dx [B,T,D], dw_x [D,8H],
+    db [8H], dw_hf [H,4H], dw_hb [H,4H])."""
+    bilstm_fused_bwd_plain.calls += 1
+    B, T, D = x.shape
+    H = w_hf.shape[0]
+    xg = torch.cat(_project(x, lens, w_x, b_x, compute_dtype, round_xg), -1)
+    dg, dw_hf, dw_hb = _bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy,
+                                  compute_dtype)
     dx = matmul_cd(dg, w_x.T, compute_dtype)
     dw_x = matmul_cd(x.reshape(-1, D).T, dg.reshape(-1, 8 * H), compute_dtype)
-    return dx, dw_x, dg.sum((0, 1)), dwh[0], dwh[1]
+    return dx, dw_x, dg.sum((0, 1)), dw_hf, dw_hb
 
 
 bilstm_fused_bwd_plain.calls = 0
 
 
+# Each library's entry points: (pointer arguments, int arguments), then
+# the stream.
+_ENTRIES = {"bilstm_fwd": {"bilstm_fwd": (9, 6), "bilstm_v1_fwd": (8, 6)},
+            "bilstm_bwd": {"bilstm_bwd": (15, 5), "bilstm_v1_bwd": (10, 4)}}
+_ERRORS = {"bilstm_fwd": "bilstm_error_string",
+           "bilstm_bwd": "bilstm_bwd_error_string"}
+
+
 def _lib(name: str) -> ctypes.CDLL:
     lib = _build.load_library(name)
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
+    err = getattr(lib, _ERRORS[name])
+    if err.argtypes is None:
         # Without argtypes ctypes passes each pointer as a 32-bit int.
-        n_ptr, n_int = {"bilstm_fwd": (9, 6), "bilstm_bwd": (15, 5)}[name]
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        err = getattr(lib, {"bilstm_fwd": "bilstm_error_string",
-                            "bilstm_bwd": "bilstm_bwd_error_string"}[name])
+        for entry, (n_ptr, n_int) in _ENTRIES[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(name: str, entry: str, dev: torch.device, args, what: str) -> None:
+    """Call ``entry`` of library ``name`` on ``dev``'s current stream;
+    raise with ``what`` (the shapes) if the launch failed."""
+    lib = _lib(name)
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{entry} launch failed: "
+            f"{getattr(lib, _ERRORS[name])(rc).decode()} ({what})")
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
@@ -219,19 +265,12 @@ def bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb,
     # hidden unit's four gate columns adjacent (one vector load).
     whf = _interleave_gates(w_hf).to(compute_dtype)
     whb = _interleave_gates(w_hb).to(compute_dtype)
-    lib = _lib("bilstm_fwd")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.bilstm_fwd(
-            x.data_ptr(), lens.data_ptr(), w_x.data_ptr(), b_x.data_ptr(),
-            whf.data_ptr(), whb.data_ptr(), xg.data_ptr(), y.data_ptr(),
-            c.data_ptr() if with_cell else None,
-            B, T, D, H, int(compute_dtype == torch.bfloat16), int(round_xg),
-            stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"bilstm_fwd launch failed: {lib.bilstm_error_string(rc).decode()} "
-            f"(B={B} T={T} D={D} H={H})")
+    _launch("bilstm_fwd", "bilstm_fwd", dev, (
+        x.data_ptr(), lens.data_ptr(), w_x.data_ptr(), b_x.data_ptr(),
+        whf.data_ptr(), whb.data_ptr(), xg.data_ptr(), y.data_ptr(),
+        c.data_ptr() if with_cell else None,
+        B, T, D, H, int(compute_dtype == torch.bfloat16), int(round_xg)),
+        f"B={B} T={T} D={D} H={H}")
     bilstm_fused_kernel.launches += 1
     return (y, c, xg) if with_cell else y
 
@@ -266,20 +305,13 @@ def bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, y, c, acts, dy,
     dg = torch.empty(B, T, 8 * H, **f32)
     wtf = _transpose_quads(w_hf).to(compute_dtype)
     wtb = _transpose_quads(w_hb).to(compute_dtype)
-    lib = _lib("bilstm_bwd")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.bilstm_bwd(
-            x.data_ptr(), lens.data_ptr(), w_x.data_ptr(), wtf.data_ptr(),
-            wtb.data_ptr(), y.data_ptr(), c.data_ptr(), acts.data_ptr(),
-            dy.data_ptr(), dg.data_ptr(), dx.data_ptr(), dw_x.data_ptr(),
-            db.data_ptr(), dw_hf.data_ptr(), dw_hb.data_ptr(),
-            B, T, D, H, int(compute_dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"bilstm_bwd launch failed: "
-            f"{lib.bilstm_bwd_error_string(rc).decode()} "
-            f"(B={B} T={T} D={D} H={H})")
+    _launch("bilstm_bwd", "bilstm_bwd", dev, (
+        x.data_ptr(), lens.data_ptr(), w_x.data_ptr(), wtf.data_ptr(),
+        wtb.data_ptr(), y.data_ptr(), c.data_ptr(), acts.data_ptr(),
+        dy.data_ptr(), dg.data_ptr(), dx.data_ptr(), dw_x.data_ptr(),
+        db.data_ptr(), dw_hf.data_ptr(), dw_hb.data_ptr(),
+        B, T, D, H, int(compute_dtype == torch.bfloat16)),
+        f"B={B} T={T} D={D} H={H}")
     bilstm_fused_bwd_kernel.launches += 1
     return dx, dw_x, db, dw_hf, dw_hb
 
@@ -293,7 +325,7 @@ def _route(x: torch.Tensor) -> str:
         return "plain"
     if x.device.type == "cuda":
         return "kernel"
-    raise ValueError(f"bilstm_fused: no implementation for device {x.device}")
+    raise ValueError(f"bilstm: no implementation for device {x.device}")
 
 
 class BiLSTMFused(torch.autograd.Function):
@@ -342,3 +374,207 @@ def bilstm_fused(x, lens, w_x, b_x, w_hf, w_hb,
                                   compute_dtype, round_xg)
     return bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb,
                                compute_dtype, round_xg)
+
+
+# ---------------------------------------------------------------------------
+# K7: the v1 layer over given projections (pallas_lstm.py::bilstm_pallas)
+# ---------------------------------------------------------------------------
+
+
+def bilstm_pallas_plain(xg_f, xg_b, lens, w_hf, w_hb,
+                        compute_dtype: torch.dtype = torch.float32,
+                        with_cell: bool = False):
+    """xg_f, xg_b [B,T,4H] (forward- and backward-direction projections,
+    both at their own time index); lens [B]; w_hf/w_hb [H,4H]. The time
+    loop of ``bilstm_scan``; returns concat(fwd, bwd) [B,T,2H] in xg's
+    dtype, 0 at t >= lens[b], and with ``with_cell`` also the c streams,
+    rounded the same way (the TPU kernel's ys and cs)."""
+    bilstm_pallas_plain.calls += 1
+    y, c = bilstm_scan(xg_f, xg_b, lens, w_hf, w_hb, compute_dtype,
+                       with_cell=True)
+    y, c = y.to(xg_f.dtype), c.to(xg_f.dtype)
+    return (y, c) if with_cell else y
+
+
+bilstm_pallas_plain.calls = 0
+
+
+def bilstm_pallas_bwd_plain(xg_f, xg_b, lens, w_hf, w_hb, y, c, dy,
+                            compute_dtype: torch.dtype = torch.float32):
+    """The VJP of ``bilstm_pallas`` as ``_bilstm_vjp_bwd`` computes it:
+    the gates recomputed from the projections and the rounded h stream y,
+    c_prev and tanh(c) from the rounded c stream (y and c as
+    ``bilstm_pallas_plain(..., with_cell=True)`` returns them), dy the
+    cotangent of y. Returns (dxg_f, dxg_b) in xg's dtype and (dw_hf,
+    dw_hb) in W's dtype, summed in f32."""
+    bilstm_pallas_bwd_plain.calls += 1
+    H4 = xg_f.shape[-1]
+    xg = torch.cat([xg_f, xg_b], -1).to(work_dtype(xg_f, y))
+    dg, dw_hf, dw_hb = _bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy,
+                                  compute_dtype)
+    return (dg[..., :H4].to(xg_f.dtype), dg[..., H4:].to(xg_f.dtype),
+            dw_hf.to(w_hf.dtype), dw_hb.to(w_hb.dtype))
+
+
+bilstm_pallas_bwd_plain.calls = 0
+
+_STREAM_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_v1(xg_f, xg_b, lens, w_hf, w_hb, compute_dtype, who: str):
+    """(B, T, H) of a v1 layer the kernels can take; raises otherwise."""
+    if xg_f.device.type != "cuda":
+        raise ValueError(f"{who} needs CUDA tensors, got {xg_f.device}")
+    if xg_f.dim() != 3 or xg_f.shape[-1] % 4:
+        raise ValueError(f"xg_f must be [B,T,4H], got {tuple(xg_f.shape)}")
+    B, T, H4 = xg_f.shape
+    H = H4 // 4
+    if not 0 < H <= MAX_HIDDEN:
+        raise ValueError(f"hidden size {H} outside the kernel's 1..{MAX_HIDDEN}")
+    if compute_dtype not in _STREAM_DTYPES:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                         f"got {compute_dtype}")
+    if xg_f.dtype not in _STREAM_DTYPES or w_hf.dtype not in _STREAM_DTYPES:
+        raise ValueError(f"xg and W_h must be float32 or bfloat16, got "
+                         f"{xg_f.dtype}, {w_hf.dtype}")
+    if xg_f.dtype == torch.bfloat16 and compute_dtype == torch.float32:
+        # The TPU backward recomputes the gates from the bf16 h stream, an
+        # f32 product the forward never formed; the kernels reuse the
+        # forward's activations, which is the same only when the product
+        # rounds h to bf16 too.
+        raise ValueError("bf16 projections need compute_dtype bfloat16 on "
+                         "the card")
+    dev = xg_f.device
+    _check(xg_f, "xg_f", xg_f.dtype, (B, T, H4), dev)
+    _check(xg_b, "xg_b", xg_f.dtype, (B, T, H4), dev)
+    _check(lens, "lens", torch.int32, (B,), dev)
+    _check(w_hf, "w_hf", w_hf.dtype, (H, H4), dev)
+    _check(w_hb, "w_hb", w_hf.dtype, (H, H4), dev)
+    return B, T, H
+
+
+def bilstm_pallas_kernel(xg_f, xg_b, lens, w_hf, w_hb,
+                         compute_dtype: torch.dtype = torch.float32,
+                         with_cell: bool = False):
+    """K7-fwd on the card. Same contract as ``bilstm_pallas_plain``:
+    xg_f, xg_b f32 or bf16, W_h f32 or bf16, lens int32, all contiguous
+    on one CUDA device. With ``with_cell``, the training form: (y, c,
+    acts), the h and c streams [B,T,2H] as f32 tensors holding xg's
+    dtype's values and the gate activations [B,T,8H] f32, which
+    ``bilstm_pallas_bwd_kernel`` consumes."""
+    B, T, H = _check_v1(xg_f, xg_b, lens, w_hf, w_hb, compute_dtype,
+                        "bilstm_pallas_kernel")
+    dev = xg_f.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    y = torch.empty(B, T, 2 * H, **f32)
+    c = torch.empty_like(y) if with_cell else None
+    acts = torch.empty(B, T, 8 * H, **f32) if with_cell else None
+    if B and T:
+        whf = _interleave_gates(w_hf).to(compute_dtype)
+        whb = _interleave_gates(w_hb).to(compute_dtype)
+        x_bf16 = int(xg_f.dtype == torch.bfloat16)
+        _launch("bilstm_fwd", "bilstm_v1_fwd", dev, (
+            xg_f.data_ptr(), xg_b.data_ptr(), lens.data_ptr(), whf.data_ptr(),
+            whb.data_ptr(), y.data_ptr(), c.data_ptr() if with_cell else None,
+            acts.data_ptr() if with_cell else None, B, T, H,
+            int(compute_dtype == torch.bfloat16), x_bf16, x_bf16),
+            f"B={B} T={T} H={H}")
+        bilstm_pallas_kernel.launches += 1
+    return (y, c, acts) if with_cell else y.to(xg_f.dtype)
+
+
+bilstm_pallas_kernel.launches = 0
+
+
+def bilstm_pallas_bwd_kernel(lens, w_hf, w_hb, y, c, acts, dy,
+                             compute_dtype: torch.dtype = torch.float32,
+                             x_dtype: torch.dtype = torch.float32):
+    """K7-bwd on the card: the VJP from the training form of K7-fwd's
+    outputs (y, c, acts of ``bilstm_pallas_kernel(..., with_cell=True)``)
+    and the cotangent dy [B,T,2H]. Returns (dxg_f, dxg_b) in ``x_dtype``
+    (xg's) and (dw_hf, dw_hb) in W's dtype, summed in f32."""
+    B, T, H2 = y.shape
+    H = H2 // 2
+    dev = y.device
+    if dev.type != "cuda":
+        raise ValueError(f"bilstm_pallas_bwd_kernel needs CUDA tensors, got {dev}")
+    if compute_dtype not in _STREAM_DTYPES or w_hf.dtype not in _STREAM_DTYPES:
+        raise ValueError(f"compute_dtype and W_h must be float32 or bfloat16, "
+                         f"got {compute_dtype}, {w_hf.dtype}")
+    if not 0 < H <= MAX_HIDDEN:
+        raise ValueError(f"hidden size {H} outside the kernel's 1..{MAX_HIDDEN}")
+    _check(lens, "lens", torch.int32, (B,), dev)
+    _check(w_hf, "w_hf", w_hf.dtype, (H, 4 * H), dev)
+    _check(w_hb, "w_hb", w_hf.dtype, (H, 4 * H), dev)
+    _check(y, "y", torch.float32, (B, T, 2 * H), dev)
+    _check(c, "c", torch.float32, (B, T, 2 * H), dev)
+    _check(acts, "acts", torch.float32, (B, T, 8 * H), dev)
+    if dy.shape != y.shape or dy.device != dev:
+        raise ValueError(f"dy must be {tuple(y.shape)} on {dev}, "
+                         f"got {tuple(dy.shape)} on {dy.device}")
+    f32 = dict(device=dev, dtype=torch.float32)
+    alloc = torch.empty if B and T else torch.zeros  # the kernel fills them
+    dg = alloc(B, T, 8 * H, **f32)
+    dw_hf = alloc(H, 4 * H, **f32)
+    dw_hb = alloc(H, 4 * H, **f32)
+    if B and T:
+        dy = dy.to(torch.float32).contiguous()
+        wtf = _transpose_quads(w_hf).to(compute_dtype)
+        wtb = _transpose_quads(w_hb).to(compute_dtype)
+        _launch("bilstm_bwd", "bilstm_v1_bwd", dev, (
+            lens.data_ptr(), wtf.data_ptr(), wtb.data_ptr(), y.data_ptr(),
+            c.data_ptr(), acts.data_ptr(), dy.data_ptr(), dg.data_ptr(),
+            dw_hf.data_ptr(), dw_hb.data_ptr(), B, T, H,
+            int(compute_dtype == torch.bfloat16)),
+            f"B={B} T={T} H={H}")
+        bilstm_pallas_bwd_kernel.launches += 1
+    return (dg[..., :4 * H].to(x_dtype), dg[..., 4 * H:].to(x_dtype),
+            dw_hf.to(w_hf.dtype), dw_hb.to(w_hb.dtype))
+
+
+bilstm_pallas_bwd_kernel.launches = 0
+
+
+class BiLSTMV1(torch.autograd.Function):
+    """``bilstm_pallas`` with its gradient: the plain forward and backward
+    for CPU tensors, K7-fwd (training form) and K7-bwd for CUDA tensors.
+    lens and compute_dtype get no gradient."""
+
+    @staticmethod
+    def forward(ctx, xg_f, xg_b, lens, w_hf, w_hb, compute_dtype):
+        args = (xg_f, xg_b, lens, w_hf, w_hb, compute_dtype)
+        if _route(xg_f) == "plain":
+            (y, c), acts = bilstm_pallas_plain(*args, with_cell=True), None
+            out = y
+        else:
+            y, c, acts = bilstm_pallas_kernel(*args, with_cell=True)
+            out = y.to(xg_f.dtype)
+        ctx.save_for_backward(xg_f, xg_b, lens, w_hf, w_hb, y, c, acts)
+        ctx.compute_dtype = compute_dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        xg_f, xg_b, lens, w_hf, w_hb, y, c, acts = ctx.saved_tensors
+        if _route(xg_f) == "plain":
+            grads = bilstm_pallas_bwd_plain(xg_f, xg_b, lens, w_hf, w_hb, y,
+                                            c, dy, ctx.compute_dtype)
+        else:
+            grads = bilstm_pallas_bwd_kernel(lens, w_hf, w_hb, y, c, acts, dy,
+                                             ctx.compute_dtype, xg_f.dtype)
+        dxg_f, dxg_b, dw_hf, dw_hb = grads
+        return dxg_f, dxg_b, None, dw_hf, dw_hb, None
+
+
+def bilstm_pallas(xg_f, xg_b, lens, w_hf, w_hb,
+                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The v1 BiLSTM layer (``pallas_lstm.py::bilstm_pallas``): the plain
+    version for CPU tensors, K7 for CUDA tensors; through ``BiLSTMV1``
+    when a gradient is wanted. Returns [B,T,2H] in xg's dtype."""
+    route = _route(xg_f)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xg_f, xg_b, w_hf, w_hb)):
+        return BiLSTMV1.apply(xg_f, xg_b, lens, w_hf, w_hb, compute_dtype)
+    if route == "plain":
+        return bilstm_pallas_plain(xg_f, xg_b, lens, w_hf, w_hb, compute_dtype)
+    return bilstm_pallas_kernel(xg_f, xg_b, lens, w_hf, w_hb, compute_dtype)

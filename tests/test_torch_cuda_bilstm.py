@@ -86,3 +86,74 @@ def test_encoder_on_card_matches_cpu(dev):
     assert K.bilstm_fused_kernel.launches == launches + 3
     for r, g in zip(ref, got):
         assert float((g.cpu().float() - r.float()).abs().max()) <= 1e-5
+
+
+# K7: the v1 layer over given projections (bilstm_pallas). Forward h and
+# c streams and every cotangent against the plain versions, which
+# recompute the gates from the rounded streams where the kernels reuse the
+# forward's activations; tolerance of each output's largest magnitude as
+# in tests/test_torch_cuda_train.py (bf16: a rounding can flip).
+REL_V1 = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _v1_inputs(B, T, H, dev, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(0, T + 1, size=B).astype(np.int32)
+    lens[0] = T
+    arrays = ((rng.randn(B, T, 4 * H) * 0.5).astype(np.float32),
+              (rng.randn(B, T, 4 * H) * 0.5).astype(np.float32), lens,
+              (rng.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32),
+              (rng.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32))
+    xg_f, xg_b, lens, w_hf, w_hb = (torch.from_numpy(a).to(dev) for a in arrays)
+    dy = torch.from_numpy(rng.randn(B, T, 2 * H).astype(np.float32)).to(dev)
+    return (xg_f.to(dtype), xg_b.to(dtype), lens, w_hf, w_hb), dy.to(dtype)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 19, 8), (5, 37, 40), (9, 50, 130)])
+def test_v1_kernels_match_plain(dev, shape, cd):
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    args, dy = _v1_inputs(*shape, dev, cd)
+    y, c, acts = K.bilstm_pallas_kernel(*args, compute_dtype=cd, with_cell=True)
+    yp, cp = K.bilstm_pallas_plain(*args, compute_dtype=cd, with_cell=True)
+    got = K.bilstm_pallas_bwd_kernel(args[2], args[3], args[4], y, c, acts, dy,
+                                     cd, cd)
+    ref = K.bilstm_pallas_bwd_plain(*args, yp, cp, dy, cd)
+    torch.cuda.synchronize()
+    assert _rel(y, yp) <= REL_V1[cd] and _rel(c, cp) <= REL_V1[cd]
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.isfinite(g).all()
+        assert _rel(g, r) <= REL_V1[cd]
+    # the autograd path launches both kernels once
+    leaves = [t.detach().requires_grad_(True) for t in
+              (args[0], args[1], args[3], args[4])]
+    n_f, n_b = K.bilstm_pallas_kernel.launches, K.bilstm_pallas_bwd_kernel.launches
+    out = K.bilstm_pallas(leaves[0], leaves[1], args[2], leaves[2], leaves[3], cd)
+    out.backward(dy)
+    assert out.dtype == cd
+    assert (K.bilstm_pallas_kernel.launches, K.bilstm_pallas_bwd_kernel.launches) \
+        == (n_f + 1, n_b + 1)
+    for leaf, r in zip(leaves, (ref[0], ref[1], ref[2], ref[3])):
+        assert _rel(leaf.grad, r) <= REL_V1[cd]
+
+
+def test_v1_kernel_refuses_what_it_cannot_take(dev):
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    (xg_f, xg_b, lens, w_hf, w_hb), _ = _v1_inputs(3, 19, 8, dev, torch.bfloat16)
+    calls = K.bilstm_pallas_plain.calls
+    with pytest.raises(ValueError, match="compute_dtype bfloat16"):
+        K.bilstm_pallas(xg_f, xg_b, lens, w_hf, w_hb, torch.float32)
+    with pytest.raises(ValueError, match="int32"):
+        K.bilstm_pallas(xg_f, xg_b, lens.long(), w_hf, w_hb, torch.bfloat16)
+    with pytest.raises(ValueError, match="hidden size"):
+        big = torch.zeros(3, 19, 4 * 1025, device=dev)
+        w = torch.zeros(1025, 4 * 1025, device=dev)
+        K.bilstm_pallas(big, big, lens, w, w)
+    assert K.bilstm_pallas_plain.calls == calls

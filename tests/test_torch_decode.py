@@ -176,6 +176,20 @@ def test_greedy_decode_reproduces_golden(port_ckpt, tmp_path):
     assert rc == 0, "the port's greedy decode diverged from the golden"
 
 
+@pytest.mark.parametrize("impl", ["pallas", "pallas_regrid"])
+def test_greedy_decode_with_fused_frontend_reproduces_golden(port_ckpt,
+                                                             tmp_path, impl):
+    """``frontend.impl`` pallas (K5) and pallas_regrid (K6) decode the
+    golden's 16 hypotheses; on the CPU through their plain versions."""
+    out = tmp_path / "greedy.jsonl"
+    result = decode.main(_decode_args(port_ckpt, out)
+                         + ["--set", f"frontend.impl={impl}"])
+    assert result["num_utts"] == 16
+    rc = fidelity_diff.main([os.path.join(GOLD, "golden_greedy.jsonl"),
+                             str(out)])
+    assert rc == 0, f"the greedy decode with impl {impl} diverged"
+
+
 def test_beam_decode_reproduces_golden(port_ckpt, tmp_path):
     out = tmp_path / "beam.jsonl"
     result = decode.main(_decode_args(port_ckpt, out, "beam"))

@@ -124,9 +124,11 @@ def test_hybrid_training_evaluates_with_the_beam(tmp_path):
     assert 0.0 <= epochs[0]["dev_cer"] and 0.0 <= epochs[0]["dev_wer"]
 
 
-def _train_without_jax(tmp_path, ctc_only):
-    """Three steps through the CLI in a process where importing jax, flax
-    or the JAX package fails."""
+def _train_without_jax(tmp_path, ctc_only, args=None, check=""):
+    """Three steps through the CLI (``args``, or the tiny config's) in a
+    process where importing jax, flax or the JAX package fails; ``check``
+    runs after them."""
+    args = args or _train_args(tmp_path, 3, ctc_only=ctc_only)
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'gluon_e2e_asr_tpu'):\n"
@@ -135,10 +137,11 @@ def _train_without_jax(tmp_path, ctc_only):
         "import torch\n"
         "torch.set_num_threads(1)\n"
         "from gluon_e2e_asr_tpu_torch import train\n"
-        f"t = train.main({_train_args(tmp_path, 3, ctc_only=ctc_only)!r})\n"
+        f"t = train.main({args!r})\n"
         "assert t.state.step == 3\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
+        + check
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                           capture_output=True, text=True, timeout=300,
@@ -153,6 +156,30 @@ def test_train_runs_without_jax(tmp_path):
 
 def test_hybrid_train_runs_without_jax(tmp_path):
     _train_without_jax(tmp_path, ctc_only=False)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "pallas_regrid"])
+def test_milestone2_trains_without_jax(tmp_path, impl):
+    """configs/milestone2_fused_frontend.yaml as shipped (the fused
+    frontend, utterance CMVN, CTC only, greedy), on a small synthetic
+    split and a narrow encoder: three steps past an epoch end, every
+    frontend call through the fused impl's plain version on the CPU."""
+    args = ["--config", os.path.join(REPO, "configs",
+                                     "milestone2_fused_frontend.yaml"),
+            "--workdir", str(tmp_path), "--max-steps", "3", "--device", "cpu",
+            "--set", f"frontend.impl={impl}", "--set", "data.synth_num_train=16",
+            "--set", "data.synth_num_dev=8", "--set", "data.batch_size=8",
+            "--set", "model.enc_hidden=16", "--set", "train.log_every_steps=1"]
+    check = (
+        "from gluon_e2e_asr_tpu_torch.frontend import fused\n"
+        f"plain = fused.compute_features_{impl}_plain.calls\n"
+        f"assert t.config.frontend.impl == {impl!r} and plain >= 3, plain\n"
+    )
+    _train_without_jax(tmp_path, True, args, check)
+    with open(tmp_path / "metrics.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    assert [r["step"] for r in lines if r["event"] == "train"] == [1, 2, 3]
+    assert any(r["event"] == "epoch" for r in lines)
 
 
 @pytest.mark.parametrize("override,match", [

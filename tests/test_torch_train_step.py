@@ -75,6 +75,16 @@ def _loc_config():
     return c
 
 
+def _m2_config(impl):
+    """Milestone 2 (configs/milestone2_fused_frontend.yaml) cut to size:
+    the fused frontend (``impl`` pallas or pallas_regrid, utterance CMVN),
+    a CTC-only blstm encoder."""
+    c = _config()
+    c.frontend.impl = impl
+    c.model.enc_layers, c.model.enc_subsample = 3, (1, 2, 2)
+    return c
+
+
 def _batch(seed=0, pad_row=False):
     rng = np.random.RandomState(seed)
     B, S, L = 3, 4800, 5
@@ -161,6 +171,29 @@ def hybrid_runs():
 @pytest.fixture(scope="module")
 def loc_runs():
     return _three_steps(_loc_config(), _batch(pad_row=True))
+
+
+@pytest.fixture(scope="module", params=["pallas", "pallas_regrid"])
+def m2_runs(request):
+    return _three_steps(_m2_config(request.param), _batch(seed=1, pad_row=True))
+
+
+def test_milestone2_steps_match_jax(m2_runs):
+    """The JAX step runs K5 or K6 in interpret mode, the port their plain
+    versions: the first step's loss and every gradient, and each of the
+    three steps' gradient norm. (The parameters after Adam are held by the
+    tests above; here the features of the two frontends differ by about
+    1e-6, which Adam's division by sqrt(nu) can blow up for an entry
+    whose gradient is near 0.)"""
+    m = m2_runs["port_metrics"][0]
+    np.testing.assert_allclose(m["loss"], m2_runs["jax_loss"], rtol=1e-5)
+    assert set(m2_runs["port_grads"]) == set(m2_runs["jax_grads"])
+    for k, g in m2_runs["port_grads"].items():
+        np.testing.assert_allclose(g, m2_runs["jax_grads"][k], rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    for m, jm in zip(m2_runs["port_metrics"], m2_runs["jax_metrics"]):
+        np.testing.assert_allclose(m["grad_norm"], jm["grad_norm"], rtol=1e-4)
+        np.testing.assert_allclose(m["loss"], jm["loss"], rtol=1e-5)
 
 
 def test_loss_and_metrics_match(runs):
