@@ -7,8 +7,8 @@ each printing JSON lines:
 
 1. device: the card, and ``nvidia-smi``'s name and power limit;
 2. build: every CUDA library of the port's paths (``bilstm_fwd``,
-   ``bilstm_bwd``, ``ctc``, ``las_decoder``, ``frontend``) from
-   ``csrc/``, one nvcc each, in parallel;
+   ``bilstm_bwd``, ``ctc``, ``las_decoder``, ``frontend``,
+   ``pipeline_probe``) from ``csrc/``, one nvcc each, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card,
    within stated tolerances, at the shapes the flagship model
    (``configs/english_flagship.yaml``, the 4.0 s bucket, B=96) gives it:
@@ -23,7 +23,9 @@ each printing JSON lines:
    K6 (the fused frontend) at milestone 2's two buckets, the flagship's
    4.0 s bucket and bench.py's shape, in every CMVN mode, eval and train;
    K7-fwd and K7-bwd (the v1 layer) at the flagship's layer-0 shape in
-   f32 and bf16;
+   f32 and bf16; P1's two variants (``l2``, ``cluster``) and cuDNN's
+   LSTM against P1's plain version at (M, N) = (96, 2) and (256, 4),
+   T=640;
 4. serving slice: a seeded random full-width checkpoint of that model,
    decoded greedily through ``gluon_e2e_asr_tpu_torch.decode.main`` over
    the config's dev set; every kernel must have been launched, and only
@@ -61,7 +63,12 @@ each printing JSON lines:
    without JAX) decoded with ``--method beam`` through the decode CLI on
    the card must reproduce ``tests/goldens/golden_beam.jsonl``; and one
    beam decode of a 96-utterance 4.0 s batch of the trained loc model,
-   timed as frontend, encoder and search.
+   timed as frontend, encoder and search;
+10. P1, the pipelining probe: its entry point
+   (``python -m gluon_e2e_asr_tpu_torch.tools.pipeline_probe``) over
+   M = 96 and 128, N = 1..4, both variants, the counts reset just before
+   and read just after; the plain version and cuDNN's LSTM timed at the
+   same shapes.
 
 Then the kernels line (each kernel's launches on the main path, error,
 time, plain time, bound and library time) and, last, ``{"ok": true,
@@ -147,6 +154,15 @@ TOL_FE_RTOL, TOL_FE_ATOL = 1e-3, 2e-3
 # recomputes the gates from the rounded streams, the kernel reuses the
 # forward's activations (the same values up to the order of the sums).
 TOL_V1 = {"float32": 1e-4, "bfloat16": 2e-2}
+# P1's kernels and cuDNN's LSTM against P1's plain version, max abs
+# difference of the final h: f32 sums in another order carried over
+# PROBE_T steps, as K1 in f32.
+TOL_PROBE = TOL["float32"]
+PROBE_T = 640  # the TPU probe's default
+PROBE_CHECKS = ((96, 2), (256, 4))  # (M, N) held against the plain version
+PROBE_MS = (96, 128)  # the rows of the probe's verdicts, swept and timed
+PROBE_ITERS = 10
+PROBE_LIVE = 0.1  # mean |h| of the checked output (live_inputs: about 0.35)
 TRAIN_EPOCHS = 2  # the hybrid and milestone 2 slices train this many epochs
 M2_REGRID_STEPS = 5
 CTC_ONLY_STEPS = 5
@@ -353,7 +369,8 @@ def main() -> None:
         build_datasets, build_tokenizer)
 
     # 2. build
-    libs = ("bilstm_fwd", "bilstm_bwd", "ctc", "las_decoder", "frontend")
+    libs = ("bilstm_fwd", "bilstm_bwd", "ctc", "las_decoder", "frontend",
+            "pipeline_probe")
     t0 = time.perf_counter()
     _build.build_all(libs)
     for name in libs:
@@ -403,6 +420,7 @@ def main() -> None:
     m2_config = load_config(M2_CONFIG)
     fe_errs = check_frontend_kernels(torch, m2_config, config, dev)
     v1_errs = check_v1_kernels(torch, config, shapes[0], dev)
+    probe_errs = check_probe_kernels(torch, dev)
 
     # 4. the slice: a seeded checkpoint through the decode CLI
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -544,6 +562,8 @@ def main() -> None:
     # 9. beam search
     golden_beam(torch)
     beam_timing(torch, loc_trainer, dev, card)
+    # 10. P1
+    probe_ms, probe_counts, probe_lib = probe_path(torch, dev, card)
     bounds = kernel_bounds(config, shapes, dev, loc_config, m2_config)
 
     bf16 = [(layer, "bfloat16") for layer, _, _ in shapes]
@@ -562,41 +582,51 @@ def main() -> None:
               "las_decoder_bwd": dec_errs["las_decoder_bwd"],
               **fe_errs, **v1_errs}
     where = {
-        "bilstm_fwd": ("bilstm_fwd.cu", "ops/pallas_lstm.py:411",
+        "bilstm_fwd": ("bilstm_fwd.cu",
+                       "gluon_e2e_asr_tpu/ops/pallas_lstm.py:411",
                        "serving form, sum over the flagship's 3 layer shapes, "
                        "bf16, B=96, 4.0 s"),
-        "bilstm_bwd": ("bilstm_bwd.cu", "ops/pallas_lstm.py:484",
+        "bilstm_bwd": ("bilstm_bwd.cu",
+                       "gluon_e2e_asr_tpu/ops/pallas_lstm.py:484",
                        "sum over the flagship's 3 layer shapes, bf16, B=96, "
                        "4.0 s; error: max abs over dx, dW_x, db, dW_h"),
-        "ctc_alpha": ("ctc.cu", "ops/pallas_ctc.py:55",
+        "ctc_alpha": ("ctc.cu",
+                      "gluon_e2e_asr_tpu/ops/pallas_ctc.py:55",
                       "T=100, B=96, S of a 4.0 s training batch; error over "
                       "live cells"),
-        "ctc_beta_post": ("ctc.cu", "ops/pallas_ctc.py:81",
+        "ctc_beta_post": ("ctc.cu",
+                          "gluon_e2e_asr_tpu/ops/pallas_ctc.py:81",
                           "T=100, B=96, S of a 4.0 s training batch"),
-        "las_decoder_fwd": ("las_decoder.cu", "ops/pallas_decoder.py:161",
+        "las_decoder_fwd": ("las_decoder.cu",
+                            "gluon_e2e_asr_tpu/ops/pallas_decoder.py:161",
                             "dot attention, bf16, B=96, T'=100, L=81 (the 4.0 s "
                             "bucket's label budget + 1); error: logits, coins "
                             "off"),
-        "las_decoder_bwd": ("las_decoder.cu", "ops/pallas_decoder.py:462",
+        "las_decoder_bwd": ("las_decoder.cu",
+                            "gluon_e2e_asr_tpu/ops/pallas_decoder.py:462",
                             "as K4-fwd; error: max abs over every cotangent"),
-        "frontend_k5": ("frontend.cu", "frontend/pallas_frontend.py:56",
+        "frontend_k5": ("frontend.cu",
+                        "gluon_e2e_asr_tpu/frontend/pallas_frontend.py:56",
                         "impl pallas, cmvn utterance (milestone 2), eval, B=16, "
                         "4.0 s bucket; error: max abs over every shape, CMVN "
                         "mode, eval and train"),
-        "frontend_k6": ("frontend.cu", "frontend/pallas_frontend.py:181",
+        "frontend_k6": ("frontend.cu",
+                        "gluon_e2e_asr_tpu/frontend/pallas_frontend.py:181",
                         "impl pallas_regrid, as K5"),
-        "bilstm_v1_fwd": ("bilstm_fwd.cu", "ops/pallas_lstm.py:77",
+        "bilstm_v1_fwd": ("bilstm_fwd.cu",
+                          "gluon_e2e_asr_tpu/ops/pallas_lstm.py:77",
                           "the flagship's layer-0 shape, bf16 streams and "
                           "products, B=96, T=398, H=320; error: max abs of h"),
-        "bilstm_v1_bwd": ("bilstm_bwd.cu", "ops/pallas_lstm.py:102",
+        "bilstm_v1_bwd": ("bilstm_bwd.cu",
+                          "gluon_e2e_asr_tpu/ops/pallas_lstm.py:102",
                           "as K7-fwd; error: max abs over d(xg), dW_h"),
     }
     # K4's add and loc modes: one row each, at flagship_bf16's 4.0 s bucket;
     # launches from the loc and add training slices.
     launches = dict(train_counts)
     for m, counts in (("add", add_counts), ("loc", loc_counts)):
-        for d, tpu in (("fwd", "ops/pallas_decoder.py:161"),
-                       ("bwd", "ops/pallas_decoder.py:462")):
+        for d, tpu in (("fwd", "gluon_e2e_asr_tpu/ops/pallas_decoder.py:161"),
+                       ("bwd", "gluon_e2e_asr_tpu/ops/pallas_decoder.py:462")):
             name = f"las_decoder_{d}_{m}"
             where[name] = ("las_decoder.cu", tpu,
                            f"{m} attention, flagship_bf16, bf16, B=96, T'=100; "
@@ -612,13 +642,24 @@ def main() -> None:
     launches["frontend_k6"] = regrid_counts["frontend_k6"]
     for name in ("bilstm_v1_fwd", "bilstm_v1_bwd"):
         launches[name] = v1_counts[name]
+    # P1 from its own path, one row per variant
+    for v, what in (("l2", "W from L2"), ("cluster", "W resident in a cluster")):
+        name = f"pipeline_probe_{v}"
+        where[name] = ("pipeline_probe.cu", "tools/pipeline_probe.py:53",
+                       f"variant {v} ({what}), M=96, N=1, T=640, f32; "
+                       "launches: the probe's sweep at M=96 and 128, N=1..4; "
+                       "error: max abs at (M, N) = (96, 2) and (256, 4)")
+        timed[name] = probe_ms[v]
+        errors[name] = probe_errs[v]
+        launches[name] = probe_counts[v]
+        lib_ms[name] = probe_lib
     rows = []
     for name, (src, tpu, at) in where.items():
         bound_ms, bound_by = bounds[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"gluon_e2e_asr_tpu_torch/csrc/{src}",
-            "replaces": f"gluon_e2e_asr_tpu/{tpu}",
+            "replaces": tpu,
             "launches": launches[name], "max_abs_err": errors[name],
             "ms": timed[name][0], "plain_ms": timed[name][1],
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1692,6 +1733,82 @@ def v1_timing(torch, config, shape, dev, card):
     return out
 
 
+def check_probe_kernels(torch, dev):
+    """Phase 3 for P1: both variants of csrc/pipeline_probe.cu and cuDNN's
+    LSTM (the column mapping of ``cudnn_chains``) against the plain
+    version at each (M, N) of PROBE_CHECKS, T=PROBE_T, on inputs whose
+    state stays alive for all the steps (``live_inputs``; the mean |h| of
+    the plain version's output must be above PROBE_LIVE). Returns each
+    variant's largest max abs error."""
+    from gluon_e2e_asr_tpu_torch.tools import pipeline_probe as P
+
+    errs = dict.fromkeys(P.VARIANTS, 0.0)
+    for M, N in PROBE_CHECKS:
+        h0, c0, w = P.live_inputs(N, M, dev, SEED + N)
+        ref = P.pipeline_probe_plain(h0, c0, w, PROBE_T)
+        outs = {v: P.KERNELS[v](h0, c0, w, PROBE_T) for v in P.VARIANTS}
+        outs["cudnn"] = P.cudnn_chains(h0, c0, w, PROBE_T)()
+        torch.cuda.synchronize()
+        err = {k: float((o - ref).abs().max()) for k, o in outs.items()}
+        live = float(ref.abs().mean())
+        finite = all(bool(torch.isfinite(o).all()) for o in outs.values())
+        emit({"phase": "kernel_check", "kernel": "pipeline_probe", "M": M,
+              "N": N, "T": PROBE_T, "max_abs_err": err, "tol": TOL_PROBE,
+              "ref_mean_abs": live, "finite": finite,
+              "max_active_clusters": P.max_active_clusters(dev)})
+        check(live > PROBE_LIVE, f"P1's state died out at M={M} N={N}: {live}")
+        check(finite and max(err.values()) <= TOL_PROBE,
+              f"P1 disagrees with its plain version at M={M} N={N}: {err}")
+        for v in P.VARIANTS:
+            errs[v] = max(errs[v], err[v])
+    return errs
+
+
+def probe_path(torch, dev, card):
+    """Phase 10: P1's entry point, ``pipeline_probe.main``, at M in
+    PROBE_MS and N = 1..4 for both variants, the counts reset just before
+    and read just after: every call of the sweep a launch of its
+    variant's kernel, none of the plain version. Then the plain version
+    and cuDNN's LSTM timed at the same shapes. Returns ({variant: (ms,
+    plain ms)} at M=PROBE_MS[0], N=1, {variant: launches}, cuDNN's ms
+    there)."""
+    from gluon_e2e_asr_tpu_torch.tools import pipeline_probe as P
+
+    for kernel in P.KERNELS.values():
+        kernel.launches = 0
+    P.pipeline_probe_plain.calls = 0
+    t0 = time.perf_counter()
+    ms = P.main(["--T", str(PROBE_T), "--iters", str(PROBE_ITERS),
+                 "--M", *map(str, PROBE_MS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {v: k.launches for v, k in P.KERNELS.items()}
+    plain = P.pipeline_probe_plain.calls
+    expect = len(PROBE_MS) * len(P.NS) * (PROBE_ITERS + 1)
+    emit({"phase": "probe_path", "seconds": round(wall, 2),
+          "launches": launches, "expected_launches": expect,
+          "plain_calls": plain})
+    check(all(n == expect for n in launches.values()),
+          f"the probe launched {launches}, expected {expect} each")
+    check(plain == 0, f"the plain P1 ran {plain} times on the probe's path")
+    check(all(np.isfinite(t) and t > 0 for v in ms.values() for t in v.values()),
+          f"probe times {ms}")
+    plain_ms, cudnn_ms = {}, {}
+    for M in PROBE_MS:
+        for N in P.NS:
+            h0, c0, w = P.probe_inputs(N, M, dev)
+            plain_ms[(M, N)] = time_ms(torch, lambda: P.pipeline_probe_plain(
+                h0, c0, w, PROBE_T), n=3, warm=1)
+            cudnn_ms[(M, N)] = time_ms(torch, P.cudnn_chains(h0, c0, w, PROBE_T),
+                                       n=5, warm=1)
+            emit({"phase": "timing", "what": "pipeline_probe", "M": M, "N": N,
+                  "T": PROBE_T, **{f"{v}_ms": ms[v][(M, N)] for v in ms},
+                  "plain_ms": plain_ms[(M, N)], "cudnn_ms": cudnn_ms[(M, N)],
+                  "plain_runs": 3, "card": card})
+    at = (PROBE_MS[0], 1)
+    return {v: (ms[v][at], plain_ms[at]) for v in ms}, launches, cudnn_ms[at]
+
+
 def library_timing(torch, config, shapes, dev, card):
     """The one PyTorch call that computes each kernel's function, timed on
     the same inputs beside it and never called by the port: cuDNN's
@@ -1860,7 +1977,9 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     the recurrent products of the valid frames, forward h . W_h per
     direction, backward dg . W_h^T and h^T . dg; the projections in and
     the streams out (the backward: projections, h, c and dy in, d(xg) and
-    dW_h out)."""
+    dW_h out). P1 (at M=96, N=1, T=640, as its row is timed): the f32
+    products on the CUDA cores (the gates' few operations a cell left
+    out), against W, h0 and c0 in and h out."""
     import torch
 
     H, B = config.model.enc_hidden, config.data.batch_size
@@ -1924,6 +2043,11 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     for att in ("add", "loc"):
         out[f"las_decoder_fwd_{att}"], out[f"las_decoder_bwd_{att}"] = \
             k4_bounds(torch, loc_config, att)
+
+    from gluon_e2e_asr_tpu_torch.tools.pipeline_probe import flops
+    M, N, Hp = PROBE_MS[0], 1, 320
+    out["pipeline_probe_l2"] = out["pipeline_probe_cluster"] = _bound(
+        flops(N, M, PROBE_T), PEAK_F32, f4 * N * (Hp * 4 * Hp + 3 * M * Hp))
     return out
 
 

@@ -4,11 +4,13 @@
 Counterpart of ``gluon_e2e_asr_tpu/train.py``: the same flags
 (``--config``, ``--workdir``, ``--max-steps``, ``--set``) and
 ``--device``. Hybrid CTC/attention training (``loss.mtl_alpha < 1``,
-dot or add attention, one decoder layer), or CTC alone at
-``loss.mtl_alpha=1.0``. On a CUDA device the encoder runs the
-hand-written kernels K1-fwd and K1-bwd, the CTC loss K2 and K3, and the
-attention decoder K4-fwd and K4-bwd (dot attention); on the CPU their
-plain versions. Writes ``<workdir>/metrics.jsonl`` and checkpoints under
+dot, add or location-aware attention, one decoder layer), or CTC alone
+at ``loss.mtl_alpha=1.0``. On a CUDA device the encoder runs the
+hand-written kernels K1-fwd and K1-bwd, the CTC loss K2 and K3, the
+attention decoder K4-fwd and K4-bwd (in the config's attention mode:
+dot, add or loc), and, where ``frontend.impl`` is ``pallas`` or
+``pallas_regrid``, the fused frontend K5 or K6; on the CPU their plain
+versions. Writes ``<workdir>/metrics.jsonl`` and checkpoints under
 ``<workdir>/<train.ckpt_dir>/`` (``ckpt_<step>.pt``, ``best.pt``), which
 ``gluon_e2e_asr_tpu_torch.decode`` reads; prints one ``done`` JSON line.
 """
