@@ -13,7 +13,10 @@ each printing JSON lines:
    within stated tolerances, at the shapes the flagship model
    (``configs/english_flagship.yaml``, the 4.0 s bucket, B=96) gives it:
    K1-fwd in f32 and bf16 in its serving and training forms, K1-bwd in
-   f32 and bf16, K2 and K3 on a real training batch's lattice, K4-fwd
+   f32 and bf16 (also at milestone 2's layer shapes, B=16, H=256, and
+   with B=50; every call through the cluster recurrence, and its dg
+   alone against the plain sweep), K2 and K3 on a real training batch's
+   lattice, K4-fwd
    and K4-bwd in dot mode in f32 and bf16 with the scheduled-sampling
    coins off and on, on that batch's labels and encoder lengths; then
    K4-fwd and K4-bwd in add and loc mode the same way at the shapes of
@@ -35,7 +38,8 @@ each printing JSON lines:
 6. training slices: ``gluon_e2e_asr_tpu_torch.train.main`` at full
    width on the flagship config as shipped (hybrid CTC/attention, dot
    attention, ``train.dp=false``) for two epochs: the launch counts of
-   all six kernels, no plain call, a finite and falling loss, the
+   all six kernels (every K1-bwd launch of every slice through the
+   cluster recurrence), no plain call, a finite and falling loss, the
    attention loss and accuracy logged, a checkpoint; a CTC-only run
    (``loss.mtl_alpha=1.0``) of a few steps; the location-aware flagship
    (``flagship_bf16.yaml``) for two epochs, K4 in loc mode on every step
@@ -53,7 +57,8 @@ each printing JSON lines:
    Adam;
 8. training timing: each training kernel against its plain version and
    beside the one PyTorch call that computes the same function where
-   there is one (cuDNN's LSTM for K1, ``F.ctc_loss`` for K2/K3), K4 in
+   there is one (cuDNN's LSTM for K1, ``F.ctc_loss`` for K2/K3), K1-bwd's
+   recurrence alone beside the whole call (the products the difference), K4 in
    its three modes, K5 and K6 beside the jnp path and ``torch.stft``, K7,
    the milestone 2 step and its frontend's share, the dot and loc hybrid
    train steps at the 4.0 s
@@ -304,21 +309,32 @@ def counters():
     return kernels, plains
 
 
+# K1-bwd's and K7-bwd's launches through the cluster recurrence, counted
+# beside their launches (ops/bilstm.py): name -> the kernel of kernels().
+CLUSTER_COUNTS = {"bilstm_bwd_cluster": "bilstm_bwd",
+                  "bilstm_v1_bwd_cluster": "bilstm_v1_bwd"}
+
+
 def reset_counts() -> None:
     kernels, plains = counters()
     for f in kernels.values():
         f.launches = 0
         if hasattr(f, "by_mode"):
             f.by_mode.update(dict.fromkeys(f.by_mode, 0))
+        if hasattr(f, "cluster_launches"):
+            f.cluster_launches = 0
     for f in plains.values():
         f.calls = 0
 
 
 def read_counts():
-    """(launches by kernel, with K4's by mode as ``<name>_<mode>``; calls
-    of the plain versions)."""
+    """(launches by kernel, with K4's by mode as ``<name>_<mode>`` and
+    K1-bwd's and K7-bwd's through the cluster recurrence as
+    CLUSTER_COUNTS names them; calls of the plain versions)."""
     kernels, plains = counters()
     launches = {k: f.launches for k, f in kernels.items()}
+    for k, of in CLUSTER_COUNTS.items():
+        launches[k] = kernels[of].cluster_launches
     for k in ("las_decoder_fwd", "las_decoder_bwd"):
         for m in ATT_MODES:
             launches[f"{k}_{m}"] = kernels[k].by_mode[m]
@@ -410,14 +426,14 @@ def main() -> None:
                 check(finite and err <= TOL[cd_name],
                       f"bilstm_fwd disagrees with its plain version at layer "
                       f"{layer} {cd_name} round_xg={round_xg}: {err}")
-    bwd_errs = check_training_kernels(torch, config, shapes, dev)
+    m2_config = load_config(M2_CONFIG)
+    bwd_errs = check_training_kernels(torch, config, shapes, dev, m2_config)
     dec_errs = check_decoder_kernels(torch, config, dev)
     loc_config = load_config(LOC_CONFIG)
     mode_errs = {m: check_decoder_kernels(torch, loc_config, dev, m)
                  for m in ("add", "loc")}
     check_decoder_kernels(torch, loc_config, dev, "loc",
                           cases=[("bfloat16", 0.0, True)])
-    m2_config = load_config(M2_CONFIG)
     fe_errs = check_frontend_kernels(torch, m2_config, config, dev)
     v1_errs = check_v1_kernels(torch, config, shapes[0], dev)
     probe_errs = check_probe_kernels(torch, dev)
@@ -570,12 +586,14 @@ def main() -> None:
     timed = {
         "bilstm_fwd": (sum(kernel_ms[k] for k in bf16),
                        sum(plain_ms[k] for k in bf16)),
-        **{k: train_ms[k] for k in ("bilstm_bwd", "ctc_alpha", "ctc_beta_post",
+        **{k: train_ms[k] for k in ("bilstm_bwd", "bilstm_bwd_cluster",
+                                     "ctc_alpha", "ctc_beta_post",
                                      "las_decoder_fwd", "las_decoder_bwd",
                                      "frontend_k5", "frontend_k6",
                                      "bilstm_v1_fwd", "bilstm_v1_bwd")}}
     errors = {"bilstm_fwd": max(v for k, v in errs.items() if k[1] == "bfloat16"),
               "bilstm_bwd": max(bwd_errs["bilstm_bwd"]),
+              "bilstm_bwd_cluster": max(bwd_errs["bilstm_bwd_cluster"]),
               "ctc_alpha": bwd_errs["ctc_alpha"],
               "ctc_beta_post": bwd_errs["ctc_beta_post"],
               "las_decoder_fwd": dec_errs["las_decoder_fwd"],
@@ -590,6 +608,15 @@ def main() -> None:
                        "gluon_e2e_asr_tpu/ops/pallas_lstm.py:484",
                        "sum over the flagship's 3 layer shapes, bf16, B=96, "
                        "4.0 s; error: max abs over dx, dW_x, db, dW_h"),
+        "bilstm_bwd_cluster": (
+            "bilstm_bwd.cu",
+            "gluon_e2e_asr_tpu/ops/pallas_lstm.py:484",
+            "K1-bwd's reverse recurrence alone (bwd_cluster_kernel through "
+            "bilstm_fused_bwd_recur_kernel), sum over the flagship's 3 layer "
+            "shapes, bf16, B=96, 4.0 s; launches: K1-bwd's through the "
+            "cluster kernel in the slice; plain: ops/bilstm.py::_bwd_sweep "
+            "(it also recomputes the gates and forms dW_h); error: max abs "
+            "of dg"),
         "ctc_alpha": ("ctc.cu",
                       "gluon_e2e_asr_tpu/ops/pallas_ctc.py:55",
                       "T=100, B=96, S of a 4.0 s training batch; error over "
@@ -668,6 +695,10 @@ def main() -> None:
         if name in fe_notes:
             rows[-1]["library_note"] = fe_notes[name]
     rows[0]["decode_launches"] = decode_launches
+    bwd = next(r for r in rows if r["name"] == "bilstm_bwd")
+    bwd["products_ms"] = timed["bilstm_bwd"][0] - timed["bilstm_bwd_cluster"][0]
+    bwd["products_bound_ms"], bwd["products_bound_by"] = \
+        bounds["bilstm_bwd_products"]
     next(r for r in rows if r["name"] == "frontend_k5")["decode_launches"] = \
         m2_decode_counts["frontend_k5"]
     emit({"kernels": rows, "train_step": step_errs,
@@ -1043,7 +1074,8 @@ def v1_path(torch, shape, config, dev):
     emit({"phase": "v1_path", "B": int(out.shape[0]), "T": int(out.shape[1]),
           "out_dtype": str(out.dtype), "launches": launches,
           "plain_calls": plain, "finite": finite})
-    check(launches["bilstm_v1_fwd"] == 1 and launches["bilstm_v1_bwd"] == 1,
+    check(launches["bilstm_v1_fwd"] == 1 and launches["bilstm_v1_bwd"] == 1
+          and launches["bilstm_v1_bwd_cluster"] == 1,
           f"the v1 path launched {launches}")
     check(not any(plain.values()), f"plain versions ran on the v1 path: {plain}")
     check(finite and out.dtype == cd, "the v1 path's output or gradients")
@@ -1120,17 +1152,30 @@ def golden_greedy(torch, impl="pallas"):
           f"golden greedy ({impl}): launches {launches}, plain {plain}")
 
 
-def check_training_kernels(torch, config, shapes, dev):
+def check_training_kernels(torch, config, shapes, dev, m2_config):
     """Phase 3, the training kernels: K1-fwd's training form and K1-bwd at
-    the flagship's layer shapes, K2 and K3 on a real batch's lattice."""
+    the flagship's layer shapes (B=96, H=320), at milestone 2's (B=16,
+    H=256) and at the flagship's last layer with B=50 (a partial group of
+    rows in the cluster recurrence), every K1-bwd launch through the
+    cluster kernel, and at the flagship's shapes the recurrence alone
+    against the plain sweep's dg; K2 and K3 on a real batch's lattice."""
+    from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
     from gluon_e2e_asr_tpu_torch.ops import ctc as C
 
     H, B = config.model.enc_hidden, config.data.batch_size
-    errs = {"bilstm_bwd": []}
-    for layer, T, D in shapes:
-        args = layer_inputs(torch, B, T, D, H, layer, dev)
-        dy = layer_cotangent(torch, B, T, H, layer, dev)
+    fc = m2_config.frontend
+    m2_T = num_frames(int(BUCKET_SEC * fc.sample_rate), fc.win_length,
+                      fc.hop_length)
+    cases = [("flagship", B, H, shape) for shape in shapes]
+    cases += [("milestone2", m2_config.data.batch_size,
+               m2_config.model.enc_hidden, shape)
+              for shape in layer_shapes(m2_config, m2_T)]
+    cases.append(("flagship, B=50", 50, H, shapes[-1]))
+    errs = {"bilstm_bwd": [], "bilstm_bwd_cluster": []}
+    for name, Bc, Hc, (layer, T, D) in cases:
+        args = layer_inputs(torch, Bc, T, D, Hc, layer, dev)
+        dy = layer_cotangent(torch, Bc, T, Hc, layer, dev)
         x, lens, w_x, b_x, w_hf, w_hb = args
         for cd_name in ("float32", "bfloat16"):
             cd = getattr(torch, cd_name)
@@ -1141,32 +1186,52 @@ def check_training_kernels(torch, config, shapes, dev):
             torch.cuda.synchronize()
             y_err, c_err = float((y - yp).abs().max()), rel_err(c, cp)
             emit({"phase": "kernel_check", "kernel": "bilstm_fwd",
-                  "form": "training", "layer": layer, "T": T, "D": D,
+                  "form": "training", "shapes": name, "layer": layer,
+                  "B": Bc, "T": T, "D": D, "H": Hc,
                   "compute_dtype": cd_name, "h_max_abs_err": y_err,
                   "c_max_rel_err": c_err, "tol_h": TOL[cd_name],
                   "tol_c_rel": TOL_BWD[cd_name]})
             check(y_err <= TOL[cd_name] and c_err <= TOL_BWD[cd_name],
-                  f"bilstm_fwd training form disagrees at layer {layer} "
-                  f"{cd_name}: h {y_err}, c {c_err}")
+                  f"bilstm_fwd training form disagrees at {name} layer "
+                  f"{layer} {cd_name}: h {y_err}, c {c_err}")
+            n_cluster = K.bilstm_fused_bwd_kernel.cluster_launches
             got = K.bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, y, c,
                                             acts, dy, compute_dtype=cd)
             ref = K.bilstm_fused_bwd_plain(x, lens, w_x, b_x, w_hf, w_hb, y,
                                            c, dy, compute_dtype=cd)
             torch.cuda.synchronize()
+            cluster = K.bilstm_fused_bwd_kernel.cluster_launches - n_cluster
             rec = {"phase": "kernel_check", "kernel": "bilstm_bwd",
-                   "layer": layer, "B": B, "T": T, "D": D, "H": H,
-                   "compute_dtype": cd_name, "tol_rel": TOL_BWD[cd_name]}
-            for name, g, r in zip(("dx", "dw_x", "db", "dw_hf", "dw_hb"),
-                                  got, ref):
-                rec[name] = {"max_abs_err": float((g - r).abs().max()),
-                             "rel_err": rel_err(g, r),
-                             "max_abs": float(r.abs().max())}
+                   "shapes": name, "layer": layer, "B": Bc, "T": T, "D": D,
+                   "H": Hc, "compute_dtype": cd_name,
+                   "cluster_launches": cluster, "tol_rel": TOL_BWD[cd_name]}
+            check(cluster == 1, f"bilstm_bwd at {name} layer {layer} did not "
+                                "go through the cluster recurrence")
+            for out, g, r in zip(("dx", "dw_x", "db", "dw_hf", "dw_hb"),
+                                 got, ref):
+                rec[out] = {"max_abs_err": float((g - r).abs().max()),
+                            "rel_err": rel_err(g, r),
+                            "max_abs": float(r.abs().max())}
                 check(bool(torch.isfinite(g).all())
                       and rel_err(g, r) <= TOL_BWD[cd_name],
-                      f"bilstm_bwd {name} disagrees with its plain version "
-                      f"at layer {layer} {cd_name}: {rel_err(g, r)}")
+                      f"bilstm_bwd {out} disagrees with its plain version "
+                      f"at {name} layer {layer} {cd_name}: {rel_err(g, r)}")
+                if cd_name == "bfloat16" and name == "flagship":
+                    errs["bilstm_bwd"].append(rec[out]["max_abs_err"])
+            if name == "flagship":
+                dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts,
+                                                     dy, cd)
+                xg = torch.cat(K._project(x, lens, w_x, b_x, cd, False), -1)
+                dg_ref, _, _ = K._bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, cd)
+                torch.cuda.synchronize()
+                rec["dg"] = {"max_abs_err": float((dg - dg_ref).abs().max()),
+                             "rel_err": rel_err(dg, dg_ref)}
+                check(bool(torch.isfinite(dg).all())
+                      and rel_err(dg, dg_ref) <= TOL_BWD[cd_name],
+                      f"the K1-bwd recurrence's dg disagrees with the plain "
+                      f"sweep at layer {layer} {cd_name}: {rel_err(dg, dg_ref)}")
                 if cd_name == "bfloat16":
-                    errs["bilstm_bwd"].append(rec[name]["max_abs_err"])
+                    errs["bilstm_bwd_cluster"].append(rec["dg"]["max_abs_err"])
             emit(rec)
 
     emit_, tmask, skip, svalid, label_lens = real_ctc_batch(torch, config, dev)
@@ -1231,6 +1296,7 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     ``falls``, the loss must fall."""
     from gluon_e2e_asr_tpu_torch import train
     from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
+    from gluon_e2e_asr_tpu_torch.ops import bilstm
 
     extra = list(extra)
     if ctc_only:
@@ -1259,8 +1325,13 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     layers = config.model.enc_layers
     kind = None if ctc_only else config.model.att_type
     dec = 0 if ctc_only else steps
+    # every K1-bwd launch through the cluster recurrence (H <= 320 in every
+    # config of the repo)
+    cluster = config.model.enc_hidden <= bilstm.CLUSTER_MAX_HIDDEN
     expect = {"bilstm_fwd": layers * (steps + dev_batches * len(epochs)),
               "bilstm_bwd": layers * steps,
+              "bilstm_bwd_cluster": layers * steps * cluster,
+              "bilstm_v1_bwd_cluster": 0,
               "ctc_alpha": steps, "ctc_beta_post": steps,
               "las_decoder_fwd": dec, "las_decoder_bwd": dec}
     for k in ("las_decoder_fwd", "las_decoder_bwd"):
@@ -1384,7 +1455,7 @@ def train_timing(torch, trainer, shapes, dev, card):
     config = trainer.config
     H, B = config.model.enc_hidden, config.data.batch_size
     out = {}
-    sums = {"kernel": 0.0, "plain": 0.0}
+    sums = dict.fromkeys(("kernel", "plain", "recur", "recur_plain"), 0.0)
     for layer, T, D in shapes:
         args = layer_inputs(torch, B, T, D, H, layer, dev)
         x, lens, w_x, b_x, w_hf, w_hb = args
@@ -1395,19 +1466,34 @@ def train_timing(torch, trainer, shapes, dev, card):
                                                with_cell=True)
             k_ms = time_ms(torch, lambda: K.bilstm_fused_bwd_kernel(
                 x, lens, w_x, w_hf, w_hb, y, c, acts, dy, compute_dtype=cd))
+            # the recurrence alone; the products are the difference
+            r_ms = time_ms(torch, lambda: K.bilstm_fused_bwd_recur_kernel(
+                lens, w_hf, w_hb, c, acts, dy, cd))
             p_ms = time_ms(torch, lambda: K.bilstm_fused_bwd_plain(
                 x, lens, w_x, b_x, w_hf, w_hb, y, c, dy, compute_dtype=cd),
                 n=5, warm=1)
+            xg = torch.cat(K._project(x, lens, w_x, b_x, cd, False), -1)
+            rp_ms = time_ms(torch, lambda: K._bwd_sweep(
+                xg, lens, w_hf, w_hb, y, c, dy, cd), n=3, warm=1)
             f_ms = time_ms(torch, lambda: K.bilstm_fused_kernel(
                 *args, compute_dtype=cd, with_cell=True))
             emit({"phase": "timing", "what": "bilstm_bwd", "layer": layer,
                   "B": B, "T": T, "D": D, "H": H, "compute_dtype": cd_name,
-                  "kernel_ms": k_ms, "plain_ms": p_ms, "plain_runs": 5,
+                  "kernel_ms": k_ms, "recurrence_kernel_ms": r_ms,
+                  "recurrence_us_per_step": r_ms * 1e3 / T,
+                  "products_ms": k_ms - r_ms,
+                  "products_basis": "whole call - recurrence alone",
+                  "plain_ms": p_ms, "plain_runs": 5,
+                  "recurrence_plain_ms": rp_ms, "recurrence_plain_runs": 3,
                   "fwd_training_form_kernel_ms": f_ms, "card": card})
             if cd_name == "bfloat16":
                 sums["kernel"] += k_ms
                 sums["plain"] += p_ms
+                sums["recur"] += r_ms
+                sums["recur_plain"] += rp_ms
+            del xg
     out["bilstm_bwd"] = (sums["kernel"], sums["plain"])
+    out["bilstm_bwd_cluster"] = (sums["recur"], sums["recur_plain"])
 
     emit_, tmask, skip, svalid, label_lens = real_ctc_batch(torch, trainer.config, dev)
     alpha = C.ctc_alpha_kernel(emit_, tmask, skip, svalid)
@@ -1964,7 +2050,13 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     needed); outputs count their whole size. Products take bf16 operands
     (2 bytes), as the timed calls do; states, residuals and gradients are
     f32. K1 sums its 3 layer shapes (K1-fwd in its serving form, as
-    timed: y only). K4's add and loc modes (at ``loc_config``'s shapes) add
+    timed: y only). K1-bwd's recurrence alone (its own row, as timed): the
+    bf16 products dg . W_h^T of both directions over the live frames,
+    against the gate activations, c and dy of the live frames and W_h in,
+    dg out (the activations count here: the recurrence cannot run
+    without its gates). K1-bwd's products (a note on its row, timed as the
+    whole call less the recurrence): the whole call's bytes and its
+    operations less the recurrence's. K4's add and loc modes (at ``loc_config``'s shapes) add
     their energies and location convolution as f32 work on the CUDA cores
     (67 TFLOP/s, counting a tanh as one operation; see k4_bounds) to the
     bf16 products' time, and the loc backward writes its dfct stream.
@@ -1985,7 +2077,7 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     H, B = config.model.enc_hidden, config.data.batch_size
     f4, cd = 4, 2
     out = {}
-    k1f = k1b = (0.0, "")
+    k1f = k1b = k1r = k1p = (0.0, "")
     for layer, T, D in shapes:
         lens = layer_inputs(torch, B, T, D, H, layer, "cpu")[1]
         frames = float(lens.sum())
@@ -1999,10 +2091,20 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
         # in: x, y, c, dy, weights; out: dx, dW_x, db, dW_h
         b_bytes = (cd * (frames * D + w_mats) + f4 * frames * 2 * H * 3
                    + 4 * B + f4 * (B * T * D + w_mats + 8 * H))
+        # the recurrence alone: dg . W_h^T of both directions; in: the gate
+        # activations, c, dy (live frames), W_h, lens; out: dg
+        r_ops = 2 * 2.0 * frames * 4 * H * H
+        r_bytes = (f4 * frames * (8 * H + 2 * H + 2 * H) + cd * 2 * H * 4 * H
+                   + 4 * B + f4 * B * T * 8 * H)
         fb, bb = _bound(f_ops, PEAK_BF16, f_bytes), _bound(b_ops, PEAK_BF16, b_bytes)
+        rb = _bound(r_ops, PEAK_BF16, r_bytes)
+        pb = _bound(b_ops - r_ops, PEAK_BF16, b_bytes)
         k1f = (k1f[0] + fb[0], fb[1])
         k1b = (k1b[0] + bb[0], bb[1])
+        k1r = (k1r[0] + rb[0], rb[1])
+        k1p = (k1p[0] + pb[0], pb[1])
     out["bilstm_fwd"], out["bilstm_bwd"] = k1f, k1b
+    out["bilstm_bwd_cluster"], out["bilstm_bwd_products"] = k1r, k1p
 
     emit_, tmask, skip, svalid, label_lens = real_ctc_batch(torch, config, "cpu")
     T, Bc, S = emit_.shape

@@ -27,27 +27,97 @@
 //
 // Kernels on the caller's stream, no allocation, no synchronisation:
 //
-//   (a) bwd_recur_kernel: one persistent block per (direction, group of
-//       kRows batch rows) loops over time; thread u owns hidden unit u and
-//       its four gate derivatives for the block's rows. It writes dg to
-//       device memory (f32) and, rounded to the compute dtype, to shared
-//       memory (double buffered, one barrier a step), from which it forms
-//       its own entry of dh_rec = dg . W_h^T. The caller passes W_h in
-//       the layout wt[(q*H + u)*4 + e] = W_h[u][4q + e]: the four weights
-//       of unit u that meet dg columns 4q..4q+3 are one vector load, and
-//       neighbouring threads load neighbouring vectors (coalesced).
+//   (a) the reverse recurrence, which writes dg [B,T,8H] f32. Chosen by
+//       shape alone: bwd_cluster_kernel for H <= 320 (every config of the
+//       repo: 320 and 256), bwd_recur_kernel for 320 < H <= 1024. A launch
+//       failure of either raises in the wrapper; nothing falls back.
 //   (b) the products dx, dW_x and dW_h through gemm.cuh (bf16 on the
 //       tensor cores or f32 on the FMA units); the weight gradients split
 //       their long depth (B*T) over blocks and add atomically.
 //   (c) colsum_kernel: db.
 //
-// What bounds it on the card: as in K1-fwd, the recurrence. Every step
-// every block reads all of W_h (0.8 MB in bf16 at H=320) from L2 and does
-// kRows*4H*H FMAs, and a step cannot start before the previous one ended.
-// The design keeps those reads coalesced and vectorised with 16 loads in
-// flight a thread. Keeping W_h resident across a cluster is the route to
-// a faster kernel, for both directions of K1.
+// bwd_cluster_kernel: W_h resident across a cluster of 16 CTAs.
+//   One cluster of kCtas = 16 CTAs per (direction, group of R batch
+//   rows). CTA r owns hidden units [rU, rU + U), U = 4 * ceil(H / 64)
+//   (20 at H=320, 16 at H=256; a multiple of 4 so that a 16-byte store
+//   of 4 units never straddles two owners); units past H compute
+//   nothing. It owns the 4U dg columns of its units, local column
+//   j = 4*lu + g for gate g of local unit lu, and holds W_h's weights of
+//   those columns for all T steps, in shared memory in the compute dtype:
+//   the slice [j][u'] = W_h[u'][g*H + rU + lu] for u' in [0, 16U), zero
+//   past H (102,400 B in f32, 51,200 B in bf16 at H=320). The wrapper
+//   ships the 16 slices as one [16][4U][16U] tensor (ops/bilstm.py::
+//   _cluster_slices); the slice is the columns [4rU, 4rU + 4U) of K1-fwd's
+//   gate-interleaved W_h, transposed and padded. Each step has three
+//   phases:
+//   (1) elementwise: thread i < R*U/4 owns row i / (U/4) and local units
+//       4(i % (U/4)) .. +3 of its CTA (a warp's lanes run along the units
+//       of a row, so that its loads and stores of the streams and of dg
+//       are 16-byte vectors of few rows). It sums dh_rec of its 4 cells
+//       from the 16 slots of the receive buffer in slot order 0..15 (a
+//       fixed order), forms dh, do, dc, the four dg terms and the dc carry
+//       as bwd_recur_kernel does (the carry reset at invalid steps, c_prev
+//       0 outside [0, T)), and writes dg, rounded to the compute dtype, as
+//       f32 into shared memory as [j][R] (in the receive buffer it has
+//       just read; each group of 16 columns 4 words further, against bank
+//       conflicts: dg_at). Then it loads the next step's acts, c at t and
+//       at t_prev and dy of its cells into registers, so that their
+//       latency hides behind the product.
+//   (2) product: thread i < R*U/4 owns a tile of 16 rows (16 * (i / 4U))
+//       and 4 units (4 * (i % 4U)) of dh_rec's partial over this CTA's
+//       columns, P[row][u'] = sum_j dg[row][j] * W[j][u'], depth 4U, f32
+//       FMAs (no TF32): per j four float4 of dg (broadcast: the lanes of
+//       a warp share their rows) and one 16-byte (f32) or 8-byte (bf16)
+//       load of W (a warp's lanes read consecutive vectors), 64 FMAs for 5
+//       loads. The 4 units of a tile belong to one owner, because U is a
+//       multiple of 4. The W slice needs no skew: a warp's lanes read 32
+//       consecutive vectors of one row j.
+//   (3) reduce-scatter: the thread stores its 16 rows x 4 units into slot
+//       r (its CTA's rank) of the owner's receive buffer through
+//       cluster.map_shared_rank, one 16-byte store a row; one cluster
+//       barrier ends the step, split into its arrival and its wait, with
+//       the step's dg stores to device memory (f32) between them. The
+//       receive buffers are double-buffered, [2][16 slots][R][U] f32, so
+//       one cluster barrier a step is enough: a buffer is written in step
+//       s + 1 only after every CTA has passed the barrier of step s, by
+//       which time its owner has summed it and run the product that reads
+//       dg from it. Two CTA barriers guard the reuse of the buffer for dg
+//       inside a step.
+//   Rows per cluster R: the fewest of 16, 32 and 48 for which the
+//   2 * ceil(B / R) clusters (2 directions) fit on the card at once
+//   (cudaOccupancyMaxActiveClusters, asked once per R and U), else 48 and
+//   the clusters run in waves: on the H100 B=96 takes 32 (6 clusters of
+//   at most 7), B=50 32, B=16 16. A step's work is about proportional to
+//   R, so fewer rows a cluster and more clusters are faster while they
+//   fit in one wave. Shared memory 4U*16U*sizeof(W) + 2*16*R*U*4 B:
+//   225,280 B at H=320, R=48, f32 (184,320 at R=32), within the 232,448
+//   a block may have for every H <= 320 and R <= 48. When not even one
+//   cluster fits, the launch returns kNoClusterFits.
+//   One step at the flagship's layer shape (H=320, B=96, R=32: 6
+//   clusters, 96 CTAs, one wave): 819,200 FMAs a CTA (32 x 320 x 80),
+//   40,960 B stored through distributed shared memory a CTA (38,400 of
+//   them to other CTAs), one cluster barrier and two CTA barriers; from
+//   device memory 17,920 B of streams in and 10,240 B of dg out a CTA.
+//   What bounds it: shared memory in the product, 5 loads per 64 FMAs, at
+//   about 5 cycles per 16-byte load a warp on the H100 (as in
+//   pipeline_probe.cu's cluster kernel); the product takes about 6.5 of
+//   a step's 11 us there, and the elementwise phase, the exchange and the
+//   barrier, each small when cut alone, the rest (PERF.md, measured with
+//   tools/k1b_probe.py --ablate).
+//
+// bwd_recur_kernel (320 < H <= 1024): one persistent block per (direction,
+//   group of kRows batch rows) loops over time; thread u owns hidden unit
+//   u and its four gate derivatives for the block's rows. It writes dg to
+//   device memory (f32) and, rounded to the compute dtype, to shared
+//   memory (double buffered, one barrier a step), from which it forms its
+//   own entry of dh_rec = dg . W_h^T. The caller passes W_h in the layout
+//   wt[(q*H + u)*4 + e] = W_h[u][4q + e]: the four weights of unit u that
+//   meet dg columns 4q..4q+3 are one vector load, and neighbouring threads
+//   load neighbouring vectors (coalesced). Every step every block reads
+//   all of W_h from L2 and does kRows*4H*H FMAs, and a step cannot start
+//   before the previous one ended.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -55,6 +125,8 @@
 
 #include "common.cuh"
 #include "gemm.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -196,6 +268,386 @@ cudaError_t launch_bwd_recur(const float* dy, const int* lens,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bwd_cluster_kernel: W_h resident across a cluster (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kCtas = 16;               // CTAs per cluster
+constexpr int kClusterMaxHidden = 320;  // larger H takes bwd_recur_kernel
+constexpr int kMaxRows = 48;            // rows per cluster, at most
+constexpr int kTileRows = 16;           // rows of a product tile
+constexpr int kClThreadsMax = 256;      // kMaxRows * 20 / 4 = 240, in warps
+constexpr size_t kSmemLimit = 232448;   // dynamic shared memory of a block
+
+// Returned, without launching, when no cluster of the kernel fits.
+constexpr int kNoClusterFits = -1;
+
+__host__ __device__ __forceinline__ int cluster_units(int H) {
+  return 4 * ((H + 63) / 64);
+}
+
+// Four adjacent weights from shared memory.
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Four adjacent floats of a stream, for units u0 .. u0+3 (0 past H): one
+// 16-byte load when `vec` (H % 4 == 0, so u0 is 16-byte aligned), else
+// four loads.
+__device__ __forceinline__ float4 stream4(const float* p, int u0, int H,
+                                          bool vec) {
+  if (vec) {
+    return u0 < H ? __ldg(reinterpret_cast<const float4*>(p))
+                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  float v[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[c] = u0 + c < H ? __ldg(p + c) : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void split4(float4 v, float* d) {
+  d[0] = v.x;
+  d[1] = v.y;
+  d[2] = v.z;
+  d[3] = v.w;
+}
+
+// Where dg column j starts in the [j][R] f32 dg buffer: rows contiguous,
+// and each group of 16 columns (one thread's four units) 4 words further,
+// so that the lanes of a warp, which write one column for 4-5 units of
+// each of 6-8 rows, spread over more banks. A multiple of 4: the product
+// reads 16-byte vectors.
+__device__ __forceinline__ int dg_at(int j, int R) {
+  return j * R + 4 * ((j >> 4) & 7);
+}
+
+// dg as the product's operand: f32, rounded to bf16 where W is bf16. (A
+// bf16 operand takes two 16-byte loads a j instead of four but 16 more
+// instructions to widen; it measured no faster on the H100: PERF.md.)
+__device__ __forceinline__ float operand(const float*, float v) { return v; }
+__device__ __forceinline__ float operand(const __nv_bfloat16*, float v) {
+  return round_bf16(v);
+}
+
+// The two halves of a cluster barrier: stores before the arrival are
+// visible to every CTA of the cluster after the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Grid kCtas * groups * 2 blocks, clusters of kCtas along x: cluster
+// id = blockIdx.x / kCtas is direction id / groups, rows
+// [R * (id % groups), +R). ws: the [kCtas][4U][16U] slices of W_h
+// (_cluster_slices) of the forward (wsf) and backward (wsb) direction.
+// Dynamic shared memory: this CTA's slice [4U][16U] of WT, then the
+// receive buffers [2][kCtas][R][U] f32.
+template <typename WT>
+__global__ void __launch_bounds__(kClThreadsMax, 1)
+bwd_cluster_kernel(const float* __restrict__ dy, const int* __restrict__ lens,
+                   const float* __restrict__ acts, const float* __restrict__ cs,
+                   const WT* __restrict__ wsf, const WT* __restrict__ wsb,
+                   float* __restrict__ dg, int B, int T, int H, int R,
+                   int groups) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int id = blockIdx.x / kCtas;
+  const int dir = id / groups;
+  const int b0 = (id % groups) * R;
+  const int U = cluster_units(H);
+  const int Hp = kCtas * U;      // padded units
+  const int J = 4 * U;           // this CTA's dg columns
+  const int active = R * U / 4;  // threads with cells and a tile
+  const int slot = R * U;        // floats of one sender's slot
+  const int buf = kCtas * slot;  // floats of one receive buffer
+  const int H4 = 4 * H;
+  const size_t g_row = (size_t)8 * H;  // acts and dg: [B,T,8H]
+  const size_t s_row = (size_t)2 * H;  // dy and cs: [B,T,2H]
+  const int tid = threadIdx.x;
+  WT* ws = reinterpret_cast<WT*>(smem);
+  float* recv = reinterpret_cast<float*>(smem + sizeof(WT) * (size_t)J * Hp);
+
+  // This CTA's slice of W_h, 16 bytes a load.
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        (dir ? wsb : wsf) + (size_t)rank * J * Hp);
+    uint4* dst = reinterpret_cast<uint4*>(ws);
+    const int n = (int)(sizeof(WT) * (size_t)J * Hp / 16);
+    for (int i = tid; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
+  }
+
+  // The cells of phase (1): row `row`, local units lq .. lq+3 (the lanes
+  // of a warp run along the units of a row, then along the rows).
+  const bool on = tid < active;
+  const int row = tid / (U / 4);
+  const int lq = 4 * (tid % (U / 4));
+  const int b = b0 + row;
+  const int u0 = rank * U + lq;
+  const int len = (on && b < B) ? lens[b] : 0;
+  const bool vec = H % 4 == 0;  // then u0..u0+3 is one 16-byte vector
+  // The tile of phase (2): rows 16*rg .. +15, units 4*quad .. +3, whose
+  // owner is CTA quad / (U/4), at its local unit 4 * (quad % (U/4)).
+  const int rg = tid / J, quad = tid % J;
+  const int owner = quad / (U / 4);
+  const int lo = 4 * (quad % (U / 4));
+
+  // The streams of one step for this thread's cells, prefetched:
+  // [gate or stream][cell].
+  float pa[4][4], pc[4], pp[4], pd[4];
+  auto fetch = [&](int s) {
+    const int t = dir ? s : T - 1 - s;
+    const int tp = dir ? t + 1 : t - 1;
+    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 va[4] = {z, z, z, z}, vc = z, vd = z, vp = z;
+    if (t < len) {
+      const float* a = acts + (size_t)(b * T + t) * g_row + dir * H4 + u0;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) va[g] = stream4(a + g * H, u0, H, vec);
+      const size_t at = (size_t)(b * T + t) * s_row + dir * H + u0;
+      vc = stream4(cs + at, u0, H, vec);
+      vd = stream4(dy + at, u0, H, vec);
+      if (tp >= 0 && tp < T)
+        vp = stream4(cs + (size_t)(b * T + tp) * s_row + dir * H + u0, u0, H,
+                     vec);
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) split4(va[g], pa[g]);
+    split4(vc, pc);
+    split4(vd, pd);
+    split4(vp, pp);
+  };
+
+  float dcc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float g4[4][4];  // this step's dg of the cells: [gate][cell]
+  // dg of the cells to device memory, in f32.
+  auto store_dg = [&](int t) {
+    if (!on || b >= B || u0 >= H) return;
+    float* o = dg + (size_t)(b * T + t) * g_row + dir * H4 + u0;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      if (vec) {
+        *reinterpret_cast<float4*>(o + g * H) =
+            make_float4(g4[g][0], g4[g][1], g4[g][2], g4[g][3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (u0 + c < H) o[g * H + c] = g4[g][c];
+      }
+    }
+  };
+  fetch(0);
+  // Every CTA of the cluster has started and holds its slice before any
+  // CTA stores into another's receive buffer.
+  cluster.sync();
+
+  for (int s = 0; s < T; ++s) {
+    const int t = dir ? s : T - 1 - s;
+    const int cur = s & 1;
+    float* prev = recv + (cur ^ 1) * buf;  // written in step s-1
+    // (1) elementwise
+    if (on) {
+      float dh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (s > 0) {
+        const float* p = prev + row * U + lq;
+#pragma unroll
+        for (int k = 0; k < kCtas; ++k) {  // slot order: a fixed order
+          const float4 v = *reinterpret_cast<const float4*>(p + k * slot);
+          dh[0] += v.x;
+          dh[1] += v.y;
+          dh[2] += v.z;
+          dh[3] += v.w;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (t < len && u0 + c < H) {
+          const float si = pa[0][c], sf = pa[1][c], tg = pa[2][c], so = pa[3][c];
+          const float th = tanhf(pc[c]);
+          const float d = pd[c] + dh[c];
+          const float d_o = d * th;
+          const float dc = d * so * (1.0f - th * th) + dcc[c];
+          g4[0][c] = dc * tg * si * (1.0f - si);
+          g4[1][c] = dc * pp[c] * sf * (1.0f - sf);
+          g4[2][c] = dc * si * (1.0f - tg * tg);
+          g4[3][c] = d_o * so * (1.0f - so);
+          dcc[c] = dc * sf;
+        } else {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) g4[g][c] = 0.0f;
+          dcc[c] = 0.0f;
+        }
+      }
+    }
+    if (s == T - 1) {  // the last step's dh_rec is not needed
+      store_dg(t);
+      break;
+    }
+    __syncthreads();  // every read of `prev` is done: it now takes dg
+    float* dgs = prev;  // [j][R]
+    if (on) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          dgs[dg_at(4 * (lq + c) + g, R) + row] = operand(ws, g4[g][c]);
+      fetch(s + 1);
+    }
+    __syncthreads();
+    // (2) product and (3) reduce-scatter
+    if (on) {
+      float acc[kTileRows][4];
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+      const float* dp = dgs + kTileRows * rg;
+      const WT* wp = ws + 4 * quad;
+#pragma unroll 4
+      for (int j = 0; j < J; ++j) {
+        const float* dj = dp + dg_at(j, R);
+        float dr[kTileRows];
+#pragma unroll
+        for (int i = 0; i < kTileRows; i += 4)
+          split4(*reinterpret_cast<const float4*>(dj + i), dr + i);
+        const float4 w = lds4(wp + (size_t)j * Hp);
+#pragma unroll
+        for (int i = 0; i < kTileRows; ++i) {
+          acc[i][0] = fmaf(dr[i], w.x, acc[i][0]);
+          acc[i][1] = fmaf(dr[i], w.y, acc[i][1]);
+          acc[i][2] = fmaf(dr[i], w.z, acc[i][2]);
+          acc[i][3] = fmaf(dr[i], w.w, acc[i][3]);
+        }
+      }
+      float* dst = recv + cur * buf + rank * slot + kTileRows * rg * U + lo;
+      dst = cluster.map_shared_rank(dst, owner);
+#pragma unroll
+      for (int i = 0; i < kTileRows; ++i)
+        *reinterpret_cast<float4*>(dst + i * U) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+    cluster_arrive();
+    store_dg(t);  // while the cluster gathers at the barrier
+    cluster_wait();
+  }
+}
+
+template <typename WT>
+size_t cluster_smem(int R, int U) {
+  return sizeof(WT) * (size_t)4 * U * kCtas * U
+      + sizeof(float) * 2 * (size_t)kCtas * R * U;
+}
+
+// The launch configuration of bwd_cluster_kernel<WT> with R rows a
+// cluster at U units a CTA, for `groups` groups of rows.
+template <typename WT>
+cudaError_t cluster_config(int R, int U, int groups, cudaStream_t st,
+                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const size_t smem = cluster_smem<WT>(R, U);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  auto kernel = bwd_cluster_kernel<WT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(kCtas * groups * 2);
+  cfg->blockDim = dim3(32 * ((R * U / 4 + 31) / 32));
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCtas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of bwd_cluster_kernel<WT> with R rows at U units the
+// device holds at once (cudaOccupancyMaxActiveClusters), asked once per
+// (R, U) and process.
+template <typename WT>
+cudaError_t cluster_capacity(int R, int U, cudaStream_t st, int* clusters) {
+  static int known[kMaxRows / kTileRows][kClusterMaxHidden / 16 / 4 + 1] = {};
+  int& slot = known[R / kTileRows - 1][U / 4];
+  if (slot == 0) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t e = cluster_config<WT>(R, U, 1, st, &cfg, &attr);
+    if (e != cudaSuccess) return e;
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, (void*)bwd_cluster_kernel<WT>, &cfg);
+    if (e != cudaSuccess) return e;
+    slot = n + 1;  // 0 means not asked yet
+  }
+  *clusters = slot - 1;
+  return cudaSuccess;
+}
+
+template <typename WT>
+int launch_bwd_cluster(const float* dy, const int* lens, const float* acts,
+                       const float* cs, const void* wsf, const void* wsb,
+                       float* dg, int B, int T, int H, cudaStream_t st) {
+  const int U = cluster_units(H);
+  // Rows a cluster: the fewest of 16, 32, 48 whose clusters (2 directions
+  // x ceil(B / R) groups) the device holds at once, else 48.
+  int R = kMaxRows, capacity = 0;
+  for (int r = kTileRows; r <= kMaxRows; r += kTileRows) {
+    cudaError_t e = cluster_capacity<WT>(r, U, st, &capacity);
+    if (e != cudaSuccess) return (int)e;
+    if (2 * ((B + r - 1) / r) <= capacity) {
+      R = r;
+      break;
+    }
+  }
+  cudaError_t e = cluster_capacity<WT>(R, U, st, &capacity);
+  if (e != cudaSuccess) return (int)e;
+  if (capacity < 1) return kNoClusterFits;
+  const int groups = (B + R - 1) / R;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  e = cluster_config<WT>(R, U, groups, st, &cfg, &attr);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, bwd_cluster_kernel<WT>, dy, lens, acts, cs,
+                         static_cast<const WT*>(wsf),
+                         static_cast<const WT*>(wsb), dg, B, T, H, R, groups);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The reverse recurrence, chosen by shape alone: the cluster kernel for
+// H <= kClusterMaxHidden (wtf/wtb the _cluster_slices layout), else
+// bwd_recur_kernel (wtf/wtb the _transpose_quads layout).
+int launch_recurrence(const float* dy, const int* lens, const float* acts,
+                      const float* cs, const void* wtf, const void* wtb,
+                      float* dg, int B, int T, int H, int cd_bf16,
+                      cudaStream_t st) {
+  if (H <= kClusterMaxHidden) {
+    return cd_bf16
+        ? launch_bwd_cluster<__nv_bfloat16>(dy, lens, acts, cs, wtf, wtb, dg,
+                                            B, T, H, st)
+        : launch_bwd_cluster<float>(dy, lens, acts, cs, wtf, wtb, dg, B, T,
+                                    H, st);
+  }
+  return (int)(cd_bf16
+      ? launch_bwd_recur<__nv_bfloat16>(dy, lens, acts, cs, wtf, wtb, dg, B,
+                                        T, H, 1, st)
+      : launch_bwd_recur<float>(dy, lens, acts, cs, wtf, wtb, dg, B, T, H, 0,
+                                st));
+}
+
 // h_prev of one direction as the A operand of dW_h = h_prev^T . dg:
 // (u, row) with row = b*T + t reads the h stream y [B,T,2H] at t-1
 // (forward direction) or t+1 (backward direction), 0 outside [0, T).
@@ -242,11 +694,12 @@ __global__ void colsum_kernel(const float* __restrict__ dg,
 // Plain C interface (loaded with ctypes). Pointers are device pointers.
 // x [B,T,D], wx [D,8H], y and cs [B,T,2H] (K1-fwd's h and c streams),
 // acts [B,T,8H] (K1-fwd's training-form xg buffer), dy [B,T,2H], all f32;
-// wtf/wtb are W_h in the layout of bwd_recur_kernel, float when
-// cd_bf16 == 0 and __nv_bfloat16 when cd_bf16 == 1. dg [B,T,8H] is
-// caller-allocated scratch. Outputs, f32: dx [B,T,D], dwx [D,8H], db [8H],
-// dwhf and dwhb [H,4H]. Returns cudaGetLastError() after the launches (0
-// on success).
+// wtf/wtb are W_h in the layout of the recurrence kernel that H selects
+// (the header), float when cd_bf16 == 0 and __nv_bfloat16 when
+// cd_bf16 == 1. dg [B,T,8H] is caller-allocated scratch. Outputs, f32:
+// dx [B,T,D], dwx [D,8H], db [8H], dwhf and dwhb [H,4H]. Returns
+// cudaGetLastError() after the launches (0 on success), or kNoClusterFits
+// (-1) without launching when no cluster of the recurrence fits.
 extern "C" int bilstm_bwd(const float* x, const int* lens, const float* wx,
                           const void* wtf, const void* wtb, const float* y,
                           const float* cs, const float* acts, const float* dy,
@@ -261,13 +714,11 @@ extern "C" int bilstm_bwd(const float* x, const int* lens, const float* wx,
   const int N8 = 8 * H, N4 = 4 * H;
   const bool bf16 = cd_bf16 != 0;
 
-  cudaError_t e = bf16
-      ? launch_bwd_recur<__nv_bfloat16>(dy, lens, acts, cs, wtf, wtb, dg, B,
-                                        T, H, 1, st)
-      : launch_bwd_recur<float>(dy, lens, acts, cs, wtf, wtb, dg, B, T, H, 0,
-                                st);
-  if (e != cudaSuccess) return (int)e;
+  const int rc = launch_recurrence(dy, lens, acts, cs, wtf, wtb, dg, B, T, H,
+                                   cd_bf16 ? 1 : 0, st);
+  if (rc != 0) return rc;
 
+  cudaError_t e;
   const size_t f = sizeof(float);
   if ((e = cudaMemsetAsync(dwx, 0, f * D * N8, st)) != cudaSuccess) return (int)e;
   if ((e = cudaMemsetAsync(db, 0, f * N8, st)) != cudaSuccess) return (int)e;
@@ -302,7 +753,8 @@ extern "C" int bilstm_bwd(const float* x, const int* lens, const float* wx,
 
 // K7-bwd: the VJP of the v1 layer (gluon_e2e_asr_tpu/ops/pallas_lstm.py::
 // bilstm_pallas -> _bilstm_vjp_bwd -> pl.pallas_call -> _bwd_kernel):
-// bwd_recur_kernel and the two dW_h products, without K1's projection
+// the reverse recurrence (the kernel H selects) and the two dW_h
+// products, without K1's projection
 // products. y, cs and acts come from bilstm_v1_fwd's training form, y and
 // cs rounded as the TPU kernel's streams in xg's dtype (the recurrence
 // then reads the rounded c, as _bwd_kernel does). The TPU kernel
@@ -323,12 +775,10 @@ extern "C" int bilstm_v1_bwd(const int* lens, const void* wtf,
   const int M = B * T;
   const int N8 = 8 * H, N4 = 4 * H;
   const bool bf16 = cd_bf16 != 0;
-  cudaError_t e = bf16
-      ? launch_bwd_recur<__nv_bfloat16>(dy, lens, acts, cs, wtf, wtb, dg, B,
-                                        T, H, 1, st)
-      : launch_bwd_recur<float>(dy, lens, acts, cs, wtf, wtb, dg, B, T, H, 0,
-                                st);
-  if (e != cudaSuccess) return (int)e;
+  const int rc = launch_recurrence(dy, lens, acts, cs, wtf, wtb, dg, B, T, H,
+                                   bf16 ? 1 : 0, st);
+  if (rc != 0) return rc;
+  cudaError_t e;
   const size_t f = sizeof(float);
   if ((e = cudaMemsetAsync(dwhf, 0, f * H * N4, st)) != cudaSuccess) return (int)e;
   if ((e = cudaMemsetAsync(dwhb, 0, f * H * N4, st)) != cudaSuccess) return (int)e;
@@ -343,6 +793,25 @@ extern "C" int bilstm_v1_bwd(const int* lens, const void* wtf,
   return (int)cudaSuccess;
 }
 
+// The recurrence alone: dg [B,T,8H] f32 from the arguments of bilstm_bwd
+// of the same names (for timing it apart from the products). Returns what
+// bilstm_bwd returns.
+extern "C" int bilstm_bwd_recur(const int* lens, const void* wtf,
+                                const void* wtb, const float* cs,
+                                const float* acts, const float* dy, float* dg,
+                                int B, int T, int H, int cd_bf16,
+                                void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || H > 1024) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_recurrence(dy, lens, acts, cs, wtf, wtb, dg, B, T, H,
+                           cd_bf16 ? 1 : 0, static_cast<cudaStream_t>(stream));
+}
+
 extern "C" const char* bilstm_bwd_error_string(int code) {
+  if (code == kNoClusterFits) {
+    return "no cluster of 16 CTAs of bwd_cluster_kernel fits on this device "
+           "(cudaOccupancyMaxActiveClusters returned 0)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

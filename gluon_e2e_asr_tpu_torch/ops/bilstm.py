@@ -16,6 +16,18 @@ direction of ``bilstm_fused`` has two versions:
   replaces, what bounds it on the card and what its design does about
   it.
 
+K1-bwd's reverse recurrence takes one of two kernels of
+``csrc/bilstm_bwd.cu``, chosen by shape alone (``_bwd_weights``): for
+H <= ``CLUSTER_MAX_HIDDEN`` (320, every config of the repo)
+``bwd_cluster_kernel``, which keeps W_h resident in the shared memory of
+a cluster of 16 CTAs and sums dh_rec by a reduce-scatter through
+distributed shared memory (W_h shipped as ``_cluster_slices``); for
+320 < H <= ``MAX_HIDDEN`` ``bwd_recur_kernel``, which reads W_h from L2
+every step (W_h shipped as ``_transpose_quads``). K7-bwd takes the same
+choice. Each backward wrapper counts its launches in ``.launches`` and
+those through the cluster kernel in ``.cluster_launches``. A failed
+launch of either raises; neither replaces the other.
+
 ``bilstm_fused`` dispatches on the device of ``x`` (``_route``): the
 plain versions for a CPU tensor, the kernels for a CUDA tensor, and
 nothing else. With gradients enabled it runs through ``BiLSTMFused``, a
@@ -54,6 +66,8 @@ from gluon_e2e_asr_tpu_torch import _build
 from gluon_e2e_asr_tpu_torch.models.lstm import bilstm_scan, matmul_cd, work_dtype
 
 MAX_HIDDEN = 1024  # one thread per hidden unit in the recurrence kernels
+CLUSTER_CTAS = 16  # CTAs of a cluster of K1-bwd's cluster recurrence
+CLUSTER_MAX_HIDDEN = 320  # the largest H it takes (its shared memory)
 
 
 def _project(x, lens, w_x, b_x, compute_dtype, round_xg):
@@ -162,7 +176,8 @@ bilstm_fused_bwd_plain.calls = 0
 # Each library's entry points: (pointer arguments, int arguments), then
 # the stream.
 _ENTRIES = {"bilstm_fwd": {"bilstm_fwd": (9, 6), "bilstm_v1_fwd": (8, 6)},
-            "bilstm_bwd": {"bilstm_bwd": (15, 5), "bilstm_v1_bwd": (10, 4)}}
+            "bilstm_bwd": {"bilstm_bwd": (15, 5), "bilstm_v1_bwd": (10, 4),
+                           "bilstm_bwd_recur": (7, 4)}}
 _ERRORS = {"bilstm_fwd": "bilstm_error_string",
            "bilstm_bwd": "bilstm_bwd_error_string"}
 
@@ -242,6 +257,36 @@ def _transpose_quads(w_h: torch.Tensor) -> torch.Tensor:
     return w_h.reshape(H, H, 4).transpose(0, 1).contiguous().reshape(-1)
 
 
+def _cluster_units(H: int) -> int:
+    """Hidden units owned by one CTA of the cluster recurrence: a multiple
+    of 4 (one 16-byte store), 16 of them cover H."""
+    return 4 * -(-H // 64)
+
+
+def _cluster_slices(w_h: torch.Tensor) -> torch.Tensor:
+    """[H, 4H] gate-major (i|f|g|o) -> [16, 4U, 16U], U = _cluster_units(H):
+    slice r, row j = 4*lu + g, column u' holds W_h[u', g*H + r*U + lu] (the
+    weights of CTA r's dg columns, K1-bwd's cluster layout); 0 where
+    r*U + lu >= H or u' >= H."""
+    H = w_h.shape[0]
+    U = _cluster_units(H)
+    Hp = CLUSTER_CTAS * U
+    w = w_h.new_zeros(Hp, 4, Hp)  # [u', g, unit]
+    w[:H, :, :H] = w_h.reshape(H, 4, H)
+    return (w.reshape(Hp, 4, CLUSTER_CTAS, U).permute(2, 3, 1, 0)
+            .reshape(CLUSTER_CTAS, 4 * U, Hp).contiguous())
+
+
+def _bwd_weights(w_hf, w_hb, compute_dtype):
+    """W_h of both directions in the layout of the recurrence kernel that
+    H selects, in the compute dtype, and whether it is the cluster
+    kernel."""
+    cluster = w_hf.shape[0] <= CLUSTER_MAX_HIDDEN
+    layout = _cluster_slices if cluster else _transpose_quads
+    return (layout(w_hf).to(compute_dtype), layout(w_hb).to(compute_dtype),
+            cluster)
+
+
 def bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb,
                         compute_dtype: torch.dtype = torch.float32,
                         round_xg: bool = False, with_cell: bool = False):
@@ -303,8 +348,7 @@ def bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, y, c, acts, dy,
     if B == 0 or T == 0:
         return dx, dw_x.zero_(), db.zero_(), dw_hf.zero_(), dw_hb.zero_()
     dg = torch.empty(B, T, 8 * H, **f32)
-    wtf = _transpose_quads(w_hf).to(compute_dtype)
-    wtb = _transpose_quads(w_hb).to(compute_dtype)
+    wtf, wtb, cluster = _bwd_weights(w_hf, w_hb, compute_dtype)
     _launch("bilstm_bwd", "bilstm_bwd", dev, (
         x.data_ptr(), lens.data_ptr(), w_x.data_ptr(), wtf.data_ptr(),
         wtb.data_ptr(), y.data_ptr(), c.data_ptr(), acts.data_ptr(),
@@ -313,10 +357,50 @@ def bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, y, c, acts, dy,
         B, T, D, H, int(compute_dtype == torch.bfloat16)),
         f"B={B} T={T} D={D} H={H}")
     bilstm_fused_bwd_kernel.launches += 1
+    bilstm_fused_bwd_kernel.cluster_launches += cluster
     return dx, dw_x, db, dw_hf, dw_hb
 
 
 bilstm_fused_bwd_kernel.launches = 0
+bilstm_fused_bwd_kernel.cluster_launches = 0
+
+
+def bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy,
+                                  compute_dtype: torch.dtype = torch.float32):
+    """K1-bwd's reverse recurrence alone on the card (the kernel H
+    selects), from the arguments of ``bilstm_fused_bwd_kernel`` of the same
+    names: dg [B,T,8H] f32, the cotangent of both directions' gate
+    pre-activations (``_bwd_sweep``'s dg). For timing the recurrence apart
+    from the products; the training path does not call it."""
+    B, T, H2 = c.shape
+    H = H2 // 2
+    dev = c.device
+    if dev.type != "cuda":
+        raise ValueError(f"bilstm_fused_bwd_recur_kernel needs CUDA tensors, "
+                         f"got {dev}")
+    if not 0 < H <= MAX_HIDDEN:
+        raise ValueError(f"hidden size {H} outside the kernel's 1..{MAX_HIDDEN}")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                         f"got {compute_dtype}")
+    _check(lens, "lens", torch.int32, (B,), dev)
+    _check(w_hf, "w_hf", torch.float32, (H, 4 * H), dev)
+    _check(w_hb, "w_hb", torch.float32, (H, 4 * H), dev)
+    _check(c, "c", torch.float32, (B, T, 2 * H), dev)
+    _check(acts, "acts", torch.float32, (B, T, 8 * H), dev)
+    _check(dy, "dy", torch.float32, (B, T, 2 * H), dev)
+    dg = torch.empty(B, T, 8 * H, device=dev, dtype=torch.float32)
+    if B and T:
+        wtf, wtb, _ = _bwd_weights(w_hf, w_hb, compute_dtype)
+        _launch("bilstm_bwd", "bilstm_bwd_recur", dev, (
+            lens.data_ptr(), wtf.data_ptr(), wtb.data_ptr(), c.data_ptr(),
+            acts.data_ptr(), dy.data_ptr(), dg.data_ptr(), B, T, H,
+            int(compute_dtype == torch.bfloat16)), f"B={B} T={T} H={H}")
+        bilstm_fused_bwd_recur_kernel.launches += 1
+    return dg
+
+
+bilstm_fused_bwd_recur_kernel.launches = 0
 
 
 def _route(x: torch.Tensor) -> str:
@@ -519,8 +603,7 @@ def bilstm_pallas_bwd_kernel(lens, w_hf, w_hb, y, c, acts, dy,
     dw_hb = alloc(H, 4 * H, **f32)
     if B and T:
         dy = dy.to(torch.float32).contiguous()
-        wtf = _transpose_quads(w_hf).to(compute_dtype)
-        wtb = _transpose_quads(w_hb).to(compute_dtype)
+        wtf, wtb, cluster = _bwd_weights(w_hf, w_hb, compute_dtype)
         _launch("bilstm_bwd", "bilstm_v1_bwd", dev, (
             lens.data_ptr(), wtf.data_ptr(), wtb.data_ptr(), y.data_ptr(),
             c.data_ptr(), acts.data_ptr(), dy.data_ptr(), dg.data_ptr(),
@@ -528,11 +611,13 @@ def bilstm_pallas_bwd_kernel(lens, w_hf, w_hb, y, c, acts, dy,
             int(compute_dtype == torch.bfloat16)),
             f"B={B} T={T} H={H}")
         bilstm_pallas_bwd_kernel.launches += 1
+        bilstm_pallas_bwd_kernel.cluster_launches += cluster
     return (dg[..., :4 * H].to(x_dtype), dg[..., 4 * H:].to(x_dtype),
             dw_hf.to(w_hf.dtype), dw_hb.to(w_hb.dtype))
 
 
 bilstm_pallas_bwd_kernel.launches = 0
+bilstm_pallas_bwd_kernel.cluster_launches = 0
 
 
 class BiLSTMV1(torch.autograd.Function):

@@ -1,0 +1,185 @@
+"""K1-bwd alone on the card: the whole call and its reverse recurrence.
+
+Times ``ops/bilstm.py::bilstm_fused_bwd_kernel`` (the recurrence, the
+products dx, dW_x, dW_h and db) and ``bilstm_fused_bwd_recur_kernel``
+(the recurrence alone) by CUDA events at the flagship's three layer
+shapes (B=96, H=320, the 4.0 s bucket: T 398/199/100) and milestone 2's
+(B=16, H=256), f32 and bf16, on seeded inputs from K1-fwd's training
+form. Run from the root of a checkout on a machine with the card and
+nvcc::
+
+    python -m gluon_e2e_asr_tpu_torch.tools.k1b_probe [--iters 10] [--ablate]
+
+Each shape prints one JSON line: ms of the whole call and of the
+recurrence, the products as their difference, microseconds a step of the
+recurrence, the card's name and power limit.
+
+``--ablate`` also builds ``csrc/bilstm_bwd.cu`` with one piece of the
+cluster recurrence's step cut at a time (``CUTS``; each such build
+computes wrong results, only its time counts) and times the recurrence
+of the flagship's layer 0 in f32 and bf16 with each, in the same process
+as the kernel as it is: the time a piece costs is the difference. Two
+more builds there are comparisons, not cuts: the cluster kernel with 48
+rows a cluster whatever B is, and ``bwd_recur_kernel`` (the design
+before the cluster kernel, W_h from L2 every step) in its place.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from gluon_e2e_asr_tpu_torch import _build
+from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+# (name, B, T, D, H): the flagship's layers at the 4.0 s bucket and
+# milestone 2's first layer at its 4.0 s bucket.
+SHAPES = (("flagship layer 0", 96, 398, 80, 320),
+          ("flagship layer 1", 96, 199, 1280, 320),
+          ("flagship layer 2", 96, 100, 1280, 320),
+          ("milestone2 layer 0", 16, 398, 80, 256))
+# name -> [(text of csrc/bilstm_bwd.cu, its replacement)]: each cuts one
+# piece of bwd_cluster_kernel's step.
+CUTS = {
+    "product": [("      for (int j = 0; j < J; ++j) {",
+                 "      for (int j = 0; j < 0; ++j) {")],
+    # partials go to this CTA's own buffer, not to their owners
+    "exchange": [("      dst = cluster.map_shared_rank(dst, owner);\n", "")],
+    # a CTA barrier where the cluster barrier ends the step, and one
+    # cluster barrier after the loop, so that no CTA exits while another
+    # may still store into its shared memory
+    "cluster barrier": [
+        ("    cluster_arrive();\n", "    __syncthreads();\n"),
+        ("    cluster_wait();\n  }\n}\n", "  }\n  cluster.sync();\n}\n")],
+    "stream loads": [("      fetch(s + 1);\n", "")],
+    "dg stores": [("    if (!on || b >= B || u0 >= H) return;",
+                   "    return;")],
+    # not cuts: the kernel with 48 rows a cluster whatever B is, and
+    # bwd_recur_kernel, the design before the cluster kernel, on the same
+    # inputs (W_h in the other layout, of the same size)
+    "48 rows a cluster": [("  for (int r = kTileRows; r <= kMaxRows;",
+                           "  for (int r = kMaxRows + 1; r <= kMaxRows;")],
+    "cluster design (bwd_recur_kernel instead)": [
+        ("  if (H <= kClusterMaxHidden) {\n    return cd_bf16",
+         "  if (false) {\n    return cd_bf16")],
+}
+
+
+def layer(B, T, D, H, dev, seed=0):
+    """Seeded K1 layer inputs and a cotangent, as chip_smoke.py makes
+    them."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(1, T + 1, size=B).astype(np.int32)
+    lens[0] = T
+    arrays = (rng.randn(B, T, D).astype(np.float32), lens,
+              (rng.randn(D, 8 * H) / np.sqrt(D)).astype(np.float32),
+              (rng.randn(8 * H) * 0.1).astype(np.float32),
+              (rng.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32),
+              (rng.randn(H, 4 * H) / np.sqrt(H)).astype(np.float32))
+    dy = rng.randn(B, T, 2 * H).astype(np.float32)
+    return (tuple(torch.from_numpy(a).to(dev) for a in arrays),
+            torch.from_numpy(dy).to(dev))
+
+
+def event_ms(fn, iters: int) -> float:
+    """Median ms of ``fn`` over ``iters`` calls (CUDA events), after two."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def build_cuts(out_dir: str) -> dict:
+    """name -> the library of csrc/bilstm_bwd.cu with that cut, one nvcc
+    each, all started together."""
+    with open(os.path.join(_build.SRC_DIR, "bilstm_bwd.cu")) as f:
+        src = f.read()
+
+    def build(name):
+        text = src
+        for old, new in CUTS[name]:
+            if text.count(old) != 1:
+                raise RuntimeError(f"cut {name!r}: {old!r} is not in the "
+                                   "source once")
+            text = text.replace(old, new)
+        d = os.path.join(out_dir, name.split(" (")[0].replace(" ", "_"))
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, "bilstm_bwd.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        lib = os.path.join(d, "libbilstm_bwd.so")
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                               _build.SRC_DIR, "-o", lib, path],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"cut {name!r}: nvcc failed\n{proc.stderr}")
+        return lib
+
+    with ThreadPoolExecutor(len(CUTS)) as pool:
+        paths = dict(zip(CUTS, pool.map(build, CUTS)))
+    return {name: ctypes.CDLL(p) for name, p in paths.items()}
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--ablate", action="store_true")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("k1b_probe needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    _build.build_all(["bilstm_fwd", "bilstm_bwd"])
+    cuts = build_cuts(os.path.join(os.path.dirname(_build.BUILD_DIR),
+                                   "k1b_cuts")) if args.ablate else {}
+    results = {}
+    for name, B, T, D, H in SHAPES:
+        (x, lens, w_x, b_x, w_hf, w_hb), dy = layer(B, T, D, H, dev)
+        for cd in (torch.float32, torch.bfloat16):
+            y, c, acts = K.bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb,
+                                               cd, with_cell=True)
+            whole = event_ms(lambda: K.bilstm_fused_bwd_kernel(
+                x, lens, w_x, w_hf, w_hb, y, c, acts, dy, cd), args.iters)
+            recur = lambda: K.bilstm_fused_bwd_recur_kernel(  # noqa: E731
+                lens, w_hf, w_hb, c, acts, dy, cd)
+            r_ms = event_ms(recur, args.iters)
+            rec = {"shape": name, "B": B, "T": T, "D": D, "H": H,
+                   "compute_dtype": str(cd).split(".")[1], "whole_ms": whole,
+                   "recur_ms": r_ms, "products_ms": whole - r_ms,
+                   "recur_us_per_step": r_ms * 1e3 / T,
+                   "cluster": H <= K.CLUSTER_MAX_HIDDEN, "card": card}
+            if cuts and name == SHAPES[0][0]:
+                kernel_lib = _build._libs["bilstm_bwd"]
+                rec["recur_us_per_step_without"] = {}
+                for cut, lib in cuts.items():
+                    _build._libs["bilstm_bwd"] = lib
+                    try:
+                        rec["recur_us_per_step_without"][cut] = \
+                            event_ms(recur, args.iters) * 1e3 / T
+                    finally:
+                        _build._libs["bilstm_bwd"] = kernel_lib
+            results[(name, rec["compute_dtype"])] = rec
+            print(json.dumps(rec), flush=True)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,8 @@
 """PyTorch port on the card: the K1-fwd kernel (csrc/bilstm_fwd.cu)
-against its plain version at small, ragged shapes, and the encoder on
-the card against the encoder on the CPU.
+against its plain version at small, ragged shapes, the encoder on the
+card against the encoder on the CPU, K1-bwd's two recurrence kernels
+(csrc/bilstm_bwd.cu: the cluster kernel for H <= 320, the L2 one above)
+and the v1 layer K7.
 
 Marked ``cuda``: these skip where there is no CUDA device. On a machine
 with the card and nvcc, run them with
@@ -66,6 +68,45 @@ def test_kernel_wrapper_checks_its_inputs(dev):
     with pytest.raises(ValueError, match="hidden size"):
         big = torch.zeros(1025, 4 * 1025, device=dev)
         K.bilstm_fused_kernel(x, lens, w_x, b_x, big, big)
+
+
+# K1-bwd at the batch sizes of the configs (milestone 2's 16, the
+# flagships' 96) and at 50 (a partial group of rows), at both hidden
+# sizes of the configs, and once past 320 (bwd_recur_kernel's route):
+# every output against the plain backward, which launch counter moved, and
+# the recurrence alone against the plain sweep's dg. Tolerances as in
+# tests/test_torch_cuda_train.py.
+REL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", [(16, 256), (50, 256), (96, 256), (16, 320),
+                                 (50, 320), (96, 320), (6, 400)])
+def test_backward_recurrence_routes_match_plain(dev, B, H, cd):
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    T, D = 24, 32
+    args = _inputs(B, T, D, H, dev, seed=B + H)
+    x, lens, w_x, b_x, w_hf, w_hb = args
+    dy = torch.from_numpy(np.random.RandomState(H).randn(B, T, 2 * H)
+                          .astype(np.float32)).to(dev)
+    y, c, acts = K.bilstm_fused_kernel(*args, compute_dtype=cd, with_cell=True)
+    f = K.bilstm_fused_bwd_kernel
+    counts = (f.launches, f.cluster_launches)
+    got = f(x, lens, w_x, w_hf, w_hb, y, c, acts, dy, compute_dtype=cd)
+    ref = K.bilstm_fused_bwd_plain(x, lens, w_x, b_x, w_hf, w_hb, y, c, dy,
+                                   compute_dtype=cd)
+    dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy, cd)
+    xg = torch.cat(K._project(x, lens, w_x, b_x, cd, False), -1)
+    dg_ref, _, _ = K._bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, cd)
+    torch.cuda.synchronize()
+    cluster = H <= K.CLUSTER_MAX_HIDDEN
+    assert (f.launches, f.cluster_launches) == (counts[0] + 1,
+                                                counts[1] + cluster)
+    for name, g, r in zip(("dx", "dw_x", "db", "dw_hf", "dw_hb"), got, ref):
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, r) <= REL_BWD[cd], (name, _rel(g, r))
+    assert _rel(dg, dg_ref) <= REL_BWD[cd]
 
 
 def test_encoder_on_card_matches_cpu(dev):
@@ -134,11 +175,13 @@ def test_v1_kernels_match_plain(dev, shape, cd):
     leaves = [t.detach().requires_grad_(True) for t in
               (args[0], args[1], args[3], args[4])]
     n_f, n_b = K.bilstm_pallas_kernel.launches, K.bilstm_pallas_bwd_kernel.launches
+    n_c = K.bilstm_pallas_bwd_kernel.cluster_launches
     out = K.bilstm_pallas(leaves[0], leaves[1], args[2], leaves[2], leaves[3], cd)
     out.backward(dy)
     assert out.dtype == cd
     assert (K.bilstm_pallas_kernel.launches, K.bilstm_pallas_bwd_kernel.launches) \
         == (n_f + 1, n_b + 1)
+    assert K.bilstm_pallas_bwd_kernel.cluster_launches == n_c + 1  # H <= 320
     for leaf, r in zip(leaves, (ref[0], ref[1], ref[2], ref[3])):
         assert _rel(leaf.grad, r) <= REL_V1[cd]
 
