@@ -13,9 +13,9 @@ each printing JSON lines:
    within stated tolerances, at the shapes the flagship model
    (``configs/english_flagship.yaml``, the 4.0 s bucket, B=96) gives it:
    K1-fwd in f32 and bf16 in its serving and training forms, K1-bwd in
-   f32 and bf16 (also at milestone 2's layer shapes, B=16, H=256, and
-   with B=50; every call through the cluster recurrence, and its dg
-   alone against the plain sweep), K2 and K3 on a real training batch's
+   f32 and bf16 (both also at milestone 2's layer shapes, B=16, H=256,
+   and with B=50 and K1-fwd with B=1; every call of either through its
+   cluster recurrence, and K1-bwd's dg alone against the plain sweep), K2 and K3 on a real training batch's
    lattice, K4-fwd
    and K4-bwd in dot mode in f32 and bf16 with the scheduled-sampling
    coins off and on, on that batch's labels and encoder lengths; then
@@ -31,16 +31,21 @@ each printing JSON lines:
    T=640;
 4. serving slice: a seeded random full-width checkpoint of that model,
    decoded greedily through ``gluon_e2e_asr_tpu_torch.decode.main`` over
-   the config's dev set; every kernel must have been launched, and only
-   the kernels; the encoder output on the card is held against the
+   the config's dev set; every kernel must have been launched (every
+   K1-fwd launch through the cluster recurrence), and only the
+   kernels; the encoder output on the card is held against the
    plain versions on the CPU for a few utterances;
-5. serving timing: CUDA events, median of 10 runs after warm-up;
+5. serving timing: CUDA events, median of 10 runs after warm-up, K1-fwd
+   whole and its recurrence alone in both forms (held against the plain
+   recurrence on the same projection), the projection the difference;
 6. training slices: ``gluon_e2e_asr_tpu_torch.train.main`` at full
    width on the flagship config as shipped (hybrid CTC/attention, dot
    attention, ``train.dp=false``) for two epochs: the launch counts of
    all six kernels (every K1-bwd launch of every slice through the
    cluster recurrence), no plain call, a finite and falling loss, the
-   attention loss and accuracy logged, a checkpoint; a CTC-only run
+   attention loss and accuracy logged, a checkpoint (every K1-fwd and
+   K7-fwd launch of every slice and decode through the cluster
+   recurrence too); a CTC-only run
    (``loss.mtl_alpha=1.0``) of a few steps; the location-aware flagship
    (``flagship_bf16.yaml``) for two epochs, K4 in loc mode on every step
    and each epoch's dev evaluation through the beam as shipped (K=10,
@@ -309,9 +314,11 @@ def counters():
     return kernels, plains
 
 
-# K1-bwd's and K7-bwd's launches through the cluster recurrence, counted
+# K1's and K7's launches through the cluster recurrences, counted
 # beside their launches (ops/bilstm.py): name -> the kernel of kernels().
-CLUSTER_COUNTS = {"bilstm_bwd_cluster": "bilstm_bwd",
+CLUSTER_COUNTS = {"bilstm_fwd_cluster": "bilstm_fwd",
+                  "bilstm_bwd_cluster": "bilstm_bwd",
+                  "bilstm_v1_fwd_cluster": "bilstm_v1_fwd",
                   "bilstm_v1_bwd_cluster": "bilstm_v1_bwd"}
 
 
@@ -329,8 +336,8 @@ def reset_counts() -> None:
 
 def read_counts():
     """(launches by kernel, with K4's by mode as ``<name>_<mode>`` and
-    K1-bwd's and K7-bwd's through the cluster recurrence as
-    CLUSTER_COUNTS names them; calls of the plain versions)."""
+    K1's and K7's through the cluster recurrences as CLUSTER_COUNTS names
+    them; calls of the plain versions)."""
     kernels, plains = counters()
     launches = {k: f.launches for k, f in kernels.items()}
     for k, of in CLUSTER_COUNTS.items():
@@ -378,6 +385,8 @@ def main() -> None:
     from gluon_e2e_asr_tpu_torch.frontend.features import (
         frontend_apply, num_frames)
     from gluon_e2e_asr_tpu_torch.models.asr import build_model
+    from gluon_e2e_asr_tpu_torch.models.lstm import bilstm_scan
+    from gluon_e2e_asr_tpu_torch.ops import bilstm
     from gluon_e2e_asr_tpu_torch.ops.bilstm import (
         bilstm_fused_kernel, bilstm_fused_plain)
     from gluon_e2e_asr_tpu_torch.training.checkpoint import save_checkpoint
@@ -410,11 +419,13 @@ def main() -> None:
         for cd_name in ("float32", "bfloat16"):
             cd = getattr(torch, cd_name)
             for round_xg in ((False, True) if cd_name == "bfloat16" else (False,)):
+                n_cluster = bilstm_fused_kernel.cluster_launches
                 y = bilstm_fused_kernel(*args, compute_dtype=cd,
                                         round_xg=round_xg)
                 ref = bilstm_fused_plain(*args, compute_dtype=cd,
                                          round_xg=round_xg)
                 torch.cuda.synchronize()
+                cluster = bilstm_fused_kernel.cluster_launches - n_cluster
                 err = float((y - ref).abs().max())
                 finite = bool(torch.isfinite(y).all())
                 errs[(layer, cd_name, round_xg)] = err
@@ -422,10 +433,12 @@ def main() -> None:
                       "layer": layer, "B": B, "T": T, "D": D, "H": H,
                       "compute_dtype": cd_name, "round_xg": round_xg,
                       "max_abs_err": err, "tol": TOL[cd_name],
-                      "finite": finite})
+                      "cluster_launches": cluster, "finite": finite})
                 check(finite and err <= TOL[cd_name],
                       f"bilstm_fwd disagrees with its plain version at layer "
                       f"{layer} {cd_name} round_xg={round_xg}: {err}")
+                check(cluster == 1, f"bilstm_fwd at layer {layer} did not go "
+                                    "through the cluster recurrence")
     m2_config = load_config(M2_CONFIG)
     bwd_errs = check_training_kernels(torch, config, shapes, dev, m2_config)
     dec_errs = check_decoder_kernels(torch, config, dev)
@@ -461,6 +474,7 @@ def main() -> None:
                           "--method", "greedy", "--output", out_jsonl,
                           "--device", "cuda"])
     launches = bilstm_fused_kernel.launches
+    cluster_launches = bilstm_fused_kernel.cluster_launches
     plain_calls = bilstm_fused_plain.calls
     expect = mc.enc_layers * (result["num_batches"] + result["warm_passes"])
     with open(out_jsonl) as f:
@@ -468,9 +482,13 @@ def main() -> None:
     emit({"phase": "slice", "decode_done": result,
           "note": "random weights: the WER means nothing",
           "bilstm_fwd_launches": launches, "expected_launches": expect,
+          "bilstm_fwd_cluster_launches": cluster_launches,
           "plain_calls": plain_calls, "records": len(recs)})
     check(launches == expect,
           f"bilstm_fwd launched {launches} times, expected {expect}")
+    check(cluster_launches == launches,
+          f"{launches - cluster_launches} bilstm_fwd launches of the decode "
+          "missed the cluster recurrence")
     check(plain_calls == 0, f"the plain BiLSTM ran {plain_calls} times")
     check(result["num_utts"] == len(dev_utts) == len(recs),
           f"decoded {result['num_utts']} of {len(dev_utts)} utterances")
@@ -516,10 +534,12 @@ def main() -> None:
           f"the slice on the card disagrees with the CPU: enc {enc_err}, "
           f"logits {logit_err}")
 
-    # 5. timing
-    kernel_ms, plain_ms = {}, {}
+    # 5. timing; K1-fwd's recurrence alone (both forms) over the same
+    # projection, held against the plain recurrence (bilstm_scan) on it
+    kernel_ms, plain_ms, recur_ms, recur_errs = {}, {}, {}, {}
     for layer, T, D in shapes:
         args = layer_inputs(torch, B, T, D, H, layer, dev)
+        x, lens, w_x, b_x, w_hf, w_hb = args
         for cd_name in ("float32", "bfloat16"):
             cd = getattr(torch, cd_name)
             k_ms = time_ms(torch, lambda: bilstm_fused_kernel(
@@ -528,9 +548,37 @@ def main() -> None:
                 *args, compute_dtype=cd))
             kernel_ms[(layer, cd_name)] = k_ms
             plain_ms[(layer, cd_name)] = p_ms
+            xg = torch.cat(bilstm._project(x, lens, w_x, b_x, cd, False),
+                           -1).contiguous()
+            xg_train = xg.clone()  # overwritten with the activations
+            xg_f, xg_b = xg[..., :4 * H], xg[..., 4 * H:]
+            y_r = bilstm.bilstm_fused_fwd_recur_kernel(xg, lens, w_hf, w_hb, cd)
+            y_rp = bilstm_scan(xg_f, xg_b, lens, w_hf, w_hb, cd)
+            torch.cuda.synchronize()
+            err = float((y_r - y_rp).abs().max())
+            recur_errs[(layer, cd_name)] = err
+            check(bool(torch.isfinite(y_r).all()) and err <= TOL[cd_name],
+                  f"K1-fwd's recurrence alone disagrees with the plain "
+                  f"recurrence at layer {layer} {cd_name}: {err}")
+            r_ms = time_ms(torch, lambda: bilstm.bilstm_fused_fwd_recur_kernel(
+                xg, lens, w_hf, w_hb, cd))
+            rt_ms = time_ms(torch, lambda: bilstm.bilstm_fused_fwd_recur_kernel(
+                xg_train, lens, w_hf, w_hb, cd, True))
+            rp_ms = time_ms(torch, lambda: bilstm_scan(
+                xg_f, xg_b, lens, w_hf, w_hb, cd), n=3, warm=1)
+            recur_ms[(layer, cd_name)] = (r_ms, rp_ms)
             emit({"phase": "timing", "what": "bilstm_fwd", "layer": layer,
                   "B": B, "T": T, "D": D, "H": H, "compute_dtype": cd_name,
-                  "kernel_ms": k_ms, "plain_ms": p_ms, "card": card})
+                  "kernel_ms": k_ms, "plain_ms": p_ms,
+                  "recurrence_kernel_ms": r_ms,
+                  "recurrence_us_per_step": r_ms * 1e3 / T,
+                  "recurrence_training_form_ms": rt_ms,
+                  "recurrence_training_form_us_per_step": rt_ms * 1e3 / T,
+                  "projection_ms": k_ms - r_ms,
+                  "projection_basis": "whole call - recurrence alone",
+                  "recurrence_plain_ms": rp_ms, "recurrence_plain_runs": 3,
+                  "recurrence_max_abs_err": err, "card": card})
+            del xg, xg_train, y_r, y_rp
     decoder = make_greedy_decoder(model_gpu, config, None, dev)
     with torch.inference_mode():
         audio = torch.from_numpy(big.audio).to(dev)
@@ -586,12 +634,15 @@ def main() -> None:
     timed = {
         "bilstm_fwd": (sum(kernel_ms[k] for k in bf16),
                        sum(plain_ms[k] for k in bf16)),
+        "bilstm_fwd_cluster": (sum(recur_ms[k][0] for k in bf16),
+                               sum(recur_ms[k][1] for k in bf16)),
         **{k: train_ms[k] for k in ("bilstm_bwd", "bilstm_bwd_cluster",
                                      "ctc_alpha", "ctc_beta_post",
                                      "las_decoder_fwd", "las_decoder_bwd",
                                      "frontend_k5", "frontend_k6",
                                      "bilstm_v1_fwd", "bilstm_v1_bwd")}}
     errors = {"bilstm_fwd": max(v for k, v in errs.items() if k[1] == "bfloat16"),
+              "bilstm_fwd_cluster": max(recur_errs[k] for k in bf16),
               "bilstm_bwd": max(bwd_errs["bilstm_bwd"]),
               "bilstm_bwd_cluster": max(bwd_errs["bilstm_bwd_cluster"]),
               "ctc_alpha": bwd_errs["ctc_alpha"],
@@ -603,7 +654,17 @@ def main() -> None:
         "bilstm_fwd": ("bilstm_fwd.cu",
                        "gluon_e2e_asr_tpu/ops/pallas_lstm.py:411",
                        "serving form, sum over the flagship's 3 layer shapes, "
-                       "bf16, B=96, 4.0 s"),
+                       "bf16, B=96, 4.0 s; projection_ms: the whole call "
+                       "less the recurrence alone"),
+        "bilstm_fwd_cluster": (
+            "bilstm_fwd.cu",
+            "gluon_e2e_asr_tpu/ops/pallas_lstm.py:411",
+            "K1-fwd's recurrence alone (fwd_cluster_kernel through "
+            "bilstm_fused_fwd_recur_kernel), serving form, sum over the "
+            "flagship's 3 layer shapes, bf16, B=96, 4.0 s; launches: "
+            "K1-fwd's through the cluster kernel in the slice; plain: "
+            "models/lstm.py::bilstm_scan on the same projection; error: max "
+            "abs of y against it"),
         "bilstm_bwd": ("bilstm_bwd.cu",
                        "gluon_e2e_asr_tpu/ops/pallas_lstm.py:484",
                        "sum over the flagship's 3 layer shapes, bf16, B=96, "
@@ -695,6 +756,12 @@ def main() -> None:
         if name in fe_notes:
             rows[-1]["library_note"] = fe_notes[name]
     rows[0]["decode_launches"] = decode_launches
+    fwd = rows[0]
+    fwd["projection_ms"] = timed["bilstm_fwd"][0] - timed["bilstm_fwd_cluster"][0]
+    fwd["projection_bound_ms"], fwd["projection_bound_by"] = \
+        bounds["bilstm_fwd_projection"]
+    next(r for r in rows if r["name"] == "bilstm_fwd_cluster")[
+        "decode_launches"] = cluster_launches
     bwd = next(r for r in rows if r["name"] == "bilstm_bwd")
     bwd["products_ms"] = timed["bilstm_bwd"][0] - timed["bilstm_bwd_cluster"][0]
     bwd["products_bound_ms"], bwd["products_bound_by"] = \
@@ -1075,6 +1142,7 @@ def v1_path(torch, shape, config, dev):
           "out_dtype": str(out.dtype), "launches": launches,
           "plain_calls": plain, "finite": finite})
     check(launches["bilstm_v1_fwd"] == 1 and launches["bilstm_v1_bwd"] == 1
+          and launches["bilstm_v1_fwd_cluster"] == 1
           and launches["bilstm_v1_bwd_cluster"] == 1,
           f"the v1 path launched {launches}")
     check(not any(plain.values()), f"plain versions ran on the v1 path: {plain}")
@@ -1111,6 +1179,8 @@ def decode_slice(torch, trainer, path, name):
           f"{key} launched {launches[key]} times in the decode, expected {batches}")
     check(launches["bilstm_fwd"] == config.model.enc_layers * batches,
           f"bilstm_fwd launched {launches['bilstm_fwd']} times in the decode")
+    check(launches["bilstm_fwd_cluster"] == launches["bilstm_fwd"],
+          "a bilstm_fwd launch of the decode missed the cluster recurrence")
     check(not any(plain.values()), f"plain versions ran in the decode: {plain}")
     check(result["num_utts"] == len(recs) > 0
           and all(isinstance(r["hyp"], str) for r in recs),
@@ -1156,8 +1226,9 @@ def check_training_kernels(torch, config, shapes, dev, m2_config):
     """Phase 3, the training kernels: K1-fwd's training form and K1-bwd at
     the flagship's layer shapes (B=96, H=320), at milestone 2's (B=16,
     H=256) and at the flagship's last layer with B=50 (a partial group of
-    rows in the cluster recurrence), every K1-bwd launch through the
-    cluster kernel, and at the flagship's shapes the recurrence alone
+    rows in the cluster recurrences) and B=1 (serving's batch), K1-fwd's
+    serving form too where phase 3's first loop does not take it, every
+    K1-fwd and K1-bwd launch through its cluster kernel, and at the flagship's shapes the recurrence alone
     against the plain sweep's dg; K2 and K3 on a real batch's lattice."""
     from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
@@ -1172,6 +1243,7 @@ def check_training_kernels(torch, config, shapes, dev, m2_config):
                m2_config.model.enc_hidden, shape)
               for shape in layer_shapes(m2_config, m2_T)]
     cases.append(("flagship, B=50", 50, H, shapes[-1]))
+    cases.append(("flagship, B=1", 1, H, shapes[-1]))
     errs = {"bilstm_bwd": [], "bilstm_bwd_cluster": []}
     for name, Bc, Hc, (layer, T, D) in cases:
         args = layer_inputs(torch, Bc, T, D, Hc, layer, dev)
@@ -1179,21 +1251,36 @@ def check_training_kernels(torch, config, shapes, dev, m2_config):
         x, lens, w_x, b_x, w_hf, w_hb = args
         for cd_name in ("float32", "bfloat16"):
             cd = getattr(torch, cd_name)
+            n_fwd = K.bilstm_fused_kernel.cluster_launches
             y, c, acts = K.bilstm_fused_kernel(*args, compute_dtype=cd,
                                                with_cell=True)
+            # the serving form where phase 3's first loop does not take it
+            ys = (None if name == "flagship" else
+                  K.bilstm_fused_kernel(*args, compute_dtype=cd))
             yp, cp = K.bilstm_fused_plain(*args, compute_dtype=cd,
                                           with_cell=True)
             torch.cuda.synchronize()
+            fwd_cluster = K.bilstm_fused_kernel.cluster_launches - n_fwd
             y_err, c_err = float((y - yp).abs().max()), rel_err(c, cp)
+            ys_err = None if ys is None else float((ys - yp).abs().max())
             emit({"phase": "kernel_check", "kernel": "bilstm_fwd",
                   "form": "training", "shapes": name, "layer": layer,
                   "B": Bc, "T": T, "D": D, "H": Hc,
                   "compute_dtype": cd_name, "h_max_abs_err": y_err,
-                  "c_max_rel_err": c_err, "tol_h": TOL[cd_name],
+                  "c_max_rel_err": c_err, "serving_h_max_abs_err": ys_err,
+                  "cluster_launches": fwd_cluster, "tol_h": TOL[cd_name],
                   "tol_c_rel": TOL_BWD[cd_name]})
-            check(y_err <= TOL[cd_name] and c_err <= TOL_BWD[cd_name],
+            check(y_err <= TOL[cd_name] and c_err <= TOL_BWD[cd_name]
+                  and bool(torch.isfinite(y).all()),
                   f"bilstm_fwd training form disagrees at {name} layer "
                   f"{layer} {cd_name}: h {y_err}, c {c_err}")
+            check(ys is None or (ys_err <= TOL[cd_name]
+                                 and bool(torch.isfinite(ys).all())),
+                  f"bilstm_fwd serving form disagrees at {name} layer "
+                  f"{layer} {cd_name}: h {ys_err}")
+            check(fwd_cluster == (1 if ys is None else 2),
+                  f"bilstm_fwd at {name} layer {layer} did not go through "
+                  "the cluster recurrence")
             n_cluster = K.bilstm_fused_bwd_kernel.cluster_launches
             got = K.bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, y, c,
                                             acts, dy, compute_dtype=cd)
@@ -1325,13 +1412,14 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     layers = config.model.enc_layers
     kind = None if ctc_only else config.model.att_type
     dec = 0 if ctc_only else steps
-    # every K1-bwd launch through the cluster recurrence (H <= 320 in every
-    # config of the repo)
+    # every K1-fwd and K1-bwd launch through its cluster recurrence
+    # (H <= 320 in every config of the repo)
     cluster = config.model.enc_hidden <= bilstm.CLUSTER_MAX_HIDDEN
-    expect = {"bilstm_fwd": layers * (steps + dev_batches * len(epochs)),
+    fwd = layers * (steps + dev_batches * len(epochs))
+    expect = {"bilstm_fwd": fwd, "bilstm_fwd_cluster": fwd * cluster,
               "bilstm_bwd": layers * steps,
               "bilstm_bwd_cluster": layers * steps * cluster,
-              "bilstm_v1_bwd_cluster": 0,
+              "bilstm_v1_fwd_cluster": 0, "bilstm_v1_bwd_cluster": 0,
               "ctc_alpha": steps, "ctc_beta_post": steps,
               "las_decoder_fwd": dec, "las_decoder_bwd": dec}
     for k in ("las_decoder_fwd", "las_decoder_bwd"):
@@ -2050,7 +2138,12 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     needed); outputs count their whole size. Products take bf16 operands
     (2 bytes), as the timed calls do; states, residuals and gradients are
     f32. K1 sums its 3 layer shapes (K1-fwd in its serving form, as
-    timed: y only). K1-bwd's recurrence alone (its own row, as timed): the
+    timed: y only). K1-fwd's recurrence alone (its own row, as timed):
+    the bf16 products h . W_h of both directions over the live frames,
+    against xg of the live frames (f32) and W_h in and y out. K1-fwd's
+    projection (a note on its row, timed as the whole call less the
+    recurrence): the whole call's bytes and its operations less the
+    recurrence's. K1-bwd's recurrence alone (its own row, as timed): the
     bf16 products dg . W_h^T of both directions over the live frames,
     against the gate activations, c and dy of the live frames and W_h in,
     dg out (the activations count here: the recurrence cannot run
@@ -2077,7 +2170,7 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     H, B = config.model.enc_hidden, config.data.batch_size
     f4, cd = 4, 2
     out = {}
-    k1f = k1b = k1r = k1p = (0.0, "")
+    k1f = k1b = k1r = k1p = k1fr = k1fp = (0.0, "")
     for layer, T, D in shapes:
         lens = layer_inputs(torch, B, T, D, H, layer, "cpu")[1]
         frames = float(lens.sum())
@@ -2096,7 +2189,16 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
         r_ops = 2 * 2.0 * frames * 4 * H * H
         r_bytes = (f4 * frames * (8 * H + 2 * H + 2 * H) + cd * 2 * H * 4 * H
                    + 4 * B + f4 * B * T * 8 * H)
+        # K1-fwd's recurrence alone: h . W_h of both directions; in: xg
+        # (live frames, f32), W_h, lens; out: y
+        fr_ops = 2 * 2.0 * frames * H * 4 * H
+        fr_bytes = (f4 * frames * 8 * H + cd * 2 * H * 4 * H + 4 * B
+                    + f4 * B * T * 2 * H)
         fb, bb = _bound(f_ops, PEAK_BF16, f_bytes), _bound(b_ops, PEAK_BF16, b_bytes)
+        frb = _bound(fr_ops, PEAK_BF16, fr_bytes)
+        fpb = _bound(f_ops - fr_ops, PEAK_BF16, f_bytes)
+        k1fr = (k1fr[0] + frb[0], frb[1])
+        k1fp = (k1fp[0] + fpb[0], fpb[1])
         rb = _bound(r_ops, PEAK_BF16, r_bytes)
         pb = _bound(b_ops - r_ops, PEAK_BF16, b_bytes)
         k1f = (k1f[0] + fb[0], fb[1])
@@ -2104,6 +2206,7 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
         k1r = (k1r[0] + rb[0], rb[1])
         k1p = (k1p[0] + pb[0], pb[1])
     out["bilstm_fwd"], out["bilstm_bwd"] = k1f, k1b
+    out["bilstm_fwd_cluster"], out["bilstm_fwd_projection"] = k1fr, k1fp
     out["bilstm_bwd_cluster"], out["bilstm_bwd_products"] = k1r, k1p
 
     emit_, tmask, skip, svalid, label_lens = real_ctc_batch(torch, config, "cpu")

@@ -130,6 +130,16 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using port::cluster_arrive;
+using port::cluster_rows;
+using port::cluster_units;
+using port::cluster_wait;
+using port::kClusterMaxHidden;
+using port::kCtas;
+using port::kMaxRows;
+using port::kNoClusterFits;
+using port::kRowStep;
+using port::lds4;
 using port::load4;
 using port::round_bf16;
 
@@ -272,30 +282,11 @@ cudaError_t launch_bwd_recur(const float* dy, const int* lens,
 // bwd_cluster_kernel: W_h resident across a cluster (see the header)
 // ---------------------------------------------------------------------------
 
-constexpr int kCtas = 16;               // CTAs per cluster
-constexpr int kClusterMaxHidden = 320;  // larger H takes bwd_recur_kernel
-constexpr int kMaxRows = 48;            // rows per cluster, at most
+// kCtas, kClusterMaxHidden, kMaxRows, kNoClusterFits, cluster_units,
+// cluster_rows, cluster_config, cluster_capacity and the split cluster
+// barrier: common.cuh.
 constexpr int kTileRows = 16;           // rows of a product tile
 constexpr int kClThreadsMax = 256;      // kMaxRows * 20 / 4 = 240, in warps
-constexpr size_t kSmemLimit = 232448;   // dynamic shared memory of a block
-
-// Returned, without launching, when no cluster of the kernel fits.
-constexpr int kNoClusterFits = -1;
-
-__host__ __device__ __forceinline__ int cluster_units(int H) {
-  return 4 * ((H + 63) / 64);
-}
-
-// Four adjacent weights from shared memory.
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
 // Four adjacent floats of a stream, for units u0 .. u0+3 (0 past H): one
 // 16-byte load when `vec` (H % 4 == 0, so u0 is 16-byte aligned), else
@@ -334,15 +325,6 @@ __device__ __forceinline__ int dg_at(int j, int R) {
 __device__ __forceinline__ float operand(const float*, float v) { return v; }
 __device__ __forceinline__ float operand(const __nv_bfloat16*, float v) {
   return round_bf16(v);
-}
-
-// The two halves of a cluster barrier: stores before the arrival are
-// visible to every CTA of the cluster after the wait.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // Grid kCtas * groups * 2 blocks, clusters of kCtas along x: cluster
@@ -547,53 +529,14 @@ size_t cluster_smem(int R, int U) {
       + sizeof(float) * 2 * (size_t)kCtas * R * U;
 }
 
-// The launch configuration of bwd_cluster_kernel<WT> with R rows a
-// cluster at U units a CTA, for `groups` groups of rows.
+// Clusters of bwd_cluster_kernel<WT> with R rows at U units the device
+// holds at once, asked once per (R, U) and process.
 template <typename WT>
-cudaError_t cluster_config(int R, int U, int groups, cudaStream_t st,
-                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  const size_t smem = cluster_smem<WT>(R, U);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  auto kernel = bwd_cluster_kernel<WT>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) return e;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(kCtas * groups * 2);
-  cfg->blockDim = dim3(32 * ((R * U / 4 + 31) / 32));
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = st;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kCtas;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
-}
-
-// How many clusters of bwd_cluster_kernel<WT> with R rows at U units the
-// device holds at once (cudaOccupancyMaxActiveClusters), asked once per
-// (R, U) and process.
-template <typename WT>
-cudaError_t cluster_capacity(int R, int U, cudaStream_t st, int* clusters) {
-  static int known[kMaxRows / kTileRows][kClusterMaxHidden / 16 / 4 + 1] = {};
-  int& slot = known[R / kTileRows - 1][U / 4];
-  if (slot == 0) {
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    cudaError_t e = cluster_config<WT>(R, U, 1, st, &cfg, &attr);
-    if (e != cudaSuccess) return e;
-    int n = 0;
-    e = cudaOccupancyMaxActiveClusters(&n, (void*)bwd_cluster_kernel<WT>, &cfg);
-    if (e != cudaSuccess) return e;
-    slot = n + 1;  // 0 means not asked yet
-  }
-  *clusters = slot - 1;
-  return cudaSuccess;
+cudaError_t bwd_capacity(int R, int U, cudaStream_t st, int* clusters) {
+  static int known[kMaxRows / kRowStep][kClusterMaxHidden / 16 / 4 + 1] = {};
+  return port::cluster_capacity(bwd_cluster_kernel<WT>, cluster_smem<WT>(R, U),
+                                R * U / 4, st, known[R / kRowStep - 1][U / 4],
+                                clusters);
 }
 
 template <typename WT>
@@ -601,24 +544,17 @@ int launch_bwd_cluster(const float* dy, const int* lens, const float* acts,
                        const float* cs, const void* wsf, const void* wsb,
                        float* dg, int B, int T, int H, cudaStream_t st) {
   const int U = cluster_units(H);
-  // Rows a cluster: the fewest of 16, 32, 48 whose clusters (2 directions
-  // x ceil(B / R) groups) the device holds at once, else 48.
-  int R = kMaxRows, capacity = 0;
-  for (int r = kTileRows; r <= kMaxRows; r += kTileRows) {
-    cudaError_t e = cluster_capacity<WT>(r, U, st, &capacity);
-    if (e != cudaSuccess) return (int)e;
-    if (2 * ((B + r - 1) / r) <= capacity) {
-      R = r;
-      break;
-    }
-  }
-  cudaError_t e = cluster_capacity<WT>(R, U, st, &capacity);
+  int R = 0, capacity = 0;
+  cudaError_t e = cluster_rows(
+      B, [&](int r, int* n) { return bwd_capacity<WT>(r, U, st, n); },
+      &R, &capacity);
   if (e != cudaSuccess) return (int)e;
   if (capacity < 1) return kNoClusterFits;
   const int groups = (B + R - 1) / R;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  e = cluster_config<WT>(R, U, groups, st, &cfg, &attr);
+  e = port::cluster_config(bwd_cluster_kernel<WT>, cluster_smem<WT>(R, U),
+                           R * U / 4, groups, st, &cfg, &attr);
   if (e != cudaSuccess) return (int)e;
   e = cudaLaunchKernelEx(&cfg, bwd_cluster_kernel<WT>, dy, lens, acts, cs,
                          static_cast<const WT*>(wsf),

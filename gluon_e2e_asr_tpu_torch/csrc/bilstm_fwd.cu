@@ -21,15 +21,15 @@
 // (_v2_bwd_kernel); keeping them costs the xg buffer's B*T*8H*4 bytes
 // from the forward to the backward (0.39 GB for the flagship's first
 // layer at the 4.0 s bucket, B=96, T=398, H=320). Serving passes a null
-// c output and runs exactly the kernel it ran before.
+// c output, and the recurrence writes y alone.
 //
 // K7-fwd (bilstm_v1_fwd below, the v1 layer of pallas_lstm.py::bilstm_pallas)
-// is recur_kernel alone, reading the caller's projections xg_f, xg_b
+// is the recurrence (b) alone, reading the caller's projections xg_f, xg_b
 // [B,T,4H] (f32 or bf16) instead of K1's xg buffer, and writing the
 // activations to a buffer of its own; its h and c streams may be rounded
 // to bf16, as the TPU kernel emits them in xg's dtype.
 //
-// Two kernels on the caller's stream, no allocation, no synchronisation:
+// Kernels on the caller's stream, no allocation, no synchronisation:
 //
 //   (a) the projection, a tiled shared-memory GEMM (128x128 tile) that
 //       writes xg with the bias added and the backward half masked. In
@@ -41,28 +41,97 @@
 //       rounded to bf16 on their way to shared memory and multiplied on
 //       the tensor cores (WMMA 16x16x16, f32 accumulation), the next
 //       tile's global loads in flight during the current tile's product.
-//   (b) recur_kernel: one persistent block per (direction, group of
-//       kRows batch rows) loops over time. Thread u owns hidden unit u
-//       for the block's rows: it accumulates the gate columns u, H+u, 2H+u
-//       and 3H+u of h . W_h, so the cell update needs no exchange of gates
-//       and c stays in registers. The caller passes W_h gate-interleaved
-//       ([k][4u+g] = W_h[k][g*H+u]), so those four weights are one vector
-//       load. h lives in shared memory, double buffered, so each step
-//       needs one __syncthreads. No block needs another block's data: no
-//       grid-wide sync.
+//   (b) the recurrence, chosen by shape alone: fwd_cluster_kernel for
+//       H <= 320 (every config of the repo: 320 and 256), recur_kernel
+//       for 320 < H <= 1024. A launch failure of either is returned and
+//       the wrapper raises; neither replaces the other.
 //
-// What bounds it on the card: the recurrence. Every step every block
-// reads all of W_h (H x 4H: 0.8 MB in bf16 at H=320) from L2, and the
-// step cannot start before the previous one finished, so the time per
-// step is L2 bandwidth and latency plus kRows*H*4H FMAs on one SM. The
-// design keeps the read coalesced and vectorized, keeps 16 rows of W_h
-// loads in flight per thread against the L2 latency, reuses each weight
-// for kRows rows and prefetches the step's xg before the product. The
-// row-group size trades blocks in flight (L2 traffic) against FMAs per
-// block: at the flagship shapes on an H100, 2 rows beat 1, 4 and 8.
-// Keeping W_h resident in shared memory across a cluster (wgmma, TMA,
-// distributed shared memory) is the route to a faster kernel.
+// fwd_cluster_kernel: W_h resident across a cluster of 16 CTAs.
+//   One cluster of kCtas = 16 CTAs per (direction, group of R batch
+//   rows). CTA r owns hidden units [rU, rU + U), U = cluster_units(H) =
+//   4 * ceil(H / 64) (20 at H=320, 16 at H=256); units past H compute
+//   nothing and their h stays 0. It owns the 4U gate columns of its
+//   units, local column j = 4*lu + g for gate g of local unit lu, and
+//   holds W_h's [16U x 4U] slice of them, [k][j] = W_h[k][g*H + rU + lu],
+//   0 for k >= H or rU + lu >= H, in shared memory for all T steps. The
+//   slice is the columns [4rU, 4rU + 4U) of the gate-interleaved W_h that
+//   recur_kernel reads, padded; the wrapper ships the 16 slices as one
+//   [16][16U][4U] tensor in the compute dtype
+//   (ops/bilstm.py::_cluster_fwd_slices), and the prologue copies the
+//   CTA's slice into shared memory with the k-block skew below, widened
+//   to f32 (the compute dtype's values; 102,400 B at H=320). A bf16 slice
+//   (51,200 B: one 16-byte load of W a k instead of two, and eight
+//   conversions) made the product slower on the H100: 7.6 us a step
+//   against 4.7 at the flagship's layer 0 (PERF.md, tools/k1f_probe.py
+//   --ablate). Each CTA also holds the whole h of its rows, [2][16U][R]
+//   f32 (double buffered, already rounded to the compute dtype: it only
+//   feeds the product). Each step has three phases:
+//   (a) product: gates[row][j] = sum_k h[row][k] * W[k][j] over the CTA's
+//       4U columns, depth 16U, true f32 FMAs (no TF32). Thread i < R*U/4:
+//       lane s = i % 4 takes the k-block [4Us, 4U(s+1)), tile i / 4 is 8
+//       rows x 2 units x 4 gates (64 accumulators; a warp's tiles run
+//       along the units): per k two 16-byte loads of h (its 8 rows, the
+//       two tiles of a quarter-warp share them) and two of W, 64 FMAs,
+//       as pipeline_probe.cu's cluster kernel. The
+//       four lanes of a tile meet in a reduce-scatter of warp shuffles
+//       (their partial sums added as (s0 + s2) + (s1 + s3)), after which
+//       each lane holds the four gates of 4 rows of one unit: its cells.
+//       The k-blocks are skewed in shared memory so that no quarter-warp
+//       load hits a bank group twice (skew). The step's projections of
+//       the lane's cells (4 rows x 4 gates, along the units of a warp)
+//       are loaded before the product, so their latency hides behind it.
+//   (b) cell: the formulas above, c in registers; past lens[b] the state
+//       holds and every stream of the row gets 0 (the forward direction;
+//       the backward one starts from zero state there, since the
+//       projection zeroed its xg half). h', rounded to the compute dtype,
+//       goes to the next h buffer of every CTA of the cluster, itself
+//       included, one 16-byte store (4 rows) a destination through
+//       cluster.map_shared_rank; y gets the unrounded h' (rounded only
+//       with round_out, K7).
+//   (c) one cluster barrier ends the step, split into its arrival and its
+//       wait, with the step's stores of y (and, in the training form, of
+//       the activations over xg and of c) between them. A warp's lanes
+//       run along the units of a row, so each store instruction writes
+//       runs of 64-80 contiguous bytes. The double buffer makes one
+//       barrier a step enough: a buffer is written in step s + 1 only
+//       after every CTA has passed the barrier of step s, and so has
+//       finished step s's product, the last reader of that buffer.
+//   The training form overwrites xg in place: the lane that loads an
+//   entry of xg at (b, t) is the one that overwrites it at (b, t), after
+//   the load; no other lane touches it, and later steps read other t.
+//   Rows per cluster R: the fewest of 16, 32 and 48 for which the
+//   2 * ceil(B / R) clusters fit on the card at once
+//   (cudaOccupancyMaxActiveClusters, asked once per kernel, R and U),
+//   else 48 in waves (common.cuh::cluster_rows, as K1-bwd): on the H100
+//   B=96 takes 32, B=16 and B=1 16. Shared memory (16U*4U + 2*16U*R)*4 B,
+//   plus 80 B of skew per array: 184,560 B at H=320, R=32 and 225,520 at
+//   R=48, within the 232,448 a block may have for every H <= 320 and
+//   R <= 48. When not even one cluster fits,
+//   the launch returns kNoClusterFits.
+//   One step at the flagship's layer shape (H=320, B=96, bf16, R=32: 6
+//   clusters, 96 CTAs, one wave): 819,200 FMAs a CTA (32 x 320 x 80),
+//   40,960 B stored through distributed shared memory a CTA (38,400 of
+//   them to other CTAs), one cluster barrier and no CTA barrier; from
+//   device memory 10,240 B of projections in and 2,560 B of y out a CTA
+//   (the training form 15,360 B out with the activations and c).
+//   What bounds it: shared memory in the product (4 loads per 64 FMAs, at
+//   about 5 cycles per 16-byte load a warp on the H100), then the chain
+//   of the step's phases: the reduce-scatter, the cell, the all-gather and
+//   the barrier, none of which costs more than 0.5 us a step when cut
+//   alone (PERF.md, tools/k1f_probe.py --ablate).
+//
+// recur_kernel (320 < H <= 1024): one persistent block per (direction,
+//   group of kRows batch rows) loops over time. Thread u owns hidden unit
+//   u for the block's rows: it accumulates the gate columns u, H+u, 2H+u
+//   and 3H+u of h . W_h, so the cell update needs no exchange of gates and
+//   c stays in registers. The caller passes W_h gate-interleaved
+//   ([k][4u+g] = W_h[k][g*H+u]), so those four weights are one vector
+//   load. h lives in shared memory, double buffered, so each step needs
+//   one __syncthreads. Every step every block reads all of W_h from L2
+//   (4 MB in bf16 at H=1024) and does kRows*H*4H FMAs, and a step cannot
+//   start before the previous one ended.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -71,8 +140,19 @@
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+using port::cluster_arrive;
+using port::cluster_rows;
+using port::cluster_units;
+using port::cluster_wait;
+using port::kClusterMaxHidden;
+using port::kCtas;
+using port::kMaxRows;
+using port::kNoClusterFits;
+using port::kRowStep;
 using port::load4;
 using port::round_bf16;
 using port::sigmoid;
@@ -448,10 +528,281 @@ __global__ void recur_kernel(RecurIO<XT> io, const int* __restrict__ lens,
   }
 }
 
+// ---------------------------------------------------------------------------
+// (c) fwd_cluster_kernel: W_h resident across a cluster (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kRT = 8;              // rows of a product tile
+constexpr int kUT = 2;              // units of a product tile
+constexpr int kKS = 4;              // k split over 4 adjacent lanes
+constexpr int kClThreadsMax = 256;  // kMaxRows * 20 / 4 = 240, in warps
+
+// k-block s (k in [s*4U, (s+1)*4U), the depth of one lane) of h and of
+// the W slice starts skew(s) words further, so that a quarter-warp's
+// 16-byte loads hit eight distinct 16-byte bank groups: the blocks start 0
+// mod 128 bytes apart, the skews put them at groups {0, 1, 4, 5}, and the
+// two tiles of a quarter-warp are two groups apart in W and read the same
+// h.
+constexpr int kSkewMax = 20;  // skew(kKS - 1)
+__device__ __forceinline__ int skew(int s) { return 4 * (s & 1) + 16 * (s >> 1); }
+
+// Grid kCtas * groups * 2 blocks, clusters of kCtas along x: cluster
+// id = blockIdx.x / kCtas is direction id / groups, rows
+// [R * (id % groups), +R). wsf/wsb: the [kCtas][16U][4U] slices of W_h
+// (ops/bilstm.py::_cluster_fwd_slices) of the two directions, in WT.
+// Dynamic shared memory, f32 words: this CTA's slice as [16U][4U] (the
+// compute dtype's values), then h as [2 buffers][16U][R], each k-block s
+// skewed by skew(s) words, each array kSkewMax words longer.
+//
+// Lane l of warp v, thread i = 32v + l < R*U/4: k-block s = i % 4, tile
+// g = i / 4 of rows 8 * (g / (U/2)) .. +7 and local units
+// 2 * (g % (U/2)), +1, so that a warp's tiles run along the units. The
+// four lanes of a tile meet in a reduce-scatter of shuffles, after which
+// lane s holds the 4 gates of local unit 2 * (g % (U/2)) + s / 2 for rows
+// 8 * (g / (U/2)) + 4 * (s % 2) .. +3: its cells, c in registers.
+template <typename WT, typename XT, bool TRAIN>
+__global__ void __launch_bounds__(kClThreadsMax, 1)
+fwd_cluster_kernel(RecurIO<XT> io, const int* __restrict__ lens,
+                   const WT* __restrict__ wsf, const WT* __restrict__ wsb,
+                   float* __restrict__ y, int B, int T, int H, int R,
+                   int groups, int cd_bf16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int id = blockIdx.x / kCtas;
+  const int dir = id / groups;
+  const int b0 = (id % groups) * R;
+  const int U = cluster_units(H);
+  const int Hp = kCtas * U;       // padded units: the product's depth
+  const int J = 4 * U;            // this CTA's gate columns
+  const int KB = Hp / kKS;        // depth of one lane
+  const int active = R * U / 4;   // threads with a tile and cells
+  const int hwords = Hp * R + kSkewMax;  // one h buffer
+  const int H4 = 4 * H;
+  const size_t a_row = (size_t)8 * H;  // acts: [B,T,8H]
+  const size_t y_row = (size_t)2 * H;  // y and cs: [B,T,2H]
+  const int tid = threadIdx.x;
+  float* ws = reinterpret_cast<float*>(smem);
+  float* hs = ws + Hp * J + kSkewMax;
+  const XT* xd = dir ? io.xb : io.xf;
+
+  // This CTA's slice of W_h, four weights a load, widened to f32 (a bf16
+  // slice in shared memory makes the product slower: see the header),
+  // each k-block skewed.
+  {
+    const WT* src = (dir ? wsb : wsf) + (size_t)rank * Hp * J;
+    const int per_row = J / 4;
+    for (int i = tid; i < Hp * per_row; i += blockDim.x) {
+      const int k = i / per_row, c = 4 * (i % per_row);
+      *reinterpret_cast<float4*>(ws + k * J + skew(k / KB) + c) =
+          load4(src + (size_t)k * J + c);
+    }
+  }
+  // Both h buffers start at 0: padded units and rows past B stay 0.
+  for (int i = tid; i < 2 * hwords; i += blockDim.x) hs[i] = 0.0f;
+
+  const bool on = tid < active;
+  const int warp = tid / 32;
+  const int s = tid % kKS;
+  const int g = tid / kKS;
+  const int pairs = U / kUT;
+  const int oct = g / pairs, pair = g % pairs;
+  const int b1 = s >> 1, bl = s & 1;
+  const int lu = kUT * pair + b1;        // local unit of this lane's cells
+  const int ug = rank * U + lu;          // and its padded unit
+  const int row0 = kRT * oct + 4 * bl;   // and its first row
+  const int live_lanes = active - warp * 32;
+  const unsigned mask =
+      live_lanes >= 32 ? 0xffffffffu : (1u << max(live_lanes, 0)) - 1u;
+  const bool unit_live = on && ug < H;
+
+  int len[4];
+  float c[4], hr[4];  // c, and h as the buffers hold it (rounded)
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int b = b0 + row0 + r;
+    len[r] = (unit_live && b < B) ? lens[b] : 0;
+    c[r] = 0.0f;
+    hr[r] = 0.0f;
+  }
+  const float* wp = ws + KB * s * J + skew(s) + 4 * kUT * pair;
+  const int hp = KB * s * R + skew(s) + kRT * oct;
+  // Every CTA of the cluster has started and filled its buffers before
+  // any CTA stores into another's.
+  cluster.sync();
+
+  // This step's outputs of the lane's cells, stored while the cluster
+  // gathers at the barrier.
+  float yo[4], co[4], ao[4][4];
+  for (int step = 0; step < T; ++step) {
+    const int t = dir ? T - 1 - step : step;
+    const int cur = step & 1;
+    if (on) {
+      // (b)'s projections, loaded now so that their latency hides behind
+      // the product.
+      float xv[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (t < len[r]) {
+          const XT* xr = xd + (size_t)((b0 + row0 + r) * T + t) * io.x_row + ug;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) xv[r][q] = to_float(xr[q * H]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) xv[r][q] = 0.0f;
+        }
+      }
+      // (a) product: this lane's k-block of the tile's 8 rows x 8 columns.
+      const float* hc = hs + cur * hwords + hp;
+      float acc[kUT][kRT][4];
+#pragma unroll
+      for (int u = 0; u < kUT; ++u)
+#pragma unroll
+        for (int r = 0; r < kRT; ++r)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[u][r][q] = 0.0f;
+#pragma unroll 4
+      for (int j = 0; j < KB; ++j) {
+        const float4 ha = *reinterpret_cast<const float4*>(hc + j * R);
+        const float4 hb = *reinterpret_cast<const float4*>(hc + j * R + 4);
+        const float4 wu[kUT] = {*reinterpret_cast<const float4*>(wp + j * J),
+                                *reinterpret_cast<const float4*>(wp + j * J + 4)};
+        const float hv[kRT] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
+#pragma unroll
+        for (int u = 0; u < kUT; ++u) {
+#pragma unroll
+          for (int r = 0; r < kRT; ++r) {
+            acc[u][r][0] = fmaf(hv[r], wu[u].x, acc[u][r][0]);
+            acc[u][r][1] = fmaf(hv[r], wu[u].y, acc[u][r][1]);
+            acc[u][r][2] = fmaf(hv[r], wu[u].z, acc[u][r][2]);
+            acc[u][r][3] = fmaf(hv[r], wu[u].w, acc[u][r][3]);
+          }
+        }
+      }
+      // Reduce-scatter over the tile's four lanes: lane s keeps unit s / 2
+      // (xor 2), then rows 4 * (s % 2) .. +3 of it (xor 1).
+      float part[kRT * 4];
+#pragma unroll
+      for (int i = 0; i < kRT * 4; ++i) {
+        const float a0 = acc[0][i / 4][i % 4], a1 = acc[1][i / 4][i % 4];
+        part[i] = (b1 ? a1 : a0) + __shfl_xor_sync(mask, b1 ? a0 : a1, 2);
+      }
+      float gates[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float lo = part[i], hi = part[16 + i];
+        gates[i] = (bl ? hi : lo) + __shfl_xor_sync(mask, bl ? lo : hi, 1);
+      }
+      // (b) cell: the same formulas as recur_kernel; past lens the state
+      // holds and every stream gets 0.
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (t < len[r]) {
+          const float si = sigmoid(xv[r][0] + gates[4 * r]);
+          const float sf = sigmoid(xv[r][1] + gates[4 * r + 1] + 1.0f);
+          const float tg = tanhf(xv[r][2] + gates[4 * r + 2]);
+          const float so = sigmoid(xv[r][3] + gates[4 * r + 3]);
+          const float cn = sf * c[r] + si * tg;
+          const float h_out = so * tanhf(cn);
+          c[r] = cn;
+          hr[r] = cd_bf16 ? round_bf16(h_out) : h_out;
+          yo[r] = io.round_out ? round_bf16(h_out) : h_out;
+          co[r] = io.round_out ? round_bf16(cn) : cn;
+          ao[r][0] = si;
+          ao[r][1] = sf;
+          ao[r][2] = tg;
+          ao[r][3] = so;
+        } else {
+          yo[r] = co[r] = 0.0f;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) ao[r][q] = 0.0f;
+        }
+      }
+      // All-gather: this lane's 4 rows of unit ug into the next h buffer
+      // of every CTA of the cluster, itself included.
+      const float4 hv4 = make_float4(hr[0], hr[1], hr[2], hr[3]);
+      float* dst = hs + (cur ^ 1) * hwords + ug * R + skew(ug / KB) + row0;
+#pragma unroll
+      for (int k = 0; k < kCtas; ++k)
+        *reinterpret_cast<float4*>(cluster.map_shared_rank(dst, k)) = hv4;
+    }
+    cluster_arrive();
+    if (unit_live) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int b = b0 + row0 + r;
+        if (b >= B) continue;
+        const size_t bt = (size_t)b * T + t;
+        y[bt * y_row + dir * H + ug] = yo[r];
+        if (TRAIN) {
+          float* ar = io.acts + bt * a_row + dir * H4 + ug;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) ar[q * H] = ao[r][q];
+          io.cs[bt * y_row + dir * H + ug] = co[r];
+        }
+      }
+    }
+    cluster_wait();
+  }
+}
+
+size_t fwd_cluster_smem(int R, int U) {
+  const size_t Hp = (size_t)kCtas * U;
+  return sizeof(float) * (Hp * 4 * U + kSkewMax + 2 * (Hp * R + kSkewMax));
+}
+
+// Clusters of fwd_cluster_kernel<WT, XT, TRAIN> with R rows at U units the
+// device holds at once, asked once per (R, U) and process.
+template <typename WT, typename XT, bool TRAIN>
+cudaError_t fwd_capacity(int R, int U, cudaStream_t st, int* clusters) {
+  static int known[kMaxRows / kRowStep][kClusterMaxHidden / 16 / 4 + 1] = {};
+  return port::cluster_capacity(fwd_cluster_kernel<WT, XT, TRAIN>,
+                                fwd_cluster_smem(R, U), R * U / 4, st,
+                                known[R / kRowStep - 1][U / 4], clusters);
+}
+
+template <typename WT, typename XT, bool TRAIN>
+int launch_fwd_cluster(const RecurIO<XT>& io, const int* lens,
+                       const void* wsf, const void* wsb, float* y, int B,
+                       int T, int H, int cd_bf16, cudaStream_t st) {
+  const int U = cluster_units(H);
+  int R = 0, capacity = 0;
+  cudaError_t e = cluster_rows(
+      B,
+      [&](int r, int* n) { return fwd_capacity<WT, XT, TRAIN>(r, U, st, n); },
+      &R, &capacity);
+  if (e != cudaSuccess) return (int)e;
+  if (capacity < 1) return kNoClusterFits;
+  const int groups = (B + R - 1) / R;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  e = port::cluster_config(fwd_cluster_kernel<WT, XT, TRAIN>,
+                           fwd_cluster_smem(R, U), R * U / 4, groups, st,
+                           &cfg, &attr);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchKernelEx(&cfg, fwd_cluster_kernel<WT, XT, TRAIN>, io, lens,
+                         static_cast<const WT*>(wsf),
+                         static_cast<const WT*>(wsb), y, B, T, H, R, groups,
+                         cd_bf16);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The recurrence, chosen by shape alone: fwd_cluster_kernel for
+// H <= kClusterMaxHidden (whf/whb the _cluster_fwd_slices layout), else
+// recur_kernel (whf/whb gate-interleaved). A failure of either is
+// returned; neither replaces the other.
 template <typename WT, typename XT>
-cudaError_t launch_recur(const RecurIO<XT>& io, const int* lens,
-                         const void* whf, const void* whb, float* y, int B,
-                         int T, int H, int cd_bf16, cudaStream_t stream) {
+int launch_recur(const RecurIO<XT>& io, const int* lens, const void* whf,
+                 const void* whb, float* y, int B, int T, int H, int cd_bf16,
+                 cudaStream_t stream) {
+  if (H <= kClusterMaxHidden) {
+    return io.cs
+        ? launch_fwd_cluster<WT, XT, true>(io, lens, whf, whb, y, B, T, H,
+                                           cd_bf16, stream)
+        : launch_fwd_cluster<WT, XT, false>(io, lens, whf, whb, y, B, T, H,
+                                            cd_bf16, stream);
+  }
   // At most 16 KB (H <= 1024): under the 48 KB a launch gets without
   // cudaFuncSetAttribute.
   const size_t smem = sizeof(float) * 2 * (size_t)H * kRows;
@@ -466,13 +817,13 @@ cudaError_t launch_recur(const RecurIO<XT>& io, const int* lens,
     recur_kernel<WT, XT, false><<<grid, threads, smem, stream>>>(
         io, lens, wf, wb, y, B, T, H, cd_bf16);
   }
-  return cudaGetLastError();
+  return (int)cudaGetLastError();
 }
 
 template <typename XT>
-cudaError_t launch_recur_cd(const RecurIO<XT>& io, const int* lens,
-                            const void* whf, const void* whb, float* y, int B,
-                            int T, int H, int cd_bf16, cudaStream_t st) {
+int launch_recur_cd(const RecurIO<XT>& io, const int* lens, const void* whf,
+                    const void* whb, float* y, int B, int T, int H,
+                    int cd_bf16, cudaStream_t st) {
   return cd_bf16
       ? launch_recur<__nv_bfloat16, XT>(io, lens, whf, whb, y, B, T, H, 1, st)
       : launch_recur<float, XT>(io, lens, whf, whb, y, B, T, H, 0, st);
@@ -481,11 +832,14 @@ cudaError_t launch_recur_cd(const RecurIO<XT>& io, const int* lens,
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Pointers are device pointers;
-// whf/whb are float when cd_bf16 == 0 and __nv_bfloat16 when cd_bf16 == 1;
-// xg is caller-allocated scratch [B,T,8H] f32. cs may be null (serving);
-// otherwise it receives the c stream [B,T,2H] f32 and xg ends up holding
-// the gate activations (the training form, see recur_kernel). Returns
-// cudaGetLastError() after the launches (0 on success).
+// whf/whb are W_h in the layout of the recurrence kernel that H selects
+// (the header: the [16][16U][4U] slices for H <= 320, gate-interleaved
+// [H][4H] above), float when cd_bf16 == 0 and __nv_bfloat16 when
+// cd_bf16 == 1; xg is caller-allocated scratch [B,T,8H] f32. cs may be
+// null (serving); otherwise it receives the c stream [B,T,2H] f32 and xg
+// ends up holding the gate activations (the training form). Returns
+// cudaGetLastError() after the launches (0 on success), or kNoClusterFits
+// (-1) without launching the recurrence when no cluster of it fits.
 extern "C" int bilstm_fwd(const float* x, const int* lens, const float* wx,
                           const float* bx, const void* whf, const void* whb,
                           float* xg, float* y, float* cs, int B, int T, int D,
@@ -512,7 +866,23 @@ extern "C" int bilstm_fwd(const float* x, const int* lens, const float* wx,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const RecurIO<float> io{xg, xg + 4 * H, 8 * H, xg, cs, 0};
-  return (int)launch_recur_cd(io, lens, whf, whb, y, B, T, H, cd_bf16, st);
+  return launch_recur_cd(io, lens, whf, whb, y, B, T, H, cd_bf16, st);
+}
+
+// K1-fwd's recurrence alone, over an xg buffer [B,T,8H] f32 that the
+// projection of bilstm_fwd filled (for timing the recurrence apart from
+// the projection). The other arguments as bilstm_fwd's of the same names;
+// with a non-null cs, xg ends up holding the gate activations. Returns
+// what bilstm_fwd returns.
+extern "C" int bilstm_fwd_recur(float* xg, const int* lens, const void* whf,
+                                const void* whb, float* y, float* cs, int B,
+                                int T, int H, int cd_bf16, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || H > 1024) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const RecurIO<float> io{xg, xg + 4 * H, 8 * H, xg, cs, 0};
+  return launch_recur_cd(io, lens, whf, whb, y, B, T, H, cd_bf16,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // K7-fwd: the recurrence alone, over given projections (v1 layer,
@@ -536,14 +906,18 @@ extern "C" int bilstm_v1_fwd(const void* xf, const void* xb, const int* lens,
     const RecurIO<__nv_bfloat16> io{static_cast<const __nv_bfloat16*>(xf),
                                     static_cast<const __nv_bfloat16*>(xb),
                                     4 * H, acts, cs, round_out};
-    return (int)launch_recur_cd(io, lens, whf, whb, y, B, T, H, cd_bf16, st);
+    return launch_recur_cd(io, lens, whf, whb, y, B, T, H, cd_bf16, st);
   }
   const RecurIO<float> io{static_cast<const float*>(xf),
                           static_cast<const float*>(xb), 4 * H, acts, cs,
                           round_out};
-  return (int)launch_recur_cd(io, lens, whf, whb, y, B, T, H, cd_bf16, st);
+  return launch_recur_cd(io, lens, whf, whb, y, B, T, H, cd_bf16, st);
 }
 
 extern "C" const char* bilstm_error_string(int code) {
+  if (code == kNoClusterFits) {
+    return "no cluster of 16 CTAs of fwd_cluster_kernel fits on this device "
+           "(cudaOccupancyMaxActiveClusters returned 0)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -16,17 +16,24 @@ direction of ``bilstm_fused`` has two versions:
   replaces, what bounds it on the card and what its design does about
   it.
 
-K1-bwd's reverse recurrence takes one of two kernels of
-``csrc/bilstm_bwd.cu``, chosen by shape alone (``_bwd_weights``): for
-H <= ``CLUSTER_MAX_HIDDEN`` (320, every config of the repo)
-``bwd_cluster_kernel``, which keeps W_h resident in the shared memory of
-a cluster of 16 CTAs and sums dh_rec by a reduce-scatter through
-distributed shared memory (W_h shipped as ``_cluster_slices``); for
-320 < H <= ``MAX_HIDDEN`` ``bwd_recur_kernel``, which reads W_h from L2
-every step (W_h shipped as ``_transpose_quads``). K7-bwd takes the same
-choice. Each backward wrapper counts its launches in ``.launches`` and
-those through the cluster kernel in ``.cluster_launches``. A failed
-launch of either raises; neither replaces the other.
+Each recurrence takes one of two kernels, chosen by shape alone: for
+H <= ``CLUSTER_MAX_HIDDEN`` (320, every config of the repo) a kernel that
+keeps W_h resident in the shared memory of a cluster of 16 CTAs, for
+320 < H <= ``MAX_HIDDEN`` one that reads W_h from L2 every step.
+
+- K1-fwd's (and K7-fwd's) recurrence (``csrc/bilstm_fwd.cu``,
+  ``_fwd_weights``): ``fwd_cluster_kernel``, whose CTAs each hold W_h's
+  gate columns of their units and all-gather h through distributed shared
+  memory (W_h shipped as ``_cluster_fwd_slices``), or ``recur_kernel``
+  (W_h shipped as ``_interleave_gates``).
+- K1-bwd's (and K7-bwd's) reverse recurrence (``csrc/bilstm_bwd.cu``,
+  ``_bwd_weights``): ``bwd_cluster_kernel``, which sums dh_rec by a
+  reduce-scatter through distributed shared memory (W_h shipped as
+  ``_cluster_slices``), or ``bwd_recur_kernel`` (``_transpose_quads``).
+
+Each kernel wrapper counts its launches in ``.launches`` and those
+through the cluster kernel in ``.cluster_launches``. A failed launch of
+either raises; neither replaces the other.
 
 ``bilstm_fused`` dispatches on the device of ``x`` (``_route``): the
 plain versions for a CPU tensor, the kernels for a CUDA tensor, and
@@ -65,9 +72,9 @@ import torch
 from gluon_e2e_asr_tpu_torch import _build
 from gluon_e2e_asr_tpu_torch.models.lstm import bilstm_scan, matmul_cd, work_dtype
 
-MAX_HIDDEN = 1024  # one thread per hidden unit in the recurrence kernels
-CLUSTER_CTAS = 16  # CTAs of a cluster of K1-bwd's cluster recurrence
-CLUSTER_MAX_HIDDEN = 320  # the largest H it takes (its shared memory)
+MAX_HIDDEN = 1024  # one thread per hidden unit in the L2 recurrence kernels
+CLUSTER_CTAS = 16  # CTAs of a cluster of the cluster recurrences
+CLUSTER_MAX_HIDDEN = 320  # the largest H they take (their shared memory)
 
 
 def _project(x, lens, w_x, b_x, compute_dtype, round_xg):
@@ -175,7 +182,8 @@ bilstm_fused_bwd_plain.calls = 0
 
 # Each library's entry points: (pointer arguments, int arguments), then
 # the stream.
-_ENTRIES = {"bilstm_fwd": {"bilstm_fwd": (9, 6), "bilstm_v1_fwd": (8, 6)},
+_ENTRIES = {"bilstm_fwd": {"bilstm_fwd": (9, 6), "bilstm_v1_fwd": (8, 6),
+                           "bilstm_fwd_recur": (6, 4)},
             "bilstm_bwd": {"bilstm_bwd": (15, 5), "bilstm_v1_bwd": (10, 4),
                            "bilstm_bwd_recur": (7, 4)}}
 _ERRORS = {"bilstm_fwd": "bilstm_error_string",
@@ -277,6 +285,31 @@ def _cluster_slices(w_h: torch.Tensor) -> torch.Tensor:
             .reshape(CLUSTER_CTAS, 4 * U, Hp).contiguous())
 
 
+def _cluster_fwd_slices(w_h: torch.Tensor) -> torch.Tensor:
+    """[H, 4H] gate-major (i|f|g|o) -> [16, 16U, 4U], U = _cluster_units(H):
+    slice r, row k, column j = 4*lu + g holds W_h[k, g*H + r*U + lu] (the
+    weights of CTA r's gate columns, K1-fwd's cluster layout: columns
+    [4rU, 4rU + 4U) of ``_interleave_gates``, padded); 0 where
+    r*U + lu >= H or k >= H."""
+    H = w_h.shape[0]
+    U = _cluster_units(H)
+    Hp = CLUSTER_CTAS * U
+    w = w_h.new_zeros(Hp, 4, Hp)  # [k, g, unit]
+    w[:H, :, :H] = w_h.reshape(H, 4, H)
+    return (w.reshape(Hp, 4, CLUSTER_CTAS, U).permute(2, 0, 3, 1)
+            .reshape(CLUSTER_CTAS, Hp, 4 * U).contiguous())
+
+
+def _fwd_weights(w_hf, w_hb, compute_dtype):
+    """W_h of both directions in the layout of the forward recurrence
+    kernel that H selects, in the compute dtype (the TPU wrapper casts
+    them the same way), and whether it is the cluster kernel."""
+    cluster = w_hf.shape[0] <= CLUSTER_MAX_HIDDEN
+    layout = _cluster_fwd_slices if cluster else _interleave_gates
+    return (layout(w_hf).to(compute_dtype), layout(w_hb).to(compute_dtype),
+            cluster)
+
+
 def _bwd_weights(w_hf, w_hb, compute_dtype):
     """W_h of both directions in the layout of the recurrence kernel that
     H selects, in the compute dtype, and whether it is the cluster
@@ -305,11 +338,7 @@ def bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb,
     xg = torch.empty(B, T, 8 * H, device=dev, dtype=torch.float32)
     if B == 0 or T == 0:
         return (y, c, xg) if with_cell else y
-    # The recurrent weights are read from L2 every step: ship them in the
-    # compute dtype (the TPU wrapper casts them the same way), with each
-    # hidden unit's four gate columns adjacent (one vector load).
-    whf = _interleave_gates(w_hf).to(compute_dtype)
-    whb = _interleave_gates(w_hb).to(compute_dtype)
+    whf, whb, cluster = _fwd_weights(w_hf, w_hb, compute_dtype)
     _launch("bilstm_fwd", "bilstm_fwd", dev, (
         x.data_ptr(), lens.data_ptr(), w_x.data_ptr(), b_x.data_ptr(),
         whf.data_ptr(), whb.data_ptr(), xg.data_ptr(), y.data_ptr(),
@@ -317,10 +346,53 @@ def bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb,
         B, T, D, H, int(compute_dtype == torch.bfloat16), int(round_xg)),
         f"B={B} T={T} D={D} H={H}")
     bilstm_fused_kernel.launches += 1
+    bilstm_fused_kernel.cluster_launches += cluster
     return (y, c, xg) if with_cell else y
 
 
 bilstm_fused_kernel.launches = 0
+bilstm_fused_kernel.cluster_launches = 0
+
+
+def bilstm_fused_fwd_recur_kernel(xg, lens, w_hf, w_hb,
+                                  compute_dtype: torch.dtype = torch.float32,
+                                  with_cell: bool = False):
+    """K1-fwd's recurrence alone on the card (the kernel H selects), over
+    a projection xg [B,T,8H] f32 as ``bilstm_fused_kernel`` forms it (the
+    backward half 0 past lens). Returns y [B,T,2H] and, with
+    ``with_cell``, (y, c), in which case xg is overwritten with the gate
+    activations. For timing the recurrence apart from the projection; no
+    model path calls it."""
+    B, T, H8 = xg.shape
+    H = H8 // 8
+    dev = xg.device
+    if dev.type != "cuda":
+        raise ValueError(f"bilstm_fused_fwd_recur_kernel needs CUDA tensors, "
+                         f"got {dev}")
+    if not 0 < H <= MAX_HIDDEN:
+        raise ValueError(f"hidden size {H} outside the kernel's 1..{MAX_HIDDEN}")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                         f"got {compute_dtype}")
+    _check(xg, "xg", torch.float32, (B, T, 8 * H), dev)
+    _check(lens, "lens", torch.int32, (B,), dev)
+    _check(w_hf, "w_hf", torch.float32, (H, 4 * H), dev)
+    _check(w_hb, "w_hb", torch.float32, (H, 4 * H), dev)
+    y = torch.empty(B, T, 2 * H, device=dev, dtype=torch.float32)
+    c = torch.empty_like(y) if with_cell else None
+    if B and T:
+        whf, whb, cluster = _fwd_weights(w_hf, w_hb, compute_dtype)
+        _launch("bilstm_fwd", "bilstm_fwd_recur", dev, (
+            xg.data_ptr(), lens.data_ptr(), whf.data_ptr(), whb.data_ptr(),
+            y.data_ptr(), c.data_ptr() if with_cell else None, B, T, H,
+            int(compute_dtype == torch.bfloat16)), f"B={B} T={T} H={H}")
+        bilstm_fused_fwd_recur_kernel.launches += 1
+        bilstm_fused_fwd_recur_kernel.cluster_launches += cluster
+    return (y, c) if with_cell else y
+
+
+bilstm_fused_fwd_recur_kernel.launches = 0
+bilstm_fused_fwd_recur_kernel.cluster_launches = 0
 
 
 def bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, y, c, acts, dy,
@@ -554,8 +626,7 @@ def bilstm_pallas_kernel(xg_f, xg_b, lens, w_hf, w_hb,
     c = torch.empty_like(y) if with_cell else None
     acts = torch.empty(B, T, 8 * H, **f32) if with_cell else None
     if B and T:
-        whf = _interleave_gates(w_hf).to(compute_dtype)
-        whb = _interleave_gates(w_hb).to(compute_dtype)
+        whf, whb, cluster = _fwd_weights(w_hf, w_hb, compute_dtype)
         x_bf16 = int(xg_f.dtype == torch.bfloat16)
         _launch("bilstm_fwd", "bilstm_v1_fwd", dev, (
             xg_f.data_ptr(), xg_b.data_ptr(), lens.data_ptr(), whf.data_ptr(),
@@ -564,10 +635,12 @@ def bilstm_pallas_kernel(xg_f, xg_b, lens, w_hf, w_hb,
             int(compute_dtype == torch.bfloat16), x_bf16, x_bf16),
             f"B={B} T={T} H={H}")
         bilstm_pallas_kernel.launches += 1
+        bilstm_pallas_kernel.cluster_launches += cluster
     return (y, c, acts) if with_cell else y.to(xg_f.dtype)
 
 
 bilstm_pallas_kernel.launches = 0
+bilstm_pallas_kernel.cluster_launches = 0
 
 
 def bilstm_pallas_bwd_kernel(lens, w_hf, w_hb, y, c, acts, dy,

@@ -45,8 +45,8 @@ SHAPES = (("flagship layer 0", 96, 398, 80, 320),
           ("flagship layer 1", 96, 199, 1280, 320),
           ("flagship layer 2", 96, 100, 1280, 320),
           ("milestone2 layer 0", 16, 398, 80, 256))
-# name -> [(text of csrc/bilstm_bwd.cu, its replacement)]: each cuts one
-# piece of bwd_cluster_kernel's step.
+# name -> [(text of csrc/bilstm_bwd.cu or of csrc/common.cuh, its
+# replacement)]: each cuts one piece of bwd_cluster_kernel's step.
 CUTS = {
     "product": [("      for (int j = 0; j < J; ++j) {",
                  "      for (int j = 0; j < 0; ++j) {")],
@@ -64,7 +64,7 @@ CUTS = {
     # not cuts: the kernel with 48 rows a cluster whatever B is, and
     # bwd_recur_kernel, the design before the cluster kernel, on the same
     # inputs (W_h in the other layout, of the same size)
-    "48 rows a cluster": [("  for (int r = kTileRows; r <= kMaxRows;",
+    "48 rows a cluster": [("  for (int r = kRowStep; r <= kMaxRows;",
                            "  for (int r = kMaxRows + 1; r <= kMaxRows;")],
     "cluster design (bwd_recur_kernel instead)": [
         ("  if (H <= kClusterMaxHidden) {\n    return cd_bf16",
@@ -104,35 +104,43 @@ def event_ms(fn, iters: int) -> float:
     return float(np.median(times))
 
 
-def build_cuts(out_dir: str) -> dict:
-    """name -> the library of csrc/bilstm_bwd.cu with that cut, one nvcc
-    each, all started together."""
-    with open(os.path.join(_build.SRC_DIR, "bilstm_bwd.cu")) as f:
-        src = f.read()
+def build_cuts(out_dir: str, name: str = "bilstm_bwd",
+               cuts: dict = CUTS) -> dict:
+    """cut -> the library of csrc/<name>.cu with that cut, one nvcc each,
+    all started together. Each (old, new) of a cut replaces text that
+    occurs once in the source or, failing that, once in common.cuh, whose
+    edited copy then sits beside the source (a quoted include resolves
+    there first)."""
+    texts = {}
+    for f in (f"{name}.cu", "common.cuh"):
+        with open(os.path.join(_build.SRC_DIR, f)) as fh:
+            texts[f] = fh.read()
 
-    def build(name):
-        text = src
-        for old, new in CUTS[name]:
-            if text.count(old) != 1:
-                raise RuntimeError(f"cut {name!r}: {old!r} is not in the "
-                                   "source once")
-            text = text.replace(old, new)
-        d = os.path.join(out_dir, name.split(" (")[0].replace(" ", "_"))
+    def build(cut):
+        files = dict(texts)
+        for old, new in cuts[cut]:
+            hit = [f for f, text in files.items() if text.count(old) == 1]
+            if not hit:
+                raise RuntimeError(f"cut {cut!r}: {old!r} is not in the "
+                                   "source or common.cuh once")
+            files[hit[0]] = files[hit[0]].replace(old, new)
+        d = os.path.join(out_dir, cut.split(" (")[0].replace(" ", "_"))
         os.makedirs(d, exist_ok=True)
-        path = os.path.join(d, "bilstm_bwd.cu")
-        with open(path, "w") as f:
-            f.write(text)
-        lib = os.path.join(d, "libbilstm_bwd.so")
+        for f, text in files.items():
+            with open(os.path.join(d, f), "w") as fh:
+                fh.write(text)
+        lib = os.path.join(d, f"lib{name}.so")
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                               _build.SRC_DIR, "-o", lib, path],
+                               _build.SRC_DIR, "-o", lib,
+                               os.path.join(d, f"{name}.cu")],
                               capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
-            raise RuntimeError(f"cut {name!r}: nvcc failed\n{proc.stderr}")
+            raise RuntimeError(f"cut {cut!r}: nvcc failed\n{proc.stderr}")
         return lib
 
-    with ThreadPoolExecutor(len(CUTS)) as pool:
-        paths = dict(zip(CUTS, pool.map(build, CUTS)))
-    return {name: ctypes.CDLL(p) for name, p in paths.items()}
+    with ThreadPoolExecutor(len(cuts)) as pool:
+        paths = dict(zip(cuts, pool.map(build, cuts)))
+    return {cut: ctypes.CDLL(p) for cut, p in paths.items()}
 
 
 def main(argv=None) -> dict:

@@ -1,8 +1,9 @@
 """PyTorch port on the card: the K1-fwd kernel (csrc/bilstm_fwd.cu)
-against its plain version at small, ragged shapes, the encoder on the
-card against the encoder on the CPU, K1-bwd's two recurrence kernels
-(csrc/bilstm_bwd.cu: the cluster kernel for H <= 320, the L2 one above)
-and the v1 layer K7.
+against its plain version at small, ragged shapes and at the configs'
+batch and hidden sizes through both recurrence kernels (the cluster
+kernel for H <= 320, the L2 one above), the encoder on the card against
+the encoder on the CPU, K1-bwd's two recurrence kernels
+(csrc/bilstm_bwd.cu, chosen the same way) and the v1 layer K7.
 
 Marked ``cuda``: these skip where there is no CUDA device. On a machine
 with the card and nvcc, run them with
@@ -54,6 +55,47 @@ def test_kernel_matches_plain(dev, shape, cd, round_xg):
     torch.cuda.synchronize()
     assert torch.isfinite(y).all()
     assert float((y - ref).abs().max()) <= TOL[cd]
+
+
+# K1-fwd at the batch sizes of the configs (milestone 2's 16, the
+# flagships' 96), at 50 (a partial group of rows) and at 1 (B=1 serving),
+# at both hidden sizes of the configs, in both forms and both dtypes, and
+# once past 320 (recur_kernel's route): y (and c, the activations) against
+# the plain version, which launch counter moved, and the recurrence alone
+# (bilstm_fused_fwd_recur_kernel) on the same projection. Rows of
+# different lengths in each group.
+@pytest.mark.parametrize("with_cell", [False, True])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", [(1, 256), (16, 256), (50, 256), (96, 256),
+                                 (1, 320), (16, 320), (50, 320), (96, 320),
+                                 (5, 400)])
+def test_forward_recurrence_routes_match_plain(dev, B, H, cd, with_cell):
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    T, D = 24, 32
+    args = _inputs(B, T, D, H, dev, seed=B + H)
+    x, lens, w_x, b_x, w_hf, w_hb = args
+    f = K.bilstm_fused_kernel
+    counts = (f.launches, f.cluster_launches)
+    out = f(*args, compute_dtype=cd, with_cell=with_cell)
+    y_ref, c_ref = K.bilstm_fused_plain(*args, compute_dtype=cd, with_cell=True)
+    xg = torch.cat(K._project(x, lens, w_x, b_x, cd, False), -1).contiguous()
+    r = K.bilstm_fused_fwd_recur_kernel(xg, lens, w_hf, w_hb, cd, with_cell)
+    torch.cuda.synchronize()
+    cluster = H <= K.CLUSTER_MAX_HIDDEN
+    assert (f.launches, f.cluster_launches) == (counts[0] + 1,
+                                                counts[1] + cluster)
+    y = out[0] if with_cell else out
+    y_r = r[0] if with_cell else r
+    for got in (y, y_r):
+        assert torch.isfinite(got).all()
+        assert float((got - y_ref).abs().max()) <= TOL[cd]
+    if with_cell:
+        c, acts = out[1], out[2]
+        assert _rel(c, c_ref) <= REL_BWD[cd] and _rel(r[1], c_ref) <= REL_BWD[cd]
+        assert _rel(acts, xg) <= REL_BWD[cd]  # the recurrence alone's acts
+        past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+        assert not y[past].any() and not c[past].any() and not acts[past].any()
 
 
 def test_kernel_wrapper_checks_its_inputs(dev):
@@ -176,12 +218,14 @@ def test_v1_kernels_match_plain(dev, shape, cd):
               (args[0], args[1], args[3], args[4])]
     n_f, n_b = K.bilstm_pallas_kernel.launches, K.bilstm_pallas_bwd_kernel.launches
     n_c = K.bilstm_pallas_bwd_kernel.cluster_launches
+    n_fc = K.bilstm_pallas_kernel.cluster_launches
     out = K.bilstm_pallas(leaves[0], leaves[1], args[2], leaves[2], leaves[3], cd)
     out.backward(dy)
     assert out.dtype == cd
     assert (K.bilstm_pallas_kernel.launches, K.bilstm_pallas_bwd_kernel.launches) \
         == (n_f + 1, n_b + 1)
     assert K.bilstm_pallas_bwd_kernel.cluster_launches == n_c + 1  # H <= 320
+    assert K.bilstm_pallas_kernel.cluster_launches == n_fc + 1
     for leaf, r in zip(leaves, (ref[0], ref[1], ref[2], ref[3])):
         assert _rel(leaf.grad, r) <= REL_V1[cd]
 
