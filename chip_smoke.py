@@ -15,7 +15,11 @@ each printing JSON lines:
    K1-fwd in f32 and bf16 in its serving and training forms, K1-bwd in
    f32 and bf16 (both also at milestone 2's layer shapes, B=16, H=256,
    and with B=50 and K1-fwd with B=1; every call of either through its
-   cluster recurrence, and K1-bwd's dg alone against the plain sweep), K2 and K3 on a real training batch's
+   cluster recurrence, and K1-bwd's dg alone against the plain sweep);
+   K1-bwd's products (dx, dW_x, dW_h, db: bf16 on wgmma) through their own
+   entry against their plain twin on the recurrence's dg at the
+   flagship's three layers, milestone 2's and ragged shapes (B=1 and T=1,
+   every length 1, odd widths); K2 and K3 on a real training batch's
    lattice, K4-fwd
    and K4-bwd in dot mode in f32 and bf16 with the scheduled-sampling
    coins off and on, on that batch's labels and encoder lengths; then
@@ -62,8 +66,10 @@ each printing JSON lines:
    Adam;
 8. training timing: each training kernel against its plain version and
    beside the one PyTorch call that computes the same function where
-   there is one (cuDNN's LSTM for K1, ``F.ctc_loss`` for K2/K3), K1-bwd's
-   recurrence alone beside the whole call (the products the difference), K4 in
+   there is one (cuDNN's LSTM for K1, ``F.ctc_loss`` for K2/K3,
+   ``torch.addmm`` for K1-fwd's projection), K1-bwd's recurrence alone
+   beside the whole call, K1-bwd's products through their own entry
+   beside cuBLAS on the same bf16 operands, K4 in
    its three modes, K5 and K6 beside the jnp path and ``torch.stft``, K7,
    the milestone 2 step and its frontend's share, the dot and loc hybrid
    train steps at the 4.0 s
@@ -120,6 +126,16 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # forward saved while the plain version recomputes them, so a rounding
 # of dg to bf16 can also flip.
 TOL_BWD = {"float32": 1e-4, "bfloat16": 3e-2}
+# K1-bwd's products (dx, dW_x, dW_h, db) through their own entry against
+# their plain twin on the same dg: both round the operands to bf16 and sum
+# in f32 (db over the unrounded dg), so only the order of the sums
+# differs (the weight gradients' split-K atomics among it): max abs
+# difference over each output's largest magnitude, TOL_BWD's f32 entry.
+TOL_PRODUCTS = TOL_BWD["float32"]
+# the products' ragged shapes: (name, B, T, D, H, every length 1)
+PRODUCTS_RAGGED = (("B=1, T=1", 1, 1, 80, 256, False),
+                   ("lens of 1", 8, 150, 1280, 256, True),
+                   ("odd widths", 5, 37, 33, 130, False))
 # K2 and K3: the same f32 formulas with exact expf/logf; only the order
 # of the three-term sums' rounding can differ. alpha: rtol on the live
 # lattice cells (log-probabilities down to about -1000); post in [0, 1].
@@ -293,6 +309,7 @@ def counters():
 
     kernels = {"bilstm_fwd": K.bilstm_fused_kernel,
                "bilstm_bwd": K.bilstm_fused_bwd_kernel,
+               "bilstm_bwd_products": K.bilstm_fused_bwd_products_kernel,
                "ctc_alpha": C.ctc_alpha_kernel,
                "ctc_beta_post": C.ctc_beta_post_kernel,
                "las_decoder_fwd": LD.las_decoder_fwd_kernel,
@@ -303,6 +320,7 @@ def counters():
                "bilstm_v1_bwd": K.bilstm_pallas_bwd_kernel}
     plains = {"bilstm_fwd": K.bilstm_fused_plain,
               "bilstm_bwd": K.bilstm_fused_bwd_plain,
+              "bilstm_bwd_products": K.bilstm_fused_bwd_products_plain,
               "ctc_alpha": C._alpha_plain,
               "ctc_beta_post": C._beta_post_plain,
               "las_decoder_fwd": LD.las_decoder_fwd_plain,
@@ -441,6 +459,8 @@ def main() -> None:
                                     "through the cluster recurrence")
     m2_config = load_config(M2_CONFIG)
     bwd_errs = check_training_kernels(torch, config, shapes, dev, m2_config)
+    products_errs = check_products_kernels(torch, config, shapes, dev,
+                                           m2_config)
     dec_errs = check_decoder_kernels(torch, config, dev)
     loc_config = load_config(LOC_CONFIG)
     mode_errs = {m: check_decoder_kernels(torch, loc_config, dev, m)
@@ -623,6 +643,8 @@ def main() -> None:
     fe_ms, fe_notes = frontend_timing(torch, m2_trainer, config, dev, card)
     train_ms.update(fe_ms)
     train_ms.update(v1_timing(torch, config, shapes[0], dev, card))
+    train_ms["bilstm_bwd_products"], lib_ms["bilstm_bwd_products"] = \
+        products_timing(torch, config, shapes, dev, card, m2_config)
     # 9. beam search
     golden_beam(torch)
     beam_timing(torch, loc_trainer, dev, card)
@@ -637,7 +659,8 @@ def main() -> None:
         "bilstm_fwd_cluster": (sum(recur_ms[k][0] for k in bf16),
                                sum(recur_ms[k][1] for k in bf16)),
         **{k: train_ms[k] for k in ("bilstm_bwd", "bilstm_bwd_cluster",
-                                     "ctc_alpha", "ctc_beta_post",
+                                     "bilstm_bwd_products", "ctc_alpha",
+                                     "ctc_beta_post",
                                      "las_decoder_fwd", "las_decoder_bwd",
                                      "frontend_k5", "frontend_k6",
                                      "bilstm_v1_fwd", "bilstm_v1_bwd")}}
@@ -645,6 +668,7 @@ def main() -> None:
               "bilstm_fwd_cluster": max(recur_errs[k] for k in bf16),
               "bilstm_bwd": max(bwd_errs["bilstm_bwd"]),
               "bilstm_bwd_cluster": max(bwd_errs["bilstm_bwd_cluster"]),
+              "bilstm_bwd_products": max(products_errs),
               "ctc_alpha": bwd_errs["ctc_alpha"],
               "ctc_beta_post": bwd_errs["ctc_beta_post"],
               "las_decoder_fwd": dec_errs["las_decoder_fwd"],
@@ -676,8 +700,18 @@ def main() -> None:
             "bilstm_fused_bwd_recur_kernel), sum over the flagship's 3 layer "
             "shapes, bf16, B=96, 4.0 s; launches: K1-bwd's through the "
             "cluster kernel in the slice; plain: ops/bilstm.py::_bwd_sweep "
-            "(it also recomputes the gates and forms dW_h); error: max abs "
-            "of dg"),
+            "(it also recomputes the gates); error: max abs of dg"),
+        "bilstm_bwd_products": (
+            "gemm_sm90.cuh",
+            "gluon_e2e_asr_tpu/ops/pallas_lstm.py:617",
+            "K1-bwd's products alone (dx_kernel, and wgrad_kernel with db, "
+            "on wgmma, through bilstm_fused_bwd_products_kernel), "
+            "on the reverse recurrence's dg, sum over the flagship's 3 layer "
+            "shapes, bf16, B=96, 4.0 s; plain: ops/bilstm.py::"
+            "bilstm_fused_bwd_products_plain; library: torch.matmul of dx, "
+            "dW_x and the two dW_h on the same bf16-rounded operands (bf16 "
+            "out) and torch.sum for db, the casts and h_prev's shift outside "
+            "the timing; error: max abs over dx, dW_x, db, dW_h"),
         "ctc_alpha": ("ctc.cu",
                       "gluon_e2e_asr_tpu/ops/pallas_ctc.py:55",
                       "T=100, B=96, S of a 4.0 s training batch; error over "
@@ -762,10 +796,7 @@ def main() -> None:
         bounds["bilstm_fwd_projection"]
     next(r for r in rows if r["name"] == "bilstm_fwd_cluster")[
         "decode_launches"] = cluster_launches
-    bwd = next(r for r in rows if r["name"] == "bilstm_bwd")
-    bwd["products_ms"] = timed["bilstm_bwd"][0] - timed["bilstm_bwd_cluster"][0]
-    bwd["products_bound_ms"], bwd["products_bound_by"] = \
-        bounds["bilstm_bwd_products"]
+    fwd["projection_library_ms"] = lib_ms["bilstm_fwd_projection"]
     next(r for r in rows if r["name"] == "frontend_k5")["decode_launches"] = \
         m2_decode_counts["frontend_k5"]
     emit({"kernels": rows, "train_step": step_errs,
@@ -1309,7 +1340,7 @@ def check_training_kernels(torch, config, shapes, dev, m2_config):
                 dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts,
                                                      dy, cd)
                 xg = torch.cat(K._project(x, lens, w_x, b_x, cd, False), -1)
-                dg_ref, _, _ = K._bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, cd)
+                dg_ref = K._bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, cd)
                 torch.cuda.synchronize()
                 rec["dg"] = {"max_abs_err": float((dg - dg_ref).abs().max()),
                              "rel_err": rel_err(dg, dg_ref)}
@@ -1347,6 +1378,130 @@ def check_training_kernels(torch, config, shapes, dev, m2_config):
           f"ctc_beta_post disagrees with its plain version: {p_err}")
     errs["ctc_alpha"], errs["ctc_beta_post"] = a_err, p_err
     return errs
+
+
+def products_cases(config, shapes, m2_config):
+    """The products' shapes: (name, B, H, layer, T, D, every length 1) at
+    the flagship's 3 layers (the 4.0 s bucket), milestone 2's, and
+    PRODUCTS_RAGGED."""
+    from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
+
+    fc = m2_config.frontend
+    m2_T = num_frames(int(BUCKET_SEC * fc.sample_rate), fc.win_length,
+                      fc.hop_length)
+    H, B = config.model.enc_hidden, config.data.batch_size
+    cases = [("flagship", B, H, layer, T, D, False) for layer, T, D in shapes]
+    cases += [("milestone2", m2_config.data.batch_size,
+               m2_config.model.enc_hidden, layer, T, D, False)
+              for layer, T, D in layer_shapes(m2_config, m2_T)]
+    cases += [(name, Bc, Hc, 0, T, D, ones)
+              for name, Bc, T, D, Hc, ones in PRODUCTS_RAGGED]
+    return cases
+
+
+def products_inputs(torch, Bc, Hc, layer, T, D, ones, dev):
+    """A layer's x, lens, w_x and K1-fwd's h stream y (bf16 products, the
+    training form), and the reverse recurrence's dg on them: the products'
+    inputs as the training path hands them over."""
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    args = layer_inputs(torch, Bc, T, D, Hc, layer, dev)
+    x, lens, w_x, b_x, w_hf, w_hb = args
+    if ones:
+        lens = torch.ones_like(lens)
+        args = (x, lens, w_x, b_x, w_hf, w_hb)
+    dy = layer_cotangent(torch, Bc, T, Hc, layer, dev)
+    bf = torch.bfloat16
+    y, c, acts = K.bilstm_fused_kernel(*args, compute_dtype=bf, with_cell=True)
+    dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy, bf)
+    return x, lens, w_x, y, dg
+
+
+def check_products_kernels(torch, config, shapes, dev, m2_config):
+    """Phase 3, K1-bwd's products through their own entry
+    (``bilstm_fused_bwd_products_kernel``: bf16 on wgmma) against their
+    plain twin on the same dg, at the flagship's 3 layer shapes,
+    milestone 2's and PRODUCTS_RAGGED, within TOL_PRODUCTS; dx exactly 0
+    past each row's length. Returns the max abs errors at the flagship's
+    shapes."""
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    bf = torch.bfloat16
+    errs = []
+    for name, Bc, Hc, layer, T, D, ones in products_cases(config, shapes,
+                                                          m2_config):
+        x, lens, w_x, y, dg = products_inputs(torch, Bc, Hc, layer, T, D,
+                                              ones, dev)
+        n = K.bilstm_fused_bwd_products_kernel.launches
+        got = K.bilstm_fused_bwd_products_kernel(x, lens, w_x, y, dg, bf)
+        ref = K.bilstm_fused_bwd_products_plain(x, lens, w_x, y, dg, bf)
+        torch.cuda.synchronize()
+        past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+        rec = {"phase": "kernel_check", "kernel": "bilstm_bwd_products",
+               "shapes": name, "layer": layer, "B": Bc, "T": T, "D": D,
+               "H": Hc, "compute_dtype": "bfloat16",
+               "launches": K.bilstm_fused_bwd_products_kernel.launches - n,
+               "dx_zero_past_lens": not bool(got[0][past].any()),
+               "tol_rel": TOL_PRODUCTS}
+        for out, g, r in zip(("dx", "dw_x", "db", "dw_hf", "dw_hb"), got, ref):
+            rec[out] = {"max_abs_err": float((g - r).abs().max()),
+                        "rel_err": rel_err(g, r),
+                        "max_abs": float(r.abs().max())}
+            check(bool(torch.isfinite(g).all())
+                  and rel_err(g, r) <= TOL_PRODUCTS,
+                  f"bilstm_bwd_products {out} disagrees with its plain twin "
+                  f"at {name} layer {layer}: {rel_err(g, r)}")
+            if name == "flagship":
+                errs.append(rec[out]["max_abs_err"])
+        emit(rec)
+        check(rec["launches"] == 1 and rec["dx_zero_past_lens"],
+              f"bilstm_bwd_products at {name} layer {layer}: {rec}")
+        del x, lens, w_x, y, dg, got, ref
+    return errs
+
+
+def products_timing(torch, config, shapes, dev, card, m2_config):
+    """Phase 8 for K1-bwd's products through their own entry, bf16, at the
+    flagship's 3 layer shapes and milestone 2's: the kernel, its plain
+    twin and cuBLAS (``tools/k1b_probe.py::products_library``) on the
+    same inputs, and the kernel's TFLOP/s over the live frames. Returns
+    ((kernel ms, plain ms), cuBLAS ms), each summed over the flagship's
+    layers."""
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+    from gluon_e2e_asr_tpu_torch.tools.k1b_probe import (
+        products_library, products_work)
+
+    bf = torch.bfloat16
+    sums = [0.0, 0.0, 0.0]
+    for name, Bc, Hc, layer, T, D, ones in products_cases(config, shapes,
+                                                          m2_config):
+        if name not in ("flagship", "milestone2") or (
+                name == "milestone2" and layer > 0):
+            continue
+        x, lens, w_x, y, dg = products_inputs(torch, Bc, Hc, layer, T, D,
+                                              ones, dev)
+        k_ms = time_ms(torch, lambda: K.bilstm_fused_bwd_products_kernel(
+            x, lens, w_x, y, dg, bf))
+        p_ms = time_ms(torch, lambda: K.bilstm_fused_bwd_products_plain(
+            x, lens, w_x, y, dg, bf), n=5, warm=1)
+        l_ms = time_ms(torch, products_library(x, w_x, y, dg))
+        lens_h = lens.cpu().tolist()
+        live_ops, _ = products_work(lens_h, T, D, Hc)
+        all_ops, _ = products_work([T] * Bc, T, D, Hc)
+        frames = float(sum(lens_h))
+        emit({"phase": "timing", "what": "bilstm_bwd_products",
+              "shapes": name, "layer": layer, "B": Bc, "T": T, "D": D,
+              "H": Hc, "compute_dtype": "bfloat16", "kernel_ms": k_ms,
+              "plain_ms": p_ms, "plain_runs": 5, "library_ms": l_ms,
+              "kernel_tflops_live": live_ops / k_ms / 1e9,
+              "library_tflops_all_rows": all_ops / l_ms / 1e9,
+              "live_frames": frames, "card": card})
+        if name == "flagship":
+            sums[0] += k_ms
+            sums[1] += p_ms
+            sums[2] += l_ms
+        del x, lens, w_x, y, dg
+    return (sums[0], sums[1]), sums[2]
 
 
 def epoch_steps(config, epochs: int) -> int:
@@ -1419,6 +1574,7 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     expect = {"bilstm_fwd": fwd, "bilstm_fwd_cluster": fwd * cluster,
               "bilstm_bwd": layers * steps,
               "bilstm_bwd_cluster": layers * steps * cluster,
+              "bilstm_bwd_products": layers * steps,
               "bilstm_v1_fwd_cluster": 0, "bilstm_v1_bwd_cluster": 0,
               "ctc_alpha": steps, "ctc_beta_post": steps,
               "las_decoder_fwd": dec, "las_decoder_bwd": dec}
@@ -1988,16 +2144,26 @@ def library_timing(torch, config, shapes, dev, card):
     the same inputs beside it and never called by the port: cuDNN's
     bidirectional LSTM (packed by lengths; the forget bias +1 in b_ih) for
     K1-fwd (forward, summed over the 3 layer shapes) and K1-bwd (its
-    backward alone); F.ctc_loss for K2 (forward) and K3 (backward alone),
-    on K2/K3's lattice. K4 has none."""
+    backward alone); torch.addmm on bf16 operands for K1-fwd's projection
+    (``bilstm_fwd_projection``); F.ctc_loss for K2 (forward) and K3
+    (backward alone), on K2/K3's lattice. K4 has none; K1-bwd's products
+    are timed beside cuBLAS in products_timing."""
     import torch.nn.functional as F
     from torch.nn.utils.rnn import pack_padded_sequence
 
     H, B = config.model.enc_hidden, config.data.batch_size
     bf = torch.bfloat16
-    out = {"bilstm_fwd": 0.0, "bilstm_bwd": 0.0}
+    out = {"bilstm_fwd": 0.0, "bilstm_bwd": 0.0, "bilstm_fwd_projection": 0.0}
     for layer, T, D in shapes:
         x, lens, w_x, b_x, w_hf, w_hb = layer_inputs(torch, B, T, D, H, layer, dev)
+        # K1-fwd's projection: x . W_x + b on bf16 operands, one addmm
+        xb, wb, bb = x.to(bf).reshape(-1, D), w_x.to(bf), b_x.to(bf)
+        p_ms = time_ms(torch, lambda: torch.addmm(bb, xb, wb))
+        emit({"phase": "library_timing", "what": "addmm (K1-fwd projection)",
+              "layer": layer, "B": B, "T": T, "D": D, "H": H,
+              "dtype": "bfloat16", "ms": p_ms, "card": card})
+        out["bilstm_fwd_projection"] += p_ms
+        del xb, wb, bb
         lstm = torch.nn.LSTM(D, H, batch_first=True, bidirectional=True)
         with torch.no_grad():
             for sfx, cols, w_h in (("", slice(0, 4 * H), w_hf),
@@ -2147,9 +2313,11 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     bf16 products dg . W_h^T of both directions over the live frames,
     against the gate activations, c and dy of the live frames and W_h in,
     dg out (the activations count here: the recurrence cannot run
-    without its gates). K1-bwd's products (a note on its row, timed as the
-    whole call less the recurrence): the whole call's bytes and its
-    operations less the recurrence's. K4's add and loc modes (at ``loc_config``'s shapes) add
+    without its gates). K1-bwd's products (their own row, timed through
+    their own entry): ``tools/k1b_probe.py::products_work``, dx, dW_x and
+    dW_h of both directions over the live frames, against dg, x and y of
+    the live frames in f32 (as the entry takes them), W_x and lens in, dx,
+    dW_x, db and dW_h out. K4's add and loc modes (at ``loc_config``'s shapes) add
     their energies and location convolution as f32 work on the CUDA cores
     (67 TFLOP/s, counting a tanh as one operation; see k4_bounds) to the
     bf16 products' time, and the loc backward writes its dfct stream.
@@ -2166,6 +2334,8 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     products on the CUDA cores (the gates' few operations a cell left
     out), against W, h0 and c0 in and h out."""
     import torch
+
+    from gluon_e2e_asr_tpu_torch.tools.k1b_probe import products_bound
 
     H, B = config.model.enc_hidden, config.data.batch_size
     f4, cd = 4, 2
@@ -2200,7 +2370,7 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
         k1fr = (k1fr[0] + frb[0], frb[1])
         k1fp = (k1fp[0] + fpb[0], fpb[1])
         rb = _bound(r_ops, PEAK_BF16, r_bytes)
-        pb = _bound(b_ops - r_ops, PEAK_BF16, b_bytes)
+        pb = products_bound(lens.tolist(), T, D, H)
         k1f = (k1f[0] + fb[0], fb[1])
         k1b = (k1b[0] + bb[0], bb[1])
         k1r = (k1r[0] + rb[0], rb[1])

@@ -31,10 +31,13 @@
 //       shape alone: bwd_cluster_kernel for H <= 320 (every config of the
 //       repo: 320 and 256), bwd_recur_kernel for 320 < H <= 1024. A launch
 //       failure of either raises in the wrapper; nothing falls back.
-//   (b) the products dx, dW_x and dW_h through gemm.cuh (bf16 on the
-//       tensor cores or f32 on the FMA units); the weight gradients split
-//       their long depth (B*T) over blocks and add atomically.
-//   (c) colsum_kernel: db.
+//   (b) the products dx, dW_x and dW_h (bilstm_bwd_products): in bf16
+//       on wgmma, gemm_sm90.cuh's dx_kernel and wgrad_kernel (its header
+//       has the design); in f32 through gemm.cuh's gemm_f32_kernel on the
+//       FMA units (true f32). The weight gradients split their long depth
+//       (B*T) over blocks and add atomically.
+//   (c) db: summed by wgrad_kernel's producers in bf16, by colsum_kernel
+//       in f32.
 //
 // bwd_cluster_kernel: W_h resident across a cluster of 16 CTAs.
 //   One cluster of kCtas = 16 CTAs per (direction, group of R batch
@@ -125,6 +128,7 @@
 
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -142,6 +146,12 @@ using port::kRowStep;
 using port::lds4;
 using port::load4;
 using port::round_bf16;
+
+// 1: the bf16 products on wgmma (gemm_sm90.cuh). 0 builds gemm.cuh's WMMA
+// kernel (gemm_bf16_kernel) in their place: a build variant that
+// tools/k1b_probe.py --products times beside them, on no model path (the
+// main build does not compile that kernel).
+#define K1B_WGMMA_PRODUCTS 1
 
 constexpr int kRows = 2;  // batch rows per recurrence block
 constexpr int kUnroll = 16;
@@ -585,12 +595,13 @@ int launch_recurrence(const float* dy, const int* lens, const float* acts,
 }
 
 // h_prev of one direction as the A operand of dW_h = h_prev^T . dg:
-// (u, row) with row = b*T + t reads the h stream y [B,T,2H] at t-1
-// (forward direction) or t+1 (backward direction), 0 outside [0, T).
+// (u, row) with row = b*T + t reads the direction's h stream (y, rows of
+// ld floats, at its first column) at t-1 (forward direction) or t+1
+// (backward direction), 0 outside [0, T).
 struct HPrevT {
   const float* y;
-  int T, H, M, dir;
-  bool vec;  // gemm::vec_ok(y + dir * H, 2 * H)
+  int T, H, M, dir, ld;
+  bool vec;  // gemm::vec_ok(y, ld)
   static constexpr bool kFirstContig = true;
   // The row of y that holds h_prev for `row`, or -1 where it is 0.
   __device__ __forceinline__ int src(int row) const {
@@ -601,12 +612,12 @@ struct HPrevT {
   }
   __device__ __forceinline__ float operator()(int u, int row) const {
     const int r = src(row);
-    return (r < 0 || u >= H) ? 0.0f : y[(size_t)r * 2 * H + dir * H + u];
+    return (r < 0 || u >= H) ? 0.0f : y[(size_t)r * ld + u];
   }
   __device__ __forceinline__ float4 four(int u, int row) const {
     const int r = src(row);
     if (vec && r >= 0 && u + 3 < H)
-      return *reinterpret_cast<const float4*>(y + (size_t)r * 2 * H + dir * H + u);
+      return *reinterpret_cast<const float4*>(y + (size_t)r * ld + u);
     return make_float4((*this)(u, row), (*this)(u + 1, row),
                        (*this)(u + 2, row), (*this)(u + 3, row));
   }
@@ -625,113 +636,167 @@ __global__ void colsum_kernel(const float* __restrict__ dg,
   atomicAdd(db + n, s);
 }
 
-}  // namespace
-
-// Plain C interface (loaded with ctypes). Pointers are device pointers.
-// x [B,T,D], wx [D,8H], y and cs [B,T,2H] (K1-fwd's h and c streams),
-// acts [B,T,8H] (K1-fwd's training-form xg buffer), dy [B,T,2H], all f32;
-// wtf/wtb are W_h in the layout of the recurrence kernel that H selects
-// (the header), float when cd_bf16 == 0 and __nv_bfloat16 when
-// cd_bf16 == 1. dg [B,T,8H] is caller-allocated scratch. Outputs, f32:
-// dx [B,T,D], dwx [D,8H], db [8H], dwhf and dwhb [H,4H]. Returns
-// cudaGetLastError() after the launches (0 on success), or kNoClusterFits
-// (-1) without launching when no cluster of the recurrence fits.
-extern "C" int bilstm_bwd(const float* x, const int* lens, const float* wx,
-                          const void* wtf, const void* wtb, const float* y,
-                          const float* cs, const float* acts, const float* dy,
-                          float* dg, float* dx, float* dwx, float* db,
-                          float* dwhf, float* dwhb, int B, int T, int D, int H,
-                          int cd_bf16, void* stream) {
-  if (B <= 0 || T <= 0 || D <= 0 || H <= 0 || H > 1024) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// dx (with x), dW_x (with x) and dW_h through gemm.cuh's tiled kernels:
+// the f32 route, and the WMMA build variant.
+template <bool kBf16>
+cudaError_t tiled_products(const float* x, int ldx, const float* wx,
+                           const float* y, int ldy, int yb, const float* dg,
+                           float* dx, float* dwx, float* dwhf, float* dwhb,
+                           int B, int T, int D, int H, cudaStream_t st) {
   const int M = B * T;
   const int N8 = 8 * H, N4 = 4 * H;
-  const bool bf16 = cd_bf16 != 0;
-
-  const int rc = launch_recurrence(dy, lens, acts, cs, wtf, wtb, dg, B, T, H,
-                                   cd_bf16 ? 1 : 0, st);
-  if (rc != 0) return rc;
-
   cudaError_t e;
-  const size_t f = sizeof(float);
-  if ((e = cudaMemsetAsync(dwx, 0, f * D * N8, st)) != cudaSuccess) return (int)e;
-  if ((e = cudaMemsetAsync(db, 0, f * N8, st)) != cudaSuccess) return (int)e;
-  if ((e = cudaMemsetAsync(dwhf, 0, f * H * N4, st)) != cudaSuccess) return (int)e;
-  if ((e = cudaMemsetAsync(dwhb, 0, f * H * N4, st)) != cudaSuccess) return (int)e;
-
   const gemm::RowMajor dg_all{dg, N8, M, N8, gemm::vec_ok(dg, N8)};
-  // dx [M, D] = dg [M, 8H] . W_x^T
-  e = gemm::launch(dg_all, gemm::Transposed{wx, N8, N8, D, gemm::vec_ok(wx, N8)},
-                   gemm::Store{dx, D}, M, D, N8, 1, bf16, st);
-  if (e != cudaSuccess) return (int)e;
-  // dW_x [D, 8H] = x^T . dg
-  e = gemm::launch(gemm::Transposed{x, D, D, M, gemm::vec_ok(x, D)}, dg_all,
-                   gemm::AtomicAdd{dwx, N8}, D, N8, M,
-                   gemm::split_k(D, N8, M), bf16, st);
-  if (e != cudaSuccess) return (int)e;
+  if (x != nullptr) {
+    // dx [M, D] = dg [M, 8H] . W_x^T
+    e = gemm::launch<kBf16>(
+        dg_all, gemm::Transposed{wx, N8, N8, D, gemm::vec_ok(wx, N8)},
+        gemm::Store{dx, D}, M, D, N8, 1, st);
+    if (e != cudaSuccess) return e;
+    // dW_x [D, 8H] = x^T . dg
+    e = gemm::launch<kBf16>(
+        gemm::Transposed{x, ldx, D, M, gemm::vec_ok(x, ldx)}, dg_all,
+        gemm::AtomicAdd{dwx, N8}, D, N8, M, gemm::split_k(D, N8, M), st);
+    if (e != cudaSuccess) return e;
+  }
   // dW_h [H, 4H] = h_prev^T . dg, per direction
   for (int dir = 0; dir < 2; ++dir) {
     const float* dgd = dg + dir * N4;
-    e = gemm::launch(HPrevT{y, T, H, M, dir, gemm::vec_ok(y + dir * H, 2 * H)},
-                     gemm::RowMajor{dgd, N8, M, N4, gemm::vec_ok(dgd, N8)},
-                     gemm::AtomicAdd{dir ? dwhb : dwhf, N4}, H, N4, M,
-                     gemm::split_k(H, N4, M), bf16, st);
-    if (e != cudaSuccess) return (int)e;
+    const float* yd = y + (dir ? yb : 0);
+    e = gemm::launch<kBf16>(
+        HPrevT{yd, T, H, M, dir, ldy, gemm::vec_ok(yd, ldy)},
+        gemm::RowMajor{dgd, N8, M, N4, gemm::vec_ok(dgd, N8)},
+        gemm::AtomicAdd{dir ? dwhb : dwhf, N4}, H, N4, M,
+        gemm::split_k(H, N4, M), st);
+    if (e != cudaSuccess) return e;
   }
-  constexpr int kColThreads = 256, kColRows = 512;
-  const dim3 cgrid((N8 + kColThreads - 1) / kColThreads,
-                   (M + kColRows - 1) / kColRows);
-  colsum_kernel<<<cgrid, kColThreads, 0, st>>>(dg, db, M, N8, kColRows);
+  return cudaSuccess;
+}
+
+// The products of one layer's backward from dg [B,T,8H]: with x (K1-bwd)
+// dx, dW_x and db, and always dW_h of both directions (K7-bwd passes no
+// x). x has rows of ldx floats; y rows of ldy floats, the forward
+// direction's h at column 0 and the backward direction's at column yb.
+// bf16 on wgmma (gemm_sm90.cuh; dx from wx16, W_x's bf16 copy, and db
+// summed by the weight gradients' kernel), f32 on the FMA units
+// (gemm.cuh; db by colsum_kernel).
+int launch_products(const float* x, int ldx, const int* lens, const float* wx,
+                    const __nv_bfloat16* wx16, const float* y, int ldy, int yb,
+                    const float* dg, float* dx, float* dwx, float* db,
+                    float* dwhf, float* dwhb, int B, int T, int D, int H,
+                    bool bf16, cudaStream_t st) {
+  const int M = B * T;
+  const int N8 = 8 * H, N4 = 4 * H;
+  cudaError_t e;
+  const size_t f = sizeof(float);
+  if (x != nullptr) {
+    if ((e = cudaMemsetAsync(dwx, 0, f * D * N8, st)) != cudaSuccess) return (int)e;
+    if ((e = cudaMemsetAsync(db, 0, f * N8, st)) != cudaSuccess) return (int)e;
+  }
+  if ((e = cudaMemsetAsync(dwhf, 0, f * H * N4, st)) != cudaSuccess) return (int)e;
+  if ((e = cudaMemsetAsync(dwhb, 0, f * H * N4, st)) != cudaSuccess) return (int)e;
+
+  if (bf16) {
+#if K1B_WGMMA_PRODUCTS
+    int rc = 0;
+    if (x != nullptr &&
+        (rc = gemm_sm90::launch_dx(dg, wx16, lens, dx, B, T, D, H, st)) != 0) {
+      return rc;
+    }
+    return gemm_sm90::launch_wgrad(x, ldx, D, y, ldy, yb, dg, lens, dwx, db,
+                                   dwhf, dwhb, B, T, H, st);
+#else
+    e = tiled_products<true>(x, ldx, wx, y, ldy, yb, dg, dx, dwx, dwhf, dwhb,
+                             B, T, D, H, st);
+#endif
+  } else {
+    e = tiled_products<false>(x, ldx, wx, y, ldy, yb, dg, dx, dwx, dwhf, dwhb,
+                              B, T, D, H, st);
+  }
+  if (e != cudaSuccess) return (int)e;
+  if (x != nullptr) {
+    constexpr int kColThreads = 256, kColRows = 512;
+    const dim3 cgrid((N8 + kColThreads - 1) / kColThreads,
+                     (M + kColRows - 1) / kColRows);
+    colsum_kernel<<<cgrid, kColThreads, 0, st>>>(dg, db, M, N8, kColRows);
+  }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes). Pointers are device pointers.
+
+// K1-bwd's products (the reverse recurrence's bilstm_bwd_recur comes
+// first): x [B,T,D] with rows of ldx floats (ldx >= D), wx [D,8H] and,
+// for bf16, wx16, its bf16 copy (the wgmma route reads W_x that way), y
+// [B,T,*] with rows of ldy floats holding K1-fwd's h stream, the forward
+// direction's at columns 0 .. H and the backward direction's at yb .. yb
+// + H (yb = H when y is [B,T,2H]; ldx, ldy and yb multiples of 4 for
+// bf16), dg [B,T,8H] as the recurrence writes it (0 at t >= lens[b],
+// which the bf16 products rely on), all f32. Outputs,
+// f32: dx [B,T,D], dwx [D,8H], db [8H], dwhf and dwhb [H,4H]. Returns
+// cudaGetLastError() after the launches (0 on success), or kNoTensorMap
+// (-2) when the driver refuses a tensor map of the bf16 products.
+extern "C" int bilstm_bwd_products(const float* x, const int* lens,
+                                   const float* wx, const void* wx16,
+                                   const float* y,
+                                   const float* dg, float* dx, float* dwx,
+                                   float* db, float* dwhf, float* dwhb, int B,
+                                   int T, int D, int H, int ldx, int ldy,
+                                   int yb, int cd_bf16, void* stream) {
+  if (B <= 0 || T <= 0 || D <= 0 || H <= 0 || ldx < D || yb < H ||
+      ldy < yb + H) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (K1B_WGMMA_PRODUCTS && cd_bf16 && wx16 == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_products(x, ldx, lens, wx,
+                         static_cast<const __nv_bfloat16*>(wx16), y, ldy, yb,
+                         dg, dx, dwx, db, dwhf, dwhb, B, T, D, H, cd_bf16 != 0,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // K7-bwd: the VJP of the v1 layer (gluon_e2e_asr_tpu/ops/pallas_lstm.py::
 // bilstm_pallas -> _bilstm_vjp_bwd -> pl.pallas_call -> _bwd_kernel):
 // the reverse recurrence (the kernel H selects) and the two dW_h
-// products, without K1's projection
-// products. y, cs and acts come from bilstm_v1_fwd's training form, y and
-// cs rounded as the TPU kernel's streams in xg's dtype (the recurrence
-// then reads the rounded c, as _bwd_kernel does). The TPU kernel
-// recomputes the gate activations from xg and the rounded h stream; that
-// recompute is the forward's own product of the same rounded h, so the
-// saved activations are the same values (up to the order of the sums).
-// dg [B,T,8H] f32 receives d(xg) of both directions (forward at columns
-// 0..4H); dwhf, dwhb [H,4H] f32. Returns cudaGetLastError().
+// products (the route of K1-bwd's, bf16 on wgmma), without K1's
+// projection products. y, cs and acts come from bilstm_v1_fwd's training
+// form, y and cs rounded as the TPU kernel's streams in xg's dtype (the
+// recurrence then reads the rounded c, as _bwd_kernel does). The TPU
+// kernel recomputes the gate activations from xg and the rounded h
+// stream; that recompute is the forward's own product of the same
+// rounded h, so the saved activations are the same values (up to the
+// order of the sums). y holds the h stream as bilstm_bwd_products takes
+// it (rows of ldy floats, the backward direction's at column yb); cs,
+// acts and dy as bilstm_bwd_recur takes them. dg [B,T,8H] f32 receives
+// d(xg) of both directions (forward at columns 0..4H); dwhf, dwhb [H,4H]
+// f32. Returns cudaGetLastError(), kNoClusterFits or kNoTensorMap.
 extern "C" int bilstm_v1_bwd(const int* lens, const void* wtf,
                              const void* wtb, const float* y, const float* cs,
                              const float* acts, const float* dy, float* dg,
                              float* dwhf, float* dwhb, int B, int T, int H,
-                             int cd_bf16, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || H > 1024) {
+                             int ldy, int yb, int cd_bf16, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || H > 1024 || yb < H || ldy < yb + H) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * T;
-  const int N8 = 8 * H, N4 = 4 * H;
-  const bool bf16 = cd_bf16 != 0;
   const int rc = launch_recurrence(dy, lens, acts, cs, wtf, wtb, dg, B, T, H,
-                                   bf16 ? 1 : 0, st);
+                                   cd_bf16 ? 1 : 0, st);
   if (rc != 0) return rc;
-  cudaError_t e;
-  const size_t f = sizeof(float);
-  if ((e = cudaMemsetAsync(dwhf, 0, f * H * N4, st)) != cudaSuccess) return (int)e;
-  if ((e = cudaMemsetAsync(dwhb, 0, f * H * N4, st)) != cudaSuccess) return (int)e;
-  for (int dir = 0; dir < 2; ++dir) {
-    const float* dgd = dg + dir * N4;
-    e = gemm::launch(HPrevT{y, T, H, M, dir, gemm::vec_ok(y + dir * H, 2 * H)},
-                     gemm::RowMajor{dgd, N8, M, N4, gemm::vec_ok(dgd, N8)},
-                     gemm::AtomicAdd{dir ? dwhb : dwhf, N4}, H, N4, M,
-                     gemm::split_k(H, N4, M), bf16, st);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  return launch_products(nullptr, 0, lens, nullptr, nullptr, y, ldy, yb, dg,
+                         nullptr, nullptr, nullptr, dwhf, dwhb, B, T, 0, H,
+                         cd_bf16 != 0, st);
 }
 
-// The recurrence alone: dg [B,T,8H] f32 from the arguments of bilstm_bwd
-// of the same names (for timing it apart from the products). Returns what
-// bilstm_bwd returns.
+// The reverse recurrence: dg [B,T,8H] f32 from lens, W_h (wtf/wtb, float
+// when cd_bf16 == 0 and __nv_bfloat16 when cd_bf16 == 1, in the layout of
+// the recurrence kernel that H selects: the header), K1-fwd's c stream cs
+// [B,T,2H] and training-form activations acts [B,T,8H], and dy [B,T,2H],
+// all f32. Returns cudaGetLastError() after the launch (0 on success), or
+// kNoClusterFits (-1) without launching when no cluster of the recurrence
+// fits.
 extern "C" int bilstm_bwd_recur(const int* lens, const void* wtf,
                                 const void* wtb, const float* cs,
                                 const float* acts, const float* dy, float* dg,
@@ -748,6 +813,11 @@ extern "C" const char* bilstm_bwd_error_string(int code) {
   if (code == kNoClusterFits) {
     return "no cluster of 16 CTAs of bwd_cluster_kernel fits on this device "
            "(cudaOccupancyMaxActiveClusters returned 0)";
+  }
+  if (code == gemm_sm90::kNoTensorMap) {
+    return "the driver refused a tensor map of the bf16 products "
+           "(cuTensorMapEncodeTiled missing, or a row stride or the "
+           "backward direction's column not a multiple of 16 bytes)";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -32,9 +32,12 @@
 // an AtomicAdd epilogue into a zeroed output, so the order of those few
 // additions varies from run to run); a split's bounds are multiples of 4
 // (of the tile depth, in fact), so a vector along k never crosses one.
-// What bounds these products: global loads, one register stage deep;
-// TMA, deeper pipelines and wgmma are the route to the tensor cores'
-// rate.
+// What bounds these products: global loads, one register stage deep.
+// The bf16 products of K1-bwd and K7-bwd now run on wgmma, fed by TMA
+// through a multi-stage ring (gemm_sm90.cuh); gemm_bf16_kernel is on no
+// model path and remains as the build variant that
+// tools/k1b_probe.py --products times beside them
+// (bilstm_bwd.cu's K1B_WGMMA_PRODUCTS). gemm_f32_kernel is the f32 route.
 
 #pragma once
 
@@ -308,18 +311,19 @@ inline int split_k(int M, int N, int K) {
   return want < most ? want : most;
 }
 
-// C = A . B (M x N, depth K) on stream st, in bf16 on the tensor cores or
-// in f32 on the FMA units. With splits > 1 the epilogue must accumulate.
-template <class A, class B, class Epi>
+// C = A . B (M x N, depth K) on stream st, in bf16 on the tensor cores
+// (kBf16) or in f32 on the FMA units; only the kernel asked for is
+// compiled. With splits > 1 the epilogue must accumulate.
+template <bool kBf16, class A, class B, class Epi>
 cudaError_t launch(A a, B b, Epi epi, int M, int N, int K, int splits,
-                   bool bf16, cudaStream_t st) {
+                   cudaStream_t st) {
   if (M <= 0 || N <= 0 || K <= 0) return cudaSuccess;
-  const int step = bf16 ? kTK : kF32K;
+  const int step = kBf16 ? kTK : kF32K;
   int kchunk = (K + splits - 1) / splits;
   kchunk = (kchunk + step - 1) / step * step;
   const int nsplit = (K + kchunk - 1) / kchunk;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, nsplit);
-  if (bf16) {
+  if constexpr (kBf16) {
     gemm_bf16_kernel<A, B, Epi><<<grid, kThreads, 0, st>>>(a, b, epi, M, N, K, kchunk);
   } else {
     gemm_f32_kernel<A, B, Epi><<<grid, kThreads, 0, st>>>(a, b, epi, M, N, K, kchunk);

@@ -126,11 +126,11 @@ def make_beam_decoder(model: ASRModel, config: Config, tokenizer,
     if mesh is not None:
         raise NotImplementedError(
             "make_beam_decoder(mesh=...): data-parallel beam decoding is not "
-            "ported yet (ROADMAP.md item 11)")
+            "ported yet (ROADMAP.md, \"Data parallelism\")")
     if float(getattr(dc, "lm_weight", 0.0)) != 0.0 or lm_bundle is not None:
         raise NotImplementedError(
             "decode.lm_weight != 0: LM shallow fusion in the beam is not "
-            "ported yet (ROADMAP.md item 10, with the LM)")
+            "ported yet (ROADMAP.md, \"The LM\")")
     K = dc.beam_size
     w = float(dc.ctc_weight)
     blank_id, sos_id = tokenizer.blank_id, tokenizer.sos_id

@@ -110,8 +110,8 @@ def _bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, compute_dtype):
     ``_v2_bwd_kernel``), shared by K1's and K7's plain backward: the gates
     recomputed from the projections xg [B,T,8H] and the h stream y, c_prev
     from the c stream c (both [B,T,2H], as stored), then per direction,
-    against its time order, the cell's derivatives. Returns (dg [B,T,8H],
-    dw_hf, dw_hb)."""
+    against its time order, the cell's derivatives. Returns dg [B,T,8H],
+    0 at t >= lens[b]."""
     B, T, _ = xg.shape
     H = w_hf.shape[0]
     work = work_dtype(xg, y)
@@ -120,7 +120,7 @@ def _bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, compute_dtype):
     dy = dy.to(work) * vm
     y, c = y.to(work), c.to(work)
     zero = torch.zeros(B, 1, H, device=xg.device, dtype=work)
-    dgs, dwh = [], []
+    dgs = []
     for d, w_h in enumerate((w_hf, w_hb)):
         hs, cs = y[..., d * H:(d + 1) * H], c[..., d * H:(d + 1) * H]
         # The "previous" state: t-1 forward, t+1 backward, 0 outside.
@@ -153,9 +153,47 @@ def _bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, compute_dtype):
             dc_carry = dc * sf[:, t]
             dg[:, t] = g
         dgs.append(dg)
-        dwh.append(matmul_cd(h_prev.reshape(-1, H).T, dg.reshape(-1, 4 * H),
+    return torch.cat(dgs, -1)
+
+
+def _dw_h(y, dg, compute_dtype):
+    """dW_h of both directions [H,4H]: h_prev^T . dg of the direction's 4H
+    columns, h_prev the h stream y [B,T,2H] at t-1 (forward) or t+1
+    (backward), 0 outside [0, T)."""
+    B, T, H2 = y.shape
+    H = H2 // 2
+    work = work_dtype(dg, y)
+    y = y.to(work)
+    zero = torch.zeros(B, 1, H, device=y.device, dtype=work)
+    out = []
+    for d in range(2):
+        hs = y[..., d * H:(d + 1) * H]
+        h_prev = (torch.cat([zero, hs[:, :-1]], 1) if d == 0
+                  else torch.cat([hs[:, 1:], zero], 1))
+        g = dg[..., d * 4 * H:(d + 1) * 4 * H].contiguous()
+        out.append(matmul_cd(h_prev.reshape(-1, H).T, g.reshape(-1, 4 * H),
                              compute_dtype))
-    return torch.cat(dgs, -1), dwh[0], dwh[1]
+    return out
+
+
+def bilstm_fused_bwd_products_plain(x, lens, w_x, y, dg,
+                                    compute_dtype: torch.dtype = torch.float32):
+    """K1-bwd's products after the reverse sweep, from dg [B,T,8H]: dx =
+    dg . W_x^T [B,T,D], dw_x = x^T . dg [D,8H], db = the sum of dg [8H],
+    and dw_hf, dw_hb [H,4H] (``_dw_h``), the operands rounded to
+    ``compute_dtype`` and the sums in f32 (db over the unrounded dg). lens
+    is not read: dg is 0 past it, which the kernel
+    (``bilstm_fused_bwd_products_kernel``) uses to skip those frames."""
+    bilstm_fused_bwd_products_plain.calls += 1
+    D = x.shape[-1]
+    dx = matmul_cd(dg, w_x.T, compute_dtype)
+    dw_x = matmul_cd(x.reshape(-1, D).T, dg.reshape(-1, dg.shape[-1]),
+                     compute_dtype)
+    dw_hf, dw_hb = _dw_h(y, dg, compute_dtype)
+    return dx, dw_x, dg.sum((0, 1)), dw_hf, dw_hb
+
+
+bilstm_fused_bwd_products_plain.calls = 0
 
 
 def bilstm_fused_bwd_plain(x, lens, w_x, b_x, w_hf, w_hb, y, c, dy,
@@ -163,18 +201,14 @@ def bilstm_fused_bwd_plain(x, lens, w_x, b_x, w_hf, w_hb, y, c, dy,
                            round_xg: bool = False):
     """The VJP of ``bilstm_fused``, as the TPU backward kernel computes it:
     the gates recomputed from x and the stored h stream, then a reverse
-    sweep per direction. y and c are the forward's h and c streams
-    [B,T,2H], dy the cotangent of y. Returns (dx [B,T,D], dw_x [D,8H],
-    db [8H], dw_hf [H,4H], dw_hb [H,4H])."""
+    sweep per direction, then the products
+    (``bilstm_fused_bwd_products_plain``). y and c are the forward's h and
+    c streams [B,T,2H], dy the cotangent of y. Returns (dx [B,T,D], dw_x
+    [D,8H], db [8H], dw_hf [H,4H], dw_hb [H,4H])."""
     bilstm_fused_bwd_plain.calls += 1
-    B, T, D = x.shape
-    H = w_hf.shape[0]
     xg = torch.cat(_project(x, lens, w_x, b_x, compute_dtype, round_xg), -1)
-    dg, dw_hf, dw_hb = _bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy,
-                                  compute_dtype)
-    dx = matmul_cd(dg, w_x.T, compute_dtype)
-    dw_x = matmul_cd(x.reshape(-1, D).T, dg.reshape(-1, 8 * H), compute_dtype)
-    return dx, dw_x, dg.sum((0, 1)), dw_hf, dw_hb
+    dg = _bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, compute_dtype)
+    return bilstm_fused_bwd_products_plain(x, lens, w_x, y, dg, compute_dtype)
 
 
 bilstm_fused_bwd_plain.calls = 0
@@ -184,7 +218,8 @@ bilstm_fused_bwd_plain.calls = 0
 # the stream.
 _ENTRIES = {"bilstm_fwd": {"bilstm_fwd": (9, 6), "bilstm_v1_fwd": (8, 6),
                            "bilstm_fwd_recur": (6, 4)},
-            "bilstm_bwd": {"bilstm_bwd": (15, 5), "bilstm_v1_bwd": (10, 4),
+            "bilstm_bwd": {"bilstm_bwd_products": (11, 8),
+                           "bilstm_v1_bwd": (10, 6),
                            "bilstm_bwd_recur": (7, 4)}}
 _ERRORS = {"bilstm_fwd": "bilstm_error_string",
            "bilstm_bwd": "bilstm_bwd_error_string"}
@@ -395,11 +430,41 @@ bilstm_fused_fwd_recur_kernel.launches = 0
 bilstm_fused_fwd_recur_kernel.cluster_launches = 0
 
 
+def _h_rows(y):
+    """The h stream y [B,T,2H] as the bf16 products' tensor maps take it:
+    rows of a multiple of 16 bytes with the backward direction's h at a
+    16-byte boundary. For H % 4 != 0 (never in the repo's configs) a
+    copy with each direction's H columns padded to a multiple of 4.
+    Returns (y, the backward direction's first column)."""
+    H = y.shape[-1] // 2
+    if H % 4 == 0:
+        return y, H
+    Hp = H + -H % 4
+    yp = y.new_zeros(*y.shape[:-1], 2 * Hp)
+    yp[..., :H] = y[..., :H]
+    yp[..., Hp:Hp + H] = y[..., H:]
+    return yp, Hp
+
+
+def _bwd_recurrence(lens, w_hf, w_hb, c, acts, dy, compute_dtype):
+    """Launch K1-bwd's reverse recurrence (the kernel H selects); returns dg
+    [B,T,8H] f32 and whether the cluster kernel ran."""
+    B, T, H2 = c.shape
+    dg = torch.empty(B, T, 4 * H2, device=c.device, dtype=torch.float32)
+    wtf, wtb, cluster = _bwd_weights(w_hf, w_hb, compute_dtype)
+    _launch("bilstm_bwd", "bilstm_bwd_recur", c.device, (
+        lens.data_ptr(), wtf.data_ptr(), wtb.data_ptr(), c.data_ptr(),
+        acts.data_ptr(), dy.data_ptr(), dg.data_ptr(), B, T, H2 // 2,
+        int(compute_dtype == torch.bfloat16)), f"B={B} T={T} H={H2 // 2}")
+    return dg, cluster
+
+
 def bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, y, c, acts, dy,
                             compute_dtype: torch.dtype = torch.float32):
     """K1-bwd on the card: the VJP from the training form of K1-fwd's
     outputs (y, c, acts of ``bilstm_fused_kernel(..., with_cell=True)``)
-    and the cotangent dy [B,T,2H]. Returns what
+    and the cotangent dy [B,T,2H]: the reverse recurrence, then
+    ``bilstm_fused_bwd_products_kernel``. Returns what
     ``bilstm_fused_bwd_plain`` returns."""
     B, T, D, H = _check_layer(x, lens, w_x, w_hf, w_hb, compute_dtype,
                               "bilstm_fused_bwd_kernel")
@@ -410,31 +475,78 @@ def bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, y, c, acts, dy,
     if dy.shape != y.shape or dy.device != dev:
         raise ValueError(f"dy must be {tuple(y.shape)} on {dev}, "
                          f"got {tuple(dy.shape)} on {dy.device}")
-    dy = dy.to(torch.float32).contiguous()
+    if B == 0 or T == 0:
+        f32 = dict(device=dev, dtype=torch.float32)
+        return (torch.empty(B, T, D, **f32), torch.zeros(D, 8 * H, **f32),
+                torch.zeros(8 * H, **f32), torch.zeros(H, 4 * H, **f32),
+                torch.zeros(H, 4 * H, **f32))
+    dg, cluster = _bwd_recurrence(lens, w_hf, w_hb, c, acts,
+                                  dy.to(torch.float32).contiguous(),
+                                  compute_dtype)
+    bilstm_fused_bwd_kernel.launches += 1
+    bilstm_fused_bwd_kernel.cluster_launches += cluster
+    return bilstm_fused_bwd_products_kernel(x, lens, w_x, y, dg, compute_dtype)
+
+
+bilstm_fused_bwd_kernel.launches = 0
+bilstm_fused_bwd_kernel.cluster_launches = 0
+
+
+def bilstm_fused_bwd_products_kernel(x, lens, w_x, y, dg,
+                                     compute_dtype: torch.dtype = torch.float32):
+    """K1-bwd's products on the card (``csrc/bilstm_bwd.cu::
+    bilstm_bwd_products``): what ``bilstm_fused_bwd_products_plain``
+    returns, from x [B,T,D], lens, w_x [D,8H], K1-fwd's h stream y
+    [B,T,2H] and dg [B,T,8H], all f32 and contiguous on one CUDA device.
+    dg must be 0 at t >= lens[b], as the reverse recurrence writes it: in
+    bf16 (wgmma, ``csrc/gemm_sm90.cuh``) those frames are skipped, and
+    W_x goes over as a bf16 copy made here (the rounding the product
+    applies anyway). f32 runs on the FMA units (``csrc/gemm.cuh``)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"bilstm_fused_bwd_products_kernel needs CUDA "
+                         f"tensors, got {x.device}")
+    if x.dim() != 3 or dg.dim() != 3 or dg.shape[-1] % 8:
+        raise ValueError(f"x must be [B,T,D] and dg [B,T,8H], got "
+                         f"{tuple(x.shape)} and {tuple(dg.shape)}")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                         f"got {compute_dtype}")
+    B, T, D = x.shape
+    H = dg.shape[-1] // 8
+    dev = x.device
+    _check(x, "x", torch.float32, (B, T, D), dev)
+    _check(lens, "lens", torch.int32, (B,), dev)
+    _check(w_x, "w_x", torch.float32, (D, 8 * H), dev)
+    _check(y, "y", torch.float32, (B, T, 2 * H), dev)
+    _check(dg, "dg", torch.float32, (B, T, 8 * H), dev)
     f32 = dict(device=dev, dtype=torch.float32)
     dx = torch.empty(B, T, D, **f32)
     dw_x = torch.empty(D, 8 * H, **f32)
     db = torch.empty(8 * H, **f32)
     dw_hf = torch.empty(H, 4 * H, **f32)
     dw_hb = torch.empty(H, 4 * H, **f32)
-    if B == 0 or T == 0:
+    if B == 0 or T == 0 or H == 0:
         return dx, dw_x.zero_(), db.zero_(), dw_hf.zero_(), dw_hb.zero_()
-    dg = torch.empty(B, T, 8 * H, **f32)
-    wtf, wtb, cluster = _bwd_weights(w_hf, w_hb, compute_dtype)
-    _launch("bilstm_bwd", "bilstm_bwd", dev, (
-        x.data_ptr(), lens.data_ptr(), w_x.data_ptr(), wtf.data_ptr(),
-        wtb.data_ptr(), y.data_ptr(), c.data_ptr(), acts.data_ptr(),
-        dy.data_ptr(), dg.data_ptr(), dx.data_ptr(), dw_x.data_ptr(),
-        db.data_ptr(), dw_hf.data_ptr(), dw_hb.data_ptr(),
-        B, T, D, H, int(compute_dtype == torch.bfloat16)),
-        f"B={B} T={T} D={D} H={H}")
-    bilstm_fused_bwd_kernel.launches += 1
-    bilstm_fused_bwd_kernel.cluster_launches += cluster
+    bf16 = compute_dtype == torch.bfloat16
+    yb, w_x16 = H, None
+    if bf16:
+        w_x16 = w_x.to(torch.bfloat16)
+        # the bf16 products' tensor maps need rows of a multiple of 16
+        # bytes: pad x's rows and lay y out that way where a shape needs it
+        if D % 4:
+            x = torch.nn.functional.pad(x, (0, -D % 4))
+        y, yb = _h_rows(y)
+    _launch("bilstm_bwd", "bilstm_bwd_products", dev, (
+        x.data_ptr(), lens.data_ptr(), w_x.data_ptr(),
+        w_x16.data_ptr() if bf16 else None, y.data_ptr(),
+        dg.data_ptr(), dx.data_ptr(), dw_x.data_ptr(), db.data_ptr(),
+        dw_hf.data_ptr(), dw_hb.data_ptr(), B, T, D, H, x.shape[-1],
+        y.shape[-1], yb, int(bf16)), f"B={B} T={T} D={D} H={H}")
+    bilstm_fused_bwd_products_kernel.launches += 1
     return dx, dw_x, db, dw_hf, dw_hb
 
 
-bilstm_fused_bwd_kernel.launches = 0
-bilstm_fused_bwd_kernel.cluster_launches = 0
+bilstm_fused_bwd_products_kernel.launches = 0
 
 
 def bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy,
@@ -461,14 +573,10 @@ def bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy,
     _check(c, "c", torch.float32, (B, T, 2 * H), dev)
     _check(acts, "acts", torch.float32, (B, T, 8 * H), dev)
     _check(dy, "dy", torch.float32, (B, T, 2 * H), dev)
-    dg = torch.empty(B, T, 8 * H, device=dev, dtype=torch.float32)
-    if B and T:
-        wtf, wtb, _ = _bwd_weights(w_hf, w_hb, compute_dtype)
-        _launch("bilstm_bwd", "bilstm_bwd_recur", dev, (
-            lens.data_ptr(), wtf.data_ptr(), wtb.data_ptr(), c.data_ptr(),
-            acts.data_ptr(), dy.data_ptr(), dg.data_ptr(), B, T, H,
-            int(compute_dtype == torch.bfloat16)), f"B={B} T={T} H={H}")
-        bilstm_fused_bwd_recur_kernel.launches += 1
+    if not (B and T):
+        return torch.empty(B, T, 8 * H, device=dev, dtype=torch.float32)
+    dg, _ = _bwd_recurrence(lens, w_hf, w_hb, c, acts, dy, compute_dtype)
+    bilstm_fused_bwd_recur_kernel.launches += 1
     return dg
 
 
@@ -566,8 +674,8 @@ def bilstm_pallas_bwd_plain(xg_f, xg_b, lens, w_hf, w_hb, y, c, dy,
     bilstm_pallas_bwd_plain.calls += 1
     H4 = xg_f.shape[-1]
     xg = torch.cat([xg_f, xg_b], -1).to(work_dtype(xg_f, y))
-    dg, dw_hf, dw_hb = _bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy,
-                                  compute_dtype)
+    dg = _bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, compute_dtype)
+    dw_hf, dw_hb = _dw_h(y, dg, compute_dtype)
     return (dg[..., :H4].to(xg_f.dtype), dg[..., H4:].to(xg_f.dtype),
             dw_hf.to(w_hf.dtype), dw_hb.to(w_hb.dtype))
 
@@ -677,11 +785,13 @@ def bilstm_pallas_bwd_kernel(lens, w_hf, w_hb, y, c, acts, dy,
     if B and T:
         dy = dy.to(torch.float32).contiguous()
         wtf, wtb, cluster = _bwd_weights(w_hf, w_hb, compute_dtype)
+        bf16 = compute_dtype == torch.bfloat16
+        yh, yb = _h_rows(y) if bf16 else (y, H)
         _launch("bilstm_bwd", "bilstm_v1_bwd", dev, (
-            lens.data_ptr(), wtf.data_ptr(), wtb.data_ptr(), y.data_ptr(),
+            lens.data_ptr(), wtf.data_ptr(), wtb.data_ptr(), yh.data_ptr(),
             c.data_ptr(), acts.data_ptr(), dy.data_ptr(), dg.data_ptr(),
-            dw_hf.data_ptr(), dw_hb.data_ptr(), B, T, H,
-            int(compute_dtype == torch.bfloat16)),
+            dw_hf.data_ptr(), dw_hb.data_ptr(), B, T, H, yh.shape[-1], yb,
+            int(bf16)),
             f"B={B} T={T} H={H}")
         bilstm_pallas_bwd_kernel.launches += 1
         bilstm_pallas_bwd_kernel.cluster_launches += cluster

@@ -1,4 +1,5 @@
-"""K1-bwd alone on the card: the whole call and its reverse recurrence.
+"""K1-bwd alone on the card: the whole call, its reverse recurrence and
+its products.
 
 Times ``ops/bilstm.py::bilstm_fused_bwd_kernel`` (the recurrence, the
 products dx, dW_x, dW_h and db) and ``bilstm_fused_bwd_recur_kernel``
@@ -9,10 +10,25 @@ form. Run from the root of a checkout on a machine with the card and
 nvcc::
 
     python -m gluon_e2e_asr_tpu_torch.tools.k1b_probe [--iters 10] [--ablate]
+    python -m gluon_e2e_asr_tpu_torch.tools.k1b_probe --products
 
 Each shape prints one JSON line: ms of the whole call and of the
 recurrence, the products as their difference, microseconds a step of the
 recurrence, the card's name and power limit.
+
+``--products`` times the products alone instead (bf16, through
+``bilstm_fused_bwd_products_kernel`` on the reverse recurrence's dg), at
+each shape, in one process: the wgmma kernels, cuBLAS on the same
+bf16-rounded operands (``products_library``: torch.matmul of dx, dW_x
+and the two dW_h, and torch.sum for db; the port never calls it), and
+the WMMA kernel they replaced (``gemm.cuh::gemm_bf16_kernel``, built
+with ``csrc/bilstm_bwd.cu``'s ``K1B_WGMMA_PRODUCTS`` 0, ``PRODUCTS_WMMA``),
+each with its TFLOP/s over the live frames and its share of the bound
+(``products_work``: the operations over the live frames at 989 TFLOP/s,
+or the bytes at 3.35 TB/s, the larger). With ``--ablate`` as well, it
+times the wgmma kernels with one piece cut or changed at a time
+(``PRODUCTS_CUTS``; a cut computes wrong results, only its time counts),
+and each kernel's device time (torch.profiler) in every variant.
 
 ``--ablate`` also builds ``csrc/bilstm_bwd.cu`` with one piece of the
 cluster recurrence's step cut at a time (``CUTS``; each such build
@@ -72,6 +88,80 @@ CUTS = {
 }
 
 
+# The build variant with the WMMA products in place of the wgmma kernels.
+PRODUCTS_WMMA = {"wmma": [("#define K1B_WGMMA_PRODUCTS 1",
+                           "#define K1B_WGMMA_PRODUCTS 0")]}
+# name -> [(text of csrc/bilstm_bwd.cu or a header it includes, its
+# replacement)]: each cuts or changes one piece of the wgmma products.
+PRODUCTS_CUTS = {
+    "no conversion": [("    plan.convert(w.x, s.staged(k), s.a(st), s.b(st), p);\n",
+                    "")],
+    "no wgmma": [("      for (int j = 0; j < kBK / 16; ++j) "
+               "wgmma_m64n128k16(acc, da + 2 * j, db + 2 * j);\n", "")],
+    # not cuts: a retry counter that traps after 2^26 tries in the barrier
+    # wait, and one producer warpgroup where there are two
+    "watchdog in the wait": [('      "@!p bra WAIT;\\n"\n',
+                              '      "@p bra DONE;\\n"\n'
+                              '      "add.u32 n, n, 1;\\n"\n'
+                              '      "setp.gt.u32 p, n, 67108864;\\n"\n'
+                              '      "@p trap;\\n"\n'
+                              '      "bra WAIT;\\n"\n'
+                              '      "DONE:\\n"\n'),
+                             ('      ".reg .pred p;\\n"\n',
+                              '      ".reg .pred p;\\n"\n'
+                              '      ".reg .u32 n;\\n"\n'
+                              '      "mov.u32 n, 0;\\n"\n')],
+    "one producer warpgroup": [("constexpr int kProducers = 2;",
+                                "constexpr int kProducers = 1;")],
+}
+PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM, NVIDIA's data sheet
+
+
+def products_work(lens, T: int, D: int, H: int):
+    """(operations, bytes) of K1-bwd's products at one layer: dx, dW_x and
+    dW_h of both directions over the live frames (sum of lens); in, dg, x
+    and y of the live frames (f32, as the entry takes them), W_x and lens;
+    out, dx [B,T,D], dW_x, db and dW_h."""
+    B = len(lens)
+    frames = float(sum(int(n) for n in lens))
+    ops = 2 * 2.0 * frames * 8 * H * D + 2 * 2.0 * frames * H * 4 * H
+    nbytes = (4 * frames * (8 * H + D + 2 * H) + 4 * D * 8 * H + 4 * B
+              + 4 * (B * T * D + D * 8 * H + 8 * H + 2 * H * 4 * H))
+    return ops, nbytes
+
+
+def products_bound(lens, T: int, D: int, H: int):
+    """(ms, "operations" or "bytes"): the least time of the products on
+    the H100."""
+    ops, nbytes = products_work(lens, T, D, H)
+    t_ops, t_bytes = ops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def products_library(x, w_x, y, dg):
+    """cuBLAS on the products' bf16-rounded operands, rounded (and h_prev
+    shifted) here, outside the timing: a function that runs torch.matmul
+    for dx, dW_x and the two dW_h (bf16 out) and torch.sum for db. A
+    yardstick: the port never calls it."""
+    bf = torch.bfloat16
+    H, D = dg.shape[-1] // 8, x.shape[-1]
+    g = dg.to(bf).reshape(-1, 8 * H)
+    gf, gb = g[:, :4 * H].contiguous(), g[:, 4 * H:].contiguous()
+    xb, wb = x.to(bf).reshape(-1, D), w_x.to(bf)
+    yb = y.to(bf)
+    zero = torch.zeros_like(yb[:, :1, :H])
+    hf = torch.cat([zero, yb[:, :-1, :H]], 1).reshape(-1, H)
+    hb = torch.cat([yb[:, 1:, H:], zero], 1).reshape(-1, H)
+
+    def run():
+        torch.matmul(g, wb.T)
+        torch.matmul(xb.T, g)
+        torch.matmul(hf.T, gf)
+        torch.matmul(hb.T, gb)
+        torch.sum(dg, (0, 1))
+    return run
+
+
 def layer(B, T, D, H, dev, seed=0):
     """Seeded K1 layer inputs and a cotangent, as chip_smoke.py makes
     them."""
@@ -108,11 +198,11 @@ def build_cuts(out_dir: str, name: str = "bilstm_bwd",
                cuts: dict = CUTS) -> dict:
     """cut -> the library of csrc/<name>.cu with that cut, one nvcc each,
     all started together. Each (old, new) of a cut replaces text that
-    occurs once in the source or, failing that, once in common.cuh, whose
-    edited copy then sits beside the source (a quoted include resolves
-    there first)."""
+    occurs once in the source or in one of the headers it includes
+    (common.cuh, gemm.cuh, gemm_sm90.cuh), whose edited copies sit beside
+    the source (a quoted include resolves there first)."""
     texts = {}
-    for f in (f"{name}.cu", "common.cuh"):
+    for f in (f"{name}.cu", "common.cuh", "gemm.cuh", "gemm_sm90.cuh"):
         with open(os.path.join(_build.SRC_DIR, f)) as fh:
             texts[f] = fh.read()
 
@@ -121,8 +211,8 @@ def build_cuts(out_dir: str, name: str = "bilstm_bwd",
         for old, new in cuts[cut]:
             hit = [f for f, text in files.items() if text.count(old) == 1]
             if not hit:
-                raise RuntimeError(f"cut {cut!r}: {old!r} is not in the "
-                                   "source or common.cuh once")
+                raise RuntimeError(f"cut {cut!r}: {old!r} is not once in "
+                                   "the source or a header")
             files[hit[0]] = files[hit[0]].replace(old, new)
         d = os.path.join(out_dir, cut.split(" (")[0].replace(" ", "_"))
         os.makedirs(d, exist_ok=True)
@@ -143,10 +233,75 @@ def build_cuts(out_dir: str, name: str = "bilstm_bwd",
     return {cut: ctypes.CDLL(p) for cut, p in paths.items()}
 
 
+def kernel_ms(fn, name: str, runs: int = 5) -> dict:
+    """Device ms of each kernel of ``name``'s namespace in one call of
+    ``fn`` (torch.profiler, the mean of ``runs``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", 0)
+        if us > 0 and name in evt.key:
+            out[evt.key.split("(")[0].split("::")[-1]] = us / 1e3 / runs
+    return out
+
+
+def products(iters: int, dev, card: str, ablate: bool) -> dict:
+    """--products: the products alone at each shape, bf16, the wgmma
+    kernels, cuBLAS and the WMMA variant in one process; with ``ablate``
+    the PRODUCTS_CUTS variants too."""
+    cuts = build_cuts(os.path.join(os.path.dirname(_build.BUILD_DIR),
+                                   "k1b_cuts"),
+                      cuts={**PRODUCTS_WMMA, **(PRODUCTS_CUTS if ablate else {})})
+    wmma = cuts.pop("wmma")
+    kernel_lib = _build.load_library("bilstm_bwd")
+    bf = torch.bfloat16
+    results = {}
+    for name, B, T, D, H in SHAPES:
+        (x, lens, w_x, b_x, w_hf, w_hb), dy = layer(B, T, D, H, dev)
+        y, c, acts = K.bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb, bf,
+                                           with_cell=True)
+        dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy, bf)
+        run = lambda: K.bilstm_fused_bwd_products_kernel(  # noqa: E731
+            x, lens, w_x, y, dg, bf)
+        ms = {"wgmma": event_ms(run, iters)}
+        by_kernel = {"wgmma": kernel_ms(run, "gemm_sm90")}
+        try:
+            _build._libs["bilstm_bwd"] = wmma
+            ms["wmma"] = event_ms(run, iters)
+            for cut, lib in cuts.items():
+                _build._libs["bilstm_bwd"] = lib
+                ms[cut] = event_ms(run, iters)
+                by_kernel[cut] = kernel_ms(run, "gemm_sm90")
+        finally:
+            _build._libs["bilstm_bwd"] = kernel_lib
+        ms["cublas"] = event_ms(products_library(x, w_x, y, dg), iters)
+        lens_h = lens.cpu().tolist()
+        ops, _ = products_work(lens_h, T, D, H)
+        bound_ms, bound_by = products_bound(lens_h, T, D, H)
+        rec = {"shape": name, "B": B, "T": T, "D": D, "H": H,
+               "compute_dtype": "bfloat16",
+               **{f"{k}_ms": v for k, v in ms.items()},
+               **{f"{k}_tflops_live": ops / v / 1e9 for k, v in ms.items()},
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               **{f"{k}_share_of_bound": bound_ms / v for k, v in ms.items()},
+               "kernel_ms": by_kernel, "card": card}
+        results[name] = rec
+        print(json.dumps(rec), flush=True)
+    return results
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--ablate", action="store_true")
+    p.add_argument("--products", action="store_true")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1b_probe needs a CUDA device")
@@ -156,6 +311,8 @@ def main(argv=None) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
     _build.build_all(["bilstm_fwd", "bilstm_bwd"])
+    if args.products:
+        return products(args.iters, dev, card, args.ablate)
     cuts = build_cuts(os.path.join(os.path.dirname(_build.BUILD_DIR),
                                    "k1b_cuts")) if args.ablate else {}
     results = {}

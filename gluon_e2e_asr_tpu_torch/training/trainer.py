@@ -73,8 +73,8 @@ def _refuse_unported(config: Config) -> None:
     """Raise for the training options whose code paths are not ported."""
     tc = config.train
     unported = [
-        (tc.dp, "train.dp: data-parallel training (ROADMAP.md item 11, "
-                "DDP over NCCL)"),
+        (tc.dp, "train.dp: data-parallel training (ROADMAP.md, \"Data "
+                "parallelism\": DDP over NCCL)"),
         (tc.accum_grad_steps > 1, "train.accum_grad_steps > 1: gradient "
                                   "accumulation (ROADMAP.md)"),
         (tc.eps_decay > 0 or tc.plateau_restore_best,

@@ -164,9 +164,10 @@ def test_lm_fusion_and_mesh_raise(loc_models):
     port = loc_models[2]
     config = _config()
     config.decode.lm_weight = 0.5
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, \"The LM\""):
         B.make_beam_decoder(port, config, CharTokenizer())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md, \"Data parallelism\""):
         B.make_beam_decoder(port, _config(), CharTokenizer(), mesh=object())
 
 

@@ -183,8 +183,8 @@ def test_cluster_sweep_matches_plain_and_jax_vjp(B, T, D, H):
     ref = K.bilstm_fused_bwd_plain(*ins, y, c, torch.from_numpy(dy))
     xg = torch.cat(K._project(ins[0], ins[1], ins[2], ins[3], torch.float32,
                               False), -1)
-    dg_ref, _, _ = K._bwd_sweep(xg, ins[1], ins[4], ins[5], y, c,
-                                torch.from_numpy(dy), torch.float32)
+    dg_ref = K._bwd_sweep(xg, ins[1], ins[4], ins[5], y, c,
+                          torch.from_numpy(dy), torch.float32)
     np.testing.assert_allclose(got[0].numpy(), dg_ref.numpy(), rtol=1e-4,
                                atol=1e-5, err_msg="dg")
     for name, g, r in zip(NAMES, got[1:], ref):

@@ -3,7 +3,8 @@ against its plain version at small, ragged shapes and at the configs'
 batch and hidden sizes through both recurrence kernels (the cluster
 kernel for H <= 320, the L2 one above), the encoder on the card against
 the encoder on the CPU, K1-bwd's two recurrence kernels
-(csrc/bilstm_bwd.cu, chosen the same way) and the v1 layer K7.
+(csrc/bilstm_bwd.cu, chosen the same way), K1-bwd's products
+(csrc/gemm_sm90.cuh) against their plain twin, and the v1 layer K7.
 
 Marked ``cuda``: these skip where there is no CUDA device. On a machine
 with the card and nvcc, run them with
@@ -140,7 +141,7 @@ def test_backward_recurrence_routes_match_plain(dev, B, H, cd):
                                    compute_dtype=cd)
     dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy, cd)
     xg = torch.cat(K._project(x, lens, w_x, b_x, cd, False), -1)
-    dg_ref, _, _ = K._bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, cd)
+    dg_ref = K._bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, cd)
     torch.cuda.synchronize()
     cluster = H <= K.CLUSTER_MAX_HIDDEN
     assert (f.launches, f.cluster_launches) == (counts[0] + 1,
@@ -149,6 +150,45 @@ def test_backward_recurrence_routes_match_plain(dev, B, H, cd):
         assert torch.isfinite(g).all(), name
         assert _rel(g, r) <= REL_BWD[cd], (name, _rel(g, r))
     assert _rel(dg, dg_ref) <= REL_BWD[cd]
+
+
+# K1-bwd's products through their own entry (bf16 on wgmma; f32 on the
+# FMA units) against their plain twin on the reverse recurrence's dg, at
+# tools/k1b_probe.py's shapes (the flagship's three layers at the 4.0 s
+# bucket, milestone 2's first) and ragged ones: B=1 and T=1, every length
+# 1, widths that need the wrapper's padding (D % 4, H % 4), T past a
+# multiple of 64. Both sides round the operands the same way and sum in
+# f32, so only the order of the sums differs: 1e-4 of each output's
+# largest magnitude, chip_smoke.py's TOL_PRODUCTS.
+PRODUCTS_SHAPES = [(96, 398, 80, 320, False), (96, 199, 1280, 320, False),
+                   (96, 100, 1280, 320, False), (16, 398, 80, 256, False),
+                   (1, 1, 80, 256, False), (8, 150, 1280, 256, True),
+                   (5, 37, 33, 130, False), (3, 65, 12, 8, False)]
+
+
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,D,H,ones", PRODUCTS_SHAPES)
+def test_products_kernel_matches_plain_twin(dev, B, T, D, H, ones, cd):
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    x, lens, w_x, b_x, w_hf, w_hb = _inputs(B, T, D, H, dev, seed=B + T)
+    if ones:
+        lens = torch.ones_like(lens)
+    dy = torch.from_numpy(np.random.RandomState(T).randn(B, T, 2 * H)
+                          .astype(np.float32)).to(dev)
+    y, c, acts = K.bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb, cd,
+                                       with_cell=True)
+    dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy, cd)
+    n = K.bilstm_fused_bwd_products_kernel.launches
+    got = K.bilstm_fused_bwd_products_kernel(x, lens, w_x, y, dg, cd)
+    ref = K.bilstm_fused_bwd_products_plain(x, lens, w_x, y, dg, cd)
+    torch.cuda.synchronize()
+    assert K.bilstm_fused_bwd_products_kernel.launches == n + 1
+    for name, g, r in zip(("dx", "dw_x", "db", "dw_hf", "dw_hb"), got, ref):
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, r) <= 1e-4, (name, _rel(g, r))
+    past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+    assert not got[0][past].any()
 
 
 def test_encoder_on_card_matches_cpu(dev):
