@@ -19,7 +19,10 @@ each printing JSON lines:
    K1-bwd's products (dx, dW_x, dW_h, db: bf16 on wgmma) through their own
    entry against their plain twin on the recurrence's dg at the
    flagship's three layers, milestone 2's and ragged shapes (B=1 and T=1,
-   every length 1, odd widths); K2 and K3 on a real training batch's
+   every length 1, odd widths); K1-fwd's bf16 projection (on wgmma)
+   through its own entry against its plain twin at the flagship's three
+   layers and ragged shapes (B=1 and T=1, every length 1, D=33 with
+   H=130, H=256), with round_xg off and on; K2 and K3 on a real training batch's
    lattice, K4-fwd
    and K4-bwd in dot mode in f32 and bf16 with the scheduled-sampling
    coins off and on, on that batch's labels and encoder lengths; then
@@ -40,13 +43,15 @@ each printing JSON lines:
    kernels; the encoder output on the card is held against the
    plain versions on the CPU for a few utterances;
 5. serving timing: CUDA events, median of 10 runs after warm-up, K1-fwd
-   whole and its recurrence alone in both forms (held against the plain
-   recurrence on the same projection), the projection the difference;
+   whole, its recurrence alone in both forms (held against the plain
+   recurrence on the same projection) and its projection alone, each
+   through its own entry;
 6. training slices: ``gluon_e2e_asr_tpu_torch.train.main`` at full
    width on the flagship config as shipped (hybrid CTC/attention, dot
    attention, ``train.dp=false``) for two epochs: the launch counts of
    all six kernels (every K1-bwd launch of every slice through the
-   cluster recurrence), no plain call, a finite and falling loss, the
+   cluster recurrence, every bf16 K1-fwd launch through the wgmma
+   projection), no plain call, a finite and falling loss, the
    attention loss and accuracy logged, a checkpoint (every K1-fwd and
    K7-fwd launch of every slice and decode through the cluster
    recurrence too); a CTC-only run
@@ -69,7 +74,8 @@ each printing JSON lines:
    there is one (cuDNN's LSTM for K1, ``F.ctc_loss`` for K2/K3,
    ``torch.addmm`` for K1-fwd's projection), K1-bwd's recurrence alone
    beside the whole call, K1-bwd's products through their own entry
-   beside cuBLAS on the same bf16 operands, K4 in
+   beside cuBLAS on the same bf16 operands, K1-fwd's projection through
+   its own entry beside ``torch.addmm`` on the same bf16 operands, K4 in
    its three modes, K5 and K6 beside the jnp path and ``torch.stft``, K7,
    the milestone 2 step and its frontend's share, the dot and loc hybrid
    train steps at the 4.0 s
@@ -136,6 +142,18 @@ TOL_PRODUCTS = TOL_BWD["float32"]
 PRODUCTS_RAGGED = (("B=1, T=1", 1, 1, 80, 256, False),
                    ("lens of 1", 8, 150, 1280, 256, True),
                    ("odd widths", 5, 37, 33, 130, False))
+# K1-fwd's bf16 projection through its own entry against its plain twin:
+# both round the operands to bf16 and sum in f32, so only the order of
+# the sums differs: max abs difference over the output's largest
+# magnitude, as for the products. With round_xg each element may also
+# differ by one bf16 ulp of itself (BF16_ULP), where the two f32 sums fall
+# on either side of a rounding boundary.
+TOL_PROJ = TOL_BWD["float32"]
+# the projection's ragged shapes: (name, B, T, D, H, every length 1)
+PROJ_RAGGED = (("B=1, T=1", 1, 1, 80, 320, False),
+               ("lens of 1", 8, 150, 1280, 320, True),
+               ("odd widths", 5, 37, 33, 130, False),
+               ("H=256", 16, 199, 512, 256, False))
 # K2 and K3: the same f32 formulas with exact expf/logf; only the order
 # of the three-term sums' rounding can differ. alpha: rtol on the live
 # lattice cells (log-probabilities down to about -1000); post in [0, 1].
@@ -310,6 +328,7 @@ def counters():
     kernels = {"bilstm_fwd": K.bilstm_fused_kernel,
                "bilstm_bwd": K.bilstm_fused_bwd_kernel,
                "bilstm_bwd_products": K.bilstm_fused_bwd_products_kernel,
+               "bilstm_fwd_projection": K.bilstm_fused_proj_kernel,
                "ctc_alpha": C.ctc_alpha_kernel,
                "ctc_beta_post": C.ctc_beta_post_kernel,
                "las_decoder_fwd": LD.las_decoder_fwd_kernel,
@@ -321,6 +340,7 @@ def counters():
     plains = {"bilstm_fwd": K.bilstm_fused_plain,
               "bilstm_bwd": K.bilstm_fused_bwd_plain,
               "bilstm_bwd_products": K.bilstm_fused_bwd_products_plain,
+              "bilstm_fwd_projection": K.bilstm_fused_proj_plain,
               "ctc_alpha": C._alpha_plain,
               "ctc_beta_post": C._beta_post_plain,
               "las_decoder_fwd": LD.las_decoder_fwd_plain,
@@ -461,6 +481,7 @@ def main() -> None:
     bwd_errs = check_training_kernels(torch, config, shapes, dev, m2_config)
     products_errs = check_products_kernels(torch, config, shapes, dev,
                                            m2_config)
+    proj_errs = check_projection_kernels(torch, config, shapes, dev)
     dec_errs = check_decoder_kernels(torch, config, dev)
     loc_config = load_config(LOC_CONFIG)
     mode_errs = {m: check_decoder_kernels(torch, loc_config, dev, m)
@@ -495,6 +516,7 @@ def main() -> None:
                           "--device", "cuda"])
     launches = bilstm_fused_kernel.launches
     cluster_launches = bilstm_fused_kernel.cluster_launches
+    proj_launches = bilstm.bilstm_fused_proj_kernel.launches
     plain_calls = bilstm_fused_plain.calls
     expect = mc.enc_layers * (result["num_batches"] + result["warm_passes"])
     with open(out_jsonl) as f:
@@ -503,12 +525,16 @@ def main() -> None:
           "note": "random weights: the WER means nothing",
           "bilstm_fwd_launches": launches, "expected_launches": expect,
           "bilstm_fwd_cluster_launches": cluster_launches,
+          "bilstm_fwd_projection_launches": proj_launches,
           "plain_calls": plain_calls, "records": len(recs)})
     check(launches == expect,
           f"bilstm_fwd launched {launches} times, expected {expect}")
     check(cluster_launches == launches,
           f"{launches - cluster_launches} bilstm_fwd launches of the decode "
           "missed the cluster recurrence")
+    check(proj_launches == launches,
+          f"{launches - proj_launches} bf16 bilstm_fwd launches of the decode "
+          "missed the wgmma projection")
     check(plain_calls == 0, f"the plain BiLSTM ran {plain_calls} times")
     check(result["num_utts"] == len(dev_utts) == len(recs),
           f"decoded {result['num_utts']} of {len(dev_utts)} utterances")
@@ -555,8 +581,9 @@ def main() -> None:
           f"logits {logit_err}")
 
     # 5. timing; K1-fwd's recurrence alone (both forms) over the same
-    # projection, held against the plain recurrence (bilstm_scan) on it
-    kernel_ms, plain_ms, recur_ms, recur_errs = {}, {}, {}, {}
+    # projection, held against the plain recurrence (bilstm_scan) on it,
+    # and its projection alone
+    kernel_ms, plain_ms, recur_ms, recur_errs, proj_ms = {}, {}, {}, {}, {}
     for layer, T, D in shapes:
         args = layer_inputs(torch, B, T, D, H, layer, dev)
         x, lens, w_x, b_x, w_hf, w_hb = args
@@ -587,6 +614,11 @@ def main() -> None:
             rp_ms = time_ms(torch, lambda: bilstm_scan(
                 xg_f, xg_b, lens, w_hf, w_hb, cd), n=3, warm=1)
             recur_ms[(layer, cd_name)] = (r_ms, rp_ms)
+            pk_ms = time_ms(torch, lambda: bilstm.bilstm_fused_proj_kernel(
+                x, lens, w_x, b_x, cd))
+            pp_ms = time_ms(torch, lambda: bilstm.bilstm_fused_proj_plain(
+                x, lens, w_x, b_x, cd))
+            proj_ms[(layer, cd_name)] = (pk_ms, pp_ms)
             emit({"phase": "timing", "what": "bilstm_fwd", "layer": layer,
                   "B": B, "T": T, "D": D, "H": H, "compute_dtype": cd_name,
                   "kernel_ms": k_ms, "plain_ms": p_ms,
@@ -594,8 +626,7 @@ def main() -> None:
                   "recurrence_us_per_step": r_ms * 1e3 / T,
                   "recurrence_training_form_ms": rt_ms,
                   "recurrence_training_form_us_per_step": rt_ms * 1e3 / T,
-                  "projection_ms": k_ms - r_ms,
-                  "projection_basis": "whole call - recurrence alone",
+                  "projection_kernel_ms": pk_ms, "projection_plain_ms": pp_ms,
                   "recurrence_plain_ms": rp_ms, "recurrence_plain_runs": 3,
                   "recurrence_max_abs_err": err, "card": card})
             del xg, xg_train, y_r, y_rp
@@ -658,6 +689,8 @@ def main() -> None:
                        sum(plain_ms[k] for k in bf16)),
         "bilstm_fwd_cluster": (sum(recur_ms[k][0] for k in bf16),
                                sum(recur_ms[k][1] for k in bf16)),
+        "bilstm_fwd_projection": (sum(proj_ms[k][0] for k in bf16),
+                                  sum(proj_ms[k][1] for k in bf16)),
         **{k: train_ms[k] for k in ("bilstm_bwd", "bilstm_bwd_cluster",
                                      "bilstm_bwd_products", "ctc_alpha",
                                      "ctc_beta_post",
@@ -669,6 +702,7 @@ def main() -> None:
               "bilstm_bwd": max(bwd_errs["bilstm_bwd"]),
               "bilstm_bwd_cluster": max(bwd_errs["bilstm_bwd_cluster"]),
               "bilstm_bwd_products": max(products_errs),
+              "bilstm_fwd_projection": max(proj_errs),
               "ctc_alpha": bwd_errs["ctc_alpha"],
               "ctc_beta_post": bwd_errs["ctc_beta_post"],
               "las_decoder_fwd": dec_errs["las_decoder_fwd"],
@@ -678,8 +712,7 @@ def main() -> None:
         "bilstm_fwd": ("bilstm_fwd.cu",
                        "gluon_e2e_asr_tpu/ops/pallas_lstm.py:411",
                        "serving form, sum over the flagship's 3 layer shapes, "
-                       "bf16, B=96, 4.0 s; projection_ms: the whole call "
-                       "less the recurrence alone"),
+                       "bf16, B=96, 4.0 s"),
         "bilstm_fwd_cluster": (
             "bilstm_fwd.cu",
             "gluon_e2e_asr_tpu/ops/pallas_lstm.py:411",
@@ -689,6 +722,16 @@ def main() -> None:
             "K1-fwd's through the cluster kernel in the slice; plain: "
             "models/lstm.py::bilstm_scan on the same projection; error: max "
             "abs of y against it"),
+        "bilstm_fwd_projection": (
+            "proj_sm90.cuh",
+            "gluon_e2e_asr_tpu/ops/pallas_lstm.py:426",
+            "K1-fwd's bf16 projection alone (proj_kernel on wgmma through "
+            "bilstm_fused_proj_kernel), sum over the flagship's 3 layer "
+            "shapes, B=96, 4.0 s; launches: the bf16 K1-fwd launches of "
+            "the dot slice; plain: ops/bilstm.py::bilstm_fused_proj_plain; "
+            "library: torch.addmm on the same bf16-rounded operands (bf16 "
+            "out, no mask), the casts outside the timing; error: max abs "
+            "of xg, round_xg off"),
         "bilstm_bwd": ("bilstm_bwd.cu",
                        "gluon_e2e_asr_tpu/ops/pallas_lstm.py:484",
                        "sum over the flagship's 3 layer shapes, bf16, B=96, "
@@ -790,13 +833,10 @@ def main() -> None:
         if name in fe_notes:
             rows[-1]["library_note"] = fe_notes[name]
     rows[0]["decode_launches"] = decode_launches
-    fwd = rows[0]
-    fwd["projection_ms"] = timed["bilstm_fwd"][0] - timed["bilstm_fwd_cluster"][0]
-    fwd["projection_bound_ms"], fwd["projection_bound_by"] = \
-        bounds["bilstm_fwd_projection"]
     next(r for r in rows if r["name"] == "bilstm_fwd_cluster")[
         "decode_launches"] = cluster_launches
-    fwd["projection_library_ms"] = lib_ms["bilstm_fwd_projection"]
+    next(r for r in rows if r["name"] == "bilstm_fwd_projection")[
+        "decode_launches"] = proj_launches
     next(r for r in rows if r["name"] == "frontend_k5")["decode_launches"] = \
         m2_decode_counts["frontend_k5"]
     emit({"kernels": rows, "train_step": step_errs,
@@ -1212,6 +1252,10 @@ def decode_slice(torch, trainer, path, name):
           f"bilstm_fwd launched {launches['bilstm_fwd']} times in the decode")
     check(launches["bilstm_fwd_cluster"] == launches["bilstm_fwd"],
           "a bilstm_fwd launch of the decode missed the cluster recurrence")
+    bf16 = config.model.compute_dtype == "bfloat16"
+    check(launches["bilstm_fwd_projection"] == launches["bilstm_fwd"] * bf16,
+          f"the wgmma projection launched {launches['bilstm_fwd_projection']} "
+          "times in the decode")
     check(not any(plain.values()), f"plain versions ran in the decode: {plain}")
     check(result["num_utts"] == len(recs) > 0
           and all(isinstance(r["hyp"], str) for r in recs),
@@ -1460,6 +1504,56 @@ def check_products_kernels(torch, config, shapes, dev, m2_config):
     return errs
 
 
+def check_projection_kernels(torch, config, shapes, dev):
+    """Phase 3, K1-fwd's bf16 projection through its own entry
+    (``bilstm_fused_proj_kernel``: wgmma) against its plain twin, at the
+    flagship's 3 layer shapes and PROJ_RAGGED, round_xg off and on: within
+    TOL_PROJ of the output's largest magnitude, with round_xg plus one bf16
+    ulp of each element; the backward half exactly 0 past each row's
+    length. Returns the max abs errors at the flagship's shapes (round_xg
+    off)."""
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    bf = torch.bfloat16
+    H, B = config.model.enc_hidden, config.data.batch_size
+    cases = [("flagship", B, T, D, H, layer, False) for layer, T, D in shapes]
+    cases += [(name, Bc, T, D, Hc, 0, ones)
+              for name, Bc, T, D, Hc, ones in PROJ_RAGGED]
+    errs = []
+    for name, Bc, T, D, Hc, layer, ones in cases:
+        x, lens, w_x, b_x, _, _ = layer_inputs(torch, Bc, T, D, Hc, layer, dev)
+        if ones:
+            lens = torch.ones_like(lens)
+        for round_xg in (False, True):
+            n = K.bilstm_fused_proj_kernel.launches
+            got = K.bilstm_fused_proj_kernel(x, lens, w_x, b_x, bf, round_xg)
+            ref = K.bilstm_fused_proj_plain(x, lens, w_x, b_x, bf, round_xg)
+            torch.cuda.synchronize()
+            diff = (got - ref).abs()
+            top = float(ref.abs().max())
+            ulp = BF16_ULP * ref.abs() if round_xg else 0.0
+            ok = bool((diff <= TOL_PROJ * top + ulp).all())
+            past = (torch.arange(T, device=dev)[None, :] >= lens[:, None])
+            zero = not bool(got[..., 4 * Hc:][past].any())
+            rec = {"phase": "kernel_check", "kernel": "bilstm_fwd_projection",
+                   "shapes": name, "layer": layer, "B": Bc, "T": T, "D": D,
+                   "H": Hc, "compute_dtype": "bfloat16", "round_xg": round_xg,
+                   "launches": K.bilstm_fused_proj_kernel.launches - n,
+                   "max_abs_err": float(diff.max()), "rel_err": rel_err(got, ref),
+                   "max_abs": top, "tol_rel": TOL_PROJ,
+                   "tol_ulp": BF16_ULP if round_xg else 0.0,
+                   "backward_half_zero_past_lens": zero,
+                   "finite": bool(torch.isfinite(got).all())}
+            emit(rec)
+            check(rec["finite"] and ok and zero and rec["launches"] == 1,
+                  f"bilstm_fwd_projection disagrees with its plain twin at "
+                  f"{name} layer {layer} round_xg={round_xg}: {rec}")
+            if name == "flagship" and not round_xg:
+                errs.append(rec["max_abs_err"])
+            del got, ref, diff
+    return errs
+
+
 def products_timing(torch, config, shapes, dev, card, m2_config):
     """Phase 8 for K1-bwd's products through their own entry, bf16, at the
     flagship's 3 layer shapes and milestone 2's: the kernel, its plain
@@ -1571,7 +1665,9 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     # (H <= 320 in every config of the repo)
     cluster = config.model.enc_hidden <= bilstm.CLUSTER_MAX_HIDDEN
     fwd = layers * (steps + dev_batches * len(epochs))
+    bf16 = config.model.compute_dtype == "bfloat16"
     expect = {"bilstm_fwd": fwd, "bilstm_fwd_cluster": fwd * cluster,
+              "bilstm_fwd_projection": fwd * bf16,
               "bilstm_bwd": layers * steps,
               "bilstm_bwd_cluster": layers * steps * cluster,
               "bilstm_bwd_products": layers * steps,
@@ -2151,19 +2247,19 @@ def library_timing(torch, config, shapes, dev, card):
     import torch.nn.functional as F
     from torch.nn.utils.rnn import pack_padded_sequence
 
+    from gluon_e2e_asr_tpu_torch.tools.k1f_probe import proj_library
+
     H, B = config.model.enc_hidden, config.data.batch_size
     bf = torch.bfloat16
     out = {"bilstm_fwd": 0.0, "bilstm_bwd": 0.0, "bilstm_fwd_projection": 0.0}
     for layer, T, D in shapes:
         x, lens, w_x, b_x, w_hf, w_hb = layer_inputs(torch, B, T, D, H, layer, dev)
         # K1-fwd's projection: x . W_x + b on bf16 operands, one addmm
-        xb, wb, bb = x.to(bf).reshape(-1, D), w_x.to(bf), b_x.to(bf)
-        p_ms = time_ms(torch, lambda: torch.addmm(bb, xb, wb))
+        p_ms = time_ms(torch, proj_library(x, w_x, b_x))
         emit({"phase": "library_timing", "what": "addmm (K1-fwd projection)",
               "layer": layer, "B": B, "T": T, "D": D, "H": H,
               "dtype": "bfloat16", "ms": p_ms, "card": card})
         out["bilstm_fwd_projection"] += p_ms
-        del xb, wb, bb
         lstm = torch.nn.LSTM(D, H, batch_first=True, bidirectional=True)
         with torch.no_grad():
             for sfx, cols, w_h in (("", slice(0, 4 * H), w_hf),
@@ -2307,9 +2403,12 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     timed: y only). K1-fwd's recurrence alone (its own row, as timed):
     the bf16 products h . W_h of both directions over the live frames,
     against xg of the live frames (f32) and W_h in and y out. K1-fwd's
-    projection (a note on its row, timed as the whole call less the
-    recurrence): the whole call's bytes and its operations less the
-    recurrence's. K1-bwd's recurrence alone (its own row, as timed): the
+    projection (its own row, timed through its own entry):
+    ``tools/k1f_probe.py::proj_work``, x . W_x over the live frames,
+    against x of the live frames (f32, as the entry takes it), W_x, b_x
+    and lens in, xg [B,T,8H] (f32, every row) out; the xg write makes it
+    bound by bytes.
+    K1-bwd's recurrence alone (its own row, as timed): the
     bf16 products dg . W_h^T of both directions over the live frames,
     against the gate activations, c and dy of the live frames and W_h in,
     dg out (the activations count here: the recurrence cannot run
@@ -2336,6 +2435,7 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     import torch
 
     from gluon_e2e_asr_tpu_torch.tools.k1b_probe import products_bound
+    from gluon_e2e_asr_tpu_torch.tools.k1f_probe import proj_bound
 
     H, B = config.model.enc_hidden, config.data.batch_size
     f4, cd = 4, 2
@@ -2366,7 +2466,7 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
                     + f4 * B * T * 2 * H)
         fb, bb = _bound(f_ops, PEAK_BF16, f_bytes), _bound(b_ops, PEAK_BF16, b_bytes)
         frb = _bound(fr_ops, PEAK_BF16, fr_bytes)
-        fpb = _bound(f_ops - fr_ops, PEAK_BF16, f_bytes)
+        fpb = proj_bound(lens.tolist(), T, D, H)
         k1fr = (k1fr[0] + frb[0], frb[1])
         k1fp = (k1fp[0] + fpb[0], fpb[1])
         rb = _bound(r_ops, PEAK_BF16, r_bytes)

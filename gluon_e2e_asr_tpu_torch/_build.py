@@ -90,7 +90,8 @@ def _compile(name: str, out: str) -> None:
     os.replace(tmp, out)
     report = "\n".join(
         ln for ln in (proc.stdout + proc.stderr).splitlines()
-        if "Compiling entry" in ln or "registers" in ln or "spill" in ln)
+        if "Compiling entry" in ln or "registers" in ln or "spill" in ln
+        or "warning" in ln)  # ptxas's C7518 (serialised wgmma) among them
     with open(out + ".ptxas.txt", "w") as f:
         f.write(report + "\n")
     build_info[name] = (time.perf_counter() - t0, report)

@@ -31,16 +31,19 @@
 //
 // Kernels on the caller's stream, no allocation, no synchronisation:
 //
-//   (a) the projection, a tiled shared-memory GEMM (128x128 tile) that
-//       writes xg with the bias added and the backward half masked. In
-//       bf16, round_xg rounds xg to bf16 too (the lstm_impl=scan
-//       semantics of models/encoder.py, where the projection is stored
-//       in the compute dtype); in f32 that rounding changes nothing.
-//       In f32, proj_f32_kernel: 8x8 outputs per thread on the FMA
-//       units (true f32). In bf16, proj_bf16_kernel: the operands are
-//       rounded to bf16 on their way to shared memory and multiplied on
-//       the tensor cores (WMMA 16x16x16, f32 accumulation), the next
-//       tile's global loads in flight during the current tile's product.
+//   (a) the projection, which writes xg with the bias added and the
+//       backward half masked (bilstm_fwd_proj alone, or first in
+//       bilstm_fwd). In bf16, round_xg rounds xg to bf16 too (the
+//       lstm_impl=scan semantics of models/encoder.py, where the
+//       projection is stored in the compute dtype); in f32 that rounding
+//       changes nothing. In f32, proj_f32_kernel: a tiled shared-memory
+//       GEMM (128x128 tile), 8x8 outputs per thread on the FMA units
+//       (true f32). In bf16, proj_sm90.cuh's proj_kernel: persistent and
+//       warp-specialised on wgmma, x rounded in the consumers' registers,
+//       W_x from the wrapper's bf16 copy by TMA, the epilogue's stores by
+//       TMA (that header says why). proj_bf16_kernel, the WMMA kernel it
+//       replaced, is only a build variant (K1F_WGMMA_PROJECTION 0) that
+//       tools/k1f_probe.py --proj times beside it.
 //   (b) the recurrence, chosen by shape alone: fwd_cluster_kernel for
 //       H <= 320 (every config of the repo: 320 and 256), recur_kernel
 //       for 320 < H <= 1024. A launch failure of either is returned and
@@ -139,8 +142,15 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "proj_sm90.cuh"
 
 namespace cg = cooperative_groups;
+
+// 1: the bf16 projection on wgmma (proj_sm90.cuh). 0 builds the WMMA
+// kernel proj_bf16_kernel in its place: a build variant that
+// tools/k1f_probe.py --proj times beside it, on no model path (the main
+// build does not compile that kernel).
+#define K1F_WGMMA_PROJECTION 1
 
 namespace {
 
@@ -237,6 +247,7 @@ proj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+#if !K1F_WGMMA_PROJECTION
 // The bf16 projection on the tensor cores. 8 warps as 2 (rows) x 4
 // (columns); each warp owns a 64x32 patch of the tile as 4x2 WMMA
 // accumulators. VEC: x and w are 16-byte aligned and K % 4 == 0, so the
@@ -365,6 +376,7 @@ proj_bf16_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
   }
 }
+#endif  // !K1F_WGMMA_PROJECTION
 
 // ---------------------------------------------------------------------------
 // (b) recurrence
@@ -829,44 +841,91 @@ int launch_recur_cd(const RecurIO<XT>& io, const int* lens, const void* whf,
       : launch_recur<float, XT>(io, lens, whf, whb, y, B, T, H, 0, st);
 }
 
+// The projection into xg [B,T,8H] (see the header): f32 on the FMA
+// units, bf16 on wgmma (x with rows of ldx floats, wt16 the scratch
+// [8H][ldw] for bf16(W_x)^T).
+int launch_projection(const float* x, int ldx, const int* lens,
+                      const float* wx, __nv_bfloat16* wt16, int ldw,
+                      const float* bx, float* xg, int B, int T, int D, int H,
+                      int cd_bf16, int round_xg, cudaStream_t st) {
+  const int M = B * T;
+  const int N = 8 * H;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  if (!cd_bf16) {
+    if (ldx != D) return (int)cudaErrorInvalidValue;
+    proj_f32_kernel<<<grid, kGemmThreads, 0, st>>>(x, wx, bx, lens, xg, M, N,
+                                                   D, T);
+    return (int)cudaGetLastError();
+  }
+#if K1F_WGMMA_PROJECTION
+  if (wt16 == nullptr || ldx % 4 || ldw % 8 || ldw < D) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return proj_sm90::launch_proj(x, ldx, wx, wt16, ldw, bx, lens, xg, M, N, D,
+                                T, round_xg, st);
+#else
+  if (ldx != D) return (int)cudaErrorInvalidValue;
+  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(wx) % 16 == 0;
+  if (vec) {
+    proj_bf16_kernel<true><<<grid, kGemmThreads, 0, st>>>(
+        x, wx, bx, lens, xg, M, N, D, T, round_xg);
+  } else {
+    proj_bf16_kernel<false><<<grid, kGemmThreads, 0, st>>>(
+        x, wx, bx, lens, xg, M, N, D, T, round_xg);
+  }
+  return (int)cudaGetLastError();
+#endif
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Pointers are device pointers;
 // whf/whb are W_h in the layout of the recurrence kernel that H selects
 // (the header: the [16][16U][4U] slices for H <= 320, gate-interleaved
 // [H][4H] above), float when cd_bf16 == 0 and __nv_bfloat16 when
-// cd_bf16 == 1; xg is caller-allocated scratch [B,T,8H] f32. cs may be
-// null (serving); otherwise it receives the c stream [B,T,2H] f32 and xg
-// ends up holding the gate activations (the training form). Returns
-// cudaGetLastError() after the launches (0 on success), or kNoClusterFits
-// (-1) without launching the recurrence when no cluster of it fits.
+// cd_bf16 == 1; xg is caller-allocated scratch [B,T,8H] f32. x [B,T,D]
+// has rows of ldx floats (ldx = D in f32; a multiple of 4 >= D in bf16);
+// wx [D,8H] f32; in bf16 wt16 is scratch [8H][ldw] (ldw a multiple of 8
+// >= D) that receives W_x's bf16 copy, laid out as W_x^T. cs may be null
+// (serving); otherwise it receives the c stream [B,T,2H] f32 and xg ends
+// up holding the gate activations (the training form). Returns
+// cudaGetLastError() after the launches (0 on success), kNoClusterFits
+// (-1) without launching the recurrence when no cluster of it fits, or
+// kNoTensorMap (-2) when cuTensorMapEncodeTiled refuses a tensor map of
+// the bf16 projection.
 extern "C" int bilstm_fwd(const float* x, const int* lens, const float* wx,
-                          const float* bx, const void* whf, const void* whb,
-                          float* xg, float* y, float* cs, int B, int T, int D,
-                          int H, int cd_bf16, int round_xg, void* stream) {
-  if (B <= 0 || T <= 0 || D <= 0 || H <= 0 || H > 1024) {
+                          void* wt16, const float* bx, const void* whf,
+                          const void* whb, float* xg, float* y, float* cs,
+                          int B, int T, int D, int H, int ldx, int ldw,
+                          int cd_bf16, int round_xg, void* stream) {
+  if (B <= 0 || T <= 0 || D <= 0 || H <= 0 || H > 1024 || ldx < D) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * T;
-  const int N = 8 * H;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(wx) % 16 == 0;
-  if (cd_bf16 && vec) {
-    proj_bf16_kernel<true><<<grid, kGemmThreads, 0, st>>>(
-        x, wx, bx, lens, xg, M, N, D, T, round_xg);
-  } else if (cd_bf16) {
-    proj_bf16_kernel<false><<<grid, kGemmThreads, 0, st>>>(
-        x, wx, bx, lens, xg, M, N, D, T, round_xg);
-  } else {
-    proj_f32_kernel<<<grid, kGemmThreads, 0, st>>>(x, wx, bx, lens, xg, M, N,
-                                                   D, T);
-  }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int rc = launch_projection(
+      x, ldx, lens, wx, static_cast<__nv_bfloat16*>(wt16), ldw, bx, xg,
+      B, T, D, H, cd_bf16, round_xg, st);
+  if (rc != 0) return rc;
   const RecurIO<float> io{xg, xg + 4 * H, 8 * H, xg, cs, 0};
   return launch_recur_cd(io, lens, whf, whb, y, B, T, H, cd_bf16, st);
+}
+
+// K1-fwd's projection alone: xg [B,T,8H] f32 as bilstm_fwd forms it
+// before its recurrence, from the arguments of the same names. Returns
+// what bilstm_fwd returns for its projection.
+extern "C" int bilstm_fwd_proj(const float* x, const int* lens,
+                               const float* wx, void* wt16,
+                               const float* bx, float* xg, int B, int T,
+                               int D, int H, int ldx, int ldw, int cd_bf16,
+                               int round_xg, void* stream) {
+  if (B <= 0 || T <= 0 || D <= 0 || H <= 0 || ldx < D) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_projection(x, ldx, lens, wx,
+                           static_cast<__nv_bfloat16*>(wt16), ldw, bx,
+                           xg, B, T, D, H, cd_bf16, round_xg,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // K1-fwd's recurrence alone, over an xg buffer [B,T,8H] f32 that the
@@ -918,6 +977,10 @@ extern "C" const char* bilstm_error_string(int code) {
   if (code == kNoClusterFits) {
     return "no cluster of 16 CTAs of fwd_cluster_kernel fits on this device "
            "(cudaOccupancyMaxActiveClusters returned 0)";
+  }
+  if (code == proj_sm90::kNoTensorMap) {
+    return "cuTensorMapEncodeTiled refused a tensor map of the bf16 "
+           "projection";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

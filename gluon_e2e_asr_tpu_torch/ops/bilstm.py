@@ -26,6 +26,11 @@ keeps W_h resident in the shared memory of a cluster of 16 CTAs, for
   gate columns of their units and all-gather h through distributed shared
   memory (W_h shipped as ``_cluster_fwd_slices``), or ``recur_kernel``
   (W_h shipped as ``_interleave_gates``).
+- K1-fwd's projection xg = x . W_x + b (``csrc/bilstm_fwd.cu``): in
+  bf16 the wgmma kernel of ``csrc/proj_sm90.cuh``, in f32 a tiled FMA
+  kernel; also alone through ``bilstm_fused_proj_kernel`` (plain twin
+  ``bilstm_fused_proj_plain``), whose ``.launches`` count every bf16
+  launch, K1-fwd's included.
 - K1-bwd's (and K7-bwd's) reverse recurrence (``csrc/bilstm_bwd.cu``,
   ``_bwd_weights``): ``bwd_cluster_kernel``, which sums dh_rec by a
   reduce-scatter through distributed shared memory (W_h shipped as
@@ -216,7 +221,8 @@ bilstm_fused_bwd_plain.calls = 0
 
 # Each library's entry points: (pointer arguments, int arguments), then
 # the stream.
-_ENTRIES = {"bilstm_fwd": {"bilstm_fwd": (9, 6), "bilstm_v1_fwd": (8, 6),
+_ENTRIES = {"bilstm_fwd": {"bilstm_fwd": (10, 8), "bilstm_fwd_proj": (6, 8),
+                           "bilstm_v1_fwd": (8, 6),
                            "bilstm_fwd_recur": (6, 4)},
             "bilstm_bwd": {"bilstm_bwd_products": (11, 8),
                            "bilstm_v1_bwd": (10, 6),
@@ -355,6 +361,26 @@ def _bwd_weights(w_hf, w_hb, compute_dtype):
             cluster)
 
 
+def _proj_operands(x, w_x, compute_dtype):
+    """x and W_x as the projection kernel reads them: in f32, x and W_x
+    as they are; in bf16, x with rows padded to a multiple of 4 floats (a
+    TMA box starts on a 16-byte boundary) and scratch for W_x's bf16
+    copy, which the kernel's entry lays out as W_x^T [8H][ldw], ldw = D
+    rounded up to 8 (the K-major tile of the wgmma products; the rounding
+    the product applies anyway). Returns (x, its row length, the scratch
+    or None, ldw)."""
+    D = x.shape[-1]
+    if compute_dtype != torch.bfloat16:
+        return x, D, None, D
+    if D % 4:
+        x = torch.nn.functional.pad(x, (0, -D % 4))
+    elif x.data_ptr() % 16:  # a view at an odd offset
+        x = x.clone()
+    ldw = D + -D % 8
+    wt16 = w_x.new_empty(w_x.shape[1], ldw, dtype=torch.bfloat16)
+    return x, x.shape[-1], wt16, ldw
+
+
 def bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb,
                         compute_dtype: torch.dtype = torch.float32,
                         round_xg: bool = False, with_cell: bool = False):
@@ -363,7 +389,9 @@ def bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb,
     device. ``with_cell`` selects the training form and returns (y, c,
     acts): the h and c streams [B,T,2H] and the gate activations
     [B,T,8H] (sig(i), sig(f+1), tanh(g), sig(o) in w_x's column layout,
-    0 past lens), which ``bilstm_fused_bwd_kernel`` consumes."""
+    0 past lens), which ``bilstm_fused_bwd_kernel`` consumes. Its
+    projection is the kernel of ``bilstm_fused_proj_kernel``, whose
+    ``.launches`` count the bf16 ones (wgmma)."""
     B, T, D, H = _check_layer(x, lens, w_x, w_hf, w_hb, compute_dtype,
                               "bilstm_fused_kernel")
     dev = x.device
@@ -374,19 +402,80 @@ def bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb,
     if B == 0 or T == 0:
         return (y, c, xg) if with_cell else y
     whf, whb, cluster = _fwd_weights(w_hf, w_hb, compute_dtype)
+    bf16 = compute_dtype == torch.bfloat16
+    xp, ldx, wt16, ldw = _proj_operands(x, w_x, compute_dtype)
     _launch("bilstm_fwd", "bilstm_fwd", dev, (
-        x.data_ptr(), lens.data_ptr(), w_x.data_ptr(), b_x.data_ptr(),
+        xp.data_ptr(), lens.data_ptr(), w_x.data_ptr(),
+        wt16.data_ptr() if bf16 else None, b_x.data_ptr(),
         whf.data_ptr(), whb.data_ptr(), xg.data_ptr(), y.data_ptr(),
         c.data_ptr() if with_cell else None,
-        B, T, D, H, int(compute_dtype == torch.bfloat16), int(round_xg)),
+        B, T, D, H, ldx, ldw, int(bf16), int(round_xg)),
         f"B={B} T={T} D={D} H={H}")
     bilstm_fused_kernel.launches += 1
     bilstm_fused_kernel.cluster_launches += cluster
+    bilstm_fused_proj_kernel.launches += bf16
     return (y, c, xg) if with_cell else y
 
 
 bilstm_fused_kernel.launches = 0
 bilstm_fused_kernel.cluster_launches = 0
+
+
+def bilstm_fused_proj_plain(x, lens, w_x, b_x,
+                            compute_dtype: torch.dtype = torch.float32,
+                            round_xg: bool = False):
+    """K1-fwd's projection alone: xg [B,T,8H] as ``bilstm_fused_plain``
+    forms it (``_project``, both halves), the plain twin of
+    ``bilstm_fused_proj_kernel``."""
+    bilstm_fused_proj_plain.calls += 1
+    return torch.cat(_project(x, lens, w_x, b_x, compute_dtype, round_xg), -1)
+
+
+bilstm_fused_proj_plain.calls = 0
+
+
+def bilstm_fused_proj_kernel(x, lens, w_x, b_x,
+                             compute_dtype: torch.dtype = torch.float32,
+                             round_xg: bool = False):
+    """K1-fwd's projection alone on the card (``csrc/bilstm_fwd.cu::
+    bilstm_fwd_proj``): what ``bilstm_fused_proj_plain`` returns, from
+    x [B,T,D], lens, w_x [D,8H] and b_x [8H], f32 (lens int32) and
+    contiguous on one CUDA device. In bf16 the wgmma kernel
+    (``csrc/proj_sm90.cuh``), counted in ``.launches`` (and so are those
+    inside ``bilstm_fused_kernel``); in f32 the FMA kernel that K1-fwd
+    runs, not counted. For timing and checking the projection apart from
+    the recurrence."""
+    if x.dim() != 3 or w_x.dim() != 2 or w_x.shape[-1] % 8:
+        raise ValueError(f"x must be [B,T,D] and w_x [D,8H], got "
+                         f"{tuple(x.shape)} and {tuple(w_x.shape)}")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                         f"got {compute_dtype}")
+    B, T, D = x.shape
+    H = w_x.shape[-1] // 8
+    dev = x.device
+    _check(x, "x", torch.float32, (B, T, D), dev)
+    _check(lens, "lens", torch.int32, (B,), dev)
+    _check(w_x, "w_x", torch.float32, (D, 8 * H), dev)
+    _check(b_x, "b_x", torch.float32, (8 * H,), dev)
+    if dev.type != "cuda":
+        raise ValueError(f"bilstm_fused_proj_kernel needs CUDA tensors, "
+                         f"got {dev}")
+    xg = torch.empty(B, T, 8 * H, device=dev, dtype=torch.float32)
+    if B == 0 or T == 0 or H == 0:
+        return xg
+    bf16 = compute_dtype == torch.bfloat16
+    xp, ldx, wt16, ldw = _proj_operands(x, w_x, compute_dtype)
+    _launch("bilstm_fwd", "bilstm_fwd_proj", dev, (
+        xp.data_ptr(), lens.data_ptr(), w_x.data_ptr(),
+        wt16.data_ptr() if bf16 else None, b_x.data_ptr(), xg.data_ptr(),
+        B, T, D, H, ldx, ldw, int(bf16), int(round_xg)),
+        f"B={B} T={T} D={D} H={H}")
+    bilstm_fused_proj_kernel.launches += bf16
+    return xg
+
+
+bilstm_fused_proj_kernel.launches = 0
 
 
 def bilstm_fused_fwd_recur_kernel(xg, lens, w_hf, w_hb,

@@ -198,21 +198,22 @@ def build_cuts(out_dir: str, name: str = "bilstm_bwd",
                cuts: dict = CUTS) -> dict:
     """cut -> the library of csrc/<name>.cu with that cut, one nvcc each,
     all started together. Each (old, new) of a cut replaces text that
-    occurs once in the source or in one of the headers it includes
-    (common.cuh, gemm.cuh, gemm_sm90.cuh), whose edited copies sit beside
-    the source (a quoted include resolves there first)."""
+    occurs once in the source and the headers of ``csrc/`` together,
+    whose edited copies sit beside the source (a quoted include resolves
+    there first)."""
     texts = {}
-    for f in (f"{name}.cu", "common.cuh", "gemm.cuh", "gemm_sm90.cuh"):
+    for f in [f"{name}.cu"] + sorted(
+            f for f in os.listdir(_build.SRC_DIR) if f.endswith(".cuh")):
         with open(os.path.join(_build.SRC_DIR, f)) as fh:
             texts[f] = fh.read()
 
     def build(cut):
         files = dict(texts)
         for old, new in cuts[cut]:
-            hit = [f for f, text in files.items() if text.count(old) == 1]
-            if not hit:
+            hit = [f for f, text in files.items() if old in text]
+            if len(hit) != 1 or files[hit[0]].count(old) != 1:
                 raise RuntimeError(f"cut {cut!r}: {old!r} is not once in "
-                                   "the source or a header")
+                                   "the source and its headers")
             files[hit[0]] = files[hit[0]].replace(old, new)
         d = os.path.join(out_dir, cut.split(" (")[0].replace(" ", "_"))
         os.makedirs(d, exist_ok=True)

@@ -4,7 +4,8 @@ batch and hidden sizes through both recurrence kernels (the cluster
 kernel for H <= 320, the L2 one above), the encoder on the card against
 the encoder on the CPU, K1-bwd's two recurrence kernels
 (csrc/bilstm_bwd.cu, chosen the same way), K1-bwd's products
-(csrc/gemm_sm90.cuh) against their plain twin, and the v1 layer K7.
+(csrc/gemm_sm90.cuh) and K1-fwd's bf16 projection (csrc/proj_sm90.cuh)
+against their plain twins, and the v1 layer K7.
 
 Marked ``cuda``: these skip where there is no CUDA device. On a machine
 with the card and nvcc, run them with
@@ -189,6 +190,66 @@ def test_products_kernel_matches_plain_twin(dev, B, T, D, H, ones, cd):
         assert _rel(g, r) <= 1e-4, (name, _rel(g, r))
     past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
     assert not got[0][past].any()
+
+
+# K1-fwd's projection through its own entry (bf16 on wgmma; f32 on the
+# FMA units) against its plain twin, at chip_smoke.py's shapes (the
+# flagship's three layers at the 4.0 s bucket) and ragged ones: B=1 and
+# T=1, every length 1, D=33 with H=130 (x's rows padded, 8H not a multiple
+# of the tile), H=256, and tiny widths. Both sides round the operands the
+# same way and sum in f32: 1e-4 of the output's largest magnitude
+# (chip_smoke.py's TOL_PROJ); with round_xg each element may also differ
+# by one bf16 ulp of itself (2^-7 relative, an upper bound).
+PROJ_SHAPES = [(96, 398, 80, 320, False), (96, 199, 1280, 320, False),
+               (96, 100, 1280, 320, False), (1, 1, 80, 320, False),
+               (8, 150, 1280, 320, True), (5, 37, 33, 130, False),
+               (16, 199, 512, 256, False), (3, 19, 12, 8, False)]
+
+
+@pytest.mark.parametrize("round_xg", [False, True])
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,D,H,ones", PROJ_SHAPES)
+def test_projection_kernel_matches_plain_twin(dev, B, T, D, H, ones, cd,
+                                              round_xg):
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    x, lens, w_x, b_x, _, _ = _inputs(B, T, D, H, dev, seed=B + T + D)
+    if ones:
+        lens = torch.ones_like(lens)
+    n = K.bilstm_fused_proj_kernel.launches
+    got = K.bilstm_fused_proj_kernel(x, lens, w_x, b_x, cd, round_xg)
+    ref = K.bilstm_fused_proj_plain(x, lens, w_x, b_x, cd, round_xg)
+    torch.cuda.synchronize()
+    assert K.bilstm_fused_proj_kernel.launches == n + (cd == torch.bfloat16)
+    assert torch.isfinite(got).all()
+    ulp = 2.0 ** -7 * ref.abs() if round_xg and cd == torch.bfloat16 else 0.0
+    assert ((got - ref).abs() <= 1e-4 * ref.abs().max() + ulp).all(), \
+        float((got - ref).abs().max())
+    past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+    assert not got[..., 4 * H:][past].any()
+
+
+def test_projection_kernel_wrapper_checks_its_inputs(dev):
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    x, lens, w_x, b_x, _, _ = _inputs(3, 5, 4, 8, dev)
+    with pytest.raises(ValueError, match="w_x must have shape"):
+        K.bilstm_fused_proj_kernel(x, lens, w_x[:2], b_x, torch.bfloat16)
+    with pytest.raises(ValueError, match="b_x must be"):
+        K.bilstm_fused_proj_kernel(x, lens, w_x, b_x.double(), torch.bfloat16)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        K.bilstm_fused_proj_kernel(x, lens, w_x, b_x, torch.float16)
+
+
+def test_bf16_k1_fwd_goes_through_the_wgmma_projection(dev):
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    args = _inputs(4, 30, 20, 16, dev)
+    n = K.bilstm_fused_proj_kernel.launches
+    K.bilstm_fused_kernel(*args, compute_dtype=torch.bfloat16)
+    K.bilstm_fused_kernel(*args, compute_dtype=torch.bfloat16, with_cell=True)
+    K.bilstm_fused_kernel(*args, compute_dtype=torch.float32)
+    assert K.bilstm_fused_proj_kernel.launches == n + 2
 
 
 def test_encoder_on_card_matches_cpu(dev):
