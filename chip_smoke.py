@@ -29,7 +29,8 @@ each printing JSON lines:
    K4-fwd and K4-bwd in add and loc mode the same way at the shapes of
    the location-aware flagship (``configs/flagship_bf16.yaml``: C=10
    channels of a width-100 filter), every cotangent checked, the
-   filter's through the band; and loc once at bench.py's T'=320; K5 and
+   filter's through the band; and loc once at bench.py's T'=320; every
+   K4-bwd call through its cluster kernel (``bwd_cluster_kernel``); K5 and
    K6 (the fused frontend) at milestone 2's two buckets, the flagship's
    4.0 s bucket and bench.py's shape, in every CMVN mode, eval and train;
    K7-fwd and K7-bwd (the v1 layer) at the flagship's layer-0 shape in
@@ -51,7 +52,8 @@ each printing JSON lines:
    attention, ``train.dp=false``) for two epochs: the launch counts of
    all six kernels (every K1-bwd launch of every slice through the
    cluster recurrence, every bf16 K1-fwd launch through the wgmma
-   projection), no plain call, a finite and falling loss, the
+   projection, every K4-bwd launch of the dot, loc and add slices through
+   its cluster kernel), no plain call, a finite and falling loss, the
    attention loss and accuracy logged, a checkpoint (every K1-fwd and
    K7-fwd launch of every slice and decode through the cluster
    recurrence too); a CTC-only run
@@ -352,12 +354,14 @@ def counters():
     return kernels, plains
 
 
-# K1's and K7's launches through the cluster recurrences, counted
-# beside their launches (ops/bilstm.py): name -> the kernel of kernels().
+# K1's and K7's launches through the cluster recurrences, and K4-bwd's
+# through bwd_cluster_kernel, counted beside their launches (ops/bilstm.py,
+# ops/las_decoder.py): name -> the kernel of kernels().
 CLUSTER_COUNTS = {"bilstm_fwd_cluster": "bilstm_fwd",
                   "bilstm_bwd_cluster": "bilstm_bwd",
                   "bilstm_v1_fwd_cluster": "bilstm_v1_fwd",
-                  "bilstm_v1_bwd_cluster": "bilstm_v1_bwd"}
+                  "bilstm_v1_bwd_cluster": "bilstm_v1_bwd",
+                  "las_decoder_bwd_cluster": "las_decoder_bwd"}
 
 
 def reset_counts() -> None:
@@ -374,8 +378,9 @@ def reset_counts() -> None:
 
 def read_counts():
     """(launches by kernel, with K4's by mode as ``<name>_<mode>`` and
-    K1's and K7's through the cluster recurrences as CLUSTER_COUNTS names
-    them; calls of the plain versions)."""
+    K1's and K7's through the cluster recurrences and K4-bwd's through its
+    cluster kernel as CLUSTER_COUNTS names them; calls of the plain
+    versions)."""
     kernels, plains = counters()
     launches = {k: f.launches for k, f in kernels.items()}
     for k, of in CLUSTER_COUNTS.items():
@@ -769,7 +774,9 @@ def main() -> None:
                             "off"),
         "las_decoder_bwd": ("las_decoder.cu",
                             "gluon_e2e_asr_tpu/ops/pallas_decoder.py:462",
-                            "as K4-fwd; error: max abs over every cotangent"),
+                            "as K4-fwd, through bwd_cluster_kernel (8 rows a "
+                            "cluster, one a CTA); error: max abs over every "
+                            "cotangent"),
         "frontend_k5": ("frontend.cu",
                         "gluon_e2e_asr_tpu/frontend/pallas_frontend.py:56",
                         "impl pallas, cmvn utterance (milestone 2), eval, B=16, "
@@ -794,10 +801,11 @@ def main() -> None:
                        ("bwd", "gluon_e2e_asr_tpu/ops/pallas_decoder.py:462")):
             name = f"las_decoder_{d}_{m}"
             where[name] = ("las_decoder.cu", tpu,
-                           f"{m} attention, flagship_bf16, bf16, B=96, T'=100; "
-                           "error: " + ("logits" if d == "fwd" else
-                                        "max abs over every cotangent") +
-                           ", coins off")
+                           f"{m} attention, flagship_bf16, bf16, B=96, T'=100"
+                           + ("" if d == "fwd" else
+                              ", through bwd_cluster_kernel") + "; error: "
+                           + ("logits" if d == "fwd" else
+                              "max abs over every cotangent") + ", coins off")
             timed[name] = train_ms[name]
             errors[name] = mode_errs[m][f"las_decoder_{d}"]
             launches[name] = counts[name]
@@ -833,6 +841,12 @@ def main() -> None:
         if name in fe_notes:
             rows[-1]["library_note"] = fe_notes[name]
     rows[0]["decode_launches"] = decode_launches
+    # K4-bwd's launches through bwd_cluster_kernel, from the same slices
+    for name, counts in (("las_decoder_bwd", train_counts),
+                         ("las_decoder_bwd_add", add_counts),
+                         ("las_decoder_bwd_loc", loc_counts)):
+        next(r for r in rows if r["name"] == name)["cluster_launches"] = \
+            counts["las_decoder_bwd_cluster"]
     next(r for r in rows if r["name"] == "bilstm_fwd_cluster")[
         "decode_launches"] = cluster_launches
     next(r for r in rows if r["name"] == "bilstm_fwd_projection")[
@@ -970,7 +984,8 @@ def decoder_grads(torch, LD, streams, resid, dl, w, filt, T):
 
 def check_decoder_kernels(torch, config, dev, kind="dot", cases=None):
     """Phase 3, K4 in mode ``kind``: K4-fwd (logits and residuals) and
-    K4-bwd (every cotangent) against the plain versions. ``cases``: (dtype,
+    K4-bwd (every cotangent; through bwd_cluster_kernel) against the plain
+    versions. ``cases``: (dtype,
     coin probability, bench shape) triples; by default f32 and bf16 with
     the coins off and at the config's scheduled-sampling rate, at the 4.0 s
     bucket. Returns the max abs errors of the bf16, coins-off case at the
@@ -1006,8 +1021,10 @@ def check_decoder_kernels(torch, config, dev, kind="dot", cases=None):
         V = w.embed.shape[0]
         dl = torch.from_numpy(np.random.RandomState(SEED + 7).randn(B, L, V)
                               .astype(np.float32) * 0.05).to(dev)
+        n_cluster = LD.las_decoder_bwd_kernel.cluster_launches
         got = LD.las_decoder_bwd_kernel(dl, resid, extras, enc, enc_proj,
                                         enc_len, w, cd, kind, filt)
+        cluster = LD.las_decoder_bwd_kernel.cluster_launches - n_cluster
         want = LD.las_decoder_bwd_plain(dl, resid, enc, enc_proj, enc_len,
                                         w, cd, kind, band)
         gk = decoder_grads(torch, LD, got, resid, dl, w, filt, T)
@@ -1021,8 +1038,11 @@ def check_decoder_kernels(torch, config, dev, kind="dot", cases=None):
               "longest_label": longest, "shape": "bench.py" if bench
               else "4.0 s bucket", "compute_dtype": cd_name, "coin_p": coin_p,
               "rows_tokens_agree": share, "fwd_rel_err": fwd,
-              "bwd_rel_err": bwd, "tol_rel": tol, "finite": finite})
+              "bwd_rel_err": bwd, "tol_rel": tol, "finite": finite,
+              "bwd_cluster_launches": cluster})
         check(finite, f"las_decoder ({kind}) non-finite output ({cd_name})")
+        check(cluster == 1, f"las_decoder_bwd ({kind}, {cd_name}) did not go "
+                            "through bwd_cluster_kernel")
         check(max(fwd.values()) <= tol,
               f"las_decoder_fwd ({kind}) disagrees with its plain version "
               f"({cd_name}, coins {coin_p}): {fwd}")
@@ -1623,7 +1643,8 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     as shipped (only ``train.dp=false`` and a train line every step, and
     ``extra`` overrides), for ``steps`` steps or TRAIN_EPOCHS epochs:
     every kernel of the path launched (K4 in the config's attention mode
-    on every step) and no plain version; with ``ctc_only``,
+    on every step, every K4-bwd launch through bwd_cluster_kernel) and no
+    plain version; with ``ctc_only``,
     ``loss.mtl_alpha=1.0`` and a greedy dev evaluation (a model without a
     decoder has no beam), and K4 not launched. Each epoch's dev evaluation
     decodes as the config's ``decode.method`` says. The frontend kernel
@@ -1673,7 +1694,10 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
               "bilstm_bwd_products": layers * steps,
               "bilstm_v1_fwd_cluster": 0, "bilstm_v1_bwd_cluster": 0,
               "ctc_alpha": steps, "ctc_beta_post": steps,
-              "las_decoder_fwd": dec, "las_decoder_bwd": dec}
+              "las_decoder_fwd": dec, "las_decoder_bwd": dec,
+              # every K4-bwd launch through bwd_cluster_kernel (every
+              # bucket's shape of the flagships' widths routes there)
+              "las_decoder_bwd_cluster": dec}
     for k in ("las_decoder_fwd", "las_decoder_bwd"):
         for m in ATT_MODES:
             expect[f"{k}_{m}"] = dec if m == kind else 0

@@ -20,7 +20,13 @@ and the output logits. Each direction has two versions:
   channel-major band (``build_loc_band_cmajor``).
 - hand-written Hopper kernels: ``las_decoder_fwd_kernel`` and
   ``las_decoder_bwd_kernel`` (``csrc/las_decoder.cu``), every mode; the
-  location feature is a convolution with the filter there.
+  location feature is a convolution with the filter there. K4-bwd takes
+  ``bwd_cluster_kernel`` (one batch row a CTA, the products split by
+  columns across a cluster of ``CLUSTER_ROWS`` CTAs, its weights as
+  ``_cluster_bwd_slices``) for every shape whose shared-memory plan fits,
+  and ``bwd_kernel`` for the others, chosen by shape alone
+  (``bwd_route``, the mirror of the library's); ``.cluster_launches``
+  counts the former.
 
 ``las_decoder`` dispatches on the device of ``enc`` (``_route``): the
 plain versions for a CPU tensor, the kernels for a CUDA tensor, and
@@ -68,6 +74,11 @@ MAX_HIDDEN = 1024
 MAX_ATT_ENERGY = 512
 ATT_ENERGY_MULTIPLE = 4
 MAX_LOC_CHANNELS = 16
+# K4-bwd's cluster kernel: CTAs (batch rows) of a cluster, threads of a
+# block, and the 227 KB of shared memory a block may use.
+CLUSTER_ROWS = 8
+_THREADS = 1024
+_MAX_SMEM = 232448
 
 
 class Weights(NamedTuple):
@@ -380,11 +391,116 @@ def _lib() -> ctypes.CDLL:
                                       ctypes.c_void_p]
         lib.las_decoder_fwd.argtypes = [ctypes.c_void_p] * 23 + tail
         lib.las_decoder_fwd.restype = ctypes.c_int
-        lib.las_decoder_bwd.argtypes = [ctypes.c_void_p] * 23 + tail
+        lib.las_decoder_bwd.argtypes = [ctypes.c_void_p] * 23 + tail[:-1] + [
+            ctypes.c_int, ctypes.c_void_p]
         lib.las_decoder_bwd.restype = ctypes.c_int
+        lib.las_decoder_bwd_route.argtypes = [ctypes.c_int] * 10
+        lib.las_decoder_bwd_route.restype = ctypes.c_int
         lib.las_decoder_error_string.argtypes = [ctypes.c_int]
         lib.las_decoder_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _gemv_splits(N: int, cols: int) -> int:
+    """``csrc/las_decoder.cu::gemv_splits`` for a block of _THREADS."""
+    return min(max(_THREADS // -(-N // cols), 1), 32)
+
+
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _cluster_units(X: int) -> int:
+    """Columns of X (H, D or E) one CTA of the cluster kernel owns: a
+    multiple of 4; CLUSTER_ROWS of them cover X, the last ones padded."""
+    return 4 * -(-X // (4 * CLUSTER_ROWS))
+
+
+def _cluster_stride(K: int) -> int:
+    """``csrc/las_decoder.cu::cl_stride``: a product input's half stride."""
+    return K + (12 - K % 8) % 8
+
+
+def _cluster_splits(G: int, K: int) -> int:
+    """Depth splits of a cluster product of G column groups over K."""
+    return max(1, min(_THREADS // 32 // -(-G // 16), K // 32))
+
+
+def _rows_plan(mode, T, D, A, E, H, V, C, W, cols) -> int:
+    """Floats of ``bwd_kernel``'s shared-memory plan (``BwdSmem``)."""
+    rows = 2
+    kv = max(V, A, 4 * H)
+    o = rows * kv + rows * D + 3 * rows * H + rows * D + rows * T
+    p = max(_gemv_splits(n, cols) * rows * n for n in (H + D, H, E + D + H, A))
+    if mode != "dot":
+        p = max(p, rows * 32 * (A + 4),
+                rows * C * T if mode == "loc" else 0)
+        o = _align4(o)
+    o = _align4(o + p)
+    loc = mode == "loc"
+    for n in ((0 if mode == "dot" else A), (0 if mode == "dot" else rows * A),
+              C * A * loc, W * C * loc, rows * T * loc, rows * C * T * loc,
+              rows * C * T * loc, rows * T * loc):
+        o = _align4(o + n)
+    return o + C * A * loc
+
+
+def _cluster_plan(mode, T, D, A, E, H, V, C, W, cols) -> int:
+    """Floats of ``bwd_cluster_kernel``'s plan (``ClBwdSmem``)."""
+    R = CLUSTER_ROWS
+    HU, DU, EU = (_cluster_units(x) for x in (H, D, E))
+    NH, NX = HU + DU, EU + DU + HU
+    o = _align4(_align4(T) + 8 * (_cluster_stride(V) + _cluster_stride(A)
+                                  + _cluster_stride(4 * H)) + D)
+    o = _align4(o + 3 * R * HU + R * DU + 6 * R * HU + T)
+    p = max(_cluster_splits(g, k) * R * 4 * g
+            for g, k in ((NH // 4, V), (HU // 4, A), (NX // 4, 4 * H)))
+    if mode == "dot":
+        p = max(p, _gemv_splits(A, cols) * A)
+    else:
+        p = max(p, 64 * (A + 4),
+                C * (2 * T + 2 * W + 4) if mode == "loc" else 0)
+    o = _align4(o + p)
+    loc = mode == "loc"
+    for n in ((0 if mode == "dot" else A), (0 if mode == "dot" else A),
+              C * A * loc, W * C * loc, (T + W + 3) * loc, C * T * loc,
+              C * T * loc, T * loc):
+        o = _align4(o + n)
+    return o + C * A * loc
+
+
+def bwd_route(att_kind: str, compute_dtype: torch.dtype, T, D, A, E, H, V,
+              C=0, W=0) -> Optional[str]:
+    """The K4-bwd kernel for a shape, by shape alone, as the library's
+    ``bwd_route`` picks it: "cluster" where ``bwd_cluster_kernel``'s
+    shared-memory plan fits, else "rows" (``bwd_kernel``) where its plan
+    fits, else None."""
+    cols = 8 if compute_dtype == torch.bfloat16 else 4
+    dims = (att_kind, T, D, A, E, H, V, C, W, cols)
+    if 4 * _cluster_plan(*dims) <= _MAX_SMEM:
+        return "cluster"
+    if 4 * _rows_plan(*dims) <= _MAX_SMEM:
+        return "rows"
+    return None
+
+
+def _cluster_bwd_slices(m: torch.Tensor, segments) -> torch.Tensor:
+    """The CLUSTER_ROWS per-CTA slices of one product of the cluster
+    kernel. ``m`` [N, K] holds output column n's weights in row n (W_out
+    [H+D, V], att_q [H, A], [W_x; W_h] [E+D+H, 4H]); ``segments`` are the
+    (first row, width X) of its parts (h and ctx; h; emb, ctx and h). CTA
+    r owns columns [r*U, r*U + U) of each part, U = _cluster_units(X), in
+    the order of the parts: N_r columns. Returns [R, K, N_r]: slice r,
+    depth k, column n holds m[row of CTA r's column n, k], 0 where that
+    column is past its part. Device operations only: no copy from the
+    host."""
+    R = CLUSTER_ROWS
+    parts = []
+    for first, X in segments:
+        U = _cluster_units(X)
+        seg = F.pad(m[first:first + X], (0, 0, 0, R * U - X))  # [R*U, K]
+        parts.append(seg.reshape(R, U, -1))
+    return torch.cat(parts, 1).transpose(1, 2).contiguous()
 
 
 def _check_kernel_args(tokens, coins, enc, enc_proj, enc_len, w: Weights,
@@ -533,9 +649,12 @@ def las_decoder_bwd_kernel(dlogits, resid, extras, enc, enc_proj, enc_len,
     """K4-bwd on the card: the reverse sweep from K4-fwd's residuals and
     saved activations (``extras``), and the d_enc_proj accumulation.
     Returns what ``las_decoder_bwd_plain`` returns. d_att_v and d_loc_proj
-    come from the kernel as partial sums (per batch row; per block of
-    rows, in its first row's slot), which this wrapper adds up (a fixed
-    order: the same bits every run)."""
+    come from the kernel as partial sums (per batch row; ``bwd_kernel``'s
+    d_loc_proj per block of rows, in its first row's slot), which this
+    wrapper adds up (a fixed order: the same bits every run). The kernel
+    is ``bwd_route``'s for the shape, counted in ``.cluster_launches``
+    when it is ``bwd_cluster_kernel``; a shape no kernel's plan fits
+    raises."""
     h_seq, c_seq, att_seq, ctx_seq, tok_seq = resid
     acts, q_seq = extras
     dims = _check_kernel_args(tok_seq, tok_seq, enc, enc_proj, enc_len, w,
@@ -566,13 +685,23 @@ def las_decoder_bwd_kernel(dlogits, resid, extras, enc, enc_proj, enc_len,
     if B == 0 or L == 0:
         out["d_encp"].zero_()
     else:
-        # The transposed weights, so that each output column's weights lie
-        # along the threads that own neighbouring columns (see the .cu).
+        route = bwd_route(att_kind, cd, T, D, A, E, H, V, C, W)
+        if route is None:
+            raise ValueError(f"no K4-bwd kernel's shared memory holds the "
+                             f"shape (B,L,T,D,A,E,H,V,C,W = {dims})")
+        wcat = torch.cat([w.w_x, w.w_h], 0)
+        if route == "cluster":
+            weights = (_cluster_bwd_slices(w.w_out, ((0, H), (H, D))),
+                       _cluster_bwd_slices(w.att_q, ((0, H),)),
+                       _cluster_bwd_slices(wcat, ((0, E), (E, D), (E + D, H))))
+        else:
+            # The transposed weights, so that each output column's weights
+            # lie along the threads that own neighbouring columns.
+            weights = (w.w_out.T, w.att_q.T, wcat.T)
         f32 = torch.float32
         ops = [_operand(dlogits, f32), _operand(enc_len, torch.int32),
                _operand(enc, cd), _operand(enc_proj, cd),
-               _operand(w.w_out.T, cd), _operand(w.att_q.T, cd),
-               _operand(torch.cat([w.w_x, w.w_h], 0).T, cd),
+               *(_operand(t, cd) for t in weights),
                *_energy_operands(w, att_kind, loc_filter, cd),
                _operand(c_seq, f32), _operand(acts, f32),
                _operand(att_seq, f32), _operand(q_seq, f32)]
@@ -583,9 +712,11 @@ def las_decoder_bwd_kernel(dlogits, resid, extras, enc, enc_proj, enc_len,
             rc = lib.las_decoder_bwd(
                 *(_ptr(t) for t in ops + outs), B, L, T, D, A, E, H, V, C, W,
                 MODES[att_kind], _scale(A), int(cd == torch.bfloat16),
+                int(route == "cluster"),
                 torch.cuda.current_stream(dev).cuda_stream)
         _launched(lib, rc, "las_decoder_bwd", dims)
         _count(las_decoder_bwd_kernel, att_kind)
+        las_decoder_bwd_kernel.cluster_launches += route == "cluster"
     if not dot:
         out["d_att_v"] = dv_part.sum(0)[:, None]
     if att_kind == "loc":
@@ -594,6 +725,7 @@ def las_decoder_bwd_kernel(dlogits, resid, extras, enc, enc_proj, enc_len,
 
 
 las_decoder_bwd_kernel.launches = 0
+las_decoder_bwd_kernel.cluster_launches = 0
 las_decoder_bwd_kernel.by_mode = dict.fromkeys(ATT_KINDS, 0)
 
 

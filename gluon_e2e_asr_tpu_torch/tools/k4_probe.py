@@ -4,19 +4,29 @@ D=640, E=256, H=A=320, V=32, C=10 channels of a width-100 filter).
 
 Run from the root of a checkout on a machine with the card and nvcc::
 
-    python -m gluon_e2e_asr_tpu_torch.tools.k4_probe [--ablate]
+    python -m gluon_e2e_asr_tpu_torch.tools.k4_probe [--ablate] [--phases]
 
 For each (T', L) of the 4.0 s bucket (100, 81) and of bench.py's shape
 (320, 97), each mode and each compute dtype, one JSON line: the largest
 difference from the plain version of every output and cotangent over its
-largest magnitude, and the kernels' times (CUDA events, mean of 5 runs
-after a warm-up). The inputs are seeded: frame counts drawn uniformly
-in [1, T'], one row full and one with no frames.
+largest magnitude, the kernels' times (CUDA events, mean of 5 runs after
+a warm-up: the wrapper's host work included), K4-bwd's device time
+(torch.profiler: its kernels alone), and both again in the design before
+its cluster kernel (the build variant ``K4B_CLUSTER 0``: ``bwd_kernel``,
+two rows a block) in the same process. The inputs are seeded: frame counts drawn
+uniformly in [1, T'], one row full and one with no frames.
 
-``--ablate`` also builds K4-bwd with one piece of its energy phase cut
-at a time (``CUTS``; each such build computes wrong results, only its
-time counts) and times each in bf16 beside the kernel as it is, in the
-same process: the time a piece costs is the difference.
+``--ablate`` also builds K4-bwd with one piece cut at a time (``CUTS``:
+each of the three exchanges, the cluster barriers, each product, the
+row's attention gradient, and the pieces of the energy phase; each such
+build computes wrong results, only its time counts) and times each in
+bf16 beside the kernel as it is, in the same process: the time a piece
+costs is the difference. ``--phases`` builds the variant that counts
+SM cycles by phase (``K4B_TIMING 1``: thread 0 of the first CTA, after
+each phase's barrier) and gives each phase's share of a step and its
+microseconds a step (the share of the kernel's own time). Both also time
+K4-bwd at half the batch (48 rows): a second wave of clusters would show
+as a time that does not fall.
 """
 
 from __future__ import annotations
@@ -36,33 +46,71 @@ from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
 
 B, D, E, H, A, V, C, W = 96, 640, 256, 320, 320, 32, 10, 100
 SHAPES = ((100, 81), (320, 97))
-# name -> (text of csrc/las_decoder.cu, its replacement): each cuts one
-# piece of K4-bwd's energy phase.
+# The build variant of the design before the cluster kernel, and the one
+# that counts cycles by phase.
+OLD_DESIGN = ("#define K4B_CLUSTER 1", "#define K4B_CLUSTER 0")
+TIMING = ("#define K4B_TIMING 0", "#define K4B_TIMING 1")
+# bwd_cluster_kernel's phases, in the order K4B_PHASE counts them
+PHASES = ("inputs", "head product", "head sums + exchange 1",
+          "attention gradient", "softmax backward",
+          "dqb (dot) / carry and dqb (add, loc)", "exchange 2",
+          "query product", "cells", "exchange 3", "gates product",
+          "gates sums", "feature and query (add, loc)",
+          "energy chunks: frames", "energy chunks: sums over frames (loc)",
+          "energy chunks: d_loc_proj sums (loc) / sums over frames (add)")
+# name -> (text of csrc/las_decoder.cu, its replacement, the times the
+# text occurs): each cuts one piece of the cluster kernel (the energy
+# phase's pieces are energy_bwd's, which bwd_kernel shares).
 CUTS = {
+    # each exchange's stores into the other CTAs (exchange 1: into this
+    # CTA's own slot instead)
+    "exchange 1 (dctx)": (
+        "          *cluster.map_shared_rank(slot1 + d, r) = rnd<WT>(x);",
+        "          slot1[d] = rnd<WT>(x);", 1),
+    "exchange 2 (dqb)": (
+        "for (int k = tid; k < (kCl - 1) * A; k += nt) {",
+        "for (int k = tid; k < 0; k += nt) {", 1),
+    "exchange 3 (dgates)": (
+        "for (int k = tid; k < (kCl - 1) * mine; k += nt) {",
+        "for (int k = tid; k < 0; k += nt) {", 1),
+    # the three split cluster barriers of a step as CTA barriers
+    "cluster barriers": (
+        "    port::cluster_arrive();\n    port::cluster_wait();\n",
+        "    __syncthreads();\n", 3),
+    "head product": ("    cl_product<WT>(vh, V, wh, NH / 4, Sh, part);\n", "", 1),
+    "query product": ("    cl_product<WT>(slot2, A, wq, HU / 4, Sq, part);\n", "", 1),
+    "gates product": ("    cl_product<WT>(slot3, H4, wg, NX / 4, Sg, part);\n", "", 1),
+    "attention gradient": (
+        "    frame_dots_row<WT>(enc, D, slot1, n, T, sc);\n", "", 1),
+    # the energy phase (add, loc)
     "d_enc_proj update": (
-        "            float4 d = *dp;\n"
-        "            d.x += de[0], d.y += de[1], d.z += de[2], d.w += de[3];\n"
-        "            *dp = d;\n", ""),
+        "        float4 d = *dp;\n"
+        "        d.x += de[0], d.y += de[1], d.z += de[2], d.w += de[3];\n"
+        "        *dp = d;\n", "", 1),
     "feature product": (
         "for (int j = 0; j < 4; ++j) x[j] += fl[j];",
-        "for (int j = 0; j < 4; ++j) (void)fl[j];"),
+        "for (int j = 0; j < 4; ++j) (void)fl[j];", 1),
     "dfct sums": (
-        "                if (c < C) {\n"
-        "                  const float4 l =",
-        "                if (false) {\n"
-        "                  const float4 l ="),
+        "            if (c < C) {\n"
+        "              const float4 l =",
+        "            if (false) {\n"
+        "              const float4 l =", 1),
     "sums over frames": (
-        "for (int t = t0; t < min(t1, n_own); ++t) {",
-        "for (int t = t0; t < t0; ++t) {"),
+        "    if (own) {\n      int t = t0;", "    if (false) {\n      int t = t0;", 1),
     "d_loc_proj sums": (
-        "for (int t = t0; t < min(t1, len_s[r]); ++t) {",
-        "for (int t = t0; t < t0; ++t) {"),
+        "          int t = t0;\n          if constexpr (NR == 1) {\n"
+        "            // Four frames",
+        "          int t = t1;\n          if constexpr (NR == 1) {\n"
+        "            // Four frames", 1),
     "feature convolution": (
-        "        loc_feature<WT>(attp, filt_s, C, W, len_s, T, f_s);\n", ""),
+        "        loc_feature_row<WT>(attp, filt_s, C, W, n, T, f_s);\n", "", 1),
     "carry correlation": (
-        "        loc_carry<WT>(dfct_s, filt_s, C, W, len_s, T, part, datt_c);\n",
-        ""),
+        "        loc_carry_row<WT>(dfct_s, filt_s, C, W, n, T, part, datt_c);\n",
+        "", 1),
 }
+ENERGY_CUTS = ("d_enc_proj update", "feature product", "dfct sums",
+               "sums over frames", "d_loc_proj sums", "feature convolution",
+               "carry correlation")
 
 
 def case(dev, T: int, L: int, kind: str, seed: int = 4):
@@ -107,21 +155,46 @@ def time_ms(fn, n: int = 5) -> float:
     return start.elapsed_time(end) / n
 
 
+# K4-bwd's kernels by name: its sweep (either design) and dot's d_enc_proj
+SWEEP_KERNELS = ("bwd_cluster_kernel", "bwd_kernel")
+BWD_KERNELS = SWEEP_KERNELS + ("d_encp_kernel",)
+
+
+def device_ms(fn, keys=BWD_KERNELS, n: int = 5) -> float:
+    """The device time per call of fn's kernels whose names hold one of
+    ``keys`` (torch.profiler), after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if any(k in evt.key for k in keys):
+            us += getattr(evt, "self_device_time_total",
+                          getattr(evt, "self_cuda_time_total", 0))
+    return us / 1e3 / n
+
+
 def rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
-def build_cuts(out_dir: str):
-    """name -> the library of csrc/las_decoder.cu with that cut, one nvcc
-    each, all started together."""
+def build_variants(out_dir: str, variants):
+    """name -> the library of csrc/las_decoder.cu with that variant's
+    (text, replacement, count), one nvcc each, all started together."""
     with open(os.path.join(_build.SRC_DIR, "las_decoder.cu")) as f:
         src = f.read()
 
     def build(name):
-        old, new = CUTS[name]
-        if src.count(old) != 1:
-            raise RuntimeError(f"cut {name!r}: its text is not in the source once")
-        d = os.path.join(out_dir, name.replace(" ", "_").replace(",", ""))
+        old, new, count = variants[name]
+        if src.count(old) != count:
+            raise RuntimeError(f"variant {name!r}: its text is not in the "
+                               f"source {count} times")
+        d = os.path.join(out_dir, "".join(c if c.isalnum() else "_" for c in name))
         os.makedirs(d, exist_ok=True)
         path = os.path.join(d, "las_decoder.cu")
         with open(path, "w") as f:
@@ -131,26 +204,79 @@ def build_cuts(out_dir: str):
                                _build.SRC_DIR, "-o", lib, path],
                               capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
-            raise RuntimeError(f"cut {name!r}: nvcc failed\n{proc.stderr}")
+            raise RuntimeError(f"variant {name!r}: nvcc failed\n{proc.stderr}")
         return lib
 
-    with ThreadPoolExecutor(len(CUTS)) as pool:
-        paths = dict(zip(CUTS, pool.map(build, CUTS)))
+    with ThreadPoolExecutor(len(variants)) as pool:
+        paths = dict(zip(variants, pool.map(build, variants)))
     return {name: ctypes.CDLL(p) for name, p in paths.items()}
+
+
+def time_with(lib, fn, route=None, timer=time_ms) -> float:
+    """fn's time (``timer``) with ``lib`` in place of the las_decoder
+    library (and ``route`` as K4-bwd's route: the old design's weight
+    layout)."""
+    saved, saved_route = _build._libs["las_decoder"], K.bwd_route
+    _build._libs["las_decoder"] = lib
+    if route is not None:
+        K.bwd_route = lambda *a: route
+    try:
+        return timer(fn)
+    finally:
+        _build._libs["las_decoder"], K.bwd_route = saved, saved_route
+
+
+def phases(lib, fn, L: int):
+    """Each phase's share of bwd_cluster_kernel's counted cycles in one
+    launch (the variant ``lib``), and its microseconds a step at the
+    sweep's device time in that variant."""
+    lib.las_decoder_bwd_phase_cycles.argtypes = [ctypes.c_void_p]
+    out = (ctypes.c_ulonglong * len(PHASES))()
+    time_with(lib, fn)  # warm-up; then clear
+    lib.las_decoder_bwd_phase_cycles(out)
+    saved = _build._libs["las_decoder"]
+    _build._libs["las_decoder"] = lib
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        _build._libs["las_decoder"] = saved
+    rc = lib.las_decoder_bwd_phase_cycles(out)
+    if rc != 0:
+        raise RuntimeError(f"reading the phase cycles failed: {rc}")
+    cycles = list(out)
+    total = sum(cycles)
+    ms = time_with(lib, fn, timer=lambda f: device_ms(f, SWEEP_KERNELS))
+    shares = {name: {"share": c / total, "us_per_step": c / total * ms * 1e3 / L}
+              for name, c in zip(PHASES, cycles)}
+    # the first CTA's counted cycles over the sweep's device time: the SM
+    # clock it ran at
+    shares["sm_mhz"] = total / (ms * 1e3)
+    return shares
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--ablate", action="store_true")
+    p.add_argument("--phases", action="store_true")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k4_probe needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    kernel_lib = _build.load_library("las_decoder")
-    cuts = build_cuts(os.path.join(os.path.dirname(_build.BUILD_DIR),
-                                   "k4_probe")) if args.ablate else {}
-    print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
+    _build.load_library("las_decoder")
+    variants = {"old design": (*OLD_DESIGN, 1)}
+    if args.ablate:
+        variants.update(CUTS)
+    if args.phases:
+        variants["phases"] = (*TIMING, 1)
+    libs = build_variants(os.path.join(os.path.dirname(_build.BUILD_DIR),
+                                       "k4_probe"), variants)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"card": torch.cuda.get_device_name(0),
+                      "nvidia_smi": card}), flush=True)
     for T, L in SHAPES:
         for kind in K.ATT_KINDS:
             for cd in (torch.float32, torch.bfloat16):
@@ -170,19 +296,30 @@ def main(argv=None) -> None:
                     ("h", "c", "att", "ctx"), resid[:4], ref_resid[:4]))
                 errs.update((n, rel(got[n], want[n])) for n in want
                             if want[n] is not None)
+                n = K.las_decoder_bwd_kernel.cluster_launches
+                bwd = lambda: K.las_decoder_bwd_kernel(*bargs)  # noqa: E731
                 rec = {"T": T, "L": L, "kind": kind, "compute_dtype": str(cd),
                        "rel_err": errs,
                        "fwd_ms": time_ms(lambda: K.las_decoder_fwd_kernel(*fargs, filt)),
-                       "bwd_ms": time_ms(lambda: K.las_decoder_bwd_kernel(*bargs))}
-                if cuts and kind != "dot" and cd == torch.bfloat16:
-                    rec["bwd_ms_without"] = {}
-                    for name, lib in cuts.items():
-                        _build._libs["las_decoder"] = lib
-                        try:
-                            rec["bwd_ms_without"][name] = time_ms(
-                                lambda: K.las_decoder_bwd_kernel(*bargs))
-                        finally:
-                            _build._libs["las_decoder"] = kernel_lib
+                       "bwd_ms": time_ms(bwd),
+                       "bwd_ms_old_design": time_with(libs["old design"], bwd,
+                                                      "rows")}
+                rec["bwd_ms_again"] = time_ms(bwd)
+                rec["bwd_device_ms"] = device_ms(bwd)
+                rec["bwd_device_ms_old_design"] = time_with(
+                    libs["old design"], bwd, "rows", device_ms)
+                rec["bwd_cluster_launches"] = K.las_decoder_bwd_kernel.cluster_launches - n
+                half = (dl[:B // 2], tuple(t[:B // 2] for t in resid),
+                        tuple(t[:B // 2] for t in extras), enc[:B // 2],
+                        encp[:B // 2], lens[:B // 2], w, cd, kind, filt)
+                rec["bwd_ms_half_batch"] = time_ms(
+                    lambda: K.las_decoder_bwd_kernel(*half))
+                if args.phases:
+                    rec["phases"] = phases(libs["phases"], bwd, L)
+                if args.ablate and cd == torch.bfloat16:
+                    rec["bwd_ms_without"] = {
+                        name: time_with(libs[name], bwd) for name in CUTS
+                        if kind != "dot" or name not in ENERGY_CUTS}
                 print(json.dumps(rec), flush=True)
 
 

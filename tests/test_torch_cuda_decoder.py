@@ -1,8 +1,12 @@
 """PyTorch port on the card: the decoder kernels K4-fwd and K4-bwd
 (csrc/las_decoder.cu) in dot, add and loc mode against their plain
-versions at small, ragged shapes (an odd batch, a row with no frames, T'
-and V not multiples of anything, a filter wider than T'), then the
-decoder's gradient on the card against the same function on the CPU.
+versions at small, ragged shapes (an odd batch, a batch not a multiple of
+K4-bwd's 8-row clusters, a row with no frames, T' and V not multiples of
+anything, widths that leave the cluster's column slices padded, a filter
+wider than T'), K4-bwd's cluster kernel at the flagships' widths (the
+4.0 s bucket and T'=320), the kernel it takes by shape alone, its counts
+and its refusals, then the decoder's gradient on the card against the
+same function on the CPU.
 
 Marked ``cuda``: these skip where there is no CUDA device. On a machine
 with the card and nvcc, run them with
@@ -77,7 +81,7 @@ def _rel(a, b):
 
 
 SHAPES = [(3, 7, 19, 12, 8, 6, 8, 11), (5, 12, 33, 64, 40, 24, 40, 32),
-          (2, 5, 9, 640, 320, 256, 320, 32)]
+          (2, 5, 9, 640, 320, 256, 320, 32), (11, 6, 13, 18, 8, 6, 10, 11)]
 
 
 @pytest.mark.parametrize("kind", MODES)
@@ -137,12 +141,149 @@ def test_backward_kernel_matches_plain(dev, cd, dims, kind):
     ref = K.las_decoder_bwd_plain(dl, resid, enc, enc_proj, enc_len, w, cd,
                                   kind, _band(filt, dims[2]))
     torch.cuda.synchronize()
+    _assert_streams_match(got, ref, kind, cd)
+
+
+def _assert_streams_match(got, ref, kind, cd):
     names = ["dgates", "dctx", "dqb", "demb", "d_encp"]
     names += [] if kind == "dot" else ["d_att_v"]
     names += ["d_loc_proj", "dfct"] if kind == "loc" else []
     for name in names:
         assert torch.isfinite(got[name]).all(), name
         assert _rel(got[name], ref[name]) <= REL[cd], (name, _rel(got[name], ref[name]))
+
+
+def _backward(dev, dims, kind, cd, seed=1, **kw):
+    """K4-bwd on the card and the plain sweep on the same K4-fwd
+    residuals; (kernel streams, plain streams, route, counts before)."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
+
+    args, filt = _case(dev, *dims, seed=seed, kind=kind, **kw)
+    tokens, coins, enc, enc_proj, enc_len, w = args
+    _, resid, extras = K.las_decoder_fwd_kernel(*args, cd, kind, filt)
+    B, L, V = tokens.shape + (w.embed.shape[0],)
+    dl = torch.from_numpy(np.random.RandomState(7).randn(B, L, V)
+                          .astype(np.float32) * 0.05).to(dev)
+    fn = K.las_decoder_bwd_kernel
+    before = (fn.launches, fn.cluster_launches)
+    got = fn(dl, resid, extras, enc, enc_proj, enc_len, w, cd, kind, filt)
+    ref = K.las_decoder_bwd_plain(dl, resid, enc, enc_proj, enc_len, w, cd,
+                                  kind, _band(filt, dims[2]))
+    torch.cuda.synchronize()
+    C, W = (filt.shape[2], filt.shape[0]) if filt is not None else (0, 0)
+    T, D, A, E, H = dims[2:7]
+    route = K.bwd_route(kind, cd, T, D, A, E, H, V, C, W)
+    return got, ref, route, before
+
+
+# B, L, T', D, A, E, H, V of the flagships at the 4.0 s bucket and at
+# bench.py's T'
+FLAGSHIP_SHAPES = [(96, 81, 100, 640, 320, 256, 320, 32),
+                   (96, 97, 320, 640, 320, 256, 320, 32)]
+
+
+@pytest.mark.parametrize("kind", MODES)
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", FLAGSHIP_SHAPES)
+def test_backward_cluster_kernel_at_the_flagship_shapes(dev, cd, dims, kind):
+    """bwd_cluster_kernel at the flagships' widths (loc: C=10 channels of
+    a width-100 filter), within chip_smoke.py's TOL_DEC (REL here)."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
+
+    got, ref, route, before = _backward(dev, dims, kind, cd, seed=5, C=10,
+                                        W=100)
+    assert route == "cluster"
+    fn = K.las_decoder_bwd_kernel
+    assert (fn.launches, fn.cluster_launches) == (before[0] + 1, before[1] + 1)
+    _assert_streams_match(got, ref, kind, cd)
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_backward_cluster_kernel_with_odd_widths_in_dot_mode(dev, cd):
+    """Dot attention takes any A: every width odd (A=11, D=19, E=7, H=13,
+    V=5), so no product input, slice or frame row is a multiple of 4."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
+
+    got, ref, route, before = _backward(dev, (9, 6, 15, 19, 11, 7, 13, 5),
+                                        "dot", cd)
+    fn = K.las_decoder_bwd_kernel
+    assert route == "cluster"
+    assert fn.cluster_launches == before[1] + 1
+    _assert_streams_match(got, ref, "dot", cd)
+
+
+@pytest.mark.parametrize("kind", MODES)
+@pytest.mark.parametrize("dims", SHAPES)
+def test_cluster_launches_count_the_cluster_kernel(dev, dims, kind):
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
+
+    _, _, route, before = _backward(dev, dims, kind, torch.bfloat16)
+    fn = K.las_decoder_bwd_kernel
+    assert route == "cluster"
+    assert (fn.launches, fn.cluster_launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("kind", MODES)
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_a_shape_the_cluster_plan_does_not_hold_takes_bwd_kernel(dev, cd, kind):
+    """An 8000-word vocabulary: the cluster kernel's head input (8 rows of
+    dlogits) outgrows its plan, so the shape goes to bwd_kernel, by shape
+    alone, and is right there."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
+
+    got, ref, route, before = _backward(dev, (3, 5, 19, 12, 8, 6, 8, 8000),
+                                        kind, cd)
+    fn = K.las_decoder_bwd_kernel
+    assert route == "rows"
+    assert (fn.launches, fn.cluster_launches) == (before[0] + 1, before[1])
+    _assert_streams_match(got, ref, kind, cd)
+
+
+def test_route_mirror_matches_the_library(dev):
+    """ops/las_decoder.py::bwd_route against the library's own choice,
+    over random shapes of every mode and dtype."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
+
+    lib = K._lib()
+    code = {"cluster": 1, "rows": 0, None: -1}
+    rng = np.random.RandomState(0)
+    seen = set()
+    for _ in range(500):
+        kind = MODES[rng.randint(3)]
+        cd = (torch.float32, torch.bfloat16)[rng.randint(2)]
+        loc = kind == "loc"
+        dims = (int(rng.randint(1, 700)), int(rng.randint(1, 2048)),
+                4 * int(rng.randint(1, 129)), int(rng.randint(1, 1024)),
+                int(rng.randint(1, 1025)), int(rng.randint(1, 9000)),
+                int(rng.randint(1, 17)) if loc else 0,
+                int(rng.randint(1, 200)) if loc else 0)
+        want = lib.las_decoder_bwd_route(K.MODES[kind], int(cd == torch.bfloat16),
+                                         *dims)
+        route = K.bwd_route(kind, cd, *dims)
+        assert code[route] == want, (kind, cd, dims)
+        seen.add(route)
+    assert seen == {"cluster", "rows", None}
+
+
+def test_refusals_raise(dev):
+    """Nothing falls back: weights laid out for the other kernel than the
+    shape's, and no cluster fitting on the device, raise."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
+
+    args, _ = _case(dev, 3, 7, 19, 12, 8, 6, 8, 11, kind="dot")
+    tokens, coins, enc, enc_proj, enc_len, w = args
+    _, resid, extras = K.las_decoder_fwd_kernel(*args, torch.float32, "dot")
+    dl = torch.zeros(3, 7, 11, device=dev)
+    real = K.bwd_route
+    K.bwd_route = lambda *a: "rows"
+    try:
+        with pytest.raises(RuntimeError, match="laid out for the other"):
+            K.las_decoder_bwd_kernel(dl, resid, extras, enc, enc_proj,
+                                     enc_len, w, torch.float32, "dot")
+    finally:
+        K.bwd_route = real
+    with pytest.raises(RuntimeError, match="no cluster of 8 CTAs"):
+        K._launched(K._lib(), -1, "las_decoder_bwd", (3, 7))
 
 
 @pytest.mark.parametrize("kind", MODES)
