@@ -30,7 +30,8 @@ each printing JSON lines:
    the location-aware flagship (``configs/flagship_bf16.yaml``: C=10
    channels of a width-100 filter), every cotangent checked, the
    filter's through the band; and loc once at bench.py's T'=320; every
-   K4-bwd call through its cluster kernel (``bwd_cluster_kernel``); K5 and
+   K4-fwd and K4-bwd call through its cluster kernel
+   (``fwd_cluster_kernel``, ``bwd_cluster_kernel``); K5 and
    K6 (the fused frontend) at milestone 2's two buckets, the flagship's
    4.0 s bucket and bench.py's shape, in every CMVN mode, eval and train;
    K7-fwd and K7-bwd (the v1 layer) at the flagship's layer-0 shape in
@@ -52,8 +53,8 @@ each printing JSON lines:
    attention, ``train.dp=false``) for two epochs: the launch counts of
    all six kernels (every K1-bwd launch of every slice through the
    cluster recurrence, every bf16 K1-fwd launch through the wgmma
-   projection, every K4-bwd launch of the dot, loc and add slices through
-   its cluster kernel), no plain call, a finite and falling loss, the
+   projection, every K4-fwd and K4-bwd launch of the dot, loc and add
+   slices through its cluster kernel), no plain call, a finite and falling loss, the
    attention loss and accuracy logged, a checkpoint (every K1-fwd and
    K7-fwd launch of every slice and decode through the cluster
    recurrence too); a CTC-only run
@@ -354,13 +355,15 @@ def counters():
     return kernels, plains
 
 
-# K1's and K7's launches through the cluster recurrences, and K4-bwd's
-# through bwd_cluster_kernel, counted beside their launches (ops/bilstm.py,
-# ops/las_decoder.py): name -> the kernel of kernels().
+# K1's and K7's launches through the cluster recurrences, and K4's
+# through fwd_cluster_kernel and bwd_cluster_kernel, counted beside their
+# launches (ops/bilstm.py, ops/las_decoder.py): name -> the kernel of
+# kernels().
 CLUSTER_COUNTS = {"bilstm_fwd_cluster": "bilstm_fwd",
                   "bilstm_bwd_cluster": "bilstm_bwd",
                   "bilstm_v1_fwd_cluster": "bilstm_v1_fwd",
                   "bilstm_v1_bwd_cluster": "bilstm_v1_bwd",
+                  "las_decoder_fwd_cluster": "las_decoder_fwd",
                   "las_decoder_bwd_cluster": "las_decoder_bwd"}
 
 
@@ -378,8 +381,8 @@ def reset_counts() -> None:
 
 def read_counts():
     """(launches by kernel, with K4's by mode as ``<name>_<mode>`` and
-    K1's and K7's through the cluster recurrences and K4-bwd's through its
-    cluster kernel as CLUSTER_COUNTS names them; calls of the plain
+    K1's and K7's through the cluster recurrences and K4's through its
+    cluster kernels as CLUSTER_COUNTS names them; calls of the plain
     versions)."""
     kernels, plains = counters()
     launches = {k: f.launches for k, f in kernels.items()}
@@ -770,8 +773,9 @@ def main() -> None:
         "las_decoder_fwd": ("las_decoder.cu",
                             "gluon_e2e_asr_tpu/ops/pallas_decoder.py:161",
                             "dot attention, bf16, B=96, T'=100, L=81 (the 4.0 s "
-                            "bucket's label budget + 1); error: logits, coins "
-                            "off"),
+                            "bucket's label budget + 1), through "
+                            "fwd_cluster_kernel (8 rows a cluster, one a CTA); "
+                            "error: logits, coins off"),
         "las_decoder_bwd": ("las_decoder.cu",
                             "gluon_e2e_asr_tpu/ops/pallas_decoder.py:462",
                             "as K4-fwd, through bwd_cluster_kernel (8 rows a "
@@ -802,8 +806,7 @@ def main() -> None:
             name = f"las_decoder_{d}_{m}"
             where[name] = ("las_decoder.cu", tpu,
                            f"{m} attention, flagship_bf16, bf16, B=96, T'=100"
-                           + ("" if d == "fwd" else
-                              ", through bwd_cluster_kernel") + "; error: "
+                           f", through {d}_cluster_kernel; error: "
                            + ("logits" if d == "fwd" else
                               "max abs over every cotangent") + ", coins off")
             timed[name] = train_ms[name]
@@ -841,12 +844,16 @@ def main() -> None:
         if name in fe_notes:
             rows[-1]["library_note"] = fe_notes[name]
     rows[0]["decode_launches"] = decode_launches
-    # K4-bwd's launches through bwd_cluster_kernel, from the same slices
-    for name, counts in (("las_decoder_bwd", train_counts),
-                         ("las_decoder_bwd_add", add_counts),
-                         ("las_decoder_bwd_loc", loc_counts)):
-        next(r for r in rows if r["name"] == name)["cluster_launches"] = \
-            counts["las_decoder_bwd_cluster"]
+    # K4's launches through its cluster kernels, from the same slices:
+    # every one of them
+    for d in ("fwd", "bwd"):
+        for m, counts in (("", train_counts), ("_add", add_counts),
+                          ("_loc", loc_counts)):
+            row = next(r for r in rows if r["name"] == f"las_decoder_{d}{m}")
+            row["cluster_launches"] = counts[f"las_decoder_{d}_cluster"]
+            check(row["cluster_launches"] == row["launches"] > 0,
+                  f"{row['name']}: {row['launches']} launches, "
+                  f"{row['cluster_launches']} through {d}_cluster_kernel")
     next(r for r in rows if r["name"] == "bilstm_fwd_cluster")[
         "decode_launches"] = cluster_launches
     next(r for r in rows if r["name"] == "bilstm_fwd_projection")[
@@ -983,9 +990,9 @@ def decoder_grads(torch, LD, streams, resid, dl, w, filt, T):
 
 
 def check_decoder_kernels(torch, config, dev, kind="dot", cases=None):
-    """Phase 3, K4 in mode ``kind``: K4-fwd (logits and residuals) and
-    K4-bwd (every cotangent; through bwd_cluster_kernel) against the plain
-    versions. ``cases``: (dtype,
+    """Phase 3, K4 in mode ``kind``: K4-fwd (logits and residuals;
+    through fwd_cluster_kernel) and K4-bwd (every cotangent; through
+    bwd_cluster_kernel) against the plain versions. ``cases``: (dtype,
     coin probability, bench shape) triples; by default f32 and bf16 with
     the coins off and at the config's scheduled-sampling rate, at the 4.0 s
     bucket. Returns the max abs errors of the bf16, coins-off case at the
@@ -1004,7 +1011,9 @@ def check_decoder_kernels(torch, config, dev, kind="dot", cases=None):
         tokens, coins, enc, enc_proj, enc_len, w = args
         T = enc.shape[1]
         band = None if filt is None else LD.build_loc_band_cmajor(filt, T)
+        n_fwd = LD.las_decoder_fwd_kernel.cluster_launches
         logits, resid, extras = LD.las_decoder_fwd_kernel(*args, cd, kind, filt)
+        fwd_cluster = LD.las_decoder_fwd_kernel.cluster_launches - n_fwd
         ref, ref_resid = LD.las_decoder_fwd_plain(*args, cd, kind, band)
         torch.cuda.synchronize()
         same = (resid[4].long() == ref_resid[4].long()).all(1)
@@ -1039,8 +1048,11 @@ def check_decoder_kernels(torch, config, dev, kind="dot", cases=None):
               else "4.0 s bucket", "compute_dtype": cd_name, "coin_p": coin_p,
               "rows_tokens_agree": share, "fwd_rel_err": fwd,
               "bwd_rel_err": bwd, "tol_rel": tol, "finite": finite,
+              "fwd_cluster_launches": fwd_cluster,
               "bwd_cluster_launches": cluster})
         check(finite, f"las_decoder ({kind}) non-finite output ({cd_name})")
+        check(fwd_cluster == 1, f"las_decoder_fwd ({kind}, {cd_name}) did not "
+                                "go through fwd_cluster_kernel")
         check(cluster == 1, f"las_decoder_bwd ({kind}, {cd_name}) did not go "
                             "through bwd_cluster_kernel")
         check(max(fwd.values()) <= tol,
@@ -1643,7 +1655,8 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     as shipped (only ``train.dp=false`` and a train line every step, and
     ``extra`` overrides), for ``steps`` steps or TRAIN_EPOCHS epochs:
     every kernel of the path launched (K4 in the config's attention mode
-    on every step, every K4-bwd launch through bwd_cluster_kernel) and no
+    on every step, every K4-fwd and K4-bwd launch through its cluster
+    kernel) and no
     plain version; with ``ctc_only``,
     ``loss.mtl_alpha=1.0`` and a greedy dev evaluation (a model without a
     decoder has no beam), and K4 not launched. Each epoch's dev evaluation
@@ -1695,8 +1708,9 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
               "bilstm_v1_fwd_cluster": 0, "bilstm_v1_bwd_cluster": 0,
               "ctc_alpha": steps, "ctc_beta_post": steps,
               "las_decoder_fwd": dec, "las_decoder_bwd": dec,
-              # every K4-bwd launch through bwd_cluster_kernel (every
-              # bucket's shape of the flagships' widths routes there)
+              # every K4-fwd and K4-bwd launch through its cluster kernel
+              # (every bucket's shape of the flagships' widths routes there)
+              "las_decoder_fwd_cluster": dec,
               "las_decoder_bwd_cluster": dec}
     for k in ("las_decoder_fwd", "las_decoder_bwd"):
         for m in ATT_MODES:

@@ -39,13 +39,12 @@
 // gradients the TPU wrapper takes outside its kernel (:856-874, the
 // band's among them) are the caller's.
 //
-// Two designs. K4-fwd, and K4-bwd for the shapes whose cluster plan does
-// not fit, are fwd_kernel and bwd_kernel: one block of 1024 threads owns
-// kRows = 2 whole batch rows for all L steps. Each step depends on the
-// previous step's context, state and argmax (and, loc, attention
-// weights), so no product can be hoisted out of the loop, and no block
-// needs another block's rows. Each step is a few phases separated by
-// __syncthreads:
+// Two designs each way. For the shapes whose cluster plan does not fit,
+// fwd_kernel and bwd_kernel: one block of 1024 threads owns kRows = 2
+// whole batch rows for all L steps. Each step depends on the previous
+// step's context, state and argmax (and, loc, attention weights), so no
+// product can be hoisted out of the loop, and no block needs another
+// block's rows. Each step is a few phases separated by __syncthreads:
 //   - the matrix-vector products (gates, q, logits; in the backward the
 //     transposed ones) share gemv_partials: a work item owns 16 bytes of
 //     adjacent output columns (4 in f32, 8 in bf16) and one of S splits of
@@ -134,6 +133,61 @@
 // sweep ends with a cluster barrier, after the last store into another
 // CTA. bwd_route picks the kernel by shape alone; when no cluster fits on
 // the device the launch returns kNoClusterFits, and nothing falls back.
+//
+// fwd_cluster_kernel, K4-fwd for every shape whose plan (ClFwdSmem) fits,
+// on the same layout turned forward: a cluster of kCl = 8 CTAs owns 8
+// batch rows, CTA r row b0 + r, for all L steps, and HU = H/8 hidden
+// units and AU = A/8 query columns of the cluster's rows. Per step i:
+//   (a) the gate input of the 8 rows, [emb(tok_i); ctx_{i-1}; h_{i-1}]
+//       rounded, as cl_product reads it: each CTA gathers the 8 rows'
+//       embeddings itself from the tokens of exchange 3; ctx came by
+//       exchange 3 and h by exchange 1 of step i-1;
+//   (b) the gate product into this CTA's 4 HU gate columns (its units'
+//       i, f, g, o; cl_product over E+D+H) and the cells of its units for
+//       the 8 rows, c kept here; exchange 1 sends the units' rounded h to
+//       every CTA's gate input, which is also the query's input;
+//   (c) the query product into this CTA's AU columns for the 8 rows, plus
+//       att_b; exchange 2 sends row r's columns to CTA r;
+//   (d) the row's own phases, in its CTA alone, the frames whole: loc's
+//       feature from the previous step's weights (loc_feature_row), the
+//       scores (frame_dots_row; add and loc frame_energies at one row),
+//       the masked softmax (one warp), the context att . enc[b] (gemv_rows
+//       at one row), the logits [h; ctx] . W_out + b_out of the row (W_out
+//       whole from L2: 30 K multiply-adds a step, 0.06 MB in bf16), the
+//       argmax and the next token (the coin's choice); exchange 3 sends
+//       the row's rounded ctx and next token to every CTA.
+// So each loaded gate or query weight feeds 8 rows and each CTA streams
+// 1/8 of them (slices laid out as the backward's); the logits stay in the
+// row's CTA (V/8 columns a CTA would need a fourth exchange for the
+// argmax). The row's phases are the two-row design's at one row and sum
+// in its order; only the two products' sums run in cl_product's order.
+// The exchanges are the backward's: a store through distributed shared
+// memory, then one split cluster barrier. One buffer a slot would be
+// enough for the query (stored by exchange 2 of step i and read in (d);
+// the next store follows the wait of exchange 1 of step i+1, which needs
+// every CTA's arrival there, after its (d) of step i), the tokens (read
+// in (a) of step i+1; the next store follows exchange 2 of step i+1) and
+// ctx (read by the gate product of step i+1; the next store follows
+// exchange 2 of step i+1 too). Not for h: CTA r stores h_{i+1} into CTA
+// s after the wait of exchange 3 of step i, which orders it after s's
+// query product of step i but not after s's gate product of step i+1,
+// which still reads h_i. So the gate input is two buffers by step
+// parity, as the K1 cluster recurrences' receive
+// slots are: step i reads buffer i % 2 and fills buffer (i+1) % 2, whose
+// last reader, the gate product of step i-1, ended before exchange 1 of
+// step i-1. Every CTA reaches every barrier the same number of times (a
+// row past B or without frames computes its columns for the others), and
+// every sum runs in a fixed order: the same bits every run. fwd_route
+// picks the kernel by shape alone; kNoClusterFits raises, as the
+// backward's. What bounds it on an H100 at the flagship's widths
+// (tools/k4_probe.py --phases, bf16): a dot step at the 4.0 s bucket
+// takes about 43 us (the two-row design's about 65), 19 of it the gate
+// product (K4-bwd's product, at about half the CUDA cores' instruction
+// rate), about 4.6 exchange 3 (8 D scalar stores a CTA into the cluster,
+// each row's ctx strided by its lane of the gate input), about 3 each
+// the context and the logits, 1-2.7 each the rest; a loc step at T'=320
+// about 91 us, 43 of it the energies (per frame and column C feature
+// products and a tanh, their operands from shared memory).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -168,6 +222,33 @@ __shared__ long long k4b_t0_;
   } while (0)
 #else
 #define K4B_PHASE(p)
+#endif
+
+// 1: K4-fwd takes fwd_cluster_kernel for every shape whose plan fits; 0:
+// the build variant with fwd_kernel alone, the design before it, kept for
+// timing beside it (tools/k4_probe.py).
+#define K4F_CLUSTER 1
+
+// 1: thread 0 of the first CTA adds the SM cycles of each phase of
+// fwd_cluster_kernel's steps to k4f_phase_cycles, which
+// las_decoder_fwd_phase_cycles reads and clears (tools/k4_probe.py
+// --phases); 0: no counting.
+#define K4F_TIMING 0
+constexpr int kFwdPhases = 13;
+#if K4F_TIMING
+__device__ unsigned long long k4f_phase_cycles[kFwdPhases];
+__shared__ long long k4f_acc_[kFwdPhases];
+__shared__ long long k4f_t0_;
+#define K4F_PHASE(p)                             \
+  do {                                           \
+    if (threadIdx.x == 0 && blockIdx.x == 0) {   \
+      const long long now_ = clock64();          \
+      k4f_acc_[p] += now_ - k4f_t0_;             \
+      k4f_t0_ = now_;                            \
+    }                                            \
+  } while (0)
+#else
+#define K4F_PHASE(p)
 #endif
 
 namespace cg = cooperative_groups;
@@ -399,10 +480,11 @@ __device__ void frame_dots(const WT* __restrict__ rows, size_t row_stride,
 
 // frame_dots for the one row of a block (len n), each lane's 16-byte
 // loads of a frame issued four at a time before their products; the sum
-// runs in frame_dots' order: the same bits.
+// runs in frame_dots' order, and is scaled as there: the same bits.
 template <typename WT>
 __device__ void frame_dots_row(const WT* __restrict__ rows, int N,
-                               const float* x, int n, int T, float* out) {
+                               const float* x, int n, int T, float* out,
+                               float scale = 1.0f) {
   using P = Pack<WT>;
   constexpr int C = P::kN, U = 4, SPAN = C * kDotLanes;
   const int lane = threadIdx.x % 32, sl = lane % kDotLanes;
@@ -443,18 +525,19 @@ __device__ void frame_dots_row(const WT* __restrict__ rows, int N,
 #pragma unroll
     for (int o = kDotLanes / 2; o > 0; o >>= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (on && sl == 0) out[t] = acc;
+    if (on && sl == 0) out[t] = acc * scale;
   }
 }
 
-// The energy scores of add and loc mode, with frame_dots' lane layout:
+// The energy scores of add and loc mode for NR rows (the two-row block's,
+// or the one row of a cluster CTA), with frame_dots' lane layout:
 // out[r * T + t] = sum_a v[a] tanh(e[a]) for t < len[r], where
 // e[a] = enc_proj[r,t,a] + qb[r * A + a] (+ sum_c f[(r*C + c)*T + t]
 // locp[c * A + a] in loc mode, that sum formed first, as the TPU kernel
 // adds the feature's product to the energy, pallas_decoder.py:259-271).
 // qb, v, locp and f are in shared memory, v and locp 16-byte aligned; f
 // and locp are rounded.
-template <typename WT, bool LOC>
+template <typename WT, bool LOC, int NR = kRows>
 __device__ void frame_energies(const WT* __restrict__ rows, size_t row_stride,
                                int A, const float* qb, const float* v,
                                const float* locp, const float* f, int C,
@@ -463,7 +546,7 @@ __device__ void frame_energies(const WT* __restrict__ rows, size_t row_stride,
   const int per_warp = 32 / kDotLanes;
   const int first = threadIdx.x / 32 * per_warp + lane / kDotLanes;
   const int step = blockDim.x / 32 * per_warp;
-  const int total = kRows * T;
+  const int total = NR * T;
   using P = Pack<WT>;
   constexpr int CN = P::kN;
   const bool vec = A % CN == 0;
@@ -1444,12 +1527,14 @@ __device__ __forceinline__ void cl_fma(const float* vh, int k, const float4& w,
   }
 }
 
-// One product of the cluster kernel: for the kCl rows r of the cluster and
-// this CTA's N = 4G columns n, part[(s * kCl + r) * N + n] = the sum over
-// split s of the depth K of v[r][k] * W[k][n]. v: [2][cl_stride(K)][4] in
-// shared memory, rows 4h .. 4h+3 of depth k at (h * cl_stride(K) + k) * 4;
+// One product of the cluster kernels: for the kCl rows r of the cluster
+// and this CTA's N = 4G columns n, part[(s * kCl + r) * N + n] = the sum
+// over split s of the depth K of v[r][k] * W[k][n]. v: [2][ks][4] in
+// shared memory, rows 4h .. 4h+3 of depth k at (h * ks + k) * 4, ks =
+// cl_stride(K) unless given (the forward's query reads the h part of the
+// gate input, whose half stride is the gate product's);
 // W: this CTA's slice as [K][G][4], the 4 columns of group g at depth k at
-// (k * G + g) * 4 (ops/las_decoder.py::_cluster_bwd_slices). A warp takes
+// (k * G + g) * 4 (ops/las_decoder.py::_cluster_slices). A warp takes
 // 16 groups (a warp column) and one split s of the depth, lane 2j + h
 // group j of them and rows 4h .. 4h+3, all lanes on the same depth at
 // once: a load of W is one run of 128 bytes (bf16; 256 in f32) that the
@@ -1460,7 +1545,7 @@ __device__ __forceinline__ void cl_fma(const float* vh, int k, const float4& w,
 // fixed order. Ends without a barrier.
 template <typename WT>
 __device__ void cl_product(const float* v, int K, const WT* __restrict__ W,
-                           int G, int S, float* part) {
+                           int G, int S, float* part, int ks = 0) {
   using Q = Quad<WT>;
   constexpr int U = 16 / sizeof(WT);  // loads in flight: 64 bytes a lane
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -1470,7 +1555,7 @@ __device__ void cl_product(const float* v, int K, const WT* __restrict__ W,
   if (s >= S || g >= G) return;
   const int kc = (K + S - 1) / S, N = 4 * G;
   const int k1 = min(K, (s + 1) * kc);
-  const float* vh = v + (size_t)h * cl_stride(K) * 4;
+  const float* vh = v + (size_t)h * (ks > 0 ? ks : cl_stride(K)) * 4;
   const WT* w = W + (size_t)g * 4;
   const size_t ld = (size_t)G * 4;  // W's row stride
   float acc[4][4];
@@ -1564,7 +1649,7 @@ struct ClBwdSmem {
 // Grid kCl * ceil(B / kCl) blocks, clusters of kCl along x: cluster c owns
 // rows [kCl * c, +kCl), CTA r of it (its rank) row kCl * c + r. w_head,
 // w_query, w_gates: the kCl per-CTA slices of W_out^T, att_q^T and
-// [W_x; W_h]^T (_cluster_bwd_slices): CTA r's slice of a product with N_r
+// [W_x; W_h]^T (_cluster_slices): CTA r's slice of a product with N_r
 // columns is [K][N_r] at r * N_r * K. Every CTA runs every step
 // and reaches every cluster barrier, whatever its row: past B or without
 // frames it computes its columns of the products for the others.
@@ -1855,6 +1940,306 @@ bwd_cluster_kernel(BwdArgs a, const WT* __restrict__ w_head,
   cluster.sync();
 }
 
+// Shared-memory plan of the forward's cluster kernel, in floats: the gate
+// input of the cluster's rows by step parity (two [2][cl_stride(E+D+H)][4]
+// buffers, [emb; ctx; h] rounded as cl_product reads it; the h part is
+// also the query's input), the row's query (exchange 2's slot), c of this
+// CTA's units for the 8 rows, the row's [h; ctx] rounded (the logits'
+// input), its scores then weights, its logits, then part (the two
+// products' split sums, the context's and the logits' partials at one
+// row) and the energy modes' regions as FwdSmem's at one row, loc's
+// previous weights with zeros around them (loc_feature_row).
+struct ClFwdSmem {
+  size_t gin, qs, cs, hc, sc, lg, part, v, locp, filt, attp, f, total;
+  __host__ __device__ ClFwdSmem(int mode, int T, int D, int A, int E, int H,
+                               int V, int C, int W, int cols) {
+    const int HU = cl_units(H), AU = cl_units(A), KX = E + D + H;
+    size_t o = 0;
+    gin = o; o += (size_t)2 * 8 * cl_stride(KX);
+    qs = o; o = align4(o + A);
+    cs = o; o += (size_t)kCl * HU;
+    hc = o; o = align4(o + H + D);
+    sc = o; o = align4(o + T);
+    lg = o; o = align4(o + V);
+    part = o;
+    size_t p = (size_t)cl_splits(HU, KX) * kCl * 4 * HU;
+    const size_t pq = (size_t)cl_splits(AU / 4, H) * kCl * AU;
+    if (pq > p) p = pq;
+    const int rows[] = {D, V};  // the context and the logits, one row
+    for (int n : rows) {
+      const size_t pn = (size_t)gemv_splits(n, kThreads, cols) * n;
+      if (pn > p) p = pn;
+    }
+    o = align4(o + p);
+    const bool loc = mode == kLoc;
+    v = o; o = align4(o + (mode == kDot ? 0 : (size_t)A));
+    locp = o; o = align4(o + (loc ? (size_t)C * A : 0));
+    filt = o; o = align4(o + (loc ? (size_t)W * C : 0));
+    attp = o; o = align4(o + (loc ? (size_t)T + W + 3 : 0));
+    f = o; o += loc ? (size_t)C * T : 0;
+    total = o;
+  }
+};
+
+// Grid kCl * ceil(B / kCl) blocks, clusters of kCl along x: cluster c owns
+// rows [kCl * c, +kCl), CTA r of it (its rank) row kCl * c + r. w_gates,
+// w_query: the kCl per-CTA slices of [W_x; W_h] and att_q by output column
+// (_cluster_slices of their transposes): CTA r's slice of a product with
+// N_r columns is [K][N_r] at r * N_r * K, the gates' N_r = 4 HU columns
+// its units' i, f, g and o, the query's AU. W_out is read whole by each
+// row's CTA. Every CTA runs every step and reaches every cluster barrier,
+// whatever its row: past B or without frames it computes its columns of
+// the products for the others.
+template <typename WT, int MODE>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_cluster_kernel(FwdArgs a, const WT* __restrict__ w_gates,
+                   const WT* __restrict__ w_query) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int tok_s[kCl], len_s[1], next_s[1];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int B = a.B, L = a.L, T = a.T, D = a.D, A = a.A, E = a.E, H = a.H,
+            V = a.V, C = a.C, W = a.W;
+  const int KX = E + D + H, HD = H + D, H4 = 4 * H;
+  const int HU = cl_units(H), AU = cl_units(A);
+  const int KG = cl_stride(KX);  // the gate input's half stride
+  const ClFwdSmem plan(MODE, T, D, A, E, H, V, C, W, Pack<WT>::kN);
+  float* gin = sm + plan.gin;
+  float* qs = sm + plan.qs;
+  float* cs = sm + plan.cs;
+  float* hc = sm + plan.hc;
+  float* sc = sm + plan.sc;
+  float* lg = sm + plan.lg;
+  float* part = sm + plan.part;
+  float* v_s = sm + plan.v;
+  float* locp_s = sm + plan.locp;
+  float* filt_s = sm + plan.filt;
+  float* attp = sm + plan.attp;
+  float* f_s = sm + plan.f;
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid / 32, lane = tid % 32;
+  const int b0 = blockIdx.x / kCl * kCl;  // the cluster's first row
+  const int b = b0 + rank;                // this CTA's row
+  const bool live = b < B;
+  const size_t rowb = live ? b : 0;  // a row to point at past B (never read)
+  const WT* enc = static_cast<const WT*>(a.enc) + rowb * T * D;
+  const WT* encp = static_cast<const WT*>(a.encp) + rowb * T * A;
+  const WT* embed = static_cast<const WT*>(a.embed);
+  const WT* w_out = static_cast<const WT*>(a.w_out);
+  const WT* wg = w_gates + (size_t)rank * 4 * HU * KX;
+  const WT* wq = w_query + (size_t)rank * AU * H;
+  const int Sg = cl_splits(HU, KX), Sq = cl_splits(AU / 4, H);
+  const int pad = (W - 1) / 2;  // loc: the filter's frames before a frame
+
+  for (int k = tid; k < (int)plan.total; k += nt) sm[k] = 0.0f;
+  __syncthreads();
+  if constexpr (MODE != kDot) {
+    for (int k = tid; k < A; k += nt) v_s[k] = a.att_v[k];
+  }
+  if constexpr (MODE == kLoc) {
+    for (int k = tid; k < C * A; k += nt) locp_s[k] = a.loc_proj[k];
+    for (int k = tid; k < W * C; k += nt) filt_s[k] = a.loc_filt[k];
+  }
+  // Step 0's tokens of the cluster's rows (no argmax before it: 0, as
+  // fwd_kernel's); the row's CTA writes its own.
+  if (tid < kCl) {
+    const int br = b0 + tid;
+    int tok = 0;
+    if (br < B) {
+      const size_t at = (size_t)br * L;
+      tok = a.coins[at] ? 0 : a.tokens[at];
+      if (tid == rank) a.tok_seq[at] = tok;
+    }
+    tok_s[tid] = tok;
+  }
+  if (tid == 0) len_s[0] = live ? min(max(a.enc_len[b], 0), T) : 0;
+  // Every CTA of the cluster has started and cleared its slots before any
+  // CTA stores into another's.
+  cluster.sync();
+  const int n = len_s[0];
+#if K4F_TIMING
+  if (tid == 0) {
+    for (int p = 0; p < kFwdPhases; ++p) k4f_acc_[p] = 0;
+    k4f_t0_ = clock64();
+  }
+#endif
+
+  for (int i = 0; i < L; ++i) {
+    float* gcur = gin + (size_t)(i & 1) * 8 * KG;         // read this step
+    float* gnext = gin + (size_t)((i + 1) & 1) * 8 * KG;  // filled for i+1
+    // (a) The rows' embeddings into the gate input (ctx and h are there).
+    for (int k = tid; k < kCl * E; k += nt) {
+      const int r = k / E, e = k % E;
+      gcur[((r >> 2) * KG + e) * 4 + (r & 3)] =
+          b0 + r < B ? to_f(embed[(size_t)tok_s[r] * E + e]) : 0.0f;
+    }
+    __syncthreads();
+    K4F_PHASE(0);
+
+    // (b) The gates of this CTA's units for the cluster's rows, and their
+    // cells; each unit's rounded h goes to every CTA (exchange 1).
+    cl_product<WT>(gcur, KX, wg, HU, Sg, part);
+    __syncthreads();
+    K4F_PHASE(1);
+    for (int k = tid; k < kCl * HU; k += nt) {
+      const int r = k / HU, ul = k % HU, u = rank * HU + ul, br = b0 + r;
+      if (u >= H) continue;
+      float g[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        g[j] = a.b_x[j * H + u] + cl_sum(part, Sg, 4 * HU, r, j * HU + ul);
+      const float si = port::sigmoid(g[0]);
+      const float sf = port::sigmoid(g[1] + 1.0f);
+      const float tg = tanhf(g[2]);
+      const float so = port::sigmoid(g[3]);
+      const float c = sf * cs[r * HU + ul] + si * tg;
+      const float h = so * tanhf(c);
+      cs[r * HU + ul] = c;
+      gnext[((size_t)(r >> 2) * KG + E + D + u) * 4 + (r & 3)] = rnd<WT>(h);
+      if (br < B) {
+        const size_t at = (size_t)br * L + i;
+        a.h_seq[at * H + u] = h;
+        a.c_seq[at * H + u] = c;
+        float* ac = a.acts + at * H4;
+        ac[u] = si;
+        ac[H + u] = sf;
+        ac[2 * H + u] = tg;
+        ac[3 * H + u] = so;
+      }
+    }
+    __syncthreads();
+    K4F_PHASE(2);
+    // Exchange 1: the four rows of a half of each unit, one 16-byte store.
+    for (int k = tid; k < (kCl - 1) * 2 * HU; k += nt) {
+      const int dst = (rank + 1 + k / (2 * HU)) % kCl, e = k % (2 * HU);
+      const int u = rank * HU + e % HU;
+      if (u < H) {
+        float* at = gnext + ((size_t)(e / HU) * KG + E + D + u) * 4;
+        *reinterpret_cast<float4*>(cluster.map_shared_rank(at, dst)) =
+            *reinterpret_cast<const float4*>(at);
+      }
+    }
+    port::cluster_arrive();
+    port::cluster_wait();
+    K4F_PHASE(3);
+
+    // (c) The query's columns of this CTA for the cluster's rows, h from
+    // the gate input; row r's go to CTA r (exchange 2).
+    cl_product<WT>(gnext + (size_t)(E + D) * 4, H, wq, AU / 4, Sq, part, KG);
+    __syncthreads();
+    K4F_PHASE(4);
+    for (int k = tid; k < kCl * AU; k += nt) {
+      const int r = k / AU, al = k % AU, m = rank * AU + al, br = b0 + r;
+      if (m >= A) continue;
+      const float v = a.att_b[m] + cl_sum(part, Sq, AU, r, al);
+      if (br < B) a.q_seq[((size_t)br * L + i) * A + m] = v;
+      *cluster.map_shared_rank(qs + m, r) = v;
+    }
+    port::cluster_arrive();
+    port::cluster_wait();
+    K4F_PHASE(5);
+
+    // (d) The row's own phases. Its rounded h, the logits' input.
+    for (int k = tid; k < H; k += nt)
+      hc[k] = gnext[((size_t)(rank >> 2) * KG + E + D + k) * 4 + (rank & 3)];
+    if constexpr (MODE == kLoc) {
+      // attp holds the previous step's weights, rounded (zeros at step 0).
+      loc_feature_row<WT>(attp, filt_s, C, W, n, T, f_s);
+    }
+    __syncthreads();
+    K4F_PHASE(6);
+    if constexpr (MODE == kDot) {
+      frame_dots_row<WT>(encp, A, qs, n, T, sc, a.scale);
+    } else {
+      frame_energies<WT, MODE == kLoc, 1>(encp, 0, A, qs, v_s, locp_s, f_s,
+                                          C, len_s, T, sc);
+    }
+    __syncthreads();
+    K4F_PHASE(7);
+    // Masked softmax, one warp; exactly 0 past the row's length.
+    if (warp == 0) {
+      float m = kNeg;
+      for (int t = lane; t < n; t += 32) m = fmaxf(m, sc[t]);
+      m = warp_max(m);
+      float z = 0.0f;
+      for (int t = lane; t < n; t += 32) z += expf(sc[t] - m);
+      z = warp_sum(z);
+      for (int t = lane; t < T; t += 32) {
+        const float w = t < n ? expf(sc[t] - m) / z : 0.0f;
+        const float wr = rnd<WT>(w);  // the context's (and loc's) operand
+        sc[t] = wr;
+        if constexpr (MODE == kLoc) attp[pad + t] = wr;
+        if (live) a.att_seq[((size_t)b * L + i) * T + t] = w;
+      }
+    }
+    __syncthreads();
+    K4F_PHASE(8);
+    // Context: ctx = att . enc[b].
+    gemv_rows<WT, 1>(sc, T, len_s, enc, 0, D, part);
+    __syncthreads();
+    for (int k = tid; k < D; k += nt) {
+      const float acc = gemv_row_sum<WT>(part, D, 0, k);
+      hc[H + k] = rnd<WT>(acc);
+      if (live) a.ctx_seq[((size_t)b * L + i) * D + k] = acc;
+    }
+    __syncthreads();
+    K4F_PHASE(9);
+    // Logits.
+    gemv_partials<WT, 1>(hc, 0, HD, w_out, V, part);
+    __syncthreads();
+    for (int k = tid; k < V; k += nt) {
+      const float v = a.b_out[k] + gemv_sum<WT, 1>(part, V, 0, k);
+      lg[k] = v;
+      if (live) a.logits[((size_t)b * L + i) * V + k] = v;
+    }
+    __syncthreads();
+    K4F_PHASE(10);
+    // Argmax, the first maximum, and the next step's token.
+    if (warp == 0) {
+      float best = -INFINITY;
+      int bi = 0;
+      for (int m = lane; m < V; m += 32) {
+        const float v = lg[m];
+        if (v > best) best = v, bi = m;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, best, o);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+        if (ov > best || (ov == best && oi < bi)) best = ov, bi = oi;
+      }
+      if (lane == 0) {
+        int tok = 0;
+        if (live && i + 1 < L) {
+          const size_t at = (size_t)b * L + i + 1;
+          tok = a.coins[at] ? bi : a.tokens[at];
+          a.tok_seq[at] = tok;
+        }
+        next_s[0] = tok;
+      }
+    }
+    __syncthreads();
+    K4F_PHASE(11);
+    // Exchange 3: the row's rounded ctx into every CTA's gate input (its
+    // own too), and its next token.
+    float* ctx_at = gnext + ((size_t)(rank >> 2) * KG + E) * 4 + (rank & 3);
+    for (int k = tid; k < kCl * D; k += nt) {
+      const int dst = (rank + k / D) % kCl, d = k % D;
+      *cluster.map_shared_rank(ctx_at + (size_t)d * 4, dst) = hc[H + d];
+    }
+    if (tid < kCl) *cluster.map_shared_rank(tok_s + rank, tid) = next_s[0];
+    port::cluster_arrive();
+    port::cluster_wait();
+    K4F_PHASE(12);
+  }
+#if K4F_TIMING
+  if (tid == 0 && blockIdx.x == 0)
+    for (int p = 0; p < kFwdPhases; ++p) k4f_phase_cycles[p] += k4f_acc_[p];
+#endif
+  // No store into another CTA follows the last exchange; the barrier keeps
+  // every CTA of the cluster resident until all have passed it.
+  cluster.sync();
+}
+
 // d_enc_proj[b,t,:] = sum_i dsn[b,i,t] q[b,i,:]. Grid (ceil(T/kTT), B);
 // a thread owns one column a (looping over A in blockDim steps) for kTT
 // frames; dsn comes through shared memory in chunks of kLC steps.
@@ -1903,8 +2288,40 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// The kernel of each direction for a shape, chosen by shape alone before
+// any launch (ops/las_decoder.py::fwd_route and bwd_route mirror them):
+// kRouteCluster, the cluster kernel, where its shared-memory plan fits;
+// else 0, the two-rows kernel, where its plan fits; else -1, neither. The
+// build variants K4F_CLUSTER 0 and K4B_CLUSTER 0 route every shape to the
+// two-rows kernel.
+constexpr int kRouteCluster = 1;
+
+template <typename ClPlan, typename RowsPlan>
+int route_by_plan(bool cluster, int mode, int cd_bf16, int T, int D, int A,
+                  int E, int H, int V, int C, int W) {
+  const int cols = cd_bf16 ? Pack<__nv_bfloat16>::kN : Pack<float>::kN;
+  if (cluster &&
+      sizeof(float) * ClPlan(mode, T, D, A, E, H, V, C, W, cols).total <= kMaxSmem)
+    return kRouteCluster;
+  if (sizeof(float) * RowsPlan(mode, T, D, A, E, H, V, C, W, cols).total <= kMaxSmem)
+    return 0;
+  return -1;
+}
+
+int fwd_route(int mode, int cd_bf16, int T, int D, int A, int E, int H, int V,
+              int C, int W) {
+  return route_by_plan<ClFwdSmem, FwdSmem>(K4F_CLUSTER, mode, cd_bf16, T, D,
+                                           A, E, H, V, C, W);
+}
+
+int bwd_route(int mode, int cd_bf16, int T, int D, int A, int E, int H, int V,
+              int C, int W) {
+  return route_by_plan<ClBwdSmem, BwdSmem>(K4B_CLUSTER, mode, cd_bf16, T, D,
+                                           A, E, H, V, C, W);
+}
+
 template <typename WT, int MODE>
-cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t st) {
+cudaError_t launch_fwd_rows(const FwdArgs& a, cudaStream_t st) {
   const size_t bytes = sizeof(float) * FwdSmem(MODE, a.T, a.D, a.A, a.E, a.H,
                                                a.V, a.C, a.W, Pack<WT>::kN).total;
   cudaError_t e = set_smem(fwd_kernel<WT, MODE>, bytes);
@@ -1913,44 +2330,14 @@ cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// K4-bwd's kernel for a shape, chosen by shape alone before any launch
-// (ops/las_decoder.py::bwd_route mirrors it): kRouteCluster,
-// bwd_cluster_kernel, where its shared-memory plan fits; else 0,
-// bwd_kernel, where its plan fits; else -1, neither. The build variant
-// K4B_CLUSTER 0 routes every shape to bwd_kernel.
-constexpr int kRouteCluster = 1;
-
-int bwd_route(int mode, int cd_bf16, int T, int D, int A, int E, int H, int V,
-              int C, int W) {
-  const int cols = cd_bf16 ? Pack<__nv_bfloat16>::kN : Pack<float>::kN;
-  if (K4B_CLUSTER &&
-      sizeof(float) * ClBwdSmem(mode, T, D, A, E, H, V, C, W, cols).total <= kMaxSmem)
-    return kRouteCluster;
-  if (sizeof(float) * BwdSmem(mode, T, D, A, E, H, V, C, W, cols).total <= kMaxSmem)
-    return 0;
-  return -1;
-}
-
-template <typename WT, int MODE>
-cudaError_t launch_bwd_rows(const BwdArgs& a, cudaStream_t st) {
-  const size_t bytes = sizeof(float) * BwdSmem(MODE, a.T, a.D, a.A, a.E, a.H,
-                                               a.V, a.C, a.W, Pack<WT>::kN).total;
-  cudaError_t e = set_smem(bwd_kernel<WT, MODE>, bytes);
-  if (e != cudaSuccess) return e;
-  bwd_kernel<WT, MODE><<<(a.B + kRows - 1) / kRows, kThreads, bytes, st>>>(a);
-  return cudaGetLastError();
-}
-
-// bwd_cluster_kernel over ceil(B / kCl) clusters; kNoClusterFits without
-// launching when the device holds none (cudaOccupancyMaxActiveClusters,
-// asked once per plan size and process). The attribute is set on every
-// call.
-template <typename WT, int MODE>
-int launch_bwd_cluster(const BwdArgs& a, cudaStream_t st) {
-  const size_t bytes = sizeof(float) * ClBwdSmem(MODE, a.T, a.D, a.A, a.E,
-                                                 a.H, a.V, a.C, a.W,
-                                                 Pack<WT>::kN).total;
-  cudaError_t e = set_smem(bwd_cluster_kernel<WT, MODE>, bytes);
+// A cluster kernel over ceil(B / kCl) clusters of kCl CTAs, with its
+// arguments after `a`; kNoClusterFits without launching when the device
+// holds none (cudaOccupancyMaxActiveClusters, asked once per kernel, plan
+// size and process). The attribute is set on every call.
+template <typename K, typename Args, typename... Ws>
+int launch_cluster(K kernel, size_t bytes, const Args& a, cudaStream_t st,
+                   size_t& known_bytes, int& known, Ws... ws) {
+  cudaError_t e = set_smem(kernel, bytes);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
@@ -1964,23 +2351,65 @@ int launch_bwd_cluster(const BwdArgs& a, cudaStream_t st) {
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  static size_t known_bytes = 0;
-  static int known = 0;
   if (known_bytes != bytes) {
     int n = 0;
-    e = cudaOccupancyMaxActiveClusters(&n, (void*)bwd_cluster_kernel<WT, MODE>, &cfg);
+    e = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
     if (e != cudaSuccess) return (int)e;
     known_bytes = bytes;
     known = n;
   }
   if (known < 1) return kNoClusterFits;
   cfg.gridDim = dim3(kCl * ((a.B + kCl - 1) / kCl));
-  e = cudaLaunchKernelEx(&cfg, bwd_cluster_kernel<WT, MODE>, a,
-                         static_cast<const WT*>(a.woutT),
-                         static_cast<const WT*>(a.attqT),
-                         static_cast<const WT*>(a.wcatT));
+  e = cudaLaunchKernelEx(&cfg, kernel, a, ws...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <typename WT, int MODE>
+int launch_fwd_cluster(const FwdArgs& a, cudaStream_t st) {
+  const size_t bytes = sizeof(float) * ClFwdSmem(MODE, a.T, a.D, a.A, a.E,
+                                                 a.H, a.V, a.C, a.W,
+                                                 Pack<WT>::kN).total;
+  static size_t known_bytes = 0;
+  static int known = 0;
+  return launch_cluster(fwd_cluster_kernel<WT, MODE>, bytes, a, st,
+                        known_bytes, known, static_cast<const WT*>(a.wcat),
+                        static_cast<const WT*>(a.att_q));
+}
+
+// `route`: the kernel whose weight layout the caller passed; it must be
+// the one fwd_route picks for the shape (kRouteMismatch otherwise).
+template <typename WT, int MODE>
+int launch_fwd(const FwdArgs& a, int route, cudaStream_t st) {
+  const int want = fwd_route(MODE, sizeof(WT) == 2, a.T, a.D, a.A, a.E, a.H,
+                             a.V, a.C, a.W);
+  if (want < 0) return (int)cudaErrorInvalidValue;
+  if (route != want) return kRouteMismatch;
+  return want == kRouteCluster ? launch_fwd_cluster<WT, MODE>(a, st)
+                               : (int)launch_fwd_rows<WT, MODE>(a, st);
+}
+
+template <typename WT, int MODE>
+cudaError_t launch_bwd_rows(const BwdArgs& a, cudaStream_t st) {
+  const size_t bytes = sizeof(float) * BwdSmem(MODE, a.T, a.D, a.A, a.E, a.H,
+                                               a.V, a.C, a.W, Pack<WT>::kN).total;
+  cudaError_t e = set_smem(bwd_kernel<WT, MODE>, bytes);
+  if (e != cudaSuccess) return e;
+  bwd_kernel<WT, MODE><<<(a.B + kRows - 1) / kRows, kThreads, bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename WT, int MODE>
+int launch_bwd_cluster(const BwdArgs& a, cudaStream_t st) {
+  const size_t bytes = sizeof(float) * ClBwdSmem(MODE, a.T, a.D, a.A, a.E,
+                                                 a.H, a.V, a.C, a.W,
+                                                 Pack<WT>::kN).total;
+  static size_t known_bytes = 0;
+  static int known = 0;
+  return launch_cluster(bwd_cluster_kernel<WT, MODE>, bytes, a, st,
+                        known_bytes, known, static_cast<const WT*>(a.woutT),
+                        static_cast<const WT*>(a.attqT),
+                        static_cast<const WT*>(a.wcatT));
 }
 
 // `route`: the kernel whose weight layout the caller passed; it must be
@@ -2001,13 +2430,13 @@ int launch_bwd(const BwdArgs& a, int route, cudaStream_t st) {
 }
 
 template <typename WT>
-cudaError_t launch_fwd_mode(const FwdArgs& a, int mode, cudaStream_t st) {
+int launch_fwd_mode(const FwdArgs& a, int mode, int route, cudaStream_t st) {
   switch (mode) {
-    case kDot: return launch_fwd<WT, kDot>(a, st);
-    case kAdd: return launch_fwd<WT, kAdd>(a, st);
-    case kLoc: return launch_fwd<WT, kLoc>(a, st);
+    case kDot: return launch_fwd<WT, kDot>(a, route, st);
+    case kAdd: return launch_fwd<WT, kAdd>(a, route, st);
+    case kLoc: return launch_fwd<WT, kLoc>(a, route, st);
   }
-  return cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename WT>
@@ -2044,6 +2473,13 @@ bool dims_ok(int B, int L, int T, int D, int A, int E, int H, int V, int C,
 // cudaGetLastError() after its launches (0 on success), or
 // cudaErrorInvalidValue for a mode or shape the kernels cannot take (a
 // block's shared memory grows with T, D, E, H, V and, loc, C and W).
+//
+// las_decoder_fwd's gate and query weights (wcat, att_q) are in the layout
+// of `route` (las_decoder_fwd_route's answer for the shape): for
+// fwd_kernel [W_x; W_h] [E+D+H][4H] and att_q [H][A]; for
+// fwd_cluster_kernel the kCl per-CTA slices of their transposes
+// (ops/las_decoder.py::_cluster_slices). Its other returns are
+// las_decoder_bwd's.
 extern "C" int las_decoder_fwd(
     const int* tokens, const uint8_t* coins, const int* enc_len,
     const void* enc, const void* encp, const void* embed, const void* wcat,
@@ -2052,23 +2488,23 @@ extern "C" int las_decoder_fwd(
     const void* w_out, const float* b_out, float* logits, float* h_seq,
     float* c_seq, float* acts, float* q_seq, float* att_seq, float* ctx_seq,
     int* tok_seq, int B, int L, int T, int D, int A, int E, int H, int V,
-    int C, int W, int mode, float scale, int cd_bf16, void* stream) {
+    int C, int W, int mode, float scale, int cd_bf16, int route,
+    void* stream) {
   if (!dims_ok(B, L, T, D, A, E, H, V, C, W, mode)) return (int)cudaErrorInvalidValue;
   const FwdArgs a{tokens, coins, enc_len, enc, encp, embed, wcat, b_x, att_q,
                   att_b, att_v, loc_filt, loc_proj, w_out, b_out, logits,
                   h_seq, c_seq, acts, q_seq, att_seq, ctx_seq, tok_seq,
                   B, L, T, D, A, E, H, V, C, W, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(cd_bf16 ? launch_fwd_mode<__nv_bfloat16>(a, mode, st)
-                       : launch_fwd_mode<float>(a, mode, st));
+  return cd_bf16 ? launch_fwd_mode<__nv_bfloat16>(a, mode, route, st)
+                 : launch_fwd_mode<float>(a, mode, route, st);
 }
 
-//
 // las_decoder_bwd's three weight operands are in the layout of `route`
 // (las_decoder_bwd_route's answer for the shape): for bwd_kernel W_out^T
 // [V][H+D], att_q^T [A][H] and [W_x; W_h]^T [4H][E+D+H]; for
 // bwd_cluster_kernel their kCl per-CTA slices (ops/las_decoder.py::
-// _cluster_bwd_slices). It also returns kNoClusterFits (-1) without
+// _cluster_slices). It also returns kNoClusterFits (-1) without
 // launching when no cluster of bwd_cluster_kernel fits on the device, and
 // kRouteMismatch (-2) when `route` is not the shape's.
 extern "C" int las_decoder_bwd(
@@ -2091,12 +2527,31 @@ extern "C" int las_decoder_bwd(
                  : launch_bwd_mode<float>(a, mode, route, st);
 }
 
+// The kernel las_decoder_fwd takes for a shape: 1 fwd_cluster_kernel, 0
+// fwd_kernel, -1 none (the shape is refused).
+extern "C" int las_decoder_fwd_route(int mode, int cd_bf16, int T, int D,
+                                     int A, int E, int H, int V, int C, int W) {
+  return fwd_route(mode, cd_bf16, T, D, A, E, H, V, C, W);
+}
+
 // The kernel las_decoder_bwd takes for a shape: 1 bwd_cluster_kernel, 0
 // bwd_kernel, -1 none (the shape is refused).
 extern "C" int las_decoder_bwd_route(int mode, int cd_bf16, int T, int D,
                                      int A, int E, int H, int V, int C, int W) {
   return bwd_route(mode, cd_bf16, T, D, A, E, H, V, C, W);
 }
+
+#if K4F_TIMING
+// The forward's phase cycles counted since the last call (kFwdPhases of
+// them), cleared.
+extern "C" int las_decoder_fwd_phase_cycles(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, k4f_phase_cycles,
+                                       sizeof(k4f_phase_cycles));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[kFwdPhases] = {};
+  return (int)cudaMemcpyToSymbol(k4f_phase_cycles, zero, sizeof(zero));
+}
+#endif
 
 #if K4B_TIMING
 // The phase cycles counted since the last call (kPhases of them), cleared.
@@ -2109,14 +2564,20 @@ extern "C" int las_decoder_bwd_phase_cycles(unsigned long long* out) {
 }
 #endif
 
-extern "C" const char* las_decoder_error_string(int code) {
+// The text of a return code of las_decoder_fwd (fwd != 0) or
+// las_decoder_bwd (fwd == 0).
+extern "C" const char* las_decoder_error_string(int code, int fwd) {
   if (code == kNoClusterFits) {
-    return "no cluster of 8 CTAs of bwd_cluster_kernel fits on this device "
-           "(cudaOccupancyMaxActiveClusters returned 0)";
+    return fwd ? "no cluster of 8 CTAs of fwd_cluster_kernel fits on this "
+                 "device (cudaOccupancyMaxActiveClusters returned 0)"
+               : "no cluster of 8 CTAs of bwd_cluster_kernel fits on this "
+                 "device (cudaOccupancyMaxActiveClusters returned 0)";
   }
   if (code == kRouteMismatch) {
-    return "the weights were laid out for the other K4-bwd kernel than the "
-           "shape's (las_decoder_bwd_route)";
+    return fwd ? "the weights were laid out for the other K4-fwd kernel than "
+                 "the shape's (las_decoder_fwd_route)"
+               : "the weights were laid out for the other K4-bwd kernel than "
+                 "the shape's (las_decoder_bwd_route)";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -20,13 +20,14 @@ and the output logits. Each direction has two versions:
   channel-major band (``build_loc_band_cmajor``).
 - hand-written Hopper kernels: ``las_decoder_fwd_kernel`` and
   ``las_decoder_bwd_kernel`` (``csrc/las_decoder.cu``), every mode; the
-  location feature is a convolution with the filter there. K4-bwd takes
+  location feature is a convolution with the filter there. Each direction
+  takes its cluster kernel, ``fwd_cluster_kernel`` or
   ``bwd_cluster_kernel`` (one batch row a CTA, the products split by
-  columns across a cluster of ``CLUSTER_ROWS`` CTAs, its weights as
-  ``_cluster_bwd_slices``) for every shape whose shared-memory plan fits,
-  and ``bwd_kernel`` for the others, chosen by shape alone
-  (``bwd_route``, the mirror of the library's); ``.cluster_launches``
-  counts the former.
+  columns across a cluster of ``CLUSTER_ROWS`` CTAs, their weights as
+  ``_cluster_slices``), for every shape whose shared-memory plan fits,
+  and ``fwd_kernel`` or ``bwd_kernel`` (two rows a block) for the
+  others, chosen by shape alone (``fwd_route``, ``bwd_route``, the
+  mirrors of the library's); ``.cluster_launches`` counts the former.
 
 ``las_decoder`` dispatches on the device of ``enc`` (``_route``): the
 plain versions for a CPU tensor, the kernels for a CUDA tensor, and
@@ -74,7 +75,7 @@ MAX_HIDDEN = 1024
 MAX_ATT_ENERGY = 512
 ATT_ENERGY_MULTIPLE = 4
 MAX_LOC_CHANNELS = 16
-# K4-bwd's cluster kernel: CTAs (batch rows) of a cluster, threads of a
+# K4's cluster kernels: CTAs (batch rows) of a cluster, threads of a
 # block, and the 227 KB of shared memory a block may use.
 CLUSTER_ROWS = 8
 _THREADS = 1024
@@ -387,16 +388,17 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library("las_decoder")
     if lib.las_decoder_fwd.argtypes is None:
         # Without argtypes ctypes passes each pointer as a 32-bit int.
+        # The pointers, then B..W, mode, scale, cd_bf16, route, stream.
         tail = [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_int,
-                                      ctypes.c_void_p]
-        lib.las_decoder_fwd.argtypes = [ctypes.c_void_p] * 23 + tail
-        lib.las_decoder_fwd.restype = ctypes.c_int
-        lib.las_decoder_bwd.argtypes = [ctypes.c_void_p] * 23 + tail[:-1] + [
-            ctypes.c_int, ctypes.c_void_p]
-        lib.las_decoder_bwd.restype = ctypes.c_int
-        lib.las_decoder_bwd_route.argtypes = [ctypes.c_int] * 10
-        lib.las_decoder_bwd_route.restype = ctypes.c_int
-        lib.las_decoder_error_string.argtypes = [ctypes.c_int]
+                                      ctypes.c_int, ctypes.c_void_p]
+        for d in ("fwd", "bwd"):
+            fn = getattr(lib, f"las_decoder_{d}")
+            fn.argtypes = [ctypes.c_void_p] * 23 + tail
+            fn.restype = ctypes.c_int
+            route = getattr(lib, f"las_decoder_{d}_route")
+            route.argtypes = [ctypes.c_int] * 10
+            route.restype = ctypes.c_int
+        lib.las_decoder_error_string.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.las_decoder_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -424,6 +426,57 @@ def _cluster_stride(K: int) -> int:
 def _cluster_splits(G: int, K: int) -> int:
     """Depth splits of a cluster product of G column groups over K."""
     return max(1, min(_THREADS // 32 // -(-G // 16), K // 32))
+
+
+def _fwd_rows_plan(mode, T, D, A, E, H, V, C, W, cols) -> int:
+    """Floats of ``fwd_kernel``'s shared-memory plan (``FwdSmem``)."""
+    rows = 2
+    o = rows * (E + D + H) + rows * (H + D) + rows * (H + A + T + V)
+    p = max(_gemv_splits(n, cols) * rows * n for n in (4 * H, A, V, D))
+    o = _align4(o + p)
+    loc = mode == "loc"
+    for n in ((0 if mode == "dot" else A), C * A * loc, W * C * loc):
+        o = _align4(o + n)
+    return o + rows * C * T * loc
+
+
+def _cluster_fwd_plan(mode, T, D, A, E, H, V, C, W, cols) -> int:
+    """Floats of ``fwd_cluster_kernel``'s plan (``ClFwdSmem``)."""
+    R = CLUSTER_ROWS
+    HU, AU, KX = _cluster_units(H), _cluster_units(A), E + D + H
+    o = _align4(2 * 8 * _cluster_stride(KX) + A) + R * HU
+    o = _align4(_align4(_align4(o + H + D) + T) + V)
+    p = max(_cluster_splits(HU, KX) * R * 4 * HU,
+            _cluster_splits(AU // 4, H) * R * AU,
+            _gemv_splits(D, cols) * D, _gemv_splits(V, cols) * V)
+    o = _align4(o + p)
+    loc = mode == "loc"
+    for n in ((0 if mode == "dot" else A), C * A * loc, W * C * loc,
+              (T + W + 3) * loc):
+        o = _align4(o + n)
+    return o + C * T * loc
+
+
+def _route_by_plan(cluster_plan, rows_plan, att_kind, compute_dtype,
+                   *shape) -> Optional[str]:
+    """"cluster" where ``cluster_plan`` fits a block's shared memory, else
+    "rows" where ``rows_plan`` fits, else None (the library's
+    ``route_by_plan``)."""
+    dims = (att_kind, *shape, 8 if compute_dtype == torch.bfloat16 else 4)
+    if 4 * cluster_plan(*dims) <= _MAX_SMEM:
+        return "cluster"
+    if 4 * rows_plan(*dims) <= _MAX_SMEM:
+        return "rows"
+    return None
+
+
+def fwd_route(att_kind: str, compute_dtype: torch.dtype, T, D, A, E, H, V,
+              C=0, W=0) -> Optional[str]:
+    """The K4-fwd kernel for a shape, by shape alone, as the library's
+    ``fwd_route`` picks it: "cluster" (``fwd_cluster_kernel``), "rows"
+    (``fwd_kernel``) or None."""
+    return _route_by_plan(_cluster_fwd_plan, _fwd_rows_plan, att_kind,
+                          compute_dtype, T, D, A, E, H, V, C, W)
 
 
 def _rows_plan(mode, T, D, A, E, H, V, C, W, cols) -> int:
@@ -472,23 +525,19 @@ def _cluster_plan(mode, T, D, A, E, H, V, C, W, cols) -> int:
 def bwd_route(att_kind: str, compute_dtype: torch.dtype, T, D, A, E, H, V,
               C=0, W=0) -> Optional[str]:
     """The K4-bwd kernel for a shape, by shape alone, as the library's
-    ``bwd_route`` picks it: "cluster" where ``bwd_cluster_kernel``'s
-    shared-memory plan fits, else "rows" (``bwd_kernel``) where its plan
-    fits, else None."""
-    cols = 8 if compute_dtype == torch.bfloat16 else 4
-    dims = (att_kind, T, D, A, E, H, V, C, W, cols)
-    if 4 * _cluster_plan(*dims) <= _MAX_SMEM:
-        return "cluster"
-    if 4 * _rows_plan(*dims) <= _MAX_SMEM:
-        return "rows"
-    return None
+    ``bwd_route`` picks it: "cluster" (``bwd_cluster_kernel``), "rows"
+    (``bwd_kernel``) or None."""
+    return _route_by_plan(_cluster_plan, _rows_plan, att_kind,
+                          compute_dtype, T, D, A, E, H, V, C, W)
 
 
-def _cluster_bwd_slices(m: torch.Tensor, segments) -> torch.Tensor:
+def _cluster_slices(m: torch.Tensor, segments) -> torch.Tensor:
     """The CLUSTER_ROWS per-CTA slices of one product of the cluster
-    kernel. ``m`` [N, K] holds output column n's weights in row n (W_out
-    [H+D, V], att_q [H, A], [W_x; W_h] [E+D+H, 4H]); ``segments`` are the
-    (first row, width X) of its parts (h and ctx; h; emb, ctx and h). CTA
+    kernels. ``m`` [N, K] holds output column n's weights in row n (the
+    backward's W_out [H+D, V], att_q [H, A] and [W_x; W_h] [E+D+H, 4H];
+    the forward's [W_x; W_h]^T [4H, E+D+H] and att_q^T [A, H]);
+    ``segments`` are the (first row, width X) of its parts (h and ctx; h;
+    emb, ctx and h; the gates i, f, g and o; the query). CTA
     r owns columns [r*U, r*U + U) of each part, U = _cluster_units(X), in
     the order of the parts: N_r columns. Returns [R, K, N_r]: slice r,
     depth k, column n holds m[row of CTA r's column n, k], 0 where that
@@ -578,8 +627,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _launched(lib, rc: int, what: str, dims) -> None:
     if rc != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.las_decoder_error_string(rc).decode()} "
+        text = lib.las_decoder_error_string(rc, int(what == "las_decoder_fwd"))
+        raise RuntimeError(f"{what} launch failed: {text.decode()} "
                            f"(B,L,T,D,A,E,H,V,C,W = {dims})")
 
 
@@ -600,7 +649,9 @@ def las_decoder_fwd_kernel(tokens, coins, enc, enc_proj, enc_len, w: Weights,
     mode takes the filter [w,1,C], not the band), plus what K4-bwd reads
     instead of recomputing: (acts [B,L,4H], the gate activations sig(i),
     sig(f+1), tanh(g), sig(o) in w_x's column layout; q_seq [B,L,A], the
-    attention query with its bias)."""
+    attention query with its bias). The kernel is ``fwd_route``'s for the
+    shape, counted in ``.cluster_launches`` when it is
+    ``fwd_cluster_kernel``; a shape no kernel's plan fits raises."""
     dims = _check_kernel_args(tokens, coins, enc, enc_proj, enc_len, w,
                               compute_dtype, att_kind, loc_filter,
                               "las_decoder_fwd_kernel")
@@ -615,15 +666,24 @@ def las_decoder_fwd_kernel(tokens, coins, enc, enc_proj, enc_len, w: Weights,
     resid = (h_seq, c_seq, att_seq, ctx_seq, tok_seq)
     if B == 0 or L == 0:
         return logits, resid, (acts, q_seq)
+    route = fwd_route(att_kind, cd, T, D, A, E, H, V, C, W)
+    if route is None:
+        raise ValueError(f"no K4-fwd kernel's shared memory holds the shape "
+                         f"(B,L,T,D,A,E,H,V,C,W = {dims})")
     # The operands of the products go in the compute dtype, as the TPU
     # wrapper casts them; W_x and W_h stacked into one [E+D+H, 4H] matrix
-    # for the gate product over [emb; ctx; h].
+    # for the gate product over [emb; ctx; h], sliced by the CTAs' gate
+    # columns for the cluster kernel.
+    wcat, att_q = torch.cat([w.w_x, w.w_h], 0), w.att_q
+    if route == "cluster":
+        wcat = _cluster_slices(wcat.T, tuple((j * H, H) for j in range(4)))
+        att_q = _cluster_slices(att_q.T, ((0, A),))
     f32 = torch.float32
     ops = [_operand(tokens, torch.int32), _operand(coins, torch.uint8),
            _operand(enc_len, torch.int32), _operand(enc, cd),
            _operand(enc_proj, cd), _operand(w.embed, cd),
-           _operand(torch.cat([w.w_x, w.w_h], 0), cd), _operand(w.b_x, f32),
-           _operand(w.att_q, cd), _operand(w.att_b, f32),
+           _operand(wcat, cd), _operand(w.b_x, f32),
+           _operand(att_q, cd), _operand(w.att_b, f32),
            *_energy_operands(w, att_kind, loc_filter, cd),
            _operand(w.w_out, cd), _operand(w.b_out, f32)]
     outs = [logits, h_seq, c_seq, acts, q_seq, att_seq, ctx_seq, tok_seq]
@@ -632,13 +692,16 @@ def las_decoder_fwd_kernel(tokens, coins, enc, enc_proj, enc_len, w: Weights,
         rc = lib.las_decoder_fwd(
             *(_ptr(t) for t in ops + outs), B, L, T, D, A, E, H, V, C, W,
             MODES[att_kind], _scale(A), int(cd == torch.bfloat16),
+            int(route == "cluster"),
             torch.cuda.current_stream(dev).cuda_stream)
     _launched(lib, rc, "las_decoder_fwd", dims)
     _count(las_decoder_fwd_kernel, att_kind)
+    las_decoder_fwd_kernel.cluster_launches += route == "cluster"
     return logits, resid, (acts, q_seq)
 
 
 las_decoder_fwd_kernel.launches = 0
+las_decoder_fwd_kernel.cluster_launches = 0
 las_decoder_fwd_kernel.by_mode = dict.fromkeys(ATT_KINDS, 0)
 
 
@@ -691,9 +754,9 @@ def las_decoder_bwd_kernel(dlogits, resid, extras, enc, enc_proj, enc_len,
                              f"shape (B,L,T,D,A,E,H,V,C,W = {dims})")
         wcat = torch.cat([w.w_x, w.w_h], 0)
         if route == "cluster":
-            weights = (_cluster_bwd_slices(w.w_out, ((0, H), (H, D))),
-                       _cluster_bwd_slices(w.att_q, ((0, H),)),
-                       _cluster_bwd_slices(wcat, ((0, E), (E, D), (E + D, H))))
+            weights = (_cluster_slices(w.w_out, ((0, H), (H, D))),
+                       _cluster_slices(w.att_q, ((0, H),)),
+                       _cluster_slices(wcat, ((0, E), (E, D), (E + D, H))))
         else:
             # The transposed weights, so that each output column's weights
             # lie along the threads that own neighbouring columns.

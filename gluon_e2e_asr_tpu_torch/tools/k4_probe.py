@@ -5,28 +5,33 @@ D=640, E=256, H=A=320, V=32, C=10 channels of a width-100 filter).
 Run from the root of a checkout on a machine with the card and nvcc::
 
     python -m gluon_e2e_asr_tpu_torch.tools.k4_probe [--ablate] [--phases]
+        [--only fwd|bwd]
 
 For each (T', L) of the 4.0 s bucket (100, 81) and of bench.py's shape
 (320, 97), each mode and each compute dtype, one JSON line: the largest
 difference from the plain version of every output and cotangent over its
 largest magnitude, the kernels' times (CUDA events, mean of 5 runs after
-a warm-up: the wrapper's host work included), K4-bwd's device time
-(torch.profiler: its kernels alone), and both again in the design before
-its cluster kernel (the build variant ``K4B_CLUSTER 0``: ``bwd_kernel``,
-two rows a block) in the same process. The inputs are seeded: frame counts drawn
-uniformly in [1, T'], one row full and one with no frames.
+a warm-up: the wrapper's host work included), each direction's device
+time (torch.profiler: its kernels alone), and both again in the design
+before its cluster kernel (the build variants ``K4F_CLUSTER 0``:
+``fwd_kernel``, and ``K4B_CLUSTER 0``: ``bwd_kernel``, two rows a block)
+in the same process, and each direction at half the batch (48 rows: a
+second wave of clusters would show as a time that does not fall). The
+inputs are seeded: frame counts drawn uniformly in [1, T'], one row full
+and one with no frames. ``--only`` times one direction (the other still
+runs: K4-bwd reads K4-fwd's outputs).
 
-``--ablate`` also builds K4-bwd with one piece cut at a time (``CUTS``:
-each of the three exchanges, the cluster barriers, each product, the
-row's attention gradient, and the pieces of the energy phase; each such
+``--ablate`` also builds each cluster kernel with one piece cut at a time
+(``FWD_CUTS``: each of the forward's three exchanges, the cluster
+barriers, both products, the scores, the context, the logits and loc's
+feature; ``CUTS``: the backward's exchanges, barriers, products, the
+row's attention gradient and the pieces of the energy phase; each such
 build computes wrong results, only its time counts) and times each in
 bf16 beside the kernel as it is, in the same process: the time a piece
-costs is the difference. ``--phases`` builds the variant that counts
-SM cycles by phase (``K4B_TIMING 1``: thread 0 of the first CTA, after
-each phase's barrier) and gives each phase's share of a step and its
-microseconds a step (the share of the kernel's own time). Both also time
-K4-bwd at half the batch (48 rows): a second wave of clusters would show
-as a time that does not fall.
+costs is the difference. ``--phases`` builds the variants that count SM
+cycles by phase (``K4F_TIMING 1``, ``K4B_TIMING 1``: thread 0 of the
+first CTA, after each phase's barrier) and gives each phase's share of a
+step and its microseconds a step (the share of the kernel's own time).
 """
 
 from __future__ import annotations
@@ -46,10 +51,17 @@ from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
 
 B, D, E, H, A, V, C, W = 96, 640, 256, 320, 320, 32, 10, 100
 SHAPES = ((100, 81), (320, 97))
-# The build variant of the design before the cluster kernel, and the one
-# that counts cycles by phase.
+# The build variants of the designs before the cluster kernels, and the
+# ones that count cycles by phase.
+FWD_OLD_DESIGN = ("#define K4F_CLUSTER 1", "#define K4F_CLUSTER 0")
+FWD_TIMING = ("#define K4F_TIMING 0", "#define K4F_TIMING 1")
 OLD_DESIGN = ("#define K4B_CLUSTER 1", "#define K4B_CLUSTER 0")
 TIMING = ("#define K4B_TIMING 0", "#define K4B_TIMING 1")
+# fwd_cluster_kernel's phases, in the order K4F_PHASE counts them
+FWD_PHASES = ("embeddings", "gate product", "cells", "exchange 1",
+              "query product", "query sums + exchange 2",
+              "h copy / feature (loc)", "scores", "softmax", "context",
+              "logits", "argmax + token", "exchange 3")
 # bwd_cluster_kernel's phases, in the order K4B_PHASE counts them
 PHASES = ("inputs", "head product", "head sums + exchange 1",
           "attention gradient", "softmax backward",
@@ -73,10 +85,11 @@ CUTS = {
     "exchange 3 (dgates)": (
         "for (int k = tid; k < (kCl - 1) * mine; k += nt) {",
         "for (int k = tid; k < 0; k += nt) {", 1),
-    # the three split cluster barriers of a step as CTA barriers
+    # the three split cluster barriers of a step as CTA barriers (the
+    # forward's three too: each build times one direction)
     "cluster barriers": (
         "    port::cluster_arrive();\n    port::cluster_wait();\n",
-        "    __syncthreads();\n", 3),
+        "    __syncthreads();\n", 6),
     "head product": ("    cl_product<WT>(vh, V, wh, NH / 4, Sh, part);\n", "", 1),
     "query product": ("    cl_product<WT>(slot2, A, wq, HU / 4, Sq, part);\n", "", 1),
     "gates product": ("    cl_product<WT>(slot3, H4, wg, NX / 4, Sg, part);\n", "", 1),
@@ -108,6 +121,38 @@ CUTS = {
         "        loc_carry_row<WT>(dfct_s, filt_s, C, W, n, T, part, datt_c);\n",
         "", 1),
 }
+# The same for fwd_cluster_kernel.
+FWD_CUTS = {
+    # each exchange's stores into the other CTAs (exchanges 2 and 3: into
+    # this CTA's own slots instead)
+    "exchange 1 (h)": (
+        "for (int k = tid; k < (kCl - 1) * 2 * HU; k += nt) {",
+        "for (int k = tid; k < 0; k += nt) {", 1),
+    "exchange 2 (q)": (
+        "      *cluster.map_shared_rank(qs + m, r) = v;",
+        "      qs[m] = v;", 1),
+    "exchange 3 (ctx, token)": (
+        "for (int k = tid; k < kCl * D; k += nt) {",
+        "for (int k = tid; k < D; k += nt) {", 1),
+    "cluster barriers": CUTS["cluster barriers"],
+    "gate product": ("    cl_product<WT>(gcur, KX, wg, HU, Sg, part);\n", "", 1),
+    "query product": (
+        "    cl_product<WT>(gnext + (size_t)(E + D) * 4, H, wq, AU / 4, Sq, "
+        "part, KG);\n", "", 1),
+    "scores (dot)": (
+        "      frame_dots_row<WT>(encp, A, qs, n, T, sc, a.scale);\n", "", 1),
+    "energies (add, loc)": (
+        "      frame_energies<WT, MODE == kLoc, 1>(encp, 0, A, qs, v_s, "
+        "locp_s, f_s,\n", "      if (false) frame_energies<WT, MODE == kLoc, "
+        "1>(encp, 0, A, qs, v_s, locp_s, f_s,\n", 1),
+    "context": ("    gemv_rows<WT, 1>(sc, T, len_s, enc, 0, D, part);\n", "", 1),
+    "logits": ("    gemv_partials<WT, 1>(hc, 0, HD, w_out, V, part);\n", "", 1),
+    "feature (loc)": (
+        "\n      loc_feature_row<WT>(attp, filt_s, C, W, n, T, f_s);\n", "\n", 1),
+}
+# the cuts that apply to some modes only
+FWD_MODE_CUTS = {"scores (dot)": ("dot",), "energies (add, loc)": ("add", "loc"),
+                 "feature (loc)": ("loc",)}
 ENERGY_CUTS = ("d_enc_proj update", "feature product", "dfct sums",
                "sums over frames", "d_loc_proj sums", "feature convolution",
                "carry correlation")
@@ -155,7 +200,9 @@ def time_ms(fn, n: int = 5) -> float:
     return start.elapsed_time(end) / n
 
 
-# K4-bwd's kernels by name: its sweep (either design) and dot's d_enc_proj
+# K4's kernels by name: K4-fwd (either design), K4-bwd's sweep (either
+# design) and dot's d_enc_proj
+FWD_KERNELS = ("fwd_cluster_kernel", "fwd_kernel")
 SWEEP_KERNELS = ("bwd_cluster_kernel", "bwd_kernel")
 BWD_KERNELS = SWEEP_KERNELS + ("d_encp_kernel",)
 
@@ -212,28 +259,34 @@ def build_variants(out_dir: str, variants):
     return {name: ctypes.CDLL(p) for name, p in paths.items()}
 
 
-def time_with(lib, fn, route=None, timer=time_ms) -> float:
+def time_with(lib, fn, route=None, timer=time_ms, which="bwd") -> float:
     """fn's time (``timer``) with ``lib`` in place of the las_decoder
-    library (and ``route`` as K4-bwd's route: the old design's weight
-    layout)."""
-    saved, saved_route = _build._libs["las_decoder"], K.bwd_route
+    library (and ``route`` as the route of direction ``which``: the old
+    design's weight layout)."""
+    name = f"{which}_route"
+    saved, saved_route = _build._libs["las_decoder"], getattr(K, name)
     _build._libs["las_decoder"] = lib
     if route is not None:
-        K.bwd_route = lambda *a: route
+        setattr(K, name, lambda *a: route)
     try:
         return timer(fn)
     finally:
-        _build._libs["las_decoder"], K.bwd_route = saved, saved_route
+        _build._libs["las_decoder"] = saved
+        setattr(K, name, saved_route)
 
 
-def phases(lib, fn, L: int):
-    """Each phase's share of bwd_cluster_kernel's counted cycles in one
-    launch (the variant ``lib``), and its microseconds a step at the
-    sweep's device time in that variant."""
-    lib.las_decoder_bwd_phase_cycles.argtypes = [ctypes.c_void_p]
-    out = (ctypes.c_ulonglong * len(PHASES))()
+def phases(lib, fn, L: int, which="bwd"):
+    """Each phase's share of the cluster kernel's counted cycles in one
+    launch (the variant ``lib``; ``which``: fwd_cluster_kernel or
+    bwd_cluster_kernel), and its microseconds a step at the kernel's
+    device time in that variant."""
+    names, keys = (FWD_PHASES, FWD_KERNELS) if which == "fwd" else (
+        PHASES, SWEEP_KERNELS)
+    read = getattr(lib, f"las_decoder_{which}_phase_cycles")
+    read.argtypes = [ctypes.c_void_p]
+    out = (ctypes.c_ulonglong * len(names))()
     time_with(lib, fn)  # warm-up; then clear
-    lib.las_decoder_bwd_phase_cycles(out)
+    read(out)
     saved = _build._libs["las_decoder"]
     _build._libs["las_decoder"] = lib
     try:
@@ -241,14 +294,14 @@ def phases(lib, fn, L: int):
         torch.cuda.synchronize()
     finally:
         _build._libs["las_decoder"] = saved
-    rc = lib.las_decoder_bwd_phase_cycles(out)
+    rc = read(out)
     if rc != 0:
         raise RuntimeError(f"reading the phase cycles failed: {rc}")
     cycles = list(out)
     total = sum(cycles)
-    ms = time_with(lib, fn, timer=lambda f: device_ms(f, SWEEP_KERNELS))
+    ms = time_with(lib, fn, timer=lambda f: device_ms(f, keys))
     shares = {name: {"share": c / total, "us_per_step": c / total * ms * 1e3 / L}
-              for name, c in zip(PHASES, cycles)}
+              for name, c in zip(names, cycles)}
     # the first CTA's counted cycles over the sweep's device time: the SM
     # clock it ran at
     shares["sm_mhz"] = total / (ms * 1e3)
@@ -259,17 +312,27 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--ablate", action="store_true")
     p.add_argument("--phases", action="store_true")
+    p.add_argument("--only", choices=("fwd", "bwd"))
     args = p.parse_args(argv)
+    fwd_on, bwd_on = args.only != "bwd", args.only != "fwd"
     if not torch.cuda.is_available():
         raise SystemExit("k4_probe needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     _build.load_library("las_decoder")
-    variants = {"old design": (*OLD_DESIGN, 1)}
-    if args.ablate:
-        variants.update(CUTS)
-    if args.phases:
-        variants["phases"] = (*TIMING, 1)
+    variants = {}
+    if fwd_on:
+        variants["fwd old design"] = (*FWD_OLD_DESIGN, 1)
+        if args.ablate:
+            variants.update((f"fwd {k}", v) for k, v in FWD_CUTS.items())
+        if args.phases:
+            variants["fwd phases"] = (*FWD_TIMING, 1)
+    if bwd_on:
+        variants["old design"] = (*OLD_DESIGN, 1)
+        if args.ablate:
+            variants.update(CUTS)
+        if args.phases:
+            variants["phases"] = (*TIMING, 1)
     libs = build_variants(os.path.join(os.path.dirname(_build.BUILD_DIR),
                                        "k4_probe"), variants)
     card = subprocess.run(
@@ -296,31 +359,67 @@ def main(argv=None) -> None:
                     ("h", "c", "att", "ctx"), resid[:4], ref_resid[:4]))
                 errs.update((n, rel(got[n], want[n])) for n in want
                             if want[n] is not None)
-                n = K.las_decoder_bwd_kernel.cluster_launches
-                bwd = lambda: K.las_decoder_bwd_kernel(*bargs)  # noqa: E731
                 rec = {"T": T, "L": L, "kind": kind, "compute_dtype": str(cd),
-                       "rel_err": errs,
-                       "fwd_ms": time_ms(lambda: K.las_decoder_fwd_kernel(*fargs, filt)),
-                       "bwd_ms": time_ms(bwd),
-                       "bwd_ms_old_design": time_with(libs["old design"], bwd,
-                                                      "rows")}
-                rec["bwd_ms_again"] = time_ms(bwd)
-                rec["bwd_device_ms"] = device_ms(bwd)
-                rec["bwd_device_ms_old_design"] = time_with(
-                    libs["old design"], bwd, "rows", device_ms)
-                rec["bwd_cluster_launches"] = K.las_decoder_bwd_kernel.cluster_launches - n
-                half = (dl[:B // 2], tuple(t[:B // 2] for t in resid),
-                        tuple(t[:B // 2] for t in extras), enc[:B // 2],
-                        encp[:B // 2], lens[:B // 2], w, cd, kind, filt)
-                rec["bwd_ms_half_batch"] = time_ms(
-                    lambda: K.las_decoder_bwd_kernel(*half))
-                if args.phases:
-                    rec["phases"] = phases(libs["phases"], bwd, L)
-                if args.ablate and cd == torch.bfloat16:
-                    rec["bwd_ms_without"] = {
-                        name: time_with(libs[name], bwd) for name in CUTS
-                        if kind != "dot" or name not in ENERGY_CUTS}
+                       "rel_err": errs}
+                if fwd_on:
+                    rec.update(time_fwd(libs, fargs, filt, args, kind, cd, L))
+                if bwd_on:
+                    rec.update(time_bwd(libs, bargs, args, kind, cd, L))
                 print(json.dumps(rec), flush=True)
+
+
+def _half(t):
+    return t[:B // 2] if isinstance(t, torch.Tensor) else t
+
+
+def time_fwd(libs, fargs, filt, args, kind, cd, L):
+    """K4-fwd's times: the cluster kernel and the two-rows design in this
+    process, CUDA events and device time; at half the batch; by phase
+    and without each piece where asked."""
+    fn = K.las_decoder_fwd_kernel
+    n = fn.cluster_launches
+    fwd = lambda: fn(*fargs, filt)  # noqa: E731
+    dev = lambda f: device_ms(f, FWD_KERNELS)  # noqa: E731
+    old = libs["fwd old design"]
+    rec = {"fwd_ms": time_ms(fwd),
+           "fwd_ms_old_design": time_with(old, fwd, "rows", which="fwd"),
+           "fwd_ms_again": time_ms(fwd),
+           "fwd_device_ms": dev(fwd),
+           "fwd_device_ms_old_design": time_with(old, fwd, "rows", dev, "fwd")}
+    rec["fwd_cluster_launches"] = fn.cluster_launches - n
+    half = tuple(_half(t) for t in fargs)
+    rec["fwd_ms_half_batch"] = time_ms(lambda: fn(*half, filt))
+    if args.phases:
+        rec["fwd_phases"] = phases(libs["fwd phases"], fwd, L, "fwd")
+    if args.ablate and cd == torch.bfloat16:
+        rec["fwd_ms_without"] = {
+            name: time_with(libs[f"fwd {name}"], fwd) for name in FWD_CUTS
+            if kind in FWD_MODE_CUTS.get(name, K.ATT_KINDS)}
+    return rec
+
+
+def time_bwd(libs, bargs, args, kind, cd, L):
+    """K4-bwd's times, as time_fwd's."""
+    n = K.las_decoder_bwd_kernel.cluster_launches
+    bwd = lambda: K.las_decoder_bwd_kernel(*bargs)  # noqa: E731
+    rec = {"bwd_ms": time_ms(bwd),
+           "bwd_ms_old_design": time_with(libs["old design"], bwd, "rows")}
+    rec["bwd_ms_again"] = time_ms(bwd)
+    rec["bwd_device_ms"] = device_ms(bwd)
+    rec["bwd_device_ms_old_design"] = time_with(
+        libs["old design"], bwd, "rows", device_ms)
+    rec["bwd_cluster_launches"] = K.las_decoder_bwd_kernel.cluster_launches - n
+    dl, resid, extras, enc, encp, lens = bargs[:6]
+    half = (_half(dl), tuple(map(_half, resid)), tuple(map(_half, extras)),
+            _half(enc), _half(encp), _half(lens), *bargs[6:])
+    rec["bwd_ms_half_batch"] = time_ms(lambda: K.las_decoder_bwd_kernel(*half))
+    if args.phases:
+        rec["phases"] = phases(libs["phases"], bwd, L)
+    if args.ablate and cd == torch.bfloat16:
+        rec["bwd_ms_without"] = {
+            name: time_with(libs[name], bwd) for name in CUTS
+            if kind != "dot" or name not in ENERGY_CUTS}
+    return rec
 
 
 if __name__ == "__main__":

@@ -5,8 +5,10 @@ K4-bwd's 8-row clusters, a row with no frames, T' and V not multiples of
 anything, widths that leave the cluster's column slices padded, a filter
 wider than T'), K4-bwd's cluster kernel at the flagships' widths (the
 4.0 s bucket and T'=320), the kernel it takes by shape alone, its counts
-and its refusals, then the decoder's gradient on the card against the
-same function on the CPU.
+and its refusals, K4-fwd's cluster kernel the same way (ragged shapes:
+B=1, B not a multiple of 8, odd D and H; the flagships' widths; the
+route mirror; the refusals), then the decoder's gradient on the card
+against the same function on the CPU.
 
 Marked ``cuda``: these skip where there is no CUDA device. On a machine
 with the card and nvcc, run them with
@@ -324,3 +326,144 @@ def test_unknown_mode_and_oversized_shapes_raise(dev):
         wide, _ = _case(dev, 2, 3, 5, 12, A, 6, 8, 11, kind="add")
         with pytest.raises(ValueError, match="att_dim"):
             K.las_decoder_fwd_kernel(*wide, torch.float32, "add")
+
+
+# ---------------------------------------------------------------------------
+# K4-fwd's cluster kernel (fwd_cluster_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _forward(dev, dims, kind, cd, seed=0, **kw):
+    """K4-fwd on the card and the plain forward on the same inputs, the
+    gate activations and query recomputed from the plain residuals;
+    (kernel outputs, plain outputs, route, counts before), each output
+    (logits, h, c, att, ctx, acts, q) and the tokens."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
+
+    args, filt = _case(dev, *dims, seed=seed, kind=kind, **kw)
+    tokens, coins, enc, enc_proj, enc_len, w = args
+    fn = K.las_decoder_fwd_kernel
+    before = (fn.launches, fn.cluster_launches)
+    logits, resid, (acts, q) = fn(*args, cd, kind, filt)
+    ref, ref_resid = K.las_decoder_fwd_plain(*args, cd, kind,
+                                             _band(filt, dims[2]))
+    h, c, att, ctx, tok = ref_resid
+    r = lambda x: x.to(cd).float()  # noqa: E731
+    H = w.w_h.shape[0]
+    x = torch.cat([r(w.embed[tok.long()]), K._shift_right(ctx)], -1)
+    g = r(x) @ r(w.w_x) + w.b_x + r(K._shift_right(h)) @ r(w.w_h)
+    gi, gf, gg, go = torch.split(g, H, -1)
+    ref_acts = torch.cat([torch.sigmoid(gi), torch.sigmoid(gf + 1.0),
+                          torch.tanh(gg), torch.sigmoid(go)], -1)
+    ref_q = r(h) @ r(w.att_q) + w.att_b
+    torch.cuda.synchronize()
+    C, W = (filt.shape[2], filt.shape[0]) if filt is not None else (0, 0)
+    T, D, A, E = dims[2:6]
+    route = K.fwd_route(kind, cd, T, D, A, E, H, w.embed.shape[0], C, W)
+    return ((logits, *resid[:4], acts, q), resid[4], (ref, *ref_resid[:4],
+            ref_acts, ref_q), ref_resid[4], route, before)
+
+
+def _assert_forward_matches(got, tok, ref, ref_tok, cd):
+    assert torch.equal(tok.long(), ref_tok.long())
+    for name, a, b in zip(("logits", "h", "c", "att", "ctx", "acts", "q"),
+                          got, ref):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= REL[cd], (name, _rel(a, b))
+
+
+# B, L, T', D, A, E, H, V: one row (with no frames), B not a multiple of
+# 8, odd D and H (A a multiple of 4, as add and loc take it)
+RAGGED = [(1, 6, 15, 19, 12, 7, 13, 5), (11, 7, 13, 19, 8, 6, 11, 11),
+          (9, 5, 21, 33, 16, 9, 37, 7)]
+
+
+@pytest.mark.parametrize("kind", MODES)
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", RAGGED)
+def test_forward_cluster_kernel_on_ragged_shapes(dev, cd, dims, kind):
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
+
+    got, tok, ref, ref_tok, route, before = _forward(dev, dims, kind, cd)
+    fn = K.las_decoder_fwd_kernel
+    assert route == "cluster"
+    assert (fn.launches, fn.cluster_launches) == (before[0] + 1, before[1] + 1)
+    _assert_forward_matches(got, tok, ref, ref_tok, cd)
+    assert not got[3][-1].any()  # the row with no frames attends nowhere
+
+
+@pytest.mark.parametrize("kind", MODES)
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", FLAGSHIP_SHAPES)
+def test_forward_cluster_kernel_at_the_flagship_shapes(dev, cd, dims, kind):
+    """fwd_cluster_kernel at the flagships' widths (loc: C=10 channels of
+    a width-100 filter), within chip_smoke.py's TOL_DEC (REL here)."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
+
+    got, tok, ref, ref_tok, route, before = _forward(dev, dims, kind, cd,
+                                                     seed=5, C=10, W=100)
+    fn = K.las_decoder_fwd_kernel
+    assert route == "cluster"
+    assert fn.cluster_launches == before[1] + 1
+    _assert_forward_matches(got, tok, ref, ref_tok, cd)
+
+
+@pytest.mark.parametrize("kind", MODES)
+def test_a_shape_the_forward_cluster_plan_does_not_hold_takes_fwd_kernel(
+        dev, kind):
+    """E+D+H = 3000: the cluster kernel's two gate-input buffers outgrow
+    its plan, so the shape goes to fwd_kernel, by shape alone."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
+
+    got, tok, ref, ref_tok, route, before = _forward(
+        dev, (3, 5, 19, 2400, 8, 300, 300, 11), kind, torch.float32)
+    fn = K.las_decoder_fwd_kernel
+    assert route == "rows"
+    assert (fn.launches, fn.cluster_launches) == (before[0] + 1, before[1])
+    _assert_forward_matches(got, tok, ref, ref_tok, torch.float32)
+
+
+def test_forward_route_mirror_matches_the_library(dev):
+    """ops/las_decoder.py::fwd_route against the library's own choice,
+    over random shapes of every mode and dtype."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
+
+    lib = K._lib()
+    code = {"cluster": 1, "rows": 0, None: -1}
+    rng = np.random.RandomState(1)
+    seen = set()
+    for _ in range(500):
+        kind = MODES[rng.randint(3)]
+        cd = (torch.float32, torch.bfloat16)[rng.randint(2)]
+        loc = kind == "loc"
+        dims = (int(rng.randint(1, 700)), int(rng.randint(1, 2048)),
+                4 * int(rng.randint(1, 129)), int(rng.randint(1, 1024)),
+                int(rng.randint(1, 1025)), int(rng.randint(1, 30000)),
+                int(rng.randint(1, 17)) if loc else 0,
+                int(rng.randint(1, 200)) if loc else 0)
+        want = lib.las_decoder_fwd_route(K.MODES[kind], int(cd == torch.bfloat16),
+                                         *dims)
+        route = K.fwd_route(kind, cd, *dims)
+        assert code[route] == want, (kind, cd, dims)
+        seen.add(route)
+    assert seen == {"cluster", "rows", None}
+
+
+def test_forward_refusals_raise(dev):
+    """Nothing falls back: weights laid out for the other K4-fwd kernel
+    than the shape's, and no cluster fitting on the device, raise, naming
+    the forward's kernel."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as K
+
+    args, _ = _case(dev, 3, 7, 19, 12, 8, 6, 8, 11, kind="dot")
+    real = K.fwd_route
+    K.fwd_route = lambda *a: "rows"
+    try:
+        with pytest.raises(RuntimeError, match="other K4-fwd kernel"):
+            K.las_decoder_fwd_kernel(*args, torch.float32, "dot")
+    finally:
+        K.fwd_route = real
+    with pytest.raises(RuntimeError, match="8 CTAs of fwd_cluster_kernel"):
+        K._launched(K._lib(), -1, "las_decoder_fwd", (3, 7))
+    with pytest.raises(RuntimeError, match="8 CTAs of bwd_cluster_kernel"):
+        K._launched(K._lib(), -1, "las_decoder_bwd", (3, 7))

@@ -2,7 +2,7 @@
 bwd_cluster_kernel``) on the CPU: what of it can run without the card.
 
 - the wrapper's per-CTA weight slices (``ops/las_decoder.py::
-  _cluster_bwd_slices``) hold every weight once, where the kernel's
+  _cluster_slices``) hold every weight once, where the kernel's
   header says;
 - a torch emulation of one backward step in the kernel's decomposition:
   8 CTAs each owning one batch row and a slice of the H units, the D
@@ -64,7 +64,7 @@ def test_cluster_bwd_slices_hold_every_weight_once_where_the_header_says(
         segments, K_):
     N = sum(x for _, x in segments)
     m = torch.arange(1, N * K_ + 1, dtype=torch.float64).reshape(N, K_)
-    s = K._cluster_bwd_slices(m, segments)
+    s = K._cluster_slices(m, segments)
     widths = [K._cluster_units(x) for _, x in segments]
     Nr = sum(widths)
     assert s.shape == (R, K_, Nr) and s.is_contiguous()
@@ -161,9 +161,9 @@ class Cluster:
         self.dims = B, L, T, D, A, E, H, V
         self.HU, self.DU, self.EU = (K._cluster_units(x) for x in (H, D, E))
         wcat = torch.cat([self.w.w_x, self.w.w_h], 0)
-        self.sl_head = K._cluster_bwd_slices(self.w.w_out, ((0, H), (H, D)))
-        self.sl_query = K._cluster_bwd_slices(self.w.att_q, ((0, H),))
-        self.sl_gates = K._cluster_bwd_slices(wcat, ((0, E), (E, D), (E + D, H)))
+        self.sl_head = K._cluster_slices(self.w.w_out, ((0, H), (H, D)))
+        self.sl_query = K._cluster_slices(self.w.att_q, ((0, H),))
+        self.sl_gates = K._cluster_slices(wcat, ((0, E), (E, D), (E + D, H)))
         z = torch.zeros
         self.dh = z(R, R, self.HU)     # [CTA][row][its units]
         self.dc = z(R, R, self.HU)
@@ -518,16 +518,22 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_k4_probe_variants_find_their_text_in_the_source():
-    """Each build variant of tools/k4_probe.py (the old design, the cycle
-    counting, every cut) changes the text it names, as often as it says."""
+    """Each build variant of tools/k4_probe.py (each direction's old
+    design, its cycle counting and every cut) changes the text it names,
+    as often as it says."""
     from gluon_e2e_asr_tpu_torch import _build
     from gluon_e2e_asr_tpu_torch.tools import k4_probe
 
     with open(f"{_build.SRC_DIR}/las_decoder.cu") as f:
         src = f.read()
     variants = {"old design": (*k4_probe.OLD_DESIGN, 1),
-                "phases": (*k4_probe.TIMING, 1), **k4_probe.CUTS}
+                "phases": (*k4_probe.TIMING, 1), **k4_probe.CUTS,
+                "fwd old design": (*k4_probe.FWD_OLD_DESIGN, 1),
+                "fwd phases": (*k4_probe.FWD_TIMING, 1),
+                **{f"fwd {k}": v for k, v in k4_probe.FWD_CUTS.items()}}
     for name, (old, new, count) in variants.items():
         assert src.count(old) == count, name
         assert new != old, name
     assert len(k4_probe.PHASES) == 16
+    assert len(k4_probe.FWD_PHASES) == src.count("    K4F_PHASE(") == 13
+    assert set(k4_probe.FWD_MODE_CUTS) <= set(k4_probe.FWD_CUTS)
