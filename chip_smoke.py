@@ -22,8 +22,12 @@ each printing JSON lines:
    every length 1, odd widths); K1-fwd's bf16 projection (on wgmma)
    through its own entry against its plain twin at the flagship's three
    layers and ragged shapes (B=1 and T=1, every length 1, D=33 with
-   H=130, H=256), with round_xg off and on; K2 and K3 on a real training batch's
-   lattice, K4-fwd
+   H=130, H=256), with round_xg off and on; K2 and K3 (the warp design,
+   ``ctc_alpha_warp_kernel`` and ``ctc_beta_post_warp_kernel``, the only
+   kernels of the library) on a real training batch's lattice, at
+   bench.py's shape (T=320, S=193), B=1, T=1, S=641 and 1024 (several warps
+   a row) and a lattice with a row of length 0, an infeasible row and a
+   time mask that is not a prefix, K4-fwd
    and K4-bwd in dot mode in f32 and bf16 with the scheduled-sampling
    coins off and on, on that batch's labels and encoder lengths; then
    K4-fwd and K4-bwd in add and loc mode the same way at the shapes of
@@ -76,14 +80,18 @@ each printing JSON lines:
    beside the one PyTorch call that computes the same function where
    there is one (cuDNN's LSTM for K1, ``F.ctc_loss`` for K2/K3,
    ``torch.addmm`` for K1-fwd's projection), K1-bwd's recurrence alone
-   beside the whole call, K1-bwd's products through their own entry
+   beside the whole call, K2 and K3 also by their device time
+   (torch.profiler) and at bench.py's shape, with a trace of five calls of
+   each holding its kernel and no other device operation, K1-bwd's
+   products through their own entry
    beside cuBLAS on the same bf16 operands, K1-fwd's projection through
    its own entry beside ``torch.addmm`` on the same bf16 operands, K4 in
    its three modes, K5 and K6 beside the jnp path and ``torch.stft``, K7,
    the milestone 2 step and its frontend's share, the dot and loc hybrid
    train steps at the 4.0 s
    bucket and at bench.py's shape (B=96, 12.8 s, 96 labels), and a
-   torch.profiler breakdown of both at the latter by kernel;
+   torch.profiler breakdown of both at the latter by kernel, whose CTC
+   kernels must be one launch each of K2's and K3's warp kernels a step;
 9. beam search: the blessed tiny golden (read from its JAX checkpoint
    without JAX) decoded with ``--method beam`` through the decode CLI on
    the card must reproduce ``tests/goldens/golden_beam.jsonl``; and one
@@ -765,11 +773,15 @@ def main() -> None:
             "the timing; error: max abs over dx, dW_x, db, dW_h"),
         "ctc_alpha": ("ctc.cu",
                       "gluon_e2e_asr_tpu/ops/pallas_ctc.py:55",
-                      "T=100, B=96, S of a 4.0 s training batch; error over "
-                      "live cells"),
+                      "T=100, B=96, S of a 4.0 s training batch, through "
+                      "ctc_alpha_warp_kernel (3 warps a row); device_ms: "
+                      "torch.profiler, the kernel alone; bench_shape: T=320, "
+                      "S=193; error: max abs over live cells of phase 3's "
+                      "lattices"),
         "ctc_beta_post": ("ctc.cu",
                           "gluon_e2e_asr_tpu/ops/pallas_ctc.py:81",
-                          "T=100, B=96, S of a 4.0 s training batch"),
+                          "as K2, through ctc_beta_post_warp_kernel; error: "
+                          "max abs of post over phase 3's lattices"),
         "las_decoder_fwd": ("las_decoder.cu",
                             "gluon_e2e_asr_tpu/ops/pallas_decoder.py:161",
                             "dot attention, bf16, B=96, T'=100, L=81 (the 4.0 s "
@@ -854,6 +866,15 @@ def main() -> None:
             check(row["cluster_launches"] == row["launches"] > 0,
                   f"{row['name']}: {row['launches']} launches, "
                   f"{row['cluster_launches']} through {d}_cluster_kernel")
+    # K2's and K3's device time and their numbers at bench.py's shape
+    for name in ("ctc_alpha", "ctc_beta_post"):
+        row = next(r for r in rows if r["name"] == name)
+        detail = train_ms["ctc_detail"][name]
+        b_ms, b_by = bounds[f"{name}_bench"]
+        row["device_ms"] = detail["device_ms"]
+        row["bench_shape"] = dict(detail["bench_shape"],
+                                  library_ms=lib_ms[f"{name}_bench"],
+                                  bound_ms=b_ms, bound_by=b_by)
     next(r for r in rows if r["name"] == "bilstm_fwd_cluster")[
         "decode_launches"] = cluster_launches
     next(r for r in rows if r["name"] == "bilstm_fwd_projection")[
@@ -922,6 +943,59 @@ def real_ctc_batch(torch, config, dev):
     ext, skip, svalid, tmask = C._lattice(T, lens.to(dev), labels,
                                           label_lens, 0)
     return C._gather_states(logp, ext), tmask, skip, svalid, label_lens
+
+
+def bench_ctc_inputs(torch, config):
+    """bench.py's batch for the CTC loss (``synth_batch``: B=96, 12.8 s, 48
+    to 96 labels in 4..29) through the flagship's frame count and
+    subsampling (T=320): (seeded logits [B,T,32], encoder lengths, labels,
+    label lengths), on the CPU."""
+    from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
+
+    fc = config.frontend
+    b = synth_batch(config.data.batch_size, BENCH_SEC, BENCH_LABELS, SEED)
+    lens = num_frames(torch.from_numpy(b["audio_len"]), fc.win_length,
+                      fc.hop_length)
+    T = num_frames(b["audio"].shape[1], fc.win_length, fc.hop_length)
+    for f in config.model.enc_subsample:
+        lens, T = (lens + int(f) - 1) // int(f), -(-T // int(f))
+    rng = np.random.RandomState(SEED)
+    logits = torch.from_numpy(
+        rng.randn(len(lens), T, 32).astype(np.float32) * 3)
+    return (logits, lens.int(), torch.from_numpy(b["labels"]),
+            torch.from_numpy(b["label_len"]))
+
+
+def bench_ctc_batch(torch, config, dev):
+    """real_ctc_batch's tuple at bench.py's shape (T=320, B=96, S=193)."""
+    from gluon_e2e_asr_tpu_torch.ops import ctc as C
+
+    logits, lens, labels, label_lens = (
+        t.to(dev) for t in bench_ctc_inputs(torch, config))
+    ext, skip, svalid, tmask = C._lattice(logits.shape[1], lens, labels,
+                                          label_lens, 0)
+    return (C._gather_states(torch.log_softmax(logits, -1), ext), tmask,
+            skip, svalid, label_lens)
+
+
+def ctc_cases(torch, config, dev):
+    """Phase 3's lattices for K2 and K3, name -> real_ctc_batch's tuple:
+    the flagship's 4.0 s training batch, bench.py's shape, B=1, T=1,
+    ``tools/ctc_probe.py::lattice``'s rows of length 0, infeasible and
+    with a time mask that is not a prefix (B=8, rows 1-3), and S=641 and
+    1024 (three and four warps a row) over enough frames to reach every
+    state."""
+    from gluon_e2e_asr_tpu_torch.tools.ctc_probe import lattice
+
+    def probe(T, B, S):
+        emit_, tmask, skip, svalid, last = lattice(T, B, S, SEED, dev)
+        return emit_, tmask, skip, svalid, last // 2
+
+    return {"4.0 s batch": real_ctc_batch(torch, config, dev),
+            "bench.py": bench_ctc_batch(torch, config, dev),
+            "B=1": probe(100, 1, 161), "T=1": probe(1, 96, 161),
+            "hard rows": probe(100, 8, 161), "S=641": probe(400, 8, 641),
+            "S=1024": probe(520, 4, 1024)}
 
 
 def decoder_case(torch, config, dev, coin_p: float, seed: int = SEED,
@@ -1336,7 +1410,8 @@ def check_training_kernels(torch, config, shapes, dev, m2_config):
     rows in the cluster recurrences) and B=1 (serving's batch), K1-fwd's
     serving form too where phase 3's first loop does not take it, every
     K1-fwd and K1-bwd launch through its cluster kernel, and at the flagship's shapes the recurrence alone
-    against the plain sweep's dg; K2 and K3 on a real batch's lattice."""
+    against the plain sweep's dg; K2 and K3 on ctc_cases' lattices, each
+    call one launch of its kernel."""
     from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
     from gluon_e2e_asr_tpu_torch.ops import ctc as C
@@ -1428,31 +1503,49 @@ def check_training_kernels(torch, config, shapes, dev, m2_config):
                     errs["bilstm_bwd_cluster"].append(rec["dg"]["max_abs_err"])
             emit(rec)
 
-    emit_, tmask, skip, svalid, label_lens = real_ctc_batch(torch, config, dev)
-    alpha = C.ctc_alpha_kernel(emit_, tmask, skip, svalid)
-    alpha_p = C._alpha_plain(emit_, tmask, skip, svalid)
-    ll = C._log_likelihood(alpha_p, label_lens)
-    post = C.ctc_beta_post_kernel(emit_, tmask, skip, svalid, 2 * label_lens,
-                                  alpha_p, ll)
-    post_p = C._beta_post_plain(emit_, tmask, skip, svalid, 2 * label_lens,
-                                alpha_p, ll)
-    torch.cuda.synchronize()
-    live = alpha_p > -1e29
-    a_err = float((alpha - alpha_p)[live].abs().max())
-    a_rel = float(((alpha - alpha_p).abs() / alpha_p.abs().clamp(min=1.0))[live].max())
-    dead_ok = bool((alpha[~live] <= -1e29).all())
-    p_err = float((post - post_p).abs().max())
-    T, Bc, S = emit_.shape
-    emit({"phase": "kernel_check", "kernel": "ctc_alpha+ctc_beta_post",
-          "T": T, "B": Bc, "S": S, "alpha_max_abs_err_live": a_err,
-          "alpha_max_rel_err_live": a_rel, "alpha_dead_cells_agree": dead_ok,
-          "post_max_abs_err": p_err, "tol_alpha_rel": TOL_ALPHA_REL,
-          "tol_post": TOL_POST})
-    check(a_rel <= TOL_ALPHA_REL and dead_ok,
-          f"ctc_alpha disagrees with its plain version: {a_rel}")
-    check(p_err <= TOL_POST,
-          f"ctc_beta_post disagrees with its plain version: {p_err}")
-    errs["ctc_alpha"], errs["ctc_beta_post"] = a_err, p_err
+    errs["ctc_alpha"], errs["ctc_beta_post"] = 0.0, 0.0
+    for name, (emit_, tmask, skip, svalid, label_lens) in ctc_cases(
+            torch, config, dev).items():
+        last = 2 * label_lens
+        n_a = C.ctc_alpha_kernel.launches
+        n_b = C.ctc_beta_post_kernel.launches
+        alpha = C.ctc_alpha_kernel(emit_, tmask, skip, svalid)
+        alpha_p = C._alpha_plain(emit_, tmask, skip, svalid)
+        ll = C._log_likelihood(alpha_p, label_lens)
+        post = C.ctc_beta_post_kernel(emit_, tmask, skip, svalid, last,
+                                      alpha_p, ll)
+        post_p = C._beta_post_plain(emit_, tmask, skip, svalid, last,
+                                    alpha_p, ll)
+        torch.cuda.synchronize()
+        launched = (C.ctc_alpha_kernel.launches - n_a,
+                    C.ctc_beta_post_kernel.launches - n_b)
+        live = alpha_p > -1e29
+        diff = (alpha - alpha_p).abs()
+        a_err = float(diff[live].max()) if bool(live.any()) else 0.0
+        a_rel = float((diff / alpha_p.abs().clamp(min=1.0))[live].max()) \
+            if bool(live.any()) else 0.0
+        dead_ok = bool((alpha[~live] <= -1e29).all())
+        p_err = float((post - post_p).abs().max())
+        finite = bool(torch.isfinite(post).all())
+        T, Bc, S = emit_.shape
+        emit({"phase": "kernel_check", "kernel": "ctc_alpha+ctc_beta_post",
+              "lattice": name, "T": T, "B": Bc, "S": S,
+              "plan_k_W_smem": C.warp_plan(T, S),
+              "rows_of_length_0": int((~tmask.any(0)).sum()),
+              "alpha_max_abs_err_live": a_err,
+              "alpha_max_rel_err_live": a_rel, "alpha_dead_cells_agree": dead_ok,
+              "post_max_abs_err": p_err, "post_finite": finite,
+              "launches": launched, "tol_alpha_rel": TOL_ALPHA_REL,
+              "tol_post": TOL_POST})
+        check(a_rel <= TOL_ALPHA_REL and dead_ok,
+              f"ctc_alpha disagrees with its plain version at {name}: {a_rel}")
+        check(p_err <= TOL_POST and finite,
+              f"ctc_beta_post disagrees with its plain version at {name}: "
+              f"{p_err}")
+        check(launched == (1, 1), f"K2/K3 at {name} did not launch their "
+                                  f"kernels once each: {launched}")
+        errs["ctc_alpha"] = max(errs["ctc_alpha"], a_err)
+        errs["ctc_beta_post"] = max(errs["ctc_beta_post"], p_err)
     return errs
 
 
@@ -1656,8 +1749,7 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     ``extra`` overrides), for ``steps`` steps or TRAIN_EPOCHS epochs:
     every kernel of the path launched (K4 in the config's attention mode
     on every step, every K4-fwd and K4-bwd launch through its cluster
-    kernel) and no
-    plain version; with ``ctc_only``,
+    kernel) and no plain version; with ``ctc_only``,
     ``loss.mtl_alpha=1.0`` and a greedy dev evaluation (a model without a
     decoder has no beam), and K4 not launched. Each epoch's dev evaluation
     decodes as the config's ``decode.method`` says. The frontend kernel
@@ -1825,7 +1917,6 @@ def train_timing(torch, trainer, shapes, dev, card):
     """Phase 8: CUDA-event timings of the training kernels and steps, and
     a torch.profiler breakdown of the step at bench.py's shape."""
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
-    from gluon_e2e_asr_tpu_torch.ops import ctc as C
     from gluon_e2e_asr_tpu_torch.ops import las_decoder as LD
     from gluon_e2e_asr_tpu_torch.training.train_step import (
         TrainState, batch_to_device, make_train_step)
@@ -1873,23 +1964,7 @@ def train_timing(torch, trainer, shapes, dev, card):
     out["bilstm_bwd"] = (sums["kernel"], sums["plain"])
     out["bilstm_bwd_cluster"] = (sums["recur"], sums["recur_plain"])
 
-    emit_, tmask, skip, svalid, label_lens = real_ctc_batch(torch, trainer.config, dev)
-    alpha = C.ctc_alpha_kernel(emit_, tmask, skip, svalid)
-    ll = C._log_likelihood(alpha, label_lens)
-    last = 2 * label_lens
-    out["ctc_alpha"] = (
-        time_ms(torch, lambda: C.ctc_alpha_kernel(emit_, tmask, skip, svalid)),
-        time_ms(torch, lambda: C._alpha_plain(emit_, tmask, skip, svalid)))
-    out["ctc_beta_post"] = (
-        time_ms(torch, lambda: C.ctc_beta_post_kernel(
-            emit_, tmask, skip, svalid, last, alpha, ll)),
-        time_ms(torch, lambda: C._beta_post_plain(
-            emit_, tmask, skip, svalid, last, alpha, ll)))
-    T, Bc, S = emit_.shape
-    for name in ("ctc_alpha", "ctc_beta_post"):
-        emit({"phase": "timing", "what": name, "T": T, "B": Bc, "S": S,
-              "kernel_ms": out[name][0], "plain_ms": out[name][1],
-              "card": card})
+    out.update(ctc_timing(torch, config, dev, card))
 
     args, _, _ = decoder_case(torch, config, dev, 0.0)
     bf = torch.bfloat16
@@ -1914,6 +1989,55 @@ def train_timing(torch, trainer, shapes, dev, card):
               "plain_ms": out[name][1], "plain_runs": 5, "card": card})
 
     out["step_4s"], out["step_12s"] = step_timing(torch, trainer, dev, card)
+    return out
+
+
+def ctc_timing(torch, config, dev, card):
+    """Phase 8 for K2 and K3 at the 4.0 s batch and at bench.py's shape:
+    the call (CUDA events, the wrapper's host work included), the
+    kernel's device time (torch.profiler) and the plain version; and a
+    trace of one call of each at the 4.0 s batch, which must hold its
+    warp kernel and no other device operation. Returns {name: (ms, plain
+    ms)} at the 4.0 s batch and, under "ctc_detail", each kernel's device
+    time and its numbers at bench.py's shape."""
+    from gluon_e2e_asr_tpu_torch.ops import ctc as C
+    from gluon_e2e_asr_tpu_torch.tools.ctc_probe import device_ms, one_call
+
+    out = {"ctc_detail": {"ctc_alpha": {}, "ctc_beta_post": {}}}
+    for shape, batch in (("4.0 s bucket", real_ctc_batch(torch, config, dev)),
+                         ("bench.py", bench_ctc_batch(torch, config, dev))):
+        emit_, tmask, skip, svalid, label_lens = batch
+        alpha = C.ctc_alpha_kernel(emit_, tmask, skip, svalid)
+        ll = C._log_likelihood(alpha, label_lens)
+        last = 2 * label_lens
+        fns = {"ctc_alpha": (
+                   lambda: C.ctc_alpha_kernel(emit_, tmask, skip, svalid),
+                   lambda: C._alpha_plain(emit_, tmask, skip, svalid)),
+               "ctc_beta_post": (
+                   lambda: C.ctc_beta_post_kernel(emit_, tmask, skip, svalid,
+                                                  last, alpha, ll),
+                   lambda: C._beta_post_plain(emit_, tmask, skip, svalid,
+                                              last, alpha, ll))}
+        T, Bc, S = emit_.shape
+        for name, (kernel, plain) in fns.items():
+            rec = {"ms": time_ms(torch, kernel),
+                   "device_ms": device_ms(kernel, (name,)),
+                   "plain_ms": time_ms(torch, plain)}
+            detail = out["ctc_detail"][name]
+            line = {"phase": "timing", "what": name, "shape": shape, "T": T,
+                    "B": Bc, "S": S, "kernel_ms": rec["ms"],
+                    "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+                    "plan_k_W_smem": C.warp_plan(T, S), "card": card}
+            if shape == "bench.py":
+                detail["bench_shape"] = dict(rec, T=T, B=Bc, S=S)
+            else:
+                out[name] = (rec["ms"], rec["plain_ms"])
+                detail["device_ms"] = rec["device_ms"]
+                events = one_call(kernel)
+                line["device_ops_of_5_calls"] = events
+                check(len(events) == 1 and f"{name}_warp_kernel" in events[0][0],
+                      f"a {name} call ran more than its kernel: {events}")
+            emit(line)
     return out
 
 
@@ -2280,7 +2404,8 @@ def library_timing(torch, config, shapes, dev, card):
     K1-fwd (forward, summed over the 3 layer shapes) and K1-bwd (its
     backward alone); torch.addmm on bf16 operands for K1-fwd's projection
     (``bilstm_fwd_projection``); F.ctc_loss for K2 (forward) and K3
-    (backward alone), on K2/K3's lattice. K4 has none; K1-bwd's products
+    (backward alone), on K2/K3's lattice, at the 4.0 s batch and (keys
+    ``<name>_bench``) at bench.py's shape. K4 has none; K1-bwd's products
     are timed beside cuBLAS in products_timing."""
     import torch.nn.functional as F
     from torch.nn.utils.rnn import pack_padded_sequence
@@ -2330,20 +2455,26 @@ def library_timing(torch, config, shapes, dev, card):
     rng = np.random.RandomState(SEED)
     logits = torch.from_numpy(
         rng.randn(b.audio.shape[0], T, tok.vocab_size).astype(np.float32) * 3)
-    lp = torch.log_softmax(logits.to(dev), -1).transpose(0, 1).detach() \
-        .requires_grad_(True)
-    ctc = dict(targets=torch.from_numpy(b.labels).to(dev).long(),
-               input_lengths=lens.to(dev).long(),
-               target_lengths=torch.from_numpy(b.label_len).to(dev).long(),
-               blank=0, reduction="none", zero_infinity=True)
-    with torch.no_grad():
-        out["ctc_alpha"] = time_ms(torch, lambda: F.ctc_loss(lp, **ctc))
-    loss = F.ctc_loss(lp, **ctc).sum()
-    out["ctc_beta_post"] = time_ms(torch, lambda: loss.backward(retain_graph=True))
-    emit({"phase": "library_timing", "what": "F.ctc_loss", "T": T,
-          "B": int(b.audio.shape[0]), "V": tok.vocab_size,
-          "fwd_ms": out["ctc_alpha"], "bwd_ms": out["ctc_beta_post"],
-          "card": card})
+    cases = {"": (logits, lens, torch.from_numpy(b.labels),
+                  torch.from_numpy(b.label_len)),
+             "_bench": bench_ctc_inputs(torch, config)}
+    for sfx, (logits, lens, labels, label_lens) in cases.items():
+        lp = torch.log_softmax(logits.to(dev), -1).transpose(0, 1).detach() \
+            .requires_grad_(True)
+        ctc = dict(targets=labels.to(dev).long(),
+                   input_lengths=lens.to(dev).long(),
+                   target_lengths=label_lens.to(dev).long(),
+                   blank=0, reduction="none", zero_infinity=True)
+        with torch.no_grad():
+            out["ctc_alpha" + sfx] = time_ms(torch, lambda: F.ctc_loss(lp, **ctc))
+        loss = F.ctc_loss(lp, **ctc).sum()
+        out["ctc_beta_post" + sfx] = time_ms(
+            torch, lambda: loss.backward(retain_graph=True))
+        emit({"phase": "library_timing", "what": "F.ctc_loss",
+              "shape": "bench.py" if sfx else "4.0 s bucket",
+              "T": int(logits.shape[1]), "B": int(logits.shape[0]),
+              "V": int(logits.shape[2]), "fwd_ms": out["ctc_alpha" + sfx],
+              "bwd_ms": out["ctc_beta_post" + sfx], "card": card})
     return out
 
 
@@ -2428,8 +2559,12 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     for each timed call, from this run's inputs: the operations over the
     peak rate of their type (bf16 products for K1 and K4; f32 for the CTC
     recursions, about 10 operations a live lattice cell: 3 exp, 1 log, the
-    max and the adds), or each input read once and each output written
-    once over the memory rate, whichever is larger.
+    max and the adds; K3 12), or each input read once and each output
+    written once over the memory rate, whichever is larger. K2 and K3 at
+    the 4.0 s batch and (``<name>_bench``) at bench.py's shape: the
+    emission table in and alpha out (K3: emission and alpha in, post
+    out), the time mask, allow_skip and state_valid (bytes), K3 also
+    last_state and ll.
 
     Only what the TPU function reads and writes is counted, not the
     buffers the port saves for its own backward (K1's and K4's gate
@@ -2517,13 +2652,16 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     out["bilstm_fwd_cluster"], out["bilstm_fwd_projection"] = k1fr, k1fp
     out["bilstm_bwd_cluster"], out["bilstm_bwd_products"] = k1r, k1p
 
-    emit_, tmask, skip, svalid, label_lens = real_ctc_batch(torch, config, "cpu")
-    T, Bc, S = emit_.shape
-    live = float((tmask.T[:, :, None] & svalid[:, None, :]).sum())
-    table = f4 * T * Bc * S
-    masks = T * Bc * 2 + Bc * S * 3
-    out["ctc_alpha"] = _bound(10 * live, PEAK_F32, 2 * table + masks)
-    out["ctc_beta_post"] = _bound(12 * live, PEAK_F32, 3 * table + masks + f4 * Bc)
+    for sfx, batch in (("", real_ctc_batch(torch, config, "cpu")),
+                       ("_bench", bench_ctc_batch(torch, config, "cpu"))):
+        emit_, tmask, skip, svalid, label_lens = batch
+        T, Bc, S = emit_.shape
+        live = float((tmask.T[:, :, None] & svalid[:, None, :]).sum())
+        table = f4 * T * Bc * S
+        masks = T * Bc + Bc * S * 2  # time_mask, allow_skip, state_valid
+        out["ctc_alpha" + sfx] = _bound(10 * live, PEAK_F32, 2 * table + masks)
+        out["ctc_beta_post" + sfx] = _bound(12 * live, PEAK_F32,
+                                            3 * table + masks + 2 * f4 * Bc)
 
     out["las_decoder_fwd"], out["las_decoder_bwd"] = k4_bounds(torch, config, "dot")
 
@@ -2566,7 +2704,8 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
 
 def profile_step(torch, fn, card, att="dot", steps=3):
     """torch.profiler over ``steps`` train steps: device time by kernel
-    and the device's idle share of the window's wall time."""
+    and the device's idle share of the window's wall time. The step's CTC
+    kernels must be K2's and K3's warp kernels, one launch each a step."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2598,8 +2737,19 @@ def profile_step(torch, fn, card, att="dot", steps=3):
           "by_kernel": [{"kernel": k[:120], "ms_per_step": ms,
                          "launches_per_step": n, "share": ms / busy}
                         for k, ms, n in rows[:15]],
+          # K2 and K3, wherever they rank
+          "ctc": [{"kernel": k[:120], "ms_per_step": ms,
+                   "launches_per_step": n, "share": ms / busy,
+                   "share_of_wall": ms / wall}
+                  for k, ms, n in rows if "ctc_" in k],
           "card": card})
     check(busy > 0, "the profiler saw no device time")
+    ctc = sorted((k, n) for k, _, n in rows if "ctc_" in k)
+    check(len(ctc) == 2 and all(n == 1 for _, n in ctc)
+          and "ctc_alpha_warp_kernel" in ctc[0][0]
+          and "ctc_beta_post_warp_kernel" in ctc[1][0],
+          f"the step's CTC kernels are not one launch each of the warp "
+          f"kernels: {ctc}")
 
 
 if __name__ == "__main__":

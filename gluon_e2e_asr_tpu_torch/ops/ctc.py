@@ -12,7 +12,11 @@ softmax(logits) - posterior. Each recursion has two versions:
   the TPU kernels' formulas. The CPU path, and the references the
   kernels are held against on the card.
 - ``ctc_alpha_kernel`` / ``ctc_beta_post_kernel``: ``csrc/ctc.cu``,
-  one block per utterance and one thread per state.
+  a row of S states on one block of W = ceil(S / (32 KMAX)) warps with
+  the lattice states in registers, the warps' boundary states exchanged
+  through shared memory with one barrier a step, table rows prefetched,
+  the masks derived in the kernel; the wrapper launches the kernel and
+  no other device operation.
 
 ``ctc_alpha`` and ``ctc_beta_post`` dispatch on the device (``_route``):
 the plain version for a CPU tensor, the kernel for a CUDA tensor,
@@ -30,7 +34,12 @@ import torch
 from gluon_e2e_asr_tpu_torch import _build
 
 NEG_INF = -1e30
-MAX_STATES = 1024  # one thread per lattice state in the kernels
+MAX_STATES = 1024  # the kernels' largest lattice
+# csrc/ctc.cu's CTC_KMAX (lattice states a lane at most) and CTC_DEPTH
+# (steps prefetched): warp_plan mirrors its ctc_warp_plan.
+KMAX = 2
+DEPTH = 4
+_MAX_SMEM = 232448  # a block's dynamic shared memory on sm_90
 
 
 def _expand_labels(labels: torch.Tensor, blank_id: int) -> torch.Tensor:
@@ -151,15 +160,30 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library("ctc")
     if lib.ctc_alpha.argtypes is None:
         # Without argtypes ctypes passes each pointer as a 32-bit int.
-        lib.ctc_alpha.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
+        ints = [ctypes.c_int] * 5
+        lib.ctc_alpha.argtypes = [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
         lib.ctc_alpha.restype = ctypes.c_int
-        lib.ctc_beta_post.argtypes = [ctypes.c_void_p] * 9 \
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.ctc_beta_post.argtypes = [ctypes.c_void_p] * 8 + ints \
+            + [ctypes.c_void_p]
         lib.ctc_beta_post.restype = ctypes.c_int
+        lib.ctc_plan.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.ctc_plan.restype = ctypes.c_int
         lib.ctc_error_string.argtypes = [ctypes.c_int]
         lib.ctc_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def warp_plan(T: int, S: int):
+    """(k, W, smem): the kernels' launch for a [T,B,S] lattice, one block
+    a batch row, as ``csrc/ctc.cu::ctc_warp_plan`` picks it by shape
+    alone: k lattice states a lane, W warps a row, and the block's dynamic
+    shared memory in bytes (the boundary slots, 16 W; the prefetch ring,
+    two tables' rows of DEPTH + 1 steps, 32 W k floats each; and the
+    time-mask column, T padded to 16)."""
+    W = -(-S // (32 * KMAX))
+    k = -(-S // (32 * W))
+    smem = 16 * W + 2 * (DEPTH + 1) * 128 * W * k + -(-T // 16) * 16
+    return k, W, smem
 
 
 def _kernel_shape(emit: torch.Tensor, who: str):
@@ -171,40 +195,77 @@ def _kernel_shape(emit: torch.Tensor, who: str):
     T, B, S = emit.shape
     if S > MAX_STATES:
         raise ValueError(f"{S} lattice states exceed the kernel's "
-                         f"{MAX_STATES} (one thread per state)")
+                         f"{MAX_STATES}")
     return T, B, S
 
 
-def _u8(t: torch.Tensor, shape, dev) -> torch.Tensor:
+def _mask(t: torch.Tensor, shape, dev) -> torch.Tensor:
+    """A bool (or uint8) mask as the kernels' uint8 bytes: a view of the
+    same storage, no copy."""
     if tuple(t.shape) != tuple(shape) or t.device != dev:
         raise ValueError(f"mask of shape {tuple(t.shape)} on {t.device}, "
                          f"expected {tuple(shape)} on {dev}")
-    return t.to(torch.uint8).contiguous()
+    if t.dtype == torch.bool:
+        t = t.view(torch.uint8)
+    elif t.dtype != torch.uint8:
+        raise ValueError(f"masks are bool or uint8, got {t.dtype}")
+    return t.contiguous()
 
 
-def _launched(lib, rc: int, what: str, T, B, S) -> None:
+def _alpha_args(emit, time_mask, allow_skip, state_valid):
+    """K2's operands in the C entry's order: emit, time_mask [T,B],
+    allow_skip, state_valid [B,S] (masks as uint8 views)."""
+    T, B, S = emit.shape
+    dev = emit.device
+    return (emit.contiguous(), _mask(time_mask, (T, B), dev),
+            _mask(allow_skip, (B, S), dev), _mask(state_valid, (B, S), dev))
+
+
+def _beta_args(emit, time_mask, allow_skip, state_valid, last_state, alpha,
+               ll):
+    """K3's operands in the C entry's order: K2's, then last_state [B]
+    int32, alpha [T,B,S] and ll [B] f32 (each as it is where it already
+    has that type and layout)."""
+    T, B, S = emit.shape
+    if (tuple(alpha.shape) != (T, B, S) or tuple(ll.shape) != (B,)
+            or tuple(last_state.shape) != (B,)):
+        raise ValueError(f"alpha {tuple(alpha.shape)} / ll {tuple(ll.shape)} "
+                         f"/ last_state {tuple(last_state.shape)} do not "
+                         f"match emit {tuple(emit.shape)}")
+    dev = emit.device
+    if alpha.device != dev or ll.device != dev or last_state.device != dev:
+        raise ValueError(f"alpha, ll and last_state must be on {dev}")
+    return (*_alpha_args(emit, time_mask, allow_skip, state_valid),
+            last_state.to(torch.int32).contiguous(),
+            alpha.to(torch.float32).contiguous(),
+            ll.to(torch.float32).contiguous())
+
+
+def _launch(entry: str, ops, out, T, B, S) -> None:
+    k, W, smem = warp_plan(T, S)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"ctc: the plan's {smem} bytes of shared memory "
+                         f"(T={T}, S={S}) do not fit a block")
+    lib = _lib()
+    dev = out.device
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            *(o.data_ptr() for o in ops), out.data_ptr(), T, B, S, k, W,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{what} launch failed: "
+        raise RuntimeError(f"{entry} launch failed: "
                            f"{lib.ctc_error_string(rc).decode()} "
-                           f"(T={T} B={B} S={S})")
+                           f"(T={T} B={B} S={S}, plan k={k} W={W})")
 
 
 def ctc_alpha_kernel(emit, time_mask, allow_skip, state_valid):
     """K2 on the card; the contract of ``_alpha_plain``."""
     T, B, S = _kernel_shape(emit, "ctc_alpha_kernel")
-    dev = emit.device
-    alpha = torch.empty_like(emit)
+    ops = _alpha_args(emit, time_mask, allow_skip, state_valid)
+    alpha = torch.empty_like(ops[0])
     if T == 0 or B == 0 or S == 0:
         return alpha
-    tm = _u8(time_mask, (T, B), dev)
-    sk, sv = _u8(allow_skip, (B, S), dev), _u8(state_valid, (B, S), dev)
-    emit = emit.contiguous()
-    lib = _lib()
-    with torch.cuda.device(dev):
-        rc = lib.ctc_alpha(emit.data_ptr(), tm.data_ptr(), sk.data_ptr(),
-                           sv.data_ptr(), alpha.data_ptr(), T, B, S,
-                           torch.cuda.current_stream(dev).cuda_stream)
-    _launched(lib, rc, "ctc_alpha", T, B, S)
+    _launch("ctc_alpha", ops, alpha, T, B, S)
     ctc_alpha_kernel.launches += 1
     return alpha
 
@@ -216,27 +277,12 @@ def ctc_beta_post_kernel(emit, time_mask, allow_skip, state_valid,
                          last_state, alpha, ll):
     """K3 on the card; the contract of ``_beta_post_plain``."""
     T, B, S = _kernel_shape(emit, "ctc_beta_post_kernel")
-    dev = emit.device
-    post = torch.empty_like(emit)
+    ops = _beta_args(emit, time_mask, allow_skip, state_valid, last_state,
+                     alpha, ll)
+    post = torch.empty_like(ops[0])
     if T == 0 or B == 0 or S == 0:
         return post
-    skipf2, finalok, is_last = _beta_inputs(time_mask, allow_skip, last_state)
-    masks = [_u8(time_mask, (T, B), dev), _u8(is_last, (T, B), dev),
-             _u8(skipf2, (B, S), dev), _u8(state_valid, (B, S), dev),
-             _u8(finalok, (B, S), dev)]
-    if alpha.shape != emit.shape or ll.shape != (B,):
-        raise ValueError(f"alpha {tuple(alpha.shape)} / ll {tuple(ll.shape)} "
-                         f"do not match emit {tuple(emit.shape)}")
-    emit = emit.contiguous()
-    alpha = alpha.to(torch.float32).contiguous()
-    ll = ll.to(torch.float32).contiguous()
-    lib = _lib()
-    with torch.cuda.device(dev):
-        rc = lib.ctc_beta_post(
-            emit.data_ptr(), *(m.data_ptr() for m in masks), alpha.data_ptr(),
-            ll.data_ptr(), post.data_ptr(), T, B, S,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _launched(lib, rc, "ctc_beta_post", T, B, S)
+    _launch("ctc_beta_post", ops, post, T, B, S)
     ctc_beta_post_kernel.launches += 1
     return post
 
