@@ -37,7 +37,10 @@ each printing JSON lines:
    K4-fwd and K4-bwd call through its cluster kernel
    (``fwd_cluster_kernel``, ``bwd_cluster_kernel``); K5 and
    K6 (the fused frontend) at milestone 2's two buckets, the flagship's
-   4.0 s bucket and bench.py's shape, in every CMVN mode, eval and train;
+   4.0 s bucket and bench.py's shape, on a batch of hard audio (tones,
+   digital silence, a -60 dB stretch) at milestone 2's 4.0 s bucket, all
+   through ``fft_kernel``, and with n_fft = 400 through
+   ``spectral_kernel``, in every CMVN mode, eval and train;
    K7-fwd and K7-bwd (the v1 layer) at the flagship's layer-0 shape in
    f32 and bf16; P1's two variants (``l2``, ``cluster``) and cuDNN's
    LSTM against P1's plain version at (M, N) = (96, 2) and (256, 4),
@@ -67,8 +70,9 @@ each printing JSON lines:
    and each epoch's dev evaluation through the beam as shipped (K=10,
    ctc_weight 0.3); a few steps of it with add attention; milestone 2
    (``configs/milestone2_fused_frontend.yaml``, K5 on every step and dev
-   batch) for two epochs and a greedy decode of its checkpoint, and a few
-   steps with ``frontend.impl=pallas_regrid`` (K6); the tiny golden
+   batch, every launch through ``fft_kernel``) for two epochs and a
+   greedy decode of its checkpoint, and a few steps with
+   ``frontend.impl=pallas_regrid`` (K6, the same); the tiny golden
    decoded greedily through K5 (``golden_greedy.jsonl``, 16/16); and K7's
    own path, ``bilstm_pallas`` forward and backward;
 7. training reference: one hybrid step of the trained dot and loc models
@@ -86,7 +90,9 @@ each printing JSON lines:
    products through their own entry
    beside cuBLAS on the same bf16 operands, K1-fwd's projection through
    its own entry beside ``torch.addmm`` on the same bf16 operands, K4 in
-   its three modes, K5 and K6 beside the jnp path and ``torch.stft``, K7,
+   its three modes, K5 and K6 (also by their device time, with a trace
+   of five calls holding ``fft_kernel`` and no other device operation)
+   beside the jnp path and ``torch.stft``, K7,
    the milestone 2 step and its frontend's share, the dot and loc hybrid
    train steps at the 4.0 s
    bucket and at bench.py's shape (B=96, 12.8 s, 96 labels), and a
@@ -383,19 +389,24 @@ def reset_counts() -> None:
             f.by_mode.update(dict.fromkeys(f.by_mode, 0))
         if hasattr(f, "cluster_launches"):
             f.cluster_launches = 0
+        if hasattr(f, "fft_launches"):
+            f.fft_launches = 0
     for f in plains.values():
         f.calls = 0
 
 
 def read_counts():
-    """(launches by kernel, with K4's by mode as ``<name>_<mode>`` and
+    """(launches by kernel, with K4's by mode as ``<name>_<mode>``,
     K1's and K7's through the cluster recurrences and K4's through its
-    cluster kernels as CLUSTER_COUNTS names them; calls of the plain
+    cluster kernels as CLUSTER_COUNTS names them, and K5's and K6's
+    through ``fft_kernel`` as ``<name>_fft``; calls of the plain
     versions)."""
     kernels, plains = counters()
     launches = {k: f.launches for k, f in kernels.items()}
     for k, of in CLUSTER_COUNTS.items():
         launches[k] = kernels[of].cluster_launches
+    for k in ("frontend_k5", "frontend_k6"):
+        launches[f"{k}_fft"] = kernels[k].fft_launches
     for k in ("las_decoder_fwd", "las_decoder_bwd"):
         for m in ATT_MODES:
             launches[f"{k}_{m}"] = kernels[k].by_mode[m]
@@ -687,7 +698,8 @@ def main() -> None:
     train_ms = train_timing(torch, trainer, shapes, dev, card)
     train_ms.update(loc_timing(torch, loc_trainer, dev, card))
     lib_ms = library_timing(torch, config, shapes, dev, card)
-    fe_ms, fe_notes = frontend_timing(torch, m2_trainer, config, dev, card)
+    fe_ms, fe_notes, fe_detail = frontend_timing(torch, m2_trainer, config,
+                                                 dev, card)
     train_ms.update(fe_ms)
     train_ms.update(v1_timing(torch, config, shapes[0], dev, card))
     train_ms["bilstm_bwd_products"], lib_ms["bilstm_bwd_products"] = \
@@ -796,11 +808,21 @@ def main() -> None:
         "frontend_k5": ("frontend.cu",
                         "gluon_e2e_asr_tpu/frontend/pallas_frontend.py:56",
                         "impl pallas, cmvn utterance (milestone 2), eval, B=16, "
-                        "4.0 s bucket; error: max abs over every shape, CMVN "
-                        "mode, eval and train"),
+                        "4.0 s bucket, through fft_kernel (a cluster of 8 CTAs "
+                        "an utterance, a real FFT a warp per frame, the mel "
+                        "product over each filter's band, utterance CMVN "
+                        "through distributed shared memory; one launch a "
+                        "call); device_ms: torch.profiler, the kernel alone; "
+                        "bound: the FFT's operations (5 N2 log2 N2 + 13 "
+                        "(N2 + 1) + 2 nnz + win a live frame, N2 = n_fft/2) "
+                        "against the live audio in and the features out; "
+                        "dft_bound_ms: the DFT product's operations; error: "
+                        "max abs over every shape, CMVN mode, eval and train, "
+                        "the hard audio and n_fft 400 (spectral_kernel)"),
         "frontend_k6": ("frontend.cu",
                         "gluon_e2e_asr_tpu/frontend/pallas_frontend.py:181",
-                        "impl pallas_regrid, as K5"),
+                        "impl pallas_regrid, as K5, through the same "
+                        "fft_kernel"),
         "bilstm_v1_fwd": ("bilstm_fwd.cu",
                           "gluon_e2e_asr_tpu/ops/pallas_lstm.py:77",
                           "the flagship's layer-0 shape, bf16 streams and "
@@ -828,6 +850,8 @@ def main() -> None:
     # from its own path
     launches["frontend_k5"] = m2_counts["frontend_k5"]
     launches["frontend_k6"] = regrid_counts["frontend_k6"]
+    launches["frontend_k5_fft"] = m2_counts["frontend_k5_fft"]
+    launches["frontend_k6_fft"] = regrid_counts["frontend_k6_fft"]
     for name in ("bilstm_v1_fwd", "bilstm_v1_bwd"):
         launches[name] = v1_counts[name]
     # P1 from its own path, one row per variant
@@ -881,6 +905,13 @@ def main() -> None:
         "decode_launches"] = proj_launches
     next(r for r in rows if r["name"] == "frontend_k5")["decode_launches"] = \
         m2_decode_counts["frontend_k5"]
+    # K5's and K6's device time, the frontend's route (the row's "route"
+    # is the contract's: cuda) and the DFT product's bound
+    for name in ("frontend_k5", "frontend_k6"):
+        row = next(r for r in rows if r["name"] == name)
+        row["device_ms"], row["frontend_route"] = fe_detail[name]
+        row["dft_bound_ms"] = bounds["frontend_dft"][0]
+        row["fft_launches"] = launches[f"{name}_fft"]
     emit({"kernels": rows, "train_step": step_errs,
           "train_step_loc": loc_step_errs,
           "seconds": round(time.perf_counter() - T_START, 1)})
@@ -1190,12 +1221,37 @@ def masked_cells(torch, fc, feat_len, F, draws):
     return keep == 0
 
 
+def frontend_check_cases(torch, m2_config, config, dev):
+    """Phase 3's batches for K5 and K6, (name, frontend config, audio,
+    audio_len, the route of the shape): frontend_cases' four shapes
+    (bench.py's seeded noise) and a batch of hard audio at milestone 2's
+    4.0 s bucket (``tools/fe_probe.py::hard_audio``, from the seed: tones,
+    digital silence and a -60 dB stretch, which put cells at the power
+    floor), all on the FFT route; and milestone 2's 2.0 s bucket with
+    n_fft = 400, no power of two, on the spectral route."""
+    from gluon_e2e_asr_tpu_torch.tools.fe_probe import hard_audio
+
+    cases = [(case, fc, *frontend_audio(torch, B, sec, dev), "fft")
+             for case, fc, B, sec in frontend_cases(m2_config, config)]
+    _, fc, B, sec = frontend_cases(m2_config, config)[1]
+    audio, alen = hard_audio(B, int(sec * fc.sample_rate), SEED)
+    cases.append(("hard audio, milestone2 4.0 s", fc,
+                  torch.from_numpy(audio).to(dev),
+                  torch.from_numpy(alen).to(dev), "fft"))
+    fc400 = copy.deepcopy(fc)
+    fc400.n_fft = 400
+    cases.append(("n_fft 400, milestone2 2.0 s", fc400,
+                  *frontend_audio(torch, B, 2.0, dev), "spectral"))
+    return cases
+
+
 def check_frontend_kernels(torch, m2_config, config, dev):
-    """Phase 3, K5 and K6 against their plain versions at every shape of
-    frontend_cases, each CMVN mode (utterance, global with the batch's
-    own stats, none), eval and train (the same SpecAugment draws on both
-    sides), rows of different lengths: |kernel - plain| within TOL_FE
-    and the masked cells exactly 0 in both. Returns each kernel's max abs
+    """Phase 3, K5 and K6 against their plain versions on every batch of
+    frontend_check_cases, each CMVN mode (utterance, global with the
+    batch's own stats, none), eval and train (the same SpecAugment draws
+    on both sides), rows of different lengths: |kernel - plain| within
+    TOL_FE, the masked cells exactly 0 in both, and each call through
+    its shape's route (``.fft_launches``). Returns each kernel's max abs
     error over all of them."""
     from gluon_e2e_asr_tpu_torch.frontend import fused as FE
     from gluon_e2e_asr_tpu_torch.frontend.features import (
@@ -1206,12 +1262,18 @@ def check_frontend_kernels(torch, m2_config, config, dev):
                              FE.compute_features_pallas_plain),
              "frontend_k6": (FE.compute_features_pallas_regrid_kernel,
                              FE.compute_features_pallas_regrid_plain)}
-    for case, fc0, B, sec in frontend_cases(m2_config, config):
-        audio, alen = frontend_audio(torch, B, sec, dev)
+    for case, fc0, audio, alen, route in frontend_check_cases(
+            torch, m2_config, config, dev):
+        B = int(audio.shape[0])
         F = num_frames(audio.shape[1], fc0.win_length, fc0.hop_length)
         rec = {"phase": "kernel_check", "kernel": "frontend_k5+frontend_k6",
                "shape": case, "B": B, "samples": int(audio.shape[1]), "F": F,
+               "n_fft": fc0.n_fft, "route": route,
+               "plan": FE.fft_plan(F, fc0.win_length, fc0.hop_length,
+                                   fc0.n_fft, fc0.n_mels),
                "tol": {"rtol": TOL_FE_RTOL, "atol": TOL_FE_ATOL}, "cases": []}
+        check(FE.route(fc0, F) == route,
+              f"{case}: the plan routes to {FE.route(fc0, F)}, not {route}")
         for cmvn in ("utterance", "global", "none"):
             fc = copy.deepcopy(fc0)
             fc.cmvn = cmvn
@@ -1223,7 +1285,9 @@ def check_frontend_kernels(torch, m2_config, config, dev):
                     if train else None
                 for name, (kernel, plain) in pairs.items():
                     kw = dict(train=train, spec_draws=draws, cmvn_stats=stats)
+                    fft = kernel.fft_launches
                     got, got_len = kernel(fc, audio, alen, **kw)
+                    fft = kernel.fft_launches - fft
                     ref, ref_len = plain(fc, audio, alen, **kw)
                     torch.cuda.synchronize()
                     diff = (got - ref).abs()
@@ -1235,13 +1299,16 @@ def check_frontend_kernels(torch, m2_config, config, dev):
                     rec["cases"].append({
                         "kernel": name, "cmvn": cmvn, "train": train,
                         "max_abs_err": err, "masked_cells_zero": zeros,
-                        "masked_share": float(mask.float().mean())})
+                        "masked_share": float(mask.float().mean()),
+                        "fft_launches": fft})
                     check(bool(torch.isfinite(got).all()) and zeros
                           and over <= TOL_FE_ATOL
                           and torch.equal(got_len, ref_len),
                           f"{name} disagrees with its plain version at {case}, "
                           f"cmvn {cmvn}, train {train}: max abs {err}, masked "
                           f"cells zero {zeros}")
+                    check(fft == (route == "fft"),
+                          f"{name} at {case} did not take the {route} route")
         emit(rec)
     return errs
 
@@ -1352,8 +1419,9 @@ def decode_slice(torch, trainer, path, name):
           "decode_done": result, "launches": launches, "plain_calls": plain,
           "records": len(recs)})
     key = {"pallas": "frontend_k5", "pallas_regrid": "frontend_k6"}[impl]
-    check(launches[key] == batches,
-          f"{key} launched {launches[key]} times in the decode, expected {batches}")
+    check(launches[key] == launches[f"{key}_fft"] == batches,
+          f"{key} launched {launches[key]} times in the decode "
+          f"({launches[f'{key}_fft']} through fft_kernel), expected {batches}")
     check(launches["bilstm_fwd"] == config.model.enc_layers * batches,
           f"bilstm_fwd launched {launches['bilstm_fwd']} times in the decode")
     check(launches["bilstm_fwd_cluster"] == launches["bilstm_fwd"],
@@ -1399,7 +1467,8 @@ def golden_greedy(torch, impl="pallas"):
           "identical": len(same), "launches": launches, "plain_calls": plain})
     check(len(got) == len(gold) == len(same) == 16,
           f"golden greedy ({impl}): {len(same)} of {len(gold)} identical")
-    check(launches["frontend_k5"] > 0 and not any(plain.values()),
+    check(launches["frontend_k5"] == launches["frontend_k5_fft"] > 0
+          and not any(plain.values()),
           f"golden greedy ({impl}): launches {launches}, plain {plain}")
 
 
@@ -1809,8 +1878,11 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
             expect[f"{k}_{m}"] = dec if m == kind else 0
     fe = steps + dev_batches * len(epochs)
     impl = config.frontend.impl
+    # every K5 and K6 launch through fft_kernel (every config's buckets)
     expect.update(frontend_k5=fe if impl == "pallas" else 0,
                   frontend_k6=fe if impl == "pallas_regrid" else 0,
+                  frontend_k5_fft=fe if impl == "pallas" else 0,
+                  frontend_k6_fft=fe if impl == "pallas_regrid" else 0,
                   bilstm_v1_fwd=0, bilstm_v1_bwd=0)
     ckpt = os.path.join(workdir, config.train.ckpt_dir, f"ckpt_{steps}.pt")
     k = min(5, max(1, steps // 2))
@@ -2232,24 +2304,32 @@ def beam_timing(torch, trainer, dev, card):
 
 def frontend_timing(torch, m2_trainer, config, dev, card):
     """Phase 8 for the frontend: at each shape of frontend_cases (cmvn
-    utterance, eval), K5 and K6 against their plain versions, which are
-    the ``impl: jnp`` path (cuBLAS f32 products), and torch.stft (cuFFT)
-    for the STFT alone; no one PyTorch call computes log-mel. Then the
-    milestone 2 train step at its 4.0 s bucket, through K5, and the
-    frontend's share of it. Returns (name -> (kernel ms, plain ms) at
-    milestone 2's 4.0 s bucket, name -> library note)."""
+    utterance, eval), K5 and K6 (CUDA events, the wrapper's host work
+    included, and the device time of their kernels by torch.profiler)
+    against their plain versions, which are the ``impl: jnp`` path
+    (cuBLAS f32 products), and torch.stft (cuFFT) for the STFT alone; no
+    one PyTorch call computes log-mel. At milestone 2's 4.0 s bucket a
+    trace of five calls of each must hold ``fft_kernel`` and no other
+    device operation. Then the milestone 2 train step at its 4.0 s
+    bucket, through K5, and the frontend's share of it. Returns (name ->
+    (kernel ms, plain ms) at milestone 2's 4.0 s bucket, name -> library
+    note, name -> (device ms, route) there)."""
     from gluon_e2e_asr_tpu_torch.frontend import fused as FE
     from gluon_e2e_asr_tpu_torch.frontend.features import (
         draw_spec_augment, frontend_apply, num_frames)
+    from gluon_e2e_asr_tpu_torch.tools.fe_probe import device_ms, one_call
     from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
 
     m2_config = m2_trainer.config
-    out, notes = {}, {}
+    out, notes, detail = {}, {}, {}
     for case, fc, B, sec in frontend_cases(m2_config, config):
         audio, alen = frontend_audio(torch, B, sec, dev)
-        k5 = time_ms(torch, lambda: FE.compute_features_pallas_kernel(fc, audio, alen))
-        k6 = time_ms(torch, lambda: FE.compute_features_pallas_regrid_kernel(
-            fc, audio, alen))
+        calls = {"frontend_k5": lambda: FE.compute_features_pallas_kernel(
+                     fc, audio, alen),
+                 "frontend_k6": lambda: FE.compute_features_pallas_regrid_kernel(
+                     fc, audio, alen)}
+        k5, k6 = (time_ms(torch, c) for c in calls.values())
+        dev_ms = {k: device_ms(c) for k, c in calls.items()}
         p5 = time_ms(torch, lambda: FE.compute_features_pallas_plain(fc, audio, alen))
         p6 = time_ms(torch, lambda: FE.compute_features_pallas_regrid_plain(
             fc, audio, alen))
@@ -2258,17 +2338,27 @@ def frontend_timing(torch, m2_trainer, config, dev, card):
             audio, fc.n_fft, fc.hop_length, fc.win_length, window,
             center=False, return_complex=True))
         F = num_frames(audio.shape[1], fc.win_length, fc.hop_length)
-        emit({"phase": "timing", "what": "frontend", "shape": case, "B": B,
-              "samples": int(audio.shape[1]), "F": F, "cmvn": fc.cmvn,
-              "k5_kernel_ms": k5, "k6_kernel_ms": k6, "k5_plain_ms": p5,
-              "k6_plain_ms": p6, "plain_is": "the impl: jnp path",
-              "torch_stft_ms": stft, "card": card})
+        route = FE.route(fc, F)
+        line = {"phase": "timing", "what": "frontend", "shape": case, "B": B,
+                "samples": int(audio.shape[1]), "F": F, "cmvn": fc.cmvn,
+                "route": route, "k5_kernel_ms": k5, "k6_kernel_ms": k6,
+                "k5_device_ms": dev_ms["frontend_k5"],
+                "k6_device_ms": dev_ms["frontend_k6"], "k5_plain_ms": p5,
+                "k6_plain_ms": p6, "plain_is": "the impl: jnp path",
+                "torch_stft_ms": stft, "card": card}
         if case == "milestone2 4.0 s":
             out["frontend_k5"], out["frontend_k6"] = (k5, p5), (k6, p6)
-            for name in ("frontend_k5", "frontend_k6"):
+            for name, call in calls.items():
+                ops = one_call(call)
+                line[f"{name}_device_ops_of_5_calls"] = ops
+                check(len(ops) == 1 and "fft_kernel" in ops[0][0]
+                      and ops[0][1] <= 5,
+                      f"a {name} call ran more than fft_kernel: {ops}")
+                detail[name] = (dev_ms[name], f"{route}_kernel")
                 notes[name] = (f"no single PyTorch call computes log-mel; the "
                                f"jnp path (cuBLAS f32) {p5 if name == 'frontend_k5' else p6} ms, "
                                f"torch.stft (cuFFT, the STFT alone) {stft} ms")
+        emit(line)
 
     b4 = bucket_batch(torch, m2_config)[0]
     batch4 = batch_to_device(b4, dev)
@@ -2286,7 +2376,7 @@ def frontend_timing(torch, m2_trainer, config, dev, card):
           "kernel_ms": step_ms, "frontend_train_ms": fe_ms,
           "frontend_share": fe_ms / step_ms,
           "utt_per_s": b4.num_real / (step_ms / 1e3), "card": card})
-    return out, notes
+    return out, notes, detail
 
 
 def v1_timing(torch, config, shape, dev, card):
@@ -2480,6 +2570,16 @@ def library_timing(torch, config, shapes, dev, card):
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit).
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+
+def fft_bound(torch, fc, shape, audio_len):
+    """K5's and K6's bound on the FFT route's basis
+    (``tools/fe_probe.py::fft_work``): its f32 operations on the CUDA
+    cores against its bytes, the larger."""
+    from gluon_e2e_asr_tpu_torch.tools.fe_probe import fft_work
+
+    ops, nbytes = fft_work(fc, shape, audio_len)
+    return _bound(0.0, PEAK_BF16, nbytes, ops)
 
 
 def _bound(flops: float, rate: float, nbytes: float, f32_ops: float = 0.0):
@@ -2676,8 +2776,9 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     fe_ops = valid * (2.0 * fc.win_length * 2 * n_freq + 2.0 * n_freq * fc.n_mels)
     fe_bytes = f4 * (Bf * S + Bf * F * fc.n_mels + fc.win_length * 2 * n_freq
                      + n_freq * fc.n_mels) + 4 * Bf
-    out["frontend_k5"] = out["frontend_k6"] = _bound(0.0, PEAK_BF16, fe_bytes,
-                                                     fe_ops)
+    out["frontend_dft"] = _bound(0.0, PEAK_BF16, fe_bytes, fe_ops)
+    out["frontend_k5"] = out["frontend_k6"] = fft_bound(
+        torch, fc, sb["audio"].shape, sb["audio_len"])
 
     layer, T, D = shapes[0]
     lens = layer_inputs(torch, B, T, D, H, layer, "cpu")[1]

@@ -106,6 +106,40 @@ def build_all(names) -> None:
             f.result()
 
 
+def build_variants(name: str, out_dir: str, variants) -> Dict[str, ctypes.CDLL]:
+    """variant -> the library of ``csrc/<name>.cu`` with that variant's
+    (text, replacement) made in a copy under ``out_dir`` (the text must
+    appear in the source once; the copy includes the headers of
+    ``csrc/``), one nvcc each, all started together: the probes' build
+    variants, loaded without argtypes."""
+    with open(os.path.join(SRC_DIR, f"{name}.cu")) as f:
+        src = f.read()
+
+    def build(variant):
+        old, new = variants[variant][:2]
+        if src.count(old) != 1:
+            raise RuntimeError(f"variant {variant!r}: its text is not in the "
+                               "source once")
+        d = os.path.join(out_dir, "".join(c if c.isalnum() else "_"
+                                          for c in variant))
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"{name}.cu")
+        with open(path, "w") as f:
+            f.write(src.replace(old, new))
+        lib = os.path.join(d, f"lib{name}.so")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", SRC_DIR, "-o", lib,
+                               path], capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {variant!r}: nvcc failed\n"
+                               f"{proc.stderr}")
+        return lib
+
+    with ThreadPoolExecutor(max(len(variants), 1)) as pool:
+        paths = dict(zip(variants, pool.map(build, variants)))
+    return {v: ctypes.CDLL(p) for v, p in paths.items()}
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The compiled ``csrc/<name>.cu``, building it if needed."""
     with _lock:

@@ -10,15 +10,20 @@ place of ``rng``. Each has two versions:
   SpecAugment and valid mask, the ``impl: jnp`` path's arithmetic (which
   is what the TPU kernels compute). The CPU path, and the references the
   kernels are held against on the card.
-- hand-written Hopper kernels (``*_kernel``, ``csrc/frontend.cu``): K5
-  runs the spectral stage with the epilogue fused for cmvn global/none
-  and a second kernel for utterance CMVN; K6 runs the spectral stage and,
-  for utterance CMVN, finishes in torch as the TPU wrapper finishes in
-  XLA.
+- hand-written Hopper kernels (``*_kernel``, ``csrc/frontend.cu``). K5
+  and K6 compute the same function, and on the card one kernel serves
+  both, chosen by shape alone (``fft_plan``, the mirror of the source's
+  ``fe_fft_plan``): ``fft_kernel`` (a cluster of 8 CTAs an utterance, a
+  real FFT a warp per frame, the mel product over each filter's band,
+  utterance CMVN through distributed shared memory: one launch a call)
+  where n_fft is a power of two in its range and the plan fits a block's
+  shared memory (every config of the repo), else ``spectral_kernel``
+  (the DFT product; with ``cmvn_kernel`` for utterance CMVN).
 
 ``_route`` dispatches on the audio's device: the plain version for a CPU
 tensor, the kernel for a CUDA tensor, and nothing else; no path falls
-back from a kernel to a plain version.
+back from a kernel to a plain version, nor from one kernel to the
+other.
 
 SpecAugment is an input. The TPU kernels draw their mask geometry from
 the TPU's in-kernel generator (and K5's start formulas there differ from
@@ -41,11 +46,17 @@ import torch
 from gluon_e2e_asr_tpu_torch import _build
 from gluon_e2e_asr_tpu_torch.config import FrontendConfig
 from gluon_e2e_asr_tpu_torch.frontend.features import (
-    SpecAugDraws, _frame_mask, apply_cmvn, compute_features, dft_basis,
-    hann_window, mel_filterbank, num_frames, spec_augment, specaug_on)
+    SpecAugDraws, compute_features, dft_basis, hann_window, mel_filterbank,
+    num_frames, specaug_on)
 
 _CMVN = {"none": 0, "global": 1, "utterance": 2}
 MAX_MELS = 128  # 16 mel lanes x 8 mels a thread in the spectral kernel
+# csrc/frontend.cu's FFT route: CTAs an utterance, warps a CTA, frames a
+# staged chunk, the n_fft range, a block's dynamic shared memory
+CLUSTER, WARPS, CHUNK = 8, 16, 64
+MIN_FFT, MAX_FFT = 128, 2048
+MAX_SMEM = 232448
+ROUTES = {"spectral": 0, "fft": 1}
 
 
 def _frames(cfg: FrontendConfig, audio: torch.Tensor) -> int:
@@ -106,42 +117,115 @@ def _constants(key, device: torch.device):
             torch.from_numpy(np.ascontiguousarray(mel)).to(device))
 
 
+@functools.lru_cache(maxsize=None)
+def fft_tables(key):
+    """The FFT route's constants, as numpy: consts [3 n_fft] f32 (the
+    twiddles W^k = (cos, -sin)(2 pi k / n_fft), k < n_fft, computed in
+    f64 with the values within 1e-12 of 0 made exactly 0, then the Hann
+    window, zero past win), bands [M, 3] int32 and weights f32. Mel m's
+    run is ``bands[m]`` = (first bin, bins, offset in weights), each a
+    multiple of 4: the bins from its first nonzero weight rounded down to
+    a multiple of 4, in whole groups of 4, to its last; its weights the
+    filterbank's column on those bins (its nonzeros at their bins, zeros
+    elsewhere, zeros past n_fft/2), which the kernel sums in bin order
+    (a zero weight adds exactly nothing). A mel with no nonzero weight
+    has no bins. weights holds at least 4 values."""
+    win, n_fft, n_mels, sr, fmin, fmax = key
+    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    tw = np.stack([np.cos(ang), -np.sin(ang)], 1)
+    tw[np.abs(tw) < 1e-12] = 0.0
+    window = np.zeros(n_fft, np.float32)
+    window[:win] = hann_window(win)
+    consts = np.concatenate([tw.astype(np.float32).ravel(), window])
+    fb = mel_filterbank(n_mels, n_fft, sr, fmin, fmax)
+    padded = np.concatenate([fb, np.zeros((4, n_mels), np.float32)])
+    bands = np.zeros((n_mels, 3), np.int32)
+    runs = []
+    for m in range(n_mels):
+        nz = np.flatnonzero(fb[:, m])
+        bands[m, 2] = sum(len(r) for r in runs)
+        if len(nz):
+            first = nz[0] // 4 * 4
+            bins = -(-(nz[-1] + 1 - first) // 4) * 4
+            bands[m, :2] = first, bins
+            runs.append(padded[first:first + bins, m])
+    weights = np.concatenate(runs) if runs else np.zeros(4, np.float32)
+    return consts, bands, weights.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _fft_constants(key, device: torch.device):
+    """``fft_tables`` on ``device``."""
+    return tuple(torch.from_numpy(t).to(device) for t in fft_tables(key))
+
+
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def fft_plan(F: int, win: int, hop: int, n_fft: int, M: int):
+    """(route, P, Q, smem): how ``csrc/frontend.cu::fe_fft_plan`` covers
+    [B, F] frames, by shape alone: "fft" (``fft_kernel``) where n_fft is
+    a power of two in [MIN_FFT, MAX_FFT], win <= n_fft, M <= MAX_MELS and
+    the shared memory fits a block, else "spectral"; P frames a CTA at
+    most (ceil(F / CLUSTER)); Q frames a staged chunk; the FFT kernel's
+    shared memory in bytes (twiddles 2 n_fft, window n_fft, a slice of
+    9 n_fft / 8 a warp, the CMVN sums 2 CLUSTER MAX_MELS + 32 WARPS, the
+    log-mel P M and the chunk's audio (Q - 1) hop + n_fft floats, each
+    rounded up to 4)."""
+    P = -(-F // CLUSTER)
+    Q = min(P, CHUNK)
+    smem = 4 * (3 * n_fft + WARPS * (9 * n_fft // 8) + 2 * CLUSTER * MAX_MELS
+                + 32 * WARPS + _r4(P * M) + _r4((Q - 1) * hop + n_fft))
+    shape = (MIN_FFT <= n_fft <= MAX_FFT and n_fft & (n_fft - 1) == 0
+             and win <= n_fft and M <= MAX_MELS)
+    return ("fft" if shape and smem <= MAX_SMEM else "spectral"), P, Q, smem
+
+
+def route(cfg: FrontendConfig, F: int) -> str:
+    """The kernel a CUDA call of F frames takes: "fft" or "spectral"."""
+    return fft_plan(F, cfg.win_length, cfg.hop_length, cfg.n_fft,
+                    cfg.n_mels)[0]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("frontend")
     if lib.frontend_error_string.argtypes is None:
         # Without argtypes ctypes passes each pointer as a 32-bit int.
         P, I = ctypes.c_void_p, ctypes.c_int
-        args = [P, P, P, P, I, P, P, P, P, P, I, P, P, I, I, P, I, I, I, I,
-                I, I, I, ctypes.c_float, I, P]
+        args = [P, P, P, I, P, I, P, P, P, P, P, P, P, P, I, P, P, I, I, P,
+                I, I, I, I, I, I, I, ctypes.c_float, I, P]
         for fn in (lib.frontend_k5, lib.frontend_k6):
             fn.argtypes = args
             fn.restype = ctypes.c_int
+        lib.frontend_plan.argtypes = [I] * 5 + [P]
+        lib.frontend_plan.restype = I
         lib.frontend_error_string.argtypes = [ctypes.c_int]
         lib.frontend_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _draws(d: Optional[torch.Tensor], B: int, dev) -> Optional[torch.Tensor]:
-    """A [B, n, 1] draw as int32 [B, n] on ``dev``."""
+    """A [B, n, 1] draw as int64 [B, n] on ``dev`` (draw_spec_augment's
+    tensors as they are: a view, no copy)."""
     if d is None:
         return None
     if d.device != dev or d.shape[0] != B:
         raise ValueError(f"SpecAugment draws must be [B={B}, n, 1] on {dev}, "
                          f"got {tuple(d.shape)} on {d.device}")
-    return d.reshape(B, -1).to(torch.int32).contiguous()
+    return d.reshape(B, -1).to(torch.int64).contiguous()
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(entry: str, cfg: FrontendConfig, audio, audio_len, train,
+def _launch(fn, entry: str, cfg: FrontendConfig, audio, audio_len, train,
             spec_draws, cmvn_stats):
-    """Launch ``frontend_k5`` or ``frontend_k6`` on ``audio``'s device.
-    Returns (feats [B,F,M] f32, feat_len int32, which the kernel computes
-    from audio_len): finished for cmvn global/none and, with K5,
-    utterance; raw log-mel (0 past feat_len) for K6 with utterance
-    CMVN."""
+    """Launch ``frontend_k5`` or ``frontend_k6`` on ``audio``'s device,
+    counting the call on ``fn`` (``.launches``; ``.fft_launches`` where
+    it took ``fft_kernel``). Returns (feats [B,F,M] f32, finished, and
+    feat_len int32, which the kernel computes from audio_len)."""
     if audio.device.type != "cuda":
         raise ValueError(f"{entry} needs a CUDA tensor, got {audio.device}")
     if audio.dtype != torch.float32 or not audio.is_contiguous():
@@ -163,9 +247,14 @@ def _launch(entry: str, cfg: FrontendConfig, audio, audio_len, train,
     audio_len = audio_len.to(torch.int32).contiguous()
     feat_len = torch.empty(B, device=dev, dtype=torch.int32)  # the kernel's
     fmax = cfg.fmax if cfg.fmax is not None else cfg.sample_rate / 2.0
-    basis, mel = _constants((cfg.win_length, cfg.n_fft, cfg.n_mels,
-                             cfg.sample_rate, float(cfg.fmin), float(fmax)),
-                            dev)
+    key = (cfg.win_length, cfg.n_fft, cfg.n_mels, cfg.sample_rate,
+           float(cfg.fmin), float(fmax))
+    kind = route(cfg, F)
+    basis = mel = consts = bands = weights = None
+    if kind == "fft":
+        consts, bands, weights = _fft_constants(key, dev)
+    else:
+        basis, mel = _constants(key, dev)
     mean = std = None
     if cfg.cmvn == "global":
         if cmvn_stats is None:
@@ -184,53 +273,49 @@ def _launch(entry: str, cfg: FrontendConfig, audio, audio_len, train,
         with torch.cuda.device(dev):
             rc = getattr(lib, entry)(
                 audio.data_ptr(), audio_len.data_ptr(), feat_len.data_ptr(),
-                basis.data_ptr(),
-                basis.shape[1], mel.data_ptr(), _ptr(mean), _ptr(std),
+                ROUTES[kind], _ptr(basis),
+                0 if basis is None else basis.shape[1], _ptr(mel),
+                _ptr(consts), _ptr(bands), _ptr(weights),
+                _ptr(mean), _ptr(std),
                 _ptr(fw), _ptr(fs), 0 if fw is None else fw.shape[1],
                 _ptr(tw), _ptr(ts), 0 if tw is None else tw.shape[1],
                 cfg.specaug_time_width, out.data_ptr(), B, S, F,
-                cfg.win_length, cfg.hop_length, mel.shape[0],
+                cfg.win_length, cfg.hop_length, cfg.n_fft,
                 cfg.n_mels, cfg.log_floor, _CMVN[cfg.cmvn],
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(
                 f"{entry} launch failed: "
                 f"{lib.frontend_error_string(rc).decode()} "
-                f"(B={B} S={S} F={F} cmvn={cfg.cmvn})")
+                f"(B={B} S={S} F={F} n_fft={cfg.n_fft} route {kind} "
+                f"cmvn={cfg.cmvn})")
+        fn.launches += 1
+        fn.fft_launches += kind == "fft"
     return out, feat_len
 
 
 def compute_features_pallas_kernel(cfg, audio, audio_len, *, train=False,
                                    spec_draws=None, cmvn_stats=None):
     """K5 on the card: contiguous f32 audio [B,S] on a CUDA device."""
-    out = _launch("frontend_k5", cfg, audio, audio_len, train, spec_draws,
-                  cmvn_stats)
-    compute_features_pallas_kernel.launches += 1
-    return out
+    return _launch(compute_features_pallas_kernel, "frontend_k5", cfg, audio,
+                   audio_len, train, spec_draws, cmvn_stats)
 
 
 compute_features_pallas_kernel.launches = 0
+compute_features_pallas_kernel.fft_launches = 0
 
 
 def compute_features_pallas_regrid_kernel(cfg, audio, audio_len, *,
                                           train=False, spec_draws=None,
                                           cmvn_stats=None):
-    """K6 on the card; utterance CMVN, SpecAugment and the valid mask then
-    run in torch (pallas_frontend.py:399-412)."""
-    feats, feat_len = _launch("frontend_k6", cfg, audio, audio_len, train,
-                              spec_draws, cmvn_stats)
-    compute_features_pallas_regrid_kernel.launches += 1
-    if cfg.cmvn != "utterance":
-        return feats, feat_len
-    feats = apply_cmvn(feats, feat_len, cfg.cmvn, cmvn_stats)
-    if train and specaug_on(cfg):
-        feats = spec_augment(feats, feat_len, spec_draws,
-                             cfg.specaug_time_width)
-    valid = _frame_mask(feats.shape[1], feat_len)[..., None]
-    return torch.where(valid, feats, torch.zeros_like(feats)), feat_len
+    """K6 on the card: the same kernels as K5's (the TPU kernels differ
+    only in their tiling)."""
+    return _launch(compute_features_pallas_regrid_kernel, "frontend_k6", cfg,
+                   audio, audio_len, train, spec_draws, cmvn_stats)
 
 
 compute_features_pallas_regrid_kernel.launches = 0
+compute_features_pallas_regrid_kernel.fft_launches = 0
 
 
 def _route(audio: torch.Tensor) -> str:

@@ -39,7 +39,6 @@ import json
 import os
 import subprocess
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -142,31 +141,7 @@ def old_beta_post(lib, emit, time_mask, allow_skip, state_valid, last_state,
 def build_variants(out_dir: str, variants):
     """name -> the library of csrc/ctc.cu with that variant's (text,
     replacement), one nvcc each, all started together."""
-    with open(os.path.join(_build.SRC_DIR, "ctc.cu")) as f:
-        src = f.read()
-
-    def build(name):
-        old, new = variants[name][:2]
-        if src.count(old) != 1:
-            raise RuntimeError(f"variant {name!r}: its text is not in the "
-                               "source once")
-        d = os.path.join(out_dir, "".join(c if c.isalnum() else "_"
-                                          for c in name))
-        os.makedirs(d, exist_ok=True)
-        path = os.path.join(d, "ctc.cu")
-        with open(path, "w") as f:
-            f.write(src.replace(old, new))
-        lib = os.path.join(d, "libctc.so")
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                               _build.SRC_DIR, "-o", lib, path],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name!r}: nvcc failed\n{proc.stderr}")
-        return lib
-
-    with ThreadPoolExecutor(max(len(variants), 1)) as pool:
-        paths = dict(zip(variants, pool.map(build, variants)))
-    libs = {name: ctypes.CDLL(p) for name, p in paths.items()}
+    libs = _build.build_variants("ctc", out_dir, variants)
     for name, lib in libs.items():
         if variants[name][:2] == OLD_DESIGN:
             lib.ctc_alpha.argtypes = [ctypes.c_void_p] * 5 \
@@ -254,20 +229,26 @@ def one_call(fn, n: int = 5):
     """[(name, count)] of the device operations (kernels, copies, fills)
     of ``n`` calls of fn under torch.profiler, after a warm-up: one call
     of a wrapper that launches its kernel and nothing else shows one name,
-    counted n times."""
+    counted n times. A long-lived process's trace may miss launches: a
+    count may fall short of n, and a trace that holds no device operation
+    at all (fn launches at least one) is taken again, up to three
+    times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    counts = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            counts[evt.name[:80]] = counts.get(evt.name[:80], 0) + 1
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        counts = {}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                counts[evt.name[:80]] = counts.get(evt.name[:80], 0) + 1
+        if counts:
+            break
     return sorted(counts.items())
 
 
