@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch port on one NVIDIA card (H100).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
-CUDA device, ``nvcc`` and ``nvidia-smi``; it imports no JAX. Phases,
-each printing JSON lines:
+CUDA device, ``nvcc`` and ``nvidia-smi``; it imports no JAX. (``python3
+chip_smoke.py --dp-worker <dir>`` is one rank of phase 7b, which starts
+its ranks itself.) Phases, each printing JSON lines:
 
 1. device: the card, and ``nvidia-smi``'s name and power limit;
 2. build: every CUDA library of the port's paths (``bilstm_fwd``,
@@ -57,7 +58,8 @@ each printing JSON lines:
    through its own entry;
 6. training slices: ``gluon_e2e_asr_tpu_torch.train.main`` at full
    width on the flagship config as shipped (hybrid CTC/attention, dot
-   attention, ``train.dp=false``) for two epochs: the launch counts of
+   attention, ``train.dp: true``: data parallel at world size 1 over
+   NCCL, as every flagship slice) for two epochs: the launch counts of
    all six kernels (every K1-bwd launch of every slice through the
    cluster recurrence, every bf16 K1-fwd launch through the wgmma
    projection, every K4-fwd and K4-bwd launch of the dot, loc and add
@@ -75,11 +77,31 @@ each printing JSON lines:
    ``frontend.impl=pallas_regrid`` (K6, the same); the tiny golden
    decoded greedily through K5 (``golden_greedy.jsonl``, 16/16); and K7's
    own path, ``bilstm_pallas`` forward and backward;
+6b. milestones 1, 3, 4 and 5 (``configs/milestone*.yaml``) through the
+   train CLI as shipped, no override, for their first epoch with its dev
+   evaluation by the config's method (milestone 3: the attention-only
+   beam, K=8; milestone 4 at ``train.dp``, world size 1 over NCCL): the
+   launch counts (no K2 or K3 at milestone 3's ``mtl_alpha`` 0; every K1
+   and K4 launch through the cluster kernels), no plain version, a
+   finite and falling loss; each checkpoint decoded through the decode
+   CLI by the config's method (greedy for 1 and 4; the beams of 3 and of
+   5, K=10 with ctc_weight 0.3 and length normalization, on the first
+   MILESTONE_BEAM_UTTS dev utterances); a step at the 4.0 s bucket and a
+   decode of that batch by the config's method, timed;
 7. training reference: one hybrid step of the trained dot and loc models
    (scheduled sampling off) through the kernels and through the plain
    versions on the card (same batch, parameters, optimizer state and
    SpecAugment draws): loss, every gradient and the parameters after
    Adam;
+7b. data parallelism: two processes on the one card (this script with
+   ``--dp-worker``, as torchrun starts ranks) join over gloo with CUDA
+   tensors (NCCL refuses two ranks on one device) and take one step of
+   the trained location-aware flagship as shipped (SpecAugment and the
+   coins on), on its 4.0 s batch and on that batch with rank 1's rows all
+   padding: loss, every gradient and the parameters after Adam against
+   the same step at world size 1 within phase 7's tolerances; a greedy
+   decode of the dev set through the decode CLI at ``decode.dp`` and a
+   beam search of a dev batch, every text as at world size 1;
 8. training timing: each training kernel against its plain version and
    beside the one PyTorch call that computes the same function where
    there is one (cuDNN's LSTM for K1, ``F.ctc_loss`` for K2/K3,
@@ -95,7 +117,8 @@ each printing JSON lines:
    beside the jnp path and ``torch.stft``, K7,
    the milestone 2 step and its frontend's share, the dot and loc hybrid
    train steps at the 4.0 s
-   bucket and at bench.py's shape (B=96, 12.8 s, 96 labels), and a
+   bucket and at bench.py's shape (B=96, 12.8 s, 96 labels), each also
+   as shipped (``train.dp``, world size 1), and a
    torch.profiler breakdown of both at the latter by kernel, whose CTC
    kernels must be one launch each of K2's and K3's warp kernels a step;
 9. beam search: the blessed tiny golden (read from its JAX checkpoint
@@ -134,6 +157,11 @@ OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 CONFIG = os.path.join(REPO, "configs", "english_flagship.yaml")
 LOC_CONFIG = os.path.join(REPO, "configs", "flagship_bf16.yaml")
 M2_CONFIG = os.path.join(REPO, "configs", "milestone2_fused_frontend.yaml")
+# Milestones 1, 3, 4 and 5, trained and decoded as shipped (milestone 2 is
+# M2_CONFIG's slice).
+MILESTONES = {n: os.path.join(REPO, "configs", f"{f}.yaml") for n, f in (
+    (1, "milestone1_bilstm_ctc"), (3, "milestone3_las"),
+    (4, "milestone4_hybrid_dp"), (5, "milestone5_beam"))}
 GOLD = os.path.join(REPO, "tests", "goldens")
 SEED = 0
 BUCKET_SEC = 4.0  # the flagship config's longest bucket
@@ -229,6 +257,8 @@ M2_REGRID_STEPS = 5
 CTC_ONLY_STEPS = 5
 ADD_STEPS = 3
 N_BEAM_TIMED = 3
+MILESTONE_BEAM_UTTS = 48  # the dev subset a milestone's beam decode takes
+DP_WORLD = 2  # ranks of the data-parallel check, on the one card
 N_TIMED = 10
 N_TIMED_PLAIN_STEP = 3  # the plain train step takes seconds
 BENCH_SEC, BENCH_LABELS = 12.8, 96  # bench.py's shape
@@ -693,8 +723,12 @@ def main() -> None:
         ["--set", "frontend.impl=pallas_regrid"], ctc_only=True, falls=False)
     golden_greedy(torch)
     v1_counts = v1_path(torch, shapes[0], config, dev)
+    # 6b. milestones 1, 3, 4 and 5 as shipped
+    milestone_counts = milestone_slices(torch, dev, card)
     step_errs = train_reference(torch, trainer, dev)
     loc_step_errs = train_reference(torch, loc_trainer, dev)
+    # 7b. two ranks on the one card against world size 1
+    dp_check(torch, loc_trainer, dev, card)
     train_ms = train_timing(torch, trainer, shapes, dev, card)
     train_ms.update(loc_timing(torch, loc_trainer, dev, card))
     lib_ms = library_timing(torch, config, shapes, dev, card)
@@ -880,6 +914,9 @@ def main() -> None:
         if name in fe_notes:
             rows[-1]["library_note"] = fe_notes[name]
     rows[0]["decode_launches"] = decode_launches
+    for row in rows:  # the launches of each milestone's training run
+        row["milestone_launches"] = {f"milestone{n}": c.get(row["name"], 0)
+                                     for n, c in milestone_counts.items()}
     # K4's launches through its cluster kernels, from the same slices:
     # every one of them
     for d in ("fwd", "bwd"):
@@ -915,6 +952,9 @@ def main() -> None:
     emit({"kernels": rows, "train_step": step_errs,
           "train_step_loc": loc_step_errs,
           "seconds": round(time.perf_counter() - T_START, 1)})
+    # the process group the shipped training slices joined (train.dp)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 
@@ -1394,11 +1434,14 @@ def v1_path(torch, shape, config, dev):
     return launches
 
 
-def decode_slice(torch, trainer, path, name):
-    """A greedy decode of the last checkpoint of ``trainer``'s run (of the
-    config at ``path``, in OUT_DIR/``name``) through the decode CLI on the
-    card: the frontend kernel of its config on every batch (and warm
-    pass), no plain version, a hypothesis per dev utterance."""
+def decode_slice(torch, trainer, path, name, max_utts=0):
+    """A decode of the last checkpoint of ``trainer``'s run (of the config
+    at ``path``, in OUT_DIR/``name``) through the decode CLI on the card by
+    the config's ``decode.method`` (the first ``max_utts`` dev utterances,
+    0: all): the frontend kernel of its config on every batch (and warm
+    pass), K1-fwd through the cluster recurrence, no K2, K3 or K4 (the
+    beams' decoder steps are plain torch operations, as in the JAX
+    package), no plain version, a hypothesis per dev utterance."""
     from gluon_e2e_asr_tpu_torch import decode
 
     config, steps = trainer.config, trainer.state.step
@@ -1407,21 +1450,28 @@ def decode_slice(torch, trainer, path, name):
     out = os.path.join(workdir, "decode.jsonl")
     impl = config.frontend.impl
     reset_counts()
-    result = decode.main(["--config", path, "--ckpt", ckpt,
-                          "--method", "greedy", "--output", out,
-                          "--device", "cuda"])
+    t0 = time.perf_counter()
+    result = decode.main(["--config", path, "--ckpt", ckpt, "--output", out,
+                          "--max-utts", str(max_utts), "--device", "cuda"])
+    wall = time.perf_counter() - t0
     launches, plain = read_counts()
     with open(out) as f:
         recs = [json.loads(line) for line in f if line.strip()]
     batches = result["num_batches"] + result["warm_passes"]
     emit({"phase": "decode_slice", "config": os.path.relpath(path, REPO),
           "checkpoint": os.path.relpath(ckpt, REPO), "frontend_impl": impl,
-          "decode_done": result, "launches": launches, "plain_calls": plain,
-          "records": len(recs)})
-    key = {"pallas": "frontend_k5", "pallas_regrid": "frontend_k6"}[impl]
-    check(launches[key] == launches[f"{key}_fft"] == batches,
-          f"{key} launched {launches[key]} times in the decode "
-          f"({launches[f'{key}_fft']} through fft_kernel), expected {batches}")
+          "method": config.decode.method, "max_utts": max_utts,
+          "wall_s": round(wall, 2), "decode_done": result,
+          "launches": launches, "plain_calls": plain, "records": len(recs)})
+    check(result["method"] == config.decode.method,
+          f"decoded by {result['method']}, the config says "
+          f"{config.decode.method}")
+    fe = {"pallas": "frontend_k5", "pallas_regrid": "frontend_k6"}.get(impl)
+    for key in ("frontend_k5", "frontend_k6"):
+        want = batches if key == fe else 0
+        check(launches[key] == launches[f"{key}_fft"] == want,
+              f"{key} launched {launches[key]} times in the decode "
+              f"({launches[f'{key}_fft']} through fft_kernel), expected {want}")
     check(launches["bilstm_fwd"] == config.model.enc_layers * batches,
           f"bilstm_fwd launched {launches['bilstm_fwd']} times in the decode")
     check(launches["bilstm_fwd_cluster"] == launches["bilstm_fwd"],
@@ -1430,10 +1480,15 @@ def decode_slice(torch, trainer, path, name):
     check(launches["bilstm_fwd_projection"] == launches["bilstm_fwd"] * bf16,
           f"the wgmma projection launched {launches['bilstm_fwd_projection']} "
           "times in the decode")
+    check(not any(launches[k] for k in ("ctc_alpha", "ctc_beta_post",
+                                        "las_decoder_fwd", "las_decoder_bwd")),
+          f"a training kernel launched in the decode: {launches}")
     check(not any(plain.values()), f"plain versions ran in the decode: {plain}")
     check(result["num_utts"] == len(recs) > 0
           and all(isinstance(r["hyp"], str) for r in recs),
           "the decode wrote no hypothesis per utterance")
+    if config.decode.method != "greedy":
+        check(result["beam_steps_total"] > 0, "the beam ran no output step")
     return launches
 
 
@@ -1812,38 +1867,59 @@ def epoch_steps(config, epochs: int) -> int:
 
 
 def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
-                falls=True):
+                falls=True, shipped=False):
     """Phase 6: the training CLI at full width on the config at ``path``
-    as shipped (only ``train.dp=false`` and a train line every step, and
-    ``extra`` overrides), for ``steps`` steps or TRAIN_EPOCHS epochs:
-    every kernel of the path launched (K4 in the config's attention mode
-    on every step, every K4-fwd and K4-bwd launch through its cluster
-    kernel) and no plain version; with ``ctc_only``,
-    ``loss.mtl_alpha=1.0`` and a greedy dev evaluation (a model without a
-    decoder has no beam), and K4 not launched. Each epoch's dev evaluation
-    decodes as the config's ``decode.method`` says. The frontend kernel
-    of the config's ``frontend.impl`` (K5 for pallas, K6 for
-    pallas_regrid, none for jnp) runs on every step and dev batch. With
-    ``falls``, the loss must fall."""
+    as shipped (``train.dp`` too: the flagships and milestone 4 train
+    data parallel at world size 1 over NCCL), with a train line every step
+    and ``extra`` overrides, for ``steps`` steps or TRAIN_EPOCHS epochs;
+    with ``shipped``, no override at all (its metrics lines as the config
+    logs them; the step's losses read from the step itself). Every kernel
+    of the path launched (K2 and K3 where ``loss.mtl_alpha`` > 0, K4 in
+    the config's attention mode on every step of a model with a decoder,
+    every K1 and every K4-fwd and K4-bwd launch through its cluster
+    kernel) and no plain version; with ``ctc_only``, ``loss.mtl_alpha=1.0``
+    and a greedy dev evaluation (a model without a decoder has no beam).
+    Each epoch's dev evaluation decodes as the config's ``decode.method``
+    says. The frontend kernel of the config's ``frontend.impl`` (K5 for
+    pallas, K6 for pallas_regrid, none for jnp) runs on every step and dev
+    batch. With ``falls``, the loss must fall."""
     from gluon_e2e_asr_tpu_torch import train
     from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
     from gluon_e2e_asr_tpu_torch.ops import bilstm
+    from gluon_e2e_asr_tpu_torch.training import trainer as TR
 
     extra = list(extra)
     if ctc_only:
         extra += ["--set", "loss.mtl_alpha=1.0", "--set", "decode.method=greedy"]
+    if not shipped:
+        extra = ["--set", "train.log_every_steps=1", *extra]
     config = load_config(path)
     apply_overrides(config, extra[1::2])
     if steps is None:
         steps = epoch_steps(config, TRAIN_EPOCHS)
     workdir = os.path.join(OUT_DIR, name)
     shutil.rmtree(workdir, ignore_errors=True)
+    step_losses = []
+    make_step = TR.make_train_step
+
+    def recorded(*a, **k):
+        fn = make_step(*a, **k)
+
+        def step(state, batch):
+            m = fn(state, batch)
+            step_losses.append(float(m["loss"]))
+            return m
+        return step
+
     reset_counts()
     t0 = time.perf_counter()
-    trainer = train.main([
-        "--config", path, "--set", "train.dp=false",
-        "--set", "train.log_every_steps=1", *extra,
-        "--max-steps", str(steps), "--workdir", workdir, "--device", "cuda"])
+    TR.make_train_step = recorded
+    try:
+        trainer = train.main([
+            "--config", path, *extra, "--max-steps", str(steps),
+            "--workdir", workdir, "--device", "cuda"])
+    finally:
+        TR.make_train_step = make_step
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = read_counts()
@@ -1854,8 +1930,10 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     epochs = [r for r in lines if r["event"] == "epoch"]
     dev_batches = len(list(trainer.dev_loader.sampler.epoch_batches(0)))
     layers = config.model.enc_layers
-    kind = None if ctc_only else config.model.att_type
-    dec = 0 if ctc_only else steps
+    use_dec = trainer.model.use_decoder
+    kind = config.model.att_type if use_dec else None
+    dec = steps if use_dec else 0
+    ctc = steps if config.loss.mtl_alpha > 0 else 0
     # every K1-fwd and K1-bwd launch through its cluster recurrence
     # (H <= 320 in every config of the repo)
     cluster = config.model.enc_hidden <= bilstm.CLUSTER_MAX_HIDDEN
@@ -1867,10 +1945,10 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
               "bilstm_bwd_cluster": layers * steps * cluster,
               "bilstm_bwd_products": layers * steps,
               "bilstm_v1_fwd_cluster": 0, "bilstm_v1_bwd_cluster": 0,
-              "ctc_alpha": steps, "ctc_beta_post": steps,
+              "ctc_alpha": ctc, "ctc_beta_post": ctc,
               "las_decoder_fwd": dec, "las_decoder_bwd": dec,
               # every K4-fwd and K4-bwd launch through its cluster kernel
-              # (every bucket's shape of the flagships' widths routes there)
+              # (every bucket's shape of the configs' widths routes there)
               "las_decoder_fwd_cluster": dec,
               "las_decoder_bwd_cluster": dec}
     for k in ("las_decoder_fwd", "las_decoder_bwd"):
@@ -1886,16 +1964,22 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
                   bilstm_v1_fwd=0, bilstm_v1_bwd=0)
     ckpt = os.path.join(workdir, config.train.ckpt_dir, f"ckpt_{steps}.pt")
     k = min(5, max(1, steps // 2))
-    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    first = float(np.mean(step_losses[:k]))
+    last = float(np.mean(step_losses[-k:]))
     dc = trainer.config.decode
     evaluation = ({"method": dc.method, "beam_size": dc.beam_size,
                    "ctc_weight": dc.ctc_weight} if trainer._beam is not None
                   else {"method": "greedy"})
+    world = trainer.world
     emit({"phase": "train_slice", "config": os.path.relpath(path, REPO),
-          "name": name, "objective": "ctc" if ctc_only else "hybrid",
-          "frontend_impl": impl,
+          "name": name, "objective": "hybrid" if use_dec else "ctc",
+          "overrides": extra[1::2], "frontend_impl": impl,
           "att_type": kind, "mtl_alpha": trainer.config.loss.mtl_alpha,
           "scheduled_sampling": trainer.config.loss.scheduled_sampling,
+          "compute_dtype": config.model.compute_dtype,
+          "train_dp": config.train.dp, "world_size": world.size,
+          "backend": (torch.distributed.get_backend(world.group)
+                      if world.group is not None else None),
           "steps": trainer.state.step,
           "wall_s": round(wall, 2), "launches": launches,
           "expected_launches": expect, "plain_calls": plain,
@@ -1904,26 +1988,337 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
                                            "dev_cer", "epoch_time_s",
                                            "utt_per_sec_per_chip")}
                      for r in epochs],
-          "dev_batches_per_eval": dev_batches, "losses": losses,
+          "dev_batches_per_eval": dev_batches, "losses": step_losses,
+          "logged_losses": losses,
           "loss_att": [r["loss_att"] for r in train_lines],
           "att_acc": [r["att_acc"] for r in train_lines],
           f"loss_first{k}": first, f"loss_last{k}": last,
           "checkpoint": os.path.relpath(ckpt, REPO),
           "note": "random init: the WER means nothing"})
-    check(trainer.state.step == steps == len(losses),
-          f"trained {trainer.state.step} steps, logged {len(losses)}")
+    check(trainer.state.step == steps == len(step_losses),
+          f"trained {trainer.state.step} steps, recorded {len(step_losses)}")
+    log_every = 1 if not shipped else config.train.log_every_steps
+    check(len(losses) == steps // log_every,
+          f"{len(losses)} train lines for {steps} steps")
+    check(config.train.dp == (world.group is not None) and world.size == 1,
+          f"train.dp={config.train.dp} ran at world size {world.size} "
+          f"(group {world.group})")
     check(launches == expect, f"training launches {launches}, expected {expect}")
     check(not any(plain.values()), f"plain versions ran in training: {plain}")
-    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(all(np.isfinite(step_losses)), f"non-finite loss: {step_losses}")
     check(last < first or not falls,
           f"the loss did not fall: first {first}, last {last}")
-    if not ctc_only:
+    if use_dec:
         check(all(r["loss_att"] > 0 and 0.0 <= r["att_acc"] <= 1.0
                   for r in train_lines), "loss_att / att_acc not logged")
     check(all("dev_wer" in r and "dev_cer" in r for r in epochs),
           "an epoch line without dev_wer / dev_cer")
     check(os.path.exists(ckpt), f"no checkpoint at {ckpt}")
     return trainer, launches
+
+
+def milestone_slices(torch, dev, card):
+    """Phase 6b: milestones 1, 3, 4 and 5 through the training CLI as
+    shipped (no override: milestone 4 at train.dp, world size 1 over
+    NCCL) for their first epoch, its dev evaluation by the config's method
+    (milestone 3: the attention-only beam, K=8), each run's launch counts
+    (no K2 or K3 at milestone 3's mtl_alpha 0; every K1 and K4 launch
+    through the cluster kernels), no plain version and a falling loss;
+    then its checkpoint through the decode CLI by the config's method (the
+    beams on the first MILESTONE_BEAM_UTTS dev utterances); and, timed, a
+    step at the 4.0 s bucket and a decode of that batch by the config's
+    method. Returns {milestone: launches of its training run}."""
+    from gluon_e2e_asr_tpu_torch.config import load_config
+    from gluon_e2e_asr_tpu_torch.decoding.beam import make_beam_decoder
+    from gluon_e2e_asr_tpu_torch.decoding.greedy import make_greedy_decoder
+    from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
+
+    counts = {}
+    for n, path in MILESTONES.items():
+        config = load_config(path)
+        name = f"milestone{n}"
+        trainer, counts[n] = train_slice(torch, path, name,
+                                         epoch_steps(config, 1), shipped=True)
+        beam = config.decode.method != "greedy"
+        decode_slice(torch, trainer, path, name,
+                     MILESTONE_BEAM_UTTS if beam else 0)
+        b = bucket_batch(torch, config)[0]
+        batch = batch_to_device(b, dev)
+        step = stepper(torch, trainer, dev)
+        step_ms = time_ms(torch, lambda: step(batch))
+        dp_ms = None
+        if trainer.world.group is not None:
+            # the shipped data-parallel step: world size 1 over NCCL
+            step = stepper(torch, trainer, dev, world=trainer.world)
+            dp_ms = time_ms(torch, lambda: step(batch))
+        model = trainer.model.eval()
+        if beam:
+            decoder = make_beam_decoder(model, config, trainer.tokenizer,
+                                        trainer.cmvn_stats, device=dev)
+            decoder(b.audio, b.audio_len)
+            times = []
+            for _ in range(N_BEAM_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                decoder(b.audio, b.audio_len)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            dec_ms, runs = float(np.median(times)), N_BEAM_TIMED
+        else:
+            decoder = make_greedy_decoder(model, config, trainer.cmvn_stats,
+                                          dev)
+            dec_ms = time_ms(torch, lambda: [t.cpu() for t in decoder(
+                b.audio, b.audio_len)])
+            runs = N_TIMED
+        emit({"phase": "timing", "what": "milestone", "milestone": n,
+              "config": os.path.relpath(path, REPO), "shape": "4.0 s bucket",
+              "B": int(b.audio.shape[0]), "samples": int(b.audio.shape[1]),
+              "max_labels": int(b.labels.shape[1]),
+              "mtl_alpha": config.loss.mtl_alpha,
+              "att_type": config.model.att_type if trainer.model.use_decoder
+              else None, "dtype": config.model.compute_dtype,
+              "train_step_ms": step_ms,
+              "utt_per_s": b.num_real / (step_ms / 1e3),
+              "train_step_dp_world1_ms": dp_ms,
+              "decode_method": config.decode.method,
+              "beam_size": config.decode.beam_size if beam else None,
+              "ctc_weight": config.decode.ctc_weight if beam else None,
+              "decode_ms": dec_ms, "decode_runs": runs,
+              "decode_basis": "host audio in, hypotheses (beam) or ids "
+                              "(greedy) on the host; greedy CUDA events, "
+                              "beam host clock",
+              "card": card})
+        del step, decoder, trainer, model
+    return counts
+
+
+def dp_payload(torch, trainer):
+    """What the data-parallel check's ranks and its single process share:
+    the trained location-aware flagship (parameters, optimizer state,
+    step, tokenizer, last checkpoint), a 4.0 s batch and the same batch
+    with the rows of every rank but the first made padding, and a dev
+    batch to decode."""
+    b = bucket_batch(torch, trainer.config)[0]
+    batch = {k: np.asarray(getattr(b, k)) for k in
+             ("audio", "audio_len", "labels", "label_len")}
+    pad = {k: v.copy() for k, v in batch.items()}
+    rows = len(batch["audio"]) // DP_WORLD
+    for v in pad.values():
+        v[rows:] = 0
+    dev_b = next(iter(trainer.dev_loader.epoch(0)))
+    steps = trainer.state.step
+    return {"state_dict": {k: v.detach().cpu() for k, v in
+                           trainer.model.state_dict().items()},
+            "opt_state": copy.deepcopy(trainer.state.opt_state),
+            "step": steps, "tokenizer": trainer.tokenizer,
+            "ckpt": os.path.join(OUT_DIR, "train_loc",
+                                 trainer.config.train.ckpt_dir,
+                                 f"ckpt_{steps}.pt"),
+            "batch": batch, "pad_batch": pad,
+            "dev_audio": dev_b.audio, "dev_audio_len": dev_b.audio_len}
+
+
+def dp_runs(torch, payload, world, dev, workdir, steps_only=False):
+    """One flagship_bf16 train step (SpecAugment and the coins on, as
+    shipped) from the payload's state on its batch and on its padded batch,
+    a greedy decode of the dev set through the decode CLI (``decode.dp``
+    when ``world`` has a group) and a beam search of the dev batch, at
+    ``world`` (the steps alone with ``steps_only``): {name: results on
+    the host}."""
+    from gluon_e2e_asr_tpu_torch import decode
+    from gluon_e2e_asr_tpu_torch.config import load_config
+    from gluon_e2e_asr_tpu_torch.decoding.beam import make_beam_decoder
+    from gluon_e2e_asr_tpu_torch.models.asr import build_model
+    from gluon_e2e_asr_tpu_torch.training.train_step import (
+        TrainState, make_optimizer, make_train_step)
+
+    config = load_config(LOC_CONFIG)
+    tok = payload["tokenizer"]
+    out = {}
+
+    def model_at_state():
+        model = build_model(config, tok.vocab_size, train=True,
+                            sos_id=tok.sos_id, eos_id=tok.eos_id)
+        model.load_state_dict(payload["state_dict"])
+        return model.to(dev)
+
+    opt = make_optimizer(config)
+    for name in ("batch", "pad_batch"):
+        model = model_at_state()
+        state = TrainState(
+            step=payload["step"],
+            opt_state={k: ({n: t.to(dev) for n, t in v.items()}
+                           if isinstance(v, dict) else v)
+                       for k, v in payload["opt_state"].items()},
+            generator=torch.Generator().manual_seed(SEED))
+        fn = make_train_step(model, config, opt, world=world)
+        m = fn(state, {k: torch.from_numpy(v) for k, v in payload[name].items()})
+        torch.cuda.synchronize()
+        out[name] = {
+            "metrics": {k: float(v) for k, v in m.items()},
+            "grads": {k: p.grad.detach().cpu() for k, p in
+                      model.named_parameters() if p.grad is not None},
+            "params": {k: v.detach().cpu() for k, v in
+                       model.state_dict().items()},
+            "lr": opt.lr(payload["step"])}
+    if steps_only:
+        return out
+    records = os.path.join(workdir, f"greedy_{world.rank}_{world.size}.jsonl")
+    sets = (["--set", "decode.dp=true"] if world.group is not None else
+            ["--set", "decode.dp=false"])
+    out["greedy"] = decode.main(["--config", LOC_CONFIG, "--ckpt",
+                                 payload["ckpt"], "--method", "greedy",
+                                 "--output", records, *sets,
+                                 "--device", "cuda"])
+    if world.is_main:
+        with open(records) as f:
+            out["greedy_records"] = {r["utt_id"]: r["hyp"]
+                                     for r in map(json.loads, f)}
+    model = model_at_state().eval()
+    beam = make_beam_decoder(model, config, tok, mesh=world, device=dev)
+    texts, scores = beam(payload["dev_audio"], payload["dev_audio_len"])
+    out["beam"] = {"texts": texts, "scores": np.asarray(scores),
+                   "last_steps": beam.last_steps}
+    return out
+
+
+def dp_worker(workdir: str) -> None:
+    """A rank of dp_check: joins the ranks over gloo (NCCL refuses two
+    ranks on one device) with CUDA tensors, runs dp_runs, writes
+    ``rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from gluon_e2e_asr_tpu_torch.parallel.mesh import init_data_parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="env://")
+    world = init_data_parallel("cuda")
+    dev = torch.device("cuda", world.local_rank)
+    payload = torch.load(os.path.join(workdir, "payload.pt"),
+                         weights_only=False, map_location="cpu")
+    out = dp_runs(torch, payload, world, dev, workdir)
+    out["world"] = (world.rank, world.size, dist.get_backend())
+    torch.save(out, os.path.join(workdir, f"rank{world.rank}.pt"))
+    dist.destroy_process_group()
+
+
+def dp_check(torch, trainer, dev, card):
+    """Phase 7b: data parallelism on the one card. DP_WORLD processes
+    (this script with ``--dp-worker``, the environment torchrun gives its
+    ranks) join over gloo with CUDA tensors and run dp_runs from the
+    trained location-aware flagship; this process runs the same at world
+    size 1 meanwhile, and the steps once more (how far two runs of the
+    kernels differ by themselves). Each rank's loss, every gradient and the parameters
+    after Adam against world size 1 within phase 7's tolerances, on the
+    batch and on the batch whose later ranks hold only padding (K1, K2,
+    K3 and K4 launched on lengths of 0); the greedy decode CLI's
+    hypotheses and the beam's texts identical."""
+    import socket
+
+    from gluon_e2e_asr_tpu_torch.parallel.mesh import SINGLE
+
+    workdir = os.path.join(OUT_DIR, "dp")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    torch.save(dp_payload(torch, trainer), os.path.join(workdir, "payload.pt"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for rank in range(DP_WORLD):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
+                       LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-worker",
+                 workdir], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        payload = torch.load(os.path.join(workdir, "payload.pt"),
+                             weights_only=False, map_location="cpu")
+        single = dp_runs(torch, payload, SINGLE, dev, workdir)
+        # the same steps again at world size 1: how far two runs of the
+        # kernels differ with no rank involved
+        again = dp_runs(torch, payload, SINGLE, dev, workdir, steps_only=True)
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        with open(os.path.join(workdir, f"rank{rank}.log"), "w") as f:
+            f.write(log)
+        check(p.returncode == 0, f"dp rank {rank} failed: {log[-3000:]}")
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(DP_WORLD)]
+    line = {"phase": "dp_check", "world": DP_WORLD, "wall_s": round(wall, 2),
+            "ranks": [r["world"] for r in ranks],
+            "cuda_tensors_over_gloo": True}
+    for name in ("batch", "pad_batch"):
+        ref = single[name]
+        lr = ref["lr"]
+        for r in ranks:
+            got = r[name]
+            loss_rel = abs(got["metrics"]["loss"] - ref["metrics"]["loss"]) / \
+                abs(ref["metrics"]["loss"])
+            check(set(got["grads"]) == set(ref["grads"]),
+                  f"dp {name}: the ranks' gradients cover other parameters")
+            rels = {k: rel_err(got["grads"][k], ref["grads"][k])
+                    for k in ref["grads"]}
+            worst = max(rels, key=rels.get)
+            grad_rel = rels[worst]
+            rerun = max(rel_err(again[name]["grads"][k], ref["grads"][k])
+                        for k in ref["grads"])
+            param_lr = max(float((got["params"][k] - ref["params"][k])
+                                 .abs().max()) for k in ref["params"]) / lr
+            line[name] = {"loss_world1": ref["metrics"]["loss"],
+                          "loss_rel_err": loss_rel,
+                          "grad_norm_world1": ref["metrics"]["grad_norm"],
+                          "grad_norm": got["metrics"]["grad_norm"],
+                          "grad_max_rel_err": grad_rel,
+                          "grad_max_rel_err_at": worst,
+                          "grad_max_rel_err_world1_rerun": rerun,
+                          "loss_world1_rerun": again[name]["metrics"]["loss"],
+                          "param_max_abs_err_over_lr": param_lr, "lr": lr,
+                          "num_real": got["metrics"]["num_real"]}
+            check(np.isfinite(got["metrics"]["loss"])
+                  and loss_rel <= TOL_STEP_LOSS,
+                  f"dp {name}: loss {got['metrics']['loss']} against "
+                  f"{ref['metrics']['loss']} at world size 1")
+            check(grad_rel <= TOL_STEP_GRAD,
+                  f"dp {name}: gradients differ by {grad_rel}")
+            check(param_lr <= TOL_STEP_PARAM_LR,
+                  f"dp {name}: parameters after Adam differ by {param_lr} x LR")
+            check(got["metrics"]["num_real"] == ref["metrics"]["num_real"],
+                  f"dp {name}: num_real differs")
+    g1 = single["greedy_records"]
+    g2 = ranks[0]["greedy_records"]
+    same = sum(g2.get(u) == h for u, h in g1.items())
+    beam_same = all(r["beam"]["texts"] == single["beam"]["texts"]
+                    for r in ranks)
+    score_diff = max(float(np.abs(r["beam"]["scores"]
+                                  - single["beam"]["scores"]).max())
+                     for r in ranks)
+    line.update(greedy_utts=len(g1), greedy_identical=same,
+                greedy_decode_done=ranks[0]["greedy"],
+                beam_utts=len(single["beam"]["texts"]),
+                beam_texts_identical=beam_same,
+                beam_max_abs_score_diff=score_diff,
+                beam_steps=[r["beam"]["last_steps"] for r in ranks],
+                beam_steps_world1=single["beam"]["last_steps"],
+                tol={"loss_rel": TOL_STEP_LOSS, "grad_rel": TOL_STEP_GRAD,
+                     "param_over_lr": TOL_STEP_PARAM_LR}, card=card)
+    emit(line)
+    check(len(g1) == len(g2) == same > 0,
+          f"dp greedy decode: {same} of {len(g1)} hypotheses identical")
+    check(beam_same, "dp beam: the texts differ from world size 1")
+    check(all(r["beam"]["last_steps"] == single["beam"]["last_steps"]
+              for r in ranks), "dp beam: last_steps differ")
 
 
 def train_reference(torch, trainer, dev):
@@ -2113,11 +2508,12 @@ def ctc_timing(torch, config, dev, card):
     return out
 
 
-def stepper(torch, trainer, dev, route="kernel"):
+def stepper(torch, trainer, dev, route="kernel", world=None):
     """A train step function on a copy of the trained model and its
     optimizer state: the kernels, or (``route`` "plain") the plain
-    versions."""
+    versions; with ``world``, the data-parallel step over its ranks."""
     from gluon_e2e_asr_tpu_torch.models.asr import build_model
+    from gluon_e2e_asr_tpu_torch.parallel.mesh import SINGLE
     from gluon_e2e_asr_tpu_torch.training.train_step import (
         TrainState, make_train_step)
 
@@ -2129,7 +2525,8 @@ def stepper(torch, trainer, dev, route="kernel"):
     state = TrainState(step=trainer.state.step,
                        opt_state=copy.deepcopy(trainer.state.opt_state),
                        generator=torch.Generator().manual_seed(SEED))
-    fn = make_train_step(model, config, trainer.optimizer)
+    fn = make_train_step(model, config, trainer.optimizer,
+                         world=world or SINGLE)
     if route == "plain":
         def run(batch):
             with plain_route():
@@ -2141,8 +2538,10 @@ def stepper(torch, trainer, dev, route="kernel"):
 def step_timing(torch, trainer, dev, card):
     """The hybrid train step of ``trainer``'s config at the 4.0 s bucket
     (kernels and plain versions) and at bench.py's shape (kernels), and a
-    torch.profiler breakdown of the latter. Returns ((4 s kernel ms, 4 s
-    plain ms), bench-shape kernel ms)."""
+    torch.profiler breakdown of the latter. Where ``trainer`` ran
+    ``train.dp`` (the flagships as shipped: world size 1 over NCCL), the
+    kernels' step is also timed as it ships, at ``trainer.world``.
+    Returns ((4 s kernel ms, 4 s plain ms), bench-shape kernel ms)."""
     from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
 
     config = trainer.config
@@ -2154,12 +2553,23 @@ def step_timing(torch, trainer, dev, card):
     step_p = stepper(torch, trainer, dev, "plain")
     k4 = time_ms(torch, lambda: step_k(batch4))
     p4 = time_ms(torch, lambda: step_p(batch4), n=N_TIMED_PLAIN_STEP, warm=1)
+    shipped = trainer.world.group is not None
+
+    def dp_ms(batch):
+        """The step as shipped, at the trainer's world; None without dp."""
+        if not shipped:
+            return None
+        step = stepper(torch, trainer, dev, world=trainer.world)
+        return time_ms(torch, lambda: step(batch))
+
+    dp4 = dp_ms(batch4)
     emit({"phase": "timing", "what": "train_step", "shape": "4.0 s bucket",
           "objective": "hybrid", "att_type": att,
           "mtl_alpha": config.loss.mtl_alpha,
           "B": int(b4.audio.shape[0]), "samples": int(b4.audio.shape[1]),
           "max_labels": int(b4.labels.shape[1]), "kernel_ms": k4,
           "plain_ms": p4, "plain_runs": N_TIMED_PLAIN_STEP,
+          "kernel_dp_world1_ms": dp4,
           "utt_per_s": b4.num_real / (k4 / 1e3), "card": card})
     del step_k, step_p
 
@@ -2169,11 +2579,13 @@ def step_timing(torch, trainer, dev, card):
     torch.cuda.reset_peak_memory_stats()
     k12 = time_ms(torch, lambda: step12(batch12))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dp12 = dp_ms(batch12)
     emit({"phase": "timing", "what": "train_step", "shape": "bench.py",
           "objective": "hybrid", "att_type": att,
           "mtl_alpha": config.loss.mtl_alpha,
           "B": B, "seconds": BENCH_SEC, "max_labels": BENCH_LABELS,
           "dtype": config.model.compute_dtype, "kernel_ms": k12,
+          "kernel_dp_world1_ms": dp12,
           "utt_per_s": B / (k12 / 1e3), "peak_mem_gib": round(peak, 2),
           "card": card,
           "sm_clock_power_limit_temp": nvidia_smi(
@@ -2854,4 +3266,7 @@ def profile_step(torch, fn, card, att="dot", steps=3):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(sys.argv[2])
+    else:
+        main()

@@ -12,6 +12,12 @@ WER/CER, p50 latency and, for the beams, the output steps run. At B=1 the
 beams take the serving defaults of ``decoding/serving.py``. Each bucket
 gets one untimed warm pass first. A JAX checkpoint is converted with
 ``bridge.py`` and saved with ``training/checkpoint.py``.
+
+With ``decode.dp`` every rank of the default process group
+(``parallel/mesh.py``; ``torchrun --nproc_per_node=N -m
+gluon_e2e_asr_tpu_torch.decode ...``, or one process without torchrun)
+decodes its block of each batch's rows; every bucket's batch size must
+divide the world size. Rank 0 writes the records and prints the line.
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ from gluon_e2e_asr_tpu_torch.decoding.greedy import ids_to_texts, make_greedy_de
 from gluon_e2e_asr_tpu_torch.decoding.serving import apply_b1_serving_defaults
 from gluon_e2e_asr_tpu_torch.eval.metrics import cer, edit_distance, error_report, wer
 from gluon_e2e_asr_tpu_torch.models.asr import build_model
+from gluon_e2e_asr_tpu_torch.parallel.mesh import SINGLE, init_data_parallel
 from gluon_e2e_asr_tpu_torch.training.checkpoint import restore_checkpoint
-from gluon_e2e_asr_tpu_torch.training.trainer import build_datasets
+from gluon_e2e_asr_tpu_torch.training.trainer import build_datasets, check_divisible
 from gluon_e2e_asr_tpu_torch.utils.logging import JsonlLogger, percentile
 
 
@@ -81,12 +88,13 @@ def main(argv=None):
     apply_overrides(config, args.set)
     if args.method:
         config.decode.method = args.method
-    if config.decode.dp:
-        raise NotImplementedError(
-            "decode.dp: data-parallel decoding is not ported yet "
-            "(ROADMAP.md)")
     out_path = args.output or config.decode.output_path
     device = torch.device(args.device)
+    world = SINGLE
+    if config.decode.dp:
+        world = init_data_parallel(device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", world.local_rank)
     if device.type == "cuda":
         # The frontend's DFT and mel products must run in true f32.
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -103,6 +111,7 @@ def main(argv=None):
         raise SystemExit(
             f"--min-dur {args.min_dur} left no dev utterances to decode")
     loader = make_eval_loader(config, dev_utts, tokenizer)
+    check_divisible(loader.sampler.specs, world, "decode.dp")
     # Interactive serving at B=1: partial CTC scoring and end detection
     # (explicit --set values win; batched decoding is unchanged).
     apply_b1_serving_defaults(config, args.set)
@@ -115,9 +124,10 @@ def main(argv=None):
     is_beam = config.decode.method in ("beam", "ctc_beam")
     if is_beam:
         decoder = make_beam_decoder(model, config, tokenizer, cmvn_stats,
-                                    device=device)
+                                    mesh=world, device=device)
     else:
-        decoder = make_greedy_decoder(model, config, cmvn_stats, device)
+        decoder = make_greedy_decoder(model, config, cmvn_stats, device,
+                                      mesh=world)
 
     def run(b):
         """(texts, scores, n-best lists or None) of one batch, on the host."""
@@ -131,8 +141,9 @@ def main(argv=None):
         return (ids_to_texts(ids.cpu().numpy(), lens.cpu().numpy(), tokenizer),
                 [0.0] * len(b.utt_ids), None)
 
-    # "w": each decode run owns its output file.
-    logger = JsonlLogger(out_path, also_stdout=False, mode="w")
+    # "w": each decode run owns its output file (rank 0's).
+    logger = JsonlLogger(out_path if world.is_main else None,
+                         also_stdout=False, mode="w")
     refs, hyps, latencies = [], [], []
     beam_steps = []  # output steps run per batch (the beams)
     oracle_hyps = []  # per utterance, the n-best entry with the fewest word errors
@@ -202,10 +213,16 @@ def main(argv=None):
     if oracle_hyps:
         # The best WER a per-utterance pick from the n-best list reaches.
         result["oracle_wer"] = round(wer(refs, oracle_hyps), 4)
-    print(json.dumps(result))
+    if world.is_main:
+        print(json.dumps(result))
     logger.close()
     return result
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        # The process group decode.dp joined, if any.
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

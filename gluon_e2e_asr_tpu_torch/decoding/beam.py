@@ -21,8 +21,11 @@ min(max maxlen, Lmax) steps ran, as the JAX ``while_loop`` does
 (``beam.py:561-581`` there): a dead beam only yields -inf continuations
 and never finalizes, so the result does not depend on how many steps
 ran. Ties in every top-k go to the lower index, as ``jax.lax.top_k``
-breaks them. LM shallow fusion (``decode.lm_weight``) and the DP mesh are
-not ported and raise.
+breaks them. With a ``World`` of ranks (``mesh``) each rank searches its
+block of the batch's rows, with no collective inside the search, and the
+rows come back in the batch's order (``fn.last_steps`` is the most any
+rank ran), as the JAX ``shard_map`` beam does. LM shallow fusion
+(``decode.lm_weight``) is not ported and raises.
 
 CTC prefix recursion (log space), extending prefix g by token c:
   phi[t]   = logaddexp(r_b(g)[t], c == last(g) ? -inf : r_n(g)[t])
@@ -44,6 +47,8 @@ import torch
 from gluon_e2e_asr_tpu_torch.config import Config
 from gluon_e2e_asr_tpu_torch.frontend.features import frontend_apply
 from gluon_e2e_asr_tpu_torch.models.asr import ASRModel
+from gluon_e2e_asr_tpu_torch.parallel.mesh import (
+    SINGLE, World, gather_rows, shard_rows)
 
 NEG_INF = -1.0e30
 
@@ -114,19 +119,17 @@ def _ctc_extension_scores(ctc_logp, enc_len, r_prev, last_tok, is_empty,
 
 
 def make_beam_decoder(model: ASRModel, config: Config, tokenizer,
-                      cmvn_stats=None, mesh=None, lm_bundle=None,
+                      cmvn_stats=None, mesh: World = SINGLE, lm_bundle=None,
                       device: torch.device = torch.device("cpu")) -> Callable:
     """The batched beam decoder: fn(audio, audio_len) -> (texts, scores
     [B] np.float32), with ``fn.nbest(audio, audio_len)`` -> per utterance
     [(text, score)] * N, score-descending (slots past the finished
     hypotheses carry the NEG_INF sentinel), and ``fn.last_steps``, the
     output steps the last call ran. ``audio`` / ``audio_len`` are host
-    arrays or tensors; the copy to ``device`` is part of the call."""
+    arrays or tensors; the copy to ``device`` is part of the call. With
+    ``mesh`` (a ``World`` of more than one rank) every rank returns the
+    whole batch's results."""
     dc = config.decode
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_beam_decoder(mesh=...): data-parallel beam decoding is not "
-            "ported yet (ROADMAP.md, \"Data parallelism\")")
     if float(getattr(dc, "lm_weight", 0.0)) != 0.0 or lm_bundle is not None:
         raise NotImplementedError(
             "decode.lm_weight != 0: LM shallow fusion in the beam is not "
@@ -347,15 +350,25 @@ def make_beam_decoder(model: ASRModel, config: Config, tokenizer,
         return nb_tokens.cpu().numpy(), nb_len.cpu().numpy(), \
             nb_score.cpu().numpy(), i
 
+    def search(audio, audio_len):
+        """device_fn over this rank's rows, the rows of every rank after."""
+        if mesh.size == 1:
+            return device_fn(audio, audio_len)
+        tokens, lens, scores, steps = device_fn(
+            shard_rows(audio, mesh.rank, mesh.size),
+            shard_rows(audio_len, mesh.rank, mesh.size))
+        return (*(gather_rows(a, mesh) for a in (tokens, lens, scores)),
+                max(gather_rows([steps], mesh)))
+
     def decode(audio, audio_len):
-        tokens, lens, scores, steps = device_fn(audio, audio_len)
+        tokens, lens, scores, steps = search(audio, audio_len)
         decode.last_steps = steps
         texts = [tokenizer.decode(tokens[b, 0, :int(lens[b, 0])])
                  for b in range(tokens.shape[0])]
         return texts, np.asarray(scores)[:, 0]
 
     def decode_nbest(audio, audio_len):
-        tokens, lens, scores, steps = device_fn(audio, audio_len)
+        tokens, lens, scores, steps = search(audio, audio_len)
         decode.last_steps = steps
         return [[(tokenizer.decode(tokens[b, n, :int(lens[b, n])]),
                   float(scores[b, n])) for n in range(tokens.shape[1])]

@@ -231,13 +231,14 @@ def one_call(fn, n: int = 5):
     of a wrapper that launches its kernel and nothing else shows one name,
     counted n times. A long-lived process's trace may miss launches: a
     count may fall short of n, and a trace that holds no device operation
-    at all (fn launches at least one) is taken again, up to three
-    times."""
+    at all (fn launches at least one) is taken again, after another
+    unprofiled call, up to five times (three empty traces in a row have
+    been seen)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
+        fn()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):

@@ -1,5 +1,5 @@
 """Train CLI: ``python -m gluon_e2e_asr_tpu_torch.train --config <yaml>
-[--set train.dp=false] [--device cuda]``.
+[--set key=value] [--device cuda]``.
 
 Counterpart of ``gluon_e2e_asr_tpu/train.py``: the same flags
 (``--config``, ``--workdir``, ``--max-steps``, ``--set``) and
@@ -13,6 +13,13 @@ dot, add or loc), and, where ``frontend.impl`` is ``pallas`` or
 versions. Writes ``<workdir>/metrics.jsonl`` and checkpoints under
 ``<workdir>/<train.ckpt_dir>/`` (``ckpt_<step>.pt``, ``best.pt``), which
 ``gluon_e2e_asr_tpu_torch.decode`` reads; prints one ``done`` JSON line.
+
+``train.dp: true`` (the flagships and milestone 4 ship it) trains data
+parallel, one process per device: ``torchrun --nproc_per_node=N -m
+gluon_e2e_asr_tpu_torch.train --config <yaml> --device cuda`` runs rank r
+on ``cuda:r`` (NCCL); without torchrun the process is a world of one on
+the same code path (gloo on ``--device cpu``). Rank 0 writes the
+metrics and checkpoints and prints the line.
 """
 
 from __future__ import annotations
@@ -35,11 +42,11 @@ def main(argv=None):
     p.add_argument("--max-steps", type=int, default=0,
                    help="override train.max_steps (0 = keep config)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VAL",
-                   help="dotted config override, e.g. train.dp=false "
+                   help="dotted config override, e.g. loss.mtl_alpha=1.0 "
                         "(repeatable)")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device: cuda (the kernels) or cpu (their "
-                        "plain versions)")
+                   help="torch device: cuda (the kernels; with train.dp, "
+                        "cuda:LOCAL_RANK) or cpu (their plain versions)")
     args = p.parse_args(argv)
     if args.resume:
         raise NotImplementedError(
@@ -55,12 +62,20 @@ def main(argv=None):
         # The frontend's DFT and mel products must run in true f32.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    # With train.dp the trainer joins the ranks (and takes cuda:LOCAL_RANK)
+    # before it builds anything.
     trainer = Trainer(config, workdir=args.workdir, device=device)
     final = trainer.train()
-    print(json.dumps({"event": "done", "step": trainer.state.step, **final},
-                     default=float))
+    if trainer.world.is_main:
+        print(json.dumps({"event": "done", "step": trainer.state.step,
+                          **final}, default=float))
     return trainer
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        # The process group train.dp joined, if any.
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

@@ -21,6 +21,24 @@ The values follow optax's float32 arithmetic. The step's randomness
 (SpecAugment's masks, then the scheduled-sampling coins) comes from an
 explicit ``torch.Generator`` in the ``TrainState``; ``compute_loss``
 takes both as inputs.
+
+Data parallelism (``train.dp``, a ``World`` of ranks from
+``parallel/mesh.py``) follows the JAX ``shard_map`` step: each rank
+takes its contiguous block of the host batch's rows, normalizes its loss
+by the global real-row count (every rank holds the whole host batch, so
+it counts it without a collective), and the gradients, summed over the
+ranks in one all-reduce before the clip, equal the single-device ones in
+f32 (in bf16, within one rounding per rank of the weight gradients a
+rank rounds before the sum).
+Both values of ``train.dp_impl`` run this one implementation. The JAX
+``pjit`` step is one global program whose draws are the single-device
+draws; its ``shard_map`` step folds the shard index into each shard's
+key. The port draws SpecAugment's masks and the coins for the global
+batch on every rank and keeps its own rows, which gives ``pjit``'s
+semantics under either name: a step at world size n takes the draws of
+world size 1, and the generators stay in step across ranks. The
+``shard_map`` draws could not be matched anyway: the two frameworks'
+random streams differ.
 """
 
 from __future__ import annotations
@@ -38,6 +56,8 @@ from gluon_e2e_asr_tpu_torch.models.asr import ASRModel
 from gluon_e2e_asr_tpu_torch.ops.ctc import ctc_loss
 from gluon_e2e_asr_tpu_torch.ops.losses import (
     ce_label_smoothing_loss, hybrid_loss, make_decoder_io)
+from gluon_e2e_asr_tpu_torch.parallel.mesh import (
+    SINGLE, World, all_reduce_sum, shard_rows)
 
 Params = Mapping[str, torch.Tensor]
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -162,18 +182,21 @@ def draw_coins(config: Config, step: int, batch: int, max_labels: int,
 
 def compute_loss(model: ASRModel, batch: Mapping[str, torch.Tensor],
                  config: Config, *, spec_draws=None, coins=None,
-                 cmvn_stats=None, train: bool = True
+                 cmvn_stats=None, train: bool = True, num_real=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward and the joint loss of ``batch`` (tensors on the model's
     device: audio, audio_len, labels, label_len), normalized by the real
-    (non-pad) row count. SpecAugment's masks (``spec_draws``) and the
-    scheduled-sampling coins [L+1,B] are inputs. A model without the
-    attention decoder has an attention part of 0."""
+    (non-pad) row count: ``batch``'s own, or ``num_real``, the global
+    batch's, when ``batch`` is one rank's rows (the loss and ``att_acc``
+    are then this rank's share of the global ones). SpecAugment's masks
+    (``spec_draws``) and the scheduled-sampling coins [L+1,B] are inputs.
+    A model without the attention decoder has an attention part of 0."""
     feats, feat_len = frontend_apply(
         config.frontend, batch["audio"], batch["audio_len"], train=train,
         spec_draws=spec_draws, cmvn_stats=cmvn_stats)
     labels, label_len = batch["labels"], batch["label_len"]
-    num_real = (batch["audio_len"] > 0).sum()
+    if num_real is None:
+        num_real = (batch["audio_len"] > 0).sum()
     tokens_in = None
     if model.use_decoder:
         tokens_in, targets, tgt_mask = make_decoder_io(
@@ -193,8 +216,9 @@ def compute_loss(model: ASRModel, batch: Mapping[str, torch.Tensor],
         att_ce, acc = ce_label_smoothing_loss(
             out["att_logits"], targets, tgt_mask * row_mask,
             config.loss.label_smoothing)
-        att_acc = (acc * row_mask[:, 0]).sum() / torch.clamp(row_mask.sum(),
-                                                             min=1.0)
+        # The real rows of the global batch: row_mask's sum at one rank.
+        att_acc = (acc * row_mask[:, 0]).sum() / torch.clamp(
+            num_real.float(), min=1.0)
     else:
         att_ce = torch.zeros_like(ctc_nll)
     parts = hybrid_loss(ctc_nll, att_ce, label_len, mtl_alpha, num_real)
@@ -205,14 +229,23 @@ def compute_loss(model: ASRModel, batch: Mapping[str, torch.Tensor],
 
 
 def make_train_step(model: ASRModel, config: Config, optimizer: Optimizer,
-                    cmvn_stats=None) -> Callable:
+                    cmvn_stats=None, world: World = SINGLE) -> Callable:
     """``step_fn(state, batch) -> metrics``: draws SpecAugment's masks and
-    then the scheduled-sampling coins from ``state.generator``, takes the
-    loss and its gradient, and updates the model's parameters in place.
-    Metrics stay on the device; ``grad_norm`` is the norm before
-    clipping."""
+    then the scheduled-sampling coins for ``batch`` (the whole host batch,
+    tensors on any device) from ``state.generator``, moves ``world``'s
+    rows of it to the model's device, takes the loss and its gradient,
+    sums the gradients and the loss parts over the ranks, and updates the
+    model's parameters in place. Metrics stay on the device; ``grad_norm``
+    is the global norm before clipping."""
+    if config.train.dp_impl not in ("shard_map", "pjit"):
+        raise ValueError(f"unknown train.dp_impl {config.train.dp_impl!r}")
     params = dict(model.named_parameters())
+    dev = next(iter(params.values())).device
     fc = config.frontend
+    summed = ("loss", "loss_ctc", "loss_att", "att_acc")
+
+    def rows(x):
+        return x if world.size == 1 else shard_rows(x, world.rank, world.size)
 
     def step_fn(state: TrainState, batch: Mapping[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
@@ -221,29 +254,47 @@ def make_train_step(model: ASRModel, config: Config, optimizer: Optimizer,
         if specaug_on(fc):
             frames = num_frames(audio.shape[1], fc.win_length, fc.hop_length)
             draws = draw_spec_augment(fc, audio.shape[0], frames,
-                                      state.generator, audio.device)
+                                      state.generator, dev)
+            draws = type(draws)(*(None if d is None else rows(d)
+                                  for d in draws))
         coins = None
         if model.use_decoder:
             coins = draw_coins(config, state.step, audio.shape[0],
                                batch["labels"].shape[1], state.generator,
-                               audio.device)
+                               dev)
+            if coins is not None:
+                coins = rows(coins.T).T
+        num_real = (torch.as_tensor(batch["audio_len"]) > 0).sum().to(dev)
+        local = {k: torch.as_tensor(rows(v)).to(dev)
+                 for k, v in batch.items()}
         for p in params.values():
             p.grad = None
-        loss, metrics = compute_loss(model, batch, config, spec_draws=draws,
+        loss, metrics = compute_loss(model, local, config, spec_draws=draws,
                                      coins=coins, cmvn_stats=cmvn_stats,
-                                     train=True)
+                                     train=True, num_real=num_real)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        # Each rank's gradients and loss parts are its share of the global
+        # ones (a global denominator): their sums over the ranks are the
+        # global batch's.
+        all_reduce_sum([*grads.values(), *(metrics[k] for k in summed)],
+                       world)
         metrics["grad_norm"] = optimizer.update(params, grads,
                                                 state.opt_state)
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     return step_fn
 
 
+def batch_tensors(b) -> Dict[str, torch.Tensor]:
+    """A loader ``Batch`` as the step's tensors, on the host."""
+    return {k: torch.from_numpy(np.asarray(getattr(b, k)))
+            for k in ("audio", "audio_len", "labels", "label_len")}
+
+
 def batch_to_device(b, device: torch.device) -> Dict[str, torch.Tensor]:
     """A loader ``Batch`` as the step's tensors on ``device``."""
-    return {k: torch.from_numpy(np.asarray(getattr(b, k))).to(device)
-            for k in ("audio", "audio_len", "labels", "label_len")}
+    return {k: v.to(device) for k, v in batch_tensors(b).items()}

@@ -9,6 +9,14 @@ the same ``train`` and ``epoch`` lines. The dev evaluation at each
 epoch's end follows ``decode.method``, as the JAX trainer's does: the
 batched beam search for ``beam`` / ``ctc_beam``, greedy CTC otherwise.
 Options whose code paths are not ported raise and name ROADMAP.md.
+
+With ``train.dp`` the trainer runs on every rank of a ``World``
+(``parallel/mesh.py``): every rank loads every batch and runs every step
+on its rows (``training/train_step.py``); every bucket's batch size must
+divide the world size. The dev evaluation shards each batch over the
+ranks where every dev bucket divides and otherwise decodes it whole on
+every rank (a ``dp_eval_fallback`` line). Rank 0 alone writes
+``metrics.jsonl`` and the checkpoints.
 """
 
 from __future__ import annotations
@@ -34,9 +42,11 @@ from gluon_e2e_asr_tpu_torch.decoding.beam import make_beam_decoder
 from gluon_e2e_asr_tpu_torch.decoding.greedy import ids_to_texts, make_greedy_decoder
 from gluon_e2e_asr_tpu_torch.eval.metrics import cer, wer
 from gluon_e2e_asr_tpu_torch.models.asr import build_model
+from gluon_e2e_asr_tpu_torch.parallel.mesh import (
+    SINGLE, World, check_replicated, init_data_parallel)
 from gluon_e2e_asr_tpu_torch.training.checkpoint import save_train_checkpoint
 from gluon_e2e_asr_tpu_torch.training.train_step import (
-    batch_to_device, create_train_state, make_optimizer, make_train_step)
+    batch_tensors, create_train_state, make_optimizer, make_train_step)
 from gluon_e2e_asr_tpu_torch.utils.logging import JsonlLogger
 
 
@@ -73,8 +83,6 @@ def _refuse_unported(config: Config) -> None:
     """Raise for the training options whose code paths are not ported."""
     tc = config.train
     unported = [
-        (tc.dp, "train.dp: data-parallel training (ROADMAP.md, \"Data "
-                "parallelism\": DDP over NCCL)"),
         (tc.accum_grad_steps > 1, "train.accum_grad_steps > 1: gradient "
                                   "accumulation (ROADMAP.md)"),
         (tc.eps_decay > 0 or tc.plateau_restore_best,
@@ -93,14 +101,63 @@ def _refuse_unported(config: Config) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
+def _indivisible(specs, world: World) -> List[int]:
+    """The bucket batch sizes (with ``data.dynamic_batch`` they differ from
+    ``data.batch_size``) that do not split over the world's ranks."""
+    return sorted({s.batch_size for s in specs if s.batch_size % world.size})
+
+
+def check_divisible(specs, world: World, what: str) -> None:
+    """Raise unless every bucket's batch size divides the world size."""
+    bad = _indivisible(specs, world)
+    if bad:
+        raise ValueError(
+            f"{what} needs every bucket batch size divisible by the world "
+            f"size ({world.size}); got {bad}: adjust data.batch_size / "
+            "data.bucket_bounds_sec or disable data.dynamic_batch")
+
+
+def eval_world(specs, world: World, logger) -> World:
+    """The world the dev evaluation shards over: ``world`` where every dev
+    bucket's batch size divides its size, else a single process (each
+    rank decodes the whole batch), logged as ``dp_eval_fallback``."""
+    bad = _indivisible(specs, world)
+    if not bad:
+        return world
+    logger.log({
+        "event": "dp_eval_fallback",
+        "reason": "dev bucket batch sizes not divisible by the world size",
+        "bad_batch_sizes": bad,
+        "devices": world.size,
+    })
+    return SINGLE
+
+
 class Trainer:
     def __init__(self, config: Config, workdir: str = ".",
                  device: torch.device = torch.device("cpu")):
+        """With ``train.dp`` the trainer joins the default process group's
+        ranks (``init_data_parallel``; a CUDA ``device`` then means
+        ``cuda:LOCAL_RANK``); without it, it is a single process."""
         _refuse_unported(config)
         self.config = config
         self.workdir = workdir
-        self.device = torch.device(device)
-        self.logger = JsonlLogger(os.path.join(workdir, config.train.metrics_path))
+        device = torch.device(device)
+        world = SINGLE
+        if config.train.dp:
+            world = init_data_parallel(device.type)
+            if device.type == "cuda":
+                if device.index not in (None, world.local_rank):
+                    raise ValueError(
+                        f"device {device} with train.dp: rank {world.rank} "
+                        f"runs on cuda:{world.local_rank} (LOCAL_RANK)")
+                device = torch.device("cuda", world.local_rank)
+        self.device = device
+        self.world = world
+        # Rank 0 writes the metrics.
+        self.logger = JsonlLogger(
+            os.path.join(workdir, config.train.metrics_path)
+            if world.is_main else None, also_stdout=world.is_main)
 
         t_walk = time.perf_counter()
         self.train_utts, self.dev_utts = build_datasets(config)
@@ -150,6 +207,12 @@ class Trainer:
                             "(duration or label budget) are dropped",
                 })
 
+        check_divisible(specs, world, "train.dp")
+        if config.train.dp:
+            self.logger.log({"event": "data_parallel",
+                             "world_size": world.size,
+                             "dp_impl": config.train.dp_impl})
+
         self.cmvn_stats = None
         if config.frontend.cmvn == "global":
             path = config.frontend.cmvn_stats_path
@@ -168,22 +231,28 @@ class Trainer:
         self.optimizer = make_optimizer(config)
         self.state = create_train_state(config, self.model, self.optimizer,
                                         self.device)
+        # Each rank drew the parameters from train.seed.
+        check_replicated(list(self.model.parameters()), world)
         self.train_step = make_train_step(self.model, config, self.optimizer,
-                                          self.cmvn_stats)
+                                          self.cmvn_stats, world)
         # The dev evaluation's decoder follows decode.method (a CTC-only
         # model with method beam raises here, as in the JAX trainer).
+        ew = eval_world(self.dev_loader.sampler.specs, world, self.logger)
         self.greedy = self._beam = None
         if config.decode.method in ("beam", "ctc_beam"):
             self._beam = make_beam_decoder(self.model, config, self.tokenizer,
-                                           self.cmvn_stats, device=self.device)
+                                           self.cmvn_stats, mesh=ew,
+                                           device=self.device)
         else:
             self.greedy = make_greedy_decoder(self.model, config,
-                                              self.cmvn_stats, self.device)
+                                              self.cmvn_stats, self.device,
+                                              mesh=ew)
         self.best_wer = float("inf")
 
     def train(self) -> Dict[str, float]:
         tc = self.config.train
         step = self.state.step
+        n_chips = self.world.size
         final: Dict[str, float] = {}
         for epoch in range(tc.num_epochs):
             t_epoch = time.perf_counter()
@@ -198,8 +267,7 @@ class Trainer:
                     if 0 < tc.max_steps <= step:
                         stopped_at = batch_idx
                         break
-                    metrics = self.train_step(
-                        self.state, batch_to_device(b, self.device))
+                    metrics = self.train_step(self.state, batch_tensors(b))
                     step = self.state.step
                     utts_done += b.num_real
                     real_samples += int(b.audio_len.sum())
@@ -221,7 +289,7 @@ class Trainer:
                             "att_acc": round(m["att_acc"], 4),
                             "grad_norm": round(m["grad_norm"], 4),
                             "utt_per_sec_per_chip": round(
-                                window_utts / max(dt, 1e-9), 2),
+                                window_utts / max(dt, 1e-9) / n_chips, 2),
                             "tokens_per_sec": round(
                                 window_tokens / max(dt, 1e-9), 1),
                         })
@@ -245,7 +313,7 @@ class Trainer:
                 "prefetch_occupancy": round(
                     1.0 - prefetch.consumer_wait_s / max(train_time, 1e-9), 4),
                 "utt_per_sec_per_chip": round(
-                    utts_done / max(epoch_time, 1e-9), 2),
+                    utts_done / max(epoch_time, 1e-9) / n_chips, 2),
                 "tokens_per_sec": round(tokens_done / max(epoch_time, 1e-9), 1),
                 "pad_waste": round(
                     1.0 - real_samples / max(padded_samples, 1), 4),
@@ -263,7 +331,10 @@ class Trainer:
 
     def _checkpoint(self, epoch: int, is_best: Optional[bool],
                     batches_done: int = -1,
-                    dev_wer: Optional[float] = None) -> str:
+                    dev_wer: Optional[float] = None) -> Optional[str]:
+        """Rank 0 writes the checkpoint; the others return None."""
+        if not self.world.is_main:
+            return None
         meta = {
             "epoch": epoch,
             "batches_done": batches_done,

@@ -161,14 +161,13 @@ def test_loc_checkpoint_round_trips_bit_for_bit(loc_models):
 
 
 def test_lm_fusion_and_mesh_raise(loc_models):
+    """LM shallow fusion raises. (The mesh, data-parallel beam decoding,
+    is ported: tests/test_torch_parallel.py.)"""
     port = loc_models[2]
     config = _config()
     config.decode.lm_weight = 0.5
     with pytest.raises(NotImplementedError, match="ROADMAP.md, \"The LM\""):
         B.make_beam_decoder(port, config, CharTokenizer())
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, \"Data parallelism\""):
-        B.make_beam_decoder(port, _config(), CharTokenizer(), mesh=object())
 
 
 def test_b1_serving_defaults():

@@ -208,12 +208,6 @@ def test_beam_methods_are_not_ported_yet(port_ckpt, tmp_path, method):
         decode.main(args + ["--set", "decode.lm_weight=0.3"])
 
 
-def test_data_parallel_decode_is_not_ported_yet(port_ckpt, tmp_path):
-    args = _decode_args(port_ckpt, tmp_path / "dp.jsonl")
-    with pytest.raises(NotImplementedError, match="decode.dp"):
-        decode.main(args + ["--set", "decode.dp=true"])
-
-
 def _decode_without_jax(port_ckpt, tmp_path, method, golden):
     """The decode CLI in a process where importing jax, flax or the JAX
     package fails; its records against the golden."""

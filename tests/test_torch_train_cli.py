@@ -183,7 +183,6 @@ def test_milestone2_trains_without_jax(tmp_path, impl):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("train.dp=true", "Data parallelism"),
     ("train.accum_grad_steps=2", "accumulation"),
     ("train.eps_decay=0.01", "plateau"),
     ("train.plateau_restore_best=true", "plateau"),
