@@ -16,13 +16,15 @@ its ranks itself.) Phases, each printing JSON lines:
    K1-fwd in f32 and bf16 in its serving and training forms, K1-bwd in
    f32 and bf16 (both also at milestone 2's layer shapes, B=16, H=256,
    and with B=50 and K1-fwd with B=1; every call of either through its
-   cluster recurrence, and K1-bwd's dg alone against the plain sweep);
+   cluster recurrence, and K1-bwd's dg alone against the plain sweep;
+   both also at vgg_blstm's layer 0, D = 2560);
    K1-bwd's products (dx, dW_x, dW_h, db: bf16 on wgmma) through their own
    entry against their plain twin on the recurrence's dg at the
-   flagship's three layers, milestone 2's and ragged shapes (B=1 and T=1,
+   flagship's three layers, milestone 2's, vgg_blstm's layer 0 and ragged
+   shapes (B=1 and T=1,
    every length 1, odd widths); K1-fwd's bf16 projection (on wgmma)
    through its own entry against its plain twin at the flagship's three
-   layers and ragged shapes (B=1 and T=1, every length 1, D=33 with
+   layers, vgg_blstm's layer 0 and ragged shapes (B=1 and T=1, every length 1, D=33 with
    H=130, H=256), with round_xg off and on; K2 and K3 (the warp design,
    ``ctc_alpha_warp_kernel`` and ``ctc_beta_post_warp_kernel``, the only
    kernels of the library) on a real training batch's lattice, at
@@ -88,6 +90,27 @@ its ranks itself.) Phases, each printing JSON lines:
    5, K=10 with ctc_weight 0.3 and length normalization, on the first
    MILESTONE_BEAM_UTTS dev utterances); a step at the 4.0 s bucket and a
    decode of that batch by the config's method, timed;
+6c. the training options on milestone 4's model (f32, loc, B=16, as
+   shipped at ``train.dp``, world size 1): resume (RESUME_REFS
+   uninterrupted runs of 2 epochs with ``ckpt_every_steps``, a run
+   stopped mid-epoch by ``max_steps`` and resumed through ``train.py
+   --resume``: the same steps, batches and generator state, the
+   parameters within twice the uninterrupted runs' spread);
+   ``accum_grad_steps=2`` (two halves of a 4.0 s batch against the whole
+   batch from a trained state, through the kernels, within phase 7's
+   tolerances; an epoch counts ceil(batches / 2) updates); a few steps of
+   sgd and of adadelta; ``eps_decay`` with ``plateau_restore_best`` and
+   ``early_stop_patience`` on scripted dev WERs; a ``profile_dir`` trace
+   holding K1's recurrence kernels; an epoch with ``enc_dropout=0.1``;
+   an epoch with ``dec_layers=2`` (no K4 launch: the stacked decoder is
+   plain torch) and its checkpoint decoded greedily and by the beam;
+6d. ``configs/vgg_blstm.yaml`` as shipped (B=96, bf16, loc, the VGG2L
+   front): an epoch with its dev evaluation by its beam, the launch
+   counts, the checkpoint decoded by the beam; K1 at its layer 0 (D =
+   2560, checked in phase 3 in every form) timed against the plain
+   versions and its bound; a step at the 4.0 s bucket with the VGG front's
+   share (profiler, and the front alone by CUDA events) and a beam decode
+   of that batch, timed;
 7. training reference: one hybrid step of the trained dot and loc models
    (scheduled sampling off) through the kernels and through the plain
    versions on the card (same batch, parameters, optimizer state and
@@ -133,9 +156,13 @@ its ranks itself.) Phases, each printing JSON lines:
    same shapes.
 
 Then the kernels line (each kernel's launches on the main path, error,
-time, plain time, bound and library time) and, last, ``{"ok": true,
-"device": {...}}``. Any failed check exits non-zero before the last
-line. Artifacts go to ``build/chip_smoke/``.
+time, plain time, bound and library time; also each row's launches in
+vgg_blstm's epoch and in the dropout and stacked-decoder runs, and K1's
+rows at D = 2560) and, last, ``{"ok": true, "device": {...}}``. Any
+failed check exits non-zero before the last line. Artifacts go to
+``build/chip_smoke/``. ``python3 chip_smoke.py --only 6c,6d`` runs the
+build and those phases alone, reports every failed check and prints
+neither the kernels line nor the last line.
 """
 
 from __future__ import annotations
@@ -162,6 +189,7 @@ M2_CONFIG = os.path.join(REPO, "configs", "milestone2_fused_frontend.yaml")
 MILESTONES = {n: os.path.join(REPO, "configs", f"{f}.yaml") for n, f in (
     (1, "milestone1_bilstm_ctc"), (3, "milestone3_las"),
     (4, "milestone4_hybrid_dp"), (5, "milestone5_beam"))}
+VGG_CONFIG = os.path.join(REPO, "configs", "vgg_blstm.yaml")
 GOLD = os.path.join(REPO, "tests", "goldens")
 SEED = 0
 BUCKET_SEC = 4.0  # the flagship config's longest bucket
@@ -259,6 +287,24 @@ ADD_STEPS = 3
 N_BEAM_TIMED = 3
 MILESTONE_BEAM_UTTS = 48  # the dev subset a milestone's beam decode takes
 DP_WORLD = 2  # ranks of the data-parallel check, on the one card
+# Phase 6c: milestone 4's model for the training options; the runs whose
+# dev WERs are scripted (plateau annealing, early stopping) and the
+# profiled run take SMALL_TRAIN utterances (4 steps an epoch).
+SMALL_TRAIN = 64
+OPT_STEPS = 8  # sgd, adadelta and the stacked decoder train this many steps
+# A resumed run against an uninterrupted one on the card, each parameter:
+# within twice the largest spread of RESUME_REFS uninterrupted runs (K1-bwd's
+# weight gradients add split-K partial sums atomically, in an order that
+# varies from run to run, and 64 steps carry the difference on; one pair's
+# spread measured 3.0e-6 and 3.8e-6, the resumed run 2.1e-6 and 8.4e-6)
+# plus 4 f32 ulps of the largest parameter.
+RESUME_REFS, RESUME_SPREAD_FACTOR, RESUME_ULPS = 3, 2.0, 4.0
+# VGG2L's convolutions and pools among a step's device kernels, by name:
+# cuDNN's (its layout transposes among them), the implicit-GEMM
+# convolutions and the pools. Its ReLUs, re-zeroing and bias sums run as
+# PyTorch's generic elementwise and reduction kernels, which other
+# operations share: they are not counted.
+VGG_KERNELS = ("cudnn", "implicit_gemm", "implicit_convolve", "max_pool")
 N_TIMED = 10
 N_TIMED_PLAIN_STEP = 3  # the plain train step takes seconds
 BENCH_SEC, BENCH_LABELS = 12.8, 96  # bench.py's shape
@@ -273,9 +319,16 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+FAILED = []  # with --only, the checks that failed (the run goes on)
+
+
 def check(ok: bool, msg: str) -> None:
     if not ok:
-        fail(msg)
+        if main_only:
+            FAILED.append(msg)
+            print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+        else:
+            fail(msg)
 
 
 def nvidia_smi(query: str) -> str:
@@ -456,9 +509,13 @@ def layer_shapes(config, T):
 
 
 T_START = time.perf_counter()
+main_only = False  # --only: a failed check is reported and the run goes on
 
 
-def main() -> None:
+def main(only=()) -> None:
+    """The phases in order; ``only`` (phase names "6c", "6d"): the device,
+    the build and those phases alone, with no kernels line and no last
+    line (a quicker run while a phase is written)."""
     import torch
 
     # 1. device
@@ -500,6 +557,18 @@ def main() -> None:
           "seconds": round(time.perf_counter() - t0, 3),
           "built_now": {n: b is not None for n, b in built.items()},
           "ptxas": {n: b[1].splitlines() for n, b in built.items() if b}})
+
+    if only:
+        global main_only
+        main_only = True
+        phases = {"6c": training_options, "6d": vgg_slice}
+        for name in only:
+            phases[name](torch, dev, card)
+        emit({"phases": list(only), "failed": FAILED,
+              "seconds": round(time.perf_counter() - T_START, 1)})
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        sys.exit(1 if FAILED else 0)
 
     # 3. each kernel against its plain version at the flagship shapes
     config = load_config(CONFIG)
@@ -725,6 +794,9 @@ def main() -> None:
     v1_counts = v1_path(torch, shapes[0], config, dev)
     # 6b. milestones 1, 3, 4 and 5 as shipped
     milestone_counts = milestone_slices(torch, dev, card)
+    # 6c. the training options on milestone 4's model; 6d. vgg_blstm.yaml
+    option_counts = training_options(torch, dev, card)
+    vgg_counts, vgg_layer0_rows = vgg_slice(torch, dev, card)
     step_errs = train_reference(torch, trainer, dev)
     loc_step_errs = train_reference(torch, loc_trainer, dev)
     # 7b. two ranks on the one card against world size 1
@@ -917,6 +989,12 @@ def main() -> None:
     for row in rows:  # the launches of each milestone's training run
         row["milestone_launches"] = {f"milestone{n}": c.get(row["name"], 0)
                                      for n, c in milestone_counts.items()}
+        row["vgg_blstm_launches"] = vgg_counts.get(row["name"], 0)
+        row["option_launches"] = {
+            k: option_counts[f"{k}_launches"].get(row["name"], 0)
+            for k in ("dropout", "stacked")}
+        if row["name"] in vgg_layer0_rows:
+            row["vgg_layer0"] = vgg_layer0_rows[row["name"]]
     # K4's launches through its cluster kernels, from the same slices:
     # every one of them
     for d in ("fwd", "bwd"):
@@ -1434,24 +1512,28 @@ def v1_path(torch, shape, config, dev):
     return launches
 
 
-def decode_slice(torch, trainer, path, name, max_utts=0):
+def decode_slice(torch, trainer, path, name, max_utts=0, method=None,
+                 extra=()):
     """A decode of the last checkpoint of ``trainer``'s run (of the config
-    at ``path``, in OUT_DIR/``name``) through the decode CLI on the card by
-    the config's ``decode.method`` (the first ``max_utts`` dev utterances,
-    0: all): the frontend kernel of its config on every batch (and warm
-    pass), K1-fwd through the cluster recurrence, no K2, K3 or K4 (the
-    beams' decoder steps are plain torch operations, as in the JAX
-    package), no plain version, a hypothesis per dev utterance."""
+    at ``path`` with the ``extra`` overrides, in OUT_DIR/``name``) through
+    the decode CLI on the card by ``method``, by default the config's
+    ``decode.method`` (the first ``max_utts`` dev utterances, 0: all): the
+    frontend kernel of its config on every batch (and warm pass), K1-fwd
+    through the cluster recurrence, no K2, K3 or K4 (the beams' decoder
+    steps are plain torch operations, as in the JAX package), no plain
+    version, a hypothesis per dev utterance."""
     from gluon_e2e_asr_tpu_torch import decode
 
     config, steps = trainer.config, trainer.state.step
+    method = method or config.decode.method
     workdir = os.path.join(OUT_DIR, name)
     ckpt = os.path.join(workdir, config.train.ckpt_dir, f"ckpt_{steps}.pt")
-    out = os.path.join(workdir, "decode.jsonl")
+    out = os.path.join(workdir, f"decode_{method}.jsonl")
     impl = config.frontend.impl
     reset_counts()
     t0 = time.perf_counter()
-    result = decode.main(["--config", path, "--ckpt", ckpt, "--output", out,
+    result = decode.main(["--config", path, *extra, "--ckpt", ckpt,
+                          "--output", out, "--method", method,
                           "--max-utts", str(max_utts), "--device", "cuda"])
     wall = time.perf_counter() - t0
     launches, plain = read_counts()
@@ -1460,12 +1542,12 @@ def decode_slice(torch, trainer, path, name, max_utts=0):
     batches = result["num_batches"] + result["warm_passes"]
     emit({"phase": "decode_slice", "config": os.path.relpath(path, REPO),
           "checkpoint": os.path.relpath(ckpt, REPO), "frontend_impl": impl,
-          "method": config.decode.method, "max_utts": max_utts,
+          "method": method, "overrides": list(extra[1::2]),
+          "max_utts": max_utts,
           "wall_s": round(wall, 2), "decode_done": result,
           "launches": launches, "plain_calls": plain, "records": len(recs)})
-    check(result["method"] == config.decode.method,
-          f"decoded by {result['method']}, the config says "
-          f"{config.decode.method}")
+    check(result["method"] == method,
+          f"decoded by {result['method']}, asked for {method}")
     fe = {"pallas": "frontend_k5", "pallas_regrid": "frontend_k6"}.get(impl)
     for key in ("frontend_k5", "frontend_k6"):
         want = batches if key == fe else 0
@@ -1487,7 +1569,7 @@ def decode_slice(torch, trainer, path, name, max_utts=0):
     check(result["num_utts"] == len(recs) > 0
           and all(isinstance(r["hyp"], str) for r in recs),
           "the decode wrote no hypothesis per utterance")
-    if config.decode.method != "greedy":
+    if method != "greedy":
         check(result["beam_steps_total"] > 0, "the beam ran no output step")
     return launches
 
@@ -1550,6 +1632,7 @@ def check_training_kernels(torch, config, shapes, dev, m2_config):
               for shape in layer_shapes(m2_config, m2_T)]
     cases.append(("flagship, B=50", 50, H, shapes[-1]))
     cases.append(("flagship, B=1", 1, H, shapes[-1]))
+    cases.append(vgg_case())
     errs = {"bilstm_bwd": [], "bilstm_bwd_cluster": []}
     for name, Bc, Hc, (layer, T, D) in cases:
         args = layer_inputs(torch, Bc, T, D, Hc, layer, dev)
@@ -1689,6 +1772,8 @@ def products_cases(config, shapes, m2_config):
               for layer, T, D in layer_shapes(m2_config, m2_T)]
     cases += [(name, Bc, Hc, 0, T, D, ones)
               for name, Bc, T, D, Hc, ones in PRODUCTS_RAGGED]
+    name, Bc, Hc, (layer, T, D) = vgg_case()
+    cases.append((name, Bc, Hc, layer, T, D, False))
     return cases
 
 
@@ -1768,6 +1853,8 @@ def check_projection_kernels(torch, config, shapes, dev):
     cases = [("flagship", B, T, D, H, layer, False) for layer, T, D in shapes]
     cases += [(name, Bc, T, D, Hc, 0, ones)
               for name, Bc, T, D, Hc, ones in PROJ_RAGGED]
+    name, Bc, Hc, (layer, T, D) = vgg_case()
+    cases.append((name, Bc, T, D, Hc, layer, False))
     errs = []
     for name, Bc, T, D, Hc, layer, ones in cases:
         x, lens, w_x, b_x, _, _ = layer_inputs(torch, Bc, T, D, Hc, layer, dev)
@@ -1866,6 +1953,51 @@ def epoch_steps(config, epochs: int) -> int:
     return sum(len(list(sampler.epoch_batches(e))) for e in range(epochs))
 
 
+def _params_of(trainer):
+    return {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+
+
+def _max_diff(a, b) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def _run_cli(torch, path, name, extra, record=None, resume=False):
+    """The train CLI on the card on the config at ``path`` with ``extra``
+    arguments, in OUT_DIR/``name`` (emptied first unless resuming); with
+    ``record``, a list that gets each step's (loss, the batch's labels and
+    lengths as bytes). Returns the trainer and its metrics lines."""
+    from gluon_e2e_asr_tpu_torch import train
+    from gluon_e2e_asr_tpu_torch.training import trainer as TR
+
+    workdir = os.path.join(OUT_DIR, name)
+    if not resume:
+        shutil.rmtree(workdir, ignore_errors=True)
+    make_step = TR.make_train_step
+
+    def recorded(*a, **k):
+        fn = make_step(*a, **k)
+
+        def step(state, batch):
+            m = fn(state, batch)
+            record.append((float(m["loss"]), batch["labels"].numpy().tobytes()
+                           + batch["audio_len"].numpy().tobytes()))
+            return m
+        return step
+
+    if record is not None:
+        TR.make_train_step = recorded
+    try:
+        trainer = train.main(["--config", path, *extra, "--workdir", workdir,
+                              "--device", "cuda"] + (["--resume"] if resume
+                                                     else []))
+    finally:
+        TR.make_train_step = make_step
+    torch.cuda.synchronize()
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    return trainer, lines
+
+
 def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
                 falls=True, shipped=False):
     """Phase 6: the training CLI at full width on the config at ``path``
@@ -1883,10 +2015,8 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     says. The frontend kernel of the config's ``frontend.impl`` (K5 for
     pallas, K6 for pallas_regrid, none for jnp) runs on every step and dev
     batch. With ``falls``, the loss must fall."""
-    from gluon_e2e_asr_tpu_torch import train
     from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
     from gluon_e2e_asr_tpu_torch.ops import bilstm
-    from gluon_e2e_asr_tpu_torch.training import trainer as TR
 
     extra = list(extra)
     if ctc_only:
@@ -1898,33 +2028,14 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     if steps is None:
         steps = epoch_steps(config, TRAIN_EPOCHS)
     workdir = os.path.join(OUT_DIR, name)
-    shutil.rmtree(workdir, ignore_errors=True)
-    step_losses = []
-    make_step = TR.make_train_step
-
-    def recorded(*a, **k):
-        fn = make_step(*a, **k)
-
-        def step(state, batch):
-            m = fn(state, batch)
-            step_losses.append(float(m["loss"]))
-            return m
-        return step
-
+    record = []
     reset_counts()
     t0 = time.perf_counter()
-    TR.make_train_step = recorded
-    try:
-        trainer = train.main([
-            "--config", path, *extra, "--max-steps", str(steps),
-            "--workdir", workdir, "--device", "cuda"])
-    finally:
-        TR.make_train_step = make_step
-    torch.cuda.synchronize()
+    trainer, lines = _run_cli(torch, path, name,
+                              [*extra, "--max-steps", str(steps)], record)
     wall = time.perf_counter() - t0
+    step_losses = [loss for loss, _ in record]
     launches, plain = read_counts()
-    with open(os.path.join(workdir, "metrics.jsonl")) as f:
-        lines = [json.loads(line) for line in f]
     train_lines = [r for r in lines if r["event"] == "train"]
     losses = [r["loss"] for r in train_lines]
     epochs = [r for r in lines if r["event"] == "epoch"]
@@ -1932,7 +2043,8 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     layers = config.model.enc_layers
     use_dec = trainer.model.use_decoder
     kind = config.model.att_type if use_dec else None
-    dec = steps if use_dec else 0
+    # a stacked decoder (dec_layers > 1) runs plain torch, never K4
+    dec = steps if use_dec and config.model.dec_layers == 1 else 0
     ctc = steps if config.loss.mtl_alpha > 0 else 0
     # every K1-fwd and K1-bwd launch through its cluster recurrence
     # (H <= 320 in every config of the repo)
@@ -2090,6 +2202,513 @@ def milestone_slices(torch, dev, card):
               "card": card})
         del step, decoder, trainer, model
     return counts
+
+
+def resume_check(torch, card):
+    """Phase 6c, resume: milestone 4 as shipped (f32, loc, train.dp at world
+    size 1) with a mid-epoch checkpoint every ckpt_every steps,
+    RESUME_REFS uninterrupted runs of 2 epochs (their spread), a run
+    stopped mid-epoch 1 by max_steps, and a fresh trainer resumed from its
+    checkpoint through ``train.py --resume``: the step count, the batches
+    of every step after the resume and the generator state exactly the
+    first uninterrupted run's, the parameters within RESUME_SPREAD_FACTOR
+    x the largest spread. Returns that run's trainer."""
+    from gluon_e2e_asr_tpu_torch.config import load_config
+
+    path = MILESTONES[4]
+    config = load_config(path)
+    per_epoch = epoch_steps(config, 1)
+    total, stop = epoch_steps(config, 2), per_epoch + per_epoch // 2
+    every = per_epoch // 4
+    common = ["--set", "train.num_epochs=2", "--set",
+              f"train.ckpt_every_steps={every}", "--set",
+              "train.log_every_steps=1"]
+    t0 = time.perf_counter()
+    ref_rec, resumed_rec = [], []
+    refs = [_run_cli(torch, path, f"resume_ref{i}", common,
+                     ref_rec if i == 0 else None)[0]
+            for i in range(RESUME_REFS)]
+    ref = refs[0]
+    cut, _ = _run_cli(torch, path, "resume_cut",
+                      common + ["--max-steps", str(stop)])
+    cut_step = cut.state.step
+    resumed, lines = _run_cli(torch, path, "resume_cut", common,
+                              resumed_rec, resume=True)
+    wall = time.perf_counter() - t0
+    p_refs = [_params_of(t) for t in refs]
+    spreads = [_max_diff(a, b) for i, a in enumerate(p_refs)
+               for b in p_refs[i + 1:]]
+    spread, diff = max(spreads), _max_diff(_params_of(resumed), p_refs[0])
+    largest = max(float(v.abs().max()) for v in p_refs[0].values())
+    tol = RESUME_SPREAD_FACTOR * spread + RESUME_ULPS * largest * 2.0 ** -23
+    same_batches = ([b for _, b in resumed_rec]
+                    == [b for _, b in ref_rec[cut_step:]])
+    same_gen = torch.equal(resumed.state.generator.get_state(),
+                           ref.state.generator.get_state())
+    res_line = [r for r in lines if r["event"] == "resume"]
+    loss_diff = max(abs(a - b) for (a, _), (b, _) in
+                    zip(resumed_rec, ref_rec[cut_step:]))
+    emit({"phase": "training_options", "option": "resume",
+          "config": os.path.relpath(path, REPO), "steps": total,
+          "stopped_at_step": cut_step, "ckpt_every_steps": every,
+          "resume_line": res_line[-1] if res_line else None,
+          "resumed_steps": resumed.state.step,
+          "params_max_abs_diff_resumed_vs_uninterrupted": diff,
+          "params_max_abs_diff_uninterrupted_pairs": spreads,
+          "tol": tol, "largest_param": largest,
+          "step_loss_max_abs_diff_after_resume": loss_diff,
+          "same_batches_after_resume": same_batches,
+          "same_generator_state": same_gen,
+          "wall_s": round(wall, 2), "card": card})
+    check(cut_step == stop and resumed.state.step == ref.state.step == total,
+          f"resume: stopped at {cut_step}, resumed to {resumed.state.step}, "
+          f"the uninterrupted runs reached {ref.state.step}")
+    check(res_line and res_line[-1]["epoch"] == 1
+          and res_line[-1]["skip_batches"] == per_epoch // 2,
+          f"resume: the resume line {res_line}")
+    check(same_batches and len(resumed_rec) == total - stop,
+          "resume: the steps after the resume took other batches")
+    check(same_gen, "resume: the generator state differs at the end")
+    check(diff <= tol, f"resume: the parameters differ by {diff} "
+                       f"(uninterrupted runs: {spreads}, tol {tol})")
+    return ref
+
+
+def accum_check(torch, dev, card, trained):
+    """Phase 6c, accumulation: from ``trained`` (milestone 4 after
+    resume_check's 2 epochs: its parameters and Adam moments, as phase 7
+    starts from a trained state), a 4.0 s batch in two halves through the
+    micro-batch pass and one update (``accum_grad_steps=2``) against one
+    step on the whole batch, through the kernels (SpecAugment, the coins
+    and dropout off, so both take the same inputs): the loss, the combined
+    gradient and the parameters after Adam within phase 7's tolerances;
+    and an epoch at accum_grad_steps=2 through the train CLI counts
+    ceil(batches / 2) updates, every batch through the kernels."""
+    from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
+    from gluon_e2e_asr_tpu_torch.models.asr import build_model
+    from gluon_e2e_asr_tpu_torch.training import train_step as T
+
+    path = MILESTONES[4]
+    config = copy.deepcopy(trained.config)
+    apply_overrides(config, ["frontend.specaug_freq_masks=0",
+                             "frontend.specaug_time_masks=0",
+                             "loss.scheduled_sampling=0.0"])
+    tok = trained.tokenizer
+    b = bucket_batch(torch, config)[0]
+    batch = T.batch_to_device(b, dev)
+    half = batch["audio"].shape[0] // 2
+    runs = {}
+    for how in ("whole", "accum"):
+        model = build_model(config, tok.vocab_size, train=True,
+                            sos_id=tok.sos_id, eos_id=tok.eos_id)
+        model.load_state_dict(trained.model.state_dict())
+        model.to(dev)
+        opt = T.make_optimizer(config)
+        state = T.TrainState(step=trained.state.step,
+                             opt_state=copy.deepcopy(trained.state.opt_state),
+                             generator=torch.Generator().manual_seed(SEED))
+        if how == "whole":
+            m = T.make_train_step(model, config, opt)(state, batch)
+            grads = {k: p.grad.detach().clone()
+                     for k, p in model.named_parameters()}
+        else:
+            grad_fn = T.make_grad_step(model, config)
+            acc = T.Accumulator(model, opt)
+            for rows in (slice(0, half), slice(half, None)):
+                acc.add(*grad_fn(state, {k: v[rows] for k, v in batch.items()}))
+            grads = {k: g / acc.n for k, g in acc.grads.items()}
+            m = acc.apply(state)
+        torch.cuda.synchronize()
+        runs[how] = (grads, _params_of(types.SimpleNamespace(model=model)),
+                     float(m["loss"]), state.step)
+    (gw, pw, lw, sw), (ga, pa, la, sa) = runs["whole"], runs["accum"]
+    grad_rel = max(rel_err(ga[k], gw[k]) for k in gw)
+    lr = T.make_optimizer(config).lr(trained.state.opt_state["count"])
+    param_lr = _max_diff(pa, pw) / lr
+    loss_rel = abs(la - lw) / abs(lw)
+
+    # an epoch at accum_grad_steps=2 through the train CLI
+    batches = epoch_steps(load_config(path), 1)
+    reset_counts()
+    trainer, lines = _run_cli(torch, path, "accum_epoch", [
+        "--set", "train.accum_grad_steps=2", "--set", "train.num_epochs=1",
+        "--set", "train.log_every_steps=1"])
+    launches, plain = read_counts()
+    losses = [r["loss"] for r in lines if r["event"] == "train"]
+    k = min(5, len(losses) // 2)
+    emit({"phase": "training_options", "option": "accum_grad_steps",
+          "config": os.path.relpath(path, REPO), "B": int(b.audio.shape[0]),
+          "samples": int(b.audio.shape[1]), "loss_whole": lw,
+          "loss_two_halves": la, "loss_rel_err": loss_rel,
+          "grad_max_rel_err": grad_rel, "param_max_abs_err_over_lr": param_lr,
+          "tol": {"loss_rel": TOL_STEP_LOSS, "grad_rel": TOL_STEP_GRAD,
+                  "param_over_lr": TOL_STEP_PARAM_LR},
+          "epoch_batches": batches, "epoch_updates": trainer.state.step,
+          "epoch_launches": launches, "plain_calls": plain,
+          "losses": losses, "card": card})
+    check(sw == sa == trained.state.step + 1,
+          f"accumulation: steps {sw} and {sa}")
+    check(loss_rel <= TOL_STEP_LOSS and grad_rel <= TOL_STEP_GRAD
+          and param_lr <= TOL_STEP_PARAM_LR,
+          f"accumulation against the whole batch: loss {loss_rel}, "
+          f"gradients {grad_rel}, parameters {param_lr} x LR")
+    check(trainer.state.step == -(-batches // 2),
+          f"an epoch of {batches} batches at accum_grad_steps=2 took "
+          f"{trainer.state.step} updates")
+    layers = config.model.enc_layers
+    check(launches["bilstm_bwd"] == launches["bilstm_bwd_cluster"]
+          == layers * batches and launches["las_decoder_bwd"] == batches
+          and launches["ctc_alpha"] == batches and not any(plain.values()),
+          f"accumulation epoch: launches {launches}, plain {plain}")
+    check(np.mean(losses[-k:]) < np.mean(losses[:k]),
+          f"accumulation epoch: the loss did not fall: {losses}")
+    return {"grad_rel": grad_rel, "param_over_lr": param_lr}
+
+
+def scripted_trainer(torch, name, overrides, wers):
+    """A Trainer on the card of milestone 4 (SMALL_TRAIN utterances) with
+    ``overrides``, whose dev evaluation returns the WERs of ``wers`` in
+    turn; trained, returned with its metrics lines."""
+    from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
+    from gluon_e2e_asr_tpu_torch.training.trainer import Trainer
+
+    config = load_config(MILESTONES[4])
+    apply_overrides(config, [f"data.synth_num_train={SMALL_TRAIN}",
+                             *overrides])
+    workdir = os.path.join(OUT_DIR, name)
+    shutil.rmtree(workdir, ignore_errors=True)
+    trainer = Trainer(config, workdir=workdir, device=torch.device("cuda"))
+    script = iter(wers)
+    trainer.evaluate = lambda: {"dev_wer": next(script), "dev_cer": 0.0}
+    trainer.train()
+    torch.cuda.synchronize()
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return trainer, [json.loads(line) for line in f], workdir
+
+
+def plateau_checks(torch, card):
+    """Phase 6c, ``eps_decay`` with ``plateau_restore_best`` (adadelta; the
+    dev WERs scripted 0.5, 0.7, 0.6: epochs 1 and 2 are stale) and
+    ``early_stop_patience`` 2 (0.9, 0.5, 0.5, 0.6, ...: it stops after
+    epoch 3)."""
+    from gluon_e2e_asr_tpu_torch.training.checkpoint import (
+        restore_train_checkpoint)
+
+    trainer, lines, workdir = scripted_trainer(torch, "plateau", [
+        "train.optimizer=adadelta", "train.learning_rate=1.0",
+        "train.warmup_steps=0", "train.eps_decay=0.01",
+        "train.plateau_restore_best=true", "train.num_epochs=3"],
+        [0.5, 0.7, 0.6])
+    ckpts = os.path.join(workdir, trainer.config.train.ckpt_dir)
+    best = restore_train_checkpoint(os.path.join(ckpts, "best.pt"),
+                                    params_only=True)
+    last = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    same = all(torch.equal(last[k], best.params[k].cpu()) for k in last)
+    decays = [r for r in lines if r["event"] == "eps_decay"]
+    eps = trainer.state.opt_state["eps"]
+    want = float(np.float32(np.float32(1e-8) * np.float32(0.01))
+                 * np.float32(0.01))
+    emit({"phase": "training_options", "option": "eps_decay",
+          "scripted_dev_wer": [0.5, 0.7, 0.6], "eps_decay_lines": decays,
+          "eps_after": eps, "params_equal_best_after_restore": same,
+          "best": os.readlink(os.path.join(ckpts, "best.pt")),
+          "steps": trainer.state.step, "card": card})
+    check([r["epoch"] for r in decays] == [1, 2]
+          and all(r["restored_best"] for r in decays) and same
+          and eps == want, f"plateau annealing: {decays}, eps {eps}, the "
+                           f"parameters equal best.pt's: {same}")
+
+    trainer, lines, _ = scripted_trainer(torch, "early_stop", [
+        "train.early_stop_patience=2", "train.num_epochs=10"],
+        [0.9, 0.5, 0.5, 0.6, 0.4, 0.4, 0.4])
+    epochs = [r["epoch"] for r in lines if r["event"] == "epoch"]
+    stops = [r for r in lines if r["event"] == "early_stop"]
+    emit({"phase": "training_options", "option": "early_stop_patience",
+          "scripted_dev_wer": [0.9, 0.5, 0.5, 0.6], "epochs": epochs,
+          "early_stop": stops, "card": card})
+    check(epochs == [0, 1, 2, 3] and len(stops) == 1
+          and stops[0]["epoch"] == 3 and trainer.best_wer == 0.5,
+          f"early stopping: epochs {epochs}, lines {stops}")
+
+
+def k1_kernel_names(torch, config, dev):
+    """The device kernels one K1-fwd (training form) and K1-bwd call
+    launches at ``config``'s first layer shape, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    fc, mc = config.frontend, config.model
+    T = num_frames(int(BUCKET_SEC * fc.sample_rate), fc.win_length,
+                   fc.hop_length)
+    layer, T, D = layer_shapes(config, T)[0]
+    args = layer_inputs(torch, config.data.batch_size, T, D, mc.enc_hidden,
+                        layer, dev)
+    dy = layer_cotangent(torch, config.data.batch_size, T, mc.enc_hidden,
+                         layer, dev)
+    cd = getattr(torch, mc.compute_dtype)
+
+    def call():
+        x, lens, w_x, b_x, w_hf, w_hb = args
+        y, c, acts = K.bilstm_fused_kernel(*args, compute_dtype=cd,
+                                           with_cell=True)
+        K.bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, y, c, acts, dy,
+                                  compute_dtype=cd)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "cluster_kernel" in e.name})
+
+
+def profile_check(torch, dev, card):
+    """Phase 6c, ``profile_dir``: milestone 4 (SMALL_TRAIN utterances)
+    through the train CLI with steps 2 and 3 profiled; the trace under
+    profile_dir must hold K1's recurrence kernels (fwd_cluster_kernel and
+    bwd_cluster_kernel, by the names a K1 call launches). A trace with no
+    device operation at all is taken again in a new run, up to three
+    times, as tools/ctc_probe.py::one_call retakes one, and the retakes are
+    reported."""
+    from gluon_e2e_asr_tpu_torch.config import load_config
+
+    names = k1_kernel_names(torch, load_config(MILESTONES[4]), dev)
+    prof_dir = os.path.join(OUT_DIR, "profile_run", "prof")
+    for attempt in range(3):
+        shutil.rmtree(prof_dir, ignore_errors=True)
+        _run_cli(torch, MILESTONES[4], "profile_run", [
+            "--set", f"data.synth_num_train={SMALL_TRAIN}", "--set",
+            f"train.profile_dir={prof_dir}", "--set",
+            "train.profile_start_step=2", "--set", "train.profile_num_steps=2",
+            "--max-steps", "6"])
+        traces = sorted(os.listdir(prof_dir))
+        with open(os.path.join(prof_dir, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {e.get("name") for e in events if e.get("cat") == "kernel"}
+        if kernels:
+            break
+    found = {n: sum(e.get("name") == n for e in events) for n in names}
+    emit({"phase": "training_options", "option": "profile_dir",
+          "traces": traces, "device_kernels_in_trace": len(kernels),
+          "k1_kernels": found, "retakes_of_an_empty_trace": attempt,
+          "card": card})
+    check(traces == ["trace_2-4_rank0.json"], f"profile_dir holds {traces}")
+    check(len(names) == 2 and all(found.values()),
+          f"the trace lacks K1's kernels: {found}")
+
+
+def training_options(torch, dev, card):
+    """Phase 6c: the training options of the JAX trainer on milestone 4's
+    model (f32, loc, B=16, train.dp at world size 1): resume,
+    accumulation, sgd and adadelta, plateau annealing with restore-best,
+    early stopping, profiling, encoder dropout and a stacked decoder
+    (dec_layers=2: no K4 launch, its checkpoint decoded greedily and by
+    the beam). Returns the launches of the dropout run."""
+    from gluon_e2e_asr_tpu_torch.config import load_config
+
+    path = MILESTONES[4]
+    out = {"accum": accum_check(torch, dev, card, resume_check(torch, card))}
+    for name, sets in (
+            ("sgd", ["train.optimizer=sgd", "train.learning_rate=0.05",
+                     "train.warmup_steps=0"]),
+            ("adadelta", ["train.optimizer=adadelta",
+                          "train.learning_rate=1.0", "train.warmup_steps=0",
+                          "train.adadelta_eps=1e-6"])):
+        train_slice(torch, path, f"opt_{name}", OPT_STEPS,
+                    [a for s in sets for a in ("--set", s)])
+    plateau_checks(torch, card)
+    profile_check(torch, dev, card)
+    config = load_config(path)
+    _, out["dropout_launches"] = train_slice(
+        torch, path, "enc_dropout", epoch_steps(config, 1),
+        ["--set", "model.enc_dropout=0.1"])
+    extra = ["--set", "model.dec_layers=2"]
+    stacked, out["stacked_launches"] = train_slice(
+        torch, path, "dec_layers2", epoch_steps(config, 1), extra)
+    decode_slice(torch, stacked, path, "dec_layers2", extra=extra)
+    decode_slice(torch, stacked, path, "dec_layers2", MILESTONE_BEAM_UTTS,
+                 method="beam", extra=extra)
+    return out
+
+
+def vgg_slice(torch, dev, card):
+    """Phase 6d: configs/vgg_blstm.yaml as shipped (B=96, bf16, loc,
+    train.dp at world size 1): an epoch with its dev evaluation by its
+    beam, the launch counts (every K1 and K4 launch through the cluster
+    kernels, no plain version) and a falling loss; its checkpoint decoded
+    by the beam on the first MILESTONE_BEAM_UTTS dev utterances; K1 at its
+    layer 0 (D = 2560) against the plain versions, timed; a step at the
+    4.0 s bucket, timed, with the VGG front's share of the device time
+    from the profiler; a beam decode of that batch, timed. Returns
+    (launches, the D = 2560 row)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gluon_e2e_asr_tpu_torch.config import load_config
+    from gluon_e2e_asr_tpu_torch.decoding.beam import make_beam_decoder
+    from gluon_e2e_asr_tpu_torch.frontend.features import frontend_apply
+    from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
+
+    config = load_config(VGG_CONFIG)
+    trainer, launches = train_slice(torch, VGG_CONFIG, "vgg_blstm",
+                                    epoch_steps(config, 1), shipped=True)
+    decode_slice(torch, trainer, VGG_CONFIG, "vgg_blstm", MILESTONE_BEAM_UTTS)
+    d2560 = k1_vgg_timing(torch, trainer, dev, card)
+
+    b = bucket_batch(torch, config)[0]
+    batch = batch_to_device(b, dev)
+    step = stepper(torch, trainer, dev, world=trainer.world)
+    step_ms = time_ms(torch, lambda: step(batch))
+    step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step(batch)
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if evt.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            rows.append((evt.key, us / 1e3 / 3))
+    busy = sum(ms for _, ms in rows)
+    vgg = [(k, ms) for k, ms in rows if any(w in k for w in VGG_KERNELS)]
+    vgg_ms = sum(ms for _, ms in vgg)
+    rows.sort(key=lambda r: -r[1])
+    # the VGG front alone, forward and backward (the parameters' gradients),
+    # on the batch's features
+    front = trainer.model.encoder.vgg
+    with torch.no_grad():
+        feats, feat_len = frontend_apply(config.frontend, batch["audio"],
+                                         batch["audio_len"])
+    weights = list(front.parameters())
+
+    def front_pass():
+        out, _ = front(feats, feat_len, torch.bfloat16)
+        torch.autograd.grad(out, weights, torch.ones_like(out))
+
+    front_ms = time_ms(torch, front_pass)
+    decoder = make_beam_decoder(trainer.model.eval(), config,
+                                trainer.tokenizer, trainer.cmvn_stats,
+                                device=dev)
+    decoder(b.audio, b.audio_len)
+    times = []
+    for _ in range(N_BEAM_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decoder(b.audio, b.audio_len)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    emit({"phase": "timing", "what": "vgg_blstm",
+          "config": os.path.relpath(VGG_CONFIG, REPO), "shape": "4.0 s bucket",
+          "B": int(b.audio.shape[0]), "samples": int(b.audio.shape[1]),
+          "max_labels": int(b.labels.shape[1]), "dtype": "bfloat16",
+          "train_step_dp_world1_ms": step_ms,
+          "utt_per_s": b.num_real / (step_ms / 1e3),
+          "profiled_device_busy_ms_per_step": busy,
+          "vgg_front_device_ms_per_step": vgg_ms,
+          "vgg_front_share_of_busy": vgg_ms / busy if busy else None,
+          "vgg_front_alone_fwd_bwd_ms": front_ms,
+          "vgg_front_alone_share_of_step": front_ms / step_ms,
+          "vgg_front_kernels": [{"kernel": k[:120], "ms_per_step": ms}
+                                for k, ms in sorted(vgg, key=lambda r: -r[1])[:12]],
+          "by_kernel": [{"kernel": k[:120], "ms_per_step": ms,
+                         "share": ms / busy} for k, ms in rows[:15]],
+          "vgg_basis": "profiler: device time of the kernels whose names "
+                       "hold " + ", ".join(VGG_KERNELS) + " (cuDNN's "
+                       "convolutions and layout transposes, the pools; the "
+                       "ReLUs, re-zeroing and bias sums are not counted); "
+                       "alone: CUDA events over the front's forward and the "
+                       "backward to its weights on the batch's features",
+          "beam_decode_ms": float(np.median(times)),
+          "beam_size": config.decode.beam_size,
+          "ctc_weight": config.decode.ctc_weight,
+          "decode_basis": "host audio in, hypotheses on the host, host clock",
+          "card": card})
+    check(busy > 0 and vgg_ms > 0, "the profiler saw no VGG2L kernel")
+    del step, decoder, trainer
+    return launches, d2560
+
+
+def k1_vgg_timing(torch, trainer, dev, card):
+    """K1 at vgg_blstm's layer 0 (B=96, T'=100, D = 2560, H=320, bf16, the
+    4.0 s bucket): K1-fwd (serving form) and K1-bwd against their plain
+    versions (phase 3 checks them at this shape in every form) and their
+    bounds, timed by CUDA events."""
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    config = trainer.config
+    H, B = config.model.enc_hidden, config.data.batch_size
+    layer, T, D = vgg_layer0(config)
+    args = layer_inputs(torch, B, T, D, H, layer, dev)
+    x, lens, w_x, b_x, w_hf, w_hb = args
+    dy = layer_cotangent(torch, B, T, H, layer, dev)
+    cd = torch.bfloat16
+    y = K.bilstm_fused_kernel(*args, compute_dtype=cd)
+    y_ref = K.bilstm_fused_plain(*args, compute_dtype=cd)
+    yt, c, acts = K.bilstm_fused_kernel(*args, compute_dtype=cd,
+                                        with_cell=True)
+    got = K.bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, yt, c, acts, dy,
+                                    compute_dtype=cd)
+    ref = K.bilstm_fused_bwd_plain(x, lens, w_x, b_x, w_hf, w_hb, yt, c, dy,
+                                   compute_dtype=cd)
+    torch.cuda.synchronize()
+    fwd_err = float((y - y_ref).abs().max())
+    bwd_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    bwd_rel = max(rel_err(g, r) for g, r in zip(got, ref))
+    ms = {
+        "bilstm_fwd": (time_ms(torch, lambda: K.bilstm_fused_kernel(
+            *args, compute_dtype=cd)), time_ms(torch, lambda: K.bilstm_fused_plain(
+                *args, compute_dtype=cd), n=5, warm=1)),
+        "bilstm_bwd": (time_ms(torch, lambda: K.bilstm_fused_bwd_kernel(
+            x, lens, w_x, w_hf, w_hb, yt, c, acts, dy, compute_dtype=cd)),
+            time_ms(torch, lambda: K.bilstm_fused_bwd_plain(
+                x, lens, w_x, b_x, w_hf, w_hb, yt, c, dy, compute_dtype=cd),
+                n=5, warm=1))}
+    bounds = k1_layer_bounds(torch, B, T, D, H, layer)
+    out = {}
+    for name, err in (("bilstm_fwd", fwd_err), ("bilstm_bwd", bwd_err)):
+        out[name] = {"B": B, "T": T, "D": D, "H": H, "dtype": "bfloat16",
+                     "ms": ms[name][0], "plain_ms": ms[name][1],
+                     "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1], "max_abs_err": err}
+    emit({"phase": "timing", "what": "k1_vgg_layer0", **out,
+          "bwd_max_rel_err": bwd_rel, "tol": TOL["bfloat16"],
+          "tol_bwd_rel": TOL_BWD["bfloat16"], "card": card})
+    check(fwd_err <= TOL["bfloat16"] and bwd_rel <= TOL_BWD["bfloat16"],
+          f"K1 at D = {D}: fwd {fwd_err}, bwd {bwd_rel}")
+    return out
+
+
+def vgg_case():
+    """(name, B, H, (layer, T', D)) of vgg_blstm's first BiLSTM layer at the
+    4.0 s bucket, for phase 3's K1 checks: D = 2560, a reduction width no
+    other config gives K1."""
+    from gluon_e2e_asr_tpu_torch.config import load_config
+
+    config = load_config(VGG_CONFIG)
+    return ("vgg_blstm", config.data.batch_size, config.model.enc_hidden,
+            vgg_layer0(config))
+
+
+def vgg_layer0(config):
+    """(layer, T', D) of vgg_blstm's first BiLSTM layer at the 4.0 s
+    bucket: VGG2L's two pools halve T and the mel bins twice."""
+    from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
+
+    fc, mc = config.frontend, config.model
+    T = num_frames(int(BUCKET_SEC * fc.sample_rate), fc.win_length,
+                   fc.hop_length)
+    feat = fc.n_mels * (1 + fc.deltas) // mc.vgg_in_channels
+    for _ in mc.vgg_channels:
+        T, feat = (T + 1) // 2, (feat + 1) // 2
+    return 0, T, feat * int(mc.vgg_channels[-1])
 
 
 def dp_payload(torch, trainer):
@@ -3066,6 +3685,26 @@ def k4_bounds(torch, config, att):
                    e_bwd * frames * A + 2 * conv))
 
 
+def k1_layer_bounds(torch, B, T, D, H, layer):
+    """K1-fwd's (serving form) and K1-bwd's bounds at one layer shape, with
+    the lengths of ``layer_inputs``: see kernel_bounds."""
+    f4, cd = 4, 2
+    lens = layer_inputs(torch, B, T, D, H, layer, "cpu")[1]
+    frames = float(lens.sum())
+    w_mats = D * 8 * H + 2 * H * 4 * H
+    f_ops = 2.0 * frames * D * 8 * H + 2 * 2.0 * frames * H * 4 * H
+    f_bytes = (cd * (frames * D + w_mats) + f4 * 8 * H + 4 * B
+               + f4 * B * T * 2 * H)
+    # dx and dW_x, dW_h of both directions, the dh recurrence
+    b_ops = (2 * 2.0 * frames * 8 * H * D + 2 * 2.0 * frames * H * 4 * H
+             + 2 * 2.0 * frames * 4 * H * H)
+    # in: x, y, c, dy, weights; out: dx, dW_x, db, dW_h
+    b_bytes = (cd * (frames * D + w_mats) + f4 * frames * 2 * H * 3
+               + 4 * B + f4 * (B * T * D + w_mats + 8 * H))
+    return {"bilstm_fwd": _bound(f_ops, PEAK_BF16, f_bytes),
+            "bilstm_bwd": _bound(b_ops, PEAK_BF16, b_bytes)}
+
+
 def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     """name -> (bound_ms, bound_by): the least time the card could take
     for each timed call, from this run's inputs: the operations over the
@@ -3085,7 +3724,8 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     needed); outputs count their whole size. Products take bf16 operands
     (2 bytes), as the timed calls do; states, residuals and gradients are
     f32. K1 sums its 3 layer shapes (K1-fwd in its serving form, as
-    timed: y only). K1-fwd's recurrence alone (its own row, as timed):
+    timed: y only; ``k1_layer_bounds``, which also bounds K1 at
+    vgg_blstm's layer 0, D = 2560, in phase 6d). K1-fwd's recurrence alone (its own row, as timed):
     the bf16 products h . W_h of both directions over the live frames,
     against xg of the live frames (f32) and W_h in and y out. K1-fwd's
     projection (its own row, timed through its own entry):
@@ -3129,16 +3769,8 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     for layer, T, D in shapes:
         lens = layer_inputs(torch, B, T, D, H, layer, "cpu")[1]
         frames = float(lens.sum())
-        w_mats = D * 8 * H + 2 * H * 4 * H
-        f_ops = 2.0 * frames * D * 8 * H + 2 * 2.0 * frames * H * 4 * H
-        f_bytes = (cd * (frames * D + w_mats) + f4 * 8 * H + 4 * B
-                   + f4 * B * T * 2 * H)
-        # dx and dW_x, dW_h of both directions, the dh recurrence
-        b_ops = (2 * 2.0 * frames * 8 * H * D + 2 * 2.0 * frames * H * 4 * H
-                 + 2 * 2.0 * frames * 4 * H * H)
-        # in: x, y, c, dy, weights; out: dx, dW_x, db, dW_h
-        b_bytes = (cd * (frames * D + w_mats) + f4 * frames * 2 * H * 3
-                   + 4 * B + f4 * (B * T * D + w_mats + 8 * H))
+        one = k1_layer_bounds(torch, B, T, D, H, layer)
+        fb, bb = one["bilstm_fwd"], one["bilstm_bwd"]
         # the recurrence alone: dg . W_h^T of both directions; in: the gate
         # activations, c, dy (live frames), W_h, lens; out: dg
         r_ops = 2 * 2.0 * frames * 4 * H * H
@@ -3149,7 +3781,6 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
         fr_ops = 2 * 2.0 * frames * H * 4 * H
         fr_bytes = (f4 * frames * 8 * H + cd * 2 * H * 4 * H + 4 * B
                     + f4 * B * T * 2 * H)
-        fb, bb = _bound(f_ops, PEAK_BF16, f_bytes), _bound(b_ops, PEAK_BF16, b_bytes)
         frb = _bound(fr_ops, PEAK_BF16, fr_bytes)
         fpb = proj_bound(lens.tolist(), T, D, H)
         k1fr = (k1fr[0] + frb[0], frb[1])
@@ -3268,5 +3899,7 @@ def profile_step(torch, fn, card, att="dot", steps=3):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--only"]:
+        main(tuple(sys.argv[2].split(",")))
     else:
         main()

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 
 _LAYER_PARAM = re.compile(r"l\d+_(in_w|in_b|rec_f|rec_b)")
+# models/encoder.py (JAX): VGG2L's convs, encoder/vgg/conv{stage}_{k}.
+_VGG_CONV = re.compile(r"conv\d+_\d+")
 # models/decoder.py (JAX): the attention decoder's parameters, for every
 # att_type and dec_layers.
 _DECODER_PARAM = re.compile(
@@ -48,18 +50,28 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unknown parameter subtree {top!r}")
         for name, leaf in sub.items():
             if name == "ctc_head":
-                if set(leaf) != set(_DENSE):
-                    raise KeyError(f"encoder/ctc_head has keys {sorted(leaf)}, "
-                                   f"expected {list(_DENSE)}")
-                for k in _DENSE:
-                    state[f"encoder.ctc_head.{k}"] = _tensor(leaf[k])
+                _dense(state, "encoder/ctc_head", "encoder.ctc_head", leaf)
+            elif name == "vgg" and isinstance(leaf, Mapping):
+                for conv, kb in leaf.items():
+                    if not _VGG_CONV.fullmatch(conv):
+                        raise KeyError(f"unknown VGG2L parameter {conv!r}")
+                    _dense(state, f"encoder/vgg/{conv}",
+                           f"encoder.vgg.{conv}", kb)
             elif _LAYER_PARAM.fullmatch(name):
                 state[f"encoder.{name}"] = _tensor(leaf)
             else:
-                raise KeyError(
-                    f"unknown encoder parameter {name!r} (the VGG2L front of "
-                    "enc_type=vggblstm is not ported yet)")
+                raise KeyError(f"unknown encoder parameter {name!r}")
     return state
+
+
+def _dense(state: Dict[str, torch.Tensor], where: str, prefix: str,
+           leaf) -> None:
+    """A flax ``Dense`` or ``Conv`` subtree: exactly {kernel, bias}."""
+    if not isinstance(leaf, Mapping) or set(leaf) != set(_DENSE):
+        keys = sorted(leaf) if isinstance(leaf, Mapping) else type(leaf)
+        raise KeyError(f"{where} has keys {keys}, expected {list(_DENSE)}")
+    for k in _DENSE:
+        state[f"{prefix}.{k}"] = _tensor(leaf[k])
 
 
 def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:

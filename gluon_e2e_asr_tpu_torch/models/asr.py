@@ -35,10 +35,11 @@ class ASRModel(nn.Module):
     def forward(self, feats: torch.Tensor, feat_len: torch.Tensor,
                 tokens_in: Optional[torch.Tensor] = None,
                 coins: Optional[torch.Tensor] = None,
-                train: bool = False) -> Dict[str, torch.Tensor]:
+                drop_masks=None) -> Dict[str, torch.Tensor]:
         """``coins`` [L,B] bool: the scheduled-sampling draws (None: gold
-        tokens only)."""
-        enc, enc_len, ctc_logits = self.encoder(feats, feat_len, train)
+        tokens only); ``drop_masks``: the encoder dropout's keep masks
+        (None: no dropout)."""
+        enc, enc_len, ctc_logits = self.encoder(feats, feat_len, drop_masks)
         out = {"enc": enc, "enc_len": enc_len, "ctc_logits": ctc_logits}
         if self.use_decoder and tokens_in is not None:
             out["att_logits"] = self.decoder(enc, enc_len, tokens_in, coins)

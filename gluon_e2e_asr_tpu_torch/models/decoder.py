@@ -24,7 +24,14 @@ keep the flax names and layouts of every ``att_type`` (``embed`` [V,E],
 
 ``dec_impl`` keeps its meaning: ``pallas`` rounds every decoder
 product's operands to ``compute_dtype``; ``scan`` rounds only those of
-``precompute`` and runs the steps in f32. ``dec_layers > 1`` raises.
+``precompute`` and runs the steps in f32.
+
+Stacked layers (``dec_layers > 1``; ``cell{l}_*``, layer l > 0 taking
+layer l-1's h, the state's h and c [L,B,H]) follow the JAX route, where
+``_use_fused`` is False whatever ``dec_impl`` says: the teacher-forced
+pass is the loop over ``step`` in f32 (only ``precompute`` rounds to
+``compute_dtype``), plain torch with autograd on every device. The route
+is chosen by ``dec_layers`` alone; K4 never sees such a model.
 """
 
 from __future__ import annotations
@@ -48,14 +55,11 @@ MAX_BAND_ENTRIES = 16_000_000
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for the decoder configurations the port does not run yet."""
+    """Raise for a decoder configuration the port does not know."""
     if cfg.att_type not in ATT_KINDS:
         raise ValueError(f"unknown att_type {cfg.att_type!r}")
-    if cfg.dec_layers != 1:
-        raise NotImplementedError(
-            f"model.dec_layers={cfg.dec_layers}: K4 and the port's decoder "
-            "take one layer; stacked decoder layers are not ported yet "
-            "(ROADMAP.md)")
+    if cfg.dec_layers < 1:
+        raise ValueError(f"model.dec_layers={cfg.dec_layers}")
     if cfg.dec_impl not in ("scan", "pallas"):
         raise ValueError(f"unknown dec_impl {cfg.dec_impl!r}")
 
@@ -115,8 +119,15 @@ class AttentionDecoder(nn.Module):
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
 
+    def cells(self):
+        """Each LSTM layer's (w_x, b_x, w_h)."""
+        return tuple((getattr(self, f"cell{layer}_wx"),
+                      getattr(self, f"cell{layer}_b"),
+                      getattr(self, f"cell{layer}_wh"))
+                     for layer in range(self.cfg.dec_layers))
+
     def weights(self) -> Weights:
-        """The one layer's parameters in ``ops/las_decoder.py``'s order;
+        """Layer 0's parameters in ``ops/las_decoder.py``'s order;
         constant zeros for what the attention type has not (att_b and
         att_v for dot, loc_proj unless loc)."""
         A = self.cfg.att_dim
@@ -174,11 +185,12 @@ class AttentionDecoder(nn.Module):
     # ------------------------------------------------------------------
     def init_state(self, batch: int, enc_frames: int) -> Dict[str, torch.Tensor]:
         return init_state(batch, enc_frames, self.cfg.dec_hidden,
-                          2 * self.cfg.enc_hidden, self.att_q.device)
+                          2 * self.cfg.enc_hidden, self.att_q.device,
+                          self.cfg.dec_layers)
 
     def init_state_beam(self, batch: int, beams: int, enc_frames: int
                         ) -> Dict[str, torch.Tensor]:
-        """The beam layout's zeros: h, c [1,B*K,H], att_w [B,K,T], context
+        """The beam layout's zeros: h, c [L,B*K,H], att_w [B,K,T], context
         [B*K,D]."""
         state = self.init_state(batch * beams, enc_frames)
         state["att_w"] = state["att_w"].view(batch, beams, enc_frames)
@@ -191,7 +203,7 @@ class AttentionDecoder(nn.Module):
             feature = lambda a: self._loc_feature(a, loc_band)  # noqa: E731
         return decoder_step(self.weights(), state, token, enc, enc_proj,
                             enc_mask, torch.float32, self.cfg.att_type,
-                            feature, beams)
+                            feature, beams, self.cells())
 
     def step(self, state, token, enc, enc_proj, enc_mask, loc_band=None):
         """One decode step. token [B] -> (new_state, logits [B,V]); the
@@ -220,8 +232,31 @@ class AttentionDecoder(nn.Module):
         coins_bl = (torch.zeros(B, L, dtype=torch.bool, device=enc.device)
                     if coins is None else coins.T.to(enc.device).bool().clone())
         coins_bl[:, 0] = False
+        if self.cfg.dec_layers > 1:
+            return self._stacked(enc, enc_len, tokens_in, coins_bl)
         cd = self.compute_dtype() if self.cfg.dec_impl == "pallas" else torch.float32
         return las_decoder(
             tokens_in, coins_bl, enc, self.precompute(enc), enc_len,
             self.weights(), cd, self.cfg.att_type,
             self.loc_filter if self.cfg.att_type == "loc" else None)
+
+    def _stacked(self, enc, enc_len, tokens_in, coins_bl) -> torch.Tensor:
+        """The JAX ``lax.scan`` over ``step`` (its route for stacked
+        layers), plain torch: the previous step's argmax where the coin
+        says so, step 0 the gold sos."""
+        B, T = enc.shape[0], enc.shape[1]
+        enc_mask = (torch.arange(T, device=enc.device)[None, :]
+                    < enc_len.to(enc.device)[:, None]).float()
+        enc_proj = self.precompute(enc)
+        loc_band = (self.build_loc_band(T) if self.cfg.att_type == "loc"
+                    else None)
+        state = self.init_state(B, T)
+        pred = tokens_in[:, 0]
+        out = []
+        for i in range(tokens_in.shape[1]):
+            tok = torch.where(coins_bl[:, i], pred, tokens_in[:, i])
+            state, logits = self.step(state, tok, enc, enc_proj, enc_mask,
+                                      loc_band)
+            pred = torch.argmax(logits, dim=-1).to(tokens_in.dtype)
+            out.append(logits)
+        return torch.stack(out, dim=1)

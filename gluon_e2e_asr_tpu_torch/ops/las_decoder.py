@@ -57,7 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -148,10 +148,10 @@ def band_feature(band: torch.Tensor, compute_dtype: torch.dtype
 
 
 def init_state(batch: int, enc_frames: int, hidden: int, enc_dim: int,
-               device) -> Dict[str, torch.Tensor]:
-    """The JAX ``init_state`` of one decoder layer: zeros."""
+               device, layers: int = 1) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_state``: zeros, h and c [layers, batch, hidden]."""
     z = lambda *s: torch.zeros(s, device=device)  # noqa: E731
-    return {"h": z(1, batch, hidden), "c": z(1, batch, hidden),
+    return {"h": z(layers, batch, hidden), "c": z(layers, batch, hidden),
             "att_w": z(batch, enc_frames), "context": z(batch, enc_dim)}
 
 
@@ -159,13 +159,17 @@ def decoder_step(w: Weights, state, token, enc, enc_proj, enc_mask,
                  compute_dtype: torch.dtype = torch.float32,
                  att_kind: str = "dot",
                  loc_feature: Optional[Callable] = None,
-                 beams: Optional[int] = None):
-    """One decode step (one layer). token [B] -> (new_state, logits
-    [B,V]); the JAX ``AttentionDecoder.step`` with the fused kernel's
-    arithmetic. ``loc_feature`` maps the previous attention weights [N,T]
-    to the location feature [N,T,C] (loc only). With ``beams`` = K the
-    step is the JAX ``step_beam``: token, h, c and the context carry B*K
-    rows, the attention weights [B,K,T], and the encoder tensors stay
+                 beams: Optional[int] = None,
+                 cells: Optional[Sequence[Tuple[torch.Tensor, ...]]] = None):
+    """One decode step. token [B] -> (new_state, logits [B,V]); the JAX
+    ``AttentionDecoder.step`` with the fused kernel's arithmetic.
+    ``cells``: the LSTM layers' (w_x, b_x, w_h), layer 0 taking
+    [embedding; context] and layer l > 0 layer l-1's h (the state's h
+    and c are [layers, B, H]); by default the one layer of ``w``.
+    ``loc_feature`` maps the previous attention weights [N,T] to the
+    location feature [N,T,C] (loc only). With ``beams`` = K the step is
+    the JAX ``step_beam``: token, h, c and the context carry B*K rows,
+    the attention weights [B,K,T], and the encoder tensors stay
     [B,T,*]."""
     r = _rounder(compute_dtype)
     H = w.w_h.shape[0]
@@ -174,11 +178,17 @@ def decoder_step(w: Weights, state, token, enc, enc_proj, enc_mask,
     K = beams or 1
     emb = r(w.embed[token.long()])
     x = torch.cat([emb, state["context"]], dim=-1)
-    gates = (torch.matmul(r(x), r(w.w_x)) + w.b_x
-             + torch.matmul(r(state["h"][0]), r(w.w_h)))
-    gi, gf, gg, go = torch.split(gates, H, dim=-1)
-    c = torch.sigmoid(gf + 1.0) * state["c"][0] + torch.sigmoid(gi) * torch.tanh(gg)
-    h = torch.sigmoid(go) * torch.tanh(c)
+    hs, cs = [], []
+    for layer, (w_x, b_x, w_h) in enumerate(
+            cells or ((w.w_x, w.b_x, w.w_h),)):
+        gates = (torch.matmul(r(x), r(w_x)) + b_x
+                 + torch.matmul(r(state["h"][layer]), r(w_h)))
+        gi, gf, gg, go = torch.split(gates, H, dim=-1)
+        c = (torch.sigmoid(gf + 1.0) * state["c"][layer]
+             + torch.sigmoid(gi) * torch.tanh(gg))
+        x = h = torch.sigmoid(go) * torch.tanh(c)
+        hs.append(h)
+        cs.append(c)
     qb = (torch.matmul(r(h), r(w.att_q)) + w.att_b).view(B, K, 1, A)
     encp = r(enc_proj)[:, None]  # [B,1,T,A]
     if att_kind == "dot":
@@ -198,8 +208,8 @@ def decoder_step(w: Weights, state, token, enc, enc_proj, enc_mask,
     att = p / p.sum(dim=-1, keepdim=True) * mask  # [B,K,T]
     ctx = torch.bmm(r(att), r(enc)).reshape(B * K, -1)
     logits = torch.matmul(r(torch.cat([h, ctx], dim=-1)), r(w.w_out)) + w.b_out
-    return ({"h": h[None], "c": c[None], "att_w": att if beams else att[:, 0],
-             "context": ctx}, logits)
+    return ({"h": torch.stack(hs), "c": torch.stack(cs),
+             "att_w": att if beams else att[:, 0], "context": ctx}, logits)
 
 
 def las_decoder_fwd_plain(tokens, coins, enc, enc_proj, enc_len, w: Weights,

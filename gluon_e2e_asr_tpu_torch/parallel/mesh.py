@@ -58,6 +58,11 @@ class World:
                 "make it with init_data_parallel")
         return self.group
 
+    def barrier(self) -> None:
+        """Wait for every rank; nothing at a world of one."""
+        if self.size > 1:
+            dist.barrier(group=self.collective_group())
+
 
 SINGLE = World()
 

@@ -3,12 +3,19 @@
 
 Counterpart of ``gluon_e2e_asr_tpu/train.py``: the same flags
 (``--config``, ``--workdir``, ``--max-steps``, ``--set``) and
-``--device``. Hybrid CTC/attention training (``loss.mtl_alpha < 1``,
-dot, add or location-aware attention, one decoder layer), or CTC alone
-at ``loss.mtl_alpha=1.0``. On a CUDA device the encoder runs the
+``--device`` and ``--resume`` (continue from the newest checkpoint of
+``train.ckpt_dir``, exactly where it stopped, mid-epoch too). Hybrid
+CTC/attention training (``loss.mtl_alpha < 1``, dot, add or
+location-aware attention, one decoder layer or stacked ones), or CTC
+alone at ``loss.mtl_alpha=1.0``; the ``blstm`` encoder or, for
+``enc_type: vggblstm``, the VGG2L conv front before it; every training
+option of the JAX trainer (Adam, SGD or Adadelta, gradient
+accumulation, encoder dropout, plateau annealing, early stopping,
+mid-epoch checkpoints, profiling). On a CUDA device the encoder runs the
 hand-written kernels K1-fwd and K1-bwd, the CTC loss K2 and K3, the
 attention decoder K4-fwd and K4-bwd (in the config's attention mode:
-dot, add or loc), and, where ``frontend.impl`` is ``pallas`` or
+dot, add or loc; a stacked decoder runs plain torch, as the JAX package
+runs its scan there), and, where ``frontend.impl`` is ``pallas`` or
 ``pallas_regrid``, the fused frontend K5 or K6; on the CPU their plain
 versions. Writes ``<workdir>/metrics.jsonl`` and checkpoints under
 ``<workdir>/<train.ckpt_dir>/`` (``ckpt_<step>.pt``, ``best.pt``), which
@@ -38,7 +45,8 @@ def main(argv=None):
     p.add_argument("--config", type=str, default="", help="yaml config path")
     p.add_argument("--workdir", type=str, default=".", help="output directory")
     p.add_argument("--resume", action="store_true",
-                   help="resume from the latest checkpoint (not ported yet)")
+                   help="resume from the latest checkpoint in "
+                        "<workdir>/<train.ckpt_dir>")
     p.add_argument("--max-steps", type=int, default=0,
                    help="override train.max_steps (0 = keep config)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VAL",
@@ -48,10 +56,6 @@ def main(argv=None):
                    help="torch device: cuda (the kernels; with train.dp, "
                         "cuda:LOCAL_RANK) or cpu (their plain versions)")
     args = p.parse_args(argv)
-    if args.resume:
-        raise NotImplementedError(
-            "--resume: resuming from a checkpoint is not ported yet "
-            "(ROADMAP.md)")
 
     config = load_config(args.config) if args.config else Config()
     apply_overrides(config, args.set)
@@ -65,6 +69,8 @@ def main(argv=None):
     # With train.dp the trainer joins the ranks (and takes cuda:LOCAL_RANK)
     # before it builds anything.
     trainer = Trainer(config, workdir=args.workdir, device=device)
+    if args.resume:
+        trainer.maybe_resume()
     final = trainer.train()
     if trainer.world.is_main:
         print(json.dumps({"event": "done", "step": trainer.state.step,

@@ -1,5 +1,5 @@
 """The training step: frontend -> encoder -> CTC loss and the attention
-decoder's CE -> clip -> Adam.
+decoder's CE -> clip -> the optimizer (Adam, SGD or Adadelta).
 
 Counterpart of ``gluon_e2e_asr_tpu/training/train_step.py``: the hybrid
 objective mtl_alpha * CTC + (1 - mtl_alpha) * CE (label-smoothed,
@@ -15,12 +15,18 @@ optax chain written out, because torch's defaults differ from it:
   ``norm >= max_norm``, with no epsilon
   (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm);
 - Adam is optax's (b1 0.9, b2 0.999, eps 1e-8 outside the square root,
-  bias-corrected), with decoupled weight decay as ``optax.adamw``.
+  bias-corrected), with decoupled weight decay as ``optax.adamw``; SGD
+  is ``optax.sgd`` with momentum 0.9; Adadelta is
+  ``optax.inject_hyperparams(optax.adadelta)``, its eps in the state
+  (``decay_opt_eps`` anneals it).
 
 The values follow optax's float32 arithmetic. The step's randomness
-(SpecAugment's masks, then the scheduled-sampling coins) comes from an
-explicit ``torch.Generator`` in the ``TrainState``; ``compute_loss``
-takes both as inputs.
+(SpecAugment's masks, then the scheduled-sampling coins, then the
+encoder dropout's masks) comes from an explicit ``torch.Generator`` in
+the ``TrainState``; ``compute_loss`` takes all three as inputs.
+Gradient accumulation splits the step as the JAX package does: a
+micro-batch gradient pass (``make_grad_step``) and one update on the
+group's row-weighted mean (``Accumulator``).
 
 Data parallelism (``train.dp``, a ``World`` of ranks from
 ``parallel/mesh.py``) follows the JAX ``shard_map`` step: each rank
@@ -33,8 +39,8 @@ rank rounds before the sum).
 Both values of ``train.dp_impl`` run this one implementation. The JAX
 ``pjit`` step is one global program whose draws are the single-device
 draws; its ``shard_map`` step folds the shard index into each shard's
-key. The port draws SpecAugment's masks and the coins for the global
-batch on every rank and keeps its own rows, which gives ``pjit``'s
+key. The port draws SpecAugment's masks, the coins and the dropout
+masks for the global batch on every rank and keeps its own rows, which gives ``pjit``'s
 semantics under either name: a step at world size n takes the draws of
 world size 1, and the generators stay in step across ranks. The
 ``shard_map`` draws could not be matched anyway: the two frameworks'
@@ -64,15 +70,32 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
 class Optimizer:
-    """``optax.chain(clip_by_global_norm(grad_clip_norm),
-    adamw(schedule, weight_decay))`` as the JAX ``make_optimizer``
-    builds it for ``optimizer: adam|adamw``."""
+    """``optax.chain(clip_by_global_norm(grad_clip_norm), <family>)`` as
+    the JAX ``make_optimizer`` builds it, with the warmup -> inverse-sqrt
+    schedule. The families (``kind``) are ``adam`` / ``adamw``
+    (``optax.adamw(schedule, weight_decay)``), ``sgd``
+    (``optax.sgd(schedule, momentum=0.9)``) and ``adadelta``
+    (``optax.inject_hyperparams(optax.adadelta)(schedule, rho, eps)``,
+    whose eps lives in the state so that ``decay_opt_eps`` can anneal it
+    and a checkpoint carries it). The state is a dict of plain values and
+    tensors: its ``kind``, the update ``count`` and the family's slots."""
+
+    SLOTS = {"adam": ("mu", "nu"), "sgd": ("trace",),
+             "adadelta": ("e_g", "e_x")}
 
     def __init__(self, tc: TrainConfig):
+        kind = "adam" if tc.optimizer == "adamw" else tc.optimizer
+        if kind not in self.SLOTS:
+            raise ValueError(f"unknown optimizer {tc.optimizer}")
+        self.kind = kind
         self.lr_peak = float(tc.learning_rate)
         self.warmup = int(tc.warmup_steps)
         self.weight_decay = float(tc.weight_decay)
         self.clip = float(tc.grad_clip_norm)
+        f32 = np.float32
+        self.rho = float(f32(tc.adadelta_rho))
+        self.one_minus_rho = float(f32(1.0) - f32(tc.adadelta_rho))
+        self.eps = float(f32(tc.adadelta_eps))
 
     def lr(self, count: int) -> float:
         """The learning rate of the update made at ``count`` updates."""
@@ -87,52 +110,82 @@ class Optimizer:
         return float(lr * np.sqrt(f32(w) / f32(max(s + w, 1))))
 
     def init(self, params: Params) -> Dict[str, Any]:
-        return {"count": 0,
-                "mu": {k: torch.zeros_like(p) for k, p in params.items()},
-                "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+        state: Dict[str, Any] = {"kind": self.kind, "count": 0}
+        for slot in self.SLOTS[self.kind]:
+            state[slot] = {k: torch.zeros_like(p) for k, p in params.items()}
+        if self.kind == "adadelta":
+            state["eps"] = self.eps
+        return state
+
+    def _direction(self, k: str, g: torch.Tensor, p: torch.Tensor,
+                   state: Dict[str, Any], count: int) -> torch.Tensor:
+        """The family's update of one parameter before the -lr scale;
+        advances its slots."""
+        if self.kind == "sgd":
+            state["trace"][k] = g + 0.9 * state["trace"][k]
+            return state["trace"][k]
+        if self.kind == "adadelta":
+            eps = state["eps"]
+            e_g = self.one_minus_rho * (g * g) + self.rho * state["e_g"][k]
+            upd = torch.sqrt(state["e_x"][k] + eps) / torch.sqrt(e_g + eps) * g
+            state["e_g"][k] = e_g
+            state["e_x"][k] = (self.one_minus_rho * (upd * upd)
+                               + self.rho * state["e_x"][k])
+            return upd
+        c1 = float(np.float32(1.0) - np.float32(B1) ** np.float32(count + 1))
+        c2 = float(np.float32(1.0) - np.float32(B2) ** np.float32(count + 1))
+        mu = (1.0 - B1) * g + B1 * state["mu"][k]
+        nu = (1.0 - B2) * (g * g) + B2 * state["nu"][k]
+        state["mu"][k], state["nu"][k] = mu, nu
+        upd = (mu / c1) / (torch.sqrt(nu / c2) + EPS)
+        if self.weight_decay:
+            upd = upd + self.weight_decay * p
+        return upd
 
     @torch.no_grad()
     def update(self, params: Params, grads: Params,
                state: Dict[str, Any]) -> torch.Tensor:
         """Apply one update to ``params`` in place and advance ``state``.
         Returns the global norm of ``grads`` before clipping."""
+        if state.get("kind", "adam") != self.kind:
+            raise ValueError(f"an optimizer state of {state.get('kind')!r} "
+                             f"given to {self.kind!r}")
         norm = torch.sqrt(sum(torch.sum(g.float() * g.float())
                               for g in grads.values()))
         count = state["count"]
         lr = self.lr(count)
-        c1 = float(np.float32(1.0) - np.float32(B1) ** np.float32(count + 1))
-        c2 = float(np.float32(1.0) - np.float32(B2) ** np.float32(count + 1))
         for k, p in params.items():
             g = grads[k].float()
             if self.clip > 0:
                 g = torch.where(norm < self.clip, g, (g / norm) * self.clip)
-            mu = (1.0 - B1) * g + B1 * state["mu"][k]
-            nu = (1.0 - B2) * (g * g) + B2 * state["nu"][k]
-            state["mu"][k], state["nu"][k] = mu, nu
-            upd = (mu / c1) / (torch.sqrt(nu / c2) + EPS)
-            if self.weight_decay:
-                upd = upd + self.weight_decay * p
-            p.add_(upd * (-lr))
+            p.add_(self._direction(k, g, p, state, count) * (-lr))
         state["count"] = count + 1
         return norm
 
 
 def make_optimizer(config: Config) -> Optimizer:
-    tc = config.train
-    if tc.optimizer in ("sgd", "adadelta"):
-        raise NotImplementedError(
-            f"train.optimizer={tc.optimizer!r} is not ported yet; adam and "
-            "adamw are (ROADMAP.md)")
-    if tc.optimizer not in ("adam", "adamw"):
-        raise ValueError(f"unknown optimizer {tc.optimizer}")
-    return Optimizer(tc)
+    return Optimizer(config.train)
+
+
+def decay_opt_eps(opt_state: Dict[str, Any], factor: float):
+    """``(new_state, old_eps, new_eps)``: ``opt_state`` with its eps (the
+    adadelta family's) multiplied by ``factor`` in f32 and floored at the
+    f32 tiny value (an eps annealed to 0 turns adadelta's sqrt(acc + eps)
+    ratio into 0/0), as the JAX ``decay_opt_eps``; ``(opt_state, None,
+    None)`` for a family without an eps in its state."""
+    if "eps" not in opt_state:
+        return opt_state, None, None
+    f32 = np.float32
+    old = f32(opt_state["eps"])
+    new = np.maximum(old * f32(factor), f32(np.finfo(f32).tiny))
+    return dict(opt_state, eps=float(new)), float(old), float(new)
 
 
 @dataclass
 class TrainState:
     step: int
     opt_state: Dict[str, Any]
-    generator: torch.Generator  # SpecAugment's draws, then the coins
+    generator: torch.Generator  # SpecAugment, the coins, then dropout
 
 
 def create_train_state(config: Config, model: ASRModel, optimizer: Optimizer,
@@ -180,16 +233,33 @@ def draw_coins(config: Config, step: int, batch: int, max_labels: int,
     return coins.to(device)
 
 
+def draw_dropout(config: Config, model: ASRModel, batch: int, frames: int,
+                 generator: torch.Generator, device: torch.device):
+    """The encoder dropout's keep masks, one [B, T_l, 2H] bool per BiLSTM
+    layer (keep with probability 1 - ``model.enc_dropout``, the flax
+    ``nn.Dropout`` of each layer's output); None when the rate is 0 (no
+    draw is taken from ``generator`` then). ``frames``: the features'."""
+    p = float(config.model.enc_dropout)
+    if p <= 0.0:
+        return None
+    keep = 1.0 - p
+    width = 2 * config.model.enc_hidden
+    return [(torch.rand(batch, t, width, generator=generator) < keep)
+            .to(device) for t in model.encoder.layer_frames(frames)]
+
+
 def compute_loss(model: ASRModel, batch: Mapping[str, torch.Tensor],
                  config: Config, *, spec_draws=None, coins=None,
-                 cmvn_stats=None, train: bool = True, num_real=None
+                 drop_masks=None, cmvn_stats=None, train: bool = True,
+                 num_real=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward and the joint loss of ``batch`` (tensors on the model's
     device: audio, audio_len, labels, label_len), normalized by the real
     (non-pad) row count: ``batch``'s own, or ``num_real``, the global
     batch's, when ``batch`` is one rank's rows (the loss and ``att_acc``
     are then this rank's share of the global ones). SpecAugment's masks
-    (``spec_draws``) and the scheduled-sampling coins [L+1,B] are inputs.
+    (``spec_draws``), the scheduled-sampling coins [L+1,B] and the
+    encoder dropout's keep masks (``drop_masks``) are inputs.
     A model without the attention decoder has an attention part of 0."""
     feats, feat_len = frontend_apply(
         config.frontend, batch["audio"], batch["audio_len"], train=train,
@@ -202,7 +272,7 @@ def compute_loss(model: ASRModel, batch: Mapping[str, torch.Tensor],
         tokens_in, targets, tgt_mask = make_decoder_io(
             labels, label_len, model.sos_id, model.eos_id)
     out = model(feats, feat_len, tokens_in, coins if train else None,
-                train=train)
+                drop_masks=drop_masks if train else None)
     mtl_alpha = config.loss.mtl_alpha
     if mtl_alpha > 0.0:
         ctc_nll = ctc_loss(out["ctc_logits"], out["enc_len"], labels,
@@ -228,31 +298,35 @@ def compute_loss(model: ASRModel, batch: Mapping[str, torch.Tensor],
     return parts["loss"], metrics
 
 
-def make_train_step(model: ASRModel, config: Config, optimizer: Optimizer,
-                    cmvn_stats=None, world: World = SINGLE) -> Callable:
-    """``step_fn(state, batch) -> metrics``: draws SpecAugment's masks and
-    then the scheduled-sampling coins for ``batch`` (the whole host batch,
-    tensors on any device) from ``state.generator``, moves ``world``'s
-    rows of it to the model's device, takes the loss and its gradient,
-    sums the gradients and the loss parts over the ranks, and updates the
-    model's parameters in place. Metrics stay on the device; ``grad_norm``
-    is the global norm before clipping."""
+SUMMED = ("loss", "loss_ctc", "loss_att", "att_acc")
+
+
+def make_grad_step(model: ASRModel, config: Config, cmvn_stats=None,
+                   world: World = SINGLE) -> Callable:
+    """``grad_fn(state, batch) -> (grads, metrics)``, the JAX
+    ``make_grad_step``'s pass without its sum over the ranks: draws
+    SpecAugment's masks, then the scheduled-sampling coins, then the
+    encoder dropout's masks for ``batch`` (the whole host batch, tensors
+    on any device) from ``state.generator``, moves ``world``'s rows of it
+    to the model's device and takes the loss and its gradient. ``grads``
+    and the ``SUMMED`` metrics are this rank's share of the global
+    batch's (their sums over the ranks are the global ones); ``num_real``
+    is the global batch's real rows. The parameters and ``state.step``
+    are left as they are."""
     if config.train.dp_impl not in ("shard_map", "pjit"):
         raise ValueError(f"unknown train.dp_impl {config.train.dp_impl!r}")
     params = dict(model.named_parameters())
     dev = next(iter(params.values())).device
     fc = config.frontend
-    summed = ("loss", "loss_ctc", "loss_att", "att_acc")
 
     def rows(x):
         return x if world.size == 1 else shard_rows(x, world.rank, world.size)
 
-    def step_fn(state: TrainState, batch: Mapping[str, torch.Tensor]
-                ) -> Dict[str, torch.Tensor]:
+    def grad_fn(state: TrainState, batch: Mapping[str, torch.Tensor]):
         audio = batch["audio"]
+        frames = num_frames(audio.shape[1], fc.win_length, fc.hop_length)
         draws = None
         if specaug_on(fc):
-            frames = num_frames(audio.shape[1], fc.win_length, fc.hop_length)
             draws = draw_spec_augment(fc, audio.shape[0], frames,
                                       state.generator, dev)
             draws = type(draws)(*(None if d is None else rows(d)
@@ -264,22 +338,41 @@ def make_train_step(model: ASRModel, config: Config, optimizer: Optimizer,
                                dev)
             if coins is not None:
                 coins = rows(coins.T).T
+        masks = draw_dropout(config, model, audio.shape[0], frames,
+                             state.generator, dev)
+        if masks is not None:
+            masks = [rows(m) for m in masks]
         num_real = (torch.as_tensor(batch["audio_len"]) > 0).sum().to(dev)
         local = {k: torch.as_tensor(rows(v)).to(dev)
                  for k, v in batch.items()}
         for p in params.values():
             p.grad = None
         loss, metrics = compute_loss(model, local, config, spec_draws=draws,
-                                     coins=coins, cmvn_stats=cmvn_stats,
-                                     train=True, num_real=num_real)
+                                     coins=coins, drop_masks=masks,
+                                     cmvn_stats=cmvn_stats, train=True,
+                                     num_real=num_real)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        # Each rank's gradients and loss parts are its share of the global
-        # ones (a global denominator): their sums over the ranks are the
-        # global batch's.
-        all_reduce_sum([*grads.values(), *(metrics[k] for k in summed)],
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    return grad_fn
+
+
+def make_train_step(model: ASRModel, config: Config, optimizer: Optimizer,
+                    cmvn_stats=None, world: World = SINGLE) -> Callable:
+    """``step_fn(state, batch) -> metrics``: ``make_grad_step``'s pass,
+    the gradients and the loss parts summed over the ranks in one
+    all-reduce, and one update of the model's parameters in place.
+    Metrics stay on the device; ``grad_norm`` is the global norm before
+    clipping."""
+    params = dict(model.named_parameters())
+    grad_fn = make_grad_step(model, config, cmvn_stats, world)
+
+    def step_fn(state: TrainState, batch: Mapping[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        grads, metrics = grad_fn(state, batch)
+        all_reduce_sum([*grads.values(), *(metrics[k] for k in SUMMED)],
                        world)
         metrics["grad_norm"] = optimizer.update(params, grads,
                                                 state.opt_state)
@@ -287,6 +380,54 @@ def make_train_step(model: ASRModel, config: Config, optimizer: Optimizer,
         return metrics
 
     return step_fn
+
+
+class Accumulator:
+    """Gradient accumulation (``train.accum_grad_steps``), the JAX
+    ``make_grad_step`` / ``accumulate_grads`` / ``make_apply_step``:
+    ``add`` takes a micro-batch's gradients weighted by its global
+    real-row count n (the loss is a mean over those rows, so sum(n_i g_i)
+    / sum(n_i) is the gradient of the combined batch); ``apply`` sums
+    the group over the ranks in one all-reduce, divides by the group's
+    rows and takes one optimizer update (the clip sees the combined
+    mean), advancing ``state.step``, and returns the group's metrics."""
+
+    def __init__(self, model: ASRModel, optimizer: Optimizer,
+                 world: World = SINGLE):
+        self.params = dict(model.named_parameters())
+        self.optimizer, self.world = optimizer, world
+        self.grads = self.sums = self.n = None
+        self.micro = 0
+
+    def add(self, grads: Params, metrics: Mapping[str, torch.Tensor]) -> None:
+        # As in JAX: the gradients weighted by max(n, 1), the metrics and
+        # the group's rows by n.
+        n = metrics["num_real"].float()
+        weight = torch.clamp(n, min=1.0)
+        grads = {k: g * weight for k, g in grads.items()}
+        sums = {k: metrics[k] * n for k in SUMMED}
+        if self.grads is None:
+            self.grads, self.sums, self.n = grads, sums, n
+        else:
+            self.grads = {k: self.grads[k] + g for k, g in grads.items()}
+            self.sums = {k: self.sums[k] + v for k, v in sums.items()}
+            self.n = self.n + n
+        self.micro += 1
+
+    def apply(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        all_reduce_sum([*self.grads.values(), *self.sums.values()],
+                       self.world)
+        n = torch.clamp(self.n, min=1.0)
+        scale = 1.0 / n
+        grads = {k: g * scale for k, g in self.grads.items()}
+        metrics = {k: v / n for k, v in self.sums.items()}
+        metrics["grad_norm"] = self.optimizer.update(self.params, grads,
+                                                     state.opt_state)
+        metrics["num_real"] = self.n
+        state.step += 1
+        self.grads = self.sums = self.n = None
+        self.micro = 0
+        return metrics
 
 
 def batch_tensors(b) -> Dict[str, torch.Tensor]:

@@ -8,7 +8,12 @@ port's copies of the JAX package's (``data/``). ``metrics.jsonl`` gets
 the same ``train`` and ``epoch`` lines. The dev evaluation at each
 epoch's end follows ``decode.method``, as the JAX trainer's does: the
 batched beam search for ``beam`` / ``ctc_beam``, greedy CTC otherwise.
-Options whose code paths are not ported raise and name ROADMAP.md.
+Every option of the JAX trainer runs: ``maybe_resume`` (exact mid-epoch
+resume from the newest checkpoint), gradient accumulation
+(``accum_grad_steps``), mid-epoch checkpoints (``ckpt_every_steps``),
+``torch.profiler`` traces (``profile_dir``), plateau annealing of
+adadelta's eps (``eps_decay``) with ``plateau_restore_best``, and
+``early_stop_patience``.
 
 With ``train.dp`` the trainer runs on every rank of a ``World``
 (``parallel/mesh.py``): every rank loads every batch and runs every step
@@ -16,7 +21,11 @@ on its rows (``training/train_step.py``); every bucket's batch size must
 divide the world size. The dev evaluation shards each batch over the
 ranks where every dev bucket divides and otherwise decodes it whole on
 every rank (a ``dp_eval_fallback`` line). Rank 0 alone writes
-``metrics.jsonl`` and the checkpoints.
+``metrics.jsonl`` and the checkpoints; every rank resumes from the same
+file, and reads ``best.pt`` for ``plateau_restore_best`` only after a
+barrier that follows rank 0's write. The stop decisions (``max_steps``,
+early stopping) take the same values on every rank: the step count, and
+the dev WER, which the evaluation gathers.
 """
 
 from __future__ import annotations
@@ -44,9 +53,11 @@ from gluon_e2e_asr_tpu_torch.eval.metrics import cer, wer
 from gluon_e2e_asr_tpu_torch.models.asr import build_model
 from gluon_e2e_asr_tpu_torch.parallel.mesh import (
     SINGLE, World, check_replicated, init_data_parallel)
-from gluon_e2e_asr_tpu_torch.training.checkpoint import save_train_checkpoint
+from gluon_e2e_asr_tpu_torch.training.checkpoint import (
+    latest_checkpoint, restore_train_checkpoint, save_train_checkpoint)
 from gluon_e2e_asr_tpu_torch.training.train_step import (
-    batch_tensors, create_train_state, make_optimizer, make_train_step)
+    Accumulator, batch_tensors, create_train_state, decay_opt_eps,
+    make_grad_step, make_optimizer, make_train_step)
 from gluon_e2e_asr_tpu_torch.utils.logging import JsonlLogger
 
 
@@ -77,28 +88,6 @@ def build_datasets(config: Config) -> Tuple[List[Utterance], List[Utterance]]:
         dev = build_librispeech_manifest(dc.data_dir, "dev-clean")
         return train, dev
     raise ValueError(f"unknown dataset {dc.dataset}")
-
-
-def _refuse_unported(config: Config) -> None:
-    """Raise for the training options whose code paths are not ported."""
-    tc = config.train
-    unported = [
-        (tc.accum_grad_steps > 1, "train.accum_grad_steps > 1: gradient "
-                                  "accumulation (ROADMAP.md)"),
-        (tc.eps_decay > 0 or tc.plateau_restore_best,
-         "train.eps_decay / train.plateau_restore_best: plateau annealing "
-         "(ROADMAP.md)"),
-        (tc.early_stop_patience > 0, "train.early_stop_patience: early "
-                                     "stopping (ROADMAP.md)"),
-        (tc.ckpt_every_steps > 0, "train.ckpt_every_steps: mid-epoch "
-                                  "checkpoints, which exist for resume "
-                                  "(ROADMAP.md)"),
-        (bool(tc.profile_dir), "train.profile_dir: profiling from the "
-                               "trainer (ROADMAP.md)"),
-    ]
-    for on, what in unported:
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet")
 
 
 def _indivisible(specs, world: World) -> List[int]:
@@ -139,7 +128,6 @@ class Trainer:
         """With ``train.dp`` the trainer joins the default process group's
         ranks (``init_data_parallel``; a CUDA ``device`` then means
         ``cuda:LOCAL_RANK``); without it, it is a single process."""
-        _refuse_unported(config)
         self.config = config
         self.workdir = workdir
         device = torch.device(device)
@@ -235,6 +223,14 @@ class Trainer:
         check_replicated(list(self.model.parameters()), world)
         self.train_step = make_train_step(self.model, config, self.optimizer,
                                           self.cmvn_stats, world)
+        # Gradient accumulation: micro-batch gradient passes, one update a
+        # group.
+        self.accum = max(1, int(config.train.accum_grad_steps))
+        self.grad_step = self._acc = None
+        if self.accum > 1:
+            self.grad_step = make_grad_step(self.model, config,
+                                            self.cmvn_stats, world)
+            self._acc = Accumulator(self.model, self.optimizer, world)
         # The dev evaluation's decoder follows decode.method (a CTC-only
         # model with method beam raises here, as in the JAX trainer).
         ew = eval_world(self.dev_loader.sampler.specs, world, self.logger)
@@ -247,35 +243,96 @@ class Trainer:
             self.greedy = make_greedy_decoder(self.model, config,
                                               self.cmvn_stats, self.device,
                                               mesh=ew)
+        self.epoch0 = 0
+        self.skip_batches = 0  # mid-epoch resume position
         self.best_wer = float("inf")
+        # Epochs since the last best dev WER, for early stopping. Not
+        # checkpointed, as in JAX: a resumed run restarts its patience.
+        self._stale_epochs = 0
+
+    def maybe_resume(self) -> None:
+        """Restore the newest checkpoint of ``train.ckpt_dir``, if any: the
+        parameters, optimizer state, step, generator state and cmvn stats,
+        and from its meta the position (a mid-epoch checkpoint resumes its
+        epoch after ``batches_done`` batches, an epoch-end one the next
+        epoch) and ``best_wer``. A checkpoint of another vocabulary
+        raises."""
+        path = latest_checkpoint(os.path.join(self.workdir,
+                                              self.config.train.ckpt_dir))
+        if path is None:
+            return
+        ck = restore_train_checkpoint(path, self.state.opt_state, self.device)
+        if ck.meta.get("vocab_hash") and (
+                ck.meta["vocab_hash"] != self.tokenizer.fingerprint()):
+            raise ValueError(
+                f"resume vocab mismatch: checkpoint {path} was trained with "
+                f"vocab {ck.meta['vocab_hash']}, this run built "
+                f"{self.tokenizer.fingerprint()} (did data.tokenizer / the "
+                "train manifest change?)")
+        self.model.load_state_dict(ck.params)
+        self.state.opt_state, self.state.step = ck.opt_state, ck.step
+        self.state.generator.set_state(ck.generator)
+        if ck.cmvn is not None:
+            self.cmvn_stats = tuple(t.to(self.device) for t in ck.cmvn)
+        check_replicated(list(self.model.parameters()), self.world)
+        batches_done = int(ck.meta.get("batches_done", -1))
+        epoch = int(ck.meta.get("epoch", -1))
+        if batches_done >= 0:
+            self.epoch0, self.skip_batches = epoch, batches_done
+        else:
+            self.epoch0, self.skip_batches = epoch + 1, 0
+        self.best_wer = float(ck.meta.get("best_wer", float("inf")))
+        self.logger.log({"event": "resume", "ckpt": path,
+                         "epoch": self.epoch0,
+                         "skip_batches": self.skip_batches})
+
+    def _step(self, batch) -> Tuple[Optional[Dict[str, torch.Tensor]], bool]:
+        """One batch: a whole step, or a micro-batch of an accumulation
+        group. Returns (metrics, stepped); metrics is None until the
+        group's update."""
+        if self._acc is None:
+            return self.train_step(self.state, batch), True
+        self._acc.add(*self.grad_step(self.state, batch))
+        if self._acc.micro < self.accum:
+            return None, False
+        return self._acc.apply(self.state), True
 
     def train(self) -> Dict[str, float]:
         tc = self.config.train
         step = self.state.step
         n_chips = self.world.size
+        profiler = None
         final: Dict[str, float] = {}
-        for epoch in range(tc.num_epochs):
+        for epoch in range(self.epoch0, tc.num_epochs):
             t_epoch = time.perf_counter()
             utts_done, tokens_done = 0, 0
             real_samples, padded_samples = 0, 0
             window_t0, window_utts, window_tokens = time.perf_counter(), 0, 0
             stopped_at = -1
+            skip = self.skip_batches if epoch == self.epoch0 else 0
             prefetch = self.loader.prefetch_epoch(
-                epoch, depth=self.config.data.prefetch_depth)
+                epoch, skip=skip, depth=self.config.data.prefetch_depth)
             try:
                 for batch_idx, b in prefetch:
                     if 0 < tc.max_steps <= step:
                         stopped_at = batch_idx
                         break
-                    metrics = self.train_step(self.state, batch_tensors(b))
+                    if (tc.profile_dir and profiler is None
+                            and step == tc.profile_start_step):
+                        profiler = self._start_profile()
+                    metrics, stepped = self._step(batch_tensors(b))
                     step = self.state.step
+                    if profiler is not None and step >= (
+                            tc.profile_start_step + tc.profile_num_steps):
+                        self._stop_profile(profiler)
+                        profiler = None
                     utts_done += b.num_real
                     real_samples += int(b.audio_len.sum())
                     padded_samples += int(b.audio.shape[0] * b.audio.shape[1])
                     window_utts += b.num_real
                     window_tokens += int(b.label_len.sum())
                     tokens_done += int(b.label_len.sum())
-                    if step % tc.log_every_steps == 0:
+                    if stepped and step % tc.log_every_steps == 0:
                         m = {k: float(v) for k, v in metrics.items()}
                         dt = time.perf_counter() - window_t0
                         self.logger.log({
@@ -295,9 +352,20 @@ class Trainer:
                         })
                         window_t0, window_utts, window_tokens = (
                             time.perf_counter(), 0, 0)
+                    # Only on updates: a mid-epoch checkpoint never holds
+                    # part of an accumulation group.
+                    if (stepped and tc.ckpt_every_steps
+                            and step % tc.ckpt_every_steps == 0):
+                        self._checkpoint(epoch, None,
+                                         batches_done=batch_idx + 1)
             finally:
                 prefetch.close()
             train_time = time.perf_counter() - t_epoch
+            if self._acc is not None and self._acc.micro and stopped_at < 0:
+                # The epoch's last group is short: apply it (max_steps
+                # stops only on group boundaries, so none is dropped).
+                self._acc.apply(self.state)
+                step = self.state.step
             if stopped_at >= 0:
                 # max_steps hit mid-epoch: checkpoint with the position in
                 # the epoch instead of marking the epoch complete.
@@ -323,11 +391,92 @@ class Trainer:
             is_best = dev["dev_wer"] < self.best_wer
             if is_best:
                 self.best_wer = dev["dev_wer"]
+                self._stale_epochs = 0
+            else:
+                self._stale_epochs += 1
+                self._plateau_anneal(epoch)
             self._checkpoint(epoch, is_best, dev_wer=dev["dev_wer"])
             final = rec
             if 0 < tc.max_steps <= step:
                 break
+            if (tc.early_stop_patience > 0
+                    and self._stale_epochs >= tc.early_stop_patience):
+                self.logger.log({"event": "early_stop", "epoch": epoch,
+                                 "best_wer": self.best_wer,
+                                 "patience": tc.early_stop_patience})
+                break
+        if profiler is not None:
+            self._stop_profile(profiler)
         return final
+
+    def _start_profile(self):
+        """torch.profiler over the host and, on a card, the device, from
+        ``train.profile_start_step`` for ``profile_num_steps`` updates."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> str:
+        """Stop ``prof`` and write its Chrome trace under
+        ``train.profile_dir`` (``trace_<first>-<last>_rank<r>.json``)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        tc = self.config.train
+        os.makedirs(tc.profile_dir, exist_ok=True)
+        first = tc.profile_start_step
+        path = os.path.join(
+            tc.profile_dir, f"trace_{first}-{self.state.step}"
+                            f"_rank{self.world.rank}.json")
+        prof.export_chrome_trace(path)
+        self.logger.log({"event": "profile", "trace": path,
+                         "first_step": first, "last_step": self.state.step})
+        return path
+
+    def _plateau_anneal(self, epoch: int) -> None:
+        """On an epoch with no new best dev WER (the JAX
+        ``_plateau_anneal``): at the end of each window of
+        ``eps_decay_patience`` such epochs, reload the parameters of
+        ``best.pt`` (``plateau_restore_best``; the optimizer state is
+        kept) and multiply the optimizer's eps by ``eps_decay`` (adadelta
+        alone has one; otherwise an ``eps_decay_skipped`` line). The
+        annealed eps lives in the optimizer state, so the epoch's
+        checkpoint, written next, carries it into a resume."""
+        tc = self.config.train
+        if tc.eps_decay <= 0 and not tc.plateau_restore_best:
+            return
+        if self._stale_epochs % max(1, int(tc.eps_decay_patience)):
+            return
+        restored = False
+        if tc.plateau_restore_best:
+            best = os.path.join(self.workdir, tc.ckpt_dir, "best.pt")
+            # Rank 0 wrote best.pt; the others read it after this barrier.
+            self.world.barrier()
+            if os.path.exists(best):
+                ck = restore_train_checkpoint(best, device=self.device,
+                                              params_only=True)
+                self.model.load_state_dict(ck.params)
+                restored = True
+        if tc.eps_decay <= 0:
+            if restored:
+                self.logger.log({"event": "plateau_restore", "epoch": epoch})
+            return
+        new_opt, old_eps, new_eps = decay_opt_eps(self.state.opt_state,
+                                                  tc.eps_decay)
+        if old_eps is None:
+            self.logger.log({
+                "event": "eps_decay_skipped", "epoch": epoch,
+                "restored_best": restored,
+                "hint": "train.eps_decay set but the optimizer has no "
+                        "injected eps (use train.optimizer: adadelta)"})
+            return
+        self.state.opt_state = new_opt
+        self.logger.log({"event": "eps_decay", "epoch": epoch,
+                         "eps_old": old_eps, "eps_new": new_eps,
+                         "restored_best": restored})
 
     def _checkpoint(self, epoch: int, is_best: Optional[bool],
                     batches_done: int = -1,
@@ -351,7 +500,8 @@ class Trainer:
             os.path.join(self.workdir, tc.ckpt_dir),
             self.model.state_dict(), self.state.opt_state, self.state.step,
             meta, self.cmvn_stats, keep=tc.keep_ckpts, is_best=bool(is_best),
-            keep_policy=tc.keep_policy)
+            keep_policy=tc.keep_policy,
+            generator=self.state.generator.get_state())
         self.logger.log({
             "event": "ckpt_io",
             "epoch": epoch,

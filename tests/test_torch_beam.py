@@ -8,7 +8,8 @@ does not end at once) bridged into the port, decodes the same seeded audio
 (4 utterances of 0.3 to 0.5 s, ragged) with both beams: ``beam`` with
 and without length normalization (and the insertion penalty), partial
 CTC scoring, end detection, an n-best list, ``ctc_beam`` with full and
-partial scoring, and ``beam`` over an add-attention decoder. The
+partial scoring, and ``beam`` over an add-attention decoder and over a
+stacked (two-layer) location-aware one. The
 hypotheses must be identical, the scores within 1e-4 (the golden gate's
 tolerance, ``tools/fidelity_diff.py``), and the output steps run the
 same. About 40 s in all, most of it the JAX programs' compilation.
@@ -37,12 +38,13 @@ from gluon_e2e_asr_tpu_torch.models.asr import build_model
 torch.set_num_threads(1)
 
 
-def _config(att_type="loc"):
+def _config(att_type="loc", dec_layers=1):
     c = Config()
     c.model = ModelConfig(enc_hidden=16, enc_layers=2, enc_subsample=(1, 2),
                           dec_hidden=16, dec_embed=8, att_dim=16,
                           att_type=att_type, loc_conv_channels=4,
-                          loc_conv_width=7, compute_dtype="float32")
+                          loc_conv_width=7, compute_dtype="float32",
+                          dec_layers=dec_layers)
     c.loss.mtl_alpha = 0.3
     c.decode.method = "beam"
     c.decode.beam_size = 4
@@ -59,9 +61,9 @@ def _audio():
     return audio, lens
 
 
-def _models(att_type):
+def _models(att_type, dec_layers=1):
     """(JAX model, its params, the port's model with them)."""
-    config = _config(att_type)
+    config = _config(att_type, dec_layers)
     tok = JaxTokenizer()
     model = jax_build_model(config, tok.vocab_size, tok.sos_id, tok.eos_id)
     audio, lens = _audio()
@@ -90,7 +92,7 @@ def _both(models, **decode):
     """(JAX texts, scores, steps), (port texts, scores, steps) with the
     decode options ``decode`` over the tiny config."""
     model, params, port = models
-    config = copy.deepcopy(_config(port.cfg.att_type))
+    config = copy.deepcopy(_config(port.cfg.att_type, port.cfg.dec_layers))
     for k, v in decode.items():
         setattr(config.decode, k, v)
     audio, lens = _audio()
@@ -142,6 +144,14 @@ def test_nbest_matches_jax(loc_models):
 
 def test_add_attention_beam_matches_jax():
     _check(*_both(_models("add")))
+
+
+def test_stacked_decoder_beam_matches_jax():
+    """Two decoder layers: the beam's states carry h and c [2, B*K, H]
+    through step_beam and the parent gathers."""
+    ref, got = _both(_models("loc", dec_layers=2))
+    _check(ref, got)
+    assert any(got[0])
 
 
 def test_loc_checkpoint_round_trips_bit_for_bit(loc_models):

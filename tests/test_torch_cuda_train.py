@@ -2,7 +2,9 @@
 versions at small, ragged shapes. K1-fwd's training form
 (csrc/bilstm_fwd.cu with a c output), K1-bwd (csrc/bilstm_bwd.cu), and
 K2/K3 (csrc/ctc.cu); then the CTC loss and the BiLSTM gradient on the
-card against the same functions on the CPU.
+card against the same functions on the CPU; K1 at the VGG2L front's
+width (D = 2560); and a stacked decoder's train step, which launches no
+K4.
 
 Marked ``cuda``: these skip where there is no CUDA device. On a machine
 with the card and nvcc, run them with
@@ -160,3 +162,68 @@ def test_alpha_kernel_refuses_too_many_states(dev):
              torch.ones(B, S, dtype=torch.bool, device=dev))
     with pytest.raises(ValueError, match="lattice states"):
         C.ctc_alpha(emit, *masks)
+
+
+# K1 at vgg_blstm.yaml's layer-0 reduction width: VGG2L's 128 channels of
+# 20 mel bins, D = 2560, where every other config feeds K1 80 to 640.
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_k1_at_the_vgg_front_width_matches_plain(dev, cd):
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    args, dy = _layer(8, 25, 2560, 320, dev, seed=4)
+    x, lens, w_x, b_x, w_hf, w_hb = args
+    n = K.bilstm_fused_kernel.cluster_launches
+    y, c, acts = K.bilstm_fused_kernel(*args, compute_dtype=cd, with_cell=True)
+    yp, cp = K.bilstm_fused_plain(*args, compute_dtype=cd, with_cell=True)
+    got = K.bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, y, c, acts, dy,
+                                    compute_dtype=cd)
+    ref = K.bilstm_fused_bwd_plain(x, lens, w_x, b_x, w_hf, w_hb, y, c, dy,
+                                   compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert K.bilstm_fused_kernel.cluster_launches == n + 1
+    assert _rel(y, yp) <= REL[cd] and _rel(c, cp) <= REL[cd]
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all() and _rel(g, r) <= REL[cd]
+
+
+def test_stacked_decoder_step_launches_no_k4(dev):
+    """A hybrid train step with dec_layers=2 on the card: K1, K2 and K3
+    launch, K4 does not (the stacked decoder is plain torch, the JAX route
+    for it), and the loss equals the same step's on the CPU."""
+    from gluon_e2e_asr_tpu_torch.config import Config, ModelConfig
+    from gluon_e2e_asr_tpu_torch.models.asr import build_model
+    from gluon_e2e_asr_tpu_torch.ops import bilstm, ctc
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as LD
+    from gluon_e2e_asr_tpu_torch.training import train_step as T
+
+    config = Config()
+    config.model = ModelConfig(enc_hidden=16, enc_layers=2, enc_subsample=(1, 2),
+                               dec_hidden=16, dec_embed=8, att_dim=8,
+                               dec_layers=2, att_type="loc",
+                               loc_conv_channels=3, loc_conv_width=5)
+    config.loss.mtl_alpha, config.loss.scheduled_sampling = 0.3, 0.0
+    config.frontend.specaug_freq_masks = config.frontend.specaug_time_masks = 0
+    rng = np.random.RandomState(0)
+    batch = {"audio": torch.from_numpy((rng.randn(3, 8000) * 0.1).astype(np.float32)),
+             "audio_len": torch.tensor([8000, 6000, 3000], dtype=torch.int32),
+             "labels": torch.from_numpy(rng.randint(4, 11, (3, 5)).astype(np.int32)),
+             "label_len": torch.tensor([5, 4, 2], dtype=torch.int32)}
+    losses = {}
+    for d in (dev, torch.device("cpu")):
+        model = build_model(config, 11, train=True)
+        opt = T.make_optimizer(config)
+        state = T.create_train_state(config, model, opt, d)
+        counts = [f.launches for f in (LD.las_decoder_fwd_kernel,
+                                       LD.las_decoder_bwd_kernel,
+                                       bilstm.bilstm_fused_bwd_kernel,
+                                       ctc.ctc_alpha_kernel)]
+        m = T.make_train_step(model, config, opt)(state, batch)
+        after = [f.launches for f in (LD.las_decoder_fwd_kernel,
+                                      LD.las_decoder_bwd_kernel,
+                                      bilstm.bilstm_fused_bwd_kernel,
+                                      ctc.ctc_alpha_kernel)]
+        moved = [a - b for a, b in zip(after, counts)]
+        assert moved == ([0, 0, 2, 1] if d.type == "cuda" else [0, 0, 0, 0])
+        losses[d.type] = float(m["loss"])
+    assert np.isfinite(losses["cuda"])
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])

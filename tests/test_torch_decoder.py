@@ -366,11 +366,31 @@ def test_initializers_follow_flax():
     ({"att_type": "dot", "dec_layers": 2}, "dec_layers"),
 ])
 def test_unported_decoders_raise(kw, match):
+    """Stacked decoder layers raised until the port ran them; now the
+    teacher-forced pass of a decoder with ``dec_layers`` 2 matches the JAX
+    decoder's route for it (its scan over ``step``) at rtol/atol 1e-5,
+    and never runs K4's plain version (``match`` names the option)."""
     kw = dict(kw)
-    dec = AttentionDecoder(_cfg(kw.pop("att_type"), **kw), V)
-    enc = torch.zeros(B, T, 64)
-    with pytest.raises(NotImplementedError, match=match):
-        dec(enc, torch.from_numpy(ENC_LEN), torch.zeros(B, L, dtype=torch.int32))
+    att_type = kw.pop("att_type")
+    cfg = _cfg(att_type, **kw)
+    rng = np.random.RandomState(3)
+    enc = rng.randn(B, T, 64).astype(np.float32)
+    tokens = rng.randint(0, V, size=(B, L)).astype(np.int32)
+    tokens[:, 0] = 2
+    jdec = JaxDecoder(cfg, V)
+    params = jdec.init(jax.random.PRNGKey(0), jnp.asarray(enc),
+                       jnp.asarray(ENC_LEN), jnp.asarray(tokens))["params"]
+    ref = jdec.apply({"params": params}, jnp.asarray(enc),
+                     jnp.asarray(ENC_LEN), jnp.asarray(tokens))
+    dec = _port(cfg, jax.tree_util.tree_map(np.asarray, params))
+    assert getattr(dec.cfg, match) == 2
+    calls = K.las_decoder_fwd_plain.calls
+    with torch.no_grad():
+        got = dec(torch.from_numpy(enc), torch.from_numpy(ENC_LEN),
+                  torch.from_numpy(tokens))
+    assert K.las_decoder_fwd_plain.calls == calls
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_add_attention_on_a_non_cpu_tensor_is_refused():

@@ -82,8 +82,28 @@ def test_seeded_init_is_reproducible_and_flax_shaped():
 
 
 def test_vggblstm_is_not_ported():
-    with pytest.raises(NotImplementedError, match="vggblstm"):
-        ASRModel(ModelConfig(enc_type="vggblstm"), V, F)
+    """enc_type vggblstm raised until the port ran it; now the VGG2L front
+    and its BiLSTM stack match the JAX encoder (tests/test_torch_vgg.py
+    holds the rest), and an unknown enc_type raises."""
+    cfg = ModelConfig(enc_type="vggblstm", enc_hidden=16, enc_layers=1,
+                      enc_subsample=(1,), vgg_channels=(4, 8))
+    feats = np.random.RandomState(5).randn(B, T, F).astype(np.float32)
+    for b, n in enumerate(LENS):
+        feats[b, n:] = 0.0
+    jmodel = JaxASRModel(cfg, V, use_decoder=False)
+    params = jax.tree_util.tree_map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(0), jnp.asarray(feats), jnp.asarray(LENS))["params"])
+    ref = jmodel.apply({"params": params}, jnp.asarray(feats),
+                       jnp.asarray(LENS), method=jmodel.encode)
+    model = ASRModel(cfg, V, F)
+    model.load_state_dict(params_from_jax(params))
+    with torch.inference_mode():
+        got = model.encode(torch.from_numpy(feats), torch.from_numpy(LENS))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]),
+                               **TOL["float32"])
+    with pytest.raises(ValueError, match="enc_type"):
+        ASRModel(ModelConfig(enc_type="transformer"), V, F)
 
 
 @pytest.mark.parametrize("factor", [1, 2, 3])

@@ -1,5 +1,6 @@
-"""PyTorch port: the five milestone configs and the two English
-milestone-5 variants, against the JAX package on the CPU.
+"""PyTorch port: the five milestone configs, the two English
+milestone-5 variants and ``vgg_blstm.yaml`` (the VGG2L encoder), against
+the JAX package on the CPU.
 
 The counterpart of ``tests/test_milestone_configs.py``. Every config
 loads in the port as in the JAX package and passes the trainer's checks
@@ -14,7 +15,13 @@ the same program (milestones 4 and 5 and ``english_m5``) share one
 compiled JAX step. The configs are cut to test
 widths and nothing else: ``enc_hidden``, ``dec_hidden`` 256 -> 8,
 ``dec_embed`` 256 -> 6, ``att_dim`` 320 -> 8, the location filter's
-``loc_conv_channels`` 10 -> 4 and ``loc_conv_width`` 100 -> 7; a batch of
+``loc_conv_channels`` 10 -> 4 and ``loc_conv_width`` 100 -> 7 (VGG2L's
+channels stay as shipped: its convs are cheap at this size; vgg_blstm's
+bf16 runs in f32 here: in bf16 each conv bias's gradient is a sum of
+thousands of bf16 values that XLA on the CPU and PyTorch round in
+different orders, 4% of the largest such gradient apart, while the loss
+agrees to 2e-7; ``tests/test_torch_vgg.py`` holds the bf16 forward and
+phase 6d of ``chip_smoke.py`` the bf16 training on the card); a batch of
 3 utterances of up to 0.3 s and a pad row (labels from the config's
 vocabulary) in place of the 2.0 / 4.0 s buckets of 16. Layers,
 subsampling, frontend, attention type, losses, LR schedule, dtypes and
@@ -59,7 +66,7 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MILESTONES = sorted(glob.glob(os.path.join(REPO, "configs", "milestone*.yaml")))
 CONFIGS = MILESTONES + [os.path.join(REPO, "configs", f"{n}.yaml")
-                        for n in ("english_m5", "english_m5_bpe")]
+                        for n in ("english_m5", "english_m5_bpe", "vgg_blstm")]
 IDS = [os.path.basename(p)[:-5] for p in CONFIGS]
 STEPS = 2
 
@@ -79,7 +86,6 @@ def test_config_loads_in_the_port(path):
     config = load_config(path)
     assert dataclasses.asdict(config) == dataclasses.asdict(
         jax_load_config(path))
-    TR._refuse_unported(config)
     if "milestone3" in path:
         assert config.loss.mtl_alpha == 0.0 and config.decode.ctc_weight == 0.0
     if "milestone4" in path:
@@ -89,6 +95,8 @@ def test_config_loads_in_the_port(path):
                         eos_id=tok.eos_id)
     assert model.use_decoder == (config.loss.mtl_alpha < 1.0)
     assert model.encoder.cfg.enc_hidden == config.model.enc_hidden
+    if "vgg" in path:  # VGG2L's 128 channels of 20 mel bins feed layer 0
+        assert model.encoder.l0_in_w.shape == (2560, 8 * 320)
 
 
 def _cut(config):
@@ -96,6 +104,8 @@ def _cut(config):
     mc.enc_hidden = mc.dec_hidden = 8
     mc.dec_embed, mc.att_dim = 6, 8
     mc.loc_conv_channels, mc.loc_conv_width = 4, 7
+    if mc.enc_type == "vggblstm":  # bf16 -> f32: see the module docstring
+        mc.compute_dtype = "float32"
     return config
 
 

@@ -16,6 +16,11 @@ train step and decoders at world size 2 on the tiny config of
   JAX ``shard_map`` step: the loss rtol 1e-5, gradients rtol 1e-4 /
   atol 1e-5 (``tests/test_torch_train_step.py``), the parameters after
   Adam within 1% of the LR where the gradient is firm (above that atol).
+- Gradient accumulation (two micro-batches an update, encoder dropout
+  on) at world size 2 against world size 1: the metrics rtol 1e-5, the
+  parameters after the second update as above.
+- Resume at world size 2 (trainers on both ranks, rank 0 writing the
+  checkpoint): the resumed run equals the uninterrupted one bit for bit.
 - Greedy and beam decoding at world size 2 return what world size 1
   returns, on both ranks.
 """
@@ -175,12 +180,21 @@ def runs(tmp_path_factory):
     decode_config.decode.beam_size = 3
     decode_config.decode.ctc_weight = 0.3
     decode_config.decode.nbest = 2
+    resume_config = _config(PC, deterministic=False)
+    resume_config.data.synth_num_train = 4 * B  # 4 batches an epoch
+    resume_config.data.synth_num_dev = B
+    resume_config.model.enc_dropout = 0.1
+    resume_config.train.num_epochs = 2
+    resume_config.train.ckpt_dir = "ck"
+    resume_config.decode.method = "greedy"
     inputs = {"vocab": (tok.vocab_size, tok.sos_id, tok.eos_id),
               "config": config, "params": model.state_dict(),
               "batch": batch, "pad_batch": pad,
               "det_config": _config(PC, deterministic=True),
               "det_params": det_params, "det_batch": batch,
-              "decode_config": decode_config}
+              "decode_config": decode_config,
+              "resume_config": resume_config,
+              "resume_dir": str(workdir / "resume")}
     torch.save(inputs, workdir / "inputs.pt")
     ranks = _launch(workdir)
     jax_grads, jax_params, jax_metrics = _jax_shard_map(
@@ -235,6 +249,43 @@ def test_parameters_after_two_adam_steps_match(runs):
     # The ranks hold the same parameters, bit for bit.
     for k, v in runs["ranks"][0]["stochastic"][1]["params"].items():
         np.testing.assert_array_equal(v, runs["ranks"][1]["stochastic"][1]["params"][k])
+
+
+def test_accumulation_matches_world_size_one(runs):
+    """accum_grad_steps=2 with encoder dropout on: each rank's micro-batch
+    passes, the group summed over the ranks in one all-reduce before the
+    update, against world size 1: the metrics and the parameters after the
+    second update (the first runs at LR 0)."""
+    single = runs["single"]["accum"]
+    lr = runs["config"].train.learning_rate
+    for r in runs["ranks"]:
+        for got, ref in zip(r["accum"], single):
+            for k in ("loss", "loss_ctc", "loss_att", "att_acc", "grad_norm"):
+                np.testing.assert_allclose(got["metrics"][k], ref["metrics"][k],
+                                           rtol=1e-5, err_msg=k)
+            assert got["metrics"]["num_real"] == ref["metrics"]["num_real"] == B
+        for k, v in r["accum"][1]["params"].items():
+            np.testing.assert_allclose(v, single[1]["params"][k], rtol=0,
+                                       atol=0.01 * lr + 1e-7, err_msg=k)
+    moved = max(np.abs(v - single[0]["params"][k]).max()
+                for k, v in single[1]["params"].items())
+    assert moved > 1e-4
+
+
+def test_resume_at_world_size_two(runs):
+    """train.dp over 2 ranks (SpecAugment, the coins and dropout on): a
+    run stopped at step 3 (mid-epoch 0, 4 batches an epoch) and resumed
+    by fresh trainers on both ranks from rank 0's checkpoint equals the
+    uninterrupted run bit for bit on each rank, and the ranks hold the
+    same parameters."""
+    r0, r1 = (r["resume"] for r in runs["ranks"])
+    assert r0["resumed_at"] == r1["resumed_at"] == (3, 0, 3)
+    for r in (r0, r1):
+        assert r["ref"]["step"] == r["cut"]["step"] == 8
+        for k, v in r["ref"]["params"].items():
+            np.testing.assert_array_equal(r["cut"]["params"][k], v, err_msg=k)
+    for k, v in r0["cut"]["params"].items():
+        np.testing.assert_array_equal(r1["cut"]["params"][k], v, err_msg=k)
 
 
 def test_a_rank_of_pad_rows_only(runs):

@@ -1,5 +1,7 @@
 """PyTorch port: the train CLI on the CPU (plain versions of every
-kernel), its checkpoints, and the options that are not ported yet.
+kernel), its checkpoints, ``--resume`` and the training options that
+once raised (accumulation, plateau annealing, early stopping, mid-epoch
+checkpoints, profiling, adadelta, a stacked decoder).
 
 A CTC-only run of the tiny golden config (``loss.mtl_alpha=1.0``)
 trains past one epoch end (dev evaluation, ``epoch`` line, best
@@ -22,6 +24,8 @@ import pytest
 import torch
 
 from gluon_e2e_asr_tpu_torch import decode, train
+from gluon_e2e_asr_tpu_torch.ops import las_decoder
+from gluon_e2e_asr_tpu_torch.training import trainer as TR
 from gluon_e2e_asr_tpu_torch.training.checkpoint import _prune
 
 torch.set_num_threads(1)
@@ -182,6 +186,16 @@ def test_milestone2_trains_without_jax(tmp_path, impl):
     assert any(r["event"] == "epoch" for r in lines)
 
 
+def _lines(workdir):
+    with open(workdir / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _params(workdir, trainer, step):
+    path = workdir / trainer.config.train.ckpt_dir / f"ckpt_{step}.pt"
+    return torch.load(path, weights_only=True)
+
+
 @pytest.mark.parametrize("override,match", [
     ("train.accum_grad_steps=2", "accumulation"),
     ("train.eps_decay=0.01", "plateau"),
@@ -190,20 +204,77 @@ def test_milestone2_trains_without_jax(tmp_path, impl):
     ("train.ckpt_every_steps=10", "ckpt_every_steps"),
     ("train.profile_dir=prof", "profiling"),
     ("train.optimizer=adadelta", "adadelta"),
-    # Hybrid training is ported in every attention mode; K4 takes one
-    # decoder layer.
+    # a stacked decoder: the JAX route for it, never K4
     pytest.param("loss.mtl_alpha=0.5,model.dec_layers=2", "K4",
                  id="loss.mtl_alpha=0.5-K4"),
 ])
-def test_unported_options_raise(tmp_path, override, match):
+def test_unported_options_raise(tmp_path, monkeypatch, override, match):
+    """Each of these options raised NotImplementedError until the port
+    ran it; now each runs through the CLI on the CPU (4 batches an epoch)
+    and does what the JAX trainer does, the dev WERs scripted where the
+    option reacts to them."""
     sets = [a for o in override.split(",") for a in ("--set", o)]
-    with pytest.raises(NotImplementedError, match=match):
-        train.main(_train_args(tmp_path, 1, *sets))
+    if match == "profiling":
+        sets[1] = f"train.profile_dir={tmp_path / 'prof'}"
+        sets += ["--set", "train.profile_start_step=1",
+                 "--set", "train.profile_num_steps=2"]
+    wers = iter([0.5, 0.6, 0.7, 0.1])
+    monkeypatch.setattr(TR.Trainer, "evaluate",
+                        lambda self: {"dev_wer": next(wers), "dev_cer": 0.0})
+    epochs = {"accumulation": 1, "plateau": 2, "early stopping": 4,
+              "ckpt_every_steps": 3}.get(match, 1)
+    k4_calls = las_decoder.las_decoder_fwd_plain.calls
+    t = train.main(_train_args(tmp_path, 100 if epochs > 1 or match ==
+                               "accumulation" else 3, *sets, "--set",
+                               f"train.num_epochs={epochs}"))
+    lines = _lines(tmp_path)
+    events = [r["event"] for r in lines]
+    if match == "accumulation":  # 4 batches, 2 updates
+        assert t.state.step == 2
+        assert [r["step"] for r in lines if r["event"] == "train"] == [1, 2]
+    elif override.startswith("train.eps_decay"):  # adam has no eps to anneal
+        skipped = [r for r in lines if r["event"] == "eps_decay_skipped"]
+        assert [r["epoch"] for r in skipped] == [1]
+    elif match == "plateau":  # epoch 1 is stale: best.pt's parameters back
+        assert [r["epoch"] for r in lines
+                if r["event"] == "plateau_restore"] == [1]
+        best, last = _params(tmp_path, t, 4), _params(tmp_path, t, 8)
+        for k, v in best["params"].items():
+            assert torch.equal(v, last["params"][k]), k
+    elif match == "early stopping":  # stale at epochs 1 and 2
+        assert [r["epoch"] for r in lines if r["event"] == "epoch"] == [0, 1, 2]
+        assert events[-1] == "early_stop" and t.state.step == 12
+    elif match == "ckpt_every_steps":  # a mid-epoch checkpoint at step 10
+        with open(tmp_path / t.config.train.ckpt_dir / "ckpt_10.pt.json") as f:
+            meta = json.load(f)
+        assert (meta["epoch"], meta["batches_done"]) == (2, 2)
+    elif match == "profiling":
+        assert os.listdir(tmp_path / "prof") == ["trace_1-3_rank0.json"]
+    elif match == "adadelta":
+        opt = _params(tmp_path, t, 3)["opt_state"]
+        assert opt["kind"] == "adadelta" and opt["count"] == 3
+        assert opt["eps"] == pytest.approx(t.config.train.adadelta_eps)
+    else:  # the stacked decoder trained without K4's route
+        assert las_decoder.las_decoder_fwd_plain.calls == k4_calls
+        assert t.model.use_decoder and t.model.decoder.cfg.dec_layers == 2
+        assert all(r["loss_att"] > 0 for r in lines if r["event"] == "train")
+        assert "decoder.cell1_wx" in _params(tmp_path, t, 3)["params"]
 
 
 def test_resume_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(_train_args(tmp_path, 1, "--resume"))
+    """``--resume`` raised until the port ran it; now a run stopped at
+    step 5 (mid-epoch 1) and resumed to step 7 equals a run of 7 steps,
+    bit for bit."""
+    ref = train.main(_train_args(tmp_path / "ref", 7))
+    train.main(_train_args(tmp_path / "cut", 5))
+    t = train.main(_train_args(tmp_path / "cut", 7, "--resume"))
+    assert t.state.step == ref.state.step == 7
+    for k, v in ref.model.state_dict().items():
+        assert torch.equal(t.model.state_dict()[k], v), k
+    assert torch.equal(t.state.generator.get_state(),
+                       ref.state.generator.get_state())
+    resumed = [r for r in _lines(tmp_path / "cut") if r["event"] == "resume"]
+    assert [(r["epoch"], r["skip_batches"]) for r in resumed] == [(1, 1)]
 
 
 def _fake_ckpts(d, wers):

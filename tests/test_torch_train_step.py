@@ -33,6 +33,7 @@ from gluon_e2e_asr_tpu.ops.losses import hybrid_loss as jax_hybrid_loss
 from gluon_e2e_asr_tpu.training import train_step as jts
 from gluon_e2e_asr_tpu_torch.bridge import params_from_jax
 from gluon_e2e_asr_tpu_torch.models.asr import build_model
+from gluon_e2e_asr_tpu_torch.ops import las_decoder as LD
 from gluon_e2e_asr_tpu_torch.ops.losses import hybrid_loss
 from gluon_e2e_asr_tpu_torch.training.train_step import draw_coins, ss_prob
 from gluon_e2e_asr_tpu_torch.training import train_step as T
@@ -315,22 +316,52 @@ def test_hybrid_loss_matches_jax():
 
 @pytest.mark.parametrize("optimizer", ["sgd", "adadelta"])
 def test_unported_optimizers_raise(optimizer):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.make_optimizer(_config(optimizer=optimizer))
+    """SGD and Adadelta raised until the port ran them; now three train
+    steps of each match the JAX step with that optimizer: the losses, the
+    first gradients, and the parameters after the updates (within 1% of
+    the largest move; Adadelta's first steps, like Adam's, move an entry
+    whose gradient is near 0 by the fraction its rounding gives it)."""
+    train = ({"learning_rate": 1.0, "warmup_steps": 0}
+             if optimizer == "adadelta" else {})
+    r = _three_steps(_config(optimizer=optimizer, **train), _batch())
+    for m, jm in zip(r["port_metrics"], r["jax_metrics"]):
+        np.testing.assert_allclose(m["loss"], jm["loss"], rtol=1e-5)
+        np.testing.assert_allclose(m["grad_norm"], jm["grad_norm"], rtol=1e-4)
+    for k, g in r["port_grads"].items():
+        np.testing.assert_allclose(g, r["jax_grads"][k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    moved = max(np.abs(v - r["init"][k]).max()
+                for k, v in r["jax_params"][2].items())
+    assert moved > 0
+    for k, v in r["port_params"][2].items():
+        np.testing.assert_allclose(v, r["jax_params"][2][k], rtol=0,
+                                   atol=0.01 * moved + 1e-8, err_msg=k)
+    assert r["opt"].kind == optimizer
 
 
 def test_hybrid_training_raises_naming_k4():
-    """Hybrid training builds the decoder; the configuration that K4 does
-    not take yet (stacked decoder layers) raises, in every attention mode."""
+    """Stacked decoder layers raised, naming K4, until the port ran them:
+    now a hybrid step with dec_layers=2 (dot and loc) builds the stacked
+    decoder, takes the JAX route (plain torch, never K4's) and trains."""
     config = copy.deepcopy(_hybrid_config())
     assert build_model(config, VOCAB, train=True).use_decoder
     assert not build_model(_config(), VOCAB, train=True).use_decoder
     for att_type in ("dot", "loc"):
-        bad = copy.deepcopy(config)
-        bad.model.att_type, bad.model.dec_layers = att_type, 2
-        with pytest.raises(NotImplementedError, match="K4"):
-            build_model(bad, VOCAB, train=True)
-        build_model(bad, VOCAB)  # its parameters still load for serving
+        stacked = copy.deepcopy(config)
+        stacked.model.att_type, stacked.model.dec_layers = att_type, 2
+        stacked.model.loc_conv_channels = 4
+        stacked.model.loc_conv_width = 7
+        model = build_model(stacked, VOCAB, train=True)
+        assert model.decoder.cell1_wx.shape == (8, 32)
+        opt = T.make_optimizer(stacked)
+        state = T.create_train_state(stacked, model, opt)
+        calls = LD.las_decoder_fwd_plain.calls, LD.las_decoder_bwd_plain.calls
+        m = T.make_train_step(model, stacked, opt)(
+            state, {k: torch.from_numpy(v) for k, v in _batch().items()})
+        assert (LD.las_decoder_fwd_plain.calls,
+                LD.las_decoder_bwd_plain.calls) == calls
+        assert float(m["loss_att"]) > 0 and state.step == 1
+        assert float(model.decoder.cell1_wh.grad.abs().max()) > 0
 
 
 def test_hybrid_loss_and_metrics_match(hybrid_runs):
@@ -413,11 +444,46 @@ def test_hybrid_step_with_scheduled_sampling_runs():
 
 
 def test_encoder_dropout_in_training_raises():
+    """Encoder dropout raised in training until the port ran it; now the
+    JAX encoder's masks (``nn.Dropout`` after each layer, its key
+    ``fold_in(dropout_rng, layer)``), reproduced here and fed to the port,
+    give the JAX outputs (rtol/atol 1e-5, the encoder tests' tolerance);
+    and the train step draws one [B, T_l, 2H] mask a layer, after
+    SpecAugment and the coins."""
     config = _config()
-    config.model.enc_dropout = 0.1
+    config.model.enc_dropout = 0.25
+    rng = np.random.RandomState(4)
+    feats = rng.randn(2, 16, 80).astype(np.float32)
+    lens = np.array([16, 9], np.int32)
+    jmodel = jax_build_model(config, VOCAB)
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(feats),
+                         jnp.asarray(lens))["params"]
+    key = jax.random.PRNGKey(5)
+    ref = jmodel.apply({"params": params}, jnp.asarray(feats),
+                       jnp.asarray(lens), train=True, dropout_rng=key)
     model = build_model(config, VOCAB, train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, 8, 80), torch.tensor([8]), train=True)
+    model.load_state_dict(params_from_jax(jax.tree_util.tree_map(
+        np.asarray, params)))
+    frames = model.encoder.layer_frames(16)
+    assert frames == [16, 8]
+    masks = [torch.from_numpy(np.asarray(jax.random.bernoulli(
+        jax.random.fold_in(key, layer), 0.75, (2, t, 16))))
+        for layer, t in enumerate(frames)]
+    with torch.no_grad():
+        got = model(torch.from_numpy(feats), torch.from_numpy(lens),
+                    drop_masks=masks)
+        plain = model(torch.from_numpy(feats), torch.from_numpy(lens))
+    for k in ("enc", "ctc_logits"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+    assert not torch.allclose(got["enc"], plain["enc"])
+    gen = torch.Generator().manual_seed(1)
+    drawn = T.draw_dropout(config, model, 2, 16, gen, torch.device("cpu"))
+    assert [m.shape for m in drawn] == [(2, 16, 16), (2, 8, 16)]
+    keep = float(torch.cat([m.flatten() for m in drawn]).float().mean())
+    assert 0.6 < keep < 0.9
+    config.model.enc_dropout = 0.0
+    assert T.draw_dropout(config, model, 2, 16, gen, "cpu") is None
 
 
 def test_loc_hybrid_loss_and_metrics_match(loc_runs):

@@ -43,6 +43,64 @@ def _step_runs(config, params, batch, vocab, world, steps):
     return out, model
 
 
+def _accum_runs(config, params, batch, vocab, world, groups=2):
+    """``groups`` updates at ``accum_grad_steps=2`` (make_grad_step on each
+    half of ``batch``, one Accumulator update), with encoder dropout on:
+    each update's metrics and the parameters after it."""
+    import copy
+
+    from gluon_e2e_asr_tpu_torch.models.asr import build_model
+    from gluon_e2e_asr_tpu_torch.training import train_step as T
+
+    config = copy.deepcopy(config)
+    config.model.enc_dropout = 0.1
+    V, sos, eos = vocab
+    model = build_model(config, V, train=True, sos_id=sos, eos_id=eos)
+    model.load_state_dict(params)
+    opt = T.make_optimizer(config)
+    state = T.TrainState(step=0, opt_state=opt.init(dict(model.named_parameters())),
+                         generator=torch.Generator().manual_seed(1))
+    grad_fn = T.make_grad_step(model, config, world=world)
+    acc = T.Accumulator(model, opt, world)
+    half = batch["audio"].shape[0] // 2
+    out = []
+    for _ in range(groups):
+        for rows in (slice(0, half), slice(half, None)):
+            acc.add(*grad_fn(state, {k: v[rows] for k, v in batch.items()}))
+        m = acc.apply(state)
+        out.append({"metrics": {k: float(v) for k, v in m.items()},
+                    "params": {k: v.detach().numpy().copy()
+                               for k, v in model.state_dict().items()}})
+    return out
+
+
+def _resume_runs(config, workdir, world):
+    """At train.dp over ``world``: an uninterrupted trainer run, and a run
+    stopped mid-epoch by max_steps and resumed by a fresh trainer from
+    its checkpoint (rank 0 writes it; every rank reads it after a
+    barrier). Both runs' parameters and steps."""
+    import copy
+
+    from gluon_e2e_asr_tpu_torch.training.trainer import Trainer
+
+    out = {}
+    for name, max_steps in (("ref", -1), ("cut", 3)):
+        c = copy.deepcopy(config)
+        c.train.max_steps = max_steps
+        t = Trainer(c, workdir=os.path.join(workdir, name))
+        t.train()
+        world.barrier()
+        if name == "cut":
+            t = Trainer(copy.deepcopy(config), workdir=os.path.join(workdir, name))
+            t.maybe_resume()
+            out["resumed_at"] = (t.state.step, t.epoch0, t.skip_batches)
+            t.train()
+        out[name] = {"step": t.state.step,
+                     "params": {k: v.detach().numpy().copy()
+                                for k, v in t.model.state_dict().items()}}
+    return out
+
+
 def run(inputs, world):
     """The runs the test compares across world sizes."""
     from gluon_e2e_asr_tpu_torch.data.tokenizer import CharTokenizer
@@ -57,6 +115,11 @@ def run(inputs, world):
                                       inputs["batch"], vocab, world, 2)
     out["pad_shard"], _ = _step_runs(inputs["config"], inputs["params"],
                                      inputs["pad_batch"], vocab, world, 1)
+    out["accum"] = _accum_runs(inputs["config"], inputs["params"],
+                               inputs["batch"], vocab, world)
+    if world.size > 1:
+        out["resume"] = _resume_runs(inputs["resume_config"],
+                                     inputs["resume_dir"], world)
     out["deterministic"], _ = _step_runs(inputs["det_config"],
                                          inputs["det_params"],
                                          inputs["det_batch"], vocab, world, 1)
