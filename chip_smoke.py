@@ -108,7 +108,7 @@ its ranks itself.) Phases, each printing JSON lines:
    front): an epoch with its dev evaluation by its beam, the launch
    counts, the checkpoint decoded by the beam; K1 at its layer 0 (D =
    2560, checked in phase 3 in every form) timed against the plain
-   versions and its bound; a step at the 4.0 s bucket with the VGG front's
+   versions, its bound and cuDNN's bidirectional LSTM; a step at the 4.0 s bucket with the VGG front's
    share (profiler, and the front alone by CUDA events) and a beam decode
    of that batch, timed;
 7. training reference: one hybrid step of the trained dot and loc models
@@ -153,15 +153,37 @@ its ranks itself.) Phases, each printing JSON lines:
    (``python -m gluon_e2e_asr_tpu_torch.tools.pipeline_probe``) over
    M = 96 and 128, N = 1..4, both variants, the counts reset just before
    and read just after; the plain version and cuDNN's LSTM timed at the
-   same shapes.
+   same shapes;
+11. the external LM and forced alignment on ``configs/english_m5.yaml``
+   as shipped (256 units, loc, hybrid; beam K=10, ctc_weight 0.3,
+   length normalization): M5_EPOCHS of its 60 epochs through the train
+   CLI (the launch counts, K1-bwd, K2/K3 and K4 loc on every step); the
+   LM corpus (``tools/make_lm_corpus.py``) and ``train_lm.py`` at
+   LMConfig's width (E 256, H 512, 2 layers, B 64, max_len 128) for
+   LM_EPOCHS of its 20 epochs: the dev perplexity falls and ends below
+   V, and one LM train step is timed; the LM's step loop against its
+   forward and its batched log-probabilities against per-row ones on the
+   card; MILESTONE_BEAM_UTTS dev utterances decoded by the beam through
+   the decode CLI without and with the LM (``decode.lm_ckpt``,
+   ``lm_weight`` 0.3, ``nbest`` 10), both WERs printed; on one dev batch
+   the fused beam at weight 0 equal to the unfused one bit for bit, the
+   fused beam through the kernels equal to it through plain_route()
+   (texts, scores within TOL_FUSED_SCORE), both beams timed;
+   ``tools/rescore_nbest.py`` on both decodes' records;
+   ``transcribe.py --timestamps`` on wav files of synth_batch audio (one
+   past the largest bucket): monotone spans inside each file;
+   ``tools/align.py --ctm``; ``ctc_viterbi_align`` on the card against
+   the CPU (states identical); an alignment batch timed. K1-fwd's
+   launches in the fused beam, transcribe and align, the training
+   kernels' in english_m5's epochs, each counted from 0 around its path.
 
 Then the kernels line (each kernel's launches on the main path, error,
 time, plain time, bound and library time; also each row's launches in
-vgg_blstm's epoch and in the dropout and stacked-decoder runs, and K1's
-rows at D = 2560) and, last, ``{"ok": true, "device": {...}}``. Any
+vgg_blstm's epoch, in the dropout and stacked-decoder runs and on phase
+11's paths, and K1's rows at D = 2560 with cuDNN's time) and, last, ``{"ok": true, "device": {...}}``. Any
 failed check exits non-zero before the last line. Artifacts go to
-``build/chip_smoke/``. ``python3 chip_smoke.py --only 6c,6d`` runs the
-build and those phases alone, reports every failed check and prints
+``build/chip_smoke/``. ``python3 chip_smoke.py --only 6c,6d,11`` runs
+the build and those phases alone, reports every failed check and prints
 neither the kernels line nor the last line.
 """
 
@@ -190,6 +212,7 @@ MILESTONES = {n: os.path.join(REPO, "configs", f"{f}.yaml") for n, f in (
     (1, "milestone1_bilstm_ctc"), (3, "milestone3_las"),
     (4, "milestone4_hybrid_dp"), (5, "milestone5_beam"))}
 VGG_CONFIG = os.path.join(REPO, "configs", "vgg_blstm.yaml")
+M5_CONFIG = os.path.join(REPO, "configs", "english_m5.yaml")
 GOLD = os.path.join(REPO, "tests", "goldens")
 SEED = 0
 BUCKET_SEC = 4.0  # the flagship config's longest bucket
@@ -305,6 +328,26 @@ RESUME_REFS, RESUME_SPREAD_FACTOR, RESUME_ULPS = 3, 2.0, 4.0
 # PyTorch's generic elementwise and reduction kernels, which other
 # operations share: they are not counted.
 VGG_KERNELS = ("cudnn", "implicit_gemm", "implicit_convolve", "max_pool")
+# Phase 11: english_m5.yaml trains M5_EPOCHS of its 60 epochs; its LM
+# (LMConfig's width: E 256, H 512, 2 layers, B 64, max_len 128) LM_EPOCHS
+# of lm.num_epochs 20; the beam fuses it at LM_WEIGHT with an n-best list
+# of LM_NBEST; transcribe takes N_WAVS files of synth_batch audio and one
+# of LONG_WAV_SEC, past the config's largest bucket (4.0 s).
+M5_EPOCHS, LM_EPOCHS, LM_WEIGHT, LM_NBEST = 2, 4, 0.3, 10
+N_WAVS, LONG_WAV_SEC = 3, 5.5
+# The LM on the card, f32 with TF32 off: step loop against the forward's
+# logits, the batched log-probabilities against the per-row ones (only
+# the order of the sums differs).
+TOL_LM = 1e-4
+# The fused beam through the kernels against it through plain_route() on
+# the same batch (english_m5 is f32: K1-fwd and its plain version differ
+# by sum order, about 1e-6 in the encoder's outputs): the same texts, the
+# scores (sums of about 20 steps' log-probabilities) within this.
+TOL_FUSED_SCORE = 1e-3
+# Viterbi on the card against the CPU on the same log-probabilities: the
+# gather is exact and the recursion adds and compares, so the states are
+# identical and the scores within this.
+TOL_VITERBI_SCORE = 1e-5
 N_TIMED = 10
 N_TIMED_PLAIN_STEP = 3  # the plain train step takes seconds
 BENCH_SEC, BENCH_LABELS = 12.8, 96  # bench.py's shape
@@ -352,6 +395,20 @@ def time_ms(torch, fn, n=N_TIMED, warm=2) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def host_ms(torch, fn, n=N_BEAM_TIMED) -> float:
+    """Median host-clock time of ``fn`` over ``n`` runs after one warm
+    run, synchronized before and after each."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
 
 
@@ -561,7 +618,7 @@ def main(only=()) -> None:
     if only:
         global main_only
         main_only = True
-        phases = {"6c": training_options, "6d": vgg_slice}
+        phases = {"6c": training_options, "6d": vgg_slice, "11": lm_phase}
         for name in only:
             phases[name](torch, dev, card)
         emit({"phases": list(only), "failed": FAILED,
@@ -786,7 +843,7 @@ def main(only=()) -> None:
     # through K5, and K7's own path
     m2_trainer, m2_counts = train_slice(torch, M2_CONFIG, "train_m2",
                                         ctc_only=True)
-    m2_decode_counts = decode_slice(torch, m2_trainer, M2_CONFIG, "train_m2")
+    m2_decode_counts, _ = decode_slice(torch, m2_trainer, M2_CONFIG, "train_m2")
     _, regrid_counts = train_slice(
         torch, M2_CONFIG, "train_m2_regrid", M2_REGRID_STEPS,
         ["--set", "frontend.impl=pallas_regrid"], ctc_only=True, falls=False)
@@ -815,6 +872,8 @@ def main(only=()) -> None:
     beam_timing(torch, loc_trainer, dev, card)
     # 10. P1
     probe_ms, probe_counts, probe_lib = probe_path(torch, dev, card)
+    # 11. the external LM and forced alignment on english_m5
+    lm_counts = lm_phase(torch, dev, card)
     bounds = kernel_bounds(config, shapes, dev, loc_config, m2_config)
 
     bf16 = [(layer, "bfloat16") for layer, _, _ in shapes]
@@ -987,14 +1046,19 @@ def main(only=()) -> None:
             rows[-1]["library_note"] = fe_notes[name]
     rows[0]["decode_launches"] = decode_launches
     for row in rows:  # the launches of each milestone's training run
-        row["milestone_launches"] = {f"milestone{n}": c.get(row["name"], 0)
+        # K4's rows are one a mode: the dot rows count dot launches alone
+        key = row["name"] + ("_dot" if row["name"] in (
+            "las_decoder_fwd", "las_decoder_bwd") else "")
+        row["milestone_launches"] = {f"milestone{n}": c.get(key, 0)
                                      for n, c in milestone_counts.items()}
-        row["vgg_blstm_launches"] = vgg_counts.get(row["name"], 0)
+        row["vgg_blstm_launches"] = vgg_counts.get(key, 0)
         row["option_launches"] = {
-            k: option_counts[f"{k}_launches"].get(row["name"], 0)
+            k: option_counts[f"{k}_launches"].get(key, 0)
             for k in ("dropout", "stacked")}
         if row["name"] in vgg_layer0_rows:
             row["vgg_layer0"] = vgg_layer0_rows[row["name"]]
+        row["lm_phase_launches"] = {k: c.get(key, 0)
+                                    for k, c in lm_counts.items()}
     # K4's launches through its cluster kernels, from the same slices:
     # every one of them
     for d in ("fwd", "bwd"):
@@ -1513,7 +1577,7 @@ def v1_path(torch, shape, config, dev):
 
 
 def decode_slice(torch, trainer, path, name, max_utts=0, method=None,
-                 extra=()):
+                 extra=(), tag=""):
     """A decode of the last checkpoint of ``trainer``'s run (of the config
     at ``path`` with the ``extra`` overrides, in OUT_DIR/``name``) through
     the decode CLI on the card by ``method``, by default the config's
@@ -1521,14 +1585,16 @@ def decode_slice(torch, trainer, path, name, max_utts=0, method=None,
     frontend kernel of its config on every batch (and warm pass), K1-fwd
     through the cluster recurrence, no K2, K3 or K4 (the beams' decoder
     steps are plain torch operations, as in the JAX package), no plain
-    version, a hypothesis per dev utterance."""
+    version, a hypothesis per dev utterance. The records go to
+    ``decode_<method><tag>.jsonl``; returns the launches and the CLI's
+    result."""
     from gluon_e2e_asr_tpu_torch import decode
 
     config, steps = trainer.config, trainer.state.step
     method = method or config.decode.method
     workdir = os.path.join(OUT_DIR, name)
     ckpt = os.path.join(workdir, config.train.ckpt_dir, f"ckpt_{steps}.pt")
-    out = os.path.join(workdir, f"decode_{method}.jsonl")
+    out = os.path.join(workdir, f"decode_{method}{tag}.jsonl")
     impl = config.frontend.impl
     reset_counts()
     t0 = time.perf_counter()
@@ -1571,7 +1637,7 @@ def decode_slice(torch, trainer, path, name, max_utts=0, method=None,
           "the decode wrote no hypothesis per utterance")
     if method != "greedy":
         check(result["beam_steps_total"] > 0, "the beam ran no output step")
-    return launches
+    return launches, result
 
 
 def golden_greedy(torch, impl="pallas"):
@@ -2167,15 +2233,8 @@ def milestone_slices(torch, dev, card):
         if beam:
             decoder = make_beam_decoder(model, config, trainer.tokenizer,
                                         trainer.cmvn_stats, device=dev)
-            decoder(b.audio, b.audio_len)
-            times = []
-            for _ in range(N_BEAM_TIMED):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                decoder(b.audio, b.audio_len)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            dec_ms, runs = float(np.median(times)), N_BEAM_TIMED
+            dec_ms = host_ms(torch, lambda: decoder(b.audio, b.audio_len))
+            runs = N_BEAM_TIMED
         else:
             decoder = make_greedy_decoder(model, config, trainer.cmvn_stats,
                                           dev)
@@ -2597,14 +2656,7 @@ def vgg_slice(torch, dev, card):
     decoder = make_beam_decoder(trainer.model.eval(), config,
                                 trainer.tokenizer, trainer.cmvn_stats,
                                 device=dev)
-    decoder(b.audio, b.audio_len)
-    times = []
-    for _ in range(N_BEAM_TIMED):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        decoder(b.audio, b.audio_len)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    beam_ms = host_ms(torch, lambda: decoder(b.audio, b.audio_len))
     emit({"phase": "timing", "what": "vgg_blstm",
           "config": os.path.relpath(VGG_CONFIG, REPO), "shape": "4.0 s bucket",
           "B": int(b.audio.shape[0]), "samples": int(b.audio.shape[1]),
@@ -2626,7 +2678,7 @@ def vgg_slice(torch, dev, card):
                        "ReLUs, re-zeroing and bias sums are not counted); "
                        "alone: CUDA events over the front's forward and the "
                        "backward to its weights on the batch's features",
-          "beam_decode_ms": float(np.median(times)),
+          "beam_decode_ms": beam_ms,
           "beam_size": config.decode.beam_size,
           "ctc_weight": config.decode.ctc_weight,
           "decode_basis": "host audio in, hypotheses on the host, host clock",
@@ -2639,8 +2691,9 @@ def vgg_slice(torch, dev, card):
 def k1_vgg_timing(torch, trainer, dev, card):
     """K1 at vgg_blstm's layer 0 (B=96, T'=100, D = 2560, H=320, bf16, the
     4.0 s bucket): K1-fwd (serving form) and K1-bwd against their plain
-    versions (phase 3 checks them at this shape in every form) and their
-    bounds, timed by CUDA events."""
+    versions (phase 3 checks them at this shape in every form), their
+    bounds and cuDNN's bidirectional LSTM (forward; backward alone) on the
+    same inputs, timed by CUDA events."""
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
 
     config = trainer.config
@@ -2672,12 +2725,15 @@ def k1_vgg_timing(torch, trainer, dev, card):
                 x, lens, w_x, b_x, w_hf, w_hb, yt, c, dy, compute_dtype=cd),
                 n=5, warm=1))}
     bounds = k1_layer_bounds(torch, B, T, D, H, layer)
+    lib = dict(zip(("bilstm_fwd", "bilstm_bwd"),
+                   cudnn_lstm_ms(torch, x, lens, w_x, b_x, w_hf, w_hb, dev)))
     out = {}
     for name, err in (("bilstm_fwd", fwd_err), ("bilstm_bwd", bwd_err)):
         out[name] = {"B": B, "T": T, "D": D, "H": H, "dtype": "bfloat16",
                      "ms": ms[name][0], "plain_ms": ms[name][1],
                      "bound_ms": bounds[name][0],
-                     "bound_by": bounds[name][1], "max_abs_err": err}
+                     "bound_by": bounds[name][1], "library_ms": lib[name],
+                     "max_abs_err": err}
     emit({"phase": "timing", "what": "k1_vgg_layer0", **out,
           "bwd_max_rel_err": bwd_rel, "tol": TOL["bfloat16"],
           "tol_bwd_rel": TOL_BWD["bfloat16"], "card": card})
@@ -3312,15 +3368,8 @@ def beam_timing(torch, trainer, dev, card):
         fe_ms = time_ms(torch, lambda: frontend_apply(config.frontend, audio, alen))
         feats, flen = frontend_apply(config.frontend, audio, alen)
         enc_ms = time_ms(torch, lambda: model.encode(feats, flen))
-    decoder(b.audio, b.audio_len)
-    times = []
-    for _ in range(N_BEAM_TIMED):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        texts, scores = decoder(b.audio, b.audio_len)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    total = float(np.median(times))
+    total = host_ms(torch, lambda: decoder(b.audio, b.audio_len))
+    texts, scores = decoder(b.audio, b.audio_len)
     emit({"phase": "timing", "what": "beam_decode", "B": int(b.audio.shape[0]),
           "samples": int(b.audio.shape[1]), "beam_size": config.decode.beam_size,
           "ctc_weight": config.decode.ctc_weight, "frontend_ms": fe_ms,
@@ -3518,6 +3567,294 @@ def probe_path(torch, dev, card):
     return {v: (ms[v][at], plain_ms[at]) for v in ms}, launches, cudnn_ms[at]
 
 
+def write_wav(path, audio, sample_rate=16000):
+    """16-bit mono PCM of float audio in [-1, 1]."""
+    import wave
+
+    pcm = np.clip(audio * 32767.0, -32768, 32767).astype(np.int16)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm.tobytes())
+
+
+def lm_phase(torch, dev, card):
+    """Phase 11: the external LM and forced alignment on english_m5.yaml as
+    shipped (256 units, loc, hybrid; beam K=10, ctc_weight 0.3,
+    length_norm): M5_EPOCHS epochs through the train CLI; the LM corpus
+    (``tools/make_lm_corpus.py``) and ``train_lm.py`` at LMConfig's width
+    for LM_EPOCHS epochs (dev perplexity falling, below V), a train step
+    timed; the LM's step loop and batched log-probabilities on the card;
+    MILESTONE_BEAM_UTTS dev utterances decoded by the beam through the
+    decode CLI without and with the LM (``decode.lm_ckpt``,
+    ``lm_weight`` LM_WEIGHT, ``nbest`` LM_NBEST), both WERs printed; on
+    one dev batch the fused beam at weight 0 against the unfused one (bit
+    for bit), through the kernels against plain_route(), and both timed;
+    ``tools/rescore_nbest.py`` on both decodes' records; ``transcribe.py
+    --timestamps`` on wav files (one past the largest bucket) with
+    monotone spans inside each file; ``tools/align.py --ctm``;
+    ``ctc_viterbi_align`` on the card against the CPU; an alignment batch
+    timed. Returns {path: launches} for the kernels line."""
+    from gluon_e2e_asr_tpu_torch import train_lm, transcribe
+    from gluon_e2e_asr_tpu_torch.config import load_config
+    from gluon_e2e_asr_tpu_torch.decode import make_eval_loader
+    from gluon_e2e_asr_tpu_torch.decoding.beam import make_beam_decoder
+    from gluon_e2e_asr_tpu_torch.models import lm as LM
+    from gluon_e2e_asr_tpu_torch.ops.ctc import ctc_viterbi_align
+    from gluon_e2e_asr_tpu_torch.frontend.features import frontend_apply
+    from gluon_e2e_asr_tpu_torch.tools import align, make_lm_corpus, rescore_nbest
+
+    t_phase = time.perf_counter()
+    config = load_config(M5_CONFIG)
+    name = "english_m5"
+    workdir = os.path.join(OUT_DIR, name)
+    counts = {}
+    trainer, counts["english_m5_train"] = train_slice(
+        torch, M5_CONFIG, name, epoch_steps(config, M5_EPOCHS), shipped=True)
+    ckpt = os.path.join(workdir, config.train.ckpt_dir,
+                        f"ckpt_{trainer.state.step}.pt")
+    tok, V = trainer.tokenizer, trainer.tokenizer.vocab_size
+
+    # the LM: its corpus, then train_lm at LMConfig's width
+    corpus = os.path.join(workdir, "lm_corpus.txt")
+    made = make_lm_corpus.main(["--config", M5_CONFIG, "--out", corpus])
+    lm_dir = os.path.join(workdir, "lm")
+    shutil.rmtree(lm_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    done = train_lm.main(["--config", M5_CONFIG, "--workdir", lm_dir,
+                          "--set", f"lm.extra_text={corpus}",
+                          "--set", f"lm.num_epochs={LM_EPOCHS}",
+                          "--device", "cuda"])
+    lm_wall = time.perf_counter() - t0
+    with open(os.path.join(lm_dir, "lm_metrics.jsonl")) as f:
+        lm_lines = [json.loads(line) for line in f]
+    ppl = [r["dev_ppl"] for r in lm_lines]
+    lc = config.lm
+    lm_ckpt = done["ckpt"]
+    lm, lm_meta = LM.load_lm(lm_ckpt, dev)
+    # one train step at full width, on a fresh LM
+    texts = train_lm.gather_texts(config)[1] + [
+        ln.strip() for ln in open(corpus) if ln.strip()]
+    fresh = LM.build_lm(config, V)
+    fresh.reset_parameters(torch.Generator().manual_seed(lc.seed))
+    fresh.to(dev).train()
+    opt, step, _ = train_lm.make_lm_step(fresh, lc)
+    state = opt.init(dict(fresh.named_parameters()))
+    batch = tuple(torch.from_numpy(a).to(dev) for a in next(train_lm.make_batches(
+        texts, tok, lc.max_len, lc.batch_size, np.random.default_rng(lc.seed))))
+    step_ms = time_ms(torch, lambda: step(state, *batch))
+    tokens = int(batch[2].sum())
+    emit({"phase": "lm_train", "config": os.path.relpath(M5_CONFIG, REPO),
+          "corpus": made, "texts": len(texts), "V": V,
+          "E": lc.embed_dim, "H": lc.hidden, "layers": lc.layers,
+          "B": lc.batch_size, "max_len": lc.max_len,
+          "epochs": LM_EPOCHS, "epochs_shipped": lc.num_epochs,
+          "epoch_lines": lm_lines, "wall_s": round(lm_wall, 2),
+          "lm_done": done, "train_step_ms": step_ms,
+          "train_step_tokens": tokens,
+          "tokens_per_s": tokens / (step_ms / 1e3),
+          "step_basis": "CUDA events, median of 10: forward, backward, "
+                        "clip and AdamW of one batch", "card": card})
+    check(len(ppl) == LM_EPOCHS and ppl[-1] < ppl[0] and ppl[-1] < V,
+          f"the LM's dev perplexity did not fall below V={V}: {ppl}")
+    check(lm_meta["vocab"] == tok.to_json(), "the LM's vocab is not the ASR's")
+    del fresh, opt, state
+
+    # the LM on the card: the step loop against the forward, the batched
+    # log-probabilities against the per-row ones
+    dev_texts = [u.text for u in trainer.dev_utts]
+    tin, _, lens = (torch.from_numpy(a).to(dev) for a in next(
+        train_lm.make_batches(dev_texts, tok, lc.max_len, 16, None)))
+    with torch.no_grad():
+        full = lm(tin, lens)
+        st = lm.init_state(tin.shape[0])
+        step_err = 0.0
+        for i in range(int(lens.max())):
+            st, logits = lm.step(st, tin[:, i])
+            live = i < lens
+            step_err = max(step_err, float(
+                (logits[live] - full[live, i]).abs().max()))
+    rows = [tok.encode(t) for t in dev_texts[:16]]
+    batch_lp = LM.lm_logprob_batch(lm, rows, tok.eos_id, tok.sos_id)
+    row_lp = np.array([LM.lm_logprob(lm, r, tok.eos_id, tok.sos_id)
+                       for r in rows])
+    lp_err = float(np.abs(batch_lp - row_lp).max())
+    emit({"phase": "lm_check", "step_vs_forward_max_abs_err": step_err,
+          "logprob_batch_vs_row_max_abs_err": lp_err, "tol": TOL_LM,
+          "rows": len(rows)})
+    check(step_err <= TOL_LM and lp_err <= TOL_LM,
+          f"the LM on the card: step {step_err}, log-probs {lp_err}")
+
+    # the beam over MILESTONE_BEAM_UTTS dev utterances, without and with
+    # the LM, through the decode CLI
+    nb = ["--set", f"decode.nbest={LM_NBEST}"]
+    fused_set = nb + ["--set", f"decode.lm_weight={LM_WEIGHT}",
+                      "--set", f"decode.lm_ckpt={lm_ckpt}"]
+    counts["unfused_beam"], plain_res = decode_slice(
+        torch, trainer, M5_CONFIG, name, MILESTONE_BEAM_UTTS, extra=nb,
+        tag="_nolm")
+    counts["fused_beam"], fused_res = decode_slice(
+        torch, trainer, M5_CONFIG, name, MILESTONE_BEAM_UTTS, extra=fused_set,
+        tag="_lm")
+    # one dev batch: weight 0 against no LM, the kernels against the
+    # plain versions, both timed
+    b = next(iter(make_eval_loader(config, trainer.dev_utts, tok).epoch(0)))
+    model = trainer.model.eval()
+    c0 = copy.deepcopy(config)
+    c0.decode.nbest = LM_NBEST
+    unfused = make_beam_decoder(model, c0, tok, trainer.cmvn_stats, device=dev)
+    c0.decode.lm_weight = 0.0
+    weight0 = make_beam_decoder(model, c0, tok, trainer.cmvn_stats, device=dev,
+                                lm_bundle=lm)
+    c1 = copy.deepcopy(c0)
+    c1.decode.lm_weight = LM_WEIGHT
+    fused = make_beam_decoder(model, c1, tok, trainer.cmvn_stats, device=dev,
+                              lm_bundle=lm)
+    base = unfused.nbest(b.audio, b.audio_len)
+    same0 = weight0.nbest(b.audio, b.audio_len) == base
+    got = fused.nbest(b.audio, b.audio_len)
+    with plain_route():
+        ref = fused.nbest(b.audio, b.audio_len)
+    texts_equal = [[t for t, _ in r] for r in got] == [[t for t, _ in r]
+                                                      for r in ref]
+    dscore = max(abs(s - rs) for r, rr in zip(got, ref)
+                 for (_, s), (_, rs) in zip(r, rr) if rs > -1e29)
+    unfused_ms = host_ms(torch, lambda: unfused(b.audio, b.audio_len))
+    fused_ms = host_ms(torch, lambda: fused(b.audio, b.audio_len))
+    emit({"phase": "lm_fusion", "utts": MILESTONE_BEAM_UTTS,
+          "lm_weight": LM_WEIGHT, "nbest": LM_NBEST,
+          "wer_without_lm": plain_res["wer"], "wer_with_lm": fused_res["wer"],
+          "cer_without_lm": plain_res["cer"], "cer_with_lm": fused_res["cer"],
+          "oracle_wer_without_lm": plain_res.get("oracle_wer"),
+          "oracle_wer_with_lm": fused_res.get("oracle_wer"),
+          "note": "WERs of a model trained 2 of 60 epochs: not a check",
+          "batch": int(b.audio.shape[0]), "samples": int(b.audio.shape[1]),
+          "weight0_bit_identical": same0,
+          "kernels_vs_plain_texts_equal": texts_equal,
+          "kernels_vs_plain_max_abs_score_diff": dscore,
+          "tol_score": TOL_FUSED_SCORE,
+          "unfused_beam_ms": unfused_ms, "fused_beam_ms": fused_ms,
+          "fused_over_unfused": fused_ms / unfused_ms,
+          "timing_basis": "host clock, median of 3 after a warm run, host "
+                          "audio in, hypotheses on the host",
+          "card": card})
+    check(same0, "the beam at lm_weight 0 is not the unfused beam bit for bit")
+    check(texts_equal and dscore <= TOL_FUSED_SCORE,
+          f"the fused beam through the kernels against plain_route(): texts "
+          f"equal {texts_equal}, scores {dscore}")
+
+    # n-best rescoring of both decodes' records
+    for tag in ("_nolm", "_lm"):
+        records = os.path.join(workdir, f"decode_beam{tag}.jsonl")
+        summary = rescore_nbest.main([
+            records, "--lm", lm_ckpt, "--weight", str(LM_WEIGHT),
+            "--lm-length-norm", "--device", "cuda",
+            "--output", os.path.join(workdir, f"rescored{tag}.jsonl")])
+        emit({"phase": "rescore", "records": os.path.relpath(records, REPO),
+              "summary": summary})
+        check(summary["num_utts"] == MILESTONE_BEAM_UTTS,
+              f"rescored {summary['num_utts']} utterances")
+
+    # transcribe --timestamps: wav files of synth_batch audio, one past the
+    # largest bucket (the catch-all bucket)
+    wav_dir = os.path.join(workdir, "wavs")
+    os.makedirs(wav_dir, exist_ok=True)
+    sb = synth_batch(N_WAVS, 3.0, 8, SEED)
+    clips = [sb["audio"][i, :sb["audio_len"][i]] for i in range(N_WAVS)]
+    clips.append(synth_batch(1, LONG_WAV_SEC, 8, SEED + 1)["audio"][0])
+    wavs = []
+    for i, clip in enumerate(clips):
+        wavs.append(os.path.join(wav_dir, f"clip{i}.wav"))
+        write_wav(wavs[-1], clip)
+    out = os.path.join(workdir, "transcribe.jsonl")
+    reset_counts()
+    results = transcribe.main(["--config", M5_CONFIG, "--ckpt", ckpt,
+                               "--output", out, "--timestamps",
+                               "--device", "cuda", *wavs])
+    counts["transcribe"], plain = read_counts()
+    spf = transcribe.sec_per_frame(config)
+    with open(out) as f:
+        recs = [json.loads(line) for line in f]
+    bad = []
+    for r in recs:
+        dur = len(clips[int(r["utt_id"][:4])]) / 16000
+        last = 0.0
+        for sp in r["tokens"]:
+            if sp["start_s"] is None:
+                continue
+            # within one encoder frame past the end: the subsampling rounds
+            # the last frames up
+            if not last - 1e-9 <= sp["start_s"] < sp["end_s"] <= dur + spf:
+                bad.append((r["utt_id"], sp))
+            last = sp["end_s"]
+    emit({"phase": "transcribe", "files": len(wavs),
+          "seconds": [len(c) / 16000 for c in clips],
+          "records": len(recs), "spans": sum(len(r["tokens"]) for r in recs),
+          "sec_per_frame": spf, "bad_spans": bad[:5],
+          "launches": counts["transcribe"], "plain_calls": plain})
+    check(len(results) == len(recs) == len(wavs) and not bad,
+          f"transcribe: {len(recs)} records of {len(wavs)} files, bad spans "
+          f"{bad[:3]}")
+    check(counts["transcribe"]["bilstm_fwd"] > 0 and not any(plain.values()),
+          f"transcribe's launches {counts['transcribe']}, plain {plain}")
+
+    # tools/align.py --ctm over MILESTONE_BEAM_UTTS dev utterances
+    reset_counts()
+    rc = align.main(["--config", M5_CONFIG, "--ckpt", ckpt,
+                     "--num", str(MILESTONE_BEAM_UTTS),
+                     "--output", os.path.join(workdir, "align.jsonl"),
+                     "--ctm", os.path.join(workdir, "align.ctm"),
+                     "--device", "cuda"])
+    counts["align"], plain = read_counts()
+    with open(os.path.join(workdir, "align.jsonl")) as f:
+        arecs = [json.loads(line) for line in f]
+    with open(os.path.join(workdir, "align.ctm")) as f:
+        ctm = f.read().splitlines()
+    emit({"phase": "align", "records": len(arecs), "ctm_lines": len(ctm),
+          "feasible": sum(r["score"] > -1e20 for r in arecs),
+          "launches": counts["align"], "plain_calls": plain})
+    check(rc == 0 and len(arecs) == MILESTONE_BEAM_UTTS and ctm,
+          f"align: {len(arecs)} records, {len(ctm)} CTM lines")
+    check(counts["align"]["bilstm_fwd"] > 0 and not any(plain.values()),
+          f"align's launches {counts['align']}, plain {plain}")
+
+    # Viterbi on the card against the CPU on the same log-probabilities,
+    # and an alignment batch timed
+    with torch.inference_mode():
+        feats, flen = frontend_apply(config.frontend,
+                                     torch.from_numpy(b.audio).to(dev),
+                                     torch.from_numpy(b.audio_len).to(dev))
+        _, enc_len, logits = model.encode(feats, flen)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+    args = (logp, enc_len, torch.from_numpy(b.labels).to(dev),
+            torch.from_numpy(b.label_len).to(dev))
+    states, score = ctc_viterbi_align(*args)
+    cpu_states, cpu_score = ctc_viterbi_align(*(a.cpu() for a in args))
+    same_states = torch.equal(states.cpu(), cpu_states)
+    score_err = float((score.cpu() - cpu_score).abs().max())
+    align_fn = transcribe.make_align_fn(model, config, trainer.cmvn_stats, dev)
+    align_ms = host_ms(torch, lambda: align_fn(b.audio, b.audio_len, b.labels,
+                                               b.label_len))
+    viterbi_ms = host_ms(torch, lambda: ctc_viterbi_align(*args))
+    emit({"phase": "viterbi", "B": int(logp.shape[0]), "T": int(logp.shape[1]),
+          "S": 2 * int(b.labels.shape[1]) + 1,
+          "states_identical": same_states, "score_max_abs_err": score_err,
+          "tol_score": TOL_VITERBI_SCORE, "align_batch_ms": align_ms,
+          "viterbi_ms": viterbi_ms,
+          "timing_basis": "host clock, median of 3 after a warm run; the "
+                          "batch: frontend, encoder, log-softmax and Viterbi, "
+                          "host arrays in, states on the host",
+          "card": card})
+    check(same_states and score_err <= TOL_VITERBI_SCORE,
+          f"Viterbi on the card against the CPU: states identical "
+          f"{same_states}, scores {score_err}")
+    emit({"phase": "lm_phase_done",
+          "seconds": round(time.perf_counter() - t_phase, 1)})
+    del trainer, model, lm, unfused, weight0, fused
+    return counts
+
+
 def library_timing(torch, config, shapes, dev, card):
     """The one PyTorch call that computes each kernel's function, timed on
     the same inputs beside it and never called by the port: cuDNN's
@@ -3529,12 +3866,10 @@ def library_timing(torch, config, shapes, dev, card):
     ``<name>_bench``) at bench.py's shape. K4 has none; K1-bwd's products
     are timed beside cuBLAS in products_timing."""
     import torch.nn.functional as F
-    from torch.nn.utils.rnn import pack_padded_sequence
 
     from gluon_e2e_asr_tpu_torch.tools.k1f_probe import proj_library
 
     H, B = config.model.enc_hidden, config.data.batch_size
-    bf = torch.bfloat16
     out = {"bilstm_fwd": 0.0, "bilstm_bwd": 0.0, "bilstm_fwd_projection": 0.0}
     for layer, T, D in shapes:
         x, lens, w_x, b_x, w_hf, w_hb = layer_inputs(torch, B, T, D, H, layer, dev)
@@ -3544,33 +3879,12 @@ def library_timing(torch, config, shapes, dev, card):
               "layer": layer, "B": B, "T": T, "D": D, "H": H,
               "dtype": "bfloat16", "ms": p_ms, "card": card})
         out["bilstm_fwd_projection"] += p_ms
-        lstm = torch.nn.LSTM(D, H, batch_first=True, bidirectional=True)
-        with torch.no_grad():
-            for sfx, cols, w_h in (("", slice(0, 4 * H), w_hf),
-                                   ("_reverse", slice(4 * H, 8 * H), w_hb)):
-                bias = b_x[cols].clone()
-                bias[H:2 * H] += 1.0
-                getattr(lstm, "weight_ih_l0" + sfx).copy_(w_x[:, cols].T)
-                getattr(lstm, "weight_hh_l0" + sfx).copy_(w_h.T)
-                getattr(lstm, "bias_ih_l0" + sfx).copy_(bias)
-                getattr(lstm, "bias_hh_l0" + sfx).zero_()
-        lstm = lstm.to(dev, bf)
-        lstm.flatten_parameters()  # cuDNN's one weight buffer
-        xb = x.to(bf).requires_grad_(True)
-        packed = pack_padded_sequence(xb, lens.cpu().long(), batch_first=True,
-                                      enforce_sorted=False)
-        with torch.no_grad():
-            f_ms = time_ms(torch, lambda: lstm(packed))
-        y = lstm(packed)[0].data
-        dy = torch.randn_like(y)
-        b_ms = time_ms(torch, lambda: torch.autograd.backward(
-            y, dy, retain_graph=True))
+        f_ms, b_ms = cudnn_lstm_ms(torch, x, lens, w_x, b_x, w_hf, w_hb, dev)
         emit({"phase": "library_timing", "what": "cudnn_lstm", "layer": layer,
               "B": B, "T": T, "D": D, "H": H, "dtype": "bfloat16",
               "fwd_ms": f_ms, "bwd_ms": b_ms, "card": card})
         out["bilstm_fwd"] += f_ms
         out["bilstm_bwd"] += b_ms
-        del lstm, y, dy, xb, packed
 
     b, tok, lens, T = bucket_batch(torch, config)
     rng = np.random.RandomState(SEED)
@@ -3597,6 +3911,38 @@ def library_timing(torch, config, shapes, dev, card):
               "V": int(logits.shape[2]), "fwd_ms": out["ctc_alpha" + sfx],
               "bwd_ms": out["ctc_beta_post" + sfx], "card": card})
     return out
+
+
+def cudnn_lstm_ms(torch, x, lens, w_x, b_x, w_hf, w_hb, dev):
+    """cuDNN's bidirectional LSTM (``torch.nn.LSTM``, bf16, packed by
+    lengths; K1's weights, the forget bias +1 in b_ih) on K1's layer
+    inputs: (forward ms, backward ms alone), CUDA events."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    D, H = w_x.shape[0], w_hf.shape[0]
+    bf = torch.bfloat16
+    lstm = torch.nn.LSTM(D, H, batch_first=True, bidirectional=True)
+    with torch.no_grad():
+        for sfx, cols, w_h in (("", slice(0, 4 * H), w_hf),
+                               ("_reverse", slice(4 * H, 8 * H), w_hb)):
+            bias = b_x[cols].clone()
+            bias[H:2 * H] += 1.0
+            getattr(lstm, "weight_ih_l0" + sfx).copy_(w_x[:, cols].T)
+            getattr(lstm, "weight_hh_l0" + sfx).copy_(w_h.T)
+            getattr(lstm, "bias_ih_l0" + sfx).copy_(bias)
+            getattr(lstm, "bias_hh_l0" + sfx).zero_()
+    lstm = lstm.to(dev, bf)
+    lstm.flatten_parameters()  # cuDNN's one weight buffer
+    xb = x.to(bf).requires_grad_(True)
+    packed = pack_padded_sequence(xb, lens.cpu().long(), batch_first=True,
+                                  enforce_sorted=False)
+    with torch.no_grad():
+        f_ms = time_ms(torch, lambda: lstm(packed))
+    y = lstm(packed)[0].data
+    dy = torch.randn_like(y)
+    b_ms = time_ms(torch, lambda: torch.autograd.backward(
+        y, dy, retain_graph=True))
+    return f_ms, b_ms
 
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit).

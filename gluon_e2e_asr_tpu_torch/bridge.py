@@ -13,6 +13,11 @@ bits. An unknown name raises. It imports no flax.
 msgpack snapshot, ``training/checkpoint.py`` there) with its own small
 msgpack reader, so that a JAX checkpoint converts where neither flax nor
 the ``msgpack`` package is installed.
+
+The external LM (``models/lm.py``) has its own pair,
+``lm_params_from_jax`` / ``lm_params_to_jax``: the flax ``LSTMLM``'s
+parameters are a flat tree whose names are the port's state-dict keys.
+``read_jax_lm_checkpoint`` reads a JAX ``train_lm.py`` checkpoint.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ _VGG_CONV = re.compile(r"conv\d+_\d+")
 _DECODER_PARAM = re.compile(
     r"embed|cell\d+_(wx|b|wh)|att_(q|k|b|v)|loc_(filter|proj)|out_(w|b)")
 _DENSE = ("kernel", "bias")
+# models/lm.py (JAX): the LSTM LM's parameters.
+_LM_PARAM = re.compile(r"embed|cell\d+_(wx|b|wh)|out_(w|b)")
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -83,6 +90,28 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = value.detach().cpu().numpy()
+    return tree
+
+
+def lm_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``LSTMLM`` ``params`` tree -> the port's ``LSTMLM`` state
+    dict (the same names, the same layouts)."""
+    state: Dict[str, torch.Tensor] = {}
+    for name, leaf in tree.items():
+        if not _LM_PARAM.fullmatch(name):
+            raise KeyError(f"unknown LM parameter {name!r}")
+        state[name] = _tensor(leaf)
+    return state
+
+
+def lm_params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``LSTMLM`` state dict -> a JAX ``params`` tree of numpy
+    arrays."""
+    tree: Dict[str, Any] = {}
+    for name, value in state.items():
+        if not _LM_PARAM.fullmatch(name):
+            raise KeyError(f"unknown LM parameter {name!r}")
+        tree[name] = value.detach().cpu().numpy()
     return tree
 
 
@@ -187,3 +216,15 @@ def read_jax_checkpoint(path: str) -> Tuple[Dict[str, Any], Optional[tuple],
         with open(path + ".json") as f:
             meta = json.load(f)
     return payload["state"]["params"], cmvn, meta
+
+
+def read_jax_lm_checkpoint(path: str) -> Dict[str, Any]:
+    """The params tree (numpy arrays) of a JAX ``train_lm.py`` checkpoint
+    (``models/lm.py::save_lm`` there: a flax msgpack whose top level is
+    ``{"params": ...}``). Feed it to ``lm_params_from_jax``."""
+    with open(path, "rb") as f:
+        payload = _Reader(f.read()).read()
+    if not isinstance(payload, dict) or set(payload) != {"params"}:
+        keys = sorted(payload) if isinstance(payload, dict) else type(payload)
+        raise KeyError(f"{path}: top level {keys}, expected ['params']")
+    return payload["params"]

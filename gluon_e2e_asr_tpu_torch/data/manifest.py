@@ -363,4 +363,5 @@ def _probe_duration(path: str, sample_rate: int = 16000) -> float:
 def _no_flac(path: str) -> None:
     raise NotImplementedError(
         f"{path}: FLAC decoding (the JAX package's native C++ decoder) is "
-        "not ported yet (ROADMAP.md); convert the corpus to .wav or .npy")
+        "not ported yet (ROADMAP.md item 7, the FLAC decoder); convert the "
+        "corpus to .wav or .npy")

@@ -9,7 +9,12 @@ bucketed dev batches through frontend -> encoder -> greedy CTC collapse
 JSONL {utt_id, hyp, ref, score, latency_s} (and ``nbest`` with
 ``decode.nbest > 1``), and print one ``decode_done`` JSON line with
 WER/CER, p50 latency and, for the beams, the output steps run. At B=1 the
-beams take the serving defaults of ``decoding/serving.py``. Each bucket
+beams take the serving defaults of ``decoding/serving.py``. The beams fuse
+an external LM with ``--set decode.lm_weight=W --set decode.lm_ckpt=<a
+train_lm.py checkpoint of the port or the JAX package>``; with
+``decode.nbest > 1`` the records are what ``tools/rescore_nbest.py``
+reads. ``--ckpt`` is a port checkpoint or a JAX trainer's (converted
+through ``bridge.py``). Each bucket
 gets one untimed warm pass first. A JAX checkpoint is converted with
 ``bridge.py`` and saved with ``training/checkpoint.py``.
 
@@ -39,7 +44,7 @@ from gluon_e2e_asr_tpu_torch.decoding.serving import apply_b1_serving_defaults
 from gluon_e2e_asr_tpu_torch.eval.metrics import cer, edit_distance, error_report, wer
 from gluon_e2e_asr_tpu_torch.models.asr import build_model
 from gluon_e2e_asr_tpu_torch.parallel.mesh import SINGLE, init_data_parallel
-from gluon_e2e_asr_tpu_torch.training.checkpoint import restore_checkpoint
+from gluon_e2e_asr_tpu_torch.training.checkpoint import restore_params
 from gluon_e2e_asr_tpu_torch.training.trainer import build_datasets, check_divisible
 from gluon_e2e_asr_tpu_torch.utils.logging import JsonlLogger, percentile
 
@@ -55,6 +60,21 @@ def make_eval_loader(config: Config, utts, tokenizer) -> DataLoader:
                             seed=0, shuffle=False)
     return DataLoader(utts, sampler, tokenizer, config.data.sample_rate,
                       transfer_dtype=config.data.transfer_dtype)
+
+
+def restore_model(config: Config, path: str, device: torch.device):
+    """(model on ``device`` in eval mode, cmvn_stats, tokenizer) of a port
+    or JAX trainer checkpoint (``restore_params``); the tokenizer from
+    its sidecar's vocab (the default char vocab without one), the decoder
+    built where the checkpoint has one."""
+    params, cmvn_stats, meta = restore_params(path)
+    tokenizer = (tokenizer_from_json(meta["vocab"]) if meta.get("vocab")
+                 else CharTokenizer())
+    model = build_model(config, tokenizer.vocab_size,
+                        sos_id=tokenizer.sos_id, eos_id=tokenizer.eos_id,
+                        use_decoder=any(k.startswith("decoder.") for k in params))
+    model.load_state_dict(params)
+    return model.to(device).eval(), cmvn_stats, tokenizer
 
 
 def filled_nbest(nbest_row):
@@ -99,9 +119,7 @@ def main(argv=None):
         # The frontend's DFT and mel products must run in true f32.
         torch.backends.cuda.matmul.allow_tf32 = False
 
-    params, cmvn_stats, meta = restore_checkpoint(args.ckpt)
-    tokenizer = (tokenizer_from_json(meta["vocab"]) if meta.get("vocab")
-                 else CharTokenizer())
+    model, cmvn_stats, tokenizer = restore_model(config, args.ckpt, device)
     _, dev_utts = build_datasets(config)
     if args.min_dur > 0:
         dev_utts = [u for u in dev_utts if u.duration >= args.min_dur]
@@ -116,11 +134,6 @@ def main(argv=None):
     # (explicit --set values win; batched decoding is unchanged).
     apply_b1_serving_defaults(config, args.set)
 
-    model = build_model(config, tokenizer.vocab_size,
-                        sos_id=tokenizer.sos_id, eos_id=tokenizer.eos_id,
-                        use_decoder=any(k.startswith("decoder.") for k in params))
-    model.load_state_dict(params)
-    model.to(device).eval()
     is_beam = config.decode.method in ("beam", "ctc_beam")
     if is_beam:
         decoder = make_beam_decoder(model, config, tokenizer, cmvn_stats,

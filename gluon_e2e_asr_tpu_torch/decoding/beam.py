@@ -14,7 +14,14 @@ written out in PyTorch (the JAX beam holds no Pallas kernel):
 - eos extensions go to a finished buffer of K hypotheses, with length
   normalization and the insertion penalty at finalization; per-sample
   ``minlen_ratio`` / ``maxlen_ratio``; partial scoring
-  (``decode.ctc_score_candidates``); ``decode.end_detect``; n-best.
+  (``decode.ctc_score_candidates``); ``decode.end_detect``; n-best;
+- external-LM shallow fusion (``decode.lm_weight``, the LM of
+  ``models/lm.py`` given as ``lm_bundle`` or read from
+  ``decode.lm_ckpt``): each hypothesis accumulates lm_weight * log
+  p_lm(y_i | y_<i), the LM fed the decoder's token stream with its state
+  reordered by the same parents, and the LM's eos term enters the
+  finalization score. At ``lm_weight`` 0 no LM code runs, so the search
+  is bit-identical to the one without an LM.
 
 The output steps loop while any beam is alive and fewer than
 min(max maxlen, Lmax) steps ran, as the JAX ``while_loop`` does
@@ -24,8 +31,8 @@ ran. Ties in every top-k go to the lower index, as ``jax.lax.top_k``
 breaks them. With a ``World`` of ranks (``mesh``) each rank searches its
 block of the batch's rows, with no collective inside the search, and the
 rows come back in the batch's order (``fn.last_steps`` is the most any
-rank ran), as the JAX ``shard_map`` beam does. LM shallow fusion
-(``decode.lm_weight``) is not ported and raises.
+rank ran), as the JAX ``shard_map`` beam does; each rank fuses the LM
+into its own rows.
 
 CTC prefix recursion (log space), extending prefix g by token c:
   phi[t]   = logaddexp(r_b(g)[t], c == last(g) ? -inf : r_n(g)[t])
@@ -130,10 +137,6 @@ def make_beam_decoder(model: ASRModel, config: Config, tokenizer,
     ``mesh`` (a ``World`` of more than one rank) every rank returns the
     whole batch's results."""
     dc = config.decode
-    if float(getattr(dc, "lm_weight", 0.0)) != 0.0 or lm_bundle is not None:
-        raise NotImplementedError(
-            "decode.lm_weight != 0: LM shallow fusion in the beam is not "
-            "ported yet (ROADMAP.md, \"The LM\")")
     K = dc.beam_size
     w = float(dc.ctc_weight)
     blank_id, sos_id = tokenizer.blank_id, tokenizer.sos_id
@@ -159,6 +162,29 @@ def make_beam_decoder(model: ASRModel, config: Config, tokenizer,
     use_end_detect = bool(getattr(dc, "end_detect", False))
     ed_m = int(getattr(dc, "end_detect_m", 3))
     ed_d = float(getattr(dc, "end_detect_d", 10.0))
+    # External-LM shallow fusion: an LSTMLM (lm_bundle) or decode.lm_ckpt.
+    lm_w = float(getattr(dc, "lm_weight", 0.0))
+    use_lm = lm_w != 0.0
+    lm = lm_bundle
+    if use_lm:
+        if lm is None:
+            if not dc.lm_ckpt:
+                raise ValueError(
+                    "decode.lm_weight is set but no LM was provided: set "
+                    "decode.lm_ckpt (a train_lm.py checkpoint) or pass "
+                    "lm_bundle (an LSTMLM)")
+            from gluon_e2e_asr_tpu_torch.models.lm import load_lm
+
+            lm, lm_meta = load_lm(dc.lm_ckpt, device)
+            if lm_meta.get("vocab") and lm_meta["vocab"] != tokenizer.to_json():
+                raise ValueError(
+                    "LM checkpoint vocab differs from the decode tokenizer "
+                    "(same sizes, different symbol table): retrain the LM "
+                    "on this vocab")
+        if lm.vocab_size != V:
+            raise ValueError(f"LM vocab_size {lm.vocab_size} != decode "
+                             f"tokenizer vocab_size {V}")
+        lm = lm.to(device).eval()
     n_cand = int(dc.ctc_score_candidates)
     use_partial = w > 0.0 and 0 < n_cand < V
     if w > 0.0 and not use_partial and V > 512:
@@ -229,6 +255,9 @@ def make_beam_decoder(model: ASRModel, config: Config, tokenizer,
         }
         if use_dec:
             c["dec_state"] = model.decoder_init_state_beam(B, K, T)
+        if use_lm:
+            c["lm_state"] = lm.init_state(B * K)
+            c["lm_sum"] = torch.zeros(B, K, device=device)
         rows = ar(B)[:, None]
 
         def step(c, i):
@@ -243,6 +272,12 @@ def make_beam_decoder(model: ASRModel, config: Config, tokenizer,
                 # att_logp enters with weight (1-w) == 0; zeros keep att_sum
                 # a liveness tracker (0 alive, NEG_INF dead).
                 att_logp = torch.zeros(B, K, V, device=device)
+            if use_lm:
+                # The LM reads the decoder's token stream (sos, then each
+                # chosen extension); its state follows the same parents.
+                lm_state, lm_logits = lm.step(c["lm_state"], tok_in)
+                lm_total = c["lm_sum"][..., None] + torch.log_softmax(
+                    lm_logits, dim=-1).view(B, K, V)
             cand = None
             if use_partial and use_dec:
                 pre = torch.where(bad, NEG_INF, att_logp)
@@ -264,10 +299,16 @@ def make_beam_decoder(model: ASRModel, config: Config, tokenizer,
             else:
                 att_cont, tok_bad = att_total, bad.expand(B, K, V)
             joint = (1.0 - w) * att_cont + w * psi
+            if use_lm:
+                lm_cont = (torch.gather(lm_total, 2, cand) if use_partial
+                           else lm_total)
+                joint = joint + lm_w * lm_cont
 
             # eos candidates -> the finished buffer (length-normalized)
             eos_score = ((1.0 - w) * att_total[..., eos_id] + w * full_prob
                          + penalty * c["hyp_len"].float())
+            if use_lm:
+                eos_score = eos_score + lm_w * lm_total[..., eos_id]
             new_len = c["hyp_len"] + 1  # includes eos
             fin_cand = (eos_score / new_len.float() if dc.length_norm
                         else eos_score)
@@ -321,8 +362,8 @@ def make_beam_decoder(model: ASRModel, config: Config, tokenizer,
                    "r": r, "last_tok": token, "fin_tokens": fin_tokens,
                    "fin_len": fin_len, "fin_score": top_fin,
                    "best_raw": best_raw, "end_cnt": end_cnt}
+            flat_parent = (parent + rows * K).reshape(B * K)
             if use_dec:
-                flat_parent = (parent + rows * K).reshape(B * K)
                 new["dec_state"] = {
                     "h": dec_state["h"][:, flat_parent],
                     "c": dec_state["c"][:, flat_parent],
@@ -330,6 +371,11 @@ def make_beam_decoder(model: ASRModel, config: Config, tokenizer,
                                           parent[..., None].expand(B, K, T)),
                     "context": dec_state["context"][flat_parent],
                 }
+            if use_lm:
+                new["lm_sum"] = torch.gather(lm_cont.reshape(B, K * n_ext), 1,
+                                             top_idx)
+                new["lm_state"] = {"h": lm_state["h"][:, flat_parent],
+                                   "c": lm_state["c"][:, flat_parent]}
             return new
 
         # Past every sample's maxlen all continuations are -inf and the

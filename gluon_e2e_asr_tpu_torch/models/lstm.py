@@ -51,6 +51,34 @@ def lstm_cell_step(
     return h_new, c_new
 
 
+def lstm_scan(
+    x_gates: torch.Tensor,  # [B, T, 4H] precomputed input projections
+    lens: torch.Tensor,  # [B]
+    w_h: torch.Tensor,  # [H, 4H]
+    reverse: bool = False,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """One direction over time. Returns outputs [B, T, H] f32 (f64 for
+    f64 inputs); padded steps emit zeros and leave (h, c) as they are.
+    With ``reverse`` the loop runs from the last frame to the first."""
+    B, T, H4 = x_gates.shape
+    H = H4 // 4
+    dev = x_gates.device
+    work = work_dtype(x_gates, w_h)
+    valid = torch.arange(T, device=dev)[None, :] < lens.to(dev)[:, None]
+    xs = x_gates.transpose(0, 1).to(work)  # [T, B, 4H]
+    h = torch.zeros(B, H, device=dev, dtype=work)
+    c = torch.zeros(B, H, device=dev, dtype=work)
+    ys = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        h_new, c_new = lstm_cell_step(h, c, xs[t], w_h, compute_dtype)
+        vm = valid[:, t, None]
+        h = torch.where(vm, h_new, h)
+        c = torch.where(vm, c_new, c)
+        ys[t] = torch.where(vm, h_new, torch.zeros_like(h_new))
+    return torch.stack(ys, dim=1)
+
+
 def bilstm_scan(
     x_gates_f: torch.Tensor,  # [B, T, 4H] forward-direction projections
     x_gates_b: torch.Tensor,  # [B, T, 4H] backward-direction projections

@@ -1,5 +1,5 @@
-"""CTC operations: the loss with its analytic gradient (K2, K3) and greedy
-decoding.
+"""CTC operations: the loss with its analytic gradient (K2, K3), greedy
+decoding and forced alignment (``ctc_viterbi_align``).
 
 Counterpart of ``gluon_e2e_asr_tpu/ops/ctc.py`` and
 ``gluon_e2e_asr_tpu/ops/pallas_ctc.py``. The labels are expanded to the
@@ -375,6 +375,88 @@ def ctc_loss(logits, input_lens, labels, label_lens, blank_id: int = 0):
     with input_len == 0 or an infeasible label sequence contribute
     exactly 0 loss and 0 gradient."""
     return CTCLoss.apply(logits, input_lens, labels, label_lens, blank_id)
+
+
+def ctc_viterbi_align(logp, input_lens, labels, label_lens, blank_id: int = 0):
+    """CTC forced alignment: the most likely frame -> lattice-state path.
+
+    The loss's lattice (blank-interleaved states, S = 2L+1); the alpha
+    recursion with max in place of logsumexp, recording each state's
+    best predecessor (0 stay, 1 advance, 2 skip), then a backtrace from
+    the last frame. The emissions come by an exact gather, and ties go to
+    stay, then advance, then skip (``jnp.argmax``'s first maximum), both
+    written out because the backtrace is tie-sensitive. Frames past
+    ``input_lens`` are frozen. Plain torch on either device; the JAX
+    package runs two ``lax.scan``s here, no Pallas kernel.
+
+    Returns ``(states [B, T] int32, score [B])``: ``states[b, t]`` is the
+    state at frame t (odd 2k+1 = token k, even = blank; -1 past
+    ``input_lens[b]`` and on infeasible rows, whose score is NEG_INF);
+    ``score`` is the log-probability of the best alignment. ``logp`` is
+    log-softmaxed [B, T, V]."""
+    B, T, _ = logp.shape
+    S = 2 * labels.shape[1] + 1
+    dev = logp.device
+    labels, label_lens = labels.long(), label_lens.long()
+    input_lens = input_lens.long()
+    ext = _expand_labels(labels, blank_id)
+    allow_skip = _transition_mask(ext, blank_id)
+    s_idx = torch.arange(S, device=dev)
+    state_valid = s_idx[None, :] < (2 * label_lens + 1)[:, None]
+    time_mask = torch.arange(T, device=dev)[:, None] < input_lens[None, :]
+    emit = _gather_states(logp, ext)  # [T,B,S]
+    delta = torch.where((s_idx[None, :] <= 1) & state_valid, emit[0], NEG_INF)
+    delta = torch.where(time_mask[0][:, None], delta, NEG_INF)
+    choices = torch.zeros(T, B, S, dtype=torch.int8, device=dev)
+    for t in range(1, T):
+        best, choice = delta, torch.zeros_like(choices[t])
+        for k, cand in ((1, _shift(delta, 1)),
+                        (2, torch.where(allow_skip, _shift(delta, 2), NEG_INF))):
+            better = cand > best  # a tie keeps the earlier choice
+            best = torch.where(better, cand, best)
+            choice = torch.where(better, k, choice)
+        choices[t] = choice
+        new = torch.where(state_valid, best + emit[t], NEG_INF)
+        delta = torch.where(time_mask[t][:, None], new, delta)
+    last = 2 * label_lens
+    d_last = torch.gather(delta, 1, last[:, None])[:, 0]
+    d_prev = torch.gather(delta, 1, torch.clamp(last - 1, min=0)[:, None])[:, 0]
+    d_prev = torch.where(label_lens > 0, d_prev, NEG_INF)
+    score = torch.maximum(d_last, d_prev)
+    s_fin = torch.where(d_last >= d_prev, last, torch.clamp(last - 1, min=0))
+    s = torch.zeros(B, dtype=torch.long, device=dev)
+    states = torch.empty(T, B, dtype=torch.long, device=dev)
+    for t in range(T - 1, -1, -1):
+        s = torch.where(input_lens - 1 == t, s_fin, s)
+        active = t < input_lens
+        states[t] = torch.where(active, s, -1)
+        ch = torch.gather(choices[t], 1, torch.clamp(s, min=0)[:, None])[:, 0]
+        if t > 0:
+            s = torch.where(active, s - ch.long(), s)
+    ok = _feasible(input_lens, labels, label_lens) & (label_lens >= 0)
+    states = torch.where(ok[:, None], states.T, -1)
+    return states.to(torch.int32), torch.where(ok, score, NEG_INF)
+
+
+def spans_from_states(states_row, tokens, sec_per_frame: float):
+    """Host side: a Viterbi state row [T] (``ctc_viterbi_align``) -> per
+    token {token, start_s, end_s}. Token k emits on state 2k+1; a token
+    no frame occupies (absorbed by a skip) gets None."""
+    import numpy as np
+
+    states_row = np.asarray(states_row)
+    spans = []
+    for k, tok in enumerate(tokens):
+        frames = np.nonzero(states_row == 2 * k + 1)[0]
+        if len(frames) == 0:
+            spans.append({"token": tok, "start_s": None, "end_s": None})
+            continue
+        spans.append({
+            "token": tok,
+            "start_s": round(float(frames[0]) * sec_per_frame, 4),
+            "end_s": round(float(frames[-1] + 1) * sec_per_frame, 4),
+        })
+    return spans
 
 
 def ctc_greedy_decode(logits: torch.Tensor, input_lens: torch.Tensor,

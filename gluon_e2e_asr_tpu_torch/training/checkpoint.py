@@ -134,6 +134,21 @@ def restore_checkpoint(path: str, device: torch.device = torch.device("cpu")
                                     weights_only=True))
 
 
+def restore_params(path: str) -> Tuple[Dict[str, torch.Tensor],
+                                      Optional[tuple], Dict[str, Any]]:
+    """(params, cmvn_stats, meta) of a port checkpoint, or of a JAX
+    trainer's (a flax msgpack, told apart by its first bytes) converted
+    through ``bridge.py``; tensors on the CPU."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic == b"PK\x03\x04":  # torch.save's archive
+        return restore_checkpoint(path)
+    from gluon_e2e_asr_tpu_torch.bridge import params_from_jax, read_jax_checkpoint
+
+    tree, cmvn, meta = read_jax_checkpoint(path)
+    return params_from_jax(tree), cmvn, meta
+
+
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     """The trainer's newest ``ckpt_<step>.pt`` in ``ckpt_dir`` (by step),
     or None."""

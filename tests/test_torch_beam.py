@@ -171,12 +171,14 @@ def test_loc_checkpoint_round_trips_bit_for_bit(loc_models):
 
 
 def test_lm_fusion_and_mesh_raise(loc_models):
-    """LM shallow fusion raises. (The mesh, data-parallel beam decoding,
-    is ported: tests/test_torch_parallel.py.)"""
+    """LM shallow fusion asked for with no LM raises, naming
+    decode.lm_ckpt. (Fusion itself is ported and held to JAX in
+    tests/test_torch_lm_fusion.py; the mesh, data-parallel beam
+    decoding, in tests/test_torch_parallel.py.)"""
     port = loc_models[2]
     config = _config()
     config.decode.lm_weight = 0.5
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, \"The LM\""):
+    with pytest.raises(ValueError, match="decode.lm_ckpt"):
         B.make_beam_decoder(port, config, CharTokenizer())
 
 

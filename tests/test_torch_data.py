@@ -233,6 +233,7 @@ def test_the_port_imports_nothing_of_the_jax_package():
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
         "       (m.split('.')[0] in ('jax', 'flax', 'gluon_e2e_asr_tpu'))]\n"
         "assert not bad, bad\n"
+        "print(' '.join(names))\n"
         "print(len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -240,3 +241,6 @@ def test_the_port_imports_nothing_of_the_jax_package():
                           env=dict(os.environ, JAX_PLATFORMS="cpu"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) >= 20
+    for name in ("models.lm", "train_lm", "transcribe", "tools.align",
+                 "tools.rescore_nbest", "tools.make_lm_corpus"):
+        assert f"gluon_e2e_asr_tpu_torch.{name}" in proc.stdout, name

@@ -202,10 +202,29 @@ def test_beam_decode_reproduces_golden(port_ckpt, tmp_path):
 
 @pytest.mark.parametrize("method", ["beam", "ctc_beam"])
 def test_beam_methods_are_not_ported_yet(port_ckpt, tmp_path, method):
-    """The beams run; their LM shallow fusion is not ported yet."""
+    """The beams fuse an external LM through the CLI (the port once raised
+    here): ``decode.lm_weight`` without ``decode.lm_ckpt`` raises naming
+    it; with a port LM checkpoint over the golden's vocabulary (random
+    weights) the decode writes an n-best record per utterance."""
+    from gluon_e2e_asr_tpu_torch.models.lm import LSTMLM, save_lm
+
     args = _decode_args(port_ckpt, tmp_path / "b.jsonl", method)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, \"The LM\""):
+    with pytest.raises(ValueError, match="decode.lm_ckpt"):
         decode.main(args + ["--set", "decode.lm_weight=0.3"])
+    with open(port_ckpt + ".json") as f:
+        vocab = json.load(f)["vocab"]
+    V = tokenizer_from_json(vocab).vocab_size
+    lm = LSTMLM(V, 8, 16, 1)
+    lm.reset_parameters(torch.Generator().manual_seed(0))
+    lm_path = save_lm(str(tmp_path / "lm.pt"), lm.state_dict(), {
+        "vocab_size": V, "embed_dim": 8, "hidden": 16, "layers": 1,
+        "vocab": vocab})
+    result = decode.main(args + ["--set", "decode.lm_weight=0.3",
+                                 "--set", f"decode.lm_ckpt={lm_path}",
+                                 "--set", "decode.nbest=2"])
+    assert result["num_utts"] == 16 and result["method"] == method
+    recs = [json.loads(x) for x in open(tmp_path / "b.jsonl")]
+    assert len(recs) == 16 and all(r["nbest"] for r in recs)
 
 
 def _decode_without_jax(port_ckpt, tmp_path, method, golden):

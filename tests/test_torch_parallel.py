@@ -22,7 +22,7 @@ train step and decoders at world size 2 on the tiny config of
 - Resume at world size 2 (trainers on both ranks, rank 0 writing the
   checkpoint): the resumed run equals the uninterrupted one bit for bit.
 - Greedy and beam decoding at world size 2 return what world size 1
-  returns, on both ranks.
+  returns, on both ranks; the beam with LM shallow fusion too.
 """
 
 import dataclasses
@@ -49,6 +49,7 @@ from gluon_e2e_asr_tpu_torch.data.manifest import build_synthetic_manifest
 from gluon_e2e_asr_tpu_torch.data.sampler import BucketSampler, make_bucket_specs
 from gluon_e2e_asr_tpu_torch.data.tokenizer import CharTokenizer
 from gluon_e2e_asr_tpu_torch.models.asr import build_model
+from gluon_e2e_asr_tpu_torch.models.lm import LSTMLM
 from gluon_e2e_asr_tpu_torch.parallel import mesh as M
 from gluon_e2e_asr_tpu_torch.training import trainer as TR
 
@@ -187,6 +188,9 @@ def runs(tmp_path_factory):
     resume_config.train.num_epochs = 2
     resume_config.train.ckpt_dir = "ck"
     resume_config.decode.method = "greedy"
+    lm_dims = (8, 16, 1)  # E, H, layers of the fused beam's LM
+    lm = LSTMLM(tok.vocab_size, *lm_dims)
+    lm.reset_parameters(torch.Generator().manual_seed(2))
     inputs = {"vocab": (tok.vocab_size, tok.sos_id, tok.eos_id),
               "config": config, "params": model.state_dict(),
               "batch": batch, "pad_batch": pad,
@@ -194,7 +198,8 @@ def runs(tmp_path_factory):
               "det_params": det_params, "det_batch": batch,
               "decode_config": decode_config,
               "resume_config": resume_config,
-              "resume_dir": str(workdir / "resume")}
+              "resume_dir": str(workdir / "resume"),
+              "lm_dims": lm_dims, "lm_params": lm.state_dict()}
     torch.save(inputs, workdir / "inputs.pt")
     ranks = _launch(workdir)
     jax_grads, jax_params, jax_metrics = _jax_shard_map(
@@ -341,6 +346,20 @@ def test_dp_decode_matches_single_process(runs):
         assert ([[t for t, _ in u] for u in d["nbest"]]
                 == [[t for t, _ in u] for u in single["nbest"]])
         assert d["last_steps"] == single["last_steps"]
+
+
+def test_dp_lm_fused_beam_matches_single_process(runs):
+    """The beam with LM shallow fusion (lm_weight 0.5) at world size 2:
+    world size 1's texts on both ranks, its scores within 1e-5, and the
+    LM moved the scores."""
+    single = runs["single"]["decode"]
+    assert any(single["lm_texts"])
+    assert not np.allclose(single["lm_scores"], single["scores"])
+    for r in runs["ranks"]:
+        d = r["decode"]
+        assert d["lm_texts"] == single["lm_texts"]
+        np.testing.assert_allclose(d["lm_scores"], single["lm_scores"],
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_batch_must_divide_the_world_size():

@@ -136,6 +136,19 @@ def run(inputs, world):
                      "texts": texts, "scores": np.asarray(scores),
                      "nbest": beam.nbest(audio, audio_len),
                      "last_steps": beam.last_steps}
+    # the beam with LM shallow fusion: each rank fuses its own rows
+    import copy
+
+    from gluon_e2e_asr_tpu_torch.models.lm import LSTMLM
+
+    lm = LSTMLM(vocab[0], *inputs["lm_dims"])
+    lm.load_state_dict(inputs["lm_params"])
+    lm_config = copy.deepcopy(config)
+    lm_config.decode.lm_weight = 0.5
+    fused = make_beam_decoder(model, lm_config, CharTokenizer(), mesh=world,
+                              lm_bundle=lm)
+    lm_texts, lm_scores = fused(audio, audio_len)
+    out["decode"].update(lm_texts=lm_texts, lm_scores=np.asarray(lm_scores))
     return out
 
 
