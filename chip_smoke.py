@@ -9,7 +9,8 @@ its ranks itself.) Phases, each printing JSON lines:
 1. device: the card, and ``nvidia-smi``'s name and power limit;
 2. build: every CUDA library of the port's paths (``bilstm_fwd``,
    ``bilstm_bwd``, ``ctc``, ``las_decoder``, ``frontend``,
-   ``pipeline_probe``) from ``csrc/``, one nvcc each, in parallel;
+   ``pipeline_probe``) from ``csrc/``, one nvcc each, in parallel; then
+   the host library ``native/asr_native.cpp`` (g++), its seconds;
 3. kernels: each kernel against its plain PyTorch version on the card,
    within stated tolerances, at the shapes the flagship model
    (``configs/english_flagship.yaml``, the 4.0 s bucket, B=96) gives it:
@@ -175,14 +176,41 @@ its ranks itself.) Phases, each printing JSON lines:
    ``tools/align.py --ctm``; ``ctc_viterbi_align`` on the card against
    the CPU (states identical); an alignment batch timed. K1-fwd's
    launches in the fused beam, transcribe and align, the training
-   kernels' in english_m5's epochs, each counted from 0 around its path.
+   kernels' in english_m5's epochs, each counted from 0 around its path;
+12. ``configs/ls100_full.yaml`` (the LibriSpeech-100h recipe: BPE 128,
+   global CMVN, speed perturbation, SortaGrad, dynamic buckets to 18.38 s,
+   int16 transfer, loc, bf16) from a FLAC corpus on disk: the port's
+   ``tools/make_synth_corpus.py`` with the config's flags, cut to
+   LS100_TRAIN + LS100_DEV utterances (three files decoded to exactly the
+   encoder's PCM); ``tools/compute_cmvn.py`` on the train split at int16
+   and at float32 (within TOL_CMVN, finite, std > 0); on the first batch
+   of the largest bucket from the native loader, K1-fwd and K1-bwd at
+   layer 0 (T = 1836), K2/K3 (T' = 459, S = 641) and K4-fwd/K4-bwd loc
+   (coins off and on) against their plain versions with phase 3's
+   tolerances, the routes ``fwd_route``/``bwd_route`` predict (the cluster
+   kernels at every ls100 bucket), each timed beside its bound; that
+   batch through the loader's native and Python routes, bit-equal, int16
+   and float32, with and without speed perturbation, and an epoch's host
+   throughput; LS100_EPOCHS epochs through the train CLI as shipped but
+   for the corpus, the stats file and the epoch count (the launch counts,
+   every batch through the native route, the loss per label token
+   falling, data_skipped, a step at each bucket and the epoch-end beam
+   timed); ``tools/average_ckpts.py`` over the two epoch checkpoints
+   (each parameter their mean), the decode CLI's beam on the average and
+   the last, ``tools/tune_decode.py``'s 2x2 grid, ``tools/
+   plot_attention.py --no-png`` (shapes [n_tokens+1, T'], rows summing to
+   1) and ``transcribe.py`` on two of the corpus's .flac files (the decode
+   CLI's texts). ``tools/run_milestones.py`` is not run here (its
+   milestone 1 trains 40 epochs): its CPU test covers it.
 
 Then the kernels line (each kernel's launches on the main path, error,
 time, plain time, bound and library time; also each row's launches in
 vgg_blstm's epoch, in the dropout and stacked-decoder runs and on phase
-11's paths, and K1's rows at D = 2560 with cuDNN's time) and, last, ``{"ok": true, "device": {...}}``. Any
+11's and 12's paths, K1's rows at D = 2560 with cuDNN's time, and K1's,
+K2's, K3's and K4 loc's numbers at ls100's largest bucket) and, last,
+``{"ok": true, "device": {...}}``. Any
 failed check exits non-zero before the last line. Artifacts go to
-``build/chip_smoke/``. ``python3 chip_smoke.py --only 6c,6d,11`` runs
+``build/chip_smoke/``. ``python3 chip_smoke.py --only 6c,6d,11,12`` runs
 the build and those phases alone, reports every failed check and prints
 neither the kernels line nor the last line.
 """
@@ -351,6 +379,30 @@ TOL_VITERBI_SCORE = 1e-5
 N_TIMED = 10
 N_TIMED_PLAIN_STEP = 3  # the plain train step takes seconds
 BENCH_SEC, BENCH_LABELS = 12.8, 96  # bench.py's shape
+# Phase 12: ls100_full.yaml's corpus as its header renders it (English
+# text, LibriSpeech durations, the sentence split), cut from 28,500 train +
+# 2,700 dev utterances to LS100_TRAIN + LS100_DEV, trained LS100_EPOCHS of
+# its 5 epochs; tune_decode sweeps LS100_GRID. The joint beam is bound by
+# the host (a loop over T' frames for each of 0.5 T' output steps: a dev
+# pass took 32 s over 64 utterances, 21-27 s over 16 or 8, each of them
+# mostly the one 12.6 s utterance, the first), and the phase runs eight
+# such passes (two evaluations, two decodes with their warm passes, two
+# of tune_decode's combinations), so the dev render is cut to 4, the
+# fewest that plot_attention's 4 need.
+LS100_CONFIG = os.path.join(REPO, "configs", "ls100_full.yaml")
+LS100_RENDER = {"text_mode": "english", "durations": "librispeech",
+                "jitter": 0.04, "noise": 0.05, "pool_split": "sentence",
+                "seed": 0}
+LS100_TRAIN, LS100_DEV, LS100_EPOCHS = 512, 4, 2
+LS100_GRID = ("beam_size=5,10", "ctc_weight=0.0,0.3")
+LS100_PLAIN_RUNS = 2  # the plain versions at the largest bucket take seconds
+# The int16 and float32 CMVN stats: the same audio (int16 transfer is an
+# exact inverse of the decoder's /32768), the log-mel on the card with TF32
+# off, the moments summed in f32 over batches that differ only in dtype:
+# max abs difference of mean and std.
+TOL_CMVN = 1e-4
+# plot_attention's rows: softmax weights summed in f32.
+TOL_ATT_ROW = 1e-5
 
 
 def emit(obj) -> None:
@@ -570,9 +622,9 @@ main_only = False  # --only: a failed check is reported and the run goes on
 
 
 def main(only=()) -> None:
-    """The phases in order; ``only`` (phase names "6c", "6d"): the device,
-    the build and those phases alone, with no kernels line and no last
-    line (a quicker run while a phase is written)."""
+    """The phases in order; ``only`` (phase names "6c", "6d", "11",
+    "12"): the device, the build and those phases alone, with no kernels
+    line and no last line (a quicker run while a phase is written)."""
     import torch
 
     # 1. device
@@ -610,15 +662,23 @@ def main(only=()) -> None:
     for name in libs:
         _build.load_library(name)
     built = {n: _build.build_info.get(n) for n in libs}
+    kernels_s = time.perf_counter() - t0
+    # the host library (FLAC, the fused loader; g++), after the kernels
+    from gluon_e2e_asr_tpu_torch.utils import native
+    t0 = time.perf_counter()
+    native.get_lib()
     emit({"phase": "build", "kernels": list(libs),
-          "seconds": round(time.perf_counter() - t0, 3),
+          "seconds": round(kernels_s, 3),
           "built_now": {n: b is not None for n, b in built.items()},
-          "ptxas": {n: b[1].splitlines() for n, b in built.items() if b}})
+          "ptxas": {n: b[1].splitlines() for n, b in built.items() if b},
+          "native_library": os.path.relpath(native._LIB_PATH, REPO),
+          "native_seconds": round(time.perf_counter() - t0, 3)})
 
     if only:
         global main_only
         main_only = True
-        phases = {"6c": training_options, "6d": vgg_slice, "11": lm_phase}
+        phases = {"6c": training_options, "6d": vgg_slice, "11": lm_phase,
+                  "12": ls100_phase}
         for name in only:
             phases[name](torch, dev, card)
         emit({"phases": list(only), "failed": FAILED,
@@ -874,6 +934,8 @@ def main(only=()) -> None:
     probe_ms, probe_counts, probe_lib = probe_path(torch, dev, card)
     # 11. the external LM and forced alignment on english_m5
     lm_counts = lm_phase(torch, dev, card)
+    # 12. ls100_full.yaml from a FLAC corpus, and the last tools
+    ls100_counts, ls100_shape = ls100_phase(torch, dev, card)
     bounds = kernel_bounds(config, shapes, dev, loc_config, m2_config)
 
     bf16 = [(layer, "bfloat16") for layer, _, _ in shapes]
@@ -1059,6 +1121,10 @@ def main(only=()) -> None:
             row["vgg_layer0"] = vgg_layer0_rows[row["name"]]
         row["lm_phase_launches"] = {k: c.get(key, 0)
                                     for k, c in lm_counts.items()}
+        row["ls100_phase_launches"] = {k: c.get(key, 0)
+                                       for k, c in ls100_counts.items()}
+        if row["name"] in ls100_shape:
+            row["ls100_largest_bucket"] = ls100_shape[row["name"]]
     # K4's launches through its cluster kernels, from the same slices:
     # every one of them
     for d in ("fwd", "bwd"):
@@ -1332,7 +1398,8 @@ def check_decoder_kernels(torch, config, dev, kind="dot", cases=None):
         emit({"phase": "kernel_check", "kernel": "las_decoder_fwd+bwd",
               "att_type": kind, "B": B, "L": L, "T": T,
               "longest_label": longest, "shape": "bench.py" if bench
-              else "4.0 s bucket", "compute_dtype": cd_name, "coin_p": coin_p,
+              else f"{config.data.bucket_bounds_sec[-1]} s bucket",
+              "compute_dtype": cd_name, "coin_p": coin_p,
               "rows_tokens_agree": share, "fwd_rel_err": fwd,
               "bwd_rel_err": bwd, "tol_rel": tol, "finite": finite,
               "fwd_cluster_launches": fwd_cluster,
@@ -1675,6 +1742,85 @@ def golden_greedy(torch, impl="pallas"):
           f"golden greedy ({impl}): launches {launches}, plain {plain}")
 
 
+def check_k1_case(torch, name, layer, args, dy, cd_name, serving=True,
+                  recurrence=False):
+    """K1-fwd's training form (h, and c against TOL_BWD), with
+    ``serving`` its serving form too, and K1-bwd (dx, dW_x, db, dW_h)
+    against their plain versions on one layer's inputs ``args`` and
+    cotangent ``dy``, every launch through its cluster recurrence; with
+    ``recurrence``, K1-bwd's recurrence alone against the plain sweep's dg.
+    Emits the two kernel_check lines; returns (K1-fwd's max abs error of
+    h, K1-bwd's record: by output max_abs_err, rel_err, max_abs; "dg" with
+    ``recurrence``)."""
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    x, lens, w_x, b_x, w_hf, w_hb = args
+    Bc, T, D = x.shape
+    Hc = w_hf.shape[0]
+    cd = getattr(torch, cd_name)
+    n_fwd = K.bilstm_fused_kernel.cluster_launches
+    y, c, acts = K.bilstm_fused_kernel(*args, compute_dtype=cd,
+                                       with_cell=True)
+    ys = K.bilstm_fused_kernel(*args, compute_dtype=cd) if serving else None
+    yp, cp = K.bilstm_fused_plain(*args, compute_dtype=cd, with_cell=True)
+    torch.cuda.synchronize()
+    fwd_cluster = K.bilstm_fused_kernel.cluster_launches - n_fwd
+    y_err, c_err = float((y - yp).abs().max()), rel_err(c, cp)
+    ys_err = None if ys is None else float((ys - yp).abs().max())
+    emit({"phase": "kernel_check", "kernel": "bilstm_fwd",
+          "form": "training", "shapes": name, "layer": layer,
+          "B": Bc, "T": T, "D": D, "H": Hc,
+          "compute_dtype": cd_name, "h_max_abs_err": y_err,
+          "c_max_rel_err": c_err, "serving_h_max_abs_err": ys_err,
+          "cluster_launches": fwd_cluster, "tol_h": TOL[cd_name],
+          "tol_c_rel": TOL_BWD[cd_name]})
+    check(y_err <= TOL[cd_name] and c_err <= TOL_BWD[cd_name]
+          and bool(torch.isfinite(y).all()),
+          f"bilstm_fwd training form disagrees at {name} layer "
+          f"{layer} {cd_name}: h {y_err}, c {c_err}")
+    check(ys is None or (ys_err <= TOL[cd_name]
+                         and bool(torch.isfinite(ys).all())),
+          f"bilstm_fwd serving form disagrees at {name} layer "
+          f"{layer} {cd_name}: h {ys_err}")
+    check(fwd_cluster == (2 if serving else 1),
+          f"bilstm_fwd at {name} layer {layer} did not go through "
+          "the cluster recurrence")
+    n_cluster = K.bilstm_fused_bwd_kernel.cluster_launches
+    got = K.bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, y, c,
+                                    acts, dy, compute_dtype=cd)
+    ref = K.bilstm_fused_bwd_plain(x, lens, w_x, b_x, w_hf, w_hb, y,
+                                   c, dy, compute_dtype=cd)
+    torch.cuda.synchronize()
+    cluster = K.bilstm_fused_bwd_kernel.cluster_launches - n_cluster
+    rec = {"phase": "kernel_check", "kernel": "bilstm_bwd",
+           "shapes": name, "layer": layer, "B": Bc, "T": T, "D": D,
+           "H": Hc, "compute_dtype": cd_name,
+           "cluster_launches": cluster, "tol_rel": TOL_BWD[cd_name]}
+    check(cluster == 1, f"bilstm_bwd at {name} layer {layer} did not "
+                        "go through the cluster recurrence")
+    for out, g, r in zip(("dx", "dw_x", "db", "dw_hf", "dw_hb"), got, ref):
+        rec[out] = {"max_abs_err": float((g - r).abs().max()),
+                    "rel_err": rel_err(g, r),
+                    "max_abs": float(r.abs().max())}
+        check(bool(torch.isfinite(g).all())
+              and rel_err(g, r) <= TOL_BWD[cd_name],
+              f"bilstm_bwd {out} disagrees with its plain version "
+              f"at {name} layer {layer} {cd_name}: {rel_err(g, r)}")
+    if recurrence:
+        dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy, cd)
+        xg = torch.cat(K._project(x, lens, w_x, b_x, cd, False), -1)
+        dg_ref = K._bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, cd)
+        torch.cuda.synchronize()
+        rec["dg"] = {"max_abs_err": float((dg - dg_ref).abs().max()),
+                     "rel_err": rel_err(dg, dg_ref)}
+        check(bool(torch.isfinite(dg).all())
+              and rel_err(dg, dg_ref) <= TOL_BWD[cd_name],
+              f"the K1-bwd recurrence's dg disagrees with the plain "
+              f"sweep at layer {layer} {cd_name}: {rel_err(dg, dg_ref)}")
+    emit(rec)
+    return y_err, rec
+
+
 def check_training_kernels(torch, config, shapes, dev, m2_config):
     """Phase 3, the training kernels: K1-fwd's training form and K1-bwd at
     the flagship's layer shapes (B=96, H=320), at milestone 2's (B=16,
@@ -1685,8 +1831,6 @@ def check_training_kernels(torch, config, shapes, dev, m2_config):
     against the plain sweep's dg; K2 and K3 on ctc_cases' lattices, each
     call one launch of its kernel."""
     from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
-    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
-    from gluon_e2e_asr_tpu_torch.ops import ctc as C
 
     H, B = config.model.enc_hidden, config.data.batch_size
     fc = m2_config.frontend
@@ -1703,123 +1847,71 @@ def check_training_kernels(torch, config, shapes, dev, m2_config):
     for name, Bc, Hc, (layer, T, D) in cases:
         args = layer_inputs(torch, Bc, T, D, Hc, layer, dev)
         dy = layer_cotangent(torch, Bc, T, Hc, layer, dev)
-        x, lens, w_x, b_x, w_hf, w_hb = args
         for cd_name in ("float32", "bfloat16"):
-            cd = getattr(torch, cd_name)
-            n_fwd = K.bilstm_fused_kernel.cluster_launches
-            y, c, acts = K.bilstm_fused_kernel(*args, compute_dtype=cd,
-                                               with_cell=True)
-            # the serving form where phase 3's first loop does not take it
-            ys = (None if name == "flagship" else
-                  K.bilstm_fused_kernel(*args, compute_dtype=cd))
-            yp, cp = K.bilstm_fused_plain(*args, compute_dtype=cd,
-                                          with_cell=True)
-            torch.cuda.synchronize()
-            fwd_cluster = K.bilstm_fused_kernel.cluster_launches - n_fwd
-            y_err, c_err = float((y - yp).abs().max()), rel_err(c, cp)
-            ys_err = None if ys is None else float((ys - yp).abs().max())
-            emit({"phase": "kernel_check", "kernel": "bilstm_fwd",
-                  "form": "training", "shapes": name, "layer": layer,
-                  "B": Bc, "T": T, "D": D, "H": Hc,
-                  "compute_dtype": cd_name, "h_max_abs_err": y_err,
-                  "c_max_rel_err": c_err, "serving_h_max_abs_err": ys_err,
-                  "cluster_launches": fwd_cluster, "tol_h": TOL[cd_name],
-                  "tol_c_rel": TOL_BWD[cd_name]})
-            check(y_err <= TOL[cd_name] and c_err <= TOL_BWD[cd_name]
-                  and bool(torch.isfinite(y).all()),
-                  f"bilstm_fwd training form disagrees at {name} layer "
-                  f"{layer} {cd_name}: h {y_err}, c {c_err}")
-            check(ys is None or (ys_err <= TOL[cd_name]
-                                 and bool(torch.isfinite(ys).all())),
-                  f"bilstm_fwd serving form disagrees at {name} layer "
-                  f"{layer} {cd_name}: h {ys_err}")
-            check(fwd_cluster == (1 if ys is None else 2),
-                  f"bilstm_fwd at {name} layer {layer} did not go through "
-                  "the cluster recurrence")
-            n_cluster = K.bilstm_fused_bwd_kernel.cluster_launches
-            got = K.bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, y, c,
-                                            acts, dy, compute_dtype=cd)
-            ref = K.bilstm_fused_bwd_plain(x, lens, w_x, b_x, w_hf, w_hb, y,
-                                           c, dy, compute_dtype=cd)
-            torch.cuda.synchronize()
-            cluster = K.bilstm_fused_bwd_kernel.cluster_launches - n_cluster
-            rec = {"phase": "kernel_check", "kernel": "bilstm_bwd",
-                   "shapes": name, "layer": layer, "B": Bc, "T": T, "D": D,
-                   "H": Hc, "compute_dtype": cd_name,
-                   "cluster_launches": cluster, "tol_rel": TOL_BWD[cd_name]}
-            check(cluster == 1, f"bilstm_bwd at {name} layer {layer} did not "
-                                "go through the cluster recurrence")
-            for out, g, r in zip(("dx", "dw_x", "db", "dw_hf", "dw_hb"),
-                                 got, ref):
-                rec[out] = {"max_abs_err": float((g - r).abs().max()),
-                            "rel_err": rel_err(g, r),
-                            "max_abs": float(r.abs().max())}
-                check(bool(torch.isfinite(g).all())
-                      and rel_err(g, r) <= TOL_BWD[cd_name],
-                      f"bilstm_bwd {out} disagrees with its plain version "
-                      f"at {name} layer {layer} {cd_name}: {rel_err(g, r)}")
-                if cd_name == "bfloat16" and name == "flagship":
-                    errs["bilstm_bwd"].append(rec[out]["max_abs_err"])
-            if name == "flagship":
-                dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts,
-                                                     dy, cd)
-                xg = torch.cat(K._project(x, lens, w_x, b_x, cd, False), -1)
-                dg_ref = K._bwd_sweep(xg, lens, w_hf, w_hb, y, c, dy, cd)
-                torch.cuda.synchronize()
-                rec["dg"] = {"max_abs_err": float((dg - dg_ref).abs().max()),
-                             "rel_err": rel_err(dg, dg_ref)}
-                check(bool(torch.isfinite(dg).all())
-                      and rel_err(dg, dg_ref) <= TOL_BWD[cd_name],
-                      f"the K1-bwd recurrence's dg disagrees with the plain "
-                      f"sweep at layer {layer} {cd_name}: {rel_err(dg, dg_ref)}")
-                if cd_name == "bfloat16":
-                    errs["bilstm_bwd_cluster"].append(rec["dg"]["max_abs_err"])
-            emit(rec)
+            _, rec = check_k1_case(torch, name, layer, args, dy, cd_name,
+                                   serving=name != "flagship",
+                                   recurrence=name == "flagship")
+            if cd_name == "bfloat16" and name == "flagship":
+                errs["bilstm_bwd"] += [rec[out]["max_abs_err"] for out in
+                                       ("dx", "dw_x", "db", "dw_hf", "dw_hb")]
+                errs["bilstm_bwd_cluster"].append(rec["dg"]["max_abs_err"])
 
     errs["ctc_alpha"], errs["ctc_beta_post"] = 0.0, 0.0
-    for name, (emit_, tmask, skip, svalid, label_lens) in ctc_cases(
-            torch, config, dev).items():
-        last = 2 * label_lens
-        n_a = C.ctc_alpha_kernel.launches
-        n_b = C.ctc_beta_post_kernel.launches
-        alpha = C.ctc_alpha_kernel(emit_, tmask, skip, svalid)
-        alpha_p = C._alpha_plain(emit_, tmask, skip, svalid)
-        ll = C._log_likelihood(alpha_p, label_lens)
-        post = C.ctc_beta_post_kernel(emit_, tmask, skip, svalid, last,
-                                      alpha_p, ll)
-        post_p = C._beta_post_plain(emit_, tmask, skip, svalid, last,
-                                    alpha_p, ll)
-        torch.cuda.synchronize()
-        launched = (C.ctc_alpha_kernel.launches - n_a,
-                    C.ctc_beta_post_kernel.launches - n_b)
-        live = alpha_p > -1e29
-        diff = (alpha - alpha_p).abs()
-        a_err = float(diff[live].max()) if bool(live.any()) else 0.0
-        a_rel = float((diff / alpha_p.abs().clamp(min=1.0))[live].max()) \
-            if bool(live.any()) else 0.0
-        dead_ok = bool((alpha[~live] <= -1e29).all())
-        p_err = float((post - post_p).abs().max())
-        finite = bool(torch.isfinite(post).all())
-        T, Bc, S = emit_.shape
-        emit({"phase": "kernel_check", "kernel": "ctc_alpha+ctc_beta_post",
-              "lattice": name, "T": T, "B": Bc, "S": S,
-              "plan_k_W_smem": C.warp_plan(T, S),
-              "rows_of_length_0": int((~tmask.any(0)).sum()),
-              "alpha_max_abs_err_live": a_err,
-              "alpha_max_rel_err_live": a_rel, "alpha_dead_cells_agree": dead_ok,
-              "post_max_abs_err": p_err, "post_finite": finite,
-              "launches": launched, "tol_alpha_rel": TOL_ALPHA_REL,
-              "tol_post": TOL_POST})
-        check(a_rel <= TOL_ALPHA_REL and dead_ok,
-              f"ctc_alpha disagrees with its plain version at {name}: {a_rel}")
-        check(p_err <= TOL_POST and finite,
-              f"ctc_beta_post disagrees with its plain version at {name}: "
-              f"{p_err}")
-        check(launched == (1, 1), f"K2/K3 at {name} did not launch their "
-                                  f"kernels once each: {launched}")
+    for name, lattice in ctc_cases(torch, config, dev).items():
+        a_err, p_err = check_ctc_case(torch, name, lattice)
         errs["ctc_alpha"] = max(errs["ctc_alpha"], a_err)
         errs["ctc_beta_post"] = max(errs["ctc_beta_post"], p_err)
     return errs
+
+
+def check_ctc_case(torch, name, lattice):
+    """K2 and K3 against their plain versions on one lattice
+    (real_ctc_batch's tuple), one launch of each kernel: alpha on the live
+    cells (rtol; the dead cells dead in both), post (atol). Emits a
+    kernel_check line; returns (alpha's max abs error on the live cells,
+    post's max abs error)."""
+    from gluon_e2e_asr_tpu_torch.ops import ctc as C
+
+    emit_, tmask, skip, svalid, label_lens = lattice
+    last = 2 * label_lens
+    n_a = C.ctc_alpha_kernel.launches
+    n_b = C.ctc_beta_post_kernel.launches
+    alpha = C.ctc_alpha_kernel(emit_, tmask, skip, svalid)
+    alpha_p = C._alpha_plain(emit_, tmask, skip, svalid)
+    ll = C._log_likelihood(alpha_p, label_lens)
+    post = C.ctc_beta_post_kernel(emit_, tmask, skip, svalid, last,
+                                  alpha_p, ll)
+    post_p = C._beta_post_plain(emit_, tmask, skip, svalid, last,
+                                alpha_p, ll)
+    torch.cuda.synchronize()
+    launched = (C.ctc_alpha_kernel.launches - n_a,
+                C.ctc_beta_post_kernel.launches - n_b)
+    live = alpha_p > -1e29
+    diff = (alpha - alpha_p).abs()
+    a_err = float(diff[live].max()) if bool(live.any()) else 0.0
+    a_rel = float((diff / alpha_p.abs().clamp(min=1.0))[live].max()) \
+        if bool(live.any()) else 0.0
+    dead_ok = bool((alpha[~live] <= -1e29).all())
+    p_err = float((post - post_p).abs().max())
+    finite = bool(torch.isfinite(post).all())
+    T, Bc, S = emit_.shape
+    emit({"phase": "kernel_check", "kernel": "ctc_alpha+ctc_beta_post",
+          "lattice": name, "T": T, "B": Bc, "S": S,
+          "plan_k_W_smem": C.warp_plan(T, S),
+          "rows_of_length_0": int((~tmask.any(0)).sum()),
+          "alpha_max_abs_err_live": a_err,
+          "alpha_max_rel_err_live": a_rel, "alpha_dead_cells_agree": dead_ok,
+          "post_max_abs_err": p_err, "post_finite": finite,
+          "launches": launched, "tol_alpha_rel": TOL_ALPHA_REL,
+          "tol_post": TOL_POST})
+    check(a_rel <= TOL_ALPHA_REL and dead_ok,
+          f"ctc_alpha disagrees with its plain version at {name}: {a_rel}")
+    check(p_err <= TOL_POST and finite,
+          f"ctc_beta_post disagrees with its plain version at {name}: "
+          f"{p_err}")
+    check(launched == (1, 1), f"K2/K3 at {name} did not launch their "
+                              f"kernels once each: {launched}")
+    return a_err, p_err
 
 
 def products_cases(config, shapes, m2_config):
@@ -2065,7 +2157,7 @@ def _run_cli(torch, path, name, extra, record=None, resume=False):
 
 
 def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
-                falls=True, shipped=False):
+                falls=True, shipped=False, losses_out=None):
     """Phase 6: the training CLI at full width on the config at ``path``
     as shipped (``train.dp`` too: the flagships and milestone 4 train
     data parallel at world size 1 over NCCL), with a train line every step
@@ -2080,7 +2172,8 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     Each epoch's dev evaluation decodes as the config's ``decode.method``
     says. The frontend kernel of the config's ``frontend.impl`` (K5 for
     pallas, K6 for pallas_regrid, none for jnp) runs on every step and dev
-    batch. With ``falls``, the loss must fall."""
+    batch. With ``falls``, the loss must fall. ``losses_out``, a list,
+    gets each step's loss."""
     from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
     from gluon_e2e_asr_tpu_torch.ops import bilstm
 
@@ -2101,6 +2194,8 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
                               [*extra, "--max-steps", str(steps)], record)
     wall = time.perf_counter() - t0
     step_losses = [loss for loss, _ in record]
+    if losses_out is not None:
+        losses_out.extend(step_losses)
     launches, plain = read_counts()
     train_lines = [r for r in lines if r["event"] == "train"]
     losses = [r["loss"] for r in train_lines]
@@ -3200,7 +3295,7 @@ def stepper(torch, trainer, dev, route="kernel", world=None):
     state = TrainState(step=trainer.state.step,
                        opt_state=copy.deepcopy(trainer.state.opt_state),
                        generator=torch.Generator().manual_seed(SEED))
-    fn = make_train_step(model, config, trainer.optimizer,
+    fn = make_train_step(model, config, trainer.optimizer, trainer.cmvn_stats,
                          world=world or SINGLE)
     if route == "plain":
         def run(batch):
@@ -3855,6 +3950,528 @@ def lm_phase(torch, dev, card):
     return counts
 
 
+@contextlib.contextmanager
+def native_batch_counts():
+    """Count the batches the loader's fused native route builds: the
+    port's ``utils/native.py`` batch loaders (float32 and int16) wrapped
+    for the block, as ``DataLoader`` looks them up when it is built.
+    Yields {"batches": successful calls, "failed": calls that raised}."""
+    from gluon_e2e_asr_tpu_torch.utils import native
+
+    n = {"batches": 0, "failed": 0}
+    saved = {k: getattr(native, k) for k in ("load_pack_audio_batch",
+                                             "load_pack_audio_batch_i16")}
+
+    def counted(fn):
+        def call(*a, **k):
+            try:
+                out = fn(*a, **k)
+            except Exception:
+                n["failed"] += 1
+                raise
+            n["batches"] += 1
+            return out
+        return call
+
+    for k, fn in saved.items():
+        setattr(native, k, counted(fn))
+    try:
+        yield n
+    finally:
+        for k, fn in saved.items():
+            setattr(native, k, fn)
+
+
+def ls100_render(torch, corpus, card):
+    """Phase 12's corpus: ``tools/make_synth_corpus.py`` with
+    ls100_full.yaml's flags, cut to LS100_TRAIN + LS100_DEV utterances;
+    three files decoded to exactly the PCM the encoder was given; the
+    train manifest walked."""
+    from gluon_e2e_asr_tpu_torch.data.manifest import build_librispeech_manifest
+    from gluon_e2e_asr_tpu_torch.tools import make_synth_corpus as MS
+    from gluon_e2e_asr_tpu_torch.utils.native import decode_flac
+
+    flags = [f for k, v in LS100_RENDER.items()
+             for f in (f"--{k.replace('_', '-')}", str(v))]
+    shutil.rmtree(corpus, ignore_errors=True)
+    t0 = time.perf_counter()
+    made = MS.main(["--out", corpus, "--num-train", str(LS100_TRAIN),
+                    "--num-dev", str(LS100_DEV), *flags])
+    render_s = time.perf_counter() - t0
+    r = LS100_RENDER
+    utts = MS._ls_duration_utts("train-clean-100", LS100_TRAIN, r["seed"],
+                                r["text_mode"], r["noise"], r["jitter"],
+                                pool_split=r["pool_split"])
+    exact = {}
+    for i in (0, 1, LS100_TRAIN - 1):
+        _, utt_id, path = MS.utt_location(corpus, "train-clean-100", i, 100,
+                                          "flac")
+        got = np.round(decode_flac(path).astype(np.float64) * 32768.0)
+        pcm = MS.utt_pcm(utts[i])
+        exact[utt_id] = bool(len(got) == len(pcm)
+                             and np.array_equal(got.astype(np.int64), pcm))
+    t0 = time.perf_counter()
+    walked = build_librispeech_manifest(corpus, "train-clean-100")
+    walk_s = time.perf_counter() - t0
+    emit({"phase": "ls100_render", "config": os.path.relpath(LS100_CONFIG, REPO),
+          "flags": flags, "train": LS100_TRAIN, "dev": LS100_DEV,
+          "cut_from": "28,500 train + 2,700 dev", "hours": made["hours"],
+          "seconds": render_s, "workers": os.cpu_count(),
+          "decoded_exactly": exact, "manifest_walk_s": walk_s,
+          "manifest_utts": len(walked), "card": card})
+    check(all(exact.values()), f"FLAC files decode to other PCM: {exact}")
+    check(len(walked) == LS100_TRAIN and all(
+        u.audio_path.endswith(".flac") for u in walked),
+        f"the manifest walk found {len(walked)} of {LS100_TRAIN} .flac files")
+
+
+def ls100_cmvn(torch, sets, workdir, card):
+    """Global CMVN of the train split through ``tools/compute_cmvn.py`` on
+    the card, at ls100_full.yaml's transfer_dtype int16 and at float32:
+    the two within TOL_CMVN, finite, std > 0, every batch through the
+    native route. Returns the int16 stats' path."""
+    from gluon_e2e_asr_tpu_torch.tools import compute_cmvn
+
+    paths, stats, secs, batches = {}, {}, {}, {}
+    for td in ("int16", "float32"):
+        paths[td] = os.path.join(workdir, f"cmvn_{td}.npz")
+        with native_batch_counts() as n:
+            t0 = time.perf_counter()
+            stats[td] = compute_cmvn.main([
+                "--config", LS100_CONFIG, "--output", paths[td], *sets,
+                "--set", f"data.transfer_dtype={td}", "--device", "cuda"])
+            secs[td] = time.perf_counter() - t0
+        batches[td] = dict(n)
+    diff = max(float(np.abs(stats["int16"][k] - stats["float32"][k]).max())
+               for k in ("mean", "std"))
+    ok = all(np.isfinite(st[k]).all() for st in stats.values()
+             for k in ("mean", "std")) and all(
+        (st["std"] > 0).all() for st in stats.values())
+    emit({"phase": "ls100_cmvn", "frames": stats["int16"]["frames"],
+          "seconds": secs, "native_batches": batches,
+          "int16_vs_float32_max_abs_diff": diff, "tol": TOL_CMVN,
+          "mean_range": [float(stats["int16"]["mean"].min()),
+                         float(stats["int16"]["mean"].max())],
+          "std_range": [float(stats["int16"]["std"].min()),
+                        float(stats["int16"]["std"].max())],
+          "finite_and_positive_std": ok,
+          "basis": "host clock: the native loader's decode and pack, the "
+                   "plain log-mel on the card, the moments", "card": card})
+    check(ok and diff <= TOL_CMVN,
+          f"CMVN stats: int16 against float32 {diff}, finite/std>0 {ok}")
+    check(all(b["batches"] > 0 and not b["failed"] for b in batches.values()),
+          f"compute_cmvn's batches missed the native route: {batches}")
+    return paths["int16"]
+
+
+def ls100_kernels(torch, config, stats_path, dev, card):
+    """K1-fwd and K1-bwd at layer 0 (T = 1836), K2/K3 (T' = 459, S = 641)
+    and K4-fwd/K4-bwd loc in bf16 (coins off and on) against their plain
+    versions on the first training batch of the largest bucket (18.38 s,
+    from the native loader), the routes fwd_route/bwd_route predict for
+    every ls100 bucket, then each timed (CUDA events) with its bound.
+    Returns {kernel row: numbers at this shape} for the kernels line."""
+    from gluon_e2e_asr_tpu_torch.frontend.features import frontend_apply
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+    from gluon_e2e_asr_tpu_torch.ops import ctc as C
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as LD
+
+    mc, fc = config.model, config.frontend
+    b, tok, _, Tp = bucket_batch(torch, config)
+    last = len(config.data.bucket_bounds_sec) - 1
+    check(b.bucket == last and b.audio.dtype == np.int16,
+          f"the ls100 batch: bucket {b.bucket}, {b.audio.dtype}")
+    blob = np.load(stats_path)
+    cmvn = tuple(torch.from_numpy(blob[k]).to(dev) for k in ("mean", "std"))
+    with torch.no_grad():
+        feats, flen = frontend_apply(fc, torch.from_numpy(b.audio).to(dev),
+                                     torch.from_numpy(b.audio_len).to(dev),
+                                     cmvn_stats=cmvn)
+    B, T0, D0 = feats.shape
+    H = mc.enc_hidden
+    w = layer_inputs(torch, B, T0, D0, H, 0, dev)[2:]
+    args = (feats.contiguous(), flen.int(), *w)
+    dy = layer_cotangent(torch, B, T0, H, 0, dev)
+    name = f"ls100 {config.data.bucket_bounds_sec[-1]} s"
+    k1f_err, rec = check_k1_case(torch, name, 0, args, dy, "bfloat16",
+                                 recurrence=True)
+    lattice = real_ctc_batch(torch, config, dev)
+    a_err, p_err = check_ctc_case(torch, name, lattice)
+    # every ls100 bucket's K4 route, by shape alone
+    routes = {}
+    for sec in config.data.bucket_bounds_sec:
+        T = num_frames_of(config, sec)
+        dims = (T, 2 * H, mc.att_dim, mc.dec_embed, mc.dec_hidden,
+                tok.vocab_size, mc.loc_conv_channels, mc.loc_conv_width)
+        routes[T] = (LD.fwd_route("loc", torch.bfloat16, *dims),
+                     LD.bwd_route("loc", torch.bfloat16, *dims))
+    emit({"phase": "ls100_routes", "k4_loc_bf16_by_T": routes,
+          "ctc_plan_k_W_smem": C.warp_plan(Tp, lattice[0].shape[2])})
+    check(all(r == ("cluster", "cluster") for r in routes.values()),
+          f"K4 loc routes at ls100's buckets: {routes}")
+    dec_errs = check_decoder_kernels(
+        torch, config, dev, "loc",
+        cases=[("bfloat16", 0.0, False),
+               ("bfloat16", config.loss.scheduled_sampling, False)])
+
+    # timing at this shape, beside the bounds
+    bf = torch.bfloat16
+    x, lens, w_x, b_x, w_hf, w_hb = args
+    y, c, acts = K.bilstm_fused_kernel(*args, compute_dtype=bf, with_cell=True)
+    ms = {"bilstm_fwd": (
+        time_ms(torch, lambda: K.bilstm_fused_kernel(*args, compute_dtype=bf)),
+        time_ms(torch, lambda: K.bilstm_fused_plain(*args, compute_dtype=bf),
+                n=LS100_PLAIN_RUNS, warm=0))}
+    ms["bilstm_bwd"] = (
+        time_ms(torch, lambda: K.bilstm_fused_bwd_kernel(
+            x, lens, w_x, w_hf, w_hb, y, c, acts, dy, compute_dtype=bf)),
+        time_ms(torch, lambda: K.bilstm_fused_bwd_plain(
+            x, lens, w_x, b_x, w_hf, w_hb, y, c, dy, compute_dtype=bf),
+            n=LS100_PLAIN_RUNS, warm=0))
+    del y, c, acts
+    emit_, tmask, skip, svalid, label_lens = lattice
+    alpha = C.ctc_alpha_kernel(emit_, tmask, skip, svalid)
+    ll = C._log_likelihood(alpha, label_lens)
+    ms["ctc_alpha"] = (
+        time_ms(torch, lambda: C.ctc_alpha_kernel(emit_, tmask, skip, svalid)),
+        time_ms(torch, lambda: C._alpha_plain(emit_, tmask, skip, svalid),
+                n=LS100_PLAIN_RUNS, warm=0))
+    ms["ctc_beta_post"] = (
+        time_ms(torch, lambda: C.ctc_beta_post_kernel(
+            emit_, tmask, skip, svalid, 2 * label_lens, alpha, ll)),
+        time_ms(torch, lambda: C._beta_post_plain(
+            emit_, tmask, skip, svalid, 2 * label_lens, alpha, ll),
+            n=LS100_PLAIN_RUNS, warm=0))
+    dargs, filt, _ = decoder_case(torch, config, dev, 0.0)
+    tokens, _, enc, enc_proj, enc_len, dw = dargs
+    band = LD.build_loc_band_cmajor(filt, enc.shape[1])
+    _, resid, extras = LD.las_decoder_fwd_kernel(*dargs, bf, "loc", filt)
+    dl = torch.from_numpy(np.random.RandomState(SEED + 7).randn(
+        *tokens.shape, dw.embed.shape[0]).astype(np.float32) * 0.05).to(dev)
+    bwd = (enc, enc_proj, enc_len, dw, bf, "loc")
+    ms["las_decoder_fwd_loc"] = (
+        time_ms(torch, lambda: LD.las_decoder_fwd_kernel(*dargs, bf, "loc",
+                                                         filt)),
+        time_ms(torch, lambda: LD.las_decoder_fwd_plain(*dargs, bf, "loc",
+                                                        band),
+                n=LS100_PLAIN_RUNS, warm=0))
+    ms["las_decoder_bwd_loc"] = (
+        time_ms(torch, lambda: LD.las_decoder_bwd_kernel(
+            dl, resid, extras, *bwd, filt)),
+        time_ms(torch, lambda: LD.las_decoder_bwd_plain(dl, resid, *bwd, band),
+                n=LS100_PLAIN_RUNS, warm=0))
+    del resid, extras
+    bounds = k1_layer_bounds(torch, B, T0, D0, H, 0, lens=flen.cpu())
+    bounds["ctc_alpha"], bounds["ctc_beta_post"] = ctc_bounds(
+        real_ctc_batch(torch, config, "cpu"))
+    bounds["las_decoder_fwd_loc"], bounds["las_decoder_bwd_loc"] = k4_bounds(
+        torch, config, "loc")
+    errs = {"bilstm_fwd": k1f_err,
+            "bilstm_bwd": max(rec[o]["max_abs_err"] for o in
+                              ("dx", "dw_x", "db", "dw_hf", "dw_hb")),
+            "ctc_alpha": a_err, "ctc_beta_post": p_err,
+            "las_decoder_fwd_loc": dec_errs["las_decoder_fwd"],
+            "las_decoder_bwd_loc": dec_errs["las_decoder_bwd"]}
+    at = {"bilstm_fwd": f"layer 0, B={B}, T={T0}, D={D0}, H={H}, bf16, the "
+                        "batch's CMVN'd features (serving form)",
+          "bilstm_bwd": f"layer 0, B={B}, T={T0}, D={D0}, H={H}, bf16",
+          "ctc_alpha": f"B={B}, T'={Tp}, S={emit_.shape[2]}, V={tok.vocab_size}"
+                       ", the batch's BPE labels, seeded logits",
+          "ctc_beta_post": f"B={B}, T'={Tp}, S={emit_.shape[2]}",
+          "las_decoder_fwd_loc": f"B={B}, L={tokens.shape[1]}, T'={Tp}, bf16, "
+                                 "coins off",
+          "las_decoder_bwd_loc": f"B={B}, L={tokens.shape[1]}, T'={Tp}, bf16"}
+    out = {}
+    for k, (k_ms, p_ms) in ms.items():
+        out[k] = {"ms": k_ms, "plain_ms": p_ms, "plain_runs": LS100_PLAIN_RUNS,
+                  "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                  "max_abs_err": errs[k], "at": at[k]}
+    emit({"phase": "timing", "what": "ls100 largest bucket", "kernels": out,
+          "card": card})
+    return out
+
+
+def num_frames_of(config, seconds: float) -> int:
+    """Encoder frames of a bucket of ``seconds`` (the pyramid's
+    subsampling)."""
+    from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
+
+    fc = config.frontend
+    T = num_frames(int(round(seconds * fc.sample_rate)), fc.win_length,
+                   fc.hop_length)
+    for f in config.model.enc_subsample:
+        T = -(-T // int(f))
+    return T
+
+
+def ls100_loader(torch, config, card):
+    """The largest bucket's first batch of a training epoch through the
+    fused native route and the Python route (``use_native=False``), int16
+    and float32, with and without speed perturbation: bit-equal. Then an
+    epoch of the training loader (int16, perturbed) on the host, both
+    routes: utterances and hours of audio a second."""
+    from gluon_e2e_asr_tpu_torch.data.loader import DataLoader
+    from gluon_e2e_asr_tpu_torch.data.sampler import BucketSampler, make_bucket_specs
+    from gluon_e2e_asr_tpu_torch.training.trainer import (
+        build_datasets, build_tokenizer)
+
+    dc, tc = config.data, config.train
+    utts = build_datasets(config)[0]
+    tok = build_tokenizer(config, (u.text for u in utts))
+    sp = tuple(dc.speed_perturb)
+    specs = make_bucket_specs(dc.bucket_bounds_sec, dc.sample_rate,
+                              dc.batch_size, dc.max_label_len,
+                              config.frontend.hop_length, dc.dynamic_batch)
+
+    def loader(td, native):
+        sampler = BucketSampler(utts, specs, dc.sample_rate, seed=tc.seed,
+                                shuffle=dc.shuffle, drop_last=dc.drop_last,
+                                sortagrad_epochs=dc.sortagrad_epochs,
+                                speed_perturb=sp, perturb_seed=tc.seed)
+        return DataLoader(utts, sampler, tok, dc.sample_rate,
+                          speed_perturb=sp, perturb_seed=tc.seed,
+                          transfer_dtype=td, use_native=native)
+
+    last = len(specs) - 1
+    bucket, idxs = next(x for x in loader("int16", True).sampler
+                        .epoch_batches(1) if x[0] == last)
+    equal = {}
+    with native_batch_counts() as n:
+        for td in ("int16", "float32"):
+            for epoch in (None, 1):
+                a = loader(td, True).make_batch(bucket, idxs, epoch=epoch)
+                p = loader(td, False).make_batch(bucket, idxs, epoch=epoch)
+                equal[f"{td}, {'perturbed' if epoch else 'plain'}"] = all(
+                    np.array_equal(getattr(a, k), getattr(p, k))
+                    and getattr(a, k).dtype == getattr(p, k).dtype
+                    for k in ("audio", "audio_len", "labels", "label_len"))
+    fused = dict(n)
+    rates = {}
+    for route, native in (("native", True), ("python", False)):
+        ld = loader("int16", native)
+        t0 = time.perf_counter()
+        nb = n_utt = samples = 0
+        for b in ld.epoch(1):
+            nb += 1
+            n_utt += b.num_real
+            samples += int(b.audio_len.sum())
+        dt = time.perf_counter() - t0
+        rates[route] = {"batches": nb, "utts": n_utt, "seconds": dt,
+                        "utt_per_s": n_utt / dt,
+                        "audio_hours_per_s": samples / dc.sample_rate / 3600 / dt}
+    emit({"phase": "ls100_loader", "batch": {"bucket": bucket, "B": len(idxs)},
+          "native_vs_python_bit_equal": equal, "native_calls": fused,
+          "epoch_throughput": rates,
+          "basis": "host clock, one training epoch (int16, speed "
+                   "perturbation, shuffled), files in the page cache "
+                   "(warm: just written)", "card": card})
+    check(all(equal.values()), f"the native and Python routes differ: {equal}")
+    check(fused == {"batches": 4, "failed": 0},
+          f"the fused route built {fused} of 4 batches")
+
+
+def ls100_phase(torch, dev, card):
+    """Phase 12: configs/ls100_full.yaml, the LibriSpeech-100h recipe, from
+    a FLAC corpus on disk: the render (ls100_render), global CMVN
+    (ls100_cmvn), K1, K2/K3 and K4 loc at the largest bucket's shapes
+    (ls100_kernels), the loader's two routes (ls100_loader); LS100_EPOCHS
+    of training through the train CLI as shipped but for the corpus, the
+    stats file and the epoch count (every batch through the native route,
+    the launch counts, the per-token loss falling, data_skipped, each
+    bucket's step timed, the epoch-end beam timed); then the tools:
+    average_ckpts over the two epoch checkpoints (each parameter their
+    mean), the decode CLI's beam on the average and the last, tune_decode's
+    2x2 grid, plot_attention --no-png (shapes [n_tokens+1, T'], rows
+    summing to 1) and transcribe on two .flac files of the corpus (the
+    decode CLI's texts). Returns {path: launches} for the kernels line and
+    the kernels' numbers at the largest bucket."""
+    from gluon_e2e_asr_tpu_torch import decode, transcribe
+    from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
+    from gluon_e2e_asr_tpu_torch.data.manifest import build_librispeech_manifest
+    from gluon_e2e_asr_tpu_torch.tools import average_ckpts, plot_attention, tune_decode
+    from gluon_e2e_asr_tpu_torch.training import trainer as TR
+    from gluon_e2e_asr_tpu_torch.training.checkpoint import restore_params
+    from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
+    from gluon_e2e_asr_tpu_torch.utils import native
+
+    t_phase = time.perf_counter()
+    name = "ls100"
+    workdir = os.path.join(OUT_DIR, name)
+    corpus = os.path.join(OUT_DIR, "ls100_corpus")
+    ls100_render(torch, corpus, card)
+    sets = ["--set", f"data.data_dir={corpus}"]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    stats = ls100_cmvn(torch, sets, OUT_DIR, card)
+    sets += ["--set", f"frontend.cmvn_stats_path={stats}"]
+    config = load_config(LS100_CONFIG)
+    apply_overrides(config, sets[1::2])
+    at_shape = ls100_kernels(torch, config, stats, dev, card)
+    ls100_loader(torch, config, card)
+
+    # training: two epochs through the train CLI, every batch counted
+    counts = {}
+    evals = []
+    evaluate = TR.Trainer.evaluate
+
+    def timed_evaluate(self):
+        t0 = time.perf_counter()
+        out = evaluate(self)
+        torch.cuda.synchronize()
+        evals.append(time.perf_counter() - t0)
+        return out
+
+    losses = []
+    TR.Trainer.evaluate = timed_evaluate
+    try:
+        with native_batch_counts() as n:
+            trainer, counts["ls100_train"] = train_slice(
+                torch, LS100_CONFIG, name, epoch_steps(config, LS100_EPOCHS),
+                extra=[*sets, "--set", f"train.num_epochs={LS100_EPOCHS}"],
+                shipped=True, falls=False, losses_out=losses)
+        fused = dict(n)
+    finally:
+        TR.Trainer.evaluate = evaluate
+    tok = trainer.tokenizer
+    steps = trainer.state.step
+    dev_batches = len(list(trainer.dev_loader.sampler.epoch_batches(0)))
+    # the loss per label token, epoch by epoch (the same utterances; each
+    # step's loss is its batch's mean of per-utterance sums)
+    per_token, i = [], 0
+    for e in range(LS100_EPOCHS):
+        loss_sum = tokens = 0.0
+        for bucket, idxs in trainer.sampler.epoch_batches(e):
+            ml = trainer.sampler.specs[bucket].max_labels
+            tokens += sum(len(tok.encode(trainer.train_utts[j].text)[:ml])
+                          for j in idxs)
+            loss_sum += losses[i] * len(idxs)
+            i += 1
+        per_token.append(loss_sum / tokens)
+    # a step at each bucket (epoch 1's first batch of it), CUDA events
+    step = stepper(torch, trainer, dev)
+    bucket_ms = {}
+    for bucket, idxs in trainer.sampler.epoch_batches(1):
+        if bucket in bucket_ms:
+            continue
+        b = trainer.loader.make_batch(bucket, idxs, epoch=1)
+        batch = batch_to_device(b, dev)
+        k = time_ms(torch, lambda: step(batch), n=5, warm=1)
+        bucket_ms[bucket] = {"seconds": config.data.bucket_bounds_sec[bucket],
+                             "B": int(b.audio.shape[0]), "real": b.num_real,
+                             "samples": int(b.audio.shape[1]),
+                             "max_labels": int(b.labels.shape[1]),
+                             "step_ms": k, "utt_per_s": b.num_real / k * 1e3}
+    del step
+    skipped = {"train": len(trainer.sampler.skipped),
+               "dev": len(trainer.dev_loader.sampler.skipped)}
+    expect_batches = steps + dev_batches * LS100_EPOCHS
+    emit({"phase": "ls100_train", "steps": steps, "epochs": LS100_EPOCHS,
+          "epochs_shipped": 5, "dev_batches_per_eval": dev_batches,
+          "native_batches": fused, "expected_native_batches": expect_batches,
+          "loss_per_token_by_epoch": per_token, "data_skipped": skipped,
+          "step_ms_by_bucket": bucket_ms, "epoch_end_beam_s": evals,
+          "beam": {"beam_size": config.decode.beam_size,
+                   "ctc_weight": config.decode.ctc_weight,
+                   "ctc_score_candidates": config.decode.ctc_score_candidates},
+          "step_basis": "CUDA events, median of 5 after a warm step, a copy "
+                        "of the trained model at world size 1",
+          "card": card})
+    check(fused == {"batches": expect_batches, "failed": 0},
+          f"the training run's batches through the native route: {fused}, "
+          f"expected {expect_batches}")
+    check(per_token[-1] < per_token[0],
+          f"the loss per token did not fall: {per_token}")
+
+    # the tools on the two epoch checkpoints
+    ckpt_dir = os.path.join(workdir, config.train.ckpt_dir)
+    inputs = average_ckpts.ordered_last_ckpts(ckpt_dir, LS100_EPOCHS)
+    avg = os.path.join(workdir, "avg.pt")
+    summary = average_ckpts.main(["--out", avg, "--last", str(LS100_EPOCHS),
+                                  "--ckpt-dir", ckpt_dir])
+    got = restore_params(avg)[0]
+    ins = [restore_params(p)[0] for p in inputs]
+    mean_ok = all(torch.equal(got[k], (sum(p[k].double() for p in ins)
+                                       / len(ins)).to(got[k].dtype))
+                  for k in got if got[k].is_floating_point())
+    emit({"phase": "ls100_average", "summary": summary,
+          "each_parameter_the_mean": mean_ok})
+    check(mean_ok and len(inputs) == LS100_EPOCHS,
+          f"average_ckpts over {inputs}: parameters the mean {mean_ok}")
+    last_ckpt = inputs[-1]
+    decoded = {}
+    for tag, ck in (("avg", avg), ("last", last_ckpt)):
+        out = os.path.join(workdir, f"decode_{tag}.jsonl")
+        reset_counts()
+        t0 = time.perf_counter()
+        res = decode.main(["--config", LS100_CONFIG, *sets, "--ckpt", ck,
+                           "--output", out, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        counts[f"decode_{tag}"], plain = read_counts()
+        with open(out) as f:
+            decoded[tag] = {r["utt_id"]: r["hyp"] for r in map(json.loads, f)}
+        emit({"phase": "ls100_decode", "ckpt": tag, "method": res["method"],
+              "utts": res["num_utts"], "wer": res["wer"], "cer": res["cer"],
+              "wall_s": wall, "launches": counts[f"decode_{tag}"],
+              "note": f"{LS100_EPOCHS} of 5 epochs on {LS100_TRAIN} "
+                      "utterances: not a check"})
+        check(res["num_utts"] == LS100_DEV and not any(plain.values()),
+              f"decode {tag}: {res['num_utts']} utterances, plain {plain}")
+    reset_counts()
+    t0 = time.perf_counter()
+    tuned = tune_decode.main([
+        "--config", LS100_CONFIG, *sets, "--ckpt", last_ckpt,
+        *[a for g in LS100_GRID for a in ("--grid", g)],
+        "--output", os.path.join(workdir, "tune.jsonl"), "--device", "cuda"])
+    counts["tune_decode"], plain = read_counts()
+    emit({"phase": "ls100_tune_decode", "summary": tuned,
+          "wall_s": time.perf_counter() - t0})
+    check(tuned["event"] == "tune_decode_done" and not any(plain.values()),
+          f"tune_decode: {tuned}, plain {plain}")
+    dev_utts = {u.utt_id: u for u in build_librispeech_manifest(corpus,
+                                                                "dev-clean")}
+    plots = os.path.join(workdir, "attention")
+    shutil.rmtree(plots, ignore_errors=True)
+    reset_counts()
+    shown = plot_attention.main(["--config", LS100_CONFIG, *sets, "--ckpt",
+                                 last_ckpt, "--out", plots, "--num", "4",
+                                 "--no-png", "--device", "cuda"])
+    counts["plot_attention"], plain = read_counts()
+    shapes, row_err = {}, 0.0
+    for u in shown["utts"]:
+        a = np.load(os.path.join(plots, f"{u}.npy"))
+        n_tok = len(tok.encode(dev_utts[u].text)[:config.data.max_label_len])
+        T = num_frames_of(config, native.probe_flac(
+            dev_utts[u].audio_path)[1] / config.data.sample_rate)
+        shapes[u] = (list(a.shape), [n_tok + 1, T])
+        row_err = max(row_err, float(np.abs(a.sum(-1) - 1.0).max()))
+    emit({"phase": "ls100_plot_attention", "shapes_got_want": shapes,
+          "row_sum_max_abs_err": row_err, "tol": TOL_ATT_ROW,
+          "png": shown["png"]})
+    check(len(shapes) == 4 and all(g == w_ for g, w_ in shapes.values())
+          and row_err <= TOL_ATT_ROW and not any(plain.values()),
+          f"plot_attention: shapes {shapes}, rows {row_err}, plain {plain}")
+    # transcribe: the two shortest dev utterances, in the first bucket, as
+    # .flac files
+    pick = sorted((u for u in decoded["last"] if dev_utts[u].duration
+                   <= config.data.bucket_bounds_sec[0]),
+                  key=lambda u: dev_utts[u].duration)[:2]
+    reset_counts()
+    results = transcribe.main(["--config", LS100_CONFIG, *sets, "--ckpt",
+                               last_ckpt, "--device", "cuda",
+                               *[dev_utts[u].audio_path for u in pick]])
+    counts["transcribe"], plain = read_counts()
+    texts = dict(zip(pick, [results[k] for k in sorted(results)]))
+    same = {u: texts[u] == decoded["last"][u] for u in pick}
+    emit({"phase": "ls100_transcribe", "files": pick, "texts": texts,
+          "decode_cli_texts": {u: decoded["last"][u] for u in pick},
+          "equal": same, "launches": counts["transcribe"]})
+    check(len(pick) == 2 and all(same.values()) and not any(plain.values()),
+          f"transcribe's texts against the decode CLI's: {same}")
+    emit({"phase": "ls100_phase_done",
+          "seconds": round(time.perf_counter() - t_phase, 1)})
+    del trainer
+    return counts, at_shape
+
+
 def library_timing(torch, config, shapes, dev, card):
     """The one PyTorch call that computes each kernel's function, timed on
     the same inputs beside it and never called by the port: cuDNN's
@@ -4031,11 +4648,13 @@ def k4_bounds(torch, config, att):
                    e_bwd * frames * A + 2 * conv))
 
 
-def k1_layer_bounds(torch, B, T, D, H, layer):
+def k1_layer_bounds(torch, B, T, D, H, layer, lens=None):
     """K1-fwd's (serving form) and K1-bwd's bounds at one layer shape, with
-    the lengths of ``layer_inputs``: see kernel_bounds."""
+    ``lens`` (by default the lengths of ``layer_inputs``): see
+    kernel_bounds."""
     f4, cd = 4, 2
-    lens = layer_inputs(torch, B, T, D, H, layer, "cpu")[1]
+    if lens is None:
+        lens = layer_inputs(torch, B, T, D, H, layer, "cpu")[1]
     frames = float(lens.sum())
     w_mats = D * 8 * H + 2 * H * 4 * H
     f_ops = 2.0 * frames * D * 8 * H + 2 * 2.0 * frames * H * 4 * H
@@ -4049,6 +4668,18 @@ def k1_layer_bounds(torch, B, T, D, H, layer):
                + 4 * B + f4 * (B * T * D + w_mats + 8 * H))
     return {"bilstm_fwd": _bound(f_ops, PEAK_BF16, f_bytes),
             "bilstm_bwd": _bound(b_ops, PEAK_BF16, b_bytes)}
+
+
+def ctc_bounds(lattice):
+    """(K2's bound, K3's bound) on one lattice (real_ctc_batch's tuple):
+    see kernel_bounds."""
+    emit_, tmask, skip, svalid, label_lens = lattice
+    T, Bc, S = emit_.shape
+    live = float((tmask.T[:, :, None] & svalid[:, None, :]).sum())
+    table = 4 * T * Bc * S
+    masks = T * Bc + Bc * S * 2  # time_mask, allow_skip, state_valid
+    return (_bound(10 * live, PEAK_F32, 2 * table + masks),
+            _bound(12 * live, PEAK_F32, 3 * table + masks + 2 * 4 * Bc))
 
 
 def kernel_bounds(config, shapes, dev, loc_config, m2_config):
@@ -4143,14 +4774,7 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
 
     for sfx, batch in (("", real_ctc_batch(torch, config, "cpu")),
                        ("_bench", bench_ctc_batch(torch, config, "cpu"))):
-        emit_, tmask, skip, svalid, label_lens = batch
-        T, Bc, S = emit_.shape
-        live = float((tmask.T[:, :, None] & svalid[:, None, :]).sum())
-        table = f4 * T * Bc * S
-        masks = T * Bc + Bc * S * 2  # time_mask, allow_skip, state_valid
-        out["ctc_alpha" + sfx] = _bound(10 * live, PEAK_F32, 2 * table + masks)
-        out["ctc_beta_post" + sfx] = _bound(12 * live, PEAK_F32,
-                                            3 * table + masks + 2 * f4 * Bc)
+        out["ctc_alpha" + sfx], out["ctc_beta_post" + sfx] = ctc_bounds(batch)
 
     out["las_decoder_fwd"], out["las_decoder_bwd"] = k4_bounds(torch, config, "dot")
 

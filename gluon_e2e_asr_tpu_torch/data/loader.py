@@ -1,17 +1,19 @@
 """Host-side batch assembly: pad to bucket shape, feed to device.
 
+The port's own copy of ``gluon_e2e_asr_tpu/data/loader.py`` (the port imports
+nothing of the JAX package); ``tests/test_torch_data.py`` holds the
+two to the same code. Its native routes (the fused read+decode+pack of
+an on-disk wav/flac batch, ``pack_waves``) call the port's own copy of
+the library, ``utils/native.py``.
+
 Reference-side realization: Gluon ``DataLoader`` + bucketing sampler,
 with MXNet's C++ engine doing the packing [SURVEY.md §1 L0,
 INFERRED-high]. New-repo realization: a Python loader whose hot path —
 padding/packing waveforms and labels into static bucket-shaped arrays —
-is NumPy here. The JAX package runs it in native C++ where it can
-(``gluon_e2e_asr_tpu/native/asr_native.cpp``) with the same NumPy
-fallback, which gives the same arrays.
-
-The port's own copy of ``gluon_e2e_asr_tpu/data/loader.py`` (the port imports
-nothing of the JAX package); ``tests/test_torch_data.py`` holds the
-two to the same results. The native C++ packing and wav loading
-are not copied (ROADMAP.md).
+is implemented in native C++ (``gluon_e2e_asr_tpu_torch/native/asr_native.cpp``, loaded via
+ctypes) with a NumPy fallback [SURVEY.md §2.2]. For on-disk wav
+corpora the entire read+decode+pack runs in C++ worker threads
+(``load_pack_wav_batch``).
 
 Every batch is padded to the bucket's static (batch, samples, labels)
 shape so each bucket compiles exactly one XLA program
@@ -20,6 +22,7 @@ shape so each bucket compiles exactly one XLA program
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
 import time
@@ -27,6 +30,13 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+_LOG = logging.getLogger(__name__)
+
+# After this many consecutive native-path failures, stop retrying the C++
+# fused loader for the rest of the process (a systematic error — e.g. an
+# unsupported subformat — would otherwise silently retry every batch).
+_NATIVE_WAV_MAX_FAILURES = 3
 
 from gluon_e2e_asr_tpu_torch.data.manifest import Utterance, load_audio
 from gluon_e2e_asr_tpu_torch.data.sampler import BucketSampler, BucketSpec
@@ -62,6 +72,33 @@ def _pack_python(
     return audio, lens
 
 
+def _get_native_packer():
+    try:
+        from gluon_e2e_asr_tpu_torch.utils.native import pack_waves
+
+        return pack_waves
+    except Exception:
+        return None
+
+
+def _get_native_wav_loader():
+    try:
+        from gluon_e2e_asr_tpu_torch.utils.native import load_pack_audio_batch
+
+        return load_pack_audio_batch
+    except Exception:
+        return None
+
+
+def _get_native_wav_loader_i16():
+    try:
+        from gluon_e2e_asr_tpu_torch.utils.native import load_pack_audio_batch_i16
+
+        return load_pack_audio_batch_i16
+    except Exception:
+        return None
+
+
 def _quantize_i16(audio_f32: np.ndarray) -> np.ndarray:
     """round(x*32768) clipped to int16 — the exact inverse of the audio
     decoders' /32768 for 16-bit sources, so int16 transfer reconstructs
@@ -79,6 +116,7 @@ class DataLoader:
         sampler: BucketSampler,
         tokenizer: CharTokenizer,
         sample_rate: int = 16000,
+        use_native: bool = True,
         speed_perturb: Sequence[float] = (),
         perturb_seed: int = 0,
         transfer_dtype: str = "float32",
@@ -109,6 +147,11 @@ class DataLoader:
             raise ValueError(
                 f"speed_perturb factors must be > 0: {self.speed_perturb}")
         self.perturb_seed = perturb_seed
+        self._native = _get_native_packer() if use_native else None
+        self._native_wav = (
+            (_get_native_wav_loader_i16() if self._i16
+             else _get_native_wav_loader()) if use_native else None)
+        self._native_wav_failures = 0
         # Synthetic audio is cheap; cache decoded waveforms for reuse across
         # epochs (they are small: seconds of float32). Touched by at most
         # one thread at a time: batches are assembled either synchronously
@@ -206,10 +249,46 @@ class DataLoader:
         if perturbing and max(self.speed_perturb) > 1.0:
             pack_cap = int(np.ceil(spec.max_samples
                                    * max(self.speed_perturb)))
-        waves = [self._wave(i) for i in idxs]
-        audio, audio_len = _pack_python(waves, pack_cap, spec.batch_size)
-        if self._i16:
-            audio = _quantize_i16(audio)
+        audio = audio_len = None
+        # Real-corpus hot path: every utterance is an on-disk wav/flac ->
+        # the native library reads, decodes, downmixes, and packs the whole
+        # bucket batch in C++ worker threads with zero per-sample Python
+        # (the OS page cache serves repeat epochs) [docs/ROADMAP.md #10].
+        if self._native_wav is not None and idxs and all(
+            self.utts[i].synth_seed < 0
+            and self.utts[i].audio_path.endswith((".wav", ".flac"))
+            for i in idxs
+        ):
+            try:
+                audio, audio_len = self._native_wav(
+                    [self.utts[i].audio_path for i in idxs],
+                    self.sample_rate, pack_cap, spec.batch_size,
+                )
+                self._native_wav_failures = 0
+            except Exception as e:
+                audio = audio_len = None  # fall through to Python decode
+                self._native_wav_failures += 1
+                if self._native_wav_failures == 1:
+                    _LOG.warning(
+                        "native fused wav loader failed (falling back to "
+                        "per-sample Python decode — a large slowdown on a "
+                        "real corpus): %s", e)
+                if self._native_wav_failures >= _NATIVE_WAV_MAX_FAILURES:
+                    _LOG.warning(
+                        "native fused wav loader failed %d consecutive "
+                        "batches; disabling it for this process",
+                        self._native_wav_failures)
+                    self._native_wav = None
+        if audio is None:
+            waves = [self._wave(i) for i in idxs]
+            if self._native is not None:
+                audio, audio_len = self._native(
+                    waves, pack_cap, spec.batch_size)
+            else:
+                audio, audio_len = _pack_python(
+                    waves, pack_cap, spec.batch_size)
+            if self._i16:
+                audio = _quantize_i16(audio)
         if perturbing:
             self._apply_speed_perturb(
                 audio, audio_len, idxs, epoch, spec.max_samples)
@@ -239,7 +318,8 @@ class DataLoader:
 class EpochPrefetcher:
     """One epoch's batches, assembled ``depth`` ahead in a daemon thread.
 
-    Overlaps host-side read+decode+pack with the device step, removing the
+    Overlaps host-side read+decode+pack (C++ worker threads release the
+    GIL inside the native loader) with the device step, removing the
     synchronous batch-build stall of [VERDICT.md round-1 "What's missing"
     item 4]. ``close()`` is idempotent and must be called when abandoning
     the iterator mid-epoch (the trainer's max_steps break).

@@ -2,9 +2,8 @@
 
 The port's own copy of ``gluon_e2e_asr_tpu/data/manifest.py`` (the port imports
 nothing of the JAX package); ``tests/test_torch_data.py`` holds the
-two to the same results. FLAC audio, which the JAX package
-decodes with its native C++ library, raises here: that library is not
-ported (ROADMAP.md); ``.wav`` and ``.npy`` audio are.
+two to the same code. ``.flac`` audio is decoded by the port's own copy
+of the native C++ decoder (``utils/native.py``).
 
 Reference-side realization: Kaldi-style ``data.json``/scp manifests
 enumerating (audio path, transcript, duration) [SURVEY.md §2.1 #1,
@@ -316,7 +315,11 @@ def load_audio(utt: Utterance, sample_rate: int = 16000) -> np.ndarray:
                 data = data.reshape(-1, w.getnchannels()).mean(axis=1)
             return (data.astype(np.float32) / 32768.0).copy()
     if utt.audio_path.endswith(".flac"):
-        _no_flac(utt.audio_path)
+        # LibriSpeech's shipping format; decoded by the native C++ subset
+        # decoder (this image has no libFLAC/ffmpeg/soundfile).
+        from gluon_e2e_asr_tpu_torch.utils.native import decode_flac
+
+        return decode_flac(utt.audio_path, sample_rate)
     if utt.audio_path.endswith(".npy"):
         return np.load(utt.audio_path).astype(np.float32)
     raise ValueError(f"unsupported audio format: {utt.audio_path!r}")
@@ -324,8 +327,8 @@ def load_audio(utt: Utterance, sample_rate: int = 16000) -> np.ndarray:
 
 def build_librispeech_manifest(root: str, split: str) -> List[Utterance]:
     """Walk a LibriSpeech split directory (``root/split/spk/chap/*.trans.txt``)
-    and build a manifest: pre-converted ``.wav``/``.npy`` audio (a
-    ``.flac`` file raises, see ``_no_flac``).
+    and build a manifest. Accepts the corpus as shipped (16 kHz ``.flac``,
+    decoded natively) as well as pre-converted ``.wav``/``.npy``.
     [SURVEY.md §2.1 #1]"""
     utts: List[Utterance] = []
     split_dir = os.path.join(root, split)
@@ -354,14 +357,10 @@ def _probe_duration(path: str, sample_rate: int = 16000) -> float:
         with wave.open(path, "rb") as w:
             return w.getnframes() / w.getframerate()
     if path.endswith(".flac"):
-        _no_flac(path)
+        from gluon_e2e_asr_tpu_torch.utils.native import probe_flac
+
+        rate, frames = probe_flac(path)
+        return frames / rate if rate > 0 else 0.0
     if path.endswith(".npy"):
         return float(np.load(path, mmap_mode="r").shape[0]) / sample_rate
     return 0.0
-
-
-def _no_flac(path: str) -> None:
-    raise NotImplementedError(
-        f"{path}: FLAC decoding (the JAX package's native C++ decoder) is "
-        "not ported yet (ROADMAP.md item 7, the FLAC decoder); convert the "
-        "corpus to .wav or .npy")

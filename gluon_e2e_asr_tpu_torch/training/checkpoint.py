@@ -24,7 +24,6 @@ import os
 import re
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.pt$")
@@ -46,8 +45,10 @@ def save_checkpoint(path: str, params: Mapping[str, torch.Tensor],
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     payload = {
         "params": _cpu(dict(params)),
+        # The trainer's stats are tensors on its device (global CMVN);
+        # a decoding checkpoint's may be numpy arrays.
         "cmvn": None if cmvn_stats is None else [
-            torch.as_tensor(np.asarray(x)) for x in cmvn_stats],
+            torch.as_tensor(x).detach().cpu() for x in cmvn_stats],
     }
     if opt_state is not None:
         payload["opt_state"] = _cpu(opt_state)

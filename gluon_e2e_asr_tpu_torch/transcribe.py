@@ -4,7 +4,7 @@ manifest or reference transcripts needed:
     python -m gluon_e2e_asr_tpu_torch.transcribe --ckpt <ckpt> \\
         [--config recipe.yaml] [--method greedy|beam|ctc_beam] \\
         [--output out.jsonl [--timestamps]] [--set KEY=VAL ...] \\
-        [--device cuda|cpu] a.wav b.npy
+        [--device cuda|cpu] a.wav b.flac c.npy
 
 Counterpart of ``gluon_e2e_asr_tpu/transcribe.py``. ``--ckpt`` is a port
 checkpoint or a JAX trainer's (converted through ``bridge.py``). Files
@@ -17,8 +17,9 @@ spans to them by CTC-force-aligning each hypothesis
 (``ops/ctc.py::ctc_viterbi_align``; encoder frame f spans f*R*hop/sr ..
 (f+1)*R*hop/sr, R = ``config.encoder_time_reduction``; the CTC head must
 have been trained, ``loss.mtl_alpha > 0``). At B=1 the beams take the
-serving defaults, as in ``decode.py``. A ``.flac`` file raises: the FLAC
-decoder is not ported yet.
+serving defaults, as in ``decode.py``. ``.flac`` files decode through the
+port's native decoder (``utils/native.py``); a malformed or missing file
+raises.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ def build_file_utts(paths, sample_rate):
         if dur <= 0:
             raise ValueError(
                 f"{p}: could not determine duration (supported: 16 kHz "
-                ".wav, .npy float32)")
+                ".wav/.flac, .npy float32)")
         utts.append(Utterance(
             utt_id=f"{i:04d}_{os.path.basename(p)}",
             text="", duration=round(dur, 4), audio_path=p))
@@ -120,7 +121,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(
         description="Transcribe audio files with a trained checkpoint "
                     "(PyTorch port)")
-    p.add_argument("audio", nargs="+", help="16 kHz .wav / .npy files")
+    p.add_argument("audio", nargs="+", help="16 kHz .wav/.flac/.npy files")
     p.add_argument("--ckpt", type=str, required=True,
                    help="a port checkpoint or a JAX trainer's")
     p.add_argument("--config", type=str, default="",

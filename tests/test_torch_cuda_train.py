@@ -227,3 +227,18 @@ def test_stacked_decoder_step_launches_no_k4(dev):
         losses[d.type] = float(m["loss"])
     assert np.isfinite(losses["cuda"])
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+
+
+def test_checkpoint_holds_global_cmvn_stats_from_the_card(dev, tmp_path):
+    """The trainer keeps global CMVN stats on its device: a checkpoint
+    stores them on the host and restores them unchanged."""
+    from gluon_e2e_asr_tpu_torch.training.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+
+    stats = (torch.randn(80, device=dev), torch.rand(80, device=dev) + 0.5)
+    path = save_checkpoint(str(tmp_path / "c.pt"),
+                           {"w": torch.ones(3, device=dev)}, {}, stats)
+    _, cmvn, _ = restore_checkpoint(path)
+    for got, want in zip(cmvn, stats):
+        assert got.device.type == "cpu"
+        torch.testing.assert_close(got, want.cpu(), rtol=0, atol=0)

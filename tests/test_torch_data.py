@@ -147,19 +147,20 @@ def test_metrics_match():
 
 
 # Copied file -> the top-level definitions (``Class.method`` for methods)
-# that differ from the original on purpose: the JAX package's native C++
-# paths (wav packing, FLAC decoding, edit distance), which the port does
-# not copy.
+# that differ from the original on purpose: where the port builds its
+# native library (``build/native/`` at the root of the checkout) and that
+# a failed build raises with the compiler's stderr (the JAX ``get_lib``
+# returns None).
 COPIES = {
     "config.py": set(),
     "data/sampler.py": set(),
     "data/tokenizer.py": set(),
-    "data/loader.py": {"DataLoader.__init__", "DataLoader.make_batch", "_LOG",
-                       "_NATIVE_WAV_MAX_FAILURES", "_get_native_packer",
-                       "_get_native_wav_loader", "_get_native_wav_loader_i16"},
-    "data/manifest.py": {"load_audio", "_probe_duration", "_no_flac"},
-    "eval/metrics.py": {"edit_distance"},
+    "data/loader.py": set(),
+    "data/manifest.py": set(),
+    "eval/metrics.py": set(),
     "utils/logging.py": set(),
+    "utils/native.py": {"_BUILD_DIR", "_lib_path", "_prune_stale",
+                        "_build_failed", "_build_error", "_build", "get_lib"},
 }
 
 
@@ -192,14 +193,16 @@ def _definitions(path: str, package: str) -> dict:
     return out
 
 
-@pytest.mark.parametrize("rel", sorted(COPIES) + ["data/english_pool.txt"])
+@pytest.mark.parametrize("rel", sorted(COPIES) + ["data/english_pool.txt",
+                                                 "native/asr_native.cpp"])
 def test_copied_files_match_their_originals(rel):
-    """The cheapest guard against the copies drifting: the word pool byte
-    for byte, and every definition of each module the same code as the
-    original's, apart from the listed ones (and those must still differ)."""
+    """The cheapest guard against the copies drifting: the word pool and
+    the native library's source byte for byte, and every definition of
+    each module the same code as the original's, apart from the listed
+    ones (and those must still differ)."""
     ours = os.path.join(REPO, "gluon_e2e_asr_tpu_torch", rel)
     ref = os.path.join(REPO, "gluon_e2e_asr_tpu", rel)
-    if rel.endswith(".txt"):
+    if not rel.endswith(".py"):
         with open(ours, "rb") as a, open(ref, "rb") as b:
             assert a.read() == b.read()
         return
@@ -210,11 +213,68 @@ def test_copied_files_match_their_originals(rel):
     assert differ == COPIES[rel]
 
 
-def test_flac_audio_raises_naming_the_roadmap(tmp_path):
-    utt = tmanifest.Utterance(utt_id="x", text="a", duration=1.0,
-                              audio_path=str(tmp_path / "x.flac"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmanifest.load_audio(utt)
+@pytest.fixture(scope="module")
+def flac_corpus(tmp_path_factory):
+    """A LibriSpeech FLAC tree rendered by the root tools/make_synth_corpus.py
+    (LibriSpeech durations, English text, the native encoder)."""
+    root = str(tmp_path_factory.mktemp("ls_flac"))
+    subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "make_synth_corpus.py"),
+         "--out", root, "--num-train", "12", "--num-dev", "4",
+         "--text-mode", "english", "--durations", "librispeech",
+         "--jitter", "0.04", "--noise", "0.05", "--pool-split", "sentence",
+         "--workers", "1", "--seed", "0"],
+        check=True, capture_output=True, timeout=300, cwd=REPO,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    return root
+
+
+@pytest.mark.parametrize("split", ["train-clean-100", "dev-clean"])
+def test_flac_manifest_matches(flac_corpus, split):
+    ours = tmanifest.build_librispeech_manifest(flac_corpus, split)
+    ref = jmanifest.build_librispeech_manifest(flac_corpus, split)
+    assert len(ours) == len(ref) > 0
+    assert all(u.audio_path.endswith(".flac") for u in ours)
+    assert [dataclasses.asdict(u) for u in ours] == \
+        [dataclasses.asdict(u) for u in ref]
+    for a, b in zip(ours[:3], ref[:3]):
+        np.testing.assert_array_equal(tmanifest.load_audio(a),
+                                      jmanifest.load_audio(b))
+
+
+@pytest.mark.parametrize("perturb", [False, True], ids=["plain", "perturbed"])
+@pytest.mark.parametrize("transfer_dtype", ["float32", "int16"])
+def test_flac_bucket_batches_match(flac_corpus, transfer_dtype, perturb):
+    """ls100's buckets over the FLAC tree: the fused native route of both
+    packages, and the port's Python route, give the same batches."""
+    sp = (0.9, 1.0, 1.1) if perturb else ()
+    built = {}
+    for name, mf, smp, ld, tk, native in (
+            ("port", tmanifest, tsampler, tloader, ttok, True),
+            ("port_python", tmanifest, tsampler, tloader, ttok, False),
+            ("jax", jmanifest, jsampler, jloader, jtok, True)):
+        utts = mf.build_librispeech_manifest(flac_corpus, "train-clean-100")
+        specs = smp.make_bucket_specs([9.2, 12.37, 15.04, 18.38], 16000, 4,
+                                      320, 160, True)
+        sampler = smp.BucketSampler(utts, specs, 16000, seed=0, shuffle=True,
+                                    sortagrad_epochs=1, speed_perturb=sp,
+                                    perturb_seed=0)
+        loader = ld.DataLoader(utts, sampler, tk.CharTokenizer(), 16000,
+                               speed_perturb=sp, perturb_seed=0,
+                               transfer_dtype=transfer_dtype,
+                               use_native=native)
+        built[name] = [b for e in (0, 1) for b in loader.epoch(e)]
+        if native:
+            assert loader._native_wav is not None
+            assert loader._native_wav_failures == 0
+    assert len(built["port"]) == len(built["jax"]) > 2
+    for other in ("jax", "port_python"):
+        for a, b in zip(built["port"], built[other]):
+            assert a.bucket == b.bucket and a.utt_ids == b.utt_ids
+            for k in ("audio", "audio_len", "labels", "label_len"):
+                np.testing.assert_array_equal(getattr(a, k), getattr(b, k),
+                                              err_msg=f"{other} {k}")
+                assert getattr(a, k).dtype == getattr(b, k).dtype
 
 
 def test_the_port_imports_nothing_of_the_jax_package():
@@ -242,5 +302,9 @@ def test_the_port_imports_nothing_of_the_jax_package():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) >= 20
     for name in ("models.lm", "train_lm", "transcribe", "tools.align",
-                 "tools.rescore_nbest", "tools.make_lm_corpus"):
+                 "tools.rescore_nbest", "tools.make_lm_corpus",
+                 "utils.native", "tools.make_synth_corpus",
+                 "tools.compute_cmvn", "tools.average_ckpts",
+                 "tools.tune_decode", "tools.plot_attention",
+                 "tools.run_milestones"):
         assert f"gluon_e2e_asr_tpu_torch.{name}" in proc.stdout, name

@@ -5,8 +5,9 @@ Both read the golden's JAX checkpoint (the port through ``bridge.py``).
 ``transcribe`` (greedy and beam, ``--timestamps``; one file longer than
 the config's largest bucket, so the catch-all bucket runs) and ``align
 --ctm`` over the first dev utterances give the JAX CLIs' texts, token
-spans and CTM exactly (the scores within 1e-4). A ``.flac`` input still
-raises, naming the FLAC decoder of ROADMAP.md item 7.
+spans and CTM exactly (the scores within 1e-4). ``.flac`` inputs (written
+by the port's native encoder) give the JAX CLI's texts too; a malformed
+``fLaC`` file and a missing file raise.
 """
 
 import importlib.util
@@ -96,10 +97,29 @@ def test_timestamps_need_an_output(wavs):
         transcribe.main([*GOLDEN, "--timestamps", "--device", "cpu", wavs[0]])
 
 
+@pytest.mark.parametrize("method", ["greedy", "beam"])
+def test_transcribe_flac_matches_jax(tmp_path, capsys, method):
+    from gluon_e2e_asr_tpu_torch.utils.native import encode_flac
+
+    flacs = []
+    for i, text in enumerate(("abc def", "hello", "abcdefghij" * 4)):
+        pcm = np.clip(np.round(synth_waveform(text, seed=10 + i) * 32767.0),
+                      -32768, 32767).astype(np.int16)
+        flacs.append(str(tmp_path / f"utt{i}.flac"))
+        encode_flac(flacs[-1], pcm)
+    args = [*GOLDEN, "--method", method]
+    want = jax_transcribe.main(args + flacs)
+    want_lines = capsys.readouterr().out.strip().splitlines()
+    got = transcribe.main(args + ["--device", "cpu", *flacs])
+    got_lines = capsys.readouterr().out.strip().splitlines()
+    assert got == want and len(got) == 3
+    assert got_lines[-3:] == want_lines[-3:]
+
+
 def test_flac_and_missing_files_raise(tmp_path):
     flac = tmp_path / "x.flac"
     flac.write_bytes(b"fLaC")
-    with pytest.raises(NotImplementedError, match="item 7, the FLAC decoder"):
+    with pytest.raises(ValueError, match="probe_flac"):
         transcribe.main([*GOLDEN, "--device", "cpu", str(flac)])
     with pytest.raises(FileNotFoundError):
         transcribe.main([*GOLDEN, "--device", "cpu", str(tmp_path / "no.wav")])
