@@ -46,7 +46,9 @@ its ranks itself.) Phases, each printing JSON lines:
    through ``fft_kernel``, and with n_fft = 400 through
    ``spectral_kernel``, in every CMVN mode, eval and train;
    K7-fwd and K7-bwd (the v1 layer) at the flagship's layer-0 shape in
-   f32 and bf16; P1's two variants (``l2``, ``cluster``) and cuDNN's
+   f32, in bf16 and with bf16 projections and f32 compute (the backward
+   recomputes the gates from the rounded h stream first, as the TPU
+   kernel does: ``bilstm_v1_gates``); P1's two variants (``l2``, ``cluster``) and cuDNN's
    LSTM against P1's plain version at (M, N) = (96, 2) and (256, 4),
    T=640;
 4. serving slice: a seeded random full-width checkpoint of that model,
@@ -203,6 +205,32 @@ its ranks itself.) Phases, each printing JSON lines:
    CLI's texts). ``tools/run_milestones.py`` is not run here (its
    milestone 1 trains 40 epochs): its CPU test covers it.
 
+Two phases run only when asked for (``--only``), each a chip call of its
+own:
+
+13. ``configs/ls100_shape.yaml`` (the LibriSpeech-100h dress rehearsal:
+   dynamic batches 148 / 74 / 49 / 32 at the 4 / 8 / 12 / 18.5 s buckets,
+   speed perturbation, float32 transfer): the disk free, its corpus
+   rendered with its header's flags and cut to LS_SHAPE_TRAIN +
+   LS_SHAPE_DEV utterances, ``tools/compute_cmvn.py``, LS_SHAPE_EPOCHS
+   epoch through the train CLI (phase 6's launch counts); each bucket's
+   B, T, T', L and K1's and K4's cluster plans at that B, a step timed;
+   at the 4 s bucket's batch (B = 148) K1 at every layer, K2/K3 and K4
+   loc against their plain versions at phase 3's tolerances and a train
+   step against the plain one at phase 7's;
+14a-14d. one config each (``english_flagship``, ``milestone5_beam``,
+   ``english_m5_bpe``, ``flagship_bf16``) trained as shipped to
+   convergence (every epoch, the dev evaluation picking best.pt; ``--set
+   train.seed=N`` the only override, for a second seed), with phase 6's
+   launch checks; best.pt decoded over the 192 dev utterances by the
+   config's beam; the records held to the TPU run's record of the same
+   utterances under ``docs/evidence/`` (refs equal 192/192, else the
+   comparison is void and the phase fails): WER and CER with 95%
+   bootstrap intervals and the paired difference port - TPU with its
+   interval and p(diff >= 0) (``tools/convergence.py`` over the port's
+   ``tools/wer_ci.py``: 10,000 resamples, seed 0); the records printed a
+   line each and written to ``build/chip_smoke/``.
+
 Then the kernels line (each kernel's launches on the main path, error,
 time, plain time, bound and library time; also each row's launches in
 vgg_blstm's epoch, in the dropout and stacked-decoder runs and on phase
@@ -211,7 +239,8 @@ K2's, K3's and K4 loc's numbers at ls100's largest bucket) and, last,
 ``{"ok": true, "device": {...}}``. Any
 failed check exits non-zero before the last line. Artifacts go to
 ``build/chip_smoke/``. ``python3 chip_smoke.py --only 6c,6d,11,12`` runs
-the build and those phases alone, reports every failed check and prints
+the build and those phases alone (``--only 13``, ``--only 14a [--set
+train.seed=1]``: the phases above), reports every failed check and prints
 neither the kernels line nor the last line.
 """
 
@@ -403,6 +432,25 @@ LS100_PLAIN_RUNS = 2  # the plain versions at the largest bucket take seconds
 TOL_CMVN = 1e-4
 # plot_attention's rows: softmax weights summed in f32.
 TOL_ATT_ROW = 1e-5
+# Phase 13: ls100_shape.yaml (the LibriSpeech-100h dress rehearsal: dynamic
+# batches 148 / 74 / 49 / 32 at its 4 / 8 / 12 / 18.5 s buckets, speed
+# perturbation, float32 transfer) from a corpus rendered with its header's
+# flags, cut from 5,000 train + 512 dev utterances to LS_SHAPE_TRAIN +
+# LS_SHAPE_DEV (every bucket keeps a batch: 1, 2, 7 and 17 in epoch 0) and
+# from 8 epochs to LS_SHAPE_EPOCHS.
+LS_SHAPE_CONFIG = os.path.join(REPO, "configs", "ls100_shape.yaml")
+LS_SHAPE_RENDER = {"text_mode": "english", "durations": "librispeech",
+                   "jitter": 0.04, "noise": 0.05}
+LS_SHAPE_TRAIN, LS_SHAPE_DEV, LS_SHAPE_EPOCHS = 1000, 4, 1
+LS_SHAPE_BYTES = 400e3  # an upper bound on one rendered FLAC file
+# Phase 14: each config trained as shipped to convergence and its best
+# checkpoint's dev decode held to the TPU run's record of the same 192
+# utterances (tools/convergence.py; one id a chip call): id -> (config,
+# the TPU record under docs/evidence/).
+CONVERGENCE = {"14a": ("english_flagship", "english_clean_flagship_dev192"),
+               "14b": ("milestone5_beam", "m5_beam_dev192"),
+               "14c": ("english_m5_bpe", "english_clean_bpe_beam_dev192"),
+               "14d": ("flagship_bf16", "flagship_loc_dev192")}
 
 
 def emit(obj) -> None:
@@ -621,10 +669,12 @@ T_START = time.perf_counter()
 main_only = False  # --only: a failed check is reported and the run goes on
 
 
-def main(only=()) -> None:
+def main(only=(), overrides=()) -> None:
     """The phases in order; ``only`` (phase names "6c", "6d", "11",
-    "12"): the device, the build and those phases alone, with no kernels
-    line and no last line (a quicker run while a phase is written)."""
+    "12", "13", "14a".."14d"): the device, the build and those phases
+    alone, with no kernels line and no last line (a quicker run while a
+    phase is written; phase 14's runs, which take a chip call each);
+    ``overrides`` (``--set``), phase 14's training overrides."""
     import torch
 
     # 1. device
@@ -678,9 +728,12 @@ def main(only=()) -> None:
         global main_only
         main_only = True
         phases = {"6c": training_options, "6d": vgg_slice, "11": lm_phase,
-                  "12": ls100_phase}
+                  "12": ls100_phase, "13": ls_shape_phase}
         for name in only:
-            phases[name](torch, dev, card)
+            if name in CONVERGENCE:
+                convergence_phase(torch, dev, card, name, overrides)
+            else:
+                phases[name](torch, dev, card)
         emit({"phases": list(only), "failed": FAILED,
               "seconds": round(time.perf_counter() - T_START, 1)})
         if torch.distributed.is_initialized():
@@ -1157,6 +1210,17 @@ def main(only=()) -> None:
         row["device_ms"], row["frontend_route"] = fe_detail[name]
         row["dft_bound_ms"] = bounds["frontend_dft"][0]
         row["fft_launches"] = launches[f"{name}_fft"]
+    # K7's other pairing: bf16 streams with f32 compute (its backward
+    # recomputes the gates), at the same shape
+    for d in ("fwd", "bwd"):
+        row = next(r for r in rows if r["name"] == f"bilstm_v1_{d}")
+        k_ms, p_ms = train_ms["bilstm_v1_bf16_f32"][d]
+        row["bf16_streams_f32_compute"] = {
+            "max_abs_err": errors["bilstm_v1_bf16_f32"][f"bilstm_v1_{d}"],
+            "ms": k_ms, "plain_ms": p_ms,
+            "note": "the backward's ms include the gate recompute"
+                    if d == "bwd" else "the forward as in bf16 compute, "
+                    "with its product in f32"}
     emit({"kernels": rows, "train_step": step_errs,
           "train_step_loc": loc_step_errs,
           "seconds": round(time.perf_counter() - T_START, 1)})
@@ -1395,10 +1459,12 @@ def check_decoder_kernels(torch, config, dev, kind="dot", cases=None):
         bwd = {k: rel_err(gk[k], gp[k]) for k in gp}
         finite = bool(torch.isfinite(logits).all()) and all(
             bool(torch.isfinite(v).all()) for v in gk.values())
+        sec = config.data.bucket_bounds_sec[bucket_batch(torch, config)[0]
+                                            .bucket]
         emit({"phase": "kernel_check", "kernel": "las_decoder_fwd+bwd",
               "att_type": kind, "B": B, "L": L, "T": T,
               "longest_label": longest, "shape": "bench.py" if bench
-              else f"{config.data.bucket_bounds_sec[-1]} s bucket",
+              else f"{sec} s bucket",
               "compute_dtype": cd_name, "coin_p": coin_p,
               "rows_tokens_agree": share, "fwd_rel_err": fwd,
               "bwd_rel_err": bwd, "tol_rel": tol, "finite": finite,
@@ -1562,37 +1628,49 @@ def check_frontend_kernels(torch, m2_config, config, dev):
     return errs
 
 
-def v1_case(torch, config, shape, dev, cd_name):
+# K7's (stream dtype, compute dtype) pairs: the reference's bilstm_pallas
+# takes all three; bf16 streams with f32 compute recompute the gates in
+# the backward (ops/bilstm.py::_recompute_gates).
+V1_PAIRS = (("float32", "float32"), ("bfloat16", "bfloat16"),
+            ("bfloat16", "float32"))
+
+
+def v1_case(torch, config, shape, dev, cd_name, stream_name=None):
     """K7's inputs at one layer shape of ``config``: the projections of
     layer_inputs (x . w_x + b_x, split by direction) in the stream dtype
-    ``cd_name``, lens, W_h, and a seeded cotangent."""
+    ``stream_name`` (by default ``cd_name``), lens, W_h, a seeded cotangent
+    in that dtype, and the compute dtype ``cd_name``."""
     layer, T, D = shape
     H, B = config.model.enc_hidden, config.data.batch_size
     x, lens, w_x, b_x, w_hf, w_hb = layer_inputs(torch, B, T, D, H, layer, dev)
-    cd = getattr(torch, cd_name)
+    sd = getattr(torch, stream_name or cd_name)
     xg = torch.matmul(x, w_x) + b_x
-    xg_f = xg[..., :4 * H].contiguous().to(cd)
-    xg_b = xg[..., 4 * H:].contiguous().to(cd)
-    dy = layer_cotangent(torch, B, T, H, layer, dev).to(cd)
-    return (xg_f, xg_b, lens, w_hf, w_hb), dy, cd
+    xg_f = xg[..., :4 * H].contiguous().to(sd)
+    xg_b = xg[..., 4 * H:].contiguous().to(sd)
+    dy = layer_cotangent(torch, B, T, H, layer, dev).to(sd)
+    return (xg_f, xg_b, lens, w_hf, w_hb), dy, getattr(torch, cd_name)
 
 
 def check_v1_kernels(torch, config, shape, dev):
     """Phase 3, K7-fwd (h and c streams) and K7-bwd (d(xg) of both
     directions, dW_h of both) against their plain versions at the
-    flagship's layer-0 shape, f32 and bf16. Returns the bf16 max abs
-    errors."""
+    flagship's layer-0 shape in each of V1_PAIRS (bf16 streams with f32
+    compute: one gate recompute a backward call). Returns the bf16 max abs
+    errors, and the last pairing's under "bilstm_v1_bf16_f32"."""
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
 
     errs = {}
-    for cd_name in ("float32", "bfloat16"):
-        args, dy, cd = v1_case(torch, config, shape, dev, cd_name)
+    for sd_name, cd_name in V1_PAIRS:
+        args, dy, cd = v1_case(torch, config, shape, dev, cd_name, sd_name)
+        sd = args[0].dtype
         y, c, acts = K.bilstm_pallas_kernel(*args, cd, with_cell=True)
         yp, cp = K.bilstm_pallas_plain(*args, cd, with_cell=True)
+        n_gate = K.bilstm_pallas_bwd_kernel.gate_launches
         got = K.bilstm_pallas_bwd_kernel(args[2], args[3], args[4], y, c, acts,
-                                         dy, cd, cd)
+                                         dy, cd, sd, args[:2])
         ref = K.bilstm_pallas_bwd_plain(*args, yp, cp, dy, cd)
         torch.cuda.synchronize()
+        gates = K.bilstm_pallas_bwd_kernel.gate_launches - n_gate
         outs = {"h": (y, yp), "c": (c, cp)}
         outs.update(zip(("dxg_f", "dxg_b", "dw_hf", "dw_hb"), zip(got, ref)))
         rel = {k: rel_err(a.float(), b.float()) for k, (a, b) in outs.items()}
@@ -1601,15 +1679,23 @@ def check_v1_kernels(torch, config, shape, dev):
         finite = all(bool(torch.isfinite(a).all()) for a, _ in outs.values())
         emit({"phase": "kernel_check", "kernel": "bilstm_v1_fwd+bwd",
               "B": int(y.shape[0]), "T": int(y.shape[1]),
-              "H": int(y.shape[2] // 2), "dtype": cd_name, "rel_err": rel,
-              "max_abs_err": absd, "tol_rel": TOL_V1[cd_name],
+              "H": int(y.shape[2] // 2), "dtype": sd_name,
+              "compute_dtype": cd_name, "rel_err": rel, "max_abs_err": absd,
+              "tol_rel": TOL_V1[sd_name], "gate_recomputes": gates,
               "finite": finite})
-        check(finite and max(rel.values()) <= TOL_V1[cd_name],
-              f"bilstm_v1 disagrees with its plain version ({cd_name}): {rel}")
-        if cd_name == "bfloat16":
-            errs["bilstm_v1_fwd"] = absd["h"]
-            errs["bilstm_v1_bwd"] = max(absd[k] for k in
-                                        ("dxg_f", "dxg_b", "dw_hf", "dw_hb"))
+        check(finite and max(rel.values()) <= TOL_V1[sd_name],
+              f"bilstm_v1 disagrees with its plain version ({sd_name} "
+              f"streams, {cd_name} compute): {rel}")
+        check(gates == (sd_name != cd_name),
+              f"bilstm_v1_bwd ({sd_name} streams, {cd_name} compute) "
+              f"recomputed the gates {gates} times")
+        err = {"bilstm_v1_fwd": absd["h"],
+               "bilstm_v1_bwd": max(absd[k] for k in
+                                    ("dxg_f", "dxg_b", "dw_hf", "dw_hb"))}
+        if (sd_name, cd_name) == ("bfloat16", "bfloat16"):
+            errs.update(err)
+        elif sd_name != cd_name:
+            errs["bilstm_v1_bf16_f32"] = dict(err, rel_err=rel)
     return errs
 
 
@@ -2156,6 +2242,54 @@ def _run_cli(torch, path, name, extra, record=None, resume=False):
     return trainer, lines
 
 
+def expected_launches(config, steps: int, eval_batches: int,
+                       use_dec: bool) -> dict:
+    """The launch counts of a training run of ``config`` through the train
+    CLI: ``steps`` steps and ``eval_batches`` dev batches (greedy or beam:
+    one encoder pass each). K2 and K3 where ``loss.mtl_alpha`` > 0, K4 in
+    the config's attention mode on every step of a model with a decoder
+    (``use_dec``; a stacked decoder runs plain torch, never K4), every K1
+    and every K4-fwd and K4-bwd launch through its cluster kernel, every
+    bf16 K1-fwd launch through the wgmma projection, the frontend kernel
+    of ``frontend.impl`` on every step and dev batch through
+    ``fft_kernel``."""
+    from gluon_e2e_asr_tpu_torch.ops import bilstm
+
+    layers = config.model.enc_layers
+    kind = config.model.att_type if use_dec else None
+    dec = steps if use_dec and config.model.dec_layers == 1 else 0
+    ctc = steps if config.loss.mtl_alpha > 0 else 0
+    # every K1-fwd and K1-bwd launch through its cluster recurrence
+    # (H <= 320 in every config of the repo)
+    cluster = config.model.enc_hidden <= bilstm.CLUSTER_MAX_HIDDEN
+    fwd = layers * (steps + eval_batches)
+    bf16 = config.model.compute_dtype == "bfloat16"
+    expect = {"bilstm_fwd": fwd, "bilstm_fwd_cluster": fwd * cluster,
+              "bilstm_fwd_projection": fwd * bf16,
+              "bilstm_bwd": layers * steps,
+              "bilstm_bwd_cluster": layers * steps * cluster,
+              "bilstm_bwd_products": layers * steps,
+              "bilstm_v1_fwd_cluster": 0, "bilstm_v1_bwd_cluster": 0,
+              "ctc_alpha": ctc, "ctc_beta_post": ctc,
+              "las_decoder_fwd": dec, "las_decoder_bwd": dec,
+              # every K4-fwd and K4-bwd launch through its cluster kernel
+              # (every bucket's shape of the configs' widths routes there)
+              "las_decoder_fwd_cluster": dec,
+              "las_decoder_bwd_cluster": dec}
+    for k in ("las_decoder_fwd", "las_decoder_bwd"):
+        for m in ATT_MODES:
+            expect[f"{k}_{m}"] = dec if m == kind else 0
+    fe = steps + eval_batches
+    impl = config.frontend.impl
+    # every K5 and K6 launch through fft_kernel (every config's buckets)
+    expect.update(frontend_k5=fe if impl == "pallas" else 0,
+                  frontend_k6=fe if impl == "pallas_regrid" else 0,
+                  frontend_k5_fft=fe if impl == "pallas" else 0,
+                  frontend_k6_fft=fe if impl == "pallas_regrid" else 0,
+                  bilstm_v1_fwd=0, bilstm_v1_bwd=0)
+    return expect
+
+
 def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
                 falls=True, shipped=False, losses_out=None):
     """Phase 6: the training CLI at full width on the config at ``path``
@@ -2175,7 +2309,6 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     batch. With ``falls``, the loss must fall. ``losses_out``, a list,
     gets each step's loss."""
     from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
-    from gluon_e2e_asr_tpu_torch.ops import bilstm
 
     extra = list(extra)
     if ctc_only:
@@ -2201,40 +2334,11 @@ def train_slice(torch, path, name, steps=None, extra=(), ctc_only=False,
     losses = [r["loss"] for r in train_lines]
     epochs = [r for r in lines if r["event"] == "epoch"]
     dev_batches = len(list(trainer.dev_loader.sampler.epoch_batches(0)))
-    layers = config.model.enc_layers
     use_dec = trainer.model.use_decoder
     kind = config.model.att_type if use_dec else None
-    # a stacked decoder (dec_layers > 1) runs plain torch, never K4
-    dec = steps if use_dec and config.model.dec_layers == 1 else 0
-    ctc = steps if config.loss.mtl_alpha > 0 else 0
-    # every K1-fwd and K1-bwd launch through its cluster recurrence
-    # (H <= 320 in every config of the repo)
-    cluster = config.model.enc_hidden <= bilstm.CLUSTER_MAX_HIDDEN
-    fwd = layers * (steps + dev_batches * len(epochs))
-    bf16 = config.model.compute_dtype == "bfloat16"
-    expect = {"bilstm_fwd": fwd, "bilstm_fwd_cluster": fwd * cluster,
-              "bilstm_fwd_projection": fwd * bf16,
-              "bilstm_bwd": layers * steps,
-              "bilstm_bwd_cluster": layers * steps * cluster,
-              "bilstm_bwd_products": layers * steps,
-              "bilstm_v1_fwd_cluster": 0, "bilstm_v1_bwd_cluster": 0,
-              "ctc_alpha": ctc, "ctc_beta_post": ctc,
-              "las_decoder_fwd": dec, "las_decoder_bwd": dec,
-              # every K4-fwd and K4-bwd launch through its cluster kernel
-              # (every bucket's shape of the configs' widths routes there)
-              "las_decoder_fwd_cluster": dec,
-              "las_decoder_bwd_cluster": dec}
-    for k in ("las_decoder_fwd", "las_decoder_bwd"):
-        for m in ATT_MODES:
-            expect[f"{k}_{m}"] = dec if m == kind else 0
-    fe = steps + dev_batches * len(epochs)
+    expect = expected_launches(config, steps, dev_batches * len(epochs),
+                               use_dec)
     impl = config.frontend.impl
-    # every K5 and K6 launch through fft_kernel (every config's buckets)
-    expect.update(frontend_k5=fe if impl == "pallas" else 0,
-                  frontend_k6=fe if impl == "pallas_regrid" else 0,
-                  frontend_k5_fft=fe if impl == "pallas" else 0,
-                  frontend_k6_fft=fe if impl == "pallas_regrid" else 0,
-                  bilstm_v1_fwd=0, bilstm_v1_bwd=0)
     ckpt = os.path.join(workdir, config.train.ckpt_dir, f"ckpt_{steps}.pt")
     k = min(5, max(1, steps // 2))
     first = float(np.mean(step_losses[:k]))
@@ -3115,7 +3219,8 @@ def train_reference(torch, trainer, dev):
         state = TrainState(step=trainer.state.step,
                            opt_state=copy.deepcopy(trainer.state.opt_state),
                            generator=torch.Generator().manual_seed(SEED))
-        step = make_train_step(model, config, trainer.optimizer)
+        step = make_train_step(model, config, trainer.optimizer,
+                               trainer.cmvn_stats)
         with plain_route() if route == "plain" else contextlib.nullcontext():
             m = step(state, batch)
         torch.cuda.synchronize()
@@ -3555,14 +3660,17 @@ def frontend_timing(torch, m2_trainer, config, dev, card):
 
 
 def v1_timing(torch, config, shape, dev, card):
-    """Phase 8 for K7 at the flagship's layer-0 shape, bf16 and f32: the
-    forward's training form and the backward against their plain
-    versions. Returns the bf16 (kernel ms, plain ms) of each."""
+    """Phase 8 for K7 at the flagship's layer-0 shape in each of V1_PAIRS:
+    the forward's training form and the backward against their plain
+    versions. Returns the bf16 (kernel ms, plain ms) of each, and under
+    "bilstm_v1_bf16_f32" those of bf16 streams with f32 compute (the
+    backward's with its gate recompute)."""
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
 
     out = {}
-    for cd_name in ("float32", "bfloat16"):
-        args, dy, cd = v1_case(torch, config, shape, dev, cd_name)
+    for sd_name, cd_name in V1_PAIRS:
+        args, dy, cd = v1_case(torch, config, shape, dev, cd_name, sd_name)
+        sd = args[0].dtype
         y, c, acts = K.bilstm_pallas_kernel(*args, cd, with_cell=True)
         yp, cp = K.bilstm_pallas_plain(*args, cd, with_cell=True)
         f = (time_ms(torch, lambda: K.bilstm_pallas_kernel(*args, cd,
@@ -3571,17 +3679,19 @@ def v1_timing(torch, config, shape, dev, card):
                                                           with_cell=True),
                      n=5, warm=1))
         b = (time_ms(torch, lambda: K.bilstm_pallas_bwd_kernel(
-                args[2], args[3], args[4], y, c, acts, dy, cd, cd)),
+                args[2], args[3], args[4], y, c, acts, dy, cd, sd, args[:2])),
              time_ms(torch, lambda: K.bilstm_pallas_bwd_plain(
                 *args, yp, cp, dy, cd), n=5, warm=1))
         for d, (k_ms, p_ms) in (("fwd", f), ("bwd", b)):
             emit({"phase": "timing", "what": f"bilstm_v1_{d}",
                   "B": int(y.shape[0]), "T": int(y.shape[1]),
-                  "H": int(y.shape[2] // 2), "dtype": cd_name,
-                  "kernel_ms": k_ms, "plain_ms": p_ms, "plain_runs": 5,
-                  "card": card})
-            if cd_name == "bfloat16":
+                  "H": int(y.shape[2] // 2), "dtype": sd_name,
+                  "compute_dtype": cd_name, "kernel_ms": k_ms,
+                  "plain_ms": p_ms, "plain_runs": 5, "card": card})
+            if (sd_name, cd_name) == ("bfloat16", "bfloat16"):
                 out[f"bilstm_v1_{d}"] = (k_ms, p_ms)
+            elif sd_name != cd_name:
+                out.setdefault("bilstm_v1_bf16_f32", {})[d] = (k_ms, p_ms)
         del y, c, acts, yp, cp
     return out
 
@@ -4472,6 +4582,318 @@ def ls100_phase(torch, dev, card):
     return counts, at_shape
 
 
+def batch_kernel_checks(torch, config, trainer, b, name, dev):
+    """One training batch ``b`` of ``trainer``'s run (its config
+    ``config``) against the plain versions: K1-fwd and K1-bwd at each
+    layer's shape (layer 0 on the batch's features, the others on seeded
+    inputs of every row live), K2/K3 on the batch's lattice and
+    K4-fwd/K4-bwd in the config's attention mode (coins off and at the
+    config's rate) at phase 3's tolerances, in the config's compute dtype;
+    then one train step of the trained model through the kernels against
+    it through the plain versions at phase 7's. Returns (errors, the
+    step's, (B, T, T'))."""
+    from gluon_e2e_asr_tpu_torch.frontend.features import frontend_apply, num_frames
+
+    mc, fc = config.model, config.frontend
+    lens = num_frames(torch.from_numpy(b.audio_len), fc.win_length,
+                      fc.hop_length)
+    T = num_frames(b.audio.shape[1], fc.win_length, fc.hop_length)
+    for f in mc.enc_subsample:
+        lens, T = (lens + int(f) - 1) // int(f), -(-T // int(f))
+    for c in (config, trainer.config):
+        _BATCH[c.fingerprint()] = (b, trainer.tokenizer, lens.int(), T)
+    with torch.no_grad():
+        feats, flen = frontend_apply(fc, torch.from_numpy(b.audio).to(dev),
+                                     torch.from_numpy(b.audio_len).to(dev),
+                                     cmvn_stats=trainer.cmvn_stats)
+    B, T0, _ = feats.shape
+    H, cd = mc.enc_hidden, mc.compute_dtype
+    errs = {}
+    for layer, Tl, D in layer_shapes(config, T0):
+        args = layer_inputs(torch, B, Tl, D, H, layer, dev)
+        if layer == 0:
+            args = (feats.contiguous(), flen.int(), *args[2:])
+        dy = layer_cotangent(torch, B, Tl, H, layer, dev)
+        errs[f"k1_layer{layer}"] = check_k1_case(torch, name, layer, args, dy,
+                                                 cd)[0]
+    if config.loss.mtl_alpha > 0:
+        errs["ctc"] = check_ctc_case(torch, name,
+                                     real_ctc_batch(torch, config, dev))
+    if trainer.model.use_decoder and mc.dec_layers == 1:
+        errs["k4"] = check_decoder_kernels(
+            torch, config, dev, mc.att_type,
+            cases=[(cd, 0.0, False), (cd, config.loss.scheduled_sampling,
+                                      False)])
+    return errs, train_reference(torch, trainer, dev), (B, T0, T)
+
+
+def ls_shape_phase(torch, dev, card):
+    """Phase 13 (``--only 13``): configs/ls100_shape.yaml on the card. The
+    disk free where the corpus goes; the corpus rendered by the port's
+    ``tools/make_synth_corpus.py`` with the config's header flags, cut to
+    LS_SHAPE_TRAIN + LS_SHAPE_DEV utterances; ``tools/compute_cmvn.py``;
+    LS_SHAPE_EPOCHS epoch through the train CLI as shipped but for the
+    corpus, the stats file and the epoch count (dynamic batches, speed
+    perturbation, SortaGrad; phase 6's launch counts: every K1, K2, K3
+    and K4 launch through its cluster or warp kernel, no plain call). For
+    each bucket the B, T (frames), T' (encoder frames) and L (decoder
+    steps) it stepped at, K1's cluster plan in each direction and K4's at
+    that B, and a step timed. At the 4 s bucket's batch (B = 148, rows
+    past the bucket's utterances padding): K1-fwd and K1-bwd at each
+    layer's shape (layer 0 on the batch's features, the others on seeded
+    inputs of every row live), K2/K3 and K4-fwd/K4-bwd loc (coins off and
+    on) against their plain versions at phase 3's tolerances, and one
+    train step through the kernels against it through the plain versions
+    at phase 7's. Returns {path: launches}."""
+    from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
+    from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as LD
+    from gluon_e2e_asr_tpu_torch.tools import compute_cmvn
+    from gluon_e2e_asr_tpu_torch.tools import make_synth_corpus as MS
+    from gluon_e2e_asr_tpu_torch.training import trainer as TR
+    from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
+
+    t_phase = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    corpus = os.path.join(OUT_DIR, "ls_shape_corpus")
+    shutil.rmtree(corpus, ignore_errors=True)
+    free = shutil.disk_usage(OUT_DIR).free
+    need = (LS_SHAPE_TRAIN + LS_SHAPE_DEV) * LS_SHAPE_BYTES
+    emit({"phase": "ls_shape_disk", "path": os.path.relpath(OUT_DIR, REPO),
+          "free_bytes": free, "render_bound_bytes": need})
+    check(free > 4 * need, f"{free} bytes free for a render of up to {need}")
+    if FAILED:
+        return {}
+    flags = [f for k, v in LS_SHAPE_RENDER.items()
+             for f in (f"--{k.replace('_', '-')}", str(v))]
+    t0 = time.perf_counter()
+    made = MS.main(["--out", corpus, "--num-train", str(LS_SHAPE_TRAIN),
+                    "--num-dev", str(LS_SHAPE_DEV), *flags])
+    render_s = time.perf_counter() - t0
+    sets = ["--set", f"data.data_dir={corpus}"]
+    stats = os.path.join(OUT_DIR, "cmvn_ls_shape.npz")
+    t0 = time.perf_counter()
+    compute_cmvn.main(["--config", LS_SHAPE_CONFIG, "--output", stats, *sets,
+                       "--device", "cuda"])
+    cmvn_s = time.perf_counter() - t0
+    sets += ["--set", f"frontend.cmvn_stats_path={stats}"]
+    config = load_config(LS_SHAPE_CONFIG)
+    apply_overrides(config, sets[1::2])
+    dc, mc = config.data, config.model
+    emit({"phase": "ls_shape_render", "flags": flags, "train": LS_SHAPE_TRAIN,
+          "dev": LS_SHAPE_DEV, "epochs": LS_SHAPE_EPOCHS,
+          "cuts": {"train": [5000, LS_SHAPE_TRAIN], "dev": [512, LS_SHAPE_DEV],
+                   "epochs": [config.train.num_epochs, LS_SHAPE_EPOCHS]},
+          "hours": made["hours"], "render_s": render_s, "cmvn_s": cmvn_s,
+          "free_bytes_after": shutil.disk_usage(OUT_DIR).free, "card": card})
+
+    # one epoch through the train CLI, each step's batch shape recorded
+    shapes = []
+    make_step = TR.make_train_step
+
+    def recorded(*a, **k):
+        fn = make_step(*a, **k)
+
+        def step(state, batch):
+            shapes.append((tuple(batch["audio"].shape),
+                           tuple(batch["labels"].shape)))
+            return fn(state, batch)
+        return step
+
+    steps = epoch_steps(config, LS_SHAPE_EPOCHS)
+    TR.make_train_step = recorded
+    try:
+        trainer, counts = train_slice(
+            torch, LS_SHAPE_CONFIG, "ls_shape", steps,
+            extra=[*sets, "--set", f"train.num_epochs={LS_SHAPE_EPOCHS}"],
+            shipped=True, falls=False)
+    finally:
+        TR.make_train_step = make_step
+    check(len(shapes) == steps, f"{len(shapes)} steps recorded of {steps}")
+    specs = trainer.sampler.specs
+    by_samples = {s.max_samples: i for i, s in enumerate(specs)}
+    fc = config.frontend
+    step = stepper(torch, trainer, dev)
+    buckets = {}
+    for (B, n), (_, L) in shapes:
+        i = by_samples[n]
+        if i in buckets:
+            buckets[i]["steps"] += 1
+            continue
+        T = num_frames(n, fc.win_length, fc.hop_length)
+        Tp = num_frames_of(config, n / dc.sample_rate)
+        dims = (Tp, 2 * mc.enc_hidden, mc.att_dim, mc.dec_embed,
+                mc.dec_hidden, trainer.tokenizer.vocab_size,
+                mc.loc_conv_channels, mc.loc_conv_width)
+        bf = torch.bfloat16
+        buckets[i] = {
+            "seconds": dc.bucket_bounds_sec[i], "B": B, "T": T, "T_enc": Tp,
+            "L": L + 1, "steps": 1,
+            "k1_fwd_plan": K.cluster_plan("fwd", B, mc.enc_hidden, bf, dev),
+            "k1_bwd_plan": K.cluster_plan("bwd", B, mc.enc_hidden, bf, dev),
+            "k4_plan": {"fwd_route": LD.fwd_route("loc", bf, *dims),
+                        "bwd_route": LD.bwd_route("loc", bf, *dims),
+                        "clusters": -(-B // LD.CLUSTER_ROWS),
+                        "ctas": -(-B // LD.CLUSTER_ROWS) * LD.CLUSTER_ROWS}}
+    for bucket, idxs in trainer.sampler.epoch_batches(0):
+        if "step_ms" in buckets[bucket]:
+            continue
+        b = trainer.loader.make_batch(bucket, idxs, epoch=0)
+        batch = batch_to_device(b, dev)
+        buckets[bucket].update(real=b.num_real, step_ms=time_ms(
+            torch, lambda: step(batch), n=3, warm=1))
+    del step
+    for i in sorted(buckets):
+        emit({"phase": "ls_shape_bucket", "bucket": i, **buckets[i],
+              "card": card})
+    check(sorted(buckets) == list(range(len(specs)))
+          and all(buckets[i]["B"] == specs[i].batch_size for i in buckets),
+          f"the epoch's buckets and batch sizes: {buckets}")
+    check(all(r["k4_plan"]["fwd_route"] == r["k4_plan"]["bwd_route"]
+              == "cluster" for r in buckets.values()),
+          "K4 loc left its cluster kernels at an ls100_shape bucket")
+
+    # the 4 s bucket's batch (B = 148) against the plain versions
+    bucket, idxs = next(x for x in trainer.sampler.epoch_batches(0)
+                        if x[0] == 0)
+    b = trainer.loader.make_batch(bucket, idxs, epoch=0)
+    name = f"ls100_shape {dc.bucket_bounds_sec[0]} s, B={b.audio.shape[0]}"
+    errs, step_errs, (B, T0, T) = batch_kernel_checks(torch, config, trainer,
+                                                      b, name, dev)
+    emit({"phase": "ls_shape_largest_b", "bucket": 0, "B": B,
+          "real": b.num_real, "T": T0, "T_enc": T, "errors": errs,
+          "train_step": step_errs, "card": card})
+    emit({"phase": "ls_shape_done",
+          "seconds": round(time.perf_counter() - t_phase, 1)})
+    del trainer
+    return {"ls_shape_train": counts}
+
+
+def convergence_phase(torch, dev, card, pid, overrides=()):
+    """Phase 14 (``--only 14a`` .. ``14d``, one config an id): the config
+    of CONVERGENCE[pid] through the train CLI as shipped (the ``--set``
+    ``overrides`` alone, for a second seed), every epoch with its dev
+    evaluation picking best.pt: the launch counts of phase 6 (every K1, K2,
+    K3 and K4 launch through its cluster or warp kernel, every bf16 K1-fwd
+    launch through the wgmma projection), no plain call, a finite loss,
+    one line an epoch (steps, mean loss, dev WER, seconds); best.pt
+    through the decode CLI by the config's decode block over all 192 dev
+    utterances (K1-fwd's launches counted around it); the records' refs
+    equal to the TPU record's, 192/192 (else the comparison is void and the
+    phase fails), then the port's WER and CER with 95% bootstrap intervals
+    and the paired difference port - TPU with its interval and p(diff >=
+    0) (tools/wer_ci.py, 10,000 resamples, seed 0, paired by utt_id). The
+    records go to OUT_DIR/<config>_h100_dev192[_seed<n>].jsonl and, one a
+    line, to stdout."""
+    from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
+    from gluon_e2e_asr_tpu_torch.tools import convergence as CV
+
+    t_phase = time.perf_counter()
+    cfg_name, rec_name = CONVERGENCE[pid]
+    path = os.path.join(REPO, "configs", f"{cfg_name}.yaml")
+    tpu = os.path.join(REPO, "docs", "evidence", f"{rec_name}.jsonl")
+    extra = [a for o in overrides for a in ("--set", o)]
+    config = load_config(path)
+    apply_overrides(config, list(overrides))
+    refs = CV.dev_refs(config)
+    tpu_records = CV.read_records(tpu)
+    n_match = CV.refs_match(refs, tpu_records)
+    emit({"phase": "convergence_refs", "id": pid,
+          "config": os.path.relpath(path, REPO),
+          "tpu_record": os.path.relpath(tpu, REPO), "dev_utts": len(refs),
+          "refs_equal": n_match, "overrides": list(overrides)})
+    check(n_match == len(refs) == len(tpu_records) == 192,
+          f"{pid}: {n_match} of {len(tpu_records)} TPU refs equal the dev "
+          f"set's {len(refs)}: the comparison is void")
+    if FAILED:
+        return
+    seed = config.train.seed
+    name = f"{cfg_name}_h100_dev192" + (f"_seed{seed}" if seed else "")
+    epochs = config.train.num_epochs
+    steps = epoch_steps(config, epochs)
+    record = []
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, lines = _run_cli(torch, path, f"conv_{pid}", extra, record)
+    train_s = time.perf_counter() - t0
+    launches, plain = read_counts()
+    losses = [loss for loss, _ in record]
+    ends = [r for r in lines if r["event"] == "epoch"]
+    dev_batches = len(list(trainer.dev_loader.sampler.epoch_batches(0)))
+    expect = expected_launches(config, steps, dev_batches * len(ends),
+                               trainer.model.use_decoder)
+    first = 0
+    for r in ends:
+        emit({"phase": "convergence_epoch", "id": pid, "epoch": r["epoch"],
+              "steps": r["step"], "loss": float(np.mean(losses[first:r["step"]])),
+              "dev_wer": r["dev_wer"], "dev_cer": r["dev_cer"],
+              "seconds": r["epoch_time_s"]})
+        first = r["step"]
+    ckpt, best_epoch = CV.best_checkpoint(trainer)
+    emit({"phase": "convergence_train", "id": pid, "epochs": len(ends),
+          "epochs_shipped": epochs, "steps": trainer.state.step,
+          "expected_steps": steps, "train_s": round(train_s, 1),
+          "launches": launches, "expected_launches": expect,
+          "plain_calls": plain, "best_epoch": best_epoch,
+          "best_dev_wer": trainer.best_wer,
+          "world_size": trainer.world.size, "card": card})
+    check(trainer.state.step == steps == len(losses) and len(ends) == epochs,
+          f"{pid}: {trainer.state.step} steps of {steps}, {len(ends)} epochs "
+          f"of {epochs}")
+    check(launches == expect, f"{pid}: training launches {launches}, "
+                              f"expected {expect}")
+    check(not any(plain.values()), f"{pid}: plain versions ran: {plain}")
+    check(all(np.isfinite(losses)), f"{pid}: a non-finite loss")
+    # the trained model's kernels at the config's own shapes: the first
+    # batch of the longest bucket that has one
+    bucket, idxs = max(trainer.sampler.epoch_batches(0), key=lambda x: x[0])
+    b = trainer.loader.make_batch(bucket, idxs, epoch=0)
+    sec = config.data.bucket_bounds_sec[bucket]
+    errs, step_errs, _ = batch_kernel_checks(torch, config, trainer, b,
+                                             f"{cfg_name} {sec} s", dev)
+    emit({"phase": "convergence_kernels", "id": pid, "bucket": bucket,
+          "B": int(b.audio.shape[0]), "errors": errs, "train_step": step_errs})
+    del trainer
+
+    out = os.path.join(OUT_DIR, f"{name}.jsonl")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = CV.decode_best(path, ckpt, out, overrides, "cuda")
+    decode_s = time.perf_counter() - t0
+    dec_launches, plain = read_counts()
+    records = CV.read_records(out)
+    layers = config.model.enc_layers
+    fwd = layers * (res["num_batches"] + res["warm_passes"])
+    bf16 = config.model.compute_dtype == "bfloat16"
+    check(dec_launches["bilstm_fwd"] == dec_launches["bilstm_fwd_cluster"]
+          == fwd and dec_launches["bilstm_fwd_projection"] == fwd * bf16
+          and not any(plain.values()),
+          f"{pid}: the decode of best.pt launched {dec_launches}, plain "
+          f"{plain}, expected {fwd} K1-fwd launches")
+    n_match = CV.refs_match(refs, records)
+    check(n_match == len(records) == len(refs),
+          f"{pid}: {n_match} of {len(records)} decoded refs equal the dev set")
+    stats = CV.compare(out, tpu)
+    for r in records:
+        emit({"phase": "convergence_record", "id": pid, **r})
+    emit({"phase": "convergence", "id": pid,
+          "config": os.path.relpath(path, REPO),
+          "overrides": list(overrides), "train_seed": seed,
+          "epochs": len(ends),
+          "steps": steps, "best_epoch": best_epoch,
+          "decode": {k: res[k] for k in ("method", "num_utts", "wer", "cer")},
+          "beam": {k: getattr(config.decode, k) for k in (
+              "beam_size", "ctc_weight", "length_norm", "maxlen_ratio",
+              "ctc_score_candidates")},
+          "decode_s": round(decode_s, 1), "k1_fwd_decode_launches": fwd,
+          "tpu_record": os.path.relpath(tpu, REPO),
+          "records": os.path.relpath(out, REPO), **stats,
+          "seconds": round(time.perf_counter() - t_phase, 1), "card": card})
+    check(res["num_utts"] == 192 == stats["utts"],
+          f"{pid}: decoded {res['num_utts']} utterances")
+
+
 def library_timing(torch, config, shapes, dev, card):
     """The one PyTorch call that computes each kernel's function, timed on
     the same inputs beside it and never called by the port: cuDNN's
@@ -4870,6 +5292,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--only"]:
-        main(tuple(sys.argv[2].split(",")))
+        sets = sys.argv[3:]
+        if sets[::2] != ["--set"] * (len(sets) // 2) or len(sets) % 2:
+            fail(f"usage: chip_smoke.py --only <ids> [--set key=value ...], "
+                 f"got {sys.argv[1:]}")
+        main(tuple(sys.argv[2].split(",")), tuple(sets[1::2]))
     else:
         main()

@@ -38,6 +38,12 @@
 //       (B*T) over blocks and add atomically.
 //   (c) db: summed by wgrad_kernel's producers in bf16, by colsum_kernel
 //       in f32.
+//   (d) K7-bwd (bilstm_v1_bwd) with bf16 projections and an f32 compute
+//       dtype only: bilstm_v1_gates first recomputes the gate activations
+//       from the rounded h stream, as the TPU backward kernel does (one
+//       f32 product of gemm.cuh a direction over all frames, the
+//       activations in its epilogue); the forward's, from the unrounded
+//       h, are not those.
 //
 // bwd_cluster_kernel: W_h resident across a cluster of 16 CTAs.
 //   One cluster of kCtas = 16 CTAs per (direction, group of R batch
@@ -623,6 +629,47 @@ struct HPrevT {
   }
 };
 
+// K7-bwd's gates recomputed for bf16 projections with an f32 compute
+// dtype (gate_acts). h_prev of one direction as the A operand of the gate
+// product h_prev . W_h: (row, u) with row = b*T + t reads the direction's
+// h stream (y, rows of ld floats, at its first column) at t-1 (forward
+// direction) or t+1 (backward direction), 0 outside [0, T): HPrevT's
+// operand, not transposed.
+struct HPrev {
+  HPrevT h;
+  static constexpr bool kFirstContig = false;
+  __device__ __forceinline__ float operator()(int row, int u) const {
+    return h(u, row);
+  }
+  __device__ __forceinline__ float4 four(int row, int u) const {
+    return make_float4(h(u, row), h(u + 1, row), h(u + 2, row),
+                       h(u + 3, row));
+  }
+};
+
+// The gate product's epilogue: (row, n) of one direction's pre-activation
+// xg + h_prev . W_h, as the TPU backward kernel forms it
+// (_cell_math: xg in f32 plus the product), its activation (sigmoid,
+// sigmoid of +1 for the forget gate, tanh, sigmoid: gate n / H) into the
+// direction's columns of acts [B*T, 8H], 0 at t >= lens[b], as K1-fwd's
+// training form leaves them.
+struct GateActs {
+  const __nv_bfloat16* xg;  // [B*T, 4H], this direction's projections
+  const int* lens;
+  float* acts;
+  int T, H, dir;
+  __device__ __forceinline__ void operator()(int row, int n, float v) const {
+    const int t = row % T;
+    float a = 0.0f;
+    if (t < lens[row / T]) {
+      const float g = __bfloat162float(xg[(size_t)row * 4 * H + n]) + v;
+      const int q = n / H;
+      a = q == 2 ? tanhf(g) : port::sigmoid(q == 1 ? g + 1.0f : g);
+    }
+    acts[(size_t)row * 8 * H + dir * 4 * H + n] = a;
+  }
+};
+
 // db[n] += sum over a block's rows of dg[row][n].
 __global__ void colsum_kernel(const float* __restrict__ dg,
                               float* __restrict__ db, int M, int N,
@@ -766,9 +813,11 @@ extern "C" int bilstm_bwd_products(const float* x, const int* lens,
 // form, y and cs rounded as the TPU kernel's streams in xg's dtype (the
 // recurrence then reads the rounded c, as _bwd_kernel does). The TPU
 // kernel recomputes the gate activations from xg and the rounded h
-// stream; that recompute is the forward's own product of the same
-// rounded h, so the saved activations are the same values (up to the
-// order of the sums). y holds the h stream as bilstm_bwd_products takes
+// stream. With a bf16 compute dtype that recompute is the forward's own
+// product of the same rounded h, so the saved activations are the same
+// values (up to the order of the sums). With bf16 projections and an f32
+// compute dtype the forward's product took the unrounded h, so the caller
+// first recomputes acts with bilstm_v1_gates. y holds the h stream as bilstm_bwd_products takes
 // it (rows of ldy floats, the backward direction's at column yb); cs,
 // acts and dy as bilstm_bwd_recur takes them. dg [B,T,8H] f32 receives
 // d(xg) of both directions (forward at columns 0..4H); dwhf, dwhb [H,4H]
@@ -790,6 +839,37 @@ extern "C" int bilstm_v1_bwd(const int* lens, const void* wtf,
                          cd_bf16 != 0, st);
 }
 
+// K7-bwd's gate recompute, for bf16 projections with an f32 compute dtype
+// (the reference's _bwd_kernel forms these gates; the forward never did:
+// its product took h unrounded). Per direction one f32 product over all
+// B*T frames on the FMA units (gemm.cuh's gemm_f32_kernel, true f32):
+// h_prev . W_h, h_prev the rounded h stream y [B,T,2H] f32 at t-1
+// (forward) or t+1 (backward), 0 outside [0, T); its epilogue adds the
+// projection (xf, xb [B,T,4H] bf16), takes the activations and writes
+// them into acts [B,T,8H] f32 as bilstm_v1_fwd's training form lays them
+// out (0 at t >= lens[b]), for bilstm_v1_bwd. whf, whb [H,4H] f32 in the
+// caller's layout. Returns cudaGetLastError() after the launches.
+extern "C" int bilstm_v1_gates(const void* xf, const void* xb,
+                               const int* lens, const float* whf,
+                               const float* whb, const float* y, float* acts,
+                               int B, int T, int H, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int M = B * T, N4 = 4 * H, ld = 2 * H;
+  for (int dir = 0; dir < 2; ++dir) {
+    const float* yd = y + dir * H;
+    const float* wh = dir ? whb : whf;
+    const cudaError_t e = gemm::launch<false>(
+        HPrev{HPrevT{yd, T, H, M, dir, ld, gemm::vec_ok(yd, ld)}},
+        gemm::RowMajor{wh, N4, H, N4, gemm::vec_ok(wh, N4)},
+        GateActs{static_cast<const __nv_bfloat16*>(dir ? xb : xf), lens, acts,
+                 T, H, dir},
+        M, N4, H, 1, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
 // The reverse recurrence: dg [B,T,8H] f32 from lens, W_h (wtf/wtb, float
 // when cd_bf16 == 0 and __nv_bfloat16 when cd_bf16 == 1, in the layout of
 // the recurrence kernel that H selects: the header), K1-fwd's c stream cs
@@ -807,6 +887,28 @@ extern "C" int bilstm_bwd_recur(const int* lens, const void* wtf,
   }
   return launch_recurrence(dy, lens, acts, cs, wtf, wtb, dg, B, T, H,
                            cd_bf16 ? 1 : 0, static_cast<cudaStream_t>(stream));
+}
+
+// The plan bwd_cluster_kernel takes for B rows at hidden size H <=
+// kClusterMaxHidden, weights in f32 (cd_bf16 == 0) or bf16: *R rows a
+// cluster (common.cuh::cluster_rows) and *capacity, the clusters of R rows
+// the device holds at once; the launch takes 2 * ceil(B / R) clusters of
+// kCtas CTAs. For the record only: a launch asks the same itself. Returns
+// a cudaError_t.
+extern "C" int bilstm_bwd_cluster_plan(int* R, int* capacity, int B, int H,
+                                       int cd_bf16, void* stream) {
+  if (B <= 0 || H <= 0 || H > kClusterMaxHidden) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int U = cluster_units(H);
+  return (int)cluster_rows(
+      B,
+      [&](int r, int* n) {
+        return cd_bf16 ? bwd_capacity<__nv_bfloat16>(r, U, st, n)
+                       : bwd_capacity<float>(r, U, st, n);
+      },
+      R, capacity);
 }
 
 extern "C" const char* bilstm_bwd_error_string(int code) {

@@ -973,6 +973,28 @@ extern "C" int bilstm_v1_fwd(const void* xf, const void* xb, const int* lens,
   return launch_recur_cd(io, lens, whf, whb, y, B, T, H, cd_bf16, st);
 }
 
+// The plan fwd_cluster_kernel takes in K1-fwd's training form (f32
+// projections) for B rows at hidden size H <= kClusterMaxHidden, weights
+// in f32 (cd_bf16 == 0) or bf16: *R rows a cluster (common.cuh::
+// cluster_rows) and *capacity, the clusters of R rows the device holds at
+// once; the launch takes 2 * ceil(B / R) clusters of kCtas CTAs. For the
+// record only: a launch asks the same itself. Returns a cudaError_t.
+extern "C" int bilstm_fwd_cluster_plan(int* R, int* capacity, int B, int H,
+                                       int cd_bf16, void* stream) {
+  if (B <= 0 || H <= 0 || H > kClusterMaxHidden) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int U = cluster_units(H);
+  return (int)cluster_rows(
+      B,
+      [&](int r, int* n) {
+        return cd_bf16 ? fwd_capacity<__nv_bfloat16, float, true>(r, U, st, n)
+                       : fwd_capacity<float, float, true>(r, U, st, n);
+      },
+      R, capacity);
+}
+
 extern "C" const char* bilstm_error_string(int code) {
   if (code == kNoClusterFits) {
     return "no cluster of 16 CTAs of fwd_cluster_kernel fits on this device "

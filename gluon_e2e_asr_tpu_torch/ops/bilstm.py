@@ -59,7 +59,10 @@ counterpart: a shape the kernel cannot take raises.
 ``bilstm_pallas`` (K7, the v1 layer) takes the projections xg_f, xg_b
 [B,T,4H] and runs the same recurrence; as in JAX, nothing in ``models/``
 calls it. Its h and c streams come out in xg's dtype, and its backward
-reads those rounded streams (``_bilstm_vjp_bwd``). Plain versions:
+reads those rounded streams (``_bilstm_vjp_bwd``); with bf16 projections
+and an f32 compute dtype the kernel's backward recomputes the gates from
+the rounded h stream first (``_recompute_gates``), as the TPU kernel does,
+since the forward's product took h unrounded. Plain versions:
 ``bilstm_pallas_plain`` (``models/lstm.py::bilstm_scan``) and
 ``bilstm_pallas_bwd_plain`` (the reverse sweep of
 ``bilstm_fused_bwd_plain``); kernels: ``bilstm_pallas_kernel``
@@ -223,10 +226,13 @@ bilstm_fused_bwd_plain.calls = 0
 # the stream.
 _ENTRIES = {"bilstm_fwd": {"bilstm_fwd": (10, 8), "bilstm_fwd_proj": (6, 8),
                            "bilstm_v1_fwd": (8, 6),
-                           "bilstm_fwd_recur": (6, 4)},
+                           "bilstm_fwd_recur": (6, 4),
+                           "bilstm_fwd_cluster_plan": (2, 3)},
             "bilstm_bwd": {"bilstm_bwd_products": (11, 8),
                            "bilstm_v1_bwd": (10, 6),
-                           "bilstm_bwd_recur": (7, 4)}}
+                           "bilstm_v1_gates": (7, 3),
+                           "bilstm_bwd_recur": (7, 4),
+                           "bilstm_bwd_cluster_plan": (2, 3)}}
 _ERRORS = {"bilstm_fwd": "bilstm_error_string",
            "bilstm_bwd": "bilstm_bwd_error_string"}
 
@@ -672,6 +678,26 @@ def bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy,
 bilstm_fused_bwd_recur_kernel.launches = 0
 
 
+def cluster_plan(direction: str, B: int, H: int, compute_dtype: torch.dtype,
+                 dev: torch.device) -> dict:
+    """The plan of K1's cluster recurrence of ``direction`` ("fwd":
+    ``fwd_cluster_kernel`` in the training form, "bwd":
+    ``bwd_cluster_kernel``) for B rows at hidden size H <=
+    CLUSTER_MAX_HIDDEN on the card ``dev``, as its launch asks for it:
+    rows a cluster R, the launch's 2 * ceil(B / R) clusters of
+    CLUSTER_CTAS CTAs, the clusters of R rows the card holds at once and
+    the waves they run in. For the record: no kernel runs."""
+    R, cap = ctypes.c_int(0), ctypes.c_int(0)
+    lib = "bilstm_fwd" if direction == "fwd" else "bilstm_bwd"
+    _launch(lib, f"{lib}_cluster_plan", dev, (
+        ctypes.addressof(R), ctypes.addressof(cap), B, H,
+        int(compute_dtype == torch.bfloat16)), f"B={B} H={H}")
+    clusters = 2 * -(-B // R.value)
+    return {"rows_per_cluster": R.value, "clusters": clusters,
+            "ctas": clusters * CLUSTER_CTAS, "capacity": cap.value,
+            "waves": -(-clusters // max(cap.value, 1))}
+
+
 def _route(x: torch.Tensor) -> str:
     """"plain" for a CPU tensor, "kernel" for a CUDA tensor."""
     if x.device.type == "cpu":
@@ -790,13 +816,6 @@ def _check_v1(xg_f, xg_b, lens, w_hf, w_hb, compute_dtype, who: str):
     if xg_f.dtype not in _STREAM_DTYPES or w_hf.dtype not in _STREAM_DTYPES:
         raise ValueError(f"xg and W_h must be float32 or bfloat16, got "
                          f"{xg_f.dtype}, {w_hf.dtype}")
-    if xg_f.dtype == torch.bfloat16 and compute_dtype == torch.float32:
-        # The TPU backward recomputes the gates from the bf16 h stream, an
-        # f32 product the forward never formed; the kernels reuse the
-        # forward's activations, which is the same only when the product
-        # rounds h to bf16 too.
-        raise ValueError("bf16 projections need compute_dtype bfloat16 on "
-                         "the card")
     dev = xg_f.device
     _check(xg_f, "xg_f", xg_f.dtype, (B, T, H4), dev)
     _check(xg_b, "xg_b", xg_f.dtype, (B, T, H4), dev)
@@ -840,13 +859,40 @@ bilstm_pallas_kernel.launches = 0
 bilstm_pallas_kernel.cluster_launches = 0
 
 
+def _recompute_gates(xg, lens, w_hf, w_hb, y):
+    """The gate activations [B,T,8H] f32 that the TPU backward kernel forms
+    for bf16 projections with an f32 compute dtype: from the projections
+    xg = (xg_f, xg_b) and the rounded h stream y, through one f32 product a
+    direction (``csrc/bilstm_bwd.cu::bilstm_v1_gates``). The forward's
+    activations took the unrounded h in its f32 product: not these."""
+    B, T, H2 = y.shape
+    H = H2 // 2
+    dev = y.device
+    if xg is None:
+        raise ValueError("bf16 projections with an f32 compute dtype need "
+                         "xg=(xg_f, xg_b): the backward recomputes the gates")
+    for name, t in zip(("xg_f", "xg_b"), xg):
+        _check(t, name, torch.bfloat16, (B, T, 4 * H), dev)
+    wf, wb = (w.to(torch.float32).contiguous() for w in (w_hf, w_hb))
+    acts = torch.empty(B, T, 8 * H, device=dev, dtype=torch.float32)
+    _launch("bilstm_bwd", "bilstm_v1_gates", dev, (
+        xg[0].data_ptr(), xg[1].data_ptr(), lens.data_ptr(), wf.data_ptr(),
+        wb.data_ptr(), y.data_ptr(), acts.data_ptr(), B, T, H),
+        f"B={B} T={T} H={H}")
+    return acts
+
+
 def bilstm_pallas_bwd_kernel(lens, w_hf, w_hb, y, c, acts, dy,
                              compute_dtype: torch.dtype = torch.float32,
-                             x_dtype: torch.dtype = torch.float32):
+                             x_dtype: torch.dtype = torch.float32, xg=None):
     """K7-bwd on the card: the VJP from the training form of K7-fwd's
     outputs (y, c, acts of ``bilstm_pallas_kernel(..., with_cell=True)``)
     and the cotangent dy [B,T,2H]. Returns (dxg_f, dxg_b) in ``x_dtype``
-    (xg's) and (dw_hf, dw_hb) in W's dtype, summed in f32."""
+    (xg's) and (dw_hf, dw_hb) in W's dtype, summed in f32. For bf16
+    projections with an f32 compute dtype it recomputes the gates from the
+    rounded h stream first, as the TPU kernel does (``_recompute_gates``;
+    ``xg``, the pair (xg_f, xg_b), is then required and ``acts`` unused);
+    ``.gate_launches`` counts those recomputes."""
     B, T, H2 = y.shape
     H = H2 // 2
     dev = y.device
@@ -875,6 +921,9 @@ def bilstm_pallas_bwd_kernel(lens, w_hf, w_hb, y, c, acts, dy,
         dy = dy.to(torch.float32).contiguous()
         wtf, wtb, cluster = _bwd_weights(w_hf, w_hb, compute_dtype)
         bf16 = compute_dtype == torch.bfloat16
+        if x_dtype == torch.bfloat16 and not bf16:
+            acts = _recompute_gates(xg, lens, w_hf, w_hb, y)
+            bilstm_pallas_bwd_kernel.gate_launches += 1
         yh, yb = _h_rows(y) if bf16 else (y, H)
         _launch("bilstm_bwd", "bilstm_v1_bwd", dev, (
             lens.data_ptr(), wtf.data_ptr(), wtb.data_ptr(), yh.data_ptr(),
@@ -890,6 +939,7 @@ def bilstm_pallas_bwd_kernel(lens, w_hf, w_hb, y, c, acts, dy,
 
 bilstm_pallas_bwd_kernel.launches = 0
 bilstm_pallas_bwd_kernel.cluster_launches = 0
+bilstm_pallas_bwd_kernel.gate_launches = 0
 
 
 class BiLSTMV1(torch.autograd.Function):
@@ -918,7 +968,8 @@ class BiLSTMV1(torch.autograd.Function):
                                             c, dy, ctx.compute_dtype)
         else:
             grads = bilstm_pallas_bwd_kernel(lens, w_hf, w_hb, y, c, acts, dy,
-                                             ctx.compute_dtype, xg_f.dtype)
+                                             ctx.compute_dtype, xg_f.dtype,
+                                             (xg_f, xg_b))
         dxg_f, dxg_b, dw_hf, dw_hb = grads
         return dxg_f, dxg_b, None, dw_hf, dw_hb, None
 

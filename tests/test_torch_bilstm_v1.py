@@ -143,6 +143,34 @@ def test_bf16_gradients_match_jax_kernel():
         assert err <= TOL_BF16, err
 
 
+@pytest.mark.parametrize("lens", [None, [0, 12, 5]])
+def test_bf16_projections_f32_compute_match_jax_kernel(lens):
+    """bf16 projections with an f32 compute dtype: the forward keeps h in
+    f32 for its product and rounds the emitted streams; the backward
+    recomputes the gates from the rounded h stream with an f32 product,
+    gates the forward never formed (the pairing the card's kernels take
+    through ``_recompute_gates``)."""
+    arrays = _inputs(T=12, lens=lens)
+    tgt = np.random.RandomState(7).randn(3, 12, 16).astype(np.float32)
+    xg_f, xg_b, jl, w_hf, w_hb = _jax(arrays, jnp.bfloat16)
+    ref_y = jax_bilstm_pallas(xg_f, xg_b, jl, w_hf, w_hb, jnp.float32, 4)
+
+    def loss(xf, xb, wf, wb):
+        out = jax_bilstm_pallas(xf, xb, jl, wf, wb, jnp.float32, 4)
+        return jnp.sum(out.astype(jnp.float32) * tgt)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2, 3))(xg_f, xg_b, w_hf, w_hb)
+    got_y = K.bilstm_pallas(*_port(arrays, torch.bfloat16), torch.float32)
+    assert got_y.dtype == torch.bfloat16 and ref_y.dtype == jnp.bfloat16
+    np.testing.assert_allclose(_f32(got_y), _f32(ref_y), rtol=0, atol=TOL_BF16)
+    got = _port_grads(arrays, tgt, torch.bfloat16, torch.float32)
+    for g, r in zip(got, ref):
+        assert str(g.dtype).split(".")[-1] == str(r.dtype)
+        r = _f32(r)
+        err = np.abs(_f32(g) - r).max() / np.abs(r).max()
+        assert err <= TOL_BF16, err
+
+
 def test_padded_steps_carry_no_gradient():
     """tests/test_pallas_lstm.py::test_gradient_masking: padded timesteps
     get no input-projection gradient; valid ones do."""

@@ -1,0 +1,287 @@
+"""PyTorch port: the quality comparison of ``chip_smoke.py``'s phase 14
+(``gluon_e2e_asr_tpu_torch/tools/convergence.py`` over the port's copy of
+``tools/wer_ci.py``) on the CPU.
+
+- the port's ``tools/wer_ci.py`` against the root tool: the same code
+  apart from the import, and bit for bit the same numbers on two of the
+  TPU runs' records;
+- each config of phase 14's plan builds a dev set whose refs equal its
+  TPU record's, utterance for utterance (the paired comparison holds);
+- a tiny config through the phase's path (train every epoch, decode
+  ``best.pt`` by its decode block, compare), compared with itself: a
+  difference of 0;
+- the port's train step against the JAX package's over LONG_STEPS steps
+  of english_m5_bpe and milestone5_beam at test widths (the plain
+  versions, the same draws): the longest comparison of training the CPU
+  allows in a test, where rounding could drift that 2 steps cannot show;
+- the card's committed records (``gluon_e2e_asr_tpu_torch/evidence/``)
+  recomputed with the root ``tools/wer_ci.py``: the numbers ``PERF.md``
+  states.
+"""
+
+import importlib.util
+import json
+import os
+import sys
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "tests"))
+sys.path.insert(0, REPO)
+
+import chip_smoke  # noqa: E402
+import test_torch_milestone_configs as MC  # noqa: E402
+from test_torch_data import _definitions  # noqa: E402
+
+from gluon_e2e_asr_tpu.config import load_config as jax_load_config  # noqa: E402
+from gluon_e2e_asr_tpu.training import train_step as jts  # noqa: E402
+from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config  # noqa: E402
+from gluon_e2e_asr_tpu_torch.frontend.features import num_frames  # noqa: E402
+from gluon_e2e_asr_tpu_torch.models.asr import build_model  # noqa: E402
+from gluon_e2e_asr_tpu_torch.training import train_step as T  # noqa: E402
+from gluon_e2e_asr_tpu_torch.tools import convergence as CV  # noqa: E402
+from gluon_e2e_asr_tpu_torch.tools import wer_ci as port_ci  # noqa: E402
+
+torch.set_num_threads(1)
+
+EVIDENCE = os.path.join(REPO, "docs", "evidence")
+CARD_EVIDENCE = os.path.join(REPO, "gluon_e2e_asr_tpu_torch", "evidence")
+ROOT_TOOL = os.path.join(REPO, "tools", "wer_ci.py")
+TINY = os.path.join(REPO, "tests", "goldens", "tiny_golden.yaml")
+TINY_SETS = ["train.num_epochs=2", "data.synth_num_train=16",
+             "data.synth_num_dev=8"]
+
+
+def _root_ci():
+    spec = importlib.util.spec_from_file_location("root_wer_ci", ROOT_TOOL)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _paired(tool, a, b):
+    ca = tool.per_utt_counts(a, keyed=True)
+    cb = tool.per_utt_counts(b, keyed=True)
+    shared = sorted(set(ca) & set(cb))
+    return (np.asarray([ca[k] for k in shared], np.float64),
+            np.asarray([cb[k] for k in shared], np.float64))
+
+
+def test_wer_ci_matches_the_root_tool():
+    """m5_beam against m5_beam with a fused LM (weight 0.2): diff -0.6
+    points, CI [-1.8, +0.6], p = 0.22, bit for bit in both tools."""
+    a = os.path.join(EVIDENCE, "m5_beam_dev192.jsonl")
+    b = os.path.join(EVIDENCE, "m5_beam_lm02_dev192.jsonl")
+    root = _root_ci()
+    ours = port_ci.paired_diff_ci(*_paired(port_ci, a, b))
+    ref = root.paired_diff_ci(*_paired(root, a, b))
+    assert ours == ref
+    d, lo, hi, p = ours
+    assert (round(d, 3), round(lo, 3), round(hi, 3), round(p, 2)) == \
+        (-0.006, -0.018, 0.006, 0.22)
+    counts = port_ci.per_utt_counts(a)
+    np.testing.assert_array_equal(counts, root.per_utt_counts(a))
+    assert port_ci.bootstrap_ci(counts) == root.bootstrap_ci(counts)
+    got = CV.compare(a, b)
+    assert (got["wer_diff"], *got["wer_diff_ci95"], got["p_diff_ge_0"]) == ref
+    assert got["wer"] == root.bootstrap_ci(counts)[0] and got["tie"]
+
+
+def test_wer_ci_definitions_equal_the_root_tool():
+    """Every definition of the port's copy is the root tool's; only the
+    imports differ (the port's eval/metrics.py for the JAX package's)."""
+    ours = _definitions(os.path.join(REPO, "gluon_e2e_asr_tpu_torch", "tools",
+                                     "wer_ci.py"), "gluon_e2e_asr_tpu_torch")
+    ref = _definitions(ROOT_TOOL, "gluon_e2e_asr_tpu")
+    assert set(ours) == set(ref) == {"per_utt_counts", "bootstrap_ci",
+                                     "paired_diff_ci", "main"}
+    assert ours == ref
+
+
+@pytest.mark.parametrize("pid", sorted(chip_smoke.CONVERGENCE))
+def test_phase14_dev_sets_pair_with_their_records(pid):
+    """The port's dev set of each config of phase 14 holds the TPU
+    record's refs, utterance for utterance, 192/192."""
+    cfg, rec = chip_smoke.CONVERGENCE[pid]
+    refs = CV.dev_refs(load_config(os.path.join(REPO, "configs",
+                                                f"{cfg}.yaml")))
+    records = CV.read_records(os.path.join(EVIDENCE, f"{rec}.jsonl"))
+    assert len(refs) == len(records) == 192
+    assert CV.refs_match(refs, records) == 192
+
+
+def test_refs_that_differ_void_the_comparison(tmp_path):
+    """A record of another dev set does not pair: the tool refuses to
+    train."""
+    other = os.path.join(EVIDENCE, "english_flagship_dev192.jsonl")
+    with pytest.raises(ValueError, match="void"):
+        CV.main(["--config", os.path.join(REPO, "configs",
+                                          "english_flagship.yaml"),
+                 "--reference", other, "--workdir", str(tmp_path),
+                 "--device", "cpu"])
+
+
+def test_tiny_config_compared_with_itself_is_a_tie(tmp_path):
+    """The phase's path on the CPU: two epochs of a tiny config through
+    the train CLI, best.pt decoded by its beam over the dev set, then the
+    records against themselves (a difference of exactly 0), and a second
+    run through the tool's CLI against the first run's records (the same
+    seed on the CPU: the same records, again 0)."""
+    first = str(tmp_path / "first")
+    trainer, lines = CV.train(TINY, first, TINY_SETS, "cpu")
+    epochs = [r for r in lines if r["event"] == "epoch"]
+    ckpt, best_epoch = CV.best_checkpoint(trainer)
+    assert len(epochs) == 2
+    assert epochs[best_epoch]["dev_wer"] == min(r["dev_wer"] for r in epochs)
+    out = os.path.join(first, "best_dev.jsonl")
+    res = CV.decode_best(TINY, ckpt, out, TINY_SETS, "cpu")
+    records = CV.read_records(out)
+    assert res["method"] == "beam" and len(records) == res["num_utts"] == 8
+    assert all(set(r) == set(CV.RECORD_KEYS) for r in records)
+    config = load_config(TINY)
+    apply_overrides(config, TINY_SETS)
+    assert CV.refs_match(CV.dev_refs(config), records) == 8
+    got = CV.compare(out, out)
+    assert got["wer_diff"] == 0.0 and got["wer_diff_ci95"] == [0.0, 0.0]
+    assert got["p_diff_ge_0"] == 1.0 and got["tie"]
+    assert got["wer"] == got["reference_wer"]
+    summary = CV.main(["--config", TINY, "--reference", out, "--workdir",
+                       str(tmp_path / "second"), "--device", "cpu",
+                       *[a for s in TINY_SETS for a in ("--set", s)]])
+    assert CV.read_records(summary["records"]) == records
+    assert summary["wer_diff"] == 0.0 and summary["best_epoch"] == best_epoch
+
+
+LONG_STEPS = 100
+
+
+def _long_batch(i, vocab):
+    """MC._batch's shape (3 utterances of up to 0.3 s and a pad row), its
+    lengths and labels drawn anew for batch i."""
+    rng = np.random.RandomState(100 + i)
+    Bn, S, L = 3, 4800, 5
+    audio = (rng.randn(Bn + 1, S) * 0.1).astype(np.float32)
+    audio[Bn] = 0.0
+    audio_len = np.array([S, rng.randint(S // 2, S + 1),
+                          rng.randint(S // 3, S + 1), 0], np.int32)
+    labels = rng.randint(4, vocab, size=(Bn + 1, L)).astype(np.int32)
+    label_len = np.array([L, rng.randint(2, L + 1), rng.randint(1, L + 1), 0],
+                         np.int32)
+    labels[np.arange(L)[None, :] >= label_len[:, None]] = 0
+    return {"audio": audio, "audio_len": audio_len, "labels": labels,
+            "label_len": label_len}
+
+
+@pytest.mark.parametrize("name", ["english_m5_bpe", "milestone5_beam"])
+def test_port_trains_like_jax_over_many_steps(name):
+    """LONG_STEPS train steps of the config at test widths (MC._cut) over 8
+    batches in turn, from the same parameters, the JAX step's SpecAugment
+    draws and coins fed to the port's: every step's loss within rtol 1e-5
+    of JAX's (tests/test_torch_train_step.py's), and the parameters at the
+    end within 1% of the largest learning rate of JAX's (the milestone
+    test's bound for firm entries, here over every entry). Over 200 steps
+    of english_m5_bpe the losses stayed within 2.6e-7 and the parameters
+    within 1.9e-6 (the LR 2e-3)."""
+    path = os.path.join(REPO, "configs", f"{name}.yaml")
+    config = MC._cut(load_config(path))
+    jconfig = MC._cut(jax_load_config(path))
+    tok = MC._tokenizer(config)
+    V = tok.vocab_size
+    batches = [_long_batch(i % 8, V) for i in range(LONG_STEPS)]
+    jmodel, tx, step = MC._jax_step(jconfig, V, tok.sos_id, tok.eos_id)
+    st = jts.create_train_state(jconfig, jmodel, tx, batches[0])
+    init = MC._flat(st.params)
+    fc = config.frontend
+    frames = num_frames(batches[0]["audio"].shape[1], fc.win_length,
+                        fc.hop_length)
+    L = batches[0]["labels"].shape[1] + 1
+    jax_losses, draws = [], []
+    for b in batches:
+        _, step_rng = jax.random.split(st.rng)
+        k_spec, k_ss, _ = jax.random.split(step_rng, 3)
+        p_ss = T.ss_prob(config, int(st.step))
+        coins = None
+        if config.loss.mtl_alpha < 1.0 and p_ss > 0.0:
+            c = np.array(jax.random.bernoulli(k_ss, p_ss, (L, len(b["audio"]))))
+            c[0] = False
+            coins = torch.from_numpy(c)
+        draws.append((MC._jax_draws(k_spec, fc, len(b["audio"]), frames),
+                      coins))
+        st, m = step(st, {k: jnp.asarray(v) for k, v in b.items()})
+        jax_losses.append(float(m["loss"]))
+    jax_params = MC._flat(st.params)
+
+    model = build_model(config, V, train=True, sos_id=tok.sos_id,
+                        eos_id=tok.eos_id)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in init.items()})
+    opt = T.make_optimizer(config)
+    state = T.TrainState(step=0,
+                         opt_state=opt.init(dict(model.named_parameters())),
+                         generator=torch.Generator().manual_seed(0))
+    fn = T.make_train_step(model, config, opt)
+    losses = []
+    for b, (spec, coins) in zip(batches, draws):
+        with mock.patch.object(T, "draw_spec_augment", lambda *a: spec), \
+                mock.patch.object(T, "draw_coins", lambda *a: coins):
+            losses.append(float(fn(state, {k: torch.from_numpy(v)
+                                           for k, v in b.items()})["loss"]))
+    np.testing.assert_allclose(losses, jax_losses, rtol=1e-5)
+    assert losses[-1] < 0.8 * losses[0]  # it trained
+    lr = max(opt.lr(i) for i in range(LONG_STEPS))
+    for k, v in model.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), jax_params[k], rtol=0,
+                                   atol=0.01 * lr, err_msg=k)
+
+
+def _card_records():
+    """(card record, TPU record) of each committed card run: the README's
+    table pairs them."""
+    path = os.path.join(CARD_EVIDENCE, "README.md")
+    if not os.path.exists(path):
+        return []
+    pairs = []
+    with open(path) as f:
+        for line in f:
+            cells = [c.strip(" `") for c in line.split("|")]
+            if len(cells) > 3 and cells[1].endswith(".jsonl") \
+                    and cells[2].endswith(".jsonl"):
+                pairs.append((cells[1], cells[2]))
+    return pairs
+
+
+def _fmt_ci(v, lo, hi, sign=False):
+    f = "{:+.4f}" if sign else "{:.4f}"
+    return f"{f.format(v)} [{f.format(lo)}, {f.format(hi)}]"
+
+
+@pytest.mark.parametrize("card,tpu", _card_records())
+def test_perf_numbers_recompute_from_the_records(card, tpu):
+    """PERF.md's row of each committed card record: the port's WER and
+    CER with their 95% intervals, the TPU record's WER, and the paired
+    difference with its interval and p(diff >= 0), as the root
+    tools/wer_ci.py computes them from the two records (10,000 resamples,
+    seed 0, paired by utt_id)."""
+    root = _root_ci()
+    a = os.path.join(CARD_EVIDENCE, card)
+    b = os.path.join(EVIDENCE, tpu)
+    ca, cb = _paired(root, a, b)
+    assert len(ca) == len(cb) == 192
+    w, lw, hw, ce, lc, hc = root.bootstrap_ci(ca)
+    rw = root.bootstrap_ci(cb)[0]
+    d, lo, hi, p = root.paired_diff_ci(ca, cb)
+    cells = [card, _fmt_ci(w, lw, hw), _fmt_ci(ce, lc, hc), f"{rw:.4f}",
+             _fmt_ci(d, lo, hi, sign=True), f"{p:.4f}",
+             "tie" if lo <= 0.0 <= hi else "gap"]
+    with open(os.path.join(REPO, "PERF.md")) as f:
+        rows = [line for line in f if f"`{card}`" in line]
+    assert rows, f"PERF.md has no row for {card}"
+    assert any(all(c in row for c in cells) for row in rows), (cells, rows)
+    with open(a) as f:
+        first = json.loads(f.readline())
+    assert set(first) == set(CV.RECORD_KEYS)

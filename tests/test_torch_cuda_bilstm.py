@@ -331,13 +331,72 @@ def test_v1_kernels_match_plain(dev, shape, cd):
         assert _rel(leaf.grad, r) <= REL_V1[cd]
 
 
+@pytest.mark.parametrize("shape", [(3, 19, 8), (5, 37, 40), (9, 50, 130)])
+def test_v1_bf16_projections_f32_compute_match_plain(dev, shape):
+    """bf16 projections with an f32 compute dtype: the backward recomputes
+    the gates from the rounded h stream (bilstm_v1_gates), as the plain
+    version and the TPU kernel do; bf16 tolerances (the streams are
+    bf16)."""
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    f32 = torch.float32
+    args, dy = _v1_inputs(*shape, dev, torch.bfloat16)
+    y, c, acts = K.bilstm_pallas_kernel(*args, compute_dtype=f32, with_cell=True)
+    yp, cp = K.bilstm_pallas_plain(*args, compute_dtype=f32, with_cell=True)
+    n_g = K.bilstm_pallas_bwd_kernel.gate_launches
+    got = K.bilstm_pallas_bwd_kernel(args[2], args[3], args[4], y, c, acts, dy,
+                                     f32, torch.bfloat16, args[:2])
+    ref = K.bilstm_pallas_bwd_plain(*args, yp, cp, dy, f32)
+    torch.cuda.synchronize()
+    assert K.bilstm_pallas_bwd_kernel.gate_launches == n_g + 1
+    tol = REL_V1[torch.bfloat16]
+    assert _rel(y, yp) <= tol and _rel(c, cp) <= tol
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.isfinite(g).all()
+        assert _rel(g, r) <= tol
+    with pytest.raises(ValueError, match="xg="):
+        K.bilstm_pallas_bwd_kernel(args[2], args[3], args[4], y, c, acts, dy,
+                                   f32, torch.bfloat16)
+    # the autograd path recomputes too
+    leaves = [t.detach().requires_grad_(True) for t in
+              (args[0], args[1], args[3], args[4])]
+    out = K.bilstm_pallas(leaves[0], leaves[1], args[2], leaves[2], leaves[3],
+                          f32)
+    out.backward(dy)
+    assert out.dtype == torch.bfloat16
+    assert K.bilstm_pallas_bwd_kernel.gate_launches == n_g + 2
+    for leaf, r in zip(leaves, ref):
+        assert _rel(leaf.grad, r) <= tol
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_cluster_plan_takes_the_fewest_rows_that_fit(dev, direction):
+    """K1's cluster plan as its launches ask for it: the fewest of 16, 32
+    and 48 rows a cluster whose 2 * ceil(B / R) clusters the card holds at
+    once (else 48, in waves)."""
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    for B in (1, 16, 50, 96, 148):
+        for cd in (torch.float32, torch.bfloat16):
+            plan = K.cluster_plan(direction, B, 320, cd, dev)
+            R, cap = plan["rows_per_cluster"], plan["capacity"]
+            assert R in (16, 32, 48) and cap >= 1
+            assert plan["clusters"] == 2 * -(-B // R)
+            assert plan["ctas"] == 16 * plan["clusters"]
+            assert plan["waves"] == -(-plan["clusters"] // cap)
+            # fewer than 48 rows only where those clusters fit in one wave
+            assert R == 48 or plan["waves"] == 1
+        assert K.cluster_plan(direction, 1, 320, cd, dev)[
+            "rows_per_cluster"] == 16
+
+
 def test_v1_kernel_refuses_what_it_cannot_take(dev):
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
 
     (xg_f, xg_b, lens, w_hf, w_hb), _ = _v1_inputs(3, 19, 8, dev, torch.bfloat16)
     calls = K.bilstm_pallas_plain.calls
-    with pytest.raises(ValueError, match="compute_dtype bfloat16"):
-        K.bilstm_pallas(xg_f, xg_b, lens, w_hf, w_hb, torch.float32)
+    with pytest.raises(ValueError, match="compute_dtype must be"):
+        K.bilstm_pallas(xg_f, xg_b, lens, w_hf, w_hb, torch.float16)
     with pytest.raises(ValueError, match="int32"):
         K.bilstm_pallas(xg_f, xg_b, lens.long(), w_hf, w_hb, torch.bfloat16)
     with pytest.raises(ValueError, match="hidden size"):

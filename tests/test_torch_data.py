@@ -306,5 +306,6 @@ def test_the_port_imports_nothing_of_the_jax_package():
                  "utils.native", "tools.make_synth_corpus",
                  "tools.compute_cmvn", "tools.average_ckpts",
                  "tools.tune_decode", "tools.plot_attention",
-                 "tools.run_milestones"):
+                 "tools.run_milestones", "tools.wer_ci",
+                 "tools.convergence"):
         assert f"gluon_e2e_asr_tpu_torch.{name}" in proc.stdout, name
