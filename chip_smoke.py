@@ -144,7 +144,9 @@ its ranks itself.) Phases, each printing JSON lines:
    the milestone 2 step and its frontend's share, the dot and loc hybrid
    train steps at the 4.0 s
    bucket and at bench.py's shape (B=96, 12.8 s, 96 labels), each also
-   as shipped (``train.dp``, world size 1), and a
+   as shipped (``train.dp``, world size 1), the model's TFLOP/s and MFU
+   of both at the latter (``utils/flops.py``: bench.py's count over the
+   H100's dense peak), and a
    torch.profiler breakdown of both at the latter by kernel, whose CTC
    kernels must be one launch each of K2's and K3's warp kernels a step;
 9. beam search: the blessed tiny golden (read from its JAX checkpoint
@@ -202,11 +204,11 @@ its ranks itself.) Phases, each printing JSON lines:
    the last, ``tools/tune_decode.py``'s 2x2 grid, ``tools/
    plot_attention.py --no-png`` (shapes [n_tokens+1, T'], rows summing to
    1) and ``transcribe.py`` on two of the corpus's .flac files (the decode
-   CLI's texts). ``tools/run_milestones.py`` is not run here (its
-   milestone 1 trains 40 epochs): its CPU test covers it.
+   CLI's texts). ``tools/run_milestones.py`` is not run here (it trains
+   the five milestones for every epoch): phase 15 runs it.
 
-Two phases run only when asked for (``--only``), each a chip call of its
-own:
+Three phases run only when asked for (``--only``), each a chip call of
+its own:
 
 13. ``configs/ls100_shape.yaml`` (the LibriSpeech-100h dress rehearsal:
    dynamic batches 148 / 74 / 49 / 32 at the 4 / 8 / 12 / 18.5 s buckets,
@@ -229,7 +231,18 @@ own:
    bootstrap intervals and the paired difference port - TPU with its
    interval and p(diff >= 0) (``tools/convergence.py`` over the port's
    ``tools/wer_ci.py``: 10,000 resamples, seed 0); the records printed a
-   line each and written to ``build/chip_smoke/``.
+   line each and written to ``build/chip_smoke/``, beside the run's epoch
+   lines (``<record>_epochs.jsonl``: dev WER/CER, the mean loss of the
+   epoch's steps and of its logged lines). Where the config decodes by the
+   joint beam, best.pt also by each branch alone (``ctc_beam``; ``beam``
+   with ``decode.ctc_weight=0``), each with its intervals and paired
+   against the joint beam's and the TPU record (``<record>_{ctc,att}``);
+15. ``tools/run_milestones.py --device cuda``: the five milestones as
+   shipped, every epoch, each best.pt decoded over the 192 dev utterances
+   by its config's method; no plain call; each milestone's steps, train
+   seconds, best epoch, WER and CER with 95% intervals, m5 also paired
+   with the TPU run's record; the records written to
+   ``build/chip_smoke/milestones_<m>_h100_dev192.jsonl``.
 
 Then the kernels line (each kernel's launches on the main path, error,
 time, plain time, bound and library time; also each row's launches in
@@ -240,8 +253,8 @@ K2's, K3's and K4 loc's numbers at ls100's largest bucket) and, last,
 failed check exits non-zero before the last line. Artifacts go to
 ``build/chip_smoke/``. ``python3 chip_smoke.py --only 6c,6d,11,12`` runs
 the build and those phases alone (``--only 13``, ``--only 14a [--set
-train.seed=1]``: the phases above), reports every failed check and prints
-neither the kernels line nor the last line.
+train.seed=1]``, ``--only 15``: the phases above), reports every failed
+check and prints neither the kernels line nor the last line.
 """
 
 from __future__ import annotations
@@ -451,6 +464,9 @@ CONVERGENCE = {"14a": ("english_flagship", "english_clean_flagship_dev192"),
                "14b": ("milestone5_beam", "m5_beam_dev192"),
                "14c": ("english_m5_bpe", "english_clean_bpe_beam_dev192"),
                "14d": ("flagship_bf16", "flagship_loc_dev192")}
+# Phase 15: the milestones with a per-utterance TPU record under
+# docs/evidence/ (the others are compared by their intervals alone).
+MILESTONE_RECORDS = {"m5": "m5_beam_dev192"}
 
 
 def emit(obj) -> None:
@@ -671,7 +687,7 @@ main_only = False  # --only: a failed check is reported and the run goes on
 
 def main(only=(), overrides=()) -> None:
     """The phases in order; ``only`` (phase names "6c", "6d", "11",
-    "12", "13", "14a".."14d"): the device, the build and those phases
+    "12", "13", "14a".."14d", "15"): the device, the build and those phases
     alone, with no kernels line and no last line (a quicker run while a
     phase is written; phase 14's runs, which take a chip call each);
     ``overrides`` (``--set``), phase 14's training overrides."""
@@ -728,7 +744,8 @@ def main(only=(), overrides=()) -> None:
         global main_only
         main_only = True
         phases = {"6c": training_options, "6d": vgg_slice, "11": lm_phase,
-                  "12": ls100_phase, "13": ls_shape_phase}
+                  "12": ls100_phase, "13": ls_shape_phase,
+                  "15": milestones_phase}
         for name in only:
             if name in CONVERGENCE:
                 convergence_phase(torch, dev, card, name, overrides)
@@ -3418,6 +3435,7 @@ def step_timing(torch, trainer, dev, card):
     kernels' step is also timed as it ships, at ``trainer.world``.
     Returns ((4 s kernel ms, 4 s plain ms), bench-shape kernel ms)."""
     from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
+    from gluon_e2e_asr_tpu_torch.utils.flops import bench_mfu
 
     config = trainer.config
     B = config.data.batch_size
@@ -3465,6 +3483,14 @@ def step_timing(torch, trainer, dev, card):
           "card": card,
           "sm_clock_power_limit_temp": nvidia_smi(
               "clocks.sm,power.draw,power.limit,temperature.gpu")})
+    # the model's TFLOP/s and MFU at that step (utils/flops.py: bench.py's
+    # count and convention over the H100's dense peak for the dtype)
+    mfu = bench_mfu(B / (k12 / 1e3), config, trainer.tokenizer.vocab_size, B,
+                    int(bench["audio"].shape[1]), BENCH_LABELS)
+    emit({"phase": "mfu", "what": "train_step at bench.py's shape",
+          "att_type": att, "dtype": config.model.compute_dtype, "B": B,
+          "seconds": BENCH_SEC, "max_labels": BENCH_LABELS, "step_ms": k12,
+          **mfu, "card": card})
     profile_step(torch, lambda: step12(batch12), card, att)
     return (k4, p4), k12
 
@@ -4809,27 +4835,31 @@ def convergence_phase(torch, dev, card, pid, overrides=()):
     if FAILED:
         return
     seed = config.train.seed
-    name = f"{cfg_name}_h100_dev192" + (f"_seed{seed}" if seed else "")
+    sfx = f"_seed{seed}" if seed else ""
+    name = f"{cfg_name}_h100_dev192{sfx}"
     epochs = config.train.num_epochs
     steps = epoch_steps(config, epochs)
     record = []
     reset_counts()
     t0 = time.perf_counter()
-    trainer, lines = _run_cli(torch, path, f"conv_{pid}", extra, record)
+    trainer, lines = _run_cli(torch, path, f"conv_{pid}{sfx}", extra, record)
     train_s = time.perf_counter() - t0
     launches, plain = read_counts()
     losses = [loss for loss, _ in record]
-    ends = [r for r in lines if r["event"] == "epoch"]
+    ends = CV.epoch_records(lines)
     dev_batches = len(list(trainer.dev_loader.sampler.epoch_batches(0)))
     expect = expected_launches(config, steps, dev_batches * len(ends),
                                trainer.model.use_decoder)
     first = 0
     for r in ends:
+        r["loss"] = float(np.mean(losses[first:r["step"]]))
         emit({"phase": "convergence_epoch", "id": pid, "epoch": r["epoch"],
-              "steps": r["step"], "loss": float(np.mean(losses[first:r["step"]])),
+              "steps": r["step"], "loss": r["loss"],
+              "loss_logged": r["loss_logged"],
               "dev_wer": r["dev_wer"], "dev_cer": r["dev_cer"],
               "seconds": r["epoch_time_s"]})
         first = r["step"]
+    CV.write_lines(os.path.join(OUT_DIR, f"{name}_epochs.jsonl"), ends)
     ckpt, best_epoch = CV.best_checkpoint(trainer)
     emit({"phase": "convergence_train", "id": pid, "epochs": len(ends),
           "epochs_shipped": epochs, "steps": trainer.state.step,
@@ -4892,6 +4922,95 @@ def convergence_phase(torch, dev, card, pid, overrides=()):
           "seconds": round(time.perf_counter() - t_phase, 1), "card": card})
     check(res["num_utts"] == 192 == stats["utts"],
           f"{pid}: decoded {res['num_utts']} utterances")
+    if config.decode.method == "beam" and 0.0 < config.decode.ctc_weight < 1.0:
+        convergence_branches(pid, path, ckpt, name, overrides, refs, out,
+                             tpu, card)
+
+
+def convergence_branches(pid, path, ckpt, name, overrides, refs, joint, tpu,
+                         card):
+    """Phase 14's joint beam taken apart: ``best.pt`` decoded over the same
+    192 dev utterances by each branch alone, CTC (``ctc_beam``, the CTC
+    prefix beam with the config's partial scoring) and attention (``beam``
+    with ``decode.ctc_weight=0``), no plain call; each record's WER and CER
+    with 95% intervals, paired against the joint beam's record and the
+    TPU record. The records go to OUT_DIR/<name>_{ctc,att}.jsonl."""
+    from gluon_e2e_asr_tpu_torch.tools import convergence as CV
+
+    for branch, method, sets in (("ctc", "ctc_beam", ()),
+                                 ("att", "beam", ("decode.ctc_weight=0",))):
+        out = os.path.join(OUT_DIR, f"{name}_{branch}.jsonl")
+        reset_counts()
+        t0 = time.perf_counter()
+        res = CV.decode_best(path, ckpt, out, [*overrides, *sets], "cuda",
+                             method)
+        seconds = time.perf_counter() - t0
+        _, plain = read_counts()
+        records = CV.read_records(out)
+        check(CV.refs_match(refs, records) == len(records) == 192
+              and not any(plain.values()),
+              f"{pid} {branch}: {len(records)} records, plain {plain}")
+        vs_joint, vs_tpu = CV.compare(out, joint), CV.compare(out, tpu)
+        emit({"phase": "convergence_branch", "id": pid, "branch": branch,
+              "method": res["method"], "sets": list(sets),
+              "records": os.path.relpath(out, REPO),
+              **CV.intervals(out), "diff_vs_joint": vs_joint["wer_diff"],
+              "diff_vs_joint_ci95": vs_joint["wer_diff_ci95"],
+              "diff_vs_tpu": vs_tpu["wer_diff"],
+              "diff_vs_tpu_ci95": vs_tpu["wer_diff_ci95"],
+              "seconds": round(seconds, 1), "card": card})
+
+
+def milestones_phase(torch, dev, card):
+    """Phase 15 (``--only 15``): ``tools/run_milestones.py --device cuda``
+    as a user runs it, the five milestone configs as shipped, every epoch
+    (40, 40, 60, 60, 60), each ``best.pt`` decoded over the 192 dev
+    utterances by its config's method; no plain call, every K1-fwd launch
+    through the cluster recurrence. Each milestone's steps, train seconds,
+    best epoch and dev WER and CER with 95% bootstrap intervals
+    (tools/wer_ci.py, 10,000 resamples, seed 0), and for m5 the paired
+    difference against the TPU run's record of the same utterances
+    (MILESTONE_RECORDS; m1-m4 have no per-utterance TPU record). The
+    records go to OUT_DIR/milestones_<m>_h100_dev192.jsonl."""
+    from gluon_e2e_asr_tpu_torch.config import load_config
+    from gluon_e2e_asr_tpu_torch.tools import convergence as CV
+    from gluon_e2e_asr_tpu_torch.tools import run_milestones as RM
+
+    wd = os.path.join(OUT_DIR, "milestones")
+    shutil.rmtree(wd, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = RM.main(["--workdir", wd, "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    launches, plain = read_counts()
+    emit({"phase": "milestones_run", "milestones": [r["milestone"] for r in rows],
+          "seconds": round(seconds, 1), "launches": launches,
+          "plain_calls": plain, "card": card})
+    check(len(rows) == len(RM.CONFIGS) and not any(plain.values())
+          and launches["bilstm_fwd"] == launches["bilstm_fwd_cluster"] > 0,
+          f"15: {len(rows)} milestones, launches {launches}, plain {plain}")
+    paths = dict(RM.CONFIGS)
+    for row in rows:
+        m = row["milestone"]
+        config = load_config(os.path.join(REPO, paths[m]))
+        out = os.path.join(OUT_DIR, f"milestones_{m}_h100_dev192.jsonl")
+        records = CV.read_records(os.path.join(wd, m, "decode.jsonl"))
+        CV.write_records(out, records)
+        n_match = CV.refs_match(CV.dev_refs(config), records)
+        check(n_match == len(records) == 192,
+              f"15 {m}: {n_match} of {len(records)} refs equal the dev set")
+        with open(os.path.join(wd, m, config.train.ckpt_dir,
+                               "best.pt.json")) as f:
+            best_epoch = int(json.load(f)["epoch"])
+        stats = CV.intervals(out)
+        if m in MILESTONE_RECORDS:
+            tpu = os.path.join(REPO, "docs", "evidence",
+                               f"{MILESTONE_RECORDS[m]}.jsonl")
+            stats = dict(CV.compare(out, tpu),
+                         tpu_record=os.path.relpath(tpu, REPO))
+        emit({"phase": "milestone", **row, "config": paths[m],
+              "epochs": config.train.num_epochs, "best_epoch": best_epoch,
+              "records": os.path.relpath(out, REPO), **stats, "card": card})
 
 
 def library_timing(torch, config, shapes, dev, card):

@@ -24,6 +24,19 @@ Prints one ``convergence_done`` JSON line. A paired interval that holds
 0 is a tie: the two runs differ in their seeds' draws (initialisation,
 SpecAugment, scheduled sampling), and the interval covers the decode's
 variance over utterances, not the variance between training seeds.
+
+Two helpers keep a run's evidence in the same form whichever package
+trained it (the JAX package's train and decode CLIs write the same
+``metrics.jsonl`` and record lines):
+
+    python -m gluon_e2e_asr_tpu_torch.tools.convergence epochs \
+        <workdir>/metrics.jsonl <out_epochs.jsonl>
+    python -m gluon_e2e_asr_tpu_torch.tools.convergence records \
+        <decode --output file> <out.jsonl>
+
+``epochs`` keeps each ``epoch`` line with ``loss_logged``, the mean loss
+of that epoch's ``train`` lines (logged every ``train.log_every`` steps);
+``records`` keeps RECORD_KEYS of each record, sorted by ``utt_id``.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 import numpy as np
 
@@ -50,6 +64,26 @@ def write_records(path: str, records) -> None:
             f.write(json.dumps({k: r[k] for k in RECORD_KEYS if k in r}) + "\n")
 
 
+def epoch_records(lines) -> list:
+    """The ``epoch`` lines of a run's metrics, each with ``loss_logged``:
+    the mean ``loss`` of the ``train`` lines logged in that epoch."""
+    out, losses = [], []
+    for r in lines:
+        if r.get("event") == "train":
+            losses.append(float(r["loss"]))
+        elif r.get("event") == "epoch":
+            out.append(dict(r, loss_logged=float(np.mean(losses))
+                            if losses else None))
+            losses = []
+    return out
+
+
+def write_lines(path: str, rows) -> None:
+    with open(path, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+
+
 def dev_refs(config) -> dict:
     """utt_id -> the reference text of the config's dev set."""
     from gluon_e2e_asr_tpu_torch.training.trainer import build_datasets
@@ -61,6 +95,25 @@ def refs_match(refs: dict, records) -> int:
     """How many of ``records`` carry the ref that ``refs`` holds for their
     ``utt_id``; all of them, and every utterance of ``refs``, must."""
     return sum(refs.get(r["utt_id"]) == r["ref"] for r in records)
+
+
+def _intervals(counts, iters: int, seed: int) -> dict:
+    from gluon_e2e_asr_tpu_torch.tools.wer_ci import bootstrap_ci
+
+    w, lw, hw, ce, lc, hc = bootstrap_ci(counts, iters, seed)
+    return {"utts": len(counts), "wer": w, "wer_ci95": [lw, hw], "cer": ce,
+            "cer_ci95": [lc, hc], "bootstrap_iters": iters,
+            "bootstrap_seed": seed}
+
+
+def intervals(path: str, iters: int = ITERS, seed: int = SEED) -> dict:
+    """WER/CER of the records at ``path`` with 95% bootstrap intervals
+    (``tools/wer_ci.py``), for a record with no reference to pair with."""
+    from gluon_e2e_asr_tpu_torch.tools.wer_ci import per_utt_counts
+
+    counts = per_utt_counts(path, keyed=True)
+    return _intervals(np.asarray([counts[k] for k in sorted(counts)],
+                                 np.float64), iters, seed)
 
 
 def compare(path: str, reference: str, iters: int = ITERS,
@@ -80,15 +133,12 @@ def compare(path: str, reference: str, iters: int = ITERS,
                          f"{len(shared)} shared)")
     a = np.asarray([ca[k] for k in shared], np.float64)
     b = np.asarray([cb[k] for k in shared], np.float64)
-    w, lw, hw, ce, lc, hc = bootstrap_ci(a, iters, seed)
     rw, rlw, rhw = bootstrap_ci(b, iters, seed)[:3]
     d, lo, hi, p_ge = paired_diff_ci(a, b, iters, seed)
-    return {"utts": len(shared), "wer": w, "wer_ci95": [lw, hw], "cer": ce,
-            "cer_ci95": [lc, hc], "reference_wer": rw,
+    return {**_intervals(a, iters, seed), "reference_wer": rw,
             "reference_wer_ci95": [rlw, rhw], "wer_diff": d,
             "wer_diff_ci95": [lo, hi], "p_diff_ge_0": p_ge,
-            "tie": bool(lo <= 0.0 <= hi), "bootstrap_iters": iters,
-            "bootstrap_seed": seed}
+            "tie": bool(lo <= 0.0 <= hi)}
 
 
 def train(config_path: str, workdir: str, overrides=(), device="cuda"):
@@ -112,14 +162,15 @@ def best_checkpoint(trainer) -> tuple:
 
 
 def decode_best(config_path: str, ckpt: str, out: str, overrides=(),
-                device="cuda") -> dict:
-    """The decode CLI on ``ckpt`` by the config's own decode block over the
-    whole dev set; the records to ``out`` (RECORD_KEYS). Returns its
-    ``decode_done`` summary."""
+                device="cuda", method: str = "") -> dict:
+    """The decode CLI on ``ckpt`` by the config's own decode block (or by
+    ``method``) over the whole dev set; the records to ``out``
+    (RECORD_KEYS). Returns its ``decode_done`` summary."""
     from gluon_e2e_asr_tpu_torch import decode
 
     raw = out + ".raw"
     sets = [a for o in overrides for a in ("--set", o)]
+    sets += ["--method", method] if method else []
     result = decode.main(["--config", config_path, *sets, "--ckpt", ckpt,
                           "--output", raw, "--device", device])
     write_records(out, read_records(raw))
@@ -130,6 +181,15 @@ def decode_best(config_path: str, ckpt: str, out: str, overrides=(),
 def main(argv=None) -> dict:
     from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
 
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] in (["epochs"], ["records"]):
+        what, src, out = argv
+        rows = read_records(src)
+        if what == "epochs":
+            write_lines(out, epoch_records(rows))
+        else:
+            write_records(out, rows)
+        return {"event": what, "from": src, "to": out}
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", required=True)
     p.add_argument("--reference", required=True,

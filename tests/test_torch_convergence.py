@@ -14,9 +14,11 @@
   of english_m5_bpe and milestone5_beam at test widths (the plain
   versions, the same draws): the longest comparison of training the CPU
   allows in a test, where rounding could drift that 2 steps cannot show;
-- the card's committed records (``gluon_e2e_asr_tpu_torch/evidence/``)
-  recomputed with the root ``tools/wer_ci.py``: the numbers ``PERF.md``
-  states.
+- the committed records (``gluon_e2e_asr_tpu_torch/evidence/``: the
+  port's on the card, the JAX recipe's on the CPU) recomputed with the
+  root ``tools/wer_ci.py`` against each reference their README names:
+  the numbers ``PERF.md`` states; each run's best epoch from its epoch
+  lines.
 """
 
 import importlib.util
@@ -158,6 +160,41 @@ def test_tiny_config_compared_with_itself_is_a_tie(tmp_path):
     assert summary["wer_diff"] == 0.0 and summary["best_epoch"] == best_epoch
 
 
+def test_epoch_lines_and_records_in_the_evidence_form(tmp_path):
+    """``convergence epochs``: each epoch line of a metrics file with the
+    mean loss of the train lines logged in that epoch (None where it
+    logged none); ``convergence records``: RECORD_KEYS of each record,
+    sorted by utt_id; ``intervals`` equals ``compare``'s own half."""
+    lines = [{"event": "datasets"},
+             {"event": "train", "step": 10, "loss": 4.0},
+             {"event": "train", "step": 20, "loss": 2.0},
+             {"event": "epoch", "epoch": 0, "step": 25, "dev_wer": 0.9},
+             {"event": "ckpt_io", "epoch": 0},
+             {"event": "epoch", "epoch": 1, "step": 30, "dev_wer": 0.8},
+             {"event": "train", "step": 40, "loss": 1.0},
+             {"event": "epoch", "epoch": 2, "step": 50, "dev_wer": 0.7}]
+    metrics = tmp_path / "metrics.jsonl"
+    CV.write_lines(str(metrics), lines)
+    out = tmp_path / "epochs.jsonl"
+    CV.main(["epochs", str(metrics), str(out)])
+    got = CV.read_records(str(out))
+    assert [r["epoch"] for r in got] == [0, 1, 2]
+    assert [r["loss_logged"] for r in got] == [3.0, None, 1.0]
+    assert got[0]["dev_wer"] == 0.9 and got[2]["step"] == 50
+    raw = tmp_path / "raw.jsonl"
+    src = CV.read_records(os.path.join(EVIDENCE, "m5_beam_dev192.jsonl"))
+    CV.write_lines(str(raw), [dict(r, extra=1) for r in reversed(src)])
+    rec = tmp_path / "rec.jsonl"
+    CV.main(["records", str(raw), str(rec)])
+    kept = CV.read_records(str(rec))
+    assert [r["utt_id"] for r in kept] == sorted(r["utt_id"] for r in src)
+    assert all(set(r) == set(CV.RECORD_KEYS) for r in kept)
+    both = CV.compare(str(rec), os.path.join(EVIDENCE, "m5_beam_dev192.jsonl"))
+    alone = CV.intervals(str(rec))
+    assert {k: both[k] for k in alone} == alone
+    assert both["wer_diff"] == 0.0 and both["tie"]
+
+
 LONG_STEPS = 100
 
 
@@ -240,8 +277,11 @@ def test_port_trains_like_jax_over_many_steps(name):
 
 
 def _card_records():
-    """(card record, TPU record) of each committed card run: the README's
-    table pairs them."""
+    """(record, reference) of each committed record: the README's tables
+    pair each record (first column) with every reference record in its
+    row (the TPU run's under docs/evidence/, or another record of this
+    directory), or with None where the row has none (its intervals
+    alone)."""
     path = os.path.join(CARD_EVIDENCE, "README.md")
     if not os.path.exists(path):
         return []
@@ -249,9 +289,10 @@ def _card_records():
     with open(path) as f:
         for line in f:
             cells = [c.strip(" `") for c in line.split("|")]
-            if len(cells) > 3 and cells[1].endswith(".jsonl") \
-                    and cells[2].endswith(".jsonl"):
-                pairs.append((cells[1], cells[2]))
+            if len(cells) > 3 and cells[1].endswith(".jsonl"):
+                refs = [r.strip(" `") for c in cells[2:] for r in c.split(",")]
+                refs = [r for r in refs if r.endswith(".jsonl")]
+                pairs += [(cells[1], r) for r in refs] or [(cells[1], None)]
     return pairs
 
 
@@ -260,24 +301,38 @@ def _fmt_ci(v, lo, hi, sign=False):
     return f"{f.format(v)} [{f.format(lo)}, {f.format(hi)}]"
 
 
+def _verdict(lo, hi):
+    """A tie where the paired interval holds 0; a failure where it lies
+    wholly above +10 points; a gap otherwise."""
+    return "tie" if lo <= 0.0 <= hi else "fail" if lo > 0.10 else "gap"
+
+
 @pytest.mark.parametrize("card,tpu", _card_records())
 def test_perf_numbers_recompute_from_the_records(card, tpu):
-    """PERF.md's row of each committed card record: the port's WER and
-    CER with their 95% intervals, the TPU record's WER, and the paired
-    difference with its interval and p(diff >= 0), as the root
-    tools/wer_ci.py computes them from the two records (10,000 resamples,
-    seed 0, paired by utt_id)."""
+    """PERF.md's row of each committed record and its reference: the
+    record's WER and CER with their 95% intervals, the reference's WER,
+    and the paired difference with its interval, p(diff >= 0) and the
+    verdict, as the root tools/wer_ci.py computes them from the two
+    records (10,000 resamples, seed 0, paired by utt_id); a record with
+    no reference, its intervals alone."""
     root = _root_ci()
     a = os.path.join(CARD_EVIDENCE, card)
-    b = os.path.join(EVIDENCE, tpu)
-    ca, cb = _paired(root, a, b)
-    assert len(ca) == len(cb) == 192
-    w, lw, hw, ce, lc, hc = root.bootstrap_ci(ca)
-    rw = root.bootstrap_ci(cb)[0]
-    d, lo, hi, p = root.paired_diff_ci(ca, cb)
-    cells = [card, _fmt_ci(w, lw, hw), _fmt_ci(ce, lc, hc), f"{rw:.4f}",
-             _fmt_ci(d, lo, hi, sign=True), f"{p:.4f}",
-             "tie" if lo <= 0.0 <= hi else "gap"]
+    if tpu is None:
+        ca = root.per_utt_counts(a)
+        assert len(ca) == 192
+        w, lw, hw, ce, lc, hc = root.bootstrap_ci(ca)
+        cells = [card, _fmt_ci(w, lw, hw), _fmt_ci(ce, lc, hc)]
+    else:
+        b = os.path.join(CARD_EVIDENCE, tpu)
+        if not os.path.exists(b):
+            b = os.path.join(EVIDENCE, tpu)
+        ca, cb = _paired(root, a, b)
+        assert len(ca) == len(cb) == 192
+        w, lw, hw, ce, lc, hc = root.bootstrap_ci(ca)
+        rw = root.bootstrap_ci(cb)[0]
+        d, lo, hi, p = root.paired_diff_ci(ca, cb)
+        cells = [card, _fmt_ci(w, lw, hw), _fmt_ci(ce, lc, hc), f"{rw:.4f}",
+                 _fmt_ci(d, lo, hi, sign=True), f"{p:.4f}", _verdict(lo, hi)]
     with open(os.path.join(REPO, "PERF.md")) as f:
         rows = [line for line in f if f"`{card}`" in line]
     assert rows, f"PERF.md has no row for {card}"
@@ -285,3 +340,43 @@ def test_perf_numbers_recompute_from_the_records(card, tpu):
     with open(a) as f:
         first = json.loads(f.readline())
     assert set(first) == set(CV.RECORD_KEYS)
+
+
+def _epoch_rows():
+    """(record, its epochs file, the README's "best of epochs" cell) of
+    each committed record that has its run's epoch lines beside it."""
+    path = os.path.join(CARD_EVIDENCE, "README.md")
+    rows = []
+    with open(path) as f:
+        for line in f:
+            cells = [c.strip(" `") for c in line.split("|")]
+            if len(cells) > 3 and cells[1].endswith(".jsonl"):
+                epochs = cells[1][:-len(".jsonl")] + "_epochs.jsonl"
+                best = [c for c in cells if " of " in c and
+                        c.split(" of ")[0].isdigit()]
+                if os.path.exists(os.path.join(CARD_EVIDENCE, epochs)):
+                    rows.append((cells[1], epochs, best[0]))
+    return rows
+
+
+def test_every_epochs_file_belongs_to_a_record():
+    named = {e for _, e, _ in _epoch_rows()}
+    on_disk = {os.path.basename(p) for p in os.listdir(CARD_EVIDENCE)
+               if p.endswith("_epochs.jsonl")}
+    assert named == on_disk and len(on_disk) >= 3
+
+
+@pytest.mark.parametrize("record,epochs,best", _epoch_rows())
+def test_best_epoch_recomputes_from_the_epoch_lines(record, epochs, best):
+    """The README's best epoch of a run is the first epoch of least dev
+    WER in its epoch lines (the trainer's ``dev_wer < best_wer``), out of
+    every epoch the run trained; each line carries its dev WER and CER
+    and a mean training loss."""
+    rows = CV.read_records(os.path.join(CARD_EVIDENCE, epochs))
+    assert [r["epoch"] for r in rows] == list(range(len(rows)))
+    wers = [r["dev_wer"] for r in rows]
+    assert best == f"{wers.index(min(wers))} of {len(rows)}"
+    for r in rows:
+        assert r["dev_wer"] >= 0.0 and r["dev_cer"] >= 0.0
+        loss = r.get("loss", r.get("loss_logged"))
+        assert loss is not None and np.isfinite(loss)

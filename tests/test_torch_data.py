@@ -150,7 +150,8 @@ def test_metrics_match():
 # that differ from the original on purpose: where the port builds its
 # native library (``build/native/`` at the root of the checkout) and that
 # a failed build raises with the compiler's stderr (the JAX ``get_lib``
-# returns None).
+# returns None); the FLOP count's peaks, which are the H100's and take no
+# environment override (the JAX ones are TPU v5e's, with an env hook).
 COPIES = {
     "config.py": set(),
     "data/sampler.py": set(),
@@ -158,6 +159,7 @@ COPIES = {
     "data/loader.py": set(),
     "data/manifest.py": set(),
     "eval/metrics.py": set(),
+    "utils/flops.py": {"PEAK_TFLOPS", "peak_tflops"},
     "utils/logging.py": set(),
     "utils/native.py": {"_BUILD_DIR", "_lib_path", "_prune_stale",
                         "_build_failed", "_build_error", "_build", "get_lib"},
@@ -305,7 +307,7 @@ def test_the_port_imports_nothing_of_the_jax_package():
                  "tools.rescore_nbest", "tools.make_lm_corpus",
                  "utils.native", "tools.make_synth_corpus",
                  "tools.compute_cmvn", "tools.average_ckpts",
-                 "tools.tune_decode", "tools.plot_attention",
+                 "tools.tune_decode", "tools.plot_attention", "utils.flops",
                  "tools.run_milestones", "tools.wer_ci",
                  "tools.convergence"):
         assert f"gluon_e2e_asr_tpu_torch.{name}" in proc.stdout, name
