@@ -207,7 +207,7 @@ its ranks itself.) Phases, each printing JSON lines:
    CLI's texts). ``tools/run_milestones.py`` is not run here (it trains
    the five milestones for every epoch): phase 15 runs it.
 
-Three phases run only when asked for (``--only``), each a chip call of
+Four phases run only when asked for (``--only``), each a chip call of
 its own:
 
 13. ``configs/ls100_shape.yaml`` (the LibriSpeech-100h dress rehearsal:
@@ -242,7 +242,32 @@ its own:
    by its config's method; no plain call; each milestone's steps, train
    seconds, best epoch, WER and CER with 95% intervals, m5 also paired
    with the TPU run's record; the records written to
-   ``build/chip_smoke/milestones_<m>_h100_dev192.jsonl``.
+   ``build/chip_smoke/milestones_<m>_h100_dev192.jsonl``;
+16. ``configs/ls100_full.yaml`` as shipped at its own scale: 28,500 train
+   + 2,700 dev utterances (101.3 h of FLAC audio), its 5 epochs. The disk
+   free where the corpus goes (it must hold the corpus's 11.7 GB of
+   16-bit PCM and LS100_FULL_SPARE_BYTES for the stats and checkpoints);
+   the corpus rendered with the config's header flags on every core
+   (three files decoded to exactly the encoder's PCM; the render's
+   seconds, hours and manifest walk), its walk equal to the utterances
+   drawn from the texts alone (``ls100_full_manifest``); the dev refs
+   equal to the TPU run's record's, 2,700/2,700, before any training;
+   ``tools/compute_cmvn.py`` at int16; the train CLI as shipped but for
+   the corpus, the stats path and LS100_FULL_EVAL (a greedy per-epoch
+   evaluation: the config's beam six times would not fit a chip call),
+   with phase 6's launch counts and no plain call, one line an epoch
+   (steps and pad waste, which must equal the TPU table's; occupancy; the
+   training part's seconds and utt/s; the evaluation's seconds; dev WER
+   and CER; checkpoint save seconds; peak RSS; disk free); the trained
+   kernels against their plain versions on the first batch of each
+   bucket; best.pt (and the last checkpoint, where the greedy evaluation
+   picked another epoch) decoded by the config's beam over the 2,700 dev
+   utterances, the p50 latency, the records paired with the TPU record
+   (a tie, a gap, or a fault: the paired interval wholly above +3
+   points). The records go to ``build/chip_smoke/
+   ls100_full_h100_dev2700.jsonl`` beside their epoch lines. ``--only
+   16a`` stops after the CMVN with one timed dev evaluation of the
+   untrained model, by the beam and greedily: the cost of an evaluation.
 
 Then the kernels line (each kernel's launches on the main path, error,
 time, plain time, bound and library time; also each row's launches in
@@ -253,8 +278,9 @@ K2's, K3's and K4 loc's numbers at ls100's largest bucket) and, last,
 failed check exits non-zero before the last line. Artifacts go to
 ``build/chip_smoke/``. ``python3 chip_smoke.py --only 6c,6d,11,12`` runs
 the build and those phases alone (``--only 13``, ``--only 14a [--set
-train.seed=1]``, ``--only 15``: the phases above), reports every failed
-check and prints neither the kernels line nor the last line.
+train.seed=1]``, ``--only 15``, ``--only 16``, ``--only 16a``: the phases
+above), reports every failed check and prints neither the kernels line
+nor the last line.
 """
 
 from __future__ import annotations
@@ -456,6 +482,36 @@ LS_SHAPE_RENDER = {"text_mode": "english", "durations": "librispeech",
                    "jitter": 0.04, "noise": 0.05}
 LS_SHAPE_TRAIN, LS_SHAPE_DEV, LS_SHAPE_EPOCHS = 1000, 4, 1
 LS_SHAPE_BYTES = 400e3  # an upper bound on one rendered FLAC file
+# Phase 16: ls100_full.yaml as shipped at its own scale, LS100_FULL train +
+# dev utterances (101.3 h) for its 5 epochs, and its best checkpoint's
+# decode of the 2,700 dev utterances paired with the TPU run's record of
+# them (LS100_FULL_RECORD: round 5's, WER 0.0801; its summary sidecar
+# still holds round 4's 0.0671). LS100_FULL_TPU: the TPU run's epoch table
+# (BASELINE.md, "Round-5 epoch table").
+LS100_FULL = (28500, 2700)
+LS100_FULL_RECORD = "ls100_dev_decode_r5"
+LS100_FULL_NAME = "ls100_full_h100_dev2700"
+LS100_FULL_TPU = {"steps": (674, 674, 673, 673, 673),
+                  "pad_waste": (0.1184, 0.1185, 0.1174, 0.1171, 0.1169),
+                  "dev_wer": (0.6904, 0.1947, 0.1239, 0.0943, 0.0801),
+                  "dev_cer": (0.4545, 0.0707, 0.0418, 0.0296, 0.0251)}
+# A fault: the paired interval port - TPU wholly above +3 points (phase
+# 14's +10 points at WER 0.25 is about as large relative to 0.08; twice the
+# 1.3 points between the TPU's two rehearsals, 0.0671 and 0.0801).
+LS100_FULL_FAULT = 0.03
+# Beside the corpus (its 16-bit PCM, counted from the texts): the CMVN
+# stats and the checkpoints the run keeps (train.keep_ckpts and best.pt,
+# the parameters and two Adam moments in f32: about 0.1 GB each).
+LS100_FULL_SPARE_BYTES = 2e9
+# The per-epoch dev evaluation: greedy in place of the config's beam, so
+# that the run fits one 60-minute chip call. The beam ran 319.9 s over the
+# 2,700 (--only 16a on an H100; every batch runs to its length limit, 6,649
+# output steps, trained or not, as the TPU's decode did), so six beam
+# passes with the render and the training would take about 54 minutes.
+# The evaluation only picks best.pt here (eps_decay 0, plateau_restore_best
+# off, early_stop_patience 5 cannot fire in 5 epochs); best.pt and the last
+# checkpoint are decoded by the beam.
+LS100_FULL_EVAL = ("decode.method=greedy",)
 # Phase 14: each config trained as shipped to convergence and its best
 # checkpoint's dev decode held to the TPU run's record of the same 192
 # utterances (tools/convergence.py; one id a chip call): id -> (config,
@@ -687,7 +743,8 @@ main_only = False  # --only: a failed check is reported and the run goes on
 
 def main(only=(), overrides=()) -> None:
     """The phases in order; ``only`` (phase names "6c", "6d", "11",
-    "12", "13", "14a".."14d", "15"): the device, the build and those phases
+    "12", "13", "14a".."14d", "15", "16", "16a"): the device, the build
+    and those phases
     alone, with no kernels line and no last line (a quicker run while a
     phase is written; phase 14's runs, which take a chip call each);
     ``overrides`` (``--set``), phase 14's training overrides."""
@@ -745,7 +802,8 @@ def main(only=(), overrides=()) -> None:
         main_only = True
         phases = {"6c": training_options, "6d": vgg_slice, "11": lm_phase,
                   "12": ls100_phase, "13": ls_shape_phase,
-                  "15": milestones_phase}
+                  "15": milestones_phase, "16": ls100_full_phase,
+                  "16a": lambda *a: ls100_full_phase(*a, measure_only=True)}
         for name in only:
             if name in CONVERGENCE:
                 convergence_phase(torch, dev, card, name, overrides)
@@ -1451,7 +1509,7 @@ def check_decoder_kernels(torch, config, dev, kind="dot", cases=None):
         ref, ref_resid = LD.las_decoder_fwd_plain(*args, cd, kind, band)
         torch.cuda.synchronize()
         same = (resid[4].long() == ref_resid[4].long()).all(1)
-        share = float(same.float().mean())
+        share = int(same.sum()) / same.numel()  # exact: 1.0 when all agree
         need = 1.0 if cd_name == "float32" or coin_p == 0.0 \
             else MIN_ROWS_AGREE_BF16
         check(share >= need,
@@ -3215,39 +3273,15 @@ def dp_check(torch, trainer, dev, card):
 def train_reference(torch, trainer, dev):
     """Phase 7: one hybrid step of the trained model through the kernels
     and through the plain versions on the card, from the same state."""
-    from gluon_e2e_asr_tpu_torch.models.asr import build_model
-    from gluon_e2e_asr_tpu_torch.training.train_step import (
-        TrainState, batch_to_device, make_train_step)
+    from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
 
-    # Scheduled sampling off: with it on, a bf16 rounding flip can change
-    # an argmax and with it the decoder's later inputs (phase 3 covers it).
-    config = copy.deepcopy(trainer.config)
-    config.loss.scheduled_sampling = 0.0
     b = bucket_batch(torch, trainer.config)[0]
     batch = batch_to_device(b, dev)
     params0 = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
-    runs = {}
-    tok = trainer.tokenizer
-    for route in ("kernel", "plain"):
-        model = build_model(config, tok.vocab_size, train=True,
-                            sos_id=tok.sos_id, eos_id=tok.eos_id)
-        model.load_state_dict(params0)
-        model.to(dev)
-        state = TrainState(step=trainer.state.step,
-                           opt_state=copy.deepcopy(trainer.state.opt_state),
-                           generator=torch.Generator().manual_seed(SEED))
-        step = make_train_step(model, config, trainer.optimizer,
-                               trainer.cmvn_stats)
-        with plain_route() if route == "plain" else contextlib.nullcontext():
-            m = step(state, batch)
-        torch.cuda.synchronize()
-        runs[route + "_att"] = (float(m["loss_att"]), float(m["att_acc"]))
-        runs[route] = (float(m["loss"]), float(m["grad_norm"]),
-                       {k: p.grad.detach().clone()
-                        for k, p in model.named_parameters()},
-                       {k: v.detach().clone()
-                        for k, v in model.state_dict().items()})
-    (lk, nk, gk, pk), (lp, np_, gp, pp) = runs["kernel"], runs["plain"]
+    runs = {route: hybrid_step(torch, trainer, trainer.config, batch, params0,
+                               route) for route in ("kernel", "plain")}
+    runs.update({f"{r}_att": runs[r][4] for r in ("kernel", "plain")})
+    (lk, nk, gk, pk, _), (lp, np_, gp, pp, _) = runs["kernel"], runs["plain"]
     lr = trainer.optimizer.lr(trainer.state.opt_state["count"])
     loss_rel = abs(lk - lp) / abs(lp)
     grad_rel = {k: rel_err(gk[k], gp[k]) for k in gk}
@@ -3261,6 +3295,7 @@ def train_reference(torch, trainer, dev):
            "param_max_abs_err_over_lr": param_lr, "lr": lr,
            "plain_update_max_over_lr": moved}
     emit({"phase": "train_reference", "T_frames": int(b.audio.shape[1]),
+          "compute_dtype": trainer.config.model.compute_dtype,
           "grad_rel_err": grad_rel, **out,
           "tol": {"loss_rel": TOL_STEP_LOSS, "grad_rel": TOL_STEP_GRAD,
                   "param_over_lr": TOL_STEP_PARAM_LR}})
@@ -3270,6 +3305,77 @@ def train_reference(torch, trainer, dev):
     check(param_lr <= TOL_STEP_PARAM_LR,
           f"parameters after Adam disagree by {param_lr} x LR")
     return out
+
+
+def hybrid_step(torch, trainer, config, batch, params0, route):
+    """One hybrid step of ``trainer``'s model from ``params0`` and its
+    optimizer state on ``batch`` (on the card) under ``config`` (its
+    compute dtype), scheduled sampling off (with it on, a bf16 rounding
+    flip can change an argmax and with it the decoder's later inputs; phase
+    3 covers it), through the kernels or (``route`` "plain") the plain
+    versions: (loss, grad norm, gradients, parameters after the update,
+    (attention loss, accuracy))."""
+    from gluon_e2e_asr_tpu_torch.models.asr import build_model
+    from gluon_e2e_asr_tpu_torch.training.train_step import (
+        TrainState, make_train_step)
+
+    config = copy.deepcopy(config)
+    config.loss.scheduled_sampling = 0.0
+    tok = trainer.tokenizer
+    model = build_model(config, tok.vocab_size, train=True,
+                        sos_id=tok.sos_id, eos_id=tok.eos_id)
+    model.load_state_dict(params0)
+    model.to(batch["audio"].device)
+    state = TrainState(step=trainer.state.step,
+                       opt_state=copy.deepcopy(trainer.state.opt_state),
+                       generator=torch.Generator().manual_seed(SEED))
+    step = make_train_step(model, config, trainer.optimizer,
+                           trainer.cmvn_stats)
+    with plain_route() if route == "plain" else contextlib.nullcontext():
+        m = step(state, batch)
+    torch.cuda.synchronize()
+    return (float(m["loss"]), float(m["grad_norm"]),
+            {k: p.grad.detach().clone() for k, p in model.named_parameters()},
+            {k: v.detach().clone() for k, v in model.state_dict().items()},
+            (float(m["loss_att"]), float(m["att_acc"])))
+
+
+def step_spread(torch, trainer, dev, card):
+    """The trained bf16 model's step on the batch batch_kernel_checks last
+    took, in f32: through the kernels against the plain versions at phase
+    7's tolerances (train_reference: the kernels' arithmetic without bf16's
+    roundings); and the plain step in bf16 against the plain step in f32,
+    how far the roundings alone move the loss, gradients and update at
+    this shape (no tolerance: the floor the bf16 comparison is read
+    against)."""
+    from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
+
+    f32 = copy.deepcopy(trainer.config)
+    f32.model.compute_dtype = "float32"
+    _BATCH[f32.fingerprint()] = _BATCH[trainer.config.fingerprint()]
+    as_f32 = types.SimpleNamespace(**{k: getattr(trainer, k) for k in (
+        "model", "tokenizer", "state", "optimizer", "cmvn_stats")},
+        config=f32)
+    kernel_f32 = train_reference(torch, as_f32, dev)
+    batch = batch_to_device(_BATCH[f32.fingerprint()][0], dev)
+    params0 = {k: v.detach().clone()
+               for k, v in trainer.model.state_dict().items()}
+    (lb, nb, gb, pb, _), (l32, n32, g32, p32, _) = (
+        hybrid_step(torch, trainer, c, batch, params0, "plain")
+        for c in (trainer.config, f32))
+    lr = trainer.optimizer.lr(trainer.state.opt_state["count"])
+    spread = {"loss_rel_err": abs(lb - l32) / abs(l32),
+              "grad_norm": [nb, n32],
+              "grad_max_rel_err": max(rel_err(gb[k], g32[k]) for k in gb),
+              "param_max_abs_err_over_lr": max(
+                  float((pb[k] - p32[k]).abs().max()) for k in pb) / lr}
+    emit({"phase": "step_rounding_spread", "T_frames": int(batch["audio"]
+                                                           .shape[1]),
+          "plain_bf16_vs_plain_f32": spread,
+          "kernel_vs_plain_f32": {k: kernel_f32[k] for k in (
+              "loss_rel_err", "grad_max_rel_err",
+              "param_max_abs_err_over_lr")}, "card": card})
+    return spread
 
 
 def train_timing(torch, trainer, shapes, dev, card):
@@ -4118,11 +4224,12 @@ def native_batch_counts():
             setattr(native, k, fn)
 
 
-def ls100_render(torch, corpus, card):
-    """Phase 12's corpus: ``tools/make_synth_corpus.py`` with
-    ls100_full.yaml's flags, cut to LS100_TRAIN + LS100_DEV utterances;
-    three files decoded to exactly the PCM the encoder was given; the
-    train manifest walked."""
+def ls100_render(torch, corpus, card, train=LS100_TRAIN, dev=LS100_DEV):
+    """The corpus of phases 12 and 16: ``tools/make_synth_corpus.py`` with
+    ls100_full.yaml's flags (``train`` + ``dev`` utterances: phase 12 cuts
+    them to LS100_TRAIN + LS100_DEV), on every core of the host; three
+    files decoded to exactly the PCM the encoder was given; the train
+    manifest walked."""
     from gluon_e2e_asr_tpu_torch.data.manifest import build_librispeech_manifest
     from gluon_e2e_asr_tpu_torch.tools import make_synth_corpus as MS
     from gluon_e2e_asr_tpu_torch.utils.native import decode_flac
@@ -4131,15 +4238,15 @@ def ls100_render(torch, corpus, card):
              for f in (f"--{k.replace('_', '-')}", str(v))]
     shutil.rmtree(corpus, ignore_errors=True)
     t0 = time.perf_counter()
-    made = MS.main(["--out", corpus, "--num-train", str(LS100_TRAIN),
-                    "--num-dev", str(LS100_DEV), *flags])
+    made = MS.main(["--out", corpus, "--num-train", str(train),
+                    "--num-dev", str(dev), *flags])
     render_s = time.perf_counter() - t0
     r = LS100_RENDER
-    utts = MS._ls_duration_utts("train-clean-100", LS100_TRAIN, r["seed"],
+    utts = MS._ls_duration_utts("train-clean-100", train, r["seed"],
                                 r["text_mode"], r["noise"], r["jitter"],
                                 pool_split=r["pool_split"])
     exact = {}
-    for i in (0, 1, LS100_TRAIN - 1):
+    for i in (0, 1, train - 1):
         _, utt_id, path = MS.utt_location(corpus, "train-clean-100", i, 100,
                                           "flac")
         got = np.round(decode_flac(path).astype(np.float64) * 32768.0)
@@ -4150,26 +4257,29 @@ def ls100_render(torch, corpus, card):
     walked = build_librispeech_manifest(corpus, "train-clean-100")
     walk_s = time.perf_counter() - t0
     emit({"phase": "ls100_render", "config": os.path.relpath(LS100_CONFIG, REPO),
-          "flags": flags, "train": LS100_TRAIN, "dev": LS100_DEV,
-          "cut_from": "28,500 train + 2,700 dev", "hours": made["hours"],
-          "seconds": render_s, "workers": os.cpu_count(),
-          "decoded_exactly": exact, "manifest_walk_s": walk_s,
-          "manifest_utts": len(walked), "card": card})
+          "flags": flags, "train": train, "dev": dev,
+          "cut_from": (None if (train, dev) == LS100_FULL
+                       else "28,500 train + 2,700 dev"),
+          "hours": made["hours"], "seconds": render_s,
+          "workers": os.cpu_count(), "decoded_exactly": exact,
+          "manifest_walk_s": walk_s, "manifest_utts": len(walked),
+          "card": card})
     check(all(exact.values()), f"FLAC files decode to other PCM: {exact}")
-    check(len(walked) == LS100_TRAIN and all(
+    check(len(walked) == train and all(
         u.audio_path.endswith(".flac") for u in walked),
-        f"the manifest walk found {len(walked)} of {LS100_TRAIN} .flac files")
+        f"the manifest walk found {len(walked)} of {train} .flac files")
 
 
-def ls100_cmvn(torch, sets, workdir, card):
+def ls100_cmvn(torch, sets, workdir, card, dtypes=("int16", "float32")):
     """Global CMVN of the train split through ``tools/compute_cmvn.py`` on
-    the card, at ls100_full.yaml's transfer_dtype int16 and at float32:
-    the two within TOL_CMVN, finite, std > 0, every batch through the
-    native route. Returns the int16 stats' path."""
+    the card, at ls100_full.yaml's transfer_dtype int16 and (phase 12) at
+    float32: the two within TOL_CMVN, finite, std > 0, every batch through
+    the native route. Returns the int16 stats' path."""
     from gluon_e2e_asr_tpu_torch.tools import compute_cmvn
 
+    os.makedirs(workdir, exist_ok=True)
     paths, stats, secs, batches = {}, {}, {}, {}
-    for td in ("int16", "float32"):
+    for td in dtypes:
         paths[td] = os.path.join(workdir, f"cmvn_{td}.npz")
         with native_batch_counts() as n:
             t0 = time.perf_counter()
@@ -4178,8 +4288,8 @@ def ls100_cmvn(torch, sets, workdir, card):
                 "--set", f"data.transfer_dtype={td}", "--device", "cuda"])
             secs[td] = time.perf_counter() - t0
         batches[td] = dict(n)
-    diff = max(float(np.abs(stats["int16"][k] - stats["float32"][k]).max())
-               for k in ("mean", "std"))
+    diff = (max(float(np.abs(stats["int16"][k] - stats["float32"][k]).max())
+                for k in ("mean", "std")) if "float32" in stats else None)
     ok = all(np.isfinite(st[k]).all() for st in stats.values()
              for k in ("mean", "std")) and all(
         (st["std"] > 0).all() for st in stats.values())
@@ -4193,7 +4303,7 @@ def ls100_cmvn(torch, sets, workdir, card):
           "finite_and_positive_std": ok,
           "basis": "host clock: the native loader's decode and pack, the "
                    "plain log-mel on the card, the moments", "card": card})
-    check(ok and diff <= TOL_CMVN,
+    check(ok and (diff is None or diff <= TOL_CMVN),
           f"CMVN stats: int16 against float32 {diff}, finite/std>0 {ok}")
     check(all(b["batches"] > 0 and not b["failed"] for b in batches.values()),
           f"compute_cmvn's batches missed the native route: {batches}")
@@ -4653,6 +4763,18 @@ def batch_kernel_checks(torch, config, trainer, b, name, dev):
     return errs, train_reference(torch, trainer, dev), (B, T0, T)
 
 
+def disk_check(phase: str, need: float, **what) -> bool:
+    """The bytes free where OUT_DIR's corpora go, printed with ``what``;
+    a failed check where they are not above ``need``. Returns whether
+    every check so far passed."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    free = shutil.disk_usage(OUT_DIR).free
+    emit({"phase": phase, "path": os.path.relpath(OUT_DIR, REPO),
+          "free_bytes": free, "need_bytes": need, **what})
+    check(free > need, f"{free} bytes free for {need}: {what}")
+    return not FAILED
+
+
 def ls_shape_phase(torch, dev, card):
     """Phase 13 (``--only 13``): configs/ls100_shape.yaml on the card. The
     disk free where the corpus goes; the corpus rendered by the port's
@@ -4681,15 +4803,10 @@ def ls_shape_phase(torch, dev, card):
     from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
 
     t_phase = time.perf_counter()
-    os.makedirs(OUT_DIR, exist_ok=True)
     corpus = os.path.join(OUT_DIR, "ls_shape_corpus")
     shutil.rmtree(corpus, ignore_errors=True)
-    free = shutil.disk_usage(OUT_DIR).free
     need = (LS_SHAPE_TRAIN + LS_SHAPE_DEV) * LS_SHAPE_BYTES
-    emit({"phase": "ls_shape_disk", "path": os.path.relpath(OUT_DIR, REPO),
-          "free_bytes": free, "render_bound_bytes": need})
-    check(free > 4 * need, f"{free} bytes free for a render of up to {need}")
-    if FAILED:
+    if not disk_check("ls_shape_disk", 4 * need, render_bound_bytes=need):
         return {}
     flags = [f for k, v in LS_SHAPE_RENDER.items()
              for f in (f"--{k.replace('_', '-')}", str(v))]
@@ -5011,6 +5128,323 @@ def milestones_phase(torch, dev, card):
         emit({"phase": "milestone", **row, "config": paths[m],
               "epochs": config.train.num_epochs, "best_epoch": best_epoch,
               "records": os.path.relpath(out, REPO), **stats, "card": card})
+
+
+def ls100_full_manifest(split: str) -> list:
+    """The utterances (utt_id, text, duration) that walking ls100_full's
+    corpus at its own scale (LS100_RENDER's flags, LS100_FULL) gives for
+    ``split``, from the texts alone: ``tools/make_synth_corpus.py``'s draws
+    and file layout (the train split from the seed, speakers from 100; the
+    dev split from the seed + 1, speakers from 900), each duration the
+    synthesizer's sample count (a gap, then a tone and a gap a character)
+    over the rate."""
+    from gluon_e2e_asr_tpu_torch.data import manifest as M
+    from gluon_e2e_asr_tpu_torch.tools import make_synth_corpus as MS
+
+    r, sr = LS100_RENDER, 16000
+    num, seed, spk = ((LS100_FULL[0], r["seed"], 100) if split.startswith("train")
+                      else (LS100_FULL[1], r["seed"] + 1, 900))
+    seg, gap = int(M._SEG_SEC * sr), int(M._GAP_SEC * sr)
+    # the text as the walk reads it: the transcript's upper case, lowered
+    utts = [M.Utterance(utt_id=MS.utt_location("", split, i, spk, "flac")[1],
+                        text=u.text.upper().lower(),
+                        duration=(gap + len(u.text) * (seg + gap)) / sr)
+            for i, u in enumerate(MS._ls_duration_utts(
+                split, num, seed, r["text_mode"], r["noise"], r["jitter"],
+                pool_split=r["pool_split"]))]
+    return sorted(utts, key=lambda u: u.utt_id)
+
+
+def peak_rss() -> tuple:
+    """(bytes, source) of this process's peak resident set: ``VmHWM`` of
+    /proc/self/status where the kernel reports it, else getrusage's
+    ``ru_maxrss`` (the same peak, in KiB on Linux); (None, None) where
+    neither does (some kernels report neither)."""
+    import resource
+
+    with open("/proc/self/status") as f:
+        hwm = [line.split()[1] for line in f if line.startswith("VmHWM:")]
+    if hwm:
+        return int(hwm[0]) * 1024, "VmHWM"
+    kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return (kb * 1024, "ru_maxrss") if kb > 0 else (None, None)
+
+
+def ls100_full_eval_cost(torch, config, workdir, card):
+    """Phase 16a: the per-epoch dev evaluation (``Trainer.evaluate`` over
+    the 2,700 dev utterances) of the untrained model (train.seed's
+    initialisation), timed by the config's beam and greedily, each beam
+    batch's seconds and output steps by bucket. An untrained model ends
+    no hypothesis early, so its beam runs to the length limit: a bound on
+    a trained model's."""
+    from gluon_e2e_asr_tpu_torch.decoding.greedy import make_greedy_decoder
+    from gluon_e2e_asr_tpu_torch.training.trainer import Trainer
+
+    os.makedirs(workdir, exist_ok=True)
+    trainer = Trainer(config, workdir, torch.device("cuda"))
+    beam, batches = trainer._beam, []
+
+    def timed(audio, audio_len):
+        t0 = time.perf_counter()
+        out = beam(audio, audio_len)
+        torch.cuda.synchronize()
+        batches.append((int(audio.shape[1]), int(audio.shape[0]),
+                        time.perf_counter() - t0, int(beam.last_steps)))
+        return out
+
+    evals = {}
+    trainer._beam = timed
+    for method in ("beam", "greedy"):
+        if method == "greedy":
+            trainer._beam = None
+            trainer.greedy = make_greedy_decoder(
+                trainer.model, trainer.config, trainer.cmvn_stats,
+                trainer.device)
+        reset_counts()
+        t0 = time.perf_counter()
+        dev_scores = trainer.evaluate()
+        torch.cuda.synchronize()
+        evals[method] = {"seconds": time.perf_counter() - t0, **dev_scores}
+        launches, plain = read_counts()
+        check(not any(plain.values()) and launches["bilstm_fwd"]
+              == launches["bilstm_fwd_cluster"] > 0,
+              f"16a {method}: launches {launches}, plain {plain}")
+    specs = trainer.dev_loader.sampler.specs
+    by_bucket = {}
+    for samples, B, sec, steps in batches:
+        i = next(j for j, s in enumerate(specs) if s.max_samples == samples)
+        r = by_bucket.setdefault(i, {"seconds": config.data.bucket_bounds_sec[i],
+                                     "B": B, "batches": 0, "beam_s": 0.0,
+                                     "steps": 0})
+        r["batches"] += 1
+        r["beam_s"] += sec
+        r["steps"] += steps
+    emit({"phase": "ls100_full_eval_cost", "evaluations": evals,
+          "beam_by_bucket": by_bucket,
+          "beam": {k: getattr(config.decode, k) for k in (
+              "beam_size", "ctc_weight", "length_norm", "maxlen_ratio",
+              "ctc_score_candidates")},
+          "basis": "host clock around Trainer.evaluate and each beam batch "
+                   "(synchronized), the untrained model", "card": card})
+    del trainer
+
+
+def ls100_full_phase(torch, dev, card, measure_only=False):
+    """Phase 16 (``--only 16``): configs/ls100_full.yaml as shipped at its
+    own scale, 28,500 train + 2,700 dev utterances for its 5 epochs. The
+    disk free where the corpus goes, against the corpus's 16-bit PCM and
+    LS100_FULL_SPARE_BYTES; the corpus rendered with the config's header
+    flags on every core (ls100_render: three files decoded to exactly the
+    encoder's PCM, the manifest walk timed), its walk equal to
+    ls100_full_manifest's utterances; the dev refs equal to the TPU
+    record's, 2,700/2,700 (else the comparison is void and the phase
+    stops); ``tools/compute_cmvn.py`` at the config's int16 transfer. With
+    ``measure_only`` (``--only 16a``) it stops there after
+    ls100_full_eval_cost. Otherwise the train CLI as shipped but for the
+    corpus, the stats path and LS100_FULL_EVAL (every epoch): phase 6's
+    launch counts, no plain call, a finite loss, one line an epoch (steps
+    and pad waste beside the TPU table's, which they must equal; the
+    prefetch occupancy; the training part's seconds, the epoch line's less
+    the dev evaluation's, and its utt/s; the evaluation's seconds; dev WER
+    and CER; the checkpoint's save seconds; the process's peak RSS; the
+    disk free); on the first batch of each bucket the trained model's
+    kernels against their plain versions (batch_kernel_checks: phase 3's
+    and 7's tolerances); best.pt decoded by the config's beam over the
+    2,700 dev utterances (and, where the evaluation was cut and picked an
+    earlier epoch, the last checkpoint too), the p50 latency, and the
+    records paired with the TPU record (tools/convergence.py: 95%
+    bootstrap intervals, port - TPU by utt_id, p(diff >= 0), 10,000
+    resamples, seed 0): a tie, a gap, or a fault (the paired interval
+    wholly above LS100_FULL_FAULT). The records go to
+    OUT_DIR/LS100_FULL_NAME.jsonl, the epoch lines beside them."""
+    from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
+    from gluon_e2e_asr_tpu_torch.tools import convergence as CV
+    from gluon_e2e_asr_tpu_torch.training import trainer as TR
+
+    t_phase = time.perf_counter()
+    corpus = os.path.join(OUT_DIR, "ls100_full_corpus")
+    plan = {s: ls100_full_manifest(s) for s in ("train-clean-100", "dev-clean")}
+    sr = 16000
+    pcm = 2 * sum(round(u.duration * sr) for us in plan.values() for u in us)
+    shutil.rmtree(corpus, ignore_errors=True)
+    if not disk_check("ls100_full_disk", pcm + LS100_FULL_SPARE_BYTES,
+                      pcm_bytes=pcm, spare_bytes=LS100_FULL_SPARE_BYTES):
+        return
+    ls100_render(torch, corpus, card, *LS100_FULL)
+    sets = [f"data.data_dir={corpus}"]
+    config = load_config(LS100_CONFIG)
+    apply_overrides(config, sets)
+    walked = dict(zip(plan, TR.build_datasets(config)))
+    same = {s: [(u.utt_id, u.text, round(u.duration * sr)) for u in us]
+            == [(u.utt_id, u.text, round(u.duration * sr)) for u in plan[s]]
+            for s, us in walked.items()}
+    refs = {u.utt_id: u.text for u in walked["dev-clean"]}
+    tpu = os.path.join(REPO, "docs", "evidence", f"{LS100_FULL_RECORD}.jsonl")
+    n_match = CV.refs_match(refs, CV.read_records(tpu))
+    emit({"phase": "ls100_full_refs", "tpu_record": os.path.relpath(tpu, REPO),
+          "dev_utts": len(refs), "refs_equal": n_match,
+          "walk_equals_the_texts_plan": same,
+          "hours": {s: sum(u.duration for u in us) / 3600
+                    for s, us in walked.items()}})
+    check(all(same.values()), f"the walked corpus differs from the plan: {same}")
+    check(n_match == len(refs) == LS100_FULL[1],
+          f"16: {n_match} of the TPU record's refs equal the dev set's "
+          f"{len(refs)}: the comparison is void")
+    if FAILED:
+        return
+    stats = ls100_cmvn(torch, ["--set", sets[0]],
+                       os.path.join(OUT_DIR, "ls100_full_cmvn"), card,
+                       dtypes=("int16",))
+    sets.append(f"frontend.cmvn_stats_path={stats}")
+    apply_overrides(config, sets[1:])
+    if measure_only:
+        ls100_full_eval_cost(torch, config, os.path.join(OUT_DIR, "ls100_full_16a"),
+                             card)
+        emit({"phase": "ls100_full_done", "measure_only": True,
+              "seconds": round(time.perf_counter() - t_phase, 1)})
+        return
+
+    # training: the train CLI, every epoch, one line an epoch
+    extra = [a for o in (*sets, *LS100_FULL_EVAL) for a in ("--set", o)]
+    metrics = os.path.join(OUT_DIR, "ls100_full", config.train.metrics_path)
+    evals, rows = [], []
+    evaluate, checkpoint = TR.Trainer.evaluate, TR.Trainer._checkpoint
+
+    def timed_evaluate(self):
+        t0 = time.perf_counter()
+        out = evaluate(self)
+        torch.cuda.synchronize()
+        evals.append(time.perf_counter() - t0)
+        return out
+
+    def epoch_line(self, epoch, is_best, batches_done=-1, dev_wer=None):
+        path = checkpoint(self, epoch, is_best, batches_done, dev_wer)
+        if is_best is None:
+            return path
+        with open(metrics) as f:
+            lines = [json.loads(line) for line in f]
+        rec = CV.epoch_records(lines)[-1]
+        io = [r for r in lines if r["event"] == "ckpt_io"][-1]
+        first = rows[-1]["step"] if rows else 0
+        train_s = rec["epoch_time_s"] - evals[-1]
+        utts = len(self.train_utts) - len(self.sampler.skipped)
+        tpu_e = {k: v[epoch] for k, v in LS100_FULL_TPU.items()}
+        rows.append({
+            "epoch": epoch, "step": rec["step"], "steps": rec["step"] - first,
+            "pad_waste": rec["pad_waste"],
+            "prefetch_occupancy": rec["prefetch_occupancy"],
+            "train_s": train_s, "train_utt_per_s": utts / train_s,
+            "eval_s": evals[-1], "eval_method": self.config.decode.method,
+            "dev_wer": rec["dev_wer"], "dev_cer": rec["dev_cer"],
+            "ckpt_save_s": io["save_s"],
+            **dict(zip(("peak_rss_bytes", "peak_rss_source"), peak_rss())),
+            "free_disk_bytes": shutil.disk_usage(OUT_DIR).free,
+            "epoch_time_s": rec["epoch_time_s"],
+            "utt_per_sec_per_chip": rec["utt_per_sec_per_chip"],
+            "loss_logged": rec["loss_logged"], "tpu": tpu_e})
+        emit({"phase": "ls100_full_epoch", **rows[-1], "card": card})
+        return path
+
+    epochs = config.train.num_epochs
+    steps = sum(LS100_FULL_TPU["steps"])
+    reset_counts()
+    TR.Trainer.evaluate, TR.Trainer._checkpoint = timed_evaluate, epoch_line
+    t0 = time.perf_counter()
+    try:
+        trainer, _ = _run_cli(torch, LS100_CONFIG, "ls100_full", extra)
+    finally:
+        TR.Trainer.evaluate, TR.Trainer._checkpoint = evaluate, checkpoint
+    train_s = time.perf_counter() - t0
+    launches, plain = read_counts()
+    dev_batches = len(list(trainer.dev_loader.sampler.epoch_batches(0)))
+    expect = expected_launches(trainer.config, trainer.state.step,
+                               dev_batches * len(rows),
+                               trainer.model.use_decoder)
+    CV.write_lines(os.path.join(OUT_DIR, f"{LS100_FULL_NAME}_epochs.jsonl"),
+                   rows)
+    ckpt, best_epoch = CV.best_checkpoint(trainer)
+    ckpt_dir = os.path.join(trainer.workdir, config.train.ckpt_dir)
+    last = os.path.join(ckpt_dir, f"ckpt_{trainer.state.step}.pt")
+    emit({"phase": "ls100_full_train", "epochs": len(rows),
+          "epochs_shipped": epochs, "steps": trainer.state.step,
+          "tpu_steps": steps, "train_s": round(train_s, 1),
+          "evaluation": list(LS100_FULL_EVAL) or "as shipped",
+          "launches": launches, "expected_launches": expect,
+          "plain_calls": plain, "best_epoch": best_epoch,
+          "best_dev_wer": trainer.best_wer, "world_size": trainer.world.size,
+          "data_skipped": {"train": len(trainer.sampler.skipped),
+                           "dev": len(trainer.dev_loader.sampler.skipped)},
+          "card": card})
+    check(trainer.state.step == steps and len(rows) == epochs,
+          f"16: {trainer.state.step} steps of {steps}, {len(rows)} epochs of "
+          f"{epochs}")
+    check([(r["steps"], r["pad_waste"]) for r in rows]
+          == list(zip(LS100_FULL_TPU["steps"], LS100_FULL_TPU["pad_waste"])),
+          f"16: steps and pad waste by epoch differ from the TPU run's: "
+          f"{[(r['steps'], r['pad_waste']) for r in rows]}")
+    check(launches == expect, f"16: training launches {launches}, expected "
+                              f"{expect}")
+    check(not any(plain.values()), f"16: plain versions ran: {plain}")
+    check(all(np.isfinite(r["loss_logged"]) for r in rows),
+          "16: a non-finite loss")
+
+    # the trained model's kernels on the first batch of each bucket
+    firsts = {}
+    for bucket, idxs in trainer.sampler.epoch_batches(0):
+        firsts.setdefault(bucket, idxs)
+    for bucket in sorted(firsts):
+        b = trainer.loader.make_batch(bucket, firsts[bucket], epoch=0)
+        sec = config.data.bucket_bounds_sec[bucket]
+        errs, step_errs, (B, T0, T) = batch_kernel_checks(
+            torch, trainer.config, trainer, b, f"ls100_full {sec} s", dev)
+        emit({"phase": "ls100_full_kernels", "bucket": bucket, "seconds": sec,
+              "B": B, "real": b.num_real, "T": T0, "T_enc": T,
+              "errors": errs, "train_step": step_errs,
+              "rounding_spread": step_spread(torch, trainer, dev, card),
+              "card": card})
+    del trainer
+
+    # best.pt (and the last checkpoint where the cut evaluation picked
+    # another epoch) by the config's beam over the 2,700, paired
+    decoded = [("best", ckpt, best_epoch)]
+    if LS100_FULL_EVAL and best_epoch != epochs - 1:
+        decoded.append(("last", last, epochs - 1))
+    for tag, path, epoch in decoded:
+        out = os.path.join(OUT_DIR, LS100_FULL_NAME + (
+            "" if tag == "best" else "_last") + ".jsonl")
+        reset_counts()
+        t0 = time.perf_counter()
+        res = CV.decode_best(LS100_CONFIG, path, out, sets, "cuda")
+        decode_s = time.perf_counter() - t0
+        dec_launches, plain = read_counts()
+        fwd = config.model.enc_layers * (res["num_batches"] + res["warm_passes"])
+        check(dec_launches["bilstm_fwd"] == dec_launches["bilstm_fwd_cluster"]
+              == dec_launches["bilstm_fwd_projection"] == fwd
+              and not any(plain.values()),
+              f"16 {tag}: the decode launched {dec_launches}, plain {plain}, "
+              f"expected {fwd} K1-fwd launches")
+        n_match = CV.refs_match(refs, CV.read_records(out))
+        check(n_match == res["num_utts"] == LS100_FULL[1],
+              f"16 {tag}: {n_match} of {res['num_utts']} decoded refs equal "
+              "the dev set")
+        stats = CV.compare(out, tpu)
+        lo, hi = stats["wer_diff_ci95"]
+        emit({"phase": "ls100_full", "ckpt": tag, "epoch": epoch,
+              "decode": {k: res[k] for k in (
+                  "method", "num_utts", "num_batches", "warm_passes", "wer",
+                  "cer", "p50_latency_s", "beam_steps_total",
+                  "beam_steps_max")},
+              "beam": {k: getattr(config.decode, k) for k in (
+                  "beam_size", "ctc_weight", "length_norm", "maxlen_ratio",
+                  "ctc_score_candidates")},
+              "decode_s": round(decode_s, 1), "k1_fwd_decode_launches": fwd,
+              "tpu_record": os.path.relpath(tpu, REPO),
+              "records": os.path.relpath(out, REPO), **stats,
+              "verdict": ("tie" if lo <= 0.0 <= hi else "fault"
+                          if lo > LS100_FULL_FAULT else "gap"),
+              "fault_above": LS100_FULL_FAULT, "card": card})
+    emit({"phase": "ls100_full_done", "measure_only": False,
+          "seconds": round(time.perf_counter() - t_phase, 1)})
 
 
 def library_timing(torch, config, shapes, dev, card):

@@ -21,6 +21,7 @@
   lines.
 """
 
+import functools
 import importlib.util
 import json
 import os
@@ -44,6 +45,7 @@ from test_torch_data import _definitions  # noqa: E402
 from gluon_e2e_asr_tpu.config import load_config as jax_load_config  # noqa: E402
 from gluon_e2e_asr_tpu.training import train_step as jts  # noqa: E402
 from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config  # noqa: E402
+from gluon_e2e_asr_tpu_torch.eval.metrics import cer, wer  # noqa: E402
 from gluon_e2e_asr_tpu_torch.frontend.features import num_frames  # noqa: E402
 from gluon_e2e_asr_tpu_torch.models.asr import build_model  # noqa: E402
 from gluon_e2e_asr_tpu_torch.training import train_step as T  # noqa: E402
@@ -106,16 +108,80 @@ def test_wer_ci_definitions_equal_the_root_tool():
     assert ours == ref
 
 
-@pytest.mark.parametrize("pid", sorted(chip_smoke.CONVERGENCE))
+@pytest.mark.parametrize("pid", [*sorted(chip_smoke.CONVERGENCE), "16"])
 def test_phase14_dev_sets_pair_with_their_records(pid):
     """The port's dev set of each config of phase 14 holds the TPU
-    record's refs, utterance for utterance, 192/192."""
-    cfg, rec = chip_smoke.CONVERGENCE[pid]
-    refs = CV.dev_refs(load_config(os.path.join(REPO, "configs",
-                                                f"{cfg}.yaml")))
+    record's refs, utterance for utterance, 192/192; phase 16's
+    (ls100_full at its own scale, its texts drawn without rendering any
+    audio) holds the 100 h TPU run's, 2,700/2,700, and that record
+    recomputes to its WER 0.0801 and CER 0.0251 (round 5), not the 0.0671
+    its summary sidecar still carries from round 4."""
+    if pid == "16":
+        refs = {u.utt_id: u.text
+                for u in chip_smoke.ls100_full_manifest("dev-clean")}
+        rec, n = chip_smoke.LS100_FULL_RECORD, chip_smoke.LS100_FULL[1]
+    else:
+        cfg, rec = chip_smoke.CONVERGENCE[pid]
+        refs = CV.dev_refs(load_config(os.path.join(REPO, "configs",
+                                                    f"{cfg}.yaml")))
+        n = 192
     records = CV.read_records(os.path.join(EVIDENCE, f"{rec}.jsonl"))
-    assert len(refs) == len(records) == 192
-    assert CV.refs_match(refs, records) == 192
+    assert len(refs) == len(records) == n
+    assert CV.refs_match(refs, records) == n
+    if pid == "16":
+        refs, hyps = [r["ref"] for r in records], [r["hyp"] for r in records]
+        assert (round(wer(refs, hyps), 4), round(cer(refs, hyps), 4)) == \
+            (0.0801, 0.0251) == (chip_smoke.LS100_FULL_TPU["dev_wer"][-1],
+                                 chip_smoke.LS100_FULL_TPU["dev_cer"][-1])
+        with open(os.path.join(EVIDENCE, f"{rec}_summary.json")) as f:
+            assert json.load(f)["wer"] == 0.0671
+
+
+def test_ls100_full_epochs_equal_the_tpu_table():
+    """ls100_full.yaml's sampler over its corpus at its own scale (the
+    texts and durations drawn without rendering any audio): 101.3 h, under
+    11.7 GB of 16-bit PCM, and each of its 5 epochs' steps and pad waste
+    (1 - real samples after speed perturbation over the batches' padded
+    samples, as the trainer counts it) equal to the TPU run's epoch table:
+    the port's sampler is the JAX one's copy, both at world size 1."""
+    from gluon_e2e_asr_tpu_torch.data import sampler as S
+
+    config = load_config(chip_smoke.LS100_CONFIG)
+    dc, sr = config.data, config.data.sample_rate
+    utts = chip_smoke.ls100_full_manifest("train-clean-100")
+    dev = chip_smoke.ls100_full_manifest("dev-clean")
+    samples = [round(u.duration * sr) for u in utts]
+    pcm = 2 * (sum(samples) + sum(round(u.duration * sr) for u in dev))
+    assert len(utts) == 28500 and round(pcm / 2 / sr / 3600, 1) == 101.3
+    assert pcm < 11.7e9
+    specs = S.make_bucket_specs(dc.bucket_bounds_sec, sr, dc.batch_size,
+                                dc.max_label_len, config.frontend.hop_length,
+                                dc.dynamic_batch)
+    sp = tuple(dc.speed_perturb)
+    seed = config.train.seed
+    factor = functools.lru_cache(maxsize=None)(S.perturb_factor)
+    with mock.patch.object(S, "perturb_factor", factor):
+        sampler = S.BucketSampler(
+            utts, specs, sr, seed=seed, shuffle=dc.shuffle,
+            drop_last=dc.drop_last, sortagrad_epochs=dc.sortagrad_epochs,
+            speed_perturb=sp, perturb_seed=seed,
+            static_placement=dc.static_placement)
+        steps, waste = [], []
+        for e in range(config.train.num_epochs):
+            real = padded = n = 0
+            for b, idxs in sampler.epoch_batches(e):
+                spec = specs[b]
+                n += 1
+                padded += spec.batch_size * spec.max_samples
+                for i in idxs:
+                    f = factor(seed, e, i, sp)
+                    real += (samples[i] if f == 1.0 else
+                             min(int(round(samples[i] / f)), spec.max_samples))
+            steps.append(n)
+            waste.append(round(1.0 - real / padded, 4))
+    assert not sampler.skipped
+    tpu = chip_smoke.LS100_FULL_TPU
+    assert tuple(steps) == tpu["steps"] and tuple(waste) == tpu["pad_waste"]
 
 
 def test_refs_that_differ_void_the_comparison(tmp_path):
@@ -301,10 +367,13 @@ def _fmt_ci(v, lo, hi, sign=False):
     return f"{f.format(v)} [{f.format(lo)}, {f.format(hi)}]"
 
 
-def _verdict(lo, hi):
+def _verdict(lo, hi, card=""):
     """A tie where the paired interval holds 0; a failure where it lies
-    wholly above +10 points; a gap otherwise."""
-    return "tie" if lo <= 0.0 <= hi else "fail" if lo > 0.10 else "gap"
+    wholly above +10 points (phase 16's 2,700-utterance record: a fault
+    above LS100_FULL_FAULT, +3 points); a gap otherwise."""
+    word, above = (("fault", chip_smoke.LS100_FULL_FAULT)
+                   if "_dev2700" in card else ("fail", 0.10))
+    return "tie" if lo <= 0.0 <= hi else word if lo > above else "gap"
 
 
 @pytest.mark.parametrize("card,tpu", _card_records())
@@ -317,9 +386,10 @@ def test_perf_numbers_recompute_from_the_records(card, tpu):
     no reference, its intervals alone."""
     root = _root_ci()
     a = os.path.join(CARD_EVIDENCE, card)
+    n = 2700 if "_dev2700" in card else 192
     if tpu is None:
         ca = root.per_utt_counts(a)
-        assert len(ca) == 192
+        assert len(ca) == n
         w, lw, hw, ce, lc, hc = root.bootstrap_ci(ca)
         cells = [card, _fmt_ci(w, lw, hw), _fmt_ci(ce, lc, hc)]
     else:
@@ -327,12 +397,13 @@ def test_perf_numbers_recompute_from_the_records(card, tpu):
         if not os.path.exists(b):
             b = os.path.join(EVIDENCE, tpu)
         ca, cb = _paired(root, a, b)
-        assert len(ca) == len(cb) == 192
+        assert len(ca) == len(cb) == n
         w, lw, hw, ce, lc, hc = root.bootstrap_ci(ca)
         rw = root.bootstrap_ci(cb)[0]
         d, lo, hi, p = root.paired_diff_ci(ca, cb)
         cells = [card, _fmt_ci(w, lw, hw), _fmt_ci(ce, lc, hc), f"{rw:.4f}",
-                 _fmt_ci(d, lo, hi, sign=True), f"{p:.4f}", _verdict(lo, hi)]
+                 _fmt_ci(d, lo, hi, sign=True), f"{p:.4f}",
+                 _verdict(lo, hi, card)]
     with open(os.path.join(REPO, "PERF.md")) as f:
         rows = [line for line in f if f"`{card}`" in line]
     assert rows, f"PERF.md has no row for {card}"
