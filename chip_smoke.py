@@ -4,7 +4,8 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device, ``nvcc`` and ``nvidia-smi``; it imports no JAX. (``python3
 chip_smoke.py --dp-worker <dir>`` is one rank of phase 7b, which starts
-its ranks itself.) Phases, each printing JSON lines:
+its ranks itself; ``--traces <out>`` the child process of phase 8.)
+Phases, each printing JSON lines:
 
 1. device: the card, and ``nvidia-smi``'s name and power limit;
 2. build: every CUDA library of the port's paths (``bilstm_fwd``,
@@ -26,7 +27,11 @@ its ranks itself.) Phases, each printing JSON lines:
    every length 1, odd widths); K1-fwd's bf16 projection (on wgmma)
    through its own entry against its plain twin at the flagship's three
    layers, vgg_blstm's layer 0 and ragged shapes (B=1 and T=1, every length 1, D=33 with
-   H=130, H=256), with round_xg off and on; K2 and K3 (the warp design,
+   H=130, H=256), with round_xg off and on; the f32 route of both
+   (``csrc/gemm_f32.cuh``'s ``ring_kernel``) at the milestones' three
+   layers (B=16, H=256) and the same ragged shapes, within
+   ``TOL_BWD["float32"]``, dx and the projection's backward half exactly 0
+   past lens; K2 and K3 (the warp design,
    ``ctc_alpha_warp_kernel`` and ``ctc_beta_post_warp_kernel``, the only
    kernels of the library) on a real training batch's lattice, at
    bench.py's shape (T=320, S=193), B=1, T=1, S=641 and 1024 (several warps
@@ -92,7 +97,10 @@ its ranks itself.) Phases, each printing JSON lines:
    CLI by the config's method (greedy for 1 and 4; the beams of 3 and of
    5, K=10 with ctc_weight 0.3 and length normalization, on the first
    MILESTONE_BEAM_UTTS dev utterances); a step at the 4.0 s bucket and a
-   decode of that batch by the config's method, timed;
+   decode of that batch by the config's method, timed; every f32 K1-fwd
+   and K1-bwd launch through ``ring_kernel`` (phase 8 profiles milestone
+   5's f32 step by kernel name: ``ring_kernel`` 4 launches a layer, none
+   of the first kernels);
 6c. the training options on milestone 4's model (f32, loc, B=16, as
    shipped at ``train.dp``, world size 1): resume (RESUME_REFS
    uninterrupted runs of 2 epochs with ``ckpt_every_steps``, a run
@@ -128,7 +136,11 @@ its ranks itself.) Phases, each printing JSON lines:
    the same step at world size 1 within phase 7's tolerances; a greedy
    decode of the dev set through the decode CLI at ``decode.dp`` and a
    beam search of a dev batch, every text as at world size 1;
-8. training timing: each training kernel against its plain version and
+8. training timing (run before 7 and 7b; its one-call traces, K2's,
+   K3's, K5's and K6's device times and milestone 5's f32 profile are
+   taken in a fresh child process, this script with ``--traces``: late
+   in a long run this process's traces came back short or empty): each
+   training kernel against its plain version and
    beside the one PyTorch call that computes the same function where
    there is one (cuDNN's LSTM for K1, ``F.ctc_loss`` for K2/K3,
    ``torch.addmm`` for K1-fwd's projection), K1-bwd's recurrence alone
@@ -137,7 +149,10 @@ its ranks itself.) Phases, each printing JSON lines:
    each holding its kernel and no other device operation, K1-bwd's
    products through their own entry
    beside cuBLAS on the same bf16 operands, K1-fwd's projection through
-   its own entry beside ``torch.addmm`` on the same bf16 operands, K4 in
+   its own entry beside ``torch.addmm`` on the same bf16 operands, K1's
+   f32 products and projection at the milestones' three layers on
+   ``ring_kernel``, plain and beside cuBLAS in f32 (TF32 off), with their f32 bound and TFLOP/s, milestone 5's f32
+   step by kernel (torch.profiler; the share of ``ring_kernel``), K4 in
    its three modes, K5 and K6 (also by their device time, with a trace
    of five calls holding ``fft_kernel`` and no other device operation)
    beside the jnp path and ``torch.stft``, K7,
@@ -691,6 +706,11 @@ CLUSTER_COUNTS = {"bilstm_fwd_cluster": "bilstm_fwd",
                   "bilstm_v1_bwd_cluster": "bilstm_v1_bwd",
                   "las_decoder_fwd_cluster": "las_decoder_fwd",
                   "las_decoder_bwd_cluster": "las_decoder_bwd"}
+# K1's f32 projection and products (csrc/gemm_f32.cuh's ring_kernel),
+# counted in .f32_launches beside their wrappers' launches: name -> the
+# kernel of kernels().
+F32_COUNTS = {"bilstm_fwd_projection_f32": "bilstm_fwd_projection",
+              "bilstm_bwd_products_f32": "bilstm_bwd_products"}
 
 
 def reset_counts() -> None:
@@ -703,6 +723,8 @@ def reset_counts() -> None:
             f.cluster_launches = 0
         if hasattr(f, "fft_launches"):
             f.fft_launches = 0
+        if hasattr(f, "f32_launches"):
+            f.f32_launches = 0
     for f in plains.values():
         f.calls = 0
 
@@ -710,13 +732,15 @@ def reset_counts() -> None:
 def read_counts():
     """(launches by kernel, with K4's by mode as ``<name>_<mode>``,
     K1's and K7's through the cluster recurrences and K4's through its
-    cluster kernels as CLUSTER_COUNTS names them, and K5's and K6's
-    through ``fft_kernel`` as ``<name>_fft``; calls of the plain
-    versions)."""
+    cluster kernels as CLUSTER_COUNTS names them, K1's f32 projection
+    and products as F32_COUNTS names them, and K5's and K6's through
+    ``fft_kernel`` as ``<name>_fft``; calls of the plain versions)."""
     kernels, plains = counters()
     launches = {k: f.launches for k, f in kernels.items()}
     for k, of in CLUSTER_COUNTS.items():
         launches[k] = kernels[of].cluster_launches
+    for k, of in F32_COUNTS.items():
+        launches[k] = kernels[of].f32_launches
     for k in ("frontend_k5", "frontend_k6"):
         launches[f"{k}_fft"] = kernels[k].fft_launches
     for k in ("las_decoder_fwd", "las_decoder_bwd"):
@@ -1042,19 +1066,26 @@ def main(only=(), overrides=()) -> None:
     # 6c. the training options on milestone 4's model; 6d. vgg_blstm.yaml
     option_counts = training_options(torch, dev, card)
     vgg_counts, vgg_layer0_rows = vgg_slice(torch, dev, card)
-    step_errs = train_reference(torch, trainer, dev)
-    loc_step_errs = train_reference(torch, loc_trainer, dev)
-    # 7b. two ranks on the one card against world size 1
-    dp_check(torch, loc_trainer, dev, card)
-    train_ms = train_timing(torch, trainer, shapes, dev, card)
+    # 8 runs before 7 and 7b. Its profiler readings of single calls and
+    # milestone 5's f32 profile come from a fresh child process: late in a
+    # long run this process's traces came back short or empty
+    traces = profiler_traces(card)
+    train_ms = train_timing(torch, trainer, dev, card, traces["ctc"])
     train_ms.update(loc_timing(torch, loc_trainer, dev, card))
+    fe_ms, fe_notes, fe_detail = frontend_timing(
+        torch, m2_trainer, config, dev, card, traces["frontend"])
+    train_ms.update(k1_bwd_timing(torch, trainer, shapes, dev, card))
     lib_ms = library_timing(torch, config, shapes, dev, card)
-    fe_ms, fe_notes, fe_detail = frontend_timing(torch, m2_trainer, config,
-                                                 dev, card)
     train_ms.update(fe_ms)
     train_ms.update(v1_timing(torch, config, shapes[0], dev, card))
     train_ms["bilstm_bwd_products"], lib_ms["bilstm_bwd_products"] = \
         products_timing(torch, config, shapes, dev, card, m2_config)
+    f32_ms = f32_timing(torch, dev, card)
+    # 7. the training reference; 7b. two ranks on the one card against
+    # world size 1
+    step_errs = train_reference(torch, trainer, dev)
+    loc_step_errs = train_reference(torch, loc_trainer, dev)
+    dp_check(torch, loc_trainer, dev, card)
     # 9. beam search
     golden_beam(torch)
     beam_timing(torch, loc_trainer, dev, card)
@@ -1065,6 +1096,9 @@ def main(only=(), overrides=()) -> None:
     # 12. ls100_full.yaml from a FLAC corpus, and the last tools
     ls100_counts, ls100_shape = ls100_phase(torch, dev, card)
     bounds = kernel_bounds(config, shapes, dev, loc_config, m2_config)
+    for name, (k_ms, p_ms, l_ms, b_ms, b_by) in f32_ms.items():
+        train_ms[name], lib_ms[name], bounds[name] = (k_ms, p_ms), l_ms, (
+            b_ms, b_by)
 
     bf16 = [(layer, "bfloat16") for layer, _, _ in shapes]
     timed = {
@@ -1075,7 +1109,9 @@ def main(only=(), overrides=()) -> None:
         "bilstm_fwd_projection": (sum(proj_ms[k][0] for k in bf16),
                                   sum(proj_ms[k][1] for k in bf16)),
         **{k: train_ms[k] for k in ("bilstm_bwd", "bilstm_bwd_cluster",
-                                     "bilstm_bwd_products", "ctc_alpha",
+                                     "bilstm_bwd_products",
+                                     "bilstm_bwd_products_f32",
+                                     "bilstm_fwd_projection_f32", "ctc_alpha",
                                      "ctc_beta_post",
                                      "las_decoder_fwd", "las_decoder_bwd",
                                      "frontend_k5", "frontend_k6",
@@ -1084,8 +1120,10 @@ def main(only=(), overrides=()) -> None:
               "bilstm_fwd_cluster": max(recur_errs[k] for k in bf16),
               "bilstm_bwd": max(bwd_errs["bilstm_bwd"]),
               "bilstm_bwd_cluster": max(bwd_errs["bilstm_bwd_cluster"]),
-              "bilstm_bwd_products": max(products_errs),
-              "bilstm_fwd_projection": max(proj_errs),
+              "bilstm_bwd_products": max(products_errs["bfloat16"]),
+              "bilstm_fwd_projection": max(proj_errs["bfloat16"]),
+              "bilstm_bwd_products_f32": max(products_errs["float32"]),
+              "bilstm_fwd_projection_f32": max(proj_errs["float32"]),
               "ctc_alpha": bwd_errs["ctc_alpha"],
               "ctc_beta_post": bwd_errs["ctc_beta_post"],
               "las_decoder_fwd": dec_errs["las_decoder_fwd"],
@@ -1138,6 +1176,30 @@ def main(only=(), overrides=()) -> None:
             "dW_x and the two dW_h on the same bf16-rounded operands (bf16 "
             "out) and torch.sum for db, the casts and h_prev's shift outside "
             "the timing; error: max abs over dx, dW_x, db, dW_h"),
+        "bilstm_fwd_projection_f32": (
+            "gemm_f32.cuh",
+            "gluon_e2e_asr_tpu/ops/pallas_lstm.py:426",
+            "K1-fwd's f32 projection alone (ring_kernel through "
+            "bilstm_fused_proj_kernel), sum over the milestones' 3 layer "
+            "shapes, B=16, H=256, 4.0 s; launches: the f32 K1-fwd launches "
+            "of the milestone 1, 3, 4 and 5 runs (phase 6b); plain: ops/"
+            "bilstm.py::bilstm_fused_proj_plain; library: torch.addmm in "
+            "f32, TF32 off; bound: operations at 67 TFLOP/s, the forward "
+            "half over every frame and the backward half over the live "
+            "ones; error: max abs of xg"),
+        "bilstm_bwd_products_f32": (
+            "gemm_f32.cuh",
+            "gluon_e2e_asr_tpu/ops/pallas_lstm.py:617",
+            "K1-bwd's f32 products alone (ring_kernel for dx, dW_x with "
+            "db, dW_h of each direction, through "
+            "bilstm_fused_bwd_products_kernel) on the f32 recurrence's dg, "
+            "sum over the milestones' 3 layer shapes, B=16, H=256, 4.0 s; "
+            "launches: the f32 K1-bwd launches of the milestone 1, 3, 4 "
+            "and 5 runs (phase 6b); plain: "
+            "ops/bilstm.py::bilstm_fused_bwd_products_plain; library: four "
+            "torch.matmul and torch.sum in f32, TF32 off; bound: "
+            "operations at 67 TFLOP/s over the live frames; error: max abs "
+            "over dx, dW_x, db, dW_h"),
         "ctc_alpha": ("ctc.cu",
                       "gluon_e2e_asr_tpu/ops/pallas_ctc.py:55",
                       "T=100, B=96, S of a 4.0 s training batch, through "
@@ -1209,6 +1271,9 @@ def main(only=(), overrides=()) -> None:
     launches["frontend_k6_fft"] = regrid_counts["frontend_k6_fft"]
     for name in ("bilstm_v1_fwd", "bilstm_v1_bwd"):
         launches[name] = v1_counts[name]
+    # K1's f32 rows from the milestone runs (every milestone runs f32)
+    for name in F32_COUNTS:
+        launches[name] = sum(c[name] for c in milestone_counts.values())
     # P1 from its own path, one row per variant
     for v, what in (("l2", "W from L2"), ("cluster", "W resident in a cluster")):
         name = f"pipeline_probe_{v}"
@@ -1235,6 +1300,10 @@ def main(only=(), overrides=()) -> None:
         if name in fe_notes:
             rows[-1]["library_note"] = fe_notes[name]
     rows[0]["decode_launches"] = decode_launches
+    for row in rows:
+        if row["name"] in F32_COUNTS:
+            check(row["launches"] > 0,
+                  f"{row['name']} launched no time in the milestone runs")
     for row in rows:  # the launches of each milestone's training run
         # K4's rows are one a mode: the dot rows count dot launches alone
         key = row["name"] + ("_dot" if row["name"] in (
@@ -1856,6 +1925,10 @@ def decode_slice(torch, trainer, path, name, max_utts=0, method=None,
     check(launches["bilstm_fwd_projection"] == launches["bilstm_fwd"] * bf16,
           f"the wgmma projection launched {launches['bilstm_fwd_projection']} "
           "times in the decode")
+    check(launches["bilstm_fwd_projection_f32"]
+          == launches["bilstm_fwd"] * (not bf16),
+          f"the f32 projection (ring_kernel) launched "
+          f"{launches['bilstm_fwd_projection_f32']} times in the decode")
     check(not any(launches[k] for k in ("ctc_alpha", "ctc_beta_post",
                                         "las_decoder_fwd", "las_decoder_bwd")),
           f"a training kernel launched in the decode: {launches}")
@@ -2096,10 +2169,11 @@ def products_cases(config, shapes, m2_config):
     return cases
 
 
-def products_inputs(torch, Bc, Hc, layer, T, D, ones, dev):
-    """A layer's x, lens, w_x and K1-fwd's h stream y (bf16 products, the
-    training form), and the reverse recurrence's dg on them: the products'
-    inputs as the training path hands them over."""
+def products_inputs(torch, Bc, Hc, layer, T, D, ones, dev, cd=None):
+    """A layer's x, lens, w_x and K1-fwd's h stream y (the training form,
+    in the compute dtype ``cd``, bf16 by default), and the reverse
+    recurrence's dg on them: the products' inputs as the training path
+    hands them over."""
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
 
     args = layer_inputs(torch, Bc, T, D, Hc, layer, dev)
@@ -2108,104 +2182,152 @@ def products_inputs(torch, Bc, Hc, layer, T, D, ones, dev):
         lens = torch.ones_like(lens)
         args = (x, lens, w_x, b_x, w_hf, w_hb)
     dy = layer_cotangent(torch, Bc, T, Hc, layer, dev)
-    bf = torch.bfloat16
-    y, c, acts = K.bilstm_fused_kernel(*args, compute_dtype=bf, with_cell=True)
-    dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy, bf)
+    cd = cd or torch.bfloat16
+    y, c, acts = K.bilstm_fused_kernel(*args, compute_dtype=cd, with_cell=True)
+    dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy, cd)
     return x, lens, w_x, y, dg
+
+
+def f32_cases(products_or_proj):
+    """The f32 route's shapes (name, B, H, layer, T, D, every length 1):
+    the milestones' three layers (B=16, H=256, the 4.0 s bucket: every
+    milestone, english_m5 and english_m5_bpe run f32), then PRODUCTS_RAGGED
+    or PROJ_RAGGED."""
+    from gluon_e2e_asr_tpu_torch.config import load_config
+    from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
+
+    config = load_config(MILESTONES[1])
+    fc = config.frontend
+    T0 = num_frames(int(BUCKET_SEC * fc.sample_rate), fc.win_length,
+                    fc.hop_length)
+    cases = [("milestones", config.data.batch_size, config.model.enc_hidden,
+              layer, T, D, False) for layer, T, D in layer_shapes(config, T0)]
+    ragged = PRODUCTS_RAGGED if products_or_proj == "products" else PROJ_RAGGED
+    return cases + [(name, Bc, Hc, 0, T, D, ones)
+                    for name, Bc, T, D, Hc, ones in ragged]
 
 
 def check_products_kernels(torch, config, shapes, dev, m2_config):
     """Phase 3, K1-bwd's products through their own entry
-    (``bilstm_fused_bwd_products_kernel``: bf16 on wgmma) against their
-    plain twin on the same dg, at the flagship's 3 layer shapes,
-    milestone 2's and PRODUCTS_RAGGED, within TOL_PRODUCTS; dx exactly 0
-    past each row's length. Returns the max abs errors at the flagship's
-    shapes."""
+    (``bilstm_fused_bwd_products_kernel``: bf16 on wgmma, f32 on
+    ring_kernel) against their plain twin on the same dg: bf16 at the
+    flagship's 3 layer shapes, milestone 2's, vgg_blstm's layer 0 and
+    PRODUCTS_RAGGED, f32 at ``f32_cases`` (the milestones' 3 layer shapes
+    and PRODUCTS_RAGGED), within TOL_PRODUCTS (TOL_BWD's f32 entry); dx
+    exactly 0 past each row's length. Returns the max abs errors at the
+    flagship's shapes (bf16) and at the milestones' (f32)."""
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
 
-    bf = torch.bfloat16
-    errs = []
-    for name, Bc, Hc, layer, T, D, ones in products_cases(config, shapes,
-                                                          m2_config):
-        x, lens, w_x, y, dg = products_inputs(torch, Bc, Hc, layer, T, D,
-                                              ones, dev)
-        n = K.bilstm_fused_bwd_products_kernel.launches
-        got = K.bilstm_fused_bwd_products_kernel(x, lens, w_x, y, dg, bf)
-        ref = K.bilstm_fused_bwd_products_plain(x, lens, w_x, y, dg, bf)
-        torch.cuda.synchronize()
-        past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
-        rec = {"phase": "kernel_check", "kernel": "bilstm_bwd_products",
-               "shapes": name, "layer": layer, "B": Bc, "T": T, "D": D,
-               "H": Hc, "compute_dtype": "bfloat16",
-               "launches": K.bilstm_fused_bwd_products_kernel.launches - n,
-               "dx_zero_past_lens": not bool(got[0][past].any()),
-               "tol_rel": TOL_PRODUCTS}
-        for out, g, r in zip(("dx", "dw_x", "db", "dw_hf", "dw_hb"), got, ref):
-            rec[out] = {"max_abs_err": float((g - r).abs().max()),
-                        "rel_err": rel_err(g, r),
-                        "max_abs": float(r.abs().max())}
-            check(bool(torch.isfinite(g).all())
-                  and rel_err(g, r) <= TOL_PRODUCTS,
-                  f"bilstm_bwd_products {out} disagrees with its plain twin "
-                  f"at {name} layer {layer}: {rel_err(g, r)}")
-            if name == "flagship":
-                errs.append(rec[out]["max_abs_err"])
-        emit(rec)
-        check(rec["launches"] == 1 and rec["dx_zero_past_lens"],
-              f"bilstm_bwd_products at {name} layer {layer}: {rec}")
-        del x, lens, w_x, y, dg, got, ref
+    errs = {"bfloat16": [], "float32": []}
+    for cd_name, cases in (
+            ("bfloat16", products_cases(config, shapes, m2_config)),
+            ("float32", f32_cases("products"))):
+        cd = getattr(torch, cd_name)
+        for name, Bc, Hc, layer, T, D, ones in cases:
+            x, lens, w_x, y, dg = products_inputs(torch, Bc, Hc, layer, T, D,
+                                                  ones, dev, cd)
+            n = K.bilstm_fused_bwd_products_kernel.launches
+            n32 = K.bilstm_fused_bwd_products_kernel.f32_launches
+            got = K.bilstm_fused_bwd_products_kernel(x, lens, w_x, y, dg, cd)
+            ref = K.bilstm_fused_bwd_products_plain(x, lens, w_x, y, dg, cd)
+            torch.cuda.synchronize()
+            past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+            rec = {"phase": "kernel_check", "kernel": "bilstm_bwd_products",
+                   "shapes": name, "layer": layer, "B": Bc, "T": T, "D": D,
+                   "H": Hc, "compute_dtype": cd_name,
+                   "launches": K.bilstm_fused_bwd_products_kernel.launches - n,
+                   "f32_launches":
+                       K.bilstm_fused_bwd_products_kernel.f32_launches - n32,
+                   "dx_zero_past_lens": not bool(got[0][past].any()),
+                   "tol_rel": TOL_PRODUCTS}
+            for out, g, r in zip(("dx", "dw_x", "db", "dw_hf", "dw_hb"), got,
+                                 ref):
+                rec[out] = {"max_abs_err": float((g - r).abs().max()),
+                            "rel_err": rel_err(g, r),
+                            "max_abs": float(r.abs().max())}
+                check(bool(torch.isfinite(g).all())
+                      and rel_err(g, r) <= TOL_PRODUCTS,
+                      f"bilstm_bwd_products {out} disagrees with its plain "
+                      f"twin at {name} layer {layer} {cd_name}: "
+                      f"{rel_err(g, r)}")
+                if name in ("flagship", "milestones"):
+                    errs[cd_name].append(rec[out]["max_abs_err"])
+            emit(rec)
+            check(rec["launches"] == 1 and rec["dx_zero_past_lens"]
+                  and rec["f32_launches"] == (cd_name == "float32"),
+                  f"bilstm_bwd_products at {name} layer {layer} {cd_name}: "
+                  f"{rec}")
+            del x, lens, w_x, y, dg, got, ref
     return errs
 
 
 def check_projection_kernels(torch, config, shapes, dev):
-    """Phase 3, K1-fwd's bf16 projection through its own entry
-    (``bilstm_fused_proj_kernel``: wgmma) against its plain twin, at the
-    flagship's 3 layer shapes and PROJ_RAGGED, round_xg off and on: within
-    TOL_PROJ of the output's largest magnitude, with round_xg plus one bf16
-    ulp of each element; the backward half exactly 0 past each row's
-    length. Returns the max abs errors at the flagship's shapes (round_xg
-    off)."""
+    """Phase 3, K1-fwd's projection through its own entry
+    (``bilstm_fused_proj_kernel``: bf16 on wgmma, f32 on ring_kernel)
+    against its plain twin: bf16 at the flagship's 3 layer shapes,
+    PROJ_RAGGED and vgg_blstm's layer 0, round_xg off and on; f32 at
+    ``f32_cases`` (the milestones' 3 layer shapes and PROJ_RAGGED): within
+    TOL_PROJ of the output's largest magnitude, with bf16's round_xg plus
+    one bf16 ulp of each element; the backward half exactly 0 past each
+    row's length. Returns the max abs errors at the flagship's shapes
+    (bf16, round_xg off) and at the milestones' (f32)."""
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
 
-    bf = torch.bfloat16
     H, B = config.model.enc_hidden, config.data.batch_size
-    cases = [("flagship", B, T, D, H, layer, False) for layer, T, D in shapes]
-    cases += [(name, Bc, T, D, Hc, 0, ones)
+    cases = [("flagship", B, H, layer, T, D, False) for layer, T, D in shapes]
+    cases += [(name, Bc, Hc, 0, T, D, ones)
               for name, Bc, T, D, Hc, ones in PROJ_RAGGED]
     name, Bc, Hc, (layer, T, D) = vgg_case()
-    cases.append((name, Bc, T, D, Hc, layer, False))
-    errs = []
-    for name, Bc, T, D, Hc, layer, ones in cases:
-        x, lens, w_x, b_x, _, _ = layer_inputs(torch, Bc, T, D, Hc, layer, dev)
-        if ones:
-            lens = torch.ones_like(lens)
-        for round_xg in (False, True):
-            n = K.bilstm_fused_proj_kernel.launches
-            got = K.bilstm_fused_proj_kernel(x, lens, w_x, b_x, bf, round_xg)
-            ref = K.bilstm_fused_proj_plain(x, lens, w_x, b_x, bf, round_xg)
-            torch.cuda.synchronize()
-            diff = (got - ref).abs()
-            top = float(ref.abs().max())
-            ulp = BF16_ULP * ref.abs() if round_xg else 0.0
-            ok = bool((diff <= TOL_PROJ * top + ulp).all())
-            past = (torch.arange(T, device=dev)[None, :] >= lens[:, None])
-            zero = not bool(got[..., 4 * Hc:][past].any())
-            rec = {"phase": "kernel_check", "kernel": "bilstm_fwd_projection",
-                   "shapes": name, "layer": layer, "B": Bc, "T": T, "D": D,
-                   "H": Hc, "compute_dtype": "bfloat16", "round_xg": round_xg,
-                   "launches": K.bilstm_fused_proj_kernel.launches - n,
-                   "max_abs_err": float(diff.max()), "rel_err": rel_err(got, ref),
-                   "max_abs": top, "tol_rel": TOL_PROJ,
-                   "tol_ulp": BF16_ULP if round_xg else 0.0,
-                   "backward_half_zero_past_lens": zero,
-                   "finite": bool(torch.isfinite(got).all())}
-            emit(rec)
-            check(rec["finite"] and ok and zero and rec["launches"] == 1,
-                  f"bilstm_fwd_projection disagrees with its plain twin at "
-                  f"{name} layer {layer} round_xg={round_xg}: {rec}")
-            if name == "flagship" and not round_xg:
-                errs.append(rec["max_abs_err"])
-            del got, ref, diff
+    cases.append((name, Bc, Hc, layer, T, D, False))
+    errs = {"bfloat16": [], "float32": []}
+    for cd_name, cd_cases, xg_rounds in (
+            ("bfloat16", cases, (False, True)),
+            ("float32", f32_cases("projection"), (False,))):
+        cd = getattr(torch, cd_name)
+        for name, Bc, Hc, layer, T, D, ones in cd_cases:
+            x, lens, w_x, b_x, _, _ = layer_inputs(torch, Bc, T, D, Hc, layer,
+                                                   dev)
+            if ones:
+                lens = torch.ones_like(lens)
+            for round_xg in xg_rounds:
+                n = K.bilstm_fused_proj_kernel.launches
+                n32 = K.bilstm_fused_proj_kernel.f32_launches
+                got = K.bilstm_fused_proj_kernel(x, lens, w_x, b_x, cd,
+                                                 round_xg)
+                ref = K.bilstm_fused_proj_plain(x, lens, w_x, b_x, cd,
+                                                round_xg)
+                torch.cuda.synchronize()
+                diff = (got - ref).abs()
+                top = float(ref.abs().max())
+                ulp = BF16_ULP * ref.abs() if round_xg else 0.0
+                ok = bool((diff <= TOL_PROJ * top + ulp).all())
+                past = (torch.arange(T, device=dev)[None, :] >= lens[:, None])
+                zero = not bool(got[..., 4 * Hc:][past].any())
+                bf16 = cd_name == "bfloat16"
+                rec = {"phase": "kernel_check",
+                       "kernel": "bilstm_fwd_projection",
+                       "shapes": name, "layer": layer, "B": Bc, "T": T,
+                       "D": D, "H": Hc, "compute_dtype": cd_name,
+                       "round_xg": round_xg,
+                       "launches": K.bilstm_fused_proj_kernel.launches - n,
+                       "f32_launches":
+                           K.bilstm_fused_proj_kernel.f32_launches - n32,
+                       "max_abs_err": float(diff.max()),
+                       "rel_err": rel_err(got, ref),
+                       "max_abs": top, "tol_rel": TOL_PROJ,
+                       "tol_ulp": BF16_ULP if round_xg else 0.0,
+                       "backward_half_zero_past_lens": zero,
+                       "finite": bool(torch.isfinite(got).all())}
+                emit(rec)
+                check(rec["finite"] and ok and zero
+                      and (rec["launches"], rec["f32_launches"])
+                      == (int(bf16), int(not bf16)),
+                      f"bilstm_fwd_projection disagrees with its plain twin "
+                      f"at {name} layer {layer} {cd_name} "
+                      f"round_xg={round_xg}: {rec}")
+                if name in ("flagship", "milestones") and not round_xg:
+                    errs[cd_name].append(rec["max_abs_err"])
+                del got, ref, diff
     return errs
 
 
@@ -2251,6 +2373,65 @@ def products_timing(torch, config, shapes, dev, card, m2_config):
             sums[2] += l_ms
         del x, lens, w_x, y, dg
     return (sums[0], sums[1]), sums[2]
+
+
+def f32_timing(torch, dev, card):
+    """Phase 8 for K1's f32 route through its own entries at the
+    milestones' 3 layer shapes (B=16, H=256, the 4.0 s bucket): the
+    products (``bilstm_fused_bwd_products_kernel`` on the f32
+    recurrence's dg) and the projection (``bilstm_fused_proj_kernel``),
+    each on ring_kernel, beside its plain twin and the library in f32
+    with TF32 off (cuBLAS: ``tools/k1b_probe.py::products_library``, four
+    torch.matmul and torch.sum; ``tools/k1f_probe.py::proj_library``,
+    torch.addmm), with the f32 bound (operations at 67 TFLOP/s, or the
+    bytes: ``products_bound``, ``proj_bound``) and TFLOP/s over the work
+    the inputs need. Returns {row: (kernel ms, plain ms, library ms, bound
+    ms, bound by)}, each summed over the 3 layers."""
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+    from gluon_e2e_asr_tpu_torch.tools.k1b_probe import (
+        PEAK_F32, products_bound, products_library, products_work)
+    from gluon_e2e_asr_tpu_torch.tools.k1f_probe import (
+        proj_bound, proj_library, proj_work)
+
+    f32 = torch.float32
+    sums = {"bilstm_bwd_products_f32": [0.0] * 4,
+            "bilstm_fwd_projection_f32": [0.0] * 4}
+    by = {}
+    for name, Bc, Hc, layer, T, D, ones in f32_cases("products")[:3]:
+        x, lens, w_x, y, dg = products_inputs(torch, Bc, Hc, layer, T, D,
+                                              ones, dev, f32)
+        b_x = layer_inputs(torch, Bc, T, D, Hc, layer, dev)[3]
+        lens_h = lens.cpu().tolist()
+        for row, run, plain, lib, work, bound in (
+                ("bilstm_bwd_products_f32",
+                 lambda: K.bilstm_fused_bwd_products_kernel(
+                     x, lens, w_x, y, dg, f32),
+                 lambda: K.bilstm_fused_bwd_products_plain(
+                     x, lens, w_x, y, dg, f32),
+                 products_library(x, w_x, y, dg, f32), products_work,
+                 products_bound),
+                ("bilstm_fwd_projection_f32",
+                 lambda: K.bilstm_fused_proj_kernel(x, lens, w_x, b_x, f32),
+                 lambda: K.bilstm_fused_proj_plain(x, lens, w_x, b_x, f32),
+                 proj_library(x, w_x, b_x, f32), proj_work, proj_bound)):
+            k_ms = time_ms(torch, run)
+            p_ms = time_ms(torch, plain, n=5, warm=1)
+            l_ms = time_ms(torch, lib)
+            ops, _ = work(lens_h, T, D, Hc)
+            b_ms, by[row] = bound(lens_h, T, D, Hc, PEAK_F32)
+            emit({"phase": "timing", "what": row, "shapes": name,
+                  "layer": layer, "B": Bc, "T": T, "D": D, "H": Hc,
+                  "compute_dtype": "float32", "kernel_ms": k_ms,
+                  "plain_ms": p_ms, "plain_runs": 5,
+                  "library_ms": l_ms, "bound_ms": b_ms, "bound_by": by[row],
+                  "kernel_share_of_bound": b_ms / k_ms,
+                  "kernel_tflops": ops / k_ms / 1e9,
+                  "library_tflops": ops / l_ms / 1e9,
+                  "live_frames": sum(lens_h), "card": card})
+            for i, v in enumerate((k_ms, p_ms, l_ms, b_ms)):
+                sums[row][i] += v
+        del x, lens, w_x, y, dg
+    return {row: (*v, by[row]) for row, v in sums.items()}
 
 
 def epoch_steps(config, epochs: int) -> int:
@@ -2325,8 +2506,10 @@ def expected_launches(config, steps: int, eval_batches: int,
     the config's attention mode on every step of a model with a decoder
     (``use_dec``; a stacked decoder runs plain torch, never K4), every K1
     and every K4-fwd and K4-bwd launch through its cluster kernel, every
-    bf16 K1-fwd launch through the wgmma projection, the frontend kernel
-    of ``frontend.impl`` on every step and dev batch through
+    bf16 K1-fwd launch through the wgmma projection and every f32 K1-fwd
+    and K1-bwd launch through ring_kernel (the projection's and the
+    products' ``.f32_launches``), the frontend kernel of
+    ``frontend.impl`` on every step and dev batch through
     ``fft_kernel``."""
     from gluon_e2e_asr_tpu_torch.ops import bilstm
 
@@ -2341,9 +2524,11 @@ def expected_launches(config, steps: int, eval_batches: int,
     bf16 = config.model.compute_dtype == "bfloat16"
     expect = {"bilstm_fwd": fwd, "bilstm_fwd_cluster": fwd * cluster,
               "bilstm_fwd_projection": fwd * bf16,
+              "bilstm_fwd_projection_f32": fwd * (not bf16),
               "bilstm_bwd": layers * steps,
               "bilstm_bwd_cluster": layers * steps * cluster,
               "bilstm_bwd_products": layers * steps,
+              "bilstm_bwd_products_f32": layers * steps * (not bf16),
               "bilstm_v1_fwd_cluster": 0, "bilstm_v1_bwd_cluster": 0,
               "ctc_alpha": ctc, "ctc_beta_post": ctc,
               "las_decoder_fwd": dec, "las_decoder_bwd": dec,
@@ -2479,7 +2664,9 @@ def milestone_slices(torch, dev, card):
     then its checkpoint through the decode CLI by the config's method (the
     beams on the first MILESTONE_BEAM_UTTS dev utterances); and, timed, a
     step at the 4.0 s bucket and a decode of that batch by the config's
-    method. Returns {milestone: launches of its training run}."""
+    method. Every f32 K1-fwd and K1-bwd launch of the runs goes through
+    ring_kernel (``expected_launches``). Returns {milestone: launches of
+    its training run}."""
     from gluon_e2e_asr_tpu_torch.config import load_config
     from gluon_e2e_asr_tpu_torch.decoding.beam import make_beam_decoder
     from gluon_e2e_asr_tpu_torch.decoding.greedy import make_greedy_decoder
@@ -2491,6 +2678,11 @@ def milestone_slices(torch, dev, card):
         name = f"milestone{n}"
         trainer, counts[n] = train_slice(torch, path, name,
                                          epoch_steps(config, 1), shipped=True)
+        c = counts[n]
+        if config.model.compute_dtype == "float32":
+            check(c["bilstm_fwd_projection_f32"] == c["bilstm_fwd"] > 0
+                  and c["bilstm_bwd_products_f32"] == c["bilstm_bwd"] > 0,
+                  f"milestone {n}: an f32 K1 launch missed ring_kernel: {c}")
         beam = config.decode.method != "greedy"
         decode_slice(torch, trainer, path, name,
                      MILESTONE_BEAM_UTTS if beam else 0)
@@ -2535,6 +2727,155 @@ def milestone_slices(torch, dev, card):
               "card": card})
         del step, decoder, trainer, model
     return counts
+
+
+def profiler_traces(card) -> dict:
+    """Phase 8's torch.profiler readings of single calls, from a fresh
+    child process (this script with ``--traces``, ``trace_worker``): late
+    in a long run this process's traces came back short or empty, while a
+    fresh process's held every launch. Emits milestone 5's f32 profile
+    (``f32_step_profile``) and returns {"ctc": ..., "frontend": ...} for
+    ``ctc_timing`` and ``frontend_timing``."""
+    out = os.path.join(OUT_DIR, "traces.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--traces", out], cwd=REPO, capture_output=True,
+                          text=True, timeout=900)
+    check(proc.returncode == 0, f"the --traces process failed (rc "
+                                f"{proc.returncode}): {proc.stderr[-3000:]}")
+    with open(out) as f:
+        traces = json.load(f)
+    emit({"phase": "traces", "seconds": round(time.perf_counter() - t0, 1),
+          "card": card})
+    f32_step_profile(card, **traces["m5"])
+    return traces
+
+
+def trace_worker(out: str) -> None:
+    """``chip_smoke.py --traces <out.json>`` (phase 8 starts it): in a fresh
+    process, K2's and K3's device time at the flagship's 4.0 s batch and
+    at bench.py's shape and the device operations of five calls of each
+    at the former; K5's and K6's device time at each of
+    ``frontend_cases`` and the device operations of five calls of each at
+    milestone 2's 4.0 s bucket; milestone 5's f32 train step at its 4.0 s
+    bucket by kernel (``f32_step_trace``; a fresh model from seed 0,
+    ``train.dp`` off). Writes them to ``out``."""
+    import torch
+
+    from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
+    from gluon_e2e_asr_tpu_torch.frontend import fused as FE
+    from gluon_e2e_asr_tpu_torch.ops import ctc as C
+    from gluon_e2e_asr_tpu_torch.tools import ctc_probe, fe_probe
+    from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
+    from gluon_e2e_asr_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    config, m2_config = load_config(CONFIG), load_config(M2_CONFIG)
+    result = {"ctc": {}, "frontend": {}}
+    for shape, batch in (("4.0 s bucket", real_ctc_batch(torch, config, dev)),
+                         ("bench.py", bench_ctc_batch(torch, config, dev))):
+        emit_, tmask, skip, svalid, label_lens = batch
+        alpha = C.ctc_alpha_kernel(emit_, tmask, skip, svalid)
+        ll = C._log_likelihood(alpha, label_lens)
+        last = 2 * label_lens
+        calls = {"ctc_alpha": lambda: C.ctc_alpha_kernel(
+                     emit_, tmask, skip, svalid),
+                 "ctc_beta_post": lambda: C.ctc_beta_post_kernel(
+                     emit_, tmask, skip, svalid, last, alpha, ll)}
+        result["ctc"][shape] = {
+            name: {"device_ms": ctc_probe.device_ms(call, (name,)),
+                   "events": ctc_probe.one_call(call)
+                   if shape == "4.0 s bucket" else None}
+            for name, call in calls.items()}
+    for case, fc, B, sec in frontend_cases(m2_config, config):
+        audio, alen = frontend_audio(torch, B, sec, dev)
+        calls = {"frontend_k5": lambda: FE.compute_features_pallas_kernel(
+                     fc, audio, alen),
+                 "frontend_k6": lambda: FE.compute_features_pallas_regrid_kernel(
+                     fc, audio, alen)}
+        result["frontend"][case] = {
+            "device_ms": {k: fe_probe.device_ms(c) for k, c in calls.items()},
+            "ops": {k: fe_probe.one_call(c) for k, c in calls.items()}
+            if case == "milestone2 4.0 s" else None}
+    config = load_config(MILESTONES[5])
+    apply_overrides(config, ["train.dp=false"])
+    workdir = os.path.join(OUT_DIR, "traces_m5")
+    os.makedirs(workdir, exist_ok=True)
+    trainer = Trainer(config, workdir=workdir, device=dev)
+    batch = batch_to_device(bucket_batch(torch, config)[0], dev)
+    step = stepper(torch, trainer, dev)
+    result["m5"] = f32_step_trace(torch, lambda: step(batch),
+                                  config.model.enc_layers)
+    with open(out, "w") as f:
+        json.dump(result, f)
+
+
+def f32_step_trace(torch, fn, layers, steps=3) -> dict:
+    """torch.profiler over ``steps`` f32 train steps (``fn``): the host ms
+    a step and {kernel name (a template's instances together): [device ms
+    a step, launches a step]}. A trace that holds fewer than the 4
+    ring_kernel launches a layer a step that the step makes (short or
+    empty) is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gluon_e2e_asr_tpu_torch.tools.k1b_probe import kernel_name
+
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        by = {}
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0)
+            if evt.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+                ms, n = by.get(kernel_name(evt.key), (0.0, 0))
+                by[kernel_name(evt.key)] = (ms + us / 1e3 / steps,
+                                            n + evt.count // steps)
+        if by.get("ring_kernel", (0.0, 0))[1] >= layers * 4:
+            break
+    return {"wall_ms_per_step": wall, "by_kernel": by, "layers": layers,
+            "steps": steps}
+
+
+def f32_step_profile(card, wall_ms_per_step, by_kernel, layers, steps):
+    """Milestone 5's f32 train step at the 4.0 s bucket by kernel
+    (``f32_step_trace``'s reading): device time by kernel name, the share
+    of K1's f32 projection and products (ring_kernel), and the check that
+    every f32 product ran on ring_kernel: 4 launches a K1 layer, its
+    forward's projection and its backward's dx, dW_x with db and the two
+    directions' dW_h, and none of the first kernels."""
+    busy = sum(ms for ms, _ in by_kernel.values())
+    rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    ring = by_kernel.get("ring_kernel", (0.0, 0))
+    old = {k: v for k, v in by_kernel.items()
+           if k in ("proj_f32_kernel", "gemm_f32_kernel", "colsum_kernel")}
+    wall = wall_ms_per_step
+    emit({"phase": "profile", "what": "milestone 5 f32 train step, 4.0 s "
+                                      "bucket",
+          "steps": steps, "wall_ms_per_step": wall,
+          "device_busy_ms_per_step": busy,
+          "idle_share": 1.0 - busy / wall if wall > 0 else None,
+          "by_kernel": [{"kernel": k, "ms_per_step": ms,
+                         "launches_per_step": n, "share": ms / busy}
+                        for k, (ms, n) in rows[:20]],
+          "ring_kernel": {"ms_per_step": ring[0], "launches_per_step": ring[1],
+                          "share": ring[0] / busy if busy else None},
+          "first_f32_kernels": old, "basis": "phase 8's --traces process",
+          "card": card})
+    check(busy > 0 and ring[1] == layers * 4 and not old,
+          f"milestone 5's f32 step: ring_kernel {ring}, first kernels {old} "
+          f"(expected {layers * 4} ring_kernel launches a step, none of the "
+          "first kernels)")
 
 
 def resume_check(torch, card):
@@ -3378,13 +3719,11 @@ def step_spread(torch, trainer, dev, card):
     return spread
 
 
-def train_timing(torch, trainer, shapes, dev, card):
-    """Phase 8: CUDA-event timings of the training kernels and steps, and
-    a torch.profiler breakdown of the step at bench.py's shape."""
+def k1_bwd_timing(torch, trainer, shapes, dev, card):
+    """Phase 8: K1-bwd at the flagship's 3 layer shapes in f32 and bf16,
+    the whole call, its recurrence alone and the plain versions; returns
+    the bf16 sums for the kernels line."""
     from gluon_e2e_asr_tpu_torch.ops import bilstm as K
-    from gluon_e2e_asr_tpu_torch.ops import las_decoder as LD
-    from gluon_e2e_asr_tpu_torch.training.train_step import (
-        TrainState, batch_to_device, make_train_step)
 
     config = trainer.config
     H, B = config.model.enc_hidden, config.data.batch_size
@@ -3428,8 +3767,18 @@ def train_timing(torch, trainer, shapes, dev, card):
             del xg
     out["bilstm_bwd"] = (sums["kernel"], sums["plain"])
     out["bilstm_bwd_cluster"] = (sums["recur"], sums["recur_plain"])
+    return out
 
-    out.update(ctc_timing(torch, config, dev, card))
+
+def train_timing(torch, trainer, dev, card, ctc_traces):
+    """Phase 8: CUDA-event timings of the training kernels and steps, and
+    a torch.profiler breakdown of the step at bench.py's shape (K1-bwd's
+    timings: ``k1_bwd_timing``; K2's and K3's traces: ``ctc_traces``, from
+    ``profiler_traces``)."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as LD
+
+    config = trainer.config
+    out = ctc_timing(torch, config, dev, card, ctc_traces)
 
     args, _, _ = decoder_case(torch, config, dev, 0.0)
     bf = torch.bfloat16
@@ -3457,16 +3806,16 @@ def train_timing(torch, trainer, shapes, dev, card):
     return out
 
 
-def ctc_timing(torch, config, dev, card):
+def ctc_timing(torch, config, dev, card, traces):
     """Phase 8 for K2 and K3 at the 4.0 s batch and at bench.py's shape:
     the call (CUDA events, the wrapper's host work included), the
-    kernel's device time (torch.profiler) and the plain version; and a
-    trace of one call of each at the 4.0 s batch, which must hold its
+    kernel's device time (torch.profiler, from ``traces``: the
+    ``--traces`` process) and the plain version; and a trace of five
+    calls of each at the 4.0 s batch (``traces`` too), which must hold its
     warp kernel and no other device operation. Returns {name: (ms, plain
     ms)} at the 4.0 s batch and, under "ctc_detail", each kernel's device
     time and its numbers at bench.py's shape."""
     from gluon_e2e_asr_tpu_torch.ops import ctc as C
-    from gluon_e2e_asr_tpu_torch.tools.ctc_probe import device_ms, one_call
 
     out = {"ctc_detail": {"ctc_alpha": {}, "ctc_beta_post": {}}}
     for shape, batch in (("4.0 s bucket", real_ctc_batch(torch, config, dev)),
@@ -3486,7 +3835,7 @@ def ctc_timing(torch, config, dev, card):
         T, Bc, S = emit_.shape
         for name, (kernel, plain) in fns.items():
             rec = {"ms": time_ms(torch, kernel),
-                   "device_ms": device_ms(kernel, (name,)),
+                   "device_ms": traces[shape][name]["device_ms"],
                    "plain_ms": time_ms(torch, plain)}
             detail = out["ctc_detail"][name]
             line = {"phase": "timing", "what": name, "shape": shape, "T": T,
@@ -3498,7 +3847,7 @@ def ctc_timing(torch, config, dev, card):
             else:
                 out[name] = (rec["ms"], rec["plain_ms"])
                 detail["device_ms"] = rec["device_ms"]
-                events = one_call(kernel)
+                events = traces[shape][name]["events"]
                 line["device_ops_of_5_calls"] = events
                 check(len(events) == 1 and f"{name}_warp_kernel" in events[0][0],
                       f"a {name} call ran more than its kernel: {events}")
@@ -3714,22 +4063,22 @@ def beam_timing(torch, trainer, dev, card):
           "the beam decode returned no hypothesis or a non-finite score")
 
 
-def frontend_timing(torch, m2_trainer, config, dev, card):
+def frontend_timing(torch, m2_trainer, config, dev, card, traces):
     """Phase 8 for the frontend: at each shape of frontend_cases (cmvn
     utterance, eval), K5 and K6 (CUDA events, the wrapper's host work
-    included, and the device time of their kernels by torch.profiler)
-    against their plain versions, which are the ``impl: jnp`` path
-    (cuBLAS f32 products), and torch.stft (cuFFT) for the STFT alone; no
-    one PyTorch call computes log-mel. At milestone 2's 4.0 s bucket a
-    trace of five calls of each must hold ``fft_kernel`` and no other
-    device operation. Then the milestone 2 train step at its 4.0 s
+    included, and the device time of their kernels by torch.profiler,
+    from ``traces``: the ``--traces`` process) against their plain
+    versions, which are the ``impl: jnp`` path (cuBLAS f32 products), and
+    torch.stft (cuFFT) for the STFT alone; no one PyTorch call computes
+    log-mel. At milestone 2's 4.0 s bucket a trace of five calls of each
+    (``traces`` too) must hold ``fft_kernel`` and no other device
+    operation. Then the milestone 2 train step at its 4.0 s
     bucket, through K5, and the frontend's share of it. Returns (name ->
     (kernel ms, plain ms) at milestone 2's 4.0 s bucket, name -> library
     note, name -> (device ms, route) there)."""
     from gluon_e2e_asr_tpu_torch.frontend import fused as FE
     from gluon_e2e_asr_tpu_torch.frontend.features import (
         draw_spec_augment, frontend_apply, num_frames)
-    from gluon_e2e_asr_tpu_torch.tools.fe_probe import device_ms, one_call
     from gluon_e2e_asr_tpu_torch.training.train_step import batch_to_device
 
     m2_config = m2_trainer.config
@@ -3741,7 +4090,7 @@ def frontend_timing(torch, m2_trainer, config, dev, card):
                  "frontend_k6": lambda: FE.compute_features_pallas_regrid_kernel(
                      fc, audio, alen)}
         k5, k6 = (time_ms(torch, c) for c in calls.values())
-        dev_ms = {k: device_ms(c) for k, c in calls.items()}
+        dev_ms = traces[case]["device_ms"]
         p5 = time_ms(torch, lambda: FE.compute_features_pallas_plain(fc, audio, alen))
         p6 = time_ms(torch, lambda: FE.compute_features_pallas_regrid_plain(
             fc, audio, alen))
@@ -3760,8 +4109,8 @@ def frontend_timing(torch, m2_trainer, config, dev, card):
                 "torch_stft_ms": stft, "card": card}
         if case == "milestone2 4.0 s":
             out["frontend_k5"], out["frontend_k6"] = (k5, p5), (k6, p6)
-            for name, call in calls.items():
-                ops = one_call(call)
+            for name in calls:
+                ops = traces[case]["ops"][name]
                 line[f"{name}_device_ops_of_5_calls"] = ops
                 check(len(ops) == 1 and "fft_kernel" in ops[0][0]
                       and ops[0][1] <= 5,
@@ -5681,10 +6030,13 @@ def kernel_bounds(config, shapes, dev, loc_config, m2_config):
     the bf16 products h . W_h of both directions over the live frames,
     against xg of the live frames (f32) and W_h in and y out. K1-fwd's
     projection (its own row, timed through its own entry):
-    ``tools/k1f_probe.py::proj_work``, x . W_x over the live frames,
-    against x of the live frames (f32, as the entry takes it), W_x, b_x
-    and lens in, xg [B,T,8H] (f32, every row) out; the xg write makes it
-    bound by bytes.
+    ``tools/k1f_probe.py::proj_work``, x . W_x, its forward half over
+    every frame (the output holds it there) and its backward half over
+    the live ones, against x (f32, as the entry takes it), W_x, b_x and
+    lens in, xg [B,T,8H] (f32, every row) out; the xg write makes it
+    bound by bytes in bf16. The f32 rows (K1's f32 projection and
+    products at the milestones' layers) come from ``f32_timing``, with
+    the operations at 67 TFLOP/s.
     K1-bwd's recurrence alone (its own row, as timed): the
     bf16 products dg . W_h^T of both directions over the live frames,
     against the gate activations, c and dy of the live frames and W_h in,
@@ -5844,6 +6196,8 @@ def profile_step(torch, fn, card, att="dot", steps=3):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--traces"]:
+        trace_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--only"]:
         sets = sys.argv[3:]
         if sets[::2] != ["--set"] * (len(sets) // 2) or len(sets) % 2:

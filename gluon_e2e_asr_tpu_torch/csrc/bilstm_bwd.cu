@@ -33,17 +33,23 @@
 //       failure of either raises in the wrapper; nothing falls back.
 //   (b) the products dx, dW_x and dW_h (bilstm_bwd_products): in bf16
 //       on wgmma, gemm_sm90.cuh's dx_kernel and wgrad_kernel (its header
-//       has the design); in f32 through gemm.cuh's gemm_f32_kernel on the
-//       FMA units (true f32). The weight gradients split their long depth
-//       (B*T) over blocks and add atomically.
-//   (c) db: summed by wgrad_kernel's producers in bf16, by colsum_kernel
-//       in f32.
+//       has the design); in f32 on the FMA units (true f32) through
+//       gemm_f32.cuh's ring_kernel (that header has the design), one
+//       launch a product. Both walk only the frames before lens, split
+//       the weight gradients' long depth (B*T) over blocks and add
+//       atomically.
+//   (c) db: summed from the staged dg tiles of the weight gradients'
+//       kernel (wgrad_kernel's producers in bf16, ring_kernel's dW_x
+//       blocks in f32).
 //   (d) K7-bwd (bilstm_v1_bwd) with bf16 projections and an f32 compute
 //       dtype only: bilstm_v1_gates first recomputes the gate activations
 //       from the rounded h stream, as the TPU backward kernel does (one
-//       f32 product of gemm.cuh a direction over all frames, the
-//       activations in its epilogue); the forward's, from the unrounded
-//       h, are not those.
+//       f32 product of ring_kernel a direction, the activations in its
+//       epilogue); the forward's, from the unrounded h, are not those.
+//   The f32 route's first kernels, gemm.cuh's gemm_f32_kernel and
+//   colsum_kernel below, remain only as the build variant K1_F32_TILED 0
+//   (on no model path) that tools/k1b_probe.py --products --dtype float32
+//   times beside ring_kernel.
 //
 // bwd_cluster_kernel: W_h resident across a cluster of 16 CTAs.
 //   One cluster of kCtas = 16 CTAs per (direction, group of R batch
@@ -134,6 +140,7 @@
 
 #include "common.cuh"
 #include "gemm.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 
 namespace cg = cooperative_groups;
@@ -158,6 +165,14 @@ using port::round_bf16;
 // tools/k1b_probe.py --products times beside them, on no model path (the
 // main build does not compile that kernel).
 #define K1B_WGMMA_PRODUCTS 1
+
+// 1: the f32 products (and K7's f32 gate recompute) on gemm_f32.cuh's
+// ring_kernel. 0 builds their first kernels in its place (gemm.cuh's
+// gemm_f32_kernel and colsum_kernel): a build variant that the probes
+// time beside it, on no model path.
+#define K1_F32_TILED 1
+// Whether a build variant needs gemm.cuh's tiled kernels and colsum_kernel.
+#define K1_TILED_VARIANT (!K1_F32_TILED || !K1B_WGMMA_PRODUCTS)
 
 constexpr int kRows = 2;  // batch rows per recurrence block
 constexpr int kUnroll = 16;
@@ -627,6 +642,14 @@ struct HPrevT {
     return make_float4((*this)(u, row), (*this)(u + 1, row),
                        (*this)(u + 2, row), (*this)(u + 3, row));
   }
+  // gemm_f32.cuh's operand interface
+  __device__ __forceinline__ int span(int u, int row) const {
+    return src(row) >= 0 && u < H ? min(4, H - u) : 0;
+  }
+  __device__ __forceinline__ const float* addr(int u, int row) const {
+    return y + (size_t)src(row) * ld + u;
+  }
+  __device__ __forceinline__ const float* base() const { return y; }
 };
 
 // K7-bwd's gates recomputed for bf16 projections with an f32 compute
@@ -645,6 +668,14 @@ struct HPrev {
     return make_float4(h(u, row), h(u + 1, row), h(u + 2, row),
                        h(u + 3, row));
   }
+  __device__ __forceinline__ int span(int row, int u) const {
+    return h.span(u, row);
+  }
+  __device__ __forceinline__ const float* addr(int row, int u) const {
+    return h.addr(u, row);
+  }
+  __device__ __forceinline__ const float* base() const { return h.y; }
+  bool vec;  // h.vec
 };
 
 // The gate product's epilogue: (row, n) of one direction's pre-activation
@@ -658,6 +689,11 @@ struct GateActs {
   const int* lens;
   float* acts;
   int T, H, dir;
+  static constexpr bool kAdds = false;
+  __device__ __forceinline__ void four(int row, int n, float4 v, int cols) const {
+    const float w[4] = {v.x, v.y, v.z, v.w};
+    for (int i = 0; i < cols; ++i) (*this)(row, n + i, w[i]);
+  }
   __device__ __forceinline__ void operator()(int row, int n, float v) const {
     const int t = row % T;
     float a = 0.0f;
@@ -670,6 +706,65 @@ struct GateActs {
   }
 };
 
+#if K1_F32_TILED
+// dx (with x), dW_x and db (with x) and dW_h of both directions in f32 on
+// ring_kernel (gemm_f32.cuh): a launch each for dx and dW_x with db, one
+// for both dW_h. The outputs the launches add into (dW_x, db, dW_h, and dx
+// where it is split) are zeroed by the caller. The weight gradients walk
+// the live frames; dx takes its rows live frames first and writes the
+// others' rows 0 without a product (dg is 0 there).
+cudaError_t f32_products(const float* x, int ldx, const int* lens,
+                         const float* wx, const float* y, int ldy, int yb,
+                         const float* dg, float* dx, float* dwx, float* db,
+                         float* dwhf, float* dwhb, int B, int T, int D, int H,
+                         cudaStream_t st) {
+  using gemm::vec_ok;
+  const int M = B * T;
+  const int N8 = 8 * H, N4 = 4 * H;
+  const int sms = gemm_f32::sm_count();
+  const gemm_f32::Frames frames{lens, T, M};
+  cudaError_t e;
+  if (x != nullptr) {
+    // dx [M, D] = dg [M, 8H] . W_x^T
+    const gemm::RowMajor g{dg, N8, M, N8, vec_ok(dg, N8)};
+    const gemm::Transposed w{wx, N8, N8, D, vec_ok(wx, N8)};
+    const gemm_f32::LiveRows order{lens, T, 0};
+    // its blocks past the live frames exit at once: split for half the
+    // rows, so that a batch of half-length utterances still fills the card
+    const int s = gemm_f32::splits(gemm_f32::cdiv(M, 2), D, N8, sms);
+    if (s > 1) {
+      if ((e = cudaMemsetAsync(dx, 0, sizeof(float) * M * D, st)) != cudaSuccess) return e;
+      e = gemm_f32::launch(g, w, gemm::AtomicAdd{dx, D, vec_ok(dx, D)}, M, D,
+                           N8, s, gemm_f32::Frames{}, order, nullptr, st);
+    } else {
+      e = gemm_f32::launch(g, w, gemm::Store{dx, D, vec_ok(dx, D)}, M, D, N8,
+                           1, gemm_f32::Frames{}, order, nullptr, st);
+    }
+    if (e != cudaSuccess) return e;
+    // dW_x [D, 8H] = x^T . dg, and db
+    e = gemm_f32::launch(
+        gemm::Transposed{x, ldx, D, M, vec_ok(x, ldx)},
+        gemm::RowMajor{dg, N8, M, N8, vec_ok(dg, N8)},
+        gemm::AtomicAdd{dwx, N8, vec_ok(dwx, N8)}, D, N8, M,
+        gemm_f32::splits(D, N8, M, sms), frames, gemm_f32::LiveRows{}, db, st);
+    if (e != cudaSuccess) return e;
+  }
+  // dW_h [H, 4H] = h_prev^T . dg of both directions, in one launch (split
+  // for their tiles together: fewer splits, longer walks a block)
+  const float* yh = y + yb;  // the backward direction's h
+  const HPrevT af{y, T, H, M, 0, ldy, vec_ok(y, ldy)};
+  const HPrevT ab{yh, T, H, M, 1, ldy, vec_ok(yh, ldy)};
+  const gemm::RowMajor bf{dg, N8, M, N4, vec_ok(dg, N8)};
+  const gemm::RowMajor bb{dg + N4, N8, M, N4, vec_ok(dg + N4, N8)};
+  const gemm::AtomicAdd ef{dwhf, N4, vec_ok(dwhf, N4)};
+  const gemm::AtomicAdd eb{dwhb, N4, vec_ok(dwhb, N4)};
+  return gemm_f32::launch(af, bf, ef, H, N4, M,
+                          gemm_f32::splits(2 * H, N4, M, sms), frames,
+                          gemm_f32::LiveRows{}, nullptr, st, &ab, &bb, &eb);
+}
+#endif  // K1_F32_TILED
+
+#if K1_TILED_VARIANT
 // db[n] += sum over a block's rows of dg[row][n].
 __global__ void colsum_kernel(const float* __restrict__ dg,
                               float* __restrict__ db, int M, int N,
@@ -684,7 +779,8 @@ __global__ void colsum_kernel(const float* __restrict__ dg,
 }
 
 // dx (with x), dW_x (with x) and dW_h through gemm.cuh's tiled kernels:
-// the f32 route, and the WMMA build variant.
+// the build variants of the f32 route (K1_F32_TILED 0) and of the bf16
+// (K1B_WGMMA_PRODUCTS 0).
 template <bool kBf16>
 cudaError_t tiled_products(const float* x, int ldx, const float* wx,
                            const float* y, int ldy, int yb, const float* dg,
@@ -719,14 +815,14 @@ cudaError_t tiled_products(const float* x, int ldx, const float* wx,
   }
   return cudaSuccess;
 }
+#endif  // K1_TILED_VARIANT
 
 // The products of one layer's backward from dg [B,T,8H]: with x (K1-bwd)
 // dx, dW_x and db, and always dW_h of both directions (K7-bwd passes no
 // x). x has rows of ldx floats; y rows of ldy floats, the forward
 // direction's h at column 0 and the backward direction's at column yb.
-// bf16 on wgmma (gemm_sm90.cuh; dx from wx16, W_x's bf16 copy, and db
-// summed by the weight gradients' kernel), f32 on the FMA units
-// (gemm.cuh; db by colsum_kernel).
+// bf16 on wgmma (gemm_sm90.cuh; dx from wx16, W_x's bf16 copy), f32 on the
+// FMA units (gemm_f32.cuh); db summed by the weight gradients' kernel.
 int launch_products(const float* x, int ldx, const int* lens, const float* wx,
                     const __nv_bfloat16* wx16, const float* y, int ldy, int yb,
                     const float* dg, float* dx, float* dwx, float* db,
@@ -757,9 +853,16 @@ int launch_products(const float* x, int ldx, const int* lens, const float* wx,
                              B, T, D, H, st);
 #endif
   } else {
+#if K1_F32_TILED
+    return (int)f32_products(x, ldx, lens, wx, y, ldy, yb, dg, dx, dwx, db,
+                             dwhf, dwhb, B, T, D, H, st);
+#else
     e = tiled_products<false>(x, ldx, wx, y, ldy, yb, dg, dx, dwx, dwhf, dwhb,
                               B, T, D, H, st);
+#endif
   }
+#if K1_TILED_VARIANT
+  // a build variant's tiled products: db by a pass of its own over dg
   if (e != cudaSuccess) return (int)e;
   if (x != nullptr) {
     constexpr int kColThreads = 256, kColRows = 512;
@@ -768,6 +871,10 @@ int launch_products(const float* x, int ldx, const int* lens, const float* wx,
     colsum_kernel<<<cgrid, kColThreads, 0, st>>>(dg, db, M, N8, kColRows);
   }
   return (int)cudaGetLastError();
+#else
+  (void)M;
+  return 0;  // every route above has returned
+#endif
 }
 
 }  // namespace
@@ -841,8 +948,9 @@ extern "C" int bilstm_v1_bwd(const int* lens, const void* wtf,
 
 // K7-bwd's gate recompute, for bf16 projections with an f32 compute dtype
 // (the reference's _bwd_kernel forms these gates; the forward never did:
-// its product took h unrounded). Per direction one f32 product over all
-// B*T frames on the FMA units (gemm.cuh's gemm_f32_kernel, true f32):
+// its product took h unrounded). Per direction one f32 product over the
+// B*T frames on the FMA units (gemm_f32.cuh's ring_kernel, true f32; row
+// tiles of frames past lens only write their zeros):
 // h_prev . W_h, h_prev the rounded h stream y [B,T,2H] f32 at t-1
 // (forward) or t+1 (backward), 0 outside [0, T); its epilogue adds the
 // projection (xf, xb [B,T,4H] bf16), takes the activations and writes
@@ -859,12 +967,19 @@ extern "C" int bilstm_v1_gates(const void* xf, const void* xb,
   for (int dir = 0; dir < 2; ++dir) {
     const float* yd = y + dir * H;
     const float* wh = dir ? whb : whf;
-    const cudaError_t e = gemm::launch<false>(
-        HPrev{HPrevT{yd, T, H, M, dir, ld, gemm::vec_ok(yd, ld)}},
-        gemm::RowMajor{wh, N4, H, N4, gemm::vec_ok(wh, N4)},
-        GateActs{static_cast<const __nv_bfloat16*>(dir ? xb : xf), lens, acts,
-                 T, H, dir},
-        M, N4, H, 1, st);
+    const bool vec = gemm::vec_ok(yd, ld);
+    const HPrev a{HPrevT{yd, T, H, M, dir, ld, vec}, vec};
+    const gemm::RowMajor b{wh, N4, H, N4, gemm::vec_ok(wh, N4)};
+    const GateActs epi{static_cast<const __nv_bfloat16*>(dir ? xb : xf), lens,
+                       acts, T, H, dir};
+#if K1_F32_TILED
+    const cudaError_t e = gemm_f32::launch(a, b, epi, M, N4, H, 1,
+                                           gemm_f32::Frames{},
+                                           gemm_f32::LiveRows{lens, T, 0},
+                                           nullptr, st);
+#else
+    const cudaError_t e = gemm::launch<false>(a, b, epi, M, N4, H, 1, st);
+#endif
     if (e != cudaSuccess) return (int)e;
   }
   return 0;

@@ -36,9 +36,15 @@
 //       bilstm_fwd). In bf16, round_xg rounds xg to bf16 too (the
 //       lstm_impl=scan semantics of models/encoder.py, where the
 //       projection is stored in the compute dtype); in f32 that rounding
-//       changes nothing. In f32, proj_f32_kernel: a tiled shared-memory
-//       GEMM (128x128 tile), 8x8 outputs per thread on the FMA units
-//       (true f32). In bf16, proj_sm90.cuh's proj_kernel: persistent and
+//       changes nothing. In f32, gemm_f32.cuh's ring_kernel on the FMA
+//       units (true f32; that header has the design), its epilogue
+//       (ProjEpi) adding the bias, masking the backward half and storing
+//       16 bytes at a time; the backward half takes its rows live frames
+//       first, so that its row tiles past the live frames skip the
+//       product. proj_f32_kernel, the kernel it replaced,
+//       is only a build variant (K1_F32_TILED 0) that tools/k1f_probe.py
+//       --proj --dtype float32 times beside it. In bf16,
+//       proj_sm90.cuh's proj_kernel: persistent and
 //       warp-specialised on wgmma, x rounded in the consumers' registers,
 //       W_x from the wrapper's bf16 copy by TMA, the epilogue's stores by
 //       TMA (that header says why). proj_bf16_kernel, the WMMA kernel it
@@ -142,6 +148,8 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "gemm.cuh"
+#include "gemm_f32.cuh"
 #include "proj_sm90.cuh"
 
 namespace cg = cooperative_groups;
@@ -151,6 +159,11 @@ namespace cg = cooperative_groups;
 // tools/k1f_probe.py --proj times beside it, on no model path (the main
 // build does not compile that kernel).
 #define K1F_WGMMA_PROJECTION 1
+
+// 1: the f32 projection on gemm_f32.cuh's ring_kernel. 0 builds its first
+// kernel, proj_f32_kernel, in its place: a build variant that the probes
+// time beside it, on no model path.
+#define K1_F32_TILED 1
 
 namespace {
 
@@ -177,6 +190,40 @@ constexpr int kBK = 8;
 constexpr int kGemmThreads = 256;
 constexpr int kPad = 4;  // keeps the transposed A tile free of bank conflicts
 
+#if K1_F32_TILED
+// The f32 projection's epilogue on ring_kernel: xg[m][n] = v + bias[n], 0
+// in the backward half (n >= half) of a frame past its length (m = b*T +
+// t, t >= lens[b]); four columns a 16-byte store where vec.
+struct ProjEpi {
+  const float* bias;
+  const int* lens;
+  float* xg;
+  int N, T, half;
+  bool vec;  // gemm::vec_ok(xg, N)
+  static constexpr bool kAdds = false;
+  __device__ __forceinline__ bool dead(int m) const {
+    const int b = m / T;
+    return m - b * T >= __ldg(lens + b);
+  }
+  __device__ __forceinline__ void operator()(int m, int n, float v) const {
+    xg[(size_t)m * N + n] = n >= half && dead(m) ? 0.0f : v + __ldg(bias + n);
+  }
+  __device__ __forceinline__ void four(int m, int n, float4 v, int cols) const {
+    if (!vec || cols < 4) {
+      const float w[4] = {v.x, v.y, v.z, v.w};
+      for (int i = 0; i < cols; ++i) (*this)(m, n + i, w[i]);
+      return;
+    }
+    const bool zero = n >= half && dead(m);  // half % 4 == 0: 4H
+    const float4 out = zero ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                            : make_float4(v.x + __ldg(bias + n),
+                                          v.y + __ldg(bias + n + 1),
+                                          v.z + __ldg(bias + n + 2),
+                                          v.w + __ldg(bias + n + 3));
+    *reinterpret_cast<float4*>(xg + (size_t)m * N + n) = out;
+  }
+};
+#else
 // The f32 projection on the FMA units.
 __global__ void __launch_bounds__(kGemmThreads)
 proj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
@@ -246,6 +293,7 @@ proj_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
   }
 }
+#endif  // K1_F32_TILED
 
 #if !K1F_WGMMA_PROJECTION
 // The bf16 projection on the tensor cores. 8 warps as 2 (rows) x 4
@@ -853,9 +901,19 @@ int launch_projection(const float* x, int ldx, const int* lens,
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   if (!cd_bf16) {
     if (ldx != D) return (int)cudaErrorInvalidValue;
+#if K1_F32_TILED
+    // the backward half's rows live frames first: its tiles past them
+    // skip the product
+    return (int)gemm_f32::launch(
+        gemm::RowMajor{x, D, M, D, gemm::vec_ok(x, D)},
+        gemm::RowMajor{wx, N, D, N, gemm::vec_ok(wx, N)},
+        ProjEpi{bx, lens, xg, N, T, 4 * H, gemm::vec_ok(xg, N)}, M, N, D, 1,
+        gemm_f32::Frames{}, gemm_f32::LiveRows{lens, T, 4 * H}, nullptr, st);
+#else
     proj_f32_kernel<<<grid, kGemmThreads, 0, st>>>(x, wx, bx, lens, xg, M, N,
                                                    D, T);
     return (int)cudaGetLastError();
+#endif
   }
 #if K1F_WGMMA_PROJECTION
   if (wt16 == nullptr || ldx % 4 || ldw % 8 || ldw < D) {

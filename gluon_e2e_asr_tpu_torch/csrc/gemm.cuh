@@ -34,10 +34,14 @@
 // (of the tile depth, in fact), so a vector along k never crosses one.
 // What bounds these products: global loads, one register stage deep.
 // The bf16 products of K1-bwd and K7-bwd now run on wgmma, fed by TMA
-// through a multi-stage ring (gemm_sm90.cuh); gemm_bf16_kernel is on no
-// model path and remains as the build variant that
-// tools/k1b_probe.py --products times beside them
-// (bilstm_bwd.cu's K1B_WGMMA_PRODUCTS). gemm_f32_kernel is the f32 route.
+// through a multi-stage ring (gemm_sm90.cuh), and the f32 ones on
+// gemm_f32.cuh's ring_kernel, fed by cp.async through a ring of four
+// stages, which reads its operands through these accessors and writes
+// through these epilogues. Both kernels here are on no model path and
+// remain as build variants that the probes time beside their successors:
+// gemm_bf16_kernel (bilstm_bwd.cu's K1B_WGMMA_PRODUCTS 0, tools/
+// k1b_probe.py --products) and gemm_f32_kernel (K1_F32_TILED 0,
+// tools/k1b_probe.py --products --dtype float32).
 
 #pragma once
 
@@ -78,6 +82,14 @@ struct RowMajor {
     return make_float4((*this)(r, c), (*this)(r, c + 1), (*this)(r, c + 2),
                        (*this)(r, c + 3));
   }
+  // gemm_f32.cuh's operand interface
+  __device__ __forceinline__ int span(int r, int c) const {
+    return r < rows && c < cols ? min(4, cols - c) : 0;
+  }
+  __device__ __forceinline__ const float* addr(int r, int c) const {
+    return p + (size_t)r * ld + c;
+  }
+  __device__ __forceinline__ const float* base() const { return p; }
 };
 
 // The transpose of a row-major [cols, rows] array: (r, c) -> p[c * ld + r].
@@ -95,21 +107,53 @@ struct Transposed {
     return make_float4((*this)(r, c), (*this)(r + 1, c), (*this)(r + 2, c),
                        (*this)(r + 3, c));
   }
+  // gemm_f32.cuh's operand interface
+  __device__ __forceinline__ int span(int r, int c) const {
+    return r < rows && c < cols ? min(4, rows - r) : 0;
+  }
+  __device__ __forceinline__ const float* addr(int r, int c) const {
+    return p + (size_t)c * ld + r;
+  }
+  __device__ __forceinline__ const float* base() const { return p; }
 };
 
+// The epilogues; four() (gemm_f32.cuh) takes columns n .. n + cols - 1,
+// a 16-byte access where vec (vec_ok(p, ld)) and cols == 4.
 struct Store {
   float* p;
   int ld;
+  bool vec;
+  static constexpr bool kAdds = false;
   __device__ __forceinline__ void operator()(int m, int n, float v) const {
     p[(size_t)m * ld + n] = v;
   }
+  __device__ __forceinline__ void four(int m, int n, float4 v, int cols) const {
+    if (vec && cols == 4) {
+      *reinterpret_cast<float4*>(p + (size_t)m * ld + n) = v;
+      return;
+    }
+    const float w[4] = {v.x, v.y, v.z, v.w};
+    for (int i = 0; i < cols; ++i) (*this)(m, n + i, w[i]);
+  }
 };
 
+// Adds into a zeroed output: split-K's partial sums, in an order that
+// varies from run to run.
 struct AtomicAdd {
   float* p;
   int ld;
+  bool vec;
+  static constexpr bool kAdds = true;
   __device__ __forceinline__ void operator()(int m, int n, float v) const {
     atomicAdd(p + (size_t)m * ld + n, v);
+  }
+  __device__ __forceinline__ void four(int m, int n, float4 v, int cols) const {
+    if (vec && cols == 4) {
+      atomicAdd(reinterpret_cast<float4*>(p + (size_t)m * ld + n), v);
+      return;
+    }
+    const float w[4] = {v.x, v.y, v.z, v.w};
+    for (int i = 0; i < cols; ++i) (*this)(m, n + i, w[i]);
   }
 };
 

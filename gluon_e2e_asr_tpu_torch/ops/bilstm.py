@@ -27,10 +27,16 @@ keeps W_h resident in the shared memory of a cluster of 16 CTAs, for
   memory (W_h shipped as ``_cluster_fwd_slices``), or ``recur_kernel``
   (W_h shipped as ``_interleave_gates``).
 - K1-fwd's projection xg = x . W_x + b (``csrc/bilstm_fwd.cu``): in
-  bf16 the wgmma kernel of ``csrc/proj_sm90.cuh``, in f32 a tiled FMA
-  kernel; also alone through ``bilstm_fused_proj_kernel`` (plain twin
+  bf16 the wgmma kernel of ``csrc/proj_sm90.cuh``, in f32
+  ``csrc/gemm_f32.cuh``'s ``ring_kernel`` on the FMA units; also alone
+  through ``bilstm_fused_proj_kernel`` (plain twin
   ``bilstm_fused_proj_plain``), whose ``.launches`` count every bf16
-  launch, K1-fwd's included.
+  launch and ``.f32_launches`` every f32 one, K1-fwd's included.
+- K1-bwd's products dx, dW_x, dW_h and db (``csrc/bilstm_bwd.cu``,
+  ``bilstm_fused_bwd_products_kernel``, plain twin
+  ``bilstm_fused_bwd_products_plain``): in bf16 the wgmma kernels of
+  ``csrc/gemm_sm90.cuh``, in f32 ``ring_kernel``; ``.launches`` counts
+  every call, K1-bwd's included, and ``.f32_launches`` the f32 ones.
 - K1-bwd's (and K7-bwd's) reverse recurrence (``csrc/bilstm_bwd.cu``,
   ``_bwd_weights``): ``bwd_cluster_kernel``, which sums dh_rec by a
   reduce-scatter through distributed shared memory (W_h shipped as
@@ -397,7 +403,8 @@ def bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb,
     [B,T,8H] (sig(i), sig(f+1), tanh(g), sig(o) in w_x's column layout,
     0 past lens), which ``bilstm_fused_bwd_kernel`` consumes. Its
     projection is the kernel of ``bilstm_fused_proj_kernel``, whose
-    ``.launches`` count the bf16 ones (wgmma)."""
+    ``.launches`` count the bf16 ones (wgmma) and ``.f32_launches`` the
+    f32 ones (``ring_kernel``)."""
     B, T, D, H = _check_layer(x, lens, w_x, w_hf, w_hb, compute_dtype,
                               "bilstm_fused_kernel")
     dev = x.device
@@ -420,6 +427,7 @@ def bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb,
     bilstm_fused_kernel.launches += 1
     bilstm_fused_kernel.cluster_launches += cluster
     bilstm_fused_proj_kernel.launches += bf16
+    bilstm_fused_proj_kernel.f32_launches += not bf16
     return (y, c, xg) if with_cell else y
 
 
@@ -447,10 +455,10 @@ def bilstm_fused_proj_kernel(x, lens, w_x, b_x,
     bilstm_fwd_proj``): what ``bilstm_fused_proj_plain`` returns, from
     x [B,T,D], lens, w_x [D,8H] and b_x [8H], f32 (lens int32) and
     contiguous on one CUDA device. In bf16 the wgmma kernel
-    (``csrc/proj_sm90.cuh``), counted in ``.launches`` (and so are those
-    inside ``bilstm_fused_kernel``); in f32 the FMA kernel that K1-fwd
-    runs, not counted. For timing and checking the projection apart from
-    the recurrence."""
+    (``csrc/proj_sm90.cuh``), counted in ``.launches``; in f32
+    ``csrc/gemm_f32.cuh``'s ``ring_kernel``, counted in ``.f32_launches``
+    (both count those inside ``bilstm_fused_kernel`` too). For timing and
+    checking the projection apart from the recurrence."""
     if x.dim() != 3 or w_x.dim() != 2 or w_x.shape[-1] % 8:
         raise ValueError(f"x must be [B,T,D] and w_x [D,8H], got "
                          f"{tuple(x.shape)} and {tuple(w_x.shape)}")
@@ -478,10 +486,12 @@ def bilstm_fused_proj_kernel(x, lens, w_x, b_x,
         B, T, D, H, ldx, ldw, int(bf16), int(round_xg)),
         f"B={B} T={T} D={D} H={H}")
     bilstm_fused_proj_kernel.launches += bf16
+    bilstm_fused_proj_kernel.f32_launches += not bf16
     return xg
 
 
 bilstm_fused_proj_kernel.launches = 0
+bilstm_fused_proj_kernel.f32_launches = 0
 
 
 def bilstm_fused_fwd_recur_kernel(xg, lens, w_hf, w_hb,
@@ -596,7 +606,9 @@ def bilstm_fused_bwd_products_kernel(x, lens, w_x, y, dg,
     dg must be 0 at t >= lens[b], as the reverse recurrence writes it: in
     bf16 (wgmma, ``csrc/gemm_sm90.cuh``) those frames are skipped, and
     W_x goes over as a bf16 copy made here (the rounding the product
-    applies anyway). f32 runs on the FMA units (``csrc/gemm.cuh``)."""
+    applies anyway). f32 runs on the FMA units (``csrc/gemm_f32.cuh``'s
+    ``ring_kernel``, which skips them too). ``.launches`` counts every
+    call, ``.f32_launches`` the f32 ones."""
     if x.device.type != "cuda":
         raise ValueError(f"bilstm_fused_bwd_products_kernel needs CUDA "
                          f"tensors, got {x.device}")
@@ -638,10 +650,12 @@ def bilstm_fused_bwd_products_kernel(x, lens, w_x, y, dg,
         dw_hf.data_ptr(), dw_hb.data_ptr(), B, T, D, H, x.shape[-1],
         y.shape[-1], yb, int(bf16)), f"B={B} T={T} D={D} H={H}")
     bilstm_fused_bwd_products_kernel.launches += 1
+    bilstm_fused_bwd_products_kernel.f32_launches += not bf16
     return dx, dw_x, db, dw_hf, dw_hb
 
 
 bilstm_fused_bwd_products_kernel.launches = 0
+bilstm_fused_bwd_products_kernel.f32_launches = 0
 
 
 def bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy,

@@ -10,7 +10,7 @@ form. Run from the root of a checkout on a machine with the card and
 nvcc::
 
     python -m gluon_e2e_asr_tpu_torch.tools.k1b_probe [--iters 10] [--ablate]
-    python -m gluon_e2e_asr_tpu_torch.tools.k1b_probe --products
+    python -m gluon_e2e_asr_tpu_torch.tools.k1b_probe --products [--dtype float32]
 
 Each shape prints one JSON line: ms of the whole call and of the
 recurrence, the products as their difference, microseconds a step of the
@@ -29,6 +29,19 @@ or the bytes at 3.35 TB/s, the larger). With ``--ablate`` as well, it
 times the wgmma kernels with one piece cut or changed at a time
 (``PRODUCTS_CUTS``; a cut computes wrong results, only its time counts),
 and each kernel's device time (torch.profiler) in every variant.
+
+``--products --dtype float32`` times the f32 route instead, at the
+milestones' three layer shapes (``F32_SHAPES``: B=16, H=256, the 4.0 s
+bucket; every milestone and both english recipes run f32), on the f32
+recurrence's dg, in one process: the kernels (``csrc/gemm_f32.cuh``'s
+``ring_kernel``), the kernels they replaced (``gemm.cuh``'s
+``gemm_f32_kernel`` and ``colsum_kernel``, built with
+``csrc/bilstm_bwd.cu``'s ``K1_F32_TILED`` 0, ``F32_OLD``), their plain
+twin and cuBLAS in f32 on the same operands (TF32 off;
+``products_library`` without the rounding), each with its TFLOP/s over
+the live frames and its share of the f32 bound (``products_work``'s
+operations at 67 TFLOP/s, or the bytes) and the kernels' device time
+by name (torch.profiler).
 
 ``--ablate`` also builds ``csrc/bilstm_bwd.cu`` with one piece of the
 cluster recurrence's step cut at a time (``CUTS``; each such build
@@ -88,6 +101,44 @@ CUTS = {
 }
 
 
+# (name, B, T, D, H): the milestones' layers at the 4.0 s bucket
+# (enc_subsample [1, 2, 2]; milestone 2's are the same), the f32 route's.
+F32_SHAPES = (("milestone layer 0", 16, 398, 80, 256),
+              ("milestone layer 1", 16, 199, 1024, 256),
+              ("milestone layer 2", 16, 100, 1024, 256))
+# The f32 kernels' names (ring_kernel's namespace; the first kernels),
+# and the memsets of their zeroed outputs, in a profiler trace.
+F32_KERNELS = ("gemm_f32", "proj_f32_kernel", "colsum_kernel", "Memset")
+# The build variant of csrc/bilstm_bwd.cu and csrc/bilstm_fwd.cu with the
+# f32 route's first kernels in place of ring_kernel.
+F32_OLD = {"old": [("#define K1_F32_TILED 1", "#define K1_F32_TILED 0")]}
+# name -> [(text of csrc/gemm_f32.cuh, its replacement)]: each changes or
+# cuts one piece of ring_kernel (a cut computes wrong results, only its
+# time counts).
+F32_CUTS = {
+    # not cuts: one block an SM (at most 255 registers a thread, the
+    # plan's splits for one wave of one block an SM), k-tiles of 32 in 3
+    # stages, a ring of 2 stages
+    "1 block an SM": [("constexpr int kBlocksPerSm = 2;",
+                       "constexpr int kBlocksPerSm = 1;")],
+    "k-tiles of 32": [("constexpr int kBK = 16;           // depth of a stage",
+                       "constexpr int kBK = 32;           // depth of a stage"),
+                      ("constexpr int kStages = 4;        // the ring",
+                       "constexpr int kStages = 3;        // the ring")],
+    "2 stages": [("constexpr int kStages = 4;        // the ring",
+                  "constexpr int kStages = 2;        // the ring")],
+    "no FMAs": [("      multiply<kAOuter, kBOuter>(As + s * kAF, Bs + s * kBF, acc, tid);\n",
+                 "")],
+    # the stores skipped at run time (M > 0), the products kept
+    "no stores": [("    if (m < 0) continue;\n    if constexpr (kBOuter) {",
+                   "    if (m < 0 || M > 0) continue;\n    if constexpr (kBOuter) {")],
+    "no loads": [("    if (op.vec) {\n      cp16(dst, src, n);\n    } else {\n"
+                  "#pragma unroll\n      for (int i = 0; i < 4; ++i) cp4(dst + i, i < n ? src + i : op.base(), i < n);\n"
+                  "    }\n",
+                  "    (void)src;\n    (void)dst;\n")],
+}
+
+
 # The build variant with the WMMA products in place of the wgmma kernels.
 PRODUCTS_WMMA = {"wmma": [("#define K1B_WGMMA_PRODUCTS 1",
                            "#define K1B_WGMMA_PRODUCTS 0")]}
@@ -114,7 +165,8 @@ PRODUCTS_CUTS = {
     "one producer warpgroup": [("constexpr int kProducers = 2;",
                                 "constexpr int kProducers = 1;")],
 }
-PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM, NVIDIA's data sheet
+# H100 SXM, NVIDIA's data sheet: bf16 tensor cores, f32 FMA units, HBM
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def products_work(lens, T: int, D: int, H: int):
@@ -130,25 +182,25 @@ def products_work(lens, T: int, D: int, H: int):
     return ops, nbytes
 
 
-def products_bound(lens, T: int, D: int, H: int):
+def products_bound(lens, T: int, D: int, H: int, peak: float = PEAK_BF16):
     """(ms, "operations" or "bytes"): the least time of the products on
-    the H100."""
+    the H100, the operations at ``peak`` FLOP/s."""
     ops, nbytes = products_work(lens, T, D, H)
-    t_ops, t_bytes = ops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def products_library(x, w_x, y, dg):
-    """cuBLAS on the products' bf16-rounded operands, rounded (and h_prev
-    shifted) here, outside the timing: a function that runs torch.matmul
-    for dx, dW_x and the two dW_h (bf16 out) and torch.sum for db. A
+def products_library(x, w_x, y, dg, dtype=torch.bfloat16):
+    """cuBLAS on the products' operands in ``dtype`` (bf16: rounded here),
+    h_prev shifted here, outside the timing: a function that runs
+    torch.matmul for dx, dW_x and the two dW_h (out in ``dtype``; f32
+    with TF32 off, as the caller sets it) and torch.sum for db. A
     yardstick: the port never calls it."""
-    bf = torch.bfloat16
     H, D = dg.shape[-1] // 8, x.shape[-1]
-    g = dg.to(bf).reshape(-1, 8 * H)
+    g = dg.to(dtype).reshape(-1, 8 * H)
     gf, gb = g[:, :4 * H].contiguous(), g[:, 4 * H:].contiguous()
-    xb, wb = x.to(bf).reshape(-1, D), w_x.to(bf)
-    yb = y.to(bf)
+    xb, wb = x.to(dtype).reshape(-1, D), w_x.to(dtype)
+    yb = y.to(dtype)
     zero = torch.zeros_like(yb[:, :1, :H])
     hf = torch.cat([zero, yb[:, :-1, :H]], 1).reshape(-1, H)
     hb = torch.cat([yb[:, 1:, H:], zero], 1).reshape(-1, H)
@@ -234,9 +286,10 @@ def build_cuts(out_dir: str, name: str = "bilstm_bwd",
     return {cut: ctypes.CDLL(p) for cut, p in paths.items()}
 
 
-def kernel_ms(fn, name: str, runs: int = 5) -> dict:
-    """Device ms of each kernel of ``name``'s namespace in one call of
-    ``fn`` (torch.profiler, the mean of ``runs``)."""
+def kernel_ms(fn, name, runs: int = 5, args: bool = False) -> dict:
+    """Device ms of each kernel whose name holds ``name`` (a string, or a
+    tuple of them) in one call of ``fn`` (torch.profiler, the mean of
+    ``runs``); with ``args``, a template's instances apart."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -246,11 +299,29 @@ def kernel_ms(fn, name: str, runs: int = 5) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {}
+    names = (name,) if isinstance(name, str) else name
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", 0)
-        if us > 0 and name in evt.key:
-            out[evt.key.split("(")[0].split("::")[-1]] = us / 1e3 / runs
+        if us > 0 and any(n in evt.key for n in names):
+            short = kernel_name(evt.key, args)
+            out[short] = out.get(short, 0.0) + us / 1e3 / runs
     return out
+
+
+def kernel_name(key: str, args: bool = False) -> str:
+    """A profiler key's kernel name without its namespace, template
+    arguments and parameters: ``void gemm_f32::ring_kernel<...>(...)`` ->
+    ``ring_kernel``; ``Memset (Device)`` -> ``Memset``. With ``args`` a
+    template keeps its arguments' last names: ``ring_kernel<RowMajor,
+    Transposed, Store>``."""
+    k = key[5:] if key.startswith("void ") else key
+    k = k.replace("(anonymous namespace)::", "")
+    name = k.split("<")[0].split("(")[0].strip().split("::")[-1]
+    if args and "<" in k.split("(")[0]:
+        inner = k[k.index("<") + 1:k.index(">(") if ">(" in k else None]
+        name += "<" + ", ".join(a.strip().split("::")[-1]
+                                for a in inner.split(",")) + ">"
+    return name
 
 
 def products(iters: int, dev, card: str, ablate: bool) -> dict:
@@ -298,11 +369,70 @@ def products(iters: int, dev, card: str, ablate: bool) -> dict:
     return results
 
 
+def f32_inputs(B, T, D, H, dev):
+    """A milestone layer's x, lens, w_x, K1-fwd's f32 h stream y (the
+    training form) and the f32 reverse recurrence's dg on them."""
+    (x, lens, w_x, b_x, w_hf, w_hb), dy = layer(B, T, D, H, dev)
+    f32 = torch.float32
+    y, c, acts = K.bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb, f32,
+                                       with_cell=True)
+    dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy, f32)
+    return x, lens, w_x, y, dg
+
+
+def products_f32(iters: int, dev, card: str, ablate: bool) -> dict:
+    """--products --dtype float32: the f32 products alone at F32_SHAPES,
+    ring_kernel, the first kernels (F32_OLD), their plain twin and cuBLAS
+    in f32, in one process; with ``ablate`` the F32_CUTS variants too."""
+    variants = build_cuts(os.path.join(os.path.dirname(_build.BUILD_DIR),
+                                       "k1b_cuts"),
+                          cuts={**F32_OLD, **(F32_CUTS if ablate else {})})
+    kernel_lib = _build.load_library("bilstm_bwd")
+    f32 = torch.float32
+    results = {}
+    for name, B, T, D, H in F32_SHAPES:
+        x, lens, w_x, y, dg = f32_inputs(B, T, D, H, dev)
+        run = lambda: K.bilstm_fused_bwd_products_kernel(  # noqa: E731
+            x, lens, w_x, y, dg, f32)
+        ms, device = {}, {}
+        try:  # every event timing before the first profiler run
+            for profile in (False, True):
+                for variant, lib in (("kernel", kernel_lib),
+                                     *variants.items()):
+                    _build._libs["bilstm_bwd"] = lib
+                    if profile:
+                        device[variant] = kernel_ms(run, F32_KERNELS,
+                                                    args=True)
+                    else:
+                        ms[variant] = event_ms(run, iters)
+        finally:
+            _build._libs["bilstm_bwd"] = kernel_lib
+        ms["plain"] = event_ms(lambda: K.bilstm_fused_bwd_products_plain(
+            x, lens, w_x, y, dg, f32), iters)
+        ms["cublas"] = event_ms(products_library(x, w_x, y, dg, f32), iters)
+        lens_h = lens.cpu().tolist()
+        ops, _ = products_work(lens_h, T, D, H)
+        bound_ms, bound_by = products_bound(lens_h, T, D, H, PEAK_F32)
+        rec = {"shape": name, "B": B, "T": T, "D": D, "H": H,
+               "compute_dtype": "float32", "live_frames": sum(lens_h),
+               **{f"{k}_ms": v for k, v in ms.items()},
+               **{f"{k}_tflops_live": ops / v / 1e9 for k, v in ms.items()},
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               **{f"{k}_share_of_bound": bound_ms / v for k, v in ms.items()},
+               "kernel_device_ms": device, "card": card}
+        results[name] = rec
+        print(json.dumps(rec), flush=True)
+    return results
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--ablate", action="store_true")
     p.add_argument("--products", action="store_true")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"),
+                   default="bfloat16",
+                   help="--products: the bf16 (wgmma) or the f32 route")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1b_probe needs a CUDA device")
@@ -313,6 +443,8 @@ def main(argv=None) -> dict:
         capture_output=True, text=True).stdout.strip()
     _build.build_all(["bilstm_fwd", "bilstm_bwd"])
     if args.products:
+        if args.dtype == "float32":
+            return products_f32(args.iters, dev, card, args.ablate)
         return products(args.iters, dev, card, args.ablate)
     cuts = build_cuts(os.path.join(os.path.dirname(_build.BUILD_DIR),
                                    "k1b_cuts")) if args.ablate else {}

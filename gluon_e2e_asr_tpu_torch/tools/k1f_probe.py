@@ -12,6 +12,7 @@ nvcc::
 
     python -m gluon_e2e_asr_tpu_torch.tools.k1f_probe [--iters 10] [--ablate]
     python -m gluon_e2e_asr_tpu_torch.tools.k1f_probe --proj [--ablate]
+    python -m gluon_e2e_asr_tpu_torch.tools.k1f_probe --proj --dtype float32
 
 Each shape, dtype and form prints one JSON line: ms of the whole call, of
 the recurrence and of the projection, each through its own entry,
@@ -28,6 +29,15 @@ host time of one call of the wrapper and of addmm (``host_us``). With
 ``--ablate`` as well, the wgmma kernel with one piece cut or changed at
 a time (``PROJ_CUTS``; a cut computes wrong results, only its time
 counts).
+
+``--proj --dtype float32`` times the f32 projection instead, at the
+milestones' three layer shapes (``k1b_probe.F32_SHAPES``), in one
+process: the kernel (``csrc/gemm_f32.cuh``'s ``ring_kernel``), the
+kernel it replaced (``proj_f32_kernel``, built with
+``csrc/bilstm_fwd.cu``'s ``K1_F32_TILED`` 0, ``k1b_probe.F32_OLD``), its
+plain twin and ``torch.addmm`` in f32 (TF32 off), each with its TFLOP/s
+and its share of the f32 bound (``proj_work``'s operations at 67
+TFLOP/s, or the bytes), and the kernels' device time.
 
 ``--ablate`` also builds ``csrc/bilstm_fwd.cu`` with one piece of the
 cluster recurrence's step cut at a time (``CUTS``; each such build
@@ -52,7 +62,8 @@ import torch
 from gluon_e2e_asr_tpu_torch import _build
 from gluon_e2e_asr_tpu_torch.ops import bilstm as K
 from gluon_e2e_asr_tpu_torch.tools.k1b_probe import (
-    PEAK_BF16, PEAK_BYTES, SHAPES, build_cuts, event_ms, kernel_ms, layer)
+    F32_CUTS, F32_KERNELS, F32_OLD, F32_SHAPES, PEAK_BF16, PEAK_F32, PEAK_BYTES, SHAPES,
+    build_cuts, event_ms, kernel_ms, layer)
 
 # name -> [(text of csrc/bilstm_fwd.cu or of csrc/common.cuh, its
 # replacement)]: each cuts one piece of fwd_cluster_kernel's step.
@@ -147,32 +158,34 @@ PROJ_CUTS = {
 
 
 def proj_work(lens, T: int, D: int, H: int):
-    """(operations, bytes) of K1-fwd's projection at one layer: x . W_x
-    over the live frames (sum of lens); in, x of the live frames (f32, as
-    the entry takes it), W_x (f32), b_x and lens; out, xg [B,T,8H] f32."""
+    """(operations, bytes) of K1-fwd's projection at one layer: x . W_x,
+    its forward half over every frame (the output holds it there) and its
+    backward half over the live frames (sum of lens; 0 past them); in, x
+    (f32, as the entry takes it), W_x (f32), b_x and lens; out, xg
+    [B,T,8H] f32."""
     B = len(lens)
     frames = float(sum(int(n) for n in lens))
-    ops = 2.0 * frames * D * 8 * H
-    nbytes = (4 * frames * D + 4 * D * 8 * H + 4 * 8 * H + 4 * B
+    ops = 2.0 * (B * T + frames) * D * 4 * H
+    nbytes = (4 * B * T * D + 4 * D * 8 * H + 4 * 8 * H + 4 * B
               + 4 * B * T * 8 * H)
     return ops, nbytes
 
 
-def proj_bound(lens, T: int, D: int, H: int):
+def proj_bound(lens, T: int, D: int, H: int, peak: float = PEAK_BF16):
     """(ms, "operations" or "bytes"): the least time of the projection on
-    the H100."""
+    the H100, the operations at ``peak`` FLOP/s."""
     ops, nbytes = proj_work(lens, T, D, H)
-    t_ops, t_bytes = ops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def proj_library(x, w_x, b_x):
-    """``torch.addmm`` on the projection's bf16-rounded operands (x
-    [B*T, D], W_x, b_x), rounded here, outside the timing; bf16 out, no
-    mask. A yardstick: the port never calls it."""
-    bf = torch.bfloat16
-    xb = x.to(bf).reshape(-1, x.shape[-1])
-    wb, bb = w_x.to(bf), b_x.to(bf)
+def proj_library(x, w_x, b_x, dtype=torch.bfloat16):
+    """``torch.addmm`` on the projection's operands in ``dtype`` (x
+    [B*T, D], W_x, b_x; bf16: rounded here, outside the timing), out in
+    ``dtype`` (f32 with TF32 off, as the caller sets it), no mask. A
+    yardstick: the port never calls it."""
+    xb = x.to(dtype).reshape(-1, x.shape[-1])
+    wb, bb = w_x.to(dtype), b_x.to(dtype)
     return lambda: torch.addmm(bb, xb, wb)
 
 
@@ -243,11 +256,58 @@ def proj(iters: int, dev, card: str, ablate: bool) -> dict:
     return results
 
 
+def proj_f32(iters: int, dev, card: str, ablate: bool) -> dict:
+    """--proj --dtype float32: the f32 projection alone at F32_SHAPES,
+    ring_kernel, the first kernel (F32_OLD), its plain twin and addmm in
+    f32, in one process; with ``ablate`` the F32_CUTS variants too."""
+    variants = build_cuts(os.path.join(os.path.dirname(_build.BUILD_DIR),
+                                       "k1f_cuts"), "bilstm_fwd",
+                          {**F32_OLD, **(F32_CUTS if ablate else {})})
+    kernel_lib = _build.load_library("bilstm_fwd")
+    f32 = torch.float32
+    results = {}
+    for name, B, T, D, H in F32_SHAPES:
+        (x, lens, w_x, b_x, _, _), _ = layer(B, T, D, H, dev)
+        run = lambda: K.bilstm_fused_proj_kernel(  # noqa: E731
+            x, lens, w_x, b_x, f32)
+        ms, device = {}, {}
+        try:  # every event timing before the first profiler run
+            for profile in (False, True):
+                for variant, lib in (("kernel", kernel_lib),
+                                     *variants.items()):
+                    _build._libs["bilstm_fwd"] = lib
+                    if profile:
+                        device[variant] = kernel_ms(run, F32_KERNELS)
+                    else:
+                        ms[variant] = event_ms(run, iters)
+        finally:
+            _build._libs["bilstm_fwd"] = kernel_lib
+        ms["plain"] = event_ms(lambda: K.bilstm_fused_proj_plain(
+            x, lens, w_x, b_x, f32), iters)
+        ms["addmm"] = event_ms(proj_library(x, w_x, b_x, f32), iters)
+        lens_h = lens.cpu().tolist()
+        ops, _ = proj_work(lens_h, T, D, H)
+        bound_ms, bound_by = proj_bound(lens_h, T, D, H, PEAK_F32)
+        rec = {"shape": name, "B": B, "T": T, "D": D, "H": H,
+               "compute_dtype": "float32", "live_frames": sum(lens_h),
+               **{f"{k}_ms": v for k, v in ms.items()},
+               **{f"{k}_tflops": ops / v / 1e9 for k, v in ms.items()},
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               **{f"{k}_share_of_bound": bound_ms / v for k, v in ms.items()},
+               "kernel_device_ms": device, "card": card}
+        results[name] = rec
+        print(json.dumps(rec), flush=True)
+    return results
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--ablate", action="store_true")
     p.add_argument("--proj", action="store_true")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"),
+                   default="bfloat16",
+                   help="--proj: the bf16 (wgmma) or the f32 route")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1f_probe needs a CUDA device")
@@ -258,6 +318,8 @@ def main(argv=None) -> dict:
         capture_output=True, text=True).stdout.strip()
     _build.build_all(["bilstm_fwd"])
     if args.proj:
+        if args.dtype == "float32":
+            return proj_f32(args.iters, dev, card, args.ablate)
         return proj(args.iters, dev, card, args.ablate)
     cuts = build_cuts(os.path.join(os.path.dirname(_build.BUILD_DIR),
                                    "k1f_cuts"), "bilstm_fwd",

@@ -23,6 +23,15 @@ sweep) on the CPU: what of them can run without the card.
   as covers. At the four shapes of ``tools/k1b_probe.py`` and at ragged
   ones.
 
+- (c) The f32 core (``csrc/gemm_f32.cuh::ring_kernel``, K1's f32
+  projection and products) emulated the same way: its constants read
+  from the source, its host plan (``f32_plan`` below mirrors
+  ``gemm_f32.cuh::splits`` and ``csrc/bilstm_bwd.cu::f32_products``) in
+  one wave of blocks, the walk over live frame tiles and its strided
+  splits, the live-first row order, the products summed tile by
+  tile in f64 against the plain twins, the thread maps as covers and its
+  shared-memory reads free of bank conflicts.
+
 The kernels themselves run only on the card
 (``tests/test_torch_cuda_bilstm.py``).
 """
@@ -39,6 +48,7 @@ import torch
 from gluon_e2e_asr_tpu.ops.pallas_lstm import bilstm_fused as jax_bilstm_fused
 from gluon_e2e_asr_tpu_torch.models.lstm import matmul_cd, work_dtype
 from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+from gluon_e2e_asr_tpu_torch.tools.k1b_probe import F32_OLD
 
 torch.set_num_threads(1)
 
@@ -516,3 +526,437 @@ def test_converters_cover_each_chunk_once_without_bank_conflicts():
     for c in range(BK // 8):
         for p0 in range(0, 128, 8):
             assert len({sw128_at(p, c) % 128 for p in range(p0, p0 + 8)}) == 8
+
+
+# ---------------------------------------------------------------------------
+# (c) the f32 core (csrc/gemm_f32.cuh's ring_kernel), emulated
+# ---------------------------------------------------------------------------
+#
+# Its constants read from the source; its host plan (the k-split) in one
+# wave of blocks; the walk over live frame tiles, the split
+# ranges and the dead row tiles as ring_kernel takes them; its products
+# (dx, dW_x with db from the staged dg tiles, dW_h) summed tile by tile
+# against the plain twin; the thread maps of the loads, the products and
+# the epilogue as covers, and its shared-memory reads free of bank
+# conflicts.
+
+F32_SRC = os.path.join(os.path.dirname(K.__file__), os.pardir, "csrc",
+                       "gemm_f32.cuh")
+
+with open(F32_SRC) as _f:
+    F32_TEXT = _f.read()
+CF = {name: int(v) for name, v in
+      re.findall(r"constexpr int (k\w+) = (\d+);", F32_TEXT)}
+F_BM, F_BN, F_BK = CF["kBM"], CF["kBN"], CF["kBK"]
+F_THREADS, F_SKEW = CF["kThreads"], CF["kSkew"]
+
+# the milestones' layers (B=16, H=256, the 4.0 s bucket), then ragged ones
+F32_PLAN_SHAPES = [(16, 398, 80, 256), (16, 199, 1024, 256),
+                   (16, 100, 1024, 256), (96, 398, 80, 320), (1, 1, 80, 256),
+                   (5, 37, 33, 130), (3, 19, 12, 8), (148, 398, 80, 256)]
+
+
+def test_probes_old_f32_variant_edits_each_library_once():
+    """The probes' F32_OLD (the build of the f32 route's first kernels that
+    ``k1b_probe.py --products --dtype float32`` and ``k1f_probe.py --proj
+    --dtype float32`` time beside ring_kernel): its text is in each
+    library's source once, as _build.build_variants needs; chip_smoke.py
+    builds no such variant."""
+    (old, new), = F32_OLD["old"]
+    assert new != old
+    for name in ("bilstm_fwd", "bilstm_bwd"):
+        with open(os.path.join(os.path.dirname(F32_SRC), f"{name}.cu")) as f:
+            assert f.read().count(old) == 1, name
+    with open(os.path.join(os.path.dirname(K.__file__), os.pardir, os.pardir,
+                           "chip_smoke.py")) as f:
+        assert "K1_F32_TILED" not in f.read()
+
+
+def test_f32_core_constants_fit_the_emulation():
+    assert F_BM == F_BN == 128 and F_THREADS == 256 and F_BK % 4 == 0
+    assert "__launch_bounds__(kThreads, kBlocksPerSm)" in F32_TEXT
+    assert CF["kBlocksPerSm"] >= 1 and CF["kMinTiles"] >= 1
+
+
+def f32_splits(M, N, K_, sms):
+    """gemm_f32.cuh::splits: the k-split of an M x N output of depth K_,
+    the most splits that keep its blocks within one wave of kBlocksPerSm
+    blocks on each of ``sms`` SMs, each split at least kMinTiles
+    k-tiles."""
+    tiles = -(-M // F_BM) * -(-N // F_BN)
+    want = CF["kBlocksPerSm"] * sms // tiles
+    most = -(-K_ // F_BK) // CF["kMinTiles"]
+    s = min(want, most)
+    return s if s > 1 else 1
+
+
+def f32_live_tiles(lens, T):
+    """The k-tiles of F_BK frames (b*T + t) holding a live frame (t <
+    lens[b]): what the f32 weight gradients walk (``gemm_f32.cuh::
+    Frames``)."""
+    K_ = len(lens) * T
+    return sum(f32_live(k0, lens, T) for k0 in range(0, K_, F_BK))
+
+
+def f32_plan(lens, T, D, H, sms):
+    """csrc/bilstm_bwd.cu::f32_products' launches at one layer (B =
+    len(lens)), and the projection's: per product its output, depth,
+    blocks of one split, splits and the k-tiles it walks (the weight
+    gradients only the live ones). dx splits for half its rows (its
+    blocks past the live frames exit at once); both directions' dW_h
+    share a launch, split for their tiles together."""
+    M = len(lens) * T
+    live = f32_live_tiles(lens, T)
+    out = {}
+    for name, rows, cols, depth, walked, plan_rows in (
+            ("projection", M, 8 * H, D, None, None),
+            ("dx", M, D, 8 * H, None, -(-M // 2)),
+            ("dw_x", D, 8 * H, M, live, D), ("dw_h", H, 4 * H, M, live, 2 * H)):
+        splits = 1 if plan_rows is None else f32_splits(plan_rows, cols,
+                                                         depth, sms)
+        out[name] = {"M": rows, "N": cols, "K": depth,
+                     "tiles": -(-rows // F_BM) * -(-cols // F_BN),
+                     "splits": splits,
+                     "k_tiles": walked if walked is not None
+                     else -(-depth // F_BK)}
+    return out
+
+
+@pytest.mark.parametrize("B,T,D,H", F32_PLAN_SHAPES)
+def test_f32_plan_keeps_one_wave_of_blocks(B, T, D, H):
+    lens = _lens(B, T, seed=B + T)
+    M = B * T
+    plan = f32_plan(lens, T, D, H, SMS)
+    # dx plans for half its rows; both directions' dW_h share a launch
+    for name, rows, cols, depth, jobs in (
+            ("dx", -(-M // 2), D, 8 * H, 1), ("dw_x", D, 8 * H, M, 1),
+            ("dw_h", 2 * H, 4 * H, M, 2)):
+        got = plan[name]
+        blocks = -(-rows // F_BM) * -(-cols // F_BN) * got["splits"]
+        # one wave of two blocks an SM, unless one split already fills it
+        assert blocks <= CF["kBlocksPerSm"] * SMS or got["splits"] == 1
+        # each split walks at least kMinTiles k-tiles
+        assert got["splits"] == 1 \
+            or -(-depth // F_BK) // got["splits"] >= CF["kMinTiles"]
+        assert got["tiles"] * jobs >= -(-rows // F_BM) * -(-cols // F_BN)
+    assert plan["projection"]["splits"] == 1
+    assert plan["dw_x"]["k_tiles"] <= -(-M // F_BK)
+
+
+def f32_ranges(K_, splits):
+    """The k-tiles of each split (ring_kernel): split z of S takes z, z + S,
+    z + 2S, ..."""
+    ktiles = -(-K_ // F_BK)
+    nsplit = min(max(splits, 1), ktiles)
+    return [range(z, ktiles, nsplit) for z in range(nsplit)]
+
+
+def f32_live(k0, lens, T):
+    """gemm_f32.cuh::Frames::live."""
+    K_ = len(lens) * T
+    k1 = min(k0 + F_BK, K_)
+    b = k0 // T
+    while b * T < k1:
+        if max(k0, b * T) - b * T < lens[b]:
+            return True
+        b += 1
+    return False
+
+
+@pytest.mark.parametrize("B,T,D,H", F32_PLAN_SHAPES)
+def test_f32_walk_covers_every_live_frame_once(B, T, D, H):
+    lens = _lens(B, T, seed=B * T)
+    K_ = B * T
+    frames = np.arange(K_)
+    live_frame = frames % T < lens[frames // T]
+    for splits in (1, f32_splits(D, 8 * H, K_, SMS),
+                   f32_splits(2 * H, 4 * H, K_, SMS)):
+        seen = np.zeros(K_, int)
+        walked = 0
+        for tiles in f32_ranges(K_, splits):
+            for t in tiles:
+                rows = frames[t * F_BK:(t + 1) * F_BK]
+                live = f32_live(t * F_BK, lens, T)
+                assert live == bool(live_frame[rows].any())
+                if live:
+                    seen[rows] += 1
+                    walked += 1
+        assert (seen[live_frame] == 1).all()
+        assert walked == f32_live_tiles(lens, T)
+
+
+@pytest.mark.parametrize("B,T,D,H", F32_PLAN_SHAPES[:4])
+def test_f32_splits_spread_the_live_tiles(B, T, D, H):
+    """Split z of S takes every S-th k-tile: each utterance's live prefix
+    gives every split its share, give or take one tile, so no split walks
+    more than its even share plus B (contiguous ranges of tiles gave some
+    splits far more)."""
+    lens = _lens(B, T, seed=B * T)
+    K_ = B * T
+    for splits in (f32_splits(D, 8 * H, K_, SMS), f32_splits(2 * H, 4 * H, K_, SMS)):
+        walked = [sum(f32_live(t * F_BK, lens, T) for t in tiles)
+                  for tiles in f32_ranges(K_, splits)]
+        assert max(walked) <= -(-sum(walked) // len(walked)) + B, walked
+
+
+def f32_live_first(j, lens, T):
+    """gemm_f32.cuh::LiveRows::live_first: the frame at position j of the
+    order "every live frame, then every other"."""
+    live = int(sum(lens))
+    at = j if j < live else j - live
+    for b, n_live in enumerate(lens):
+        n = n_live if j < live else T - n_live
+        if at < n:
+            return b * T + (at if j < live else n_live + at)
+        at -= n
+    return -1
+
+
+def f32_emulate(A, Bm, K_, splits, walk=None, order=None, colsum=False):
+    """ring_kernel on dense operands A [M, K] and B [K, N] (as the
+    accessors read them, zeros outside), f64: each block's product over
+    its live k-tiles; in the column tiles that order = (lens, T, n_from)
+    names, its rows the live-first frames at its positions, a tile of dead
+    frames skipping its product (writing zeros); with colsum, the first
+    row tile's blocks sum their staged B tiles' columns. The epilogue
+    writes each of a block's rows once. Returns (C, colsum)."""
+    M, N = A.shape[0], Bm.shape[1]
+    C = np.full((M, N), np.nan)
+    cs = np.zeros(N)
+    ranges = f32_ranges(K_, splits)
+    for m0 in range(0, M, F_BM):
+        for n0 in range(0, N, F_BN):
+            pos = range(m0, min(m0 + F_BM, M))
+            ordered = order is not None and n0 >= order[2]
+            rows = [f32_live_first(j, order[0], order[1]) if ordered else j
+                    for j in pos]
+            dead = ordered and not any(m % order[1] < order[0][m // order[1]]
+                                       for m in rows)
+            acc = np.zeros((len(rows), min(F_BN, N - n0)))
+            for tiles in ranges:
+                for t in tiles:
+                    if dead or (walk is not None
+                                and not f32_live(t * F_BK, *walk)):
+                        continue
+                    k = slice(t * F_BK, (t + 1) * F_BK)
+                    acc += A[rows, k] @ Bm[k, n0:n0 + F_BN]
+                    if colsum and m0 == 0:
+                        cs[n0:n0 + F_BN] += Bm[k, n0:n0 + F_BN].sum(0)
+            assert np.isnan(C[rows, n0:n0 + F_BN]).all()  # written once
+            C[rows, n0:n0 + F_BN] = acc
+    return C, cs
+
+
+@pytest.mark.parametrize("B,T", [(16, 398), (16, 199), (1, 1), (5, 37),
+                                 (3, 19)])
+def test_f32_live_first_order_is_a_permutation_live_frames_first(B, T):
+    lens = _lens(B, T, seed=B + 2 * T)
+    order = [f32_live_first(j, lens, T) for j in range(B * T)]
+    assert sorted(order) == list(range(B * T))
+    live = int(lens.sum())
+    assert all(m % T < lens[m // T] for m in order[:live])
+    assert not any(m % T < lens[m // T] for m in order[live:])
+    assert order[:live] == sorted(order[:live])
+
+
+@pytest.mark.parametrize("B,T,D,H,ones", [(3, 19, 12, 8, False),
+                                          (5, 37, 33, 40, False),
+                                          (2, 130, 20, 24, True),
+                                          (1, 1, 16, 16, False),
+                                          (4, 70, 136, 20, False),
+                                          (3, 40, 150, 36, False)])
+def test_f32_emulated_products_equal_the_plain_twin(B, T, D, H, ones):
+    """dx (its dead row tiles skipped), dW_x with db, dW_h of both
+    directions (their dead frame tiles skipped), each at its plan's splits
+    and with none, against the plain twin in f64 on a dg that is 0 past
+    lens (as the recurrence writes it)."""
+    lens = _lens(B, T, seed=B + T + D, ones=ones)
+    rng = np.random.RandomState(B * T + 1)
+    live = np.arange(T)[None, :, None] < lens[:, None, None]
+    x = rng.randn(B, T, D)
+    y = rng.randn(B, T, 2 * H) * live
+    dg = rng.randn(B, T, 8 * H) * live
+    w_x = rng.randn(D, 8 * H)
+    M = B * T
+    g = dg.reshape(M, 8 * H)
+    walk = (lens, T)
+    t64 = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    want = K.bilstm_fused_bwd_products_plain(
+        t64(x), t64(lens), t64(w_x), t64(y), t64(dg), torch.float32)
+    zero = np.zeros((B, 1, H))
+    h_prev = (np.concatenate([zero, y[:, :-1, :H]], 1),
+              np.concatenate([y[:, 1:, H:], zero], 1))
+    for plan in (True, False):
+        s = (lambda *a: f32_splits(*a, SMS)) if plan else (lambda *a: 1)
+        dx, _ = f32_emulate(g, w_x.T, 8 * H, s(-(-M // 2), D, 8 * H),
+                            order=(lens, T, 0))
+        dwx, db = f32_emulate(x.reshape(M, D).T, g, M, s(D, 8 * H, M),
+                              walk=walk, colsum=True)
+        dwh = [f32_emulate(h_prev[d].reshape(M, H).T,
+                           g[:, d * 4 * H:(d + 1) * 4 * H], M,
+                           s(2 * H, 4 * H, M), walk=walk)[0] for d in range(2)]
+        got = (dx.reshape(B, T, D), dwx, db, dwh[0], dwh[1])
+        for name, a, w in zip(NAMES, got, want):
+            np.testing.assert_allclose(a, w.numpy(), rtol=1e-12, atol=1e-12,
+                                       err_msg=f"{name} plan={plan}")
+
+
+@pytest.mark.parametrize("B,T,D,H,ones", [(3, 19, 12, 8, False),
+                                          (5, 37, 33, 130, False),
+                                          (8, 150, 64, 32, True),
+                                          (16, 199, 40, 32, False)])
+def test_f32_emulated_projection_equals_the_plain_twin(B, T, D, H, ones):
+    """The projection's row tiles of dead frames skip the backward half's
+    product and its epilogue writes bias + product, 0 in the backward
+    half past lens: the plain twin's xg, f64."""
+    lens = _lens(B, T, seed=B + T + D, ones=ones)
+    rng = np.random.RandomState(B + D)
+    x = rng.randn(B, T, D)
+    w_x = rng.randn(D, 8 * H)
+    b_x = rng.randn(8 * H)
+    M = B * T
+    prod, _ = f32_emulate(x.reshape(M, D), w_x, D, 1, order=(lens, T, 4 * H))
+    xg = prod + b_x
+    dead_row = np.arange(M) % T >= lens[np.arange(M) // T]
+    xg[np.ix_(dead_row, np.arange(4 * H, 8 * H))] = 0.0
+    t64 = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    want = K.bilstm_fused_proj_plain(t64(x), t64(lens), t64(w_x), t64(b_x),
+                                     torch.float32)
+    np.testing.assert_allclose(xg.reshape(B, T, 8 * H), want.numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
+def f32_load_map(outer):
+    """load_tile: (thread, chunk j) -> (o, k, shared-memory offset) of the
+    chunk's first float, the stage [kBK][128] (outer) or
+    [128][kBK + kSkew]."""
+    out = {}
+    for tid in range(F_THREADS):
+        for j in range(128 * F_BK // 4 // F_THREADS):
+            e = tid + j * F_THREADS
+            if outer:
+                k, o = e // 32, e % 32 * 4
+                off = k * 128 + o
+            else:
+                o, k = e // (F_BK // 4), e % (F_BK // 4) * 4
+                off = o * (F_BK + F_SKEW) + k
+            out[tid, j] = (o, k, off)
+    return out
+
+
+@pytest.mark.parametrize("outer", [True, False])
+def test_f32_loads_cover_each_tile_element_once(outer):
+    seen = {}
+    for (tid, j), (o, k, off) in f32_load_map(outer).items():
+        for i in range(4):  # four floats along the contiguous index
+            elem = (o + i, k) if outer else (o, k + i)
+            assert elem not in seen
+            seen[elem] = off + i
+    assert sorted(seen) == [(o, k) for o in range(128) for k in range(F_BK)]
+    floats = F_BK * 128 if outer else 128 * (F_BK + F_SKEW)
+    assert len(set(seen.values())) == len(seen)
+    assert max(seen.values()) < floats
+    for (o, k), off in seen.items():  # each operand's layout, as read
+        assert off == (k * 128 + o if outer else o * (F_BK + F_SKEW) + k)
+    # 16-byte copies land on 16-byte boundaries
+    assert all(off % 4 == 0 for _, _, off in f32_load_map(outer).values())
+
+
+def f32_row(tid, i, outer):
+    """gemm_f32.cuh::row_of: row i < 8 of thread tid."""
+    lane, base = tid % 32, tid // 32 // 2 * 32
+    lr = lane // 8
+    if outer:
+        return base + (lr * 4 + i if i < 4 else 16 + lr * 4 + (i - 4))
+    return base + lr + 4 * i
+
+
+def f32_col(tid, j, outer):
+    """gemm_f32.cuh::col_of: column j < 8 of thread tid."""
+    lane, base = tid % 32, tid // 32 % 2 * 64
+    lc = lane % 8
+    if outer:
+        return base + (lc * 4 + j if j < 4 else 32 + lc * 4 + (j - 4))
+    return base + lc + 8 * j
+
+
+@pytest.mark.parametrize("a_outer", [True, False])
+@pytest.mark.parametrize("b_outer", [True, False])
+def test_f32_thread_tiles_cover_the_block_tile_once(a_outer, b_outer):
+    seen = np.zeros((F_BM, F_BN), int)
+    for tid in range(F_THREADS):
+        for i in range(8):
+            for j in range(8):
+                seen[f32_row(tid, i, a_outer), f32_col(tid, j, b_outer)] += 1
+    assert (seen == 1).all()
+    # the epilogue's four adjacent columns of an outer B: j and j + 1 .. 3
+    for tid in range(F_THREADS):
+        for g in range(2):
+            assert [f32_col(tid, 4 * g + q, True) for q in range(4)] == list(
+                range(f32_col(tid, 4 * g, True), f32_col(tid, 4 * g, True) + 4))
+
+
+def _halves_conflict_free(addrs):
+    """A warp's 8-byte shared loads (float offsets, one a lane): each half
+    warp's distinct words fall in distinct pairs of banks."""
+    for p in range(2):
+        a = {addrs[lane] for lane in range(16 * p, 16 * p + 16)}
+        banks = [b % 32 for off in a for b in (off, off + 1)]
+        if len(set(banks)) != len(banks):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("operand", ["A", "B"])
+def test_f32_both_along_k_reads_are_free_of_bank_conflicts(operand):
+    """dx's product (A and B both contiguous along k) reads 2 k's a row or
+    column, 8 bytes a lane."""
+    P = F_BK + F_SKEW
+    for warp in range(F_THREADS // 32):
+        for kh in range(0, F_BK, 2):
+            for idx in range(8):
+                addrs = []
+                for lane in range(32):
+                    tid = warp * 32 + lane
+                    at = (f32_row(tid, idx, False) if operand == "A"
+                          else f32_col(tid, idx, False))
+                    off = at * P + kh
+                    assert off % 2 == 0
+                    addrs.append(off)
+                assert _halves_conflict_free(addrs), (operand, warp, kh, idx)
+
+
+def _phases_conflict_free(addrs):
+    """A warp's 16-byte shared loads (float offsets, one a lane): each
+    phase of 8 lanes reads distinct addresses in distinct 16-byte bank
+    groups, or one address (a broadcast)."""
+    for p in range(4):
+        a = {addrs[lane] for lane in range(8 * p, 8 * p + 8)}
+        groups = {off // 4 % 8 for off in a}
+        if len(groups) != len(a):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("pattern", ["outer A", "outer B", "k-contiguous A",
+                                     "k-contiguous B"])
+def test_f32_fragment_reads_are_free_of_bank_conflicts(pattern):
+    P = F_BK + F_SKEW
+    for warp in range(F_THREADS // 32):
+        for kq in range(0, F_BK, 4):
+            for idx in range(8):
+                addrs = []
+                for lane in range(32):
+                    tid = warp * 32 + lane
+                    kk, q = idx % 4, idx // 4  # a k of 4, a run of 4
+                    if pattern == "outer A":  # a k row, the thread's rows
+                        off = (kq + kk) * 128 + f32_row(tid, 4 * q, True)
+                    elif pattern == "outer B":
+                        off = (kq + kk) * 128 + f32_col(tid, 4 * q, True)
+                    elif pattern == "k-contiguous A":  # row i, 4 k's
+                        off = f32_row(tid, idx, False) * P + kq
+                    else:  # column j of B stored [n][k], 4 k's
+                        off = f32_col(tid, idx, False) * P + kq
+                    assert off % 4 == 0
+                    addrs.append(off)
+                assert _phases_conflict_free(addrs), (pattern, warp, kq, idx)

@@ -561,10 +561,11 @@ def test_every_box_starts_on_a_16_byte_boundary(B, T, D, H):
 def _variants():
     from gluon_e2e_asr_tpu_torch.tools import k1b_probe, k1f_probe
 
+    f32 = (k1b_probe.F32_OLD, k1b_probe.F32_CUTS)  # both libraries' f32 route
     for name, sets in (("bilstm_fwd", (k1f_probe.CUTS, k1f_probe.PROJ_WMMA,
-                                       k1f_probe.PROJ_CUTS)),
+                                       k1f_probe.PROJ_CUTS, *f32)),
                        ("bilstm_bwd", (k1b_probe.CUTS, k1b_probe.PRODUCTS_WMMA,
-                                       k1b_probe.PRODUCTS_CUTS))):
+                                       k1b_probe.PRODUCTS_CUTS, *f32))):
         for cuts in sets:
             for cut, pairs in cuts.items():
                 yield name, cut, pairs

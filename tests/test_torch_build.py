@@ -19,10 +19,10 @@ def test_an_edited_header_changes_the_library_name(tmp_path):
     shutil.copytree(_build.SRC_DIR, src)
     before = {n: _build.lib_path(n, str(src))
               for n in ("bilstm_fwd", "bilstm_bwd", "ctc")}
-    with open(src / "gemm.cuh", "a") as f:
+    with open(src / "gemm_sm90.cuh", "a") as f:
         f.write("\n// edited\n")
     after = {n: _build.lib_path(n, str(src)) for n in before}
-    assert after["bilstm_bwd"] != before["bilstm_bwd"]  # includes gemm.cuh
+    assert after["bilstm_bwd"] != before["bilstm_bwd"]  # includes gemm_sm90.cuh
     assert after["bilstm_fwd"] == before["bilstm_fwd"]  # does not
     assert after["ctc"] == before["ctc"]
     decoder = _build.lib_path("las_decoder", str(src))

@@ -4,8 +4,9 @@ batch and hidden sizes through both recurrence kernels (the cluster
 kernel for H <= 320, the L2 one above), the encoder on the card against
 the encoder on the CPU, K1-bwd's two recurrence kernels
 (csrc/bilstm_bwd.cu, chosen the same way), K1-bwd's products
-(csrc/gemm_sm90.cuh) and K1-fwd's bf16 projection (csrc/proj_sm90.cuh)
-against their plain twins, and the v1 layer K7.
+(csrc/gemm_sm90.cuh in bf16, csrc/gemm_f32.cuh in f32) and K1-fwd's
+projection (csrc/proj_sm90.cuh in bf16, csrc/gemm_f32.cuh in f32) against
+their plain twins, and the v1 layer K7.
 
 Marked ``cuda``: these skip where there is no CUDA device. On a machine
 with the card and nvcc, run them with
@@ -227,6 +228,89 @@ def test_projection_kernel_matches_plain_twin(dev, B, T, D, H, ones, cd,
         float((got - ref).abs().max())
     past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
     assert not got[..., 4 * H:][past].any()
+
+
+# The f32 route (csrc/gemm_f32.cuh's ring_kernel) at the milestones' width
+# (B=16, H=256; D=1024 past the first layer, 80 at it): every frame live,
+# every length 1, and a third of T past the first row, whose frame tiles
+# and row tiles are dead past lens (walked by no block). Within 1e-4 of
+# each output's largest magnitude, as above; dx and the projection's
+# backward half exactly 0 past lens; each call counted in .f32_launches.
+F32_SHAPES = [(16, 199, 1024, 256, "all"), (16, 199, 1024, 256, "ones"),
+              (16, 199, 1024, 256, "third"), (16, 398, 80, 256, "third"),
+              (16, 100, 1024, 256, "all")]
+
+
+def _f32_lens(lens, T, kind):
+    if kind == "all":
+        return torch.full_like(lens, T)
+    if kind == "ones":
+        return torch.ones_like(lens)
+    out = torch.full_like(lens, T // 3)
+    out[0] = T
+    return out
+
+
+@pytest.mark.parametrize("B,T,D,H,kind", F32_SHAPES)
+def test_f32_products_at_milestone_width_match_plain_twin(dev, B, T, D, H,
+                                                          kind):
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    x, lens, w_x, b_x, w_hf, w_hb = _inputs(B, T, D, H, dev, seed=T + D)
+    lens = _f32_lens(lens, T, kind)
+    dy = torch.from_numpy(np.random.RandomState(T).randn(B, T, 2 * H)
+                          .astype(np.float32)).to(dev)
+    f32 = torch.float32
+    y, c, acts = K.bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb, f32,
+                                       with_cell=True)
+    dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy, f32)
+    n = K.bilstm_fused_bwd_products_kernel.f32_launches
+    got = K.bilstm_fused_bwd_products_kernel(x, lens, w_x, y, dg, f32)
+    ref = K.bilstm_fused_bwd_products_plain(x, lens, w_x, y, dg, f32)
+    torch.cuda.synchronize()
+    assert K.bilstm_fused_bwd_products_kernel.f32_launches == n + 1
+    for name, g, r in zip(("dx", "dw_x", "db", "dw_hf", "dw_hb"), got, ref):
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, r) <= 1e-4, (name, _rel(g, r))
+    past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+    assert not got[0][past].any()
+
+
+@pytest.mark.parametrize("B,T,D,H,kind", F32_SHAPES)
+def test_f32_projection_at_milestone_width_matches_plain_twin(dev, B, T, D,
+                                                              H, kind):
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    x, lens, w_x, b_x, _, _ = _inputs(B, T, D, H, dev, seed=B + T + D)
+    lens = _f32_lens(lens, T, kind)
+    n = K.bilstm_fused_proj_kernel.f32_launches
+    got = K.bilstm_fused_proj_kernel(x, lens, w_x, b_x, torch.float32)
+    ref = K.bilstm_fused_proj_plain(x, lens, w_x, b_x, torch.float32)
+    torch.cuda.synchronize()
+    assert K.bilstm_fused_proj_kernel.f32_launches == n + 1
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() <= 1e-4 * ref.abs().max()).all(), \
+        float((got - ref).abs().max())
+    past = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+    assert not got[..., 4 * H:][past].any()
+
+
+def test_f32_k1_counts_its_projection_and_products(dev):
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
+
+    x, lens, w_x, b_x, w_hf, w_hb = _inputs(4, 30, 20, 16, dev)
+    f32 = torch.float32
+    proj = K.bilstm_fused_proj_kernel
+    prods = K.bilstm_fused_bwd_products_kernel
+    n = (proj.launches, proj.f32_launches, prods.launches, prods.f32_launches)
+    y, c, acts = K.bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb, f32,
+                                       with_cell=True)
+    K.bilstm_fused_kernel(x, lens, w_x, b_x, w_hf, w_hb, f32)
+    K.bilstm_fused_bwd_kernel(x, lens, w_x, w_hf, w_hb, y, c, acts,
+                              torch.ones_like(y), f32)
+    torch.cuda.synchronize()
+    assert (proj.launches, proj.f32_launches, prods.launches,
+            prods.f32_launches) == (n[0], n[1] + 2, n[2] + 1, n[3] + 1)
 
 
 def test_projection_kernel_wrapper_checks_its_inputs(dev):
