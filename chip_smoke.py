@@ -4,7 +4,8 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device, ``nvcc`` and ``nvidia-smi``; it imports no JAX. (``python3
 chip_smoke.py --dp-worker <dir>`` is one rank of phase 7b, which starts
-its ranks itself; ``--traces <out>`` the child process of phase 8.)
+its ranks itself; ``--traces <out>`` the child process of phase 8;
+``--deterministic <out>`` that of phase 6e.)
 Phases, each printing JSON lines:
 
 1. device: the card, and ``nvidia-smi``'s name and power limit;
@@ -55,7 +56,17 @@ Phases, each printing JSON lines:
    recomputes the gates from the rounded h stream first, as the TPU
    kernel does: ``bilstm_v1_gates``); P1's two variants (``l2``, ``cluster``) and cuDNN's
    LSTM against P1's plain version at (M, N) = (96, 2) and (256, 4),
-   T=640;
+   T=640; K1-bwd's products also at ls100_full's 18.38 s bucket (B=32,
+   T=1836, layer 0) in bf16; every
+   kernel of the training path (K1 in every form and dtype at every
+   shape above, its products and projections, K2, K3, K4-fwd and K4-bwd
+   in every mode, K4-bwd also with its weight gradients, and K4's
+   two-rows kernels at K4_ROWS_SHAPES, K5, K6, K7; K1 in both forms and
+   dtypes also at ls100_full's 18.38 s layer 0, where phase 12 holds it
+   to the plain versions)
+   launched REPEATS times on identical inputs, every output
+   ``torch.equal`` to the first launch's (``--only 3`` runs this phase
+   alone);
 4. serving slice: a seeded random full-width checkpoint of that model,
    decoded greedily through ``gluon_e2e_asr_tpu_torch.decode.main`` over
    the config's dev set; every kernel must have been launched (every
@@ -105,8 +116,9 @@ Phases, each printing JSON lines:
    shipped at ``train.dp``, world size 1): resume (RESUME_REFS
    uninterrupted runs of 2 epochs with ``ckpt_every_steps``, a run
    stopped mid-epoch by ``max_steps`` and resumed through ``train.py
-   --resume``: the same steps, batches and generator state, the
-   parameters within twice the uninterrupted runs' spread);
+   --resume``: the same steps and batches, and every parameter, Adam
+   slot and the generator state ``torch.equal`` to the uninterrupted
+   run's, as the uninterrupted runs are to each other);
    ``accum_grad_steps=2`` (two halves of a 4.0 s batch against the whole
    batch from a trained state, through the kernels, within phase 7's
    tolerances; an epoch counts ceil(batches / 2) updates); a few steps of
@@ -122,6 +134,16 @@ Phases, each printing JSON lines:
    versions, its bound and cuDNN's bidirectional LSTM; a step at the 4.0 s bucket with the VGG front's
    share (profiler, and the front alone by CUDA events) and a beam decode
    of that batch, timed;
+6e. reproducibility: each of REPRO_CASES (the dot and loc flagships at
+   bench.py's shape, add attention, vgg_blstm, milestone 5 in f32, and
+   on milestone 4 the stacked decoder and gradient accumulation) run twice for REPRO_STEPS updates from the
+   same seed through the kernels, every parameter, gradient, optimizer
+   slot and the generator state ``torch.equal``; then a step of each in
+   a child process (``--deterministic``) under
+   ``torch.use_deterministic_algorithms(True)`` with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, which must pass and run none of
+   ACCUMULATING_OPS on the card and no cuDNN convolution backward outside
+   cuDNN's deterministic algorithms;
 7. training reference: one hybrid step of the trained dot and loc models
    (scheduled sampling off) through the kernels and through the plain
    versions on the card (same batch, parameters, optimizer state and
@@ -291,7 +313,7 @@ vgg_blstm's epoch, in the dropout and stacked-decoder runs and on phase
 K2's, K3's and K4 loc's numbers at ls100's largest bucket) and, last,
 ``{"ok": true, "device": {...}}``. Any
 failed check exits non-zero before the last line. Artifacts go to
-``build/chip_smoke/``. ``python3 chip_smoke.py --only 6c,6d,11,12`` runs
+``build/chip_smoke/``. ``python3 chip_smoke.py --only 3,6c,6d,6e,11,12`` runs
 the build and those phases alone (``--only 13``, ``--only 14a [--set
 train.seed=1]``, ``--only 15``, ``--only 16``, ``--only 16a``: the phases
 above), reports every failed check and prints neither the kernels line
@@ -334,15 +356,15 @@ BUCKET_SEC = 4.0  # the flagship config's longest bucket
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # K1-bwd (and the c stream of K1-fwd's training form) against the plain
 # version, max abs difference over the largest magnitude of each output.
-# f32: sum order (the weight gradients add split-K partial sums
-# atomically). bf16: as above, and the kernel reads the activations the
+# f32: sum order (the weight gradients sum split-K partial tiles in
+# another order than the plain version). bf16: as above, and the kernel reads the activations the
 # forward saved while the plain version recomputes them, so a rounding
 # of dg to bf16 can also flip.
 TOL_BWD = {"float32": 1e-4, "bfloat16": 3e-2}
 # K1-bwd's products (dx, dW_x, dW_h, db) through their own entry against
 # their plain twin on the same dg: both round the operands to bf16 and sum
 # in f32 (db over the unrounded dg), so only the order of the sums
-# differs (the weight gradients' split-K atomics among it): max abs
+# differs (the weight gradients' split-K parts among it): max abs
 # difference over each output's largest magnitude, TOL_BWD's f32 entry.
 TOL_PRODUCTS = TOL_BWD["float32"]
 # the products' ragged shapes: (name, B, T, D, H, every length 1)
@@ -426,13 +448,36 @@ DP_WORLD = 2  # ranks of the data-parallel check, on the one card
 # profiled run take SMALL_TRAIN utterances (4 steps an epoch).
 SMALL_TRAIN = 64
 OPT_STEPS = 8  # sgd, adadelta and the stacked decoder train this many steps
-# A resumed run against an uninterrupted one on the card, each parameter:
-# within twice the largest spread of RESUME_REFS uninterrupted runs (K1-bwd's
-# weight gradients add split-K partial sums atomically, in an order that
-# varies from run to run, and 64 steps carry the difference on; one pair's
-# spread measured 3.0e-6 and 3.8e-6, the resumed run 2.1e-6 and 8.4e-6)
-# plus 4 f32 ulps of the largest parameter.
-RESUME_REFS, RESUME_SPREAD_FACTOR, RESUME_ULPS = 3, 2.0, 4.0
+# A resumed run against an uninterrupted one on the card: equal bit for bit
+# in every parameter, Adam slot and generator state, as are RESUME_REFS
+# uninterrupted runs to each other (a training step on the card is a
+# function of its inputs: no float atomics on the gradient path).
+RESUME_REFS = 2
+# Phase 6e: the training forms held to two identical runs of REPRO_STEPS
+# steps from one state (name, config, overrides, batch: "bench" for
+# bench.py's, else the config's 4.0 s bucket), each run equal bit for bit
+# in every parameter, gradient, optimizer slot and generator state; the
+# same forms take a step each in a child process under
+# torch.use_deterministic_algorithms(True) (``--deterministic``).
+REPRO_STEPS = 3
+REPRO_CASES = (
+    ("dot flagship, bench.py", CONFIG, (), "bench"),
+    ("loc flagship, bench.py", LOC_CONFIG, (), "bench"),
+    ("add attention, flagship_bf16", LOC_CONFIG, ("model.att_type=add",),
+     "bucket"),
+    ("vgg_blstm", VGG_CONFIG, (), "bucket"),
+    ("milestone 5 (f32, loc)", MILESTONES[5], (), "bucket"),
+    ("stacked decoder, milestone 4", MILESTONES[4], ("model.dec_layers=2",),
+     "bucket"),
+    ("accumulation, milestone 4", MILESTONES[4],
+     ("train.accum_grad_steps=2",), "bucket"),
+)
+# Library operations whose CUDA kernels add into one address in an order
+# that varies from run to run (unless torch.use_deterministic_algorithms
+# picks another kernel): none may run on the card in a training step.
+ACCUMULATING_OPS = ("index_add", "scatter_add", "scatter_reduce",
+                    "index_reduce", "embedding_bag", "_embedding_bag_backward",
+                    "bincount", "histc")
 # VGG2L's convolutions and pools among a step's device kernels, by name:
 # cuDNN's (its layout transposes among them), the implicit-GEMM
 # convolutions and the pools. Its ReLUs, re-zeroing and bias sums run as
@@ -461,6 +506,7 @@ TOL_FUSED_SCORE = 1e-3
 TOL_VITERBI_SCORE = 1e-5
 N_TIMED = 10
 N_TIMED_PLAIN_STEP = 3  # the plain train step takes seconds
+REPEATS = 3  # phase 3: launches of each kernel on identical inputs
 BENCH_SEC, BENCH_LABELS = 12.8, 96  # bench.py's shape
 # Phase 12: ls100_full.yaml's corpus as its header renders it (English
 # text, LibriSpeech durations, the sentence split), cut from 28,500 train +
@@ -625,6 +671,45 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
+def tensors_of(out) -> list:
+    """The tensors of a kernel's result (tuples, lists and dicts walked in
+    order; other values dropped)."""
+    if hasattr(out, "data_ptr"):
+        return [out]
+    if isinstance(out, dict):
+        out = [out[k] for k in sorted(out)]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in tensors_of(o)]
+    return []
+
+
+REPEATS_SEEN = []  # phase 3's repeat checks, emitted together
+
+
+def repeats_equal(torch, name, at, call) -> None:
+    """Phase 3: ``call`` (a kernel's entry on inputs it does not change)
+    REPEATS times; every output of every launch must be ``torch.equal`` to
+    the first launch's: a training step on the card is a function of its
+    inputs alone (no float atomics, no order that depends on timing)."""
+    outs = []
+    for _ in range(REPEATS):
+        outs.append([t.detach().clone() for t in tensors_of(call())])
+    torch.cuda.synchronize()
+    first, diff, same = outs[0], 0.0, True
+    for o in outs[1:]:
+        for a, b in zip(o, first):
+            if not torch.equal(a, b):
+                same = False
+                if a.is_floating_point() and a.shape == b.shape:
+                    diff = max(diff, float((a - b).abs().nan_to_num(
+                        float("inf")).max()))
+        same = same and len(o) == len(first)
+    REPEATS_SEEN.append({"kernel": name, "at": at, "outputs": len(first),
+                         "equal": same, "max_abs_diff": diff})
+    check(same, f"{name} at {at}: {REPEATS} launches on identical inputs "
+                f"differ (max abs {diff})")
+
+
 def synth_batch(batch: int, seconds: float, max_labels: int, seed: int = 0):
     """bench.py's batch (``__graft_entry__.py::_synth_batch``): seeded
     noise audio, lengths from half to all of ``seconds``, labels 4..29."""
@@ -766,8 +851,8 @@ main_only = False  # --only: a failed check is reported and the run goes on
 
 
 def main(only=(), overrides=()) -> None:
-    """The phases in order; ``only`` (phase names "6c", "6d", "11",
-    "12", "13", "14a".."14d", "15", "16", "16a"): the device, the build
+    """The phases in order; ``only`` (phase names "3", "6c", "6d", "6e",
+    "11", "12", "13", "14a".."14d", "15", "16", "16a"): the device, the build
     and those phases
     alone, with no kernels line and no last line (a quicker run while a
     phase is written; phase 14's runs, which take a chip call each);
@@ -824,7 +909,9 @@ def main(only=(), overrides=()) -> None:
     if only:
         global main_only
         main_only = True
-        phases = {"6c": training_options, "6d": vgg_slice, "11": lm_phase,
+        phases = {"3": lambda torch, dev, card: kernel_phase(torch, dev),
+                  "6c": training_options, "6d": vgg_slice, "6e": repro_phase,
+                  "11": lm_phase,
                   "12": ls100_phase, "13": ls_shape_phase,
                   "15": milestones_phase, "16": ls100_full_phase,
                   "16a": lambda *a: ls100_full_phase(*a, measure_only=True)}
@@ -840,52 +927,16 @@ def main(only=(), overrides=()) -> None:
         sys.exit(1 if FAILED else 0)
 
     # 3. each kernel against its plain version at the flagship shapes
-    config = load_config(CONFIG)
+    p3 = kernel_phase(torch, dev)
+    config, shapes, errs = p3["config"], p3["shapes"], p3["errs"]
+    m2_config, loc_config = p3["m2_config"], p3["loc_config"]
+    bwd_errs, products_errs = p3["bwd_errs"], p3["products_errs"]
+    proj_errs, dec_errs, mode_errs = (p3["proj_errs"], p3["dec_errs"],
+                                      p3["mode_errs"])
+    fe_errs, v1_errs, probe_errs = (p3["fe_errs"], p3["v1_errs"],
+                                    p3["probe_errs"])
     mc, fc = config.model, config.frontend
     H, B = mc.enc_hidden, config.data.batch_size
-    T = num_frames(int(BUCKET_SEC * fc.sample_rate), fc.win_length,
-                   fc.hop_length)
-    shapes = layer_shapes(config, T)
-    errs = {}
-    for layer, T, D in shapes:
-        args = layer_inputs(torch, B, T, D, H, layer, dev)
-        for cd_name in ("float32", "bfloat16"):
-            cd = getattr(torch, cd_name)
-            for round_xg in ((False, True) if cd_name == "bfloat16" else (False,)):
-                n_cluster = bilstm_fused_kernel.cluster_launches
-                y = bilstm_fused_kernel(*args, compute_dtype=cd,
-                                        round_xg=round_xg)
-                ref = bilstm_fused_plain(*args, compute_dtype=cd,
-                                         round_xg=round_xg)
-                torch.cuda.synchronize()
-                cluster = bilstm_fused_kernel.cluster_launches - n_cluster
-                err = float((y - ref).abs().max())
-                finite = bool(torch.isfinite(y).all())
-                errs[(layer, cd_name, round_xg)] = err
-                emit({"phase": "kernel_check", "kernel": "bilstm_fwd",
-                      "layer": layer, "B": B, "T": T, "D": D, "H": H,
-                      "compute_dtype": cd_name, "round_xg": round_xg,
-                      "max_abs_err": err, "tol": TOL[cd_name],
-                      "cluster_launches": cluster, "finite": finite})
-                check(finite and err <= TOL[cd_name],
-                      f"bilstm_fwd disagrees with its plain version at layer "
-                      f"{layer} {cd_name} round_xg={round_xg}: {err}")
-                check(cluster == 1, f"bilstm_fwd at layer {layer} did not go "
-                                    "through the cluster recurrence")
-    m2_config = load_config(M2_CONFIG)
-    bwd_errs = check_training_kernels(torch, config, shapes, dev, m2_config)
-    products_errs = check_products_kernels(torch, config, shapes, dev,
-                                           m2_config)
-    proj_errs = check_projection_kernels(torch, config, shapes, dev)
-    dec_errs = check_decoder_kernels(torch, config, dev)
-    loc_config = load_config(LOC_CONFIG)
-    mode_errs = {m: check_decoder_kernels(torch, loc_config, dev, m)
-                 for m in ("add", "loc")}
-    check_decoder_kernels(torch, loc_config, dev, "loc",
-                          cases=[("bfloat16", 0.0, True)])
-    fe_errs = check_frontend_kernels(torch, m2_config, config, dev)
-    v1_errs = check_v1_kernels(torch, config, shapes[0], dev)
-    probe_errs = check_probe_kernels(torch, dev)
 
     # 4. the slice: a seeded checkpoint through the decode CLI
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1066,6 +1117,9 @@ def main(only=(), overrides=()) -> None:
     # 6c. the training options on milestone 4's model; 6d. vgg_blstm.yaml
     option_counts = training_options(torch, dev, card)
     vgg_counts, vgg_layer0_rows = vgg_slice(torch, dev, card)
+    # 6e. two identical runs of each training form, and a step of each
+    # under torch.use_deterministic_algorithms(True)
+    repro_phase(torch, dev, card)
     # 8 runs before 7 and 7b. Its profiler readings of single calls and
     # milestone 5's f32 profile come from a fresh child process: late in a
     # long run this process's traces came back short or empty
@@ -1375,6 +1429,78 @@ def main(only=(), overrides=()) -> None:
                                  "count": torch.cuda.device_count()}})
 
 
+def kernel_phase(torch, dev) -> dict:
+    """Phase 3: each kernel against its plain version (and each launched
+    REPEATS times on identical inputs, every output equal) at the
+    flagship's shapes and the others the module docstring lists. Returns
+    what the later phases and the kernels line read."""
+    from gluon_e2e_asr_tpu_torch.config import load_config
+    from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
+    from gluon_e2e_asr_tpu_torch.ops.bilstm import (
+        bilstm_fused_kernel, bilstm_fused_plain)
+
+    config = load_config(CONFIG)
+    mc, fc = config.model, config.frontend
+    H, B = mc.enc_hidden, config.data.batch_size
+    T = num_frames(int(BUCKET_SEC * fc.sample_rate), fc.win_length,
+                   fc.hop_length)
+    shapes = layer_shapes(config, T)
+    errs = {}
+    for layer, T, D in shapes:
+        args = layer_inputs(torch, B, T, D, H, layer, dev)
+        for cd_name in ("float32", "bfloat16"):
+            cd = getattr(torch, cd_name)
+            for round_xg in ((False, True) if cd_name == "bfloat16" else (False,)):
+                n_cluster = bilstm_fused_kernel.cluster_launches
+                y = bilstm_fused_kernel(*args, compute_dtype=cd,
+                                        round_xg=round_xg)
+                ref = bilstm_fused_plain(*args, compute_dtype=cd,
+                                         round_xg=round_xg)
+                torch.cuda.synchronize()
+                cluster = bilstm_fused_kernel.cluster_launches - n_cluster
+                err = float((y - ref).abs().max())
+                finite = bool(torch.isfinite(y).all())
+                errs[(layer, cd_name, round_xg)] = err
+                emit({"phase": "kernel_check", "kernel": "bilstm_fwd",
+                      "layer": layer, "B": B, "T": T, "D": D, "H": H,
+                      "compute_dtype": cd_name, "round_xg": round_xg,
+                      "max_abs_err": err, "tol": TOL[cd_name],
+                      "cluster_launches": cluster, "finite": finite})
+                check(finite and err <= TOL[cd_name],
+                      f"bilstm_fwd disagrees with its plain version at layer "
+                      f"{layer} {cd_name} round_xg={round_xg}: {err}")
+                check(cluster == 1, f"bilstm_fwd at layer {layer} did not go "
+                                    "through the cluster recurrence")
+                repeats_equal(torch, "bilstm_fwd", f"flagship layer {layer} "
+                              f"{cd_name} round_xg={round_xg}",
+                              lambda: bilstm_fused_kernel(
+                                  *args, compute_dtype=cd, round_xg=round_xg))
+    m2_config = load_config(M2_CONFIG)
+    bwd_errs = check_training_kernels(torch, config, shapes, dev, m2_config)
+    products_errs = check_products_kernels(torch, config, shapes, dev,
+                                           m2_config)
+    proj_errs = check_projection_kernels(torch, config, shapes, dev)
+    dec_errs = check_decoder_kernels(torch, config, dev)
+    loc_config = load_config(LOC_CONFIG)
+    mode_errs = {m: check_decoder_kernels(torch, loc_config, dev, m)
+                 for m in ("add", "loc")}
+    check_decoder_kernels(torch, loc_config, dev, "loc",
+                          cases=[("bfloat16", 0.0, True)])
+    check_decoder_rows(torch, config, loc_config, dev)
+    fe_errs = check_frontend_kernels(torch, m2_config, config, dev)
+    v1_errs = check_v1_kernels(torch, config, shapes[0], dev)
+    probe_errs = check_probe_kernels(torch, dev)
+
+    emit({"phase": "repeats", "repeats": REPEATS, "cases": REPEATS_SEEN,
+          "all_equal": all(r["equal"] for r in REPEATS_SEEN)})
+    return {"config": config, "shapes": shapes, "errs": errs,
+            "m2_config": m2_config, "bwd_errs": bwd_errs,
+            "products_errs": products_errs, "proj_errs": proj_errs,
+            "dec_errs": dec_errs, "loc_config": loc_config,
+            "mode_errs": mode_errs, "fe_errs": fe_errs, "v1_errs": v1_errs,
+            "probe_errs": probe_errs}
+
+
 _BATCH = {}
 
 
@@ -1625,11 +1751,65 @@ def check_decoder_kernels(torch, config, dev, kind="dot", cases=None):
         check(max(bwd.values()) <= tol,
               f"las_decoder_bwd ({kind}) disagrees with its plain version "
               f"({cd_name}, coins {coin_p}): {bwd}")
+        at = f"{kind} {cd_name} coins {coin_p}" + (" bench.py" if bench
+                                                    else "")
+        repeats_equal(torch, "las_decoder_fwd", at,
+                      lambda: LD.las_decoder_fwd_kernel(*args, cd, kind, filt))
+        repeats_equal(torch, "las_decoder_bwd", at,
+                      lambda: LD.las_decoder_bwd_kernel(
+                          dl, resid, extras, enc, enc_proj, enc_len, w, cd,
+                          kind, filt))
+        repeats_equal(torch, "las_decoder_bwd (with weight_grads)", at,
+                      lambda: decoder_grads(torch, LD, LD.las_decoder_bwd_kernel(
+                          dl, resid, extras, enc, enc_proj, enc_len, w, cd,
+                          kind, filt), resid, dl, w, filt, T))
         if cd_name == "bfloat16" and coin_p == 0.0 and not bench:
             errs["las_decoder_fwd"] = float((logits - ref).abs().max())
             errs["las_decoder_bwd"] = max(
                 float((gk[k] - gp[k]).abs().max()) for k in bwd)
     return errs
+
+
+# K4's two-rows kernels (fwd_kernel, bwd_kernel) serve the shapes whose
+# cluster plan does not fit a block's shared memory; no config reaches
+# them, so phase 3 holds them to REPEATS launches at one such shape a
+# mode at the 4.0 s bucket (T'=100): (mode, dec_hidden, enc_hidden,
+# att_dim), both routes "rows" in f32 and bf16.
+K4_ROWS_SHAPES = (("dot", 1024, 640, 320), ("add", 512, 1024, 512),
+                  ("loc", 512, 1024, 320))
+
+
+def check_decoder_rows(torch, config, loc_config, dev):
+    """Phase 3, K4's two-rows kernels at K4_ROWS_SHAPES in f32 and bf16:
+    REPEATS launches of K4-fwd and of K4-bwd on identical inputs, every
+    output equal, none through a cluster kernel."""
+    from gluon_e2e_asr_tpu_torch.ops import las_decoder as LD
+
+    for kind, H, EH, A in K4_ROWS_SHAPES:
+        cfg = copy.deepcopy(config if kind == "dot" else loc_config)
+        cfg.model.dec_hidden, cfg.model.enc_hidden = H, EH
+        cfg.model.att_dim = A
+        args, filt, _ = decoder_case(torch, cfg, dev, 0.0, att_type=kind)
+        tokens, coins, enc, enc_proj, enc_len, w = args
+        B, L = tokens.shape
+        dl = torch.from_numpy(np.random.RandomState(SEED + 7).randn(
+            B, L, w.embed.shape[0]).astype(np.float32) * 0.05).to(dev)
+        for cd_name in ("float32", "bfloat16"):
+            cd = getattr(torch, cd_name)
+            n = (LD.las_decoder_fwd_kernel.cluster_launches,
+                 LD.las_decoder_bwd_kernel.cluster_launches)
+            _, resid, extras = LD.las_decoder_fwd_kernel(*args, cd, kind, filt)
+            at = f"{kind} {cd_name}, two-rows plan (dec {H}, enc {EH}, att {A})"
+            repeats_equal(torch, "las_decoder_fwd", at,
+                          lambda: LD.las_decoder_fwd_kernel(*args, cd, kind,
+                                                            filt))
+            repeats_equal(torch, "las_decoder_bwd", at,
+                          lambda: LD.las_decoder_bwd_kernel(
+                              dl, resid, extras, enc, enc_proj, enc_len, w,
+                              cd, kind, filt))
+            check((LD.las_decoder_fwd_kernel.cluster_launches,
+                   LD.las_decoder_bwd_kernel.cluster_launches) == n,
+                  f"K4 at {at} went through a cluster kernel")
 
 
 def frontend_cases(m2_config, config):
@@ -1768,6 +1948,9 @@ def check_frontend_kernels(torch, m2_config, config, dev):
                           f"cells zero {zeros}")
                     check(fft == (route == "fft"),
                           f"{name} at {case} did not take the {route} route")
+                    repeats_equal(torch, name, f"{case} cmvn {cmvn} "
+                                  f"train {train}",
+                                  lambda: kernel(fc, audio, alen, **kw))
         emit(rec)
     return errs
 
@@ -1833,6 +2016,13 @@ def check_v1_kernels(torch, config, shape, dev):
         check(gates == (sd_name != cd_name),
               f"bilstm_v1_bwd ({sd_name} streams, {cd_name} compute) "
               f"recomputed the gates {gates} times")
+        at = f"{sd_name} streams {cd_name} compute"
+        repeats_equal(torch, "bilstm_v1_fwd", at, lambda: K.bilstm_pallas_kernel(
+            *args, cd, with_cell=True))
+        repeats_equal(torch, "bilstm_v1_bwd", at,
+                      lambda: K.bilstm_pallas_bwd_kernel(
+                          args[2], args[3], args[4], y, c, acts, dy, cd, sd,
+                          args[:2]))
         err = {"bilstm_v1_fwd": absd["h"],
                "bilstm_v1_bwd": max(absd[k] for k in
                                     ("dxg_f", "dxg_b", "dw_hf", "dw_hb"))}
@@ -2040,6 +2230,15 @@ def check_k1_case(torch, name, layer, args, dy, cd_name, serving=True,
               and rel_err(g, r) <= TOL_BWD[cd_name],
               f"bilstm_bwd {out} disagrees with its plain version "
               f"at {name} layer {layer} {cd_name}: {rel_err(g, r)}")
+    at = f"{name} layer {layer} {cd_name}"
+    repeats_equal(torch, "bilstm_fwd (training form)", at,
+                  lambda: K.bilstm_fused_kernel(*args, compute_dtype=cd,
+                                                with_cell=True))
+    if serving:
+        repeats_equal(torch, "bilstm_fwd", at,
+                      lambda: K.bilstm_fused_kernel(*args, compute_dtype=cd))
+    repeats_equal(torch, "bilstm_bwd", at, lambda: K.bilstm_fused_bwd_kernel(
+        x, lens, w_x, w_hf, w_hb, y, c, acts, dy, compute_dtype=cd))
     if recurrence:
         dg = K.bilstm_fused_bwd_recur_kernel(lens, w_hf, w_hb, c, acts, dy, cd)
         xg = torch.cat(K._project(x, lens, w_x, b_x, cd, False), -1)
@@ -2062,9 +2261,11 @@ def check_training_kernels(torch, config, shapes, dev, m2_config):
     rows in the cluster recurrences) and B=1 (serving's batch), K1-fwd's
     serving form too where phase 3's first loop does not take it, every
     K1-fwd and K1-bwd launch through its cluster kernel, and at the flagship's shapes the recurrence alone
-    against the plain sweep's dg; K2 and K3 on ctc_cases' lattices, each
-    call one launch of its kernel."""
+    against the plain sweep's dg; at ls100_full's 18.38 s layer 0 every
+    K1 form's repeats alone; K2 and K3 on ctc_cases' lattices, each call
+    one launch of its kernel."""
     from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
+    from gluon_e2e_asr_tpu_torch.ops import bilstm as K
 
     H, B = config.model.enc_hidden, config.data.batch_size
     fc = m2_config.frontend
@@ -2089,6 +2290,24 @@ def check_training_kernels(torch, config, shapes, dev, m2_config):
                 errs["bilstm_bwd"] += [rec[out]["max_abs_err"] for out in
                                        ("dx", "dw_x", "db", "dw_hf", "dw_hb")]
                 errs["bilstm_bwd_cluster"].append(rec["dg"]["max_abs_err"])
+
+    # ls100_full's 18.38 s layer 0 (T=1836): every K1 form REPEATS times
+    # (phase 12 holds K1 there to the plain versions on a real batch)
+    name, Bc, Hc, (layer, T, D) = ls100_case()
+    args = layer_inputs(torch, Bc, T, D, Hc, layer, dev)
+    dy = layer_cotangent(torch, Bc, T, Hc, layer, dev)
+    for cd_name in ("float32", "bfloat16"):
+        cd, at = getattr(torch, cd_name), f"{name} layer {layer} {cd_name}"
+        y, c, acts = K.bilstm_fused_kernel(*args, compute_dtype=cd,
+                                           with_cell=True)
+        repeats_equal(torch, "bilstm_fwd (training form)", at,
+                      lambda: K.bilstm_fused_kernel(*args, compute_dtype=cd,
+                                                    with_cell=True))
+        repeats_equal(torch, "bilstm_fwd", at,
+                      lambda: K.bilstm_fused_kernel(*args, compute_dtype=cd))
+        repeats_equal(torch, "bilstm_bwd", at, lambda: K.bilstm_fused_bwd_kernel(
+            args[0], args[1], args[2], args[4], args[5], y, c, acts, dy,
+            compute_dtype=cd))
 
     errs["ctc_alpha"], errs["ctc_beta_post"] = 0.0, 0.0
     for name, lattice in ctc_cases(torch, config, dev).items():
@@ -2145,6 +2364,11 @@ def check_ctc_case(torch, name, lattice):
           f"{p_err}")
     check(launched == (1, 1), f"K2/K3 at {name} did not launch their "
                               f"kernels once each: {launched}")
+    repeats_equal(torch, "ctc_alpha", name,
+                  lambda: C.ctc_alpha_kernel(emit_, tmask, skip, svalid))
+    repeats_equal(torch, "ctc_beta_post", name,
+                  lambda: C.ctc_beta_post_kernel(emit_, tmask, skip, svalid,
+                                                 last, alpha_p, ll))
     return a_err, p_err
 
 
@@ -2164,8 +2388,8 @@ def products_cases(config, shapes, m2_config):
               for layer, T, D in layer_shapes(m2_config, m2_T)]
     cases += [(name, Bc, Hc, 0, T, D, ones)
               for name, Bc, T, D, Hc, ones in PRODUCTS_RAGGED]
-    name, Bc, Hc, (layer, T, D) = vgg_case()
-    cases.append((name, Bc, Hc, layer, T, D, False))
+    for name, Bc, Hc, (layer, T, D) in (vgg_case(), ls100_case()):
+        cases.append((name, Bc, Hc, layer, T, D, False))
     return cases
 
 
@@ -2257,6 +2481,10 @@ def check_products_kernels(torch, config, shapes, dev, m2_config):
                   and rec["f32_launches"] == (cd_name == "float32"),
                   f"bilstm_bwd_products at {name} layer {layer} {cd_name}: "
                   f"{rec}")
+            repeats_equal(torch, "bilstm_bwd_products",
+                          f"{name} layer {layer} {cd_name}",
+                          lambda: K.bilstm_fused_bwd_products_kernel(
+                              x, lens, w_x, y, dg, cd))
             del x, lens, w_x, y, dg, got, ref
     return errs
 
@@ -2325,6 +2553,11 @@ def check_projection_kernels(torch, config, shapes, dev):
                       f"bilstm_fwd_projection disagrees with its plain twin "
                       f"at {name} layer {layer} {cd_name} "
                       f"round_xg={round_xg}: {rec}")
+                repeats_equal(torch, "bilstm_fwd_projection",
+                              f"{name} layer {layer} {cd_name} "
+                              f"round_xg={round_xg}",
+                              lambda: K.bilstm_fused_proj_kernel(
+                                  x, lens, w_x, b_x, cd, round_xg))
                 if name in ("flagship", "milestones") and not round_xg:
                     errs[cd_name].append(rec["max_abs_err"])
                 del got, ref, diff
@@ -2878,15 +3111,45 @@ def f32_step_profile(card, wall_ms_per_step, by_kernel, layers, steps):
           "first kernels)")
 
 
+def state_of(torch, model, state) -> dict:
+    """A training run's state as tensors: every parameter and buffer, every
+    optimizer slot, the update count and the step's generator."""
+    out = {f"param {k}": v.detach().clone()
+           for k, v in model.state_dict().items()}
+    for slot, v in state.opt_state.items():
+        if isinstance(v, dict):
+            out.update({f"{slot} {k}": t.detach().clone()
+                        for k, t in v.items()})
+        elif not isinstance(v, str):
+            out[f"opt {slot}"] = torch.tensor(float(v), dtype=torch.float64)
+    out["step"] = torch.tensor(state.step)
+    out["generator"] = state.generator.get_state()
+    return out
+
+
+def state_diff(torch, a: dict, b: dict) -> dict:
+    """(every entry of two ``state_of`` results torch.equal, the entries
+    that differ, the largest float difference)."""
+    differ = sorted(k for k in a if k not in b or not torch.equal(a[k], b[k]))
+    differ += sorted(k for k in b if k not in a)
+    diff = max((float((a[k].double() - b[k].double()).abs().max())
+                for k in differ if k in a and k in b
+                and a[k].is_floating_point() and a[k].shape == b[k].shape),
+               default=0.0)
+    return {"equal": not differ, "differ": differ[:20],
+            "n_differ": len(differ), "max_abs_diff": diff}
+
+
 def resume_check(torch, card):
     """Phase 6c, resume: milestone 4 as shipped (f32, loc, train.dp at world
     size 1) with a mid-epoch checkpoint every ckpt_every steps,
-    RESUME_REFS uninterrupted runs of 2 epochs (their spread), a run
-    stopped mid-epoch 1 by max_steps, and a fresh trainer resumed from its
-    checkpoint through ``train.py --resume``: the step count, the batches
-    of every step after the resume and the generator state exactly the
-    first uninterrupted run's, the parameters within RESUME_SPREAD_FACTOR
-    x the largest spread. Returns that run's trainer."""
+    RESUME_REFS uninterrupted runs of 2 epochs, a run stopped mid-epoch 1
+    by max_steps, and a fresh trainer resumed from its checkpoint through
+    ``train.py --resume``: the step count and the batches of every step
+    after the resume the first uninterrupted run's, and every parameter,
+    Adam slot and the generator state equal to it bit for bit, as the
+    uninterrupted runs are to each other (the JAX package's contract,
+    ``tests/test_resume_fault.py``). Returns that run's trainer."""
     from gluon_e2e_asr_tpu_torch.config import load_config
 
     path = MILESTONES[4]
@@ -2909,16 +3172,13 @@ def resume_check(torch, card):
     resumed, lines = _run_cli(torch, path, "resume_cut", common,
                               resumed_rec, resume=True)
     wall = time.perf_counter() - t0
-    p_refs = [_params_of(t) for t in refs]
-    spreads = [_max_diff(a, b) for i, a in enumerate(p_refs)
-               for b in p_refs[i + 1:]]
-    spread, diff = max(spreads), _max_diff(_params_of(resumed), p_refs[0])
-    largest = max(float(v.abs().max()) for v in p_refs[0].values())
-    tol = RESUME_SPREAD_FACTOR * spread + RESUME_ULPS * largest * 2.0 ** -23
+    s_refs = [state_of(torch, t.model, t.state) for t in refs]
+    pairs = [state_diff(torch, a, b) for i, a in enumerate(s_refs)
+             for b in s_refs[i + 1:]]
+    resumed_diff = state_diff(torch, state_of(torch, resumed.model,
+                                              resumed.state), s_refs[0])
     same_batches = ([b for _, b in resumed_rec]
                     == [b for _, b in ref_rec[cut_step:]])
-    same_gen = torch.equal(resumed.state.generator.get_state(),
-                           ref.state.generator.get_state())
     res_line = [r for r in lines if r["event"] == "resume"]
     loss_diff = max(abs(a - b) for (a, _), (b, _) in
                     zip(resumed_rec, ref_rec[cut_step:]))
@@ -2927,12 +3187,16 @@ def resume_check(torch, card):
           "stopped_at_step": cut_step, "ckpt_every_steps": every,
           "resume_line": res_line[-1] if res_line else None,
           "resumed_steps": resumed.state.step,
-          "params_max_abs_diff_resumed_vs_uninterrupted": diff,
-          "params_max_abs_diff_uninterrupted_pairs": spreads,
-          "tol": tol, "largest_param": largest,
+          "state_entries": len(s_refs[0]),
+          "params_max_abs_diff_resumed_vs_uninterrupted":
+              resumed_diff["max_abs_diff"],
+          "resumed_vs_uninterrupted": resumed_diff,
+          "params_max_abs_diff_uninterrupted_pairs":
+              [p["max_abs_diff"] for p in pairs],
+          "uninterrupted_pairs": pairs,
           "step_loss_max_abs_diff_after_resume": loss_diff,
           "same_batches_after_resume": same_batches,
-          "same_generator_state": same_gen,
+          "same_generator_state": "generator" not in resumed_diff["differ"],
           "wall_s": round(wall, 2), "card": card})
     check(cut_step == stop and resumed.state.step == ref.state.step == total,
           f"resume: stopped at {cut_step}, resumed to {resumed.state.step}, "
@@ -2942,10 +3206,195 @@ def resume_check(torch, card):
           f"resume: the resume line {res_line}")
     check(same_batches and len(resumed_rec) == total - stop,
           "resume: the steps after the resume took other batches")
-    check(same_gen, "resume: the generator state differs at the end")
-    check(diff <= tol, f"resume: the parameters differ by {diff} "
-                       f"(uninterrupted runs: {spreads}, tol {tol})")
+    check(all(p["equal"] for p in pairs),
+          f"resume: two uninterrupted runs differ: {pairs}")
+    check(resumed_diff["equal"] and loss_diff == 0.0,
+          f"resume: the resumed run differs from the uninterrupted one: "
+          f"{resumed_diff}, step losses by {loss_diff}")
     return ref
+
+
+def repro_batch(torch, path, shape):
+    """(batch on the host, tokenizer) of a REPRO_CASES entry, from the
+    config at ``path`` as shipped (an entry's overrides leave its data
+    alone, and an earlier phase's bucket_batch of the config serves it):
+    the config's 4.0 s bucket, or bench.py's batch (labels folded into
+    the vocabulary as bucket_batch folds them)."""
+    from gluon_e2e_asr_tpu_torch.config import load_config
+    from gluon_e2e_asr_tpu_torch.training.trainer import (
+        build_datasets, build_tokenizer)
+
+    config = load_config(path)
+    if shape == "bucket":
+        b, tok, _, _ = bucket_batch(torch, config)
+    else:
+        key = config.fingerprint()
+        if key in _BATCH:
+            tok = _BATCH[key][1]
+        else:
+            utts, _ = build_datasets(config)
+            tok = build_tokenizer(config, (u.text for u in utts))
+        sb = synth_batch(config.data.batch_size, BENCH_SEC, BENCH_LABELS, SEED)
+        sb["labels"] = np.where(sb["labels"] > 0,
+                                4 + sb["labels"] % (tok.vocab_size - 4), 0)
+        b = types.SimpleNamespace(**sb)
+    return {k: torch.from_numpy(np.asarray(getattr(b, k)))
+            for k in ("audio", "audio_len", "labels", "label_len")}, tok
+
+
+def repro_run(torch, config, tok, batch, dev, steps):
+    """``steps`` updates of a fresh model of ``config`` (parameters and
+    generator from ``train.seed``, as the trainer starts) on ``batch``;
+    with ``train.accum_grad_steps`` 2, each update over the batch's two
+    halves. Returns (state_of the run, plus the last pass's gradients)."""
+    from gluon_e2e_asr_tpu_torch.models.asr import build_model
+    from gluon_e2e_asr_tpu_torch.training import train_step as T
+
+    model = build_model(config, tok.vocab_size, train=True,
+                        sos_id=tok.sos_id, eos_id=tok.eos_id)
+    opt = T.make_optimizer(config)
+    state = T.create_train_state(config, model, opt, dev)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    if config.train.accum_grad_steps > 1:
+        grad_fn, acc = T.make_grad_step(model, config), T.Accumulator(model, opt)
+        half = batch["audio"].shape[0] // 2
+        for _ in range(steps):
+            for rows in (slice(0, half), slice(half, None)):
+                acc.add(*grad_fn(state, {k: v[rows] for k, v in batch.items()}))
+            acc.apply(state)
+    else:
+        step = T.make_train_step(model, config, opt)
+        for _ in range(steps):
+            step(state, batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out = state_of(torch, model, state)
+    out.update({f"grad {k}": p.grad.detach().clone()
+                for k, p in model.named_parameters() if p.grad is not None})
+    return out
+
+
+def repro_config(case):
+    """(the config of a REPRO_CASES entry with its overrides, its batch's
+    shape); repro_run trains at world size 1 whatever ``train.dp`` says."""
+    from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
+
+    _, path, sets, shape = case
+    config = load_config(path)
+    apply_overrides(config, list(sets))
+    return config, shape
+
+
+def repro_phase(torch, dev, card):
+    """Phase 6e: each of REPRO_CASES run twice from the same state for
+    REPRO_STEPS updates through the kernels, the two runs equal bit for
+    bit; then the same forms a step each in a child process under
+    torch.use_deterministic_algorithms(True) (``deterministic_worker``),
+    which must pass and run none of ACCUMULATING_OPS on the card, and no
+    cuDNN convolution backward outside cuDNN's deterministic algorithms."""
+    t0 = time.perf_counter()
+    for case in REPRO_CASES:
+        t_case = time.perf_counter()
+        config, shape = repro_config(case)
+        batch, tok = repro_batch(torch, case[1], shape)
+        runs = [repro_run(torch, config, tok, batch, dev, REPRO_STEPS)
+                for _ in range(2)]
+        d = state_diff(torch, *runs)
+        emit({"phase": "repro", "case": case[0],
+              "config": os.path.relpath(case[1], REPO), "overrides": case[2],
+              "B": int(batch["audio"].shape[0]),
+              "samples": int(batch["audio"].shape[1]),
+              "compute_dtype": config.model.compute_dtype,
+              "steps": REPRO_STEPS, "entries": len(runs[0]), **d,
+              "seconds": round(time.perf_counter() - t_case, 1), "card": card})
+        check(d["equal"], f"two identical runs of {case[0]} differ: {d}")
+        del runs
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t_child = time.perf_counter()
+    out = os.path.join(OUT_DIR, "deterministic.json")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--deterministic", out], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=900)
+    result = {}
+    if proc.returncode == 0:
+        with open(out) as f:
+            result = json.load(f)
+    emit({"phase": "repro", "case": "use_deterministic_algorithms(True)",
+          "rc": proc.returncode, "steps": result,
+          "child_seconds": round(time.perf_counter() - t_child, 1),
+          "seconds": round(time.perf_counter() - t0, 1), "card": card})
+    check(proc.returncode == 0, f"the --deterministic process failed (rc "
+                                f"{proc.returncode}): {proc.stderr[-3000:]}")
+    bad = {k: v for k, v in result.items() if v["accumulating_ops"]
+           or v["nondeterministic_convolutions"]}
+    check(not bad, f"accumulating library operations on the card: {bad}")
+
+
+def accumulation_audit(torch, device_type: str):
+    """A dispatch mode that records, by op name, the operations of
+    ACCUMULATING_OPS (index_put with accumulate; scatter_add with more than
+    one index along its dim) run on a tensor of ``device_type``
+    (``.accumulating``), and counts the cuDNN convolution backwards taken
+    there while torch.backends.cudnn.deterministic was off (``.convs``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Audit(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.accumulating, self.convs = {}, 0
+
+        def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = func.__name__.split(".")[0].rstrip("_")
+            on = any(getattr(a, "device", None) is not None
+                     and a.device.type == device_type for a in args)
+            acc = name in ACCUMULATING_OPS or name.lstrip("_") in \
+                ACCUMULATING_OPS or ("index_put" in name and (
+                    kwargs.get("accumulate") or (len(args) > 3
+                                                 and args[3] is True)))
+            if acc and name == "scatter_add" and args[2].shape[args[1]] == 1:
+                acc = False  # one index along the dim (a gather's backward)
+            if on and acc:
+                self.accumulating[name] = self.accumulating.get(name, 0) + 1
+            if name == "convolution_backward" and on and \
+                    not torch.backends.cudnn.deterministic:
+                self.convs += 1
+            return func(*args, **kwargs)
+
+    return Audit()
+
+
+def deterministic_worker(out: str) -> None:
+    """``chip_smoke.py --deterministic <out.json>`` (phase 6e starts it,
+    with CUBLAS_WORKSPACE_CONFIG set): one update of each of REPRO_CASES
+    under torch.use_deterministic_algorithms(True), which raises where a
+    library operation of the step has no deterministic CUDA form; and the
+    ops of each step through a dispatch mode: those of ACCUMULATING_OPS
+    (index_put with accumulate; scatter_add with more than one index
+    along its dim) on a CUDA tensor, and cuDNN
+    convolution backwards taken while torch.backends.cudnn.deterministic
+    was off (the port must choose the deterministic algorithms itself,
+    the mode only forces them). Writes {case: what it saw} to ``out``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda", 0)
+
+    result = {}
+    for case in REPRO_CASES:
+        config, shape = repro_config(case)
+        batch, tok = repro_batch(torch, case[1], shape)
+        audit = accumulation_audit(torch, "cuda")
+        with audit:
+            repro_run(torch, config, tok, batch, dev, 1)
+        result[case[0]] = {"accumulating_ops": audit.accumulating,
+                           "nondeterministic_convolutions": audit.convs}
+        print(json.dumps({case[0]: result[case[0]]}), flush=True)
+    with open(out, "w") as f:
+        json.dump(result, f)
 
 
 def accum_check(torch, dev, card, trained):
@@ -3366,6 +3815,26 @@ def vgg_case():
     config = load_config(VGG_CONFIG)
     return ("vgg_blstm", config.data.batch_size, config.model.enc_hidden,
             vgg_layer0(config))
+
+
+def ls100_case():
+    """(name, B, H, (layer, T, D)) of ls100_full.yaml's first BiLSTM layer
+    at its largest bucket (18.38 s: T = 1836, B = 32, the dynamic batch
+    there), for phase 3's K1 and products checks: the longest walk over
+    frames of any config."""
+    from gluon_e2e_asr_tpu_torch.config import load_config
+    from gluon_e2e_asr_tpu_torch.data.sampler import make_bucket_specs
+    from gluon_e2e_asr_tpu_torch.frontend.features import num_frames
+
+    config = load_config(LS100_CONFIG)
+    dc, fc = config.data, config.frontend
+    spec = make_bucket_specs(dc.bucket_bounds_sec, dc.sample_rate,
+                             dc.batch_size, dc.max_label_len, fc.hop_length,
+                             dc.dynamic_batch)[-1]
+    T = num_frames(int(dc.bucket_bounds_sec[-1] * fc.sample_rate),
+                   fc.win_length, fc.hop_length)
+    return ("ls100_full 18.38 s", spec.batch_size, config.model.enc_hidden,
+            layer_shapes(config, T)[0])
 
 
 def vgg_layer0(config):
@@ -6198,6 +6667,8 @@ if __name__ == "__main__":
         dp_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--traces"]:
         trace_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--deterministic"]:
+        deterministic_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--only"]:
         sets = sys.argv[3:]
         if sets[::2] != ["--set"] * (len(sets) // 2) or len(sets) % 2:

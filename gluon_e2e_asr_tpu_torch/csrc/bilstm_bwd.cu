@@ -35,12 +35,15 @@
 //       on wgmma, gemm_sm90.cuh's dx_kernel and wgrad_kernel (its header
 //       has the design); in f32 on the FMA units (true f32) through
 //       gemm_f32.cuh's ring_kernel (that header has the design), one
-//       launch a product. Both walk only the frames before lens, split
-//       the weight gradients' long depth (B*T) over blocks and add
-//       atomically.
+//       launch a product. Both walk only the frames before lens and split
+//       the weight gradients' long depth (B*T) over blocks; each split
+//       stores its partial tile (split 0 into the output, the others into
+//       a workspace the wrapper allocates), and split_sum.cuh's kernel
+//       adds them in the fixed order 0, 1, ..., S - 1: no float atomics,
+//       so a step's gradients are the same bits on every run.
 //   (c) db: summed from the staged dg tiles of the weight gradients'
 //       kernel (wgrad_kernel's producers in bf16, ring_kernel's dW_x
-//       blocks in f32).
+//       blocks in f32) into partial rows, added by the same kernel.
 //   (d) K7-bwd (bilstm_v1_bwd) with bf16 projections and an f32 compute
 //       dtype only: bilstm_v1_gates first recomputes the gate activations
 //       from the rounded h stream, as the TPU backward kernel does (one
@@ -142,6 +145,7 @@
 #include "gemm.cuh"
 #include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
+#include "split_sum.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -689,7 +693,6 @@ struct GateActs {
   const int* lens;
   float* acts;
   int T, H, dir;
-  static constexpr bool kAdds = false;
   __device__ __forceinline__ void four(int row, int n, float4 v, int cols) const {
     const float w[4] = {v.x, v.y, v.z, v.w};
     for (int i = 0; i < cols; ++i) (*this)(row, n + i, w[i]);
@@ -706,61 +709,108 @@ struct GateActs {
   }
 };
 
+// The f32 products' split plan (ring_kernel's splits of dx, of dW_x with
+// db, and of both directions' dW_h) and the floats of each slice of
+// their workspace: dx's, dW_x's, db's partial rows (2 a split, 8H each)
+// and each dW_h's.
+struct F32Plan {
+  int sdx = 1, swx = 1, swh = 1;
+  long long dx, wx, db, wh;
+  bool with_x;
+  // The workspace: dx's sdx - 1 slices, dW_x's swx - 1, db's 2 swx rows,
+  // then each direction's swh - 1.
+  long long floats() const {
+    return (with_x ? (sdx - 1) * dx + (swx - 1) * wx + 2 * swx * db : 0)
+           + 2 * (swh - 1) * wh;
+  }
+};
+
+inline F32Plan f32_plan(int B, int T, int D, int H, bool with_x, int sms) {
+  using gemm_f32::cdiv;
+  using gemm_f32::splits;
+  using split_sum::slice;
+  const int M = B * T, N8 = 8 * H, N4 = 4 * H;
+  F32Plan p;
+  p.dx = slice((long long)M * D);
+  p.wx = slice((long long)D * N8);
+  p.db = N8;
+  p.wh = slice((long long)H * N4);
+  p.with_x = with_x;
+  if (with_x) {
+    // dx's blocks past the live frames exit at once: split for half the
+    // rows, so that a batch of half-length utterances still fills the card
+    p.sdx = splits(cdiv(M, 2), D, N8, sms);
+    p.swx = splits(D, N8, M, sms);
+  }
+  // both dW_h in one launch, split for their tiles together: fewer
+  // splits, longer walks a block
+  p.swh = splits(2 * H, N4, M, sms);
+  return p;
+}
+
 #if K1_F32_TILED
 // dx (with x), dW_x and db (with x) and dW_h of both directions in f32 on
 // ring_kernel (gemm_f32.cuh): a launch each for dx and dW_x with db, one
-// for both dW_h. The outputs the launches add into (dW_x, db, dW_h, and dx
-// where it is split) are zeroed by the caller. The weight gradients walk
-// the live frames; dx takes its rows live frames first and writes the
-// others' rows 0 without a product (dg is 0 there).
+// for both dW_h, each split storing its part (SplitStore; ws holds
+// f32_plan's floats), then one split_sum launch adding the parts in a
+// fixed order. The weight gradients walk the live frames; dx takes its
+// rows live frames first and writes the others' rows 0 without a product
+// (dg is 0 there).
 cudaError_t f32_products(const float* x, int ldx, const int* lens,
                          const float* wx, const float* y, int ldy, int yb,
                          const float* dg, float* dx, float* dwx, float* db,
                          float* dwhf, float* dwhb, int B, int T, int D, int H,
-                         cudaStream_t st) {
+                         float* ws, cudaStream_t st) {
   using gemm::vec_ok;
   const int M = B * T;
   const int N8 = 8 * H, N4 = 4 * H;
   const int sms = gemm_f32::sm_count();
+  const F32Plan p = f32_plan(B, T, D, H, x != nullptr, sms);
   const gemm_f32::Frames frames{lens, T, M};
+  // split s > 0's part of out at ws + (s - 1) * slice; ws moves past them
+  const auto parts = [&ws](float* out, int ld, int splits, long long slice) {
+    const gemm_f32::SplitStore e{out, ws, slice, ld,
+                                 vec_ok(out, ld) && vec_ok(ws, ld)};
+    ws += (splits - 1) * slice;
+    return e;
+  };
+  split_sum::Seg segs[5] = {};
   cudaError_t e;
   if (x != nullptr) {
     // dx [M, D] = dg [M, 8H] . W_x^T
     const gemm::RowMajor g{dg, N8, M, N8, vec_ok(dg, N8)};
     const gemm::Transposed w{wx, N8, N8, D, vec_ok(wx, N8)};
-    const gemm_f32::LiveRows order{lens, T, 0};
-    // its blocks past the live frames exit at once: split for half the
-    // rows, so that a batch of half-length utterances still fills the card
-    const int s = gemm_f32::splits(gemm_f32::cdiv(M, 2), D, N8, sms);
-    if (s > 1) {
-      if ((e = cudaMemsetAsync(dx, 0, sizeof(float) * M * D, st)) != cudaSuccess) return e;
-      e = gemm_f32::launch(g, w, gemm::AtomicAdd{dx, D, vec_ok(dx, D)}, M, D,
-                           N8, s, gemm_f32::Frames{}, order, nullptr, st);
-    } else {
-      e = gemm_f32::launch(g, w, gemm::Store{dx, D, vec_ok(dx, D)}, M, D, N8,
-                           1, gemm_f32::Frames{}, order, nullptr, st);
-    }
+    const gemm_f32::SplitStore edx = parts(dx, D, p.sdx, p.dx);
+    e = gemm_f32::launch(g, w, edx, M, D, N8, p.sdx, gemm_f32::Frames{},
+                         gemm_f32::LiveRows{lens, T, 0}, nullptr, st);
     if (e != cudaSuccess) return e;
-    // dW_x [D, 8H] = x^T . dg, and db
+    segs[0] = {dx, edx.ws, (long long)M * D, p.dx, p.sdx - 1, 1};
+    // dW_x [D, 8H] = x^T . dg, and db's partial rows
+    const gemm_f32::SplitStore ewx = parts(dwx, N8, p.swx, p.wx);
+    float* db_rows = ws;
+    ws += 2 * p.swx * p.db;
     e = gemm_f32::launch(
         gemm::Transposed{x, ldx, D, M, vec_ok(x, ldx)},
-        gemm::RowMajor{dg, N8, M, N8, vec_ok(dg, N8)},
-        gemm::AtomicAdd{dwx, N8, vec_ok(dwx, N8)}, D, N8, M,
-        gemm_f32::splits(D, N8, M, sms), frames, gemm_f32::LiveRows{}, db, st);
+        gemm::RowMajor{dg, N8, M, N8, vec_ok(dg, N8)}, ewx, D, N8, M, p.swx,
+        frames, gemm_f32::LiveRows{}, db_rows, st);
     if (e != cudaSuccess) return e;
+    segs[1] = {dwx, ewx.ws, (long long)D * N8, p.wx, p.swx - 1, 1};
+    segs[2] = {db, db_rows, N8, p.db, 2 * p.swx, 0};
   }
-  // dW_h [H, 4H] = h_prev^T . dg of both directions, in one launch (split
-  // for their tiles together: fewer splits, longer walks a block)
+  // dW_h [H, 4H] = h_prev^T . dg of both directions, in one launch
   const float* yh = y + yb;  // the backward direction's h
   const HPrevT af{y, T, H, M, 0, ldy, vec_ok(y, ldy)};
   const HPrevT ab{yh, T, H, M, 1, ldy, vec_ok(yh, ldy)};
   const gemm::RowMajor bf{dg, N8, M, N4, vec_ok(dg, N8)};
   const gemm::RowMajor bb{dg + N4, N8, M, N4, vec_ok(dg + N4, N8)};
-  const gemm::AtomicAdd ef{dwhf, N4, vec_ok(dwhf, N4)};
-  const gemm::AtomicAdd eb{dwhb, N4, vec_ok(dwhb, N4)};
-  return gemm_f32::launch(af, bf, ef, H, N4, M,
-                          gemm_f32::splits(2 * H, N4, M, sms), frames,
-                          gemm_f32::LiveRows{}, nullptr, st, &ab, &bb, &eb);
+  const gemm_f32::SplitStore ef = parts(dwhf, N4, p.swh, p.wh);
+  const gemm_f32::SplitStore eb = parts(dwhb, N4, p.swh, p.wh);
+  e = gemm_f32::launch(af, bf, ef, H, N4, M, p.swh, frames,
+                       gemm_f32::LiveRows{}, nullptr, st, &ab, &bb, &eb);
+  if (e != cudaSuccess) return e;
+  segs[3] = {dwhf, ef.ws, (long long)H * N4, p.wh, p.swh - 1, 1};
+  segs[4] = {dwhb, eb.ws, (long long)H * N4, p.wh, p.swh - 1, 1};
+  return split_sum::launch(segs, 5, sms, st);
 }
 #endif  // K1_F32_TILED
 
@@ -822,15 +872,20 @@ cudaError_t tiled_products(const float* x, int ldx, const float* wx,
 // x). x has rows of ldx floats; y rows of ldy floats, the forward
 // direction's h at column 0 and the backward direction's at column yb.
 // bf16 on wgmma (gemm_sm90.cuh; dx from wx16, W_x's bf16 copy), f32 on the
-// FMA units (gemm_f32.cuh); db summed by the weight gradients' kernel.
+// FMA units (gemm_f32.cuh); db summed by the weight gradients' kernel;
+// ws the workspace of bilstm_bwd_workspace's floats for the splits'
+// parts.
 int launch_products(const float* x, int ldx, const int* lens, const float* wx,
                     const __nv_bfloat16* wx16, const float* y, int ldy, int yb,
                     const float* dg, float* dx, float* dwx, float* db,
                     float* dwhf, float* dwhb, int B, int T, int D, int H,
-                    bool bf16, cudaStream_t st) {
+                    bool bf16, float* ws, cudaStream_t st) {
   const int M = B * T;
-  const int N8 = 8 * H, N4 = 4 * H;
   cudaError_t e;
+#if K1_TILED_VARIANT
+  // a build variant's tiled products add their splits atomically into
+  // zeroed outputs
+  const int N8 = 8 * H, N4 = 4 * H;
   const size_t f = sizeof(float);
   if (x != nullptr) {
     if ((e = cudaMemsetAsync(dwx, 0, f * D * N8, st)) != cudaSuccess) return (int)e;
@@ -838,6 +893,7 @@ int launch_products(const float* x, int ldx, const int* lens, const float* wx,
   }
   if ((e = cudaMemsetAsync(dwhf, 0, f * H * N4, st)) != cudaSuccess) return (int)e;
   if ((e = cudaMemsetAsync(dwhb, 0, f * H * N4, st)) != cudaSuccess) return (int)e;
+#endif
 
   if (bf16) {
 #if K1B_WGMMA_PRODUCTS
@@ -847,7 +903,7 @@ int launch_products(const float* x, int ldx, const int* lens, const float* wx,
       return rc;
     }
     return gemm_sm90::launch_wgrad(x, ldx, D, y, ldy, yb, dg, lens, dwx, db,
-                                   dwhf, dwhb, B, T, H, st);
+                                   dwhf, dwhb, B, T, H, ws, st);
 #else
     e = tiled_products<true>(x, ldx, wx, y, ldy, yb, dg, dx, dwx, dwhf, dwhb,
                              B, T, D, H, st);
@@ -855,7 +911,7 @@ int launch_products(const float* x, int ldx, const int* lens, const float* wx,
   } else {
 #if K1_F32_TILED
     return (int)f32_products(x, ldx, lens, wx, y, ldy, yb, dg, dx, dwx, db,
-                             dwhf, dwhb, B, T, D, H, st);
+                             dwhf, dwhb, B, T, D, H, ws, st);
 #else
     e = tiled_products<false>(x, ldx, wx, y, ldy, yb, dg, dx, dwx, dwhf, dwhb,
                               B, T, D, H, st);
@@ -872,7 +928,7 @@ int launch_products(const float* x, int ldx, const int* lens, const float* wx,
   }
   return (int)cudaGetLastError();
 #else
-  (void)M;
+  (void)M, (void)e, (void)ws;
   return 0;  // every route above has returned
 #endif
 }
@@ -889,14 +945,17 @@ int launch_products(const float* x, int ldx, const int* lens, const float* wx,
 // + H (yb = H when y is [B,T,2H]; ldx, ldy and yb multiples of 4 for
 // bf16), dg [B,T,8H] as the recurrence writes it (0 at t >= lens[b],
 // which the bf16 products rely on), all f32. Outputs,
-// f32: dx [B,T,D], dwx [D,8H], db [8H], dwhf and dwhb [H,4H]. Returns
-// cudaGetLastError() after the launches (0 on success), or kNoTensorMap
-// (-2) when the driver refuses a tensor map of the bf16 products.
+// f32: dx [B,T,D], dwx [D,8H], db [8H], dwhf and dwhb [H,4H], every
+// element written (no zeroing needed). ws: bilstm_bwd_workspace's floats
+// (16-byte aligned) for the splits' parts. Returns cudaGetLastError()
+// after the launches (0 on success), or kNoTensorMap (-2) when the driver
+// refuses a tensor map of the bf16 products.
 extern "C" int bilstm_bwd_products(const float* x, const int* lens,
                                    const float* wx, const void* wx16,
                                    const float* y,
                                    const float* dg, float* dx, float* dwx,
-                                   float* db, float* dwhf, float* dwhb, int B,
+                                   float* db, float* dwhf, float* dwhb,
+                                   float* ws, int B,
                                    int T, int D, int H, int ldx, int ldy,
                                    int yb, int cd_bf16, void* stream) {
   if (B <= 0 || T <= 0 || D <= 0 || H <= 0 || ldx < D || yb < H ||
@@ -909,7 +968,26 @@ extern "C" int bilstm_bwd_products(const float* x, const int* lens,
   return launch_products(x, ldx, lens, wx,
                          static_cast<const __nv_bfloat16*>(wx16), y, ldy, yb,
                          dg, dx, dwx, db, dwhf, dwhb, B, T, D, H, cd_bf16 != 0,
-                         static_cast<cudaStream_t>(stream));
+                         ws, static_cast<cudaStream_t>(stream));
+}
+
+// The floats of the workspace bilstm_bwd_products (with_x 1) or
+// bilstm_v1_bwd (with_x 0) takes at a shape, into *floats (the split
+// plans of the current device's SMs: gemm_sm90.cuh's wgrad_workspace in
+// bf16, f32_plan in f32). Returns a cudaError_t.
+extern "C" int bilstm_bwd_workspace(long long* floats, int B, int T, int D,
+                                    int H, int with_x, int cd_bf16,
+                                    void* stream) {
+  (void)stream;
+  if (B <= 0 || T <= 0 || H <= 0 || (with_x && D <= 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int splits = 0;
+  const int sms = gemm_f32::sm_count();
+  *floats = cd_bf16 ? gemm_sm90::wgrad_workspace(B, T, D, H, with_x != 0, sms,
+                                                 &splits)
+                    : f32_plan(B, T, D, H, with_x != 0, sms).floats();
+  return 0;
 }
 
 // K7-bwd: the VJP of the v1 layer (gluon_e2e_asr_tpu/ops/pallas_lstm.py::
@@ -928,12 +1006,14 @@ extern "C" int bilstm_bwd_products(const float* x, const int* lens,
 // it (rows of ldy floats, the backward direction's at column yb); cs,
 // acts and dy as bilstm_bwd_recur takes them. dg [B,T,8H] f32 receives
 // d(xg) of both directions (forward at columns 0..4H); dwhf, dwhb [H,4H]
-// f32. Returns cudaGetLastError(), kNoClusterFits or kNoTensorMap.
+// f32; ws bilstm_bwd_workspace's floats (with_x 0). Returns
+// cudaGetLastError(), kNoClusterFits or kNoTensorMap.
 extern "C" int bilstm_v1_bwd(const int* lens, const void* wtf,
                              const void* wtb, const float* y, const float* cs,
                              const float* acts, const float* dy, float* dg,
-                             float* dwhf, float* dwhb, int B, int T, int H,
-                             int ldy, int yb, int cd_bf16, void* stream) {
+                             float* dwhf, float* dwhb, float* ws, int B, int T,
+                             int H, int ldy, int yb, int cd_bf16,
+                             void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H > 1024 || yb < H || ldy < yb + H) {
     return (int)cudaErrorInvalidValue;
   }
@@ -943,7 +1023,7 @@ extern "C" int bilstm_v1_bwd(const int* lens, const void* wtf,
   if (rc != 0) return rc;
   return launch_products(nullptr, 0, lens, nullptr, nullptr, y, ldy, yb, dg,
                          nullptr, nullptr, nullptr, dwhf, dwhb, B, T, 0, H,
-                         cd_bf16 != 0, st);
+                         cd_bf16 != 0, ws, st);
 }
 
 // K7-bwd's gate recompute, for bf16 projections with an f32 compute dtype

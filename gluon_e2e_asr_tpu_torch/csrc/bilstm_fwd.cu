@@ -200,7 +200,6 @@ struct ProjEpi {
   float* xg;
   int N, T, half;
   bool vec;  // gemm::vec_ok(xg, N)
-  static constexpr bool kAdds = false;
   __device__ __forceinline__ bool dead(int m) const {
     const int b = m / T;
     return m - b * T >= __ldg(lens + b);

@@ -36,8 +36,8 @@
 // The bf16 products of K1-bwd and K7-bwd now run on wgmma, fed by TMA
 // through a multi-stage ring (gemm_sm90.cuh), and the f32 ones on
 // gemm_f32.cuh's ring_kernel, fed by cp.async through a ring of four
-// stages, which reads its operands through these accessors and writes
-// through these epilogues. Both kernels here are on no model path and
+// stages, which reads its operands through these accessors (and writes
+// through epilogues of its own). Both kernels here are on no model path and
 // remain as build variants that the probes time beside their successors:
 // gemm_bf16_kernel (bilstm_bwd.cu's K1B_WGMMA_PRODUCTS 0, tools/
 // k1b_probe.py --products) and gemm_f32_kernel (K1_F32_TILED 0,
@@ -117,43 +117,25 @@ struct Transposed {
   __device__ __forceinline__ const float* base() const { return p; }
 };
 
-// The epilogues; four() (gemm_f32.cuh) takes columns n .. n + cols - 1,
-// a 16-byte access where vec (vec_ok(p, ld)) and cols == 4.
+// The epilogues.
 struct Store {
   float* p;
   int ld;
-  bool vec;
-  static constexpr bool kAdds = false;
   __device__ __forceinline__ void operator()(int m, int n, float v) const {
     p[(size_t)m * ld + n] = v;
-  }
-  __device__ __forceinline__ void four(int m, int n, float4 v, int cols) const {
-    if (vec && cols == 4) {
-      *reinterpret_cast<float4*>(p + (size_t)m * ld + n) = v;
-      return;
-    }
-    const float w[4] = {v.x, v.y, v.z, v.w};
-    for (int i = 0; i < cols; ++i) (*this)(m, n + i, w[i]);
   }
 };
 
 // Adds into a zeroed output: split-K's partial sums, in an order that
-// varies from run to run.
+// varies from run to run. Only the build variants K1_F32_TILED 0 and
+// K1B_WGMMA_PRODUCTS 0 (bilstm_bwd.cu's tiled_products, which only the
+// probes build) use it: the model path's products sum their splits in a
+// fixed order (split_sum.cuh).
 struct AtomicAdd {
   float* p;
   int ld;
-  bool vec;
-  static constexpr bool kAdds = true;
   __device__ __forceinline__ void operator()(int m, int n, float v) const {
     atomicAdd(p + (size_t)m * ld + n, v);
-  }
-  __device__ __forceinline__ void four(int m, int n, float4 v, int cols) const {
-    if (vec && cols == 4) {
-      atomicAdd(reinterpret_cast<float4*>(p + (size_t)m * ld + n), v);
-      return;
-    }
-    const float w[4] = {v.x, v.y, v.z, v.w};
-    for (int i = 0; i < cols; ++i) (*this)(m, n + i, w[i]);
   }
 };
 

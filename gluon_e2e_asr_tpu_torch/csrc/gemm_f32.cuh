@@ -57,13 +57,17 @@
 //     16 tiles; dW_h 256 x 1024), split s of S takes the k-tiles s, s + S,
 //     s + 2S, ...: the live frames, a prefix of each utterance, spread
 //     evenly over the splits, where contiguous ranges left some splits
-//     twice the live tiles of others. The splits add their partial sums
-//     into a zeroed output by f32 atomics (16-byte red.global.add.v4.f32
-//     where aligned), so the order of those few additions varies from run
-//     to run.
+//     twice the live tiles of others. Each split stores its whole partial
+//     tile (SplitStore: split 0 into the output, split s > 0 into slice
+//     s - 1 of a workspace; zeros where it met no live tile), and
+//     split_sum.cuh adds them in the order 0, 1, ..., S - 1 after the
+//     launch: no float atomics, the same bits on every run (the splits'
+//     k-tiles and the live-first rows set the speed, not that order).
 //   * db: the dW_x blocks of the first row tile sum the staged dg tiles'
-//     columns as they pass (one atomic a column a split), in place of a
-//     second pass over dg.
+//     columns as they pass, in place of a second pass over dg: each half
+//     of the block (tid / 128) its share of a stage's kBK rows, stored as
+//     a partial row of its own (2 a split), which split_sum.cuh adds up
+//     in a fixed order too.
 //   * Two jobs of one shape in one launch (dW_h of both directions): more
 //     output tiles, so fewer splits and longer walks a block.
 //   * Live rows first: where the rows are frames and the product is 0 past
@@ -71,7 +75,7 @@
 //     takes the frames at its positions of the order "every live frame,
 //     then every other" (LiveRows), so that the blocks past the live
 //     frames hold only dead ones: they skip the product and write zeros
-//     (adding into a zeroed output, nothing). The rows' addresses go
+//     (their partial tiles too, when split). The rows' addresses go
 //     through a table in shared memory; the loads of a row tile gather
 //     rows, 64 bytes at a time.
 //
@@ -83,10 +87,10 @@
 //                           contiguous index, at most 4 (0 outside);
 //   const float* addr(r, c) that element's address (where span > 0);
 //   const float* base()     any address inside the operand.
-// Epilogues (gemm.cuh's Store and AtomicAdd, bilstm_fwd.cu's ProjEpi,
-// bilstm_bwd.cu's GateActs): operator()(m, n, v), four(m, n, v, cols)
-// for columns n .. n + cols - 1 (cols <= 4), and kAdds (accumulates into
-// a zeroed output).
+// Epilogues (SplitStore's SplitPart, bilstm_fwd.cu's ProjEpi,
+// bilstm_bwd.cu's GateActs): operator()(m, n, v) and four(m, n, v, cols)
+// for columns n .. n + cols - 1 (cols <= 4); each element of the output
+// is stored once, by one thread (a SplitStore: once a split).
 
 #pragma once
 
@@ -124,6 +128,48 @@ inline int splits(int M, int N, int K, int sms) {
   const int most = cdiv(K, kBK) / kMinTiles;
   const int s = want < most ? want : most;
   return s > 1 ? s : 1;
+}
+
+// One split's epilogue of a SplitStore: stores into p (rows of ld floats),
+// 16 bytes at a time where vec.
+struct SplitPart {
+  float* p;
+  int ld;
+  bool vec;
+  __device__ __forceinline__ void operator()(int m, int n, float v) const {
+    p[(size_t)m * ld + n] = v;
+  }
+  __device__ __forceinline__ void four(int m, int n, float4 v, int cols) const {
+    if (vec && cols == 4) {
+      *reinterpret_cast<float4*>(p + (size_t)m * ld + n) = v;
+      return;
+    }
+    const float w[4] = {v.x, v.y, v.z, v.w};
+    for (int i = 0; i < cols; ++i) (*this)(m, n + i, w[i]);
+  }
+};
+
+// Split-K's partial tiles, for split_sum.cuh to add in a fixed order:
+// split 0 stores into the output `out`, split s > 0 into slice s - 1 of
+// the workspace `ws` (slices `slice` floats apart, rows of ld floats as
+// the output's). vec: out and ws 16-byte aligned, ld and slice multiples
+// of 4.
+struct SplitStore {
+  float* out;
+  float* ws;
+  long long slice;
+  int ld;
+  bool vec;
+};
+
+// The epilogue of split s: a SplitStore's part, any other epilogue itself
+// (those run unsplit).
+template <class Epi>
+__device__ __forceinline__ Epi split_part(const Epi& e, int) {
+  return e;
+}
+__device__ __forceinline__ SplitPart split_part(const SplitStore& e, int s) {
+  return SplitPart{s == 0 ? e.out : e.ws + (s - 1) * e.slice, e.ld, e.vec};
 }
 
 // The walk over k where k is a frame b*T + t of K = B*T: a tile of kBK
@@ -338,8 +384,9 @@ __device__ __forceinline__ void multiply(const float* As, const float* Bs,
 // k-tiles z % nsplit, + nsplit, + 2 nsplit, ... that `walk` finds live; its rows are m0 .. m0 + 127, or, in the column tiles
 // `order` names (A contiguous along k), the frames at those positions of
 // the live-first order. colsum (non-null with B = dg, contiguous along n):
-// job 0's blocks of the first row tile add the column sums of every
-// staged B tile into colsum[n] (db).
+// job 0's blocks of the first row tile store the column sums of the
+// staged B tiles, half h = tid / 128 of split s into row 2s + h of
+// colsum [2 nsplit][N] (db's partial rows).
 template <class A, class B, class Epi>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 ring_kernel(A a0, A a1, B b0, B b1, Epi e0, Epi e1, int M, int N, int K,
@@ -358,8 +405,8 @@ ring_kernel(A a0, A a1, B b0, B b1, Epi e0, Epi e1, int M, int N, int K,
   const int job = blockIdx.z / nsplit;
   const A a = job ? a1 : a0;
   const B b = job ? b1 : b0;
-  const Epi epi = job ? e1 : e0;
-  const int t_begin = blockIdx.z % nsplit;
+  const int t_begin = blockIdx.z % nsplit;  // the split
+  const auto epi = split_part(job ? e1 : e0, t_begin);
   const int t_end = cdiv(K, kBK);
 
   float acc[8][8];
@@ -382,7 +429,6 @@ ring_kernel(A a0, A a1, B b0, B b1, Epi e0, Epi e1, int M, int N, int K,
       live_row = m - bb * order.T < __ldg(order.lens + bb);
     }
     skip = !__syncthreads_or(live_row);
-    if (skip && Epi::kAdds) return;
   } else {
     __syncthreads();
   }
@@ -434,7 +480,10 @@ ring_kernel(A a0, A a1, B b0, B b1, Epi e0, Epi e1, int M, int N, int K,
       }
     }
   }
-  if (sums && n0 + tid % 128 < N) atomicAdd(colsum + n0 + tid % 128, csum);
+  static_assert(kThreads == 2 * 128, "db: two halves of the 128 columns");
+  if (sums && n0 + tid % 128 < N) {
+    colsum[(size_t)(2 * t_begin + tid / 128) * N + n0 + tid % 128] = csum;
+  }
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -475,8 +524,9 @@ unsigned long long SmemRaised<Kernel>::devices = 0;
 }  // namespace
 
 // C = A . B (M x N, depth K) on stream st, its k-tiles dealt to `splits`
-// splits (the epilogue must accumulate when there are several); with
-// `second`, a second job of the same shape in the same launch.
+// splits (at most the k-tiles; a SplitStore epilogue when there are
+// several, whose parts split_sum.cuh then adds); with a1, b1, e1, a second
+// job of the same shape in the same launch.
 template <class A, class B, class Epi>
 cudaError_t launch(A a, B b, Epi epi, int M, int N, int K, int splits,
                    Frames walk, LiveRows order, float* colsum,

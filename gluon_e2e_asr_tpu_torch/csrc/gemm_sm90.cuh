@@ -61,7 +61,8 @@
 //     read down its staged columns, so the bf16 tiles are always K-major.
 //     The weight gradients' producers also sum the staged dg columns for
 //     db (the f32 sum of the unrounded dg), in place of a pass of their
-//     own over dg.
+//     own over dg: each producer warpgroup its half of a stage's rows, a
+//     partial row of its own a split.
 //   * Frames in units of 64 of one utterance, (b, t0) with t0 a multiple
 //     of 64: the rows of dx and the depth of dW_x and dW_h. The tensor
 //     maps are 3-D ([B][T][cols]), so a unit is one box, its rows past T
@@ -74,10 +75,14 @@
 //     stage nor a barrier.
 //   * Split-K: the weight gradients' few output tiles (dW_x 200, the two
 //     dW_h 60 at the flagship's layer 1) split the unit list into
-//     contiguous ranges so that there are about two tiles an SM; the
-//     splits add their partial sums by f32 atomics into zeroed outputs,
-//     so the order of those few additions varies from run to run. The
-//     m-tiles of one (n-tile, split) are neighbouring tiles, and so are
+//     contiguous ranges so that there are about two tiles an SM. Each
+//     split stores its whole partial tile (zeros where its range holds no
+//     live unit): split 0 into the output, split s > 0 into slice s - 1
+//     of a workspace; db's partial rows likewise. split_sum.cuh adds them
+//     in the order 0, 1, ..., S - 1 after the launch: no float atomics,
+//     the same bits on every run, and no split waits on another inside
+//     this persistent kernel. The m-tiles of one (n-tile, split) are
+//     neighbouring tiles, and so are
 //     dx's n-tiles of one pair of units: the blocks, which take
 //     neighbouring tiles at the same time, read the same dg tile together
 //     and find it in L2.
@@ -103,6 +108,7 @@
 #include <cstdint>
 
 #include "sm90.cuh"
+#include "split_sum.cuh"
 
 namespace gemm_sm90 {
 
@@ -526,11 +532,13 @@ dx_kernel(const __grid_constant__ CUtensorMap dg_map,
 }
 
 // ---------------------------------------------------------------------------
-// dW_x and dW_h: out[M, N] += A^T . dg over the live units of a split
+// dW_x and dW_h: out[M, N] = A^T . dg, a split's part over its live units
 // ---------------------------------------------------------------------------
 
 struct Job {
-  float* out;           // [M, N], accumulated into
+  float* out;           // [M, N], split 0's part
+  float* ws;            // split s > 0's part at ws + (s - 1) * slice
+  long long slice;
   int M, N;
   int a_from_y;         // A is h_prev (the y map), else x (the x map)
   int a_col0, a_shift;  // A's first column in its map; its frame shift
@@ -542,7 +550,8 @@ struct WgradArgs {
   Job job[3];
   int njobs, splits, tiles;
   const int* lens;
-  float* db;            // [8H], accumulated into by job 0's first m-tile, or null
+  float* db;            // db's partial rows [splits][kProducers][8H] (job
+                        // 0's first m-tile), or null
   int B, T;
 };
 
@@ -551,7 +560,9 @@ struct WgradArgs {
 // dg_map: dg as [B][T][8H], each f32, box {128, 64, 1}, both operands
 // staged and rounded. The producer's threads, which read every staged dg
 // column, also sum them for db (job 0's first m-tile only: the f32 sum
-// of the unrounded dg).
+// of the unrounded dg), each into its split's and warpgroup's partial
+// row; a tile with no live unit, which the producers never see, has its
+// partial rows zeroed by the consumers.
 struct WgradPlan {
   static constexpr bool kRingB = false;
   const CUtensorMap* x_map;
@@ -561,8 +572,8 @@ struct WgradPlan {
   const int* lens;
   int U, units, tiles;
   struct Tile {
-    float* out;
-    int M, N, m0, n0, a_col, a_shift, b_col, begin, end;
+    float* out;  // the split's part of the output
+    int M, N, m0, n0, a_col, a_shift, b_col, begin, end, split;
     bool a_from_y, db;
   };
   __device__ Tile tile(int t) const {
@@ -578,7 +589,8 @@ struct WgradPlan {
     const int split = local / j.nt;
     x.begin = (int)((long long)split * units / a.splits);
     x.end = (int)((long long)(split + 1) * units / a.splits);
-    x.out = j.out;
+    x.split = split;
+    x.out = split == 0 ? j.out : j.ws + (split - 1) * j.slice;
     x.M = j.M;
     x.N = j.N;
     x.a_from_y = j.a_from_y != 0;
@@ -614,7 +626,9 @@ struct WgradPlan {
   }
   __device__ void finish(const Tile& x, int p) const {
     const int n = x.n0 + p % kBM;
-    if (x.db && n < x.N) atomicAdd(args->db + n, col);
+    if (x.db && n < x.N) {
+      args->db[(size_t)(x.split * kProducers + p / kBM) * x.N + n] = col;
+    }
     col = 0.0f;
   }
 };
@@ -639,9 +653,16 @@ wgrad_kernel(const __grid_constant__ CUtensorMap x_map,
     setmaxnreg_inc<kConsumerRegs>();
     const int w = wg - kProducers;
     const int lane = threadIdx.x & 31, warp = (threadIdx.x / 32) & 3;
+    static_assert(kProducers == 2, "a consumer warpgroup a producer's db row");
     consume(s, plan, w, [&](const WgradPlan::Tile& x, int steps,
                             float (&acc)[64]) {
-      if (steps == 0) return;
+      if (steps == 0 && x.db) {  // no producer saw the tile
+        const int n = x.n0 + threadIdx.x % 128;
+        if (n < x.N) {
+          args.db[(size_t)(x.split * kProducers + w) * x.N + n] = 0.0f;
+        }
+      }
+      // every tile stores its part, zeros where it had no live unit
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = x.m0 + 64 * w + warp * 16 + (lane >> 2) + 8 * h;
@@ -650,10 +671,11 @@ wgrad_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
         for (int j = 0; j < kBN / 8; ++j) {
           const int n = x.n0 + 8 * j + 2 * (lane & 3);
-          // N is even (8H, 4H), so a pair is 8-byte aligned
+          // N is even (8H, 4H) and slices start 16-byte aligned, so a
+          // pair is 8-byte aligned
           if (n < x.N) {
-            atomicAdd(reinterpret_cast<float2*>(row + n),
-                      make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+            *reinterpret_cast<float2*>(row + n) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
           }
         }
       }
@@ -716,27 +738,56 @@ inline int wgrad_splits(int tiles, int units, int sms) {
   return want < most ? want : most;
 }
 
+// The weight gradients' split plan: dW_x (with x) and both dW_h over the
+// B*ceil(T/64) units. *splits gets the splits; returns the floats of the
+// workspace their parts take: each job's S - 1 slices (split_sum::slice
+// of its M*N), then, with x, db's kProducers * S partial rows of 8H.
+inline long long wgrad_workspace(int B, int T, int D, int H, bool with_x,
+                                 int sms, int* splits) {
+  const auto tiles = [](int M, int N) {
+    return ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  };
+  const int units = B * ((T + kUnit - 1) / kUnit);
+  const int S = wgrad_splits((with_x ? tiles(D, 8 * H) : 0)
+                             + 2 * tiles(H, 4 * H), units, sms);
+  *splits = S;
+  long long f = 2 * (S - 1) * split_sum::slice((long long)H * 4 * H);
+  if (with_x) {
+    f += (S - 1) * split_sum::slice((long long)D * 8 * H)
+         + (long long)kProducers * S * 8 * H;
+  }
+  return f;
+}
+
 // dW_x [D, 8H] and db [8H] (when x is given) and dW_h of both directions
-// [H, 4H], accumulated into zeroed outputs. x [B,T,D] with rows of ldx
-// floats; y [B,T,*] with rows of ldy floats, the forward direction's h at
-// columns 0 .. H, the backward direction's at yb .. yb + H (ldx, ldy and
-// yb multiples of 4); dg [B,T,8H].
+// [H, 4H], every element written: wgrad_kernel's parts, then their sum
+// by split_sum_kernel. x [B,T,D] with rows of ldx floats; y [B,T,*] with
+// rows of ldy floats, the forward direction's h at columns 0 .. H, the
+// backward direction's at yb .. yb + H (ldx, ldy and yb multiples of 4);
+// dg [B,T,8H]; ws the workspace of wgrad_workspace's floats (16-byte
+// aligned).
 inline int launch_wgrad(const float* x, int ldx, int D, const float* y,
                         int ldy, int yb, const float* dg, const int* lens,
                         float* dwx, float* db, float* dwhf, float* dwhb, int B,
-                        int T, int H, cudaStream_t st) {
+                        int T, int H, float* ws, cudaStream_t st) {
   CUtensorMap x_map{}, y_map, dg_map;
   if ((x != nullptr && !make_map(&x_map, x, D, T, B, ldx, kBM, kUnit)) ||
       !make_map(&y_map, y, ldy, T, B, ldy, kBM, kUnit) ||
       !make_map(&dg_map, dg, 8 * H, T, B, 8 * H, kBN, kUnit)) {
     return kNoTensorMap;
   }
+  const int sms = num_sms();
+  int splits = 1;
+  wgrad_workspace(B, T, D, H, x != nullptr, sms, &splits);
   WgradArgs args{};
-  int n = 0, tiles = 0;
+  int n = 0;
   auto add = [&](float* out, int M, int N, int from_y, int a_col0, int shift,
                  int b_col0) {
     Job& j = args.job[n++];
     j.out = out;
+    j.slice = split_sum::slice((long long)M * N);
+    j.ws = ws;
+    ws += (splits - 1) * j.slice;
     j.M = M;
     j.N = N;
     j.a_from_y = from_y;
@@ -745,16 +796,14 @@ inline int launch_wgrad(const float* x, int ldx, int D, const float* y,
     j.b_col0 = b_col0;
     j.mt = (M + kBM - 1) / kBM;
     j.nt = (N + kBN - 1) / kBN;
-    tiles += j.mt * j.nt;
   };
   if (x != nullptr) add(dwx, D, 8 * H, 0, 0, 0, 0);
   add(dwhf, H, 4 * H, 1, 0, -1, 0);       // h_prev = y at t - 1
   add(dwhb, H, 4 * H, 1, yb, +1, 4 * H);  // h_prev = y at t + 1
-  const int U = (T + kUnit - 1) / kUnit, sms = num_sms();
   args.njobs = n;
-  args.splits = wgrad_splits(tiles, B * U, sms);
+  args.splits = splits;
   args.lens = lens;
-  args.db = x != nullptr ? db : nullptr;
+  args.db = x != nullptr ? ws : nullptr;  // after the jobs' slices
   args.B = B;
   args.T = T;
   args.tiles = 0;
@@ -769,7 +818,15 @@ inline int launch_wgrad(const float* x, int ldx, int D, const float* y,
   if (e != cudaSuccess) return (int)e;
   wgrad_kernel<<<blocks, kThreads, WgradRing::kSmemBytes, st>>>(x_map, y_map,
                                                                dg_map, args);
-  return (int)cudaGetLastError();
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  split_sum::Seg segs[4];
+  for (int i = 0; i < n; ++i) {
+    const Job& j = args.job[i];
+    segs[i] = {j.out, j.ws, (long long)j.M * j.N, j.slice, splits - 1, 1};
+  }
+  const int N8 = 8 * H;
+  segs[n] = {db, args.db, x != nullptr ? N8 : 0, N8, kProducers * splits, 0};
+  return (int)split_sum::launch(segs, n + 1, sms, st);
 }
 
 }  // namespace gemm_sm90

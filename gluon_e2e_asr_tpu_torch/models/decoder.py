@@ -47,7 +47,8 @@ from gluon_e2e_asr_tpu_torch.config import ModelConfig
 from gluon_e2e_asr_tpu_torch.models.encoder import lecun_normal_
 from gluon_e2e_asr_tpu_torch.models.lstm import matmul_cd
 from gluon_e2e_asr_tpu_torch.ops.las_decoder import (
-    ATT_KINDS, Weights, decoder_step, init_state, las_decoder)
+    ATT_KINDS, Weights, build_loc_band_cmajor, decoder_step, init_state,
+    las_decoder)
 
 # build_loc_band returns None above this many band entries (T*T*C, 64 MB
 # of f32), as the JAX decoder does; the convolution runs instead.
@@ -153,18 +154,16 @@ class AttentionDecoder(nn.Module):
     def build_loc_band(self, T: int) -> Optional[torch.Tensor]:
         """The location convolution as a banded matrix [T, T*C], (t,c)
         minor: band[s, t*C + c] = filter[s - t + (w-1)//2, 0, c]. None
-        when T*T*C exceeds MAX_BAND_ENTRIES (the JAX ``build_loc_band``)."""
-        C, w = self.cfg.loc_conv_channels, self.cfg.loc_conv_width
+        when T*T*C exceeds MAX_BAND_ENTRIES (the JAX ``build_loc_band``).
+        The channel-major band's entries reordered: its gradient sums the
+        filter's windows in a fixed order, where gathering the filter by a
+        [T, T] index would scatter T*T*C entries onto w*C atomically on the
+        card."""
+        C = self.cfg.loc_conv_channels
         if T * T * C > MAX_BAND_ENTRIES:
             return None
-        dev = self.loc_filter.device
-        k = (torch.arange(T, device=dev)[:, None]
-             - torch.arange(T, device=dev)[None, :] + (w - 1) // 2)
-        valid = (k >= 0) & (k < w)
-        band = torch.where(valid[..., None],
-                           self.loc_filter[k.clamp(0, w - 1), 0, :],
-                           torch.zeros((), device=dev))
-        return band.reshape(T, T * C)
+        band = build_loc_band_cmajor(self.loc_filter, T)  # [T, C*T]
+        return band.view(T, C, T).transpose(1, 2).reshape(T, T * C)
 
     def _loc_feature(self, att_prev: torch.Tensor,
                      loc_band: Optional[torch.Tensor]) -> torch.Tensor:

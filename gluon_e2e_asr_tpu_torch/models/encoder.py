@@ -79,10 +79,37 @@ class Conv3x3(nn.Module):
         in ``compute_dtype``: flax casts the input, the kernel and the bias
         to its ``dtype``. TF32 stays off in f32."""
         cd = compute_dtype
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            return nn.functional.conv2d(
-                x, self.kernel.permute(3, 2, 0, 1).to(cd), self.bias.to(cd),
-                padding=1)
+        return _Conv3x3Fn.apply(x, self.kernel.permute(3, 2, 0, 1).to(cd),
+                                self.bias.to(cd))
+
+
+def _cudnn_flags():
+    """cuDNN as the VGG2L convolutions take it, forward and backward: no
+    TF32, and only its deterministic algorithms (some of its weight
+    gradients add atomically, in an order that varies from run to run),
+    chosen here for these convolutions alone."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
+class _Conv3x3Fn(torch.autograd.Function):
+    """A 3x3 SAME convolution (NCHW, weight [Cout, Cin, 3, 3]) whose
+    forward and backward both run under ``_cudnn_flags`` (autograd would
+    run the backward under the process's flags)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        with _cudnn_flags():
+            return nn.functional.conv2d(x, w, b, padding=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with _cudnn_flags():
+            return torch.ops.aten.convolution_backward(
+                g, x, w, [w.shape[0]], [1, 1], [1, 1], [1, 1], False, [0, 0],
+                1, list(ctx.needs_input_grad))
 
 
 class VGG2L(nn.Module):

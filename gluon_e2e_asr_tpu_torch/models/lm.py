@@ -35,6 +35,7 @@ from torch import nn
 
 from gluon_e2e_asr_tpu_torch.models.encoder import lecun_normal_
 from gluon_e2e_asr_tpu_torch.models.lstm import lstm_cell_step, lstm_scan
+from gluon_e2e_asr_tpu_torch.ops.onehot import embed
 
 _ZIP_MAGIC = b"PK\x03\x04"  # torch.save's archive format
 
@@ -98,7 +99,7 @@ class LSTMLM(nn.Module):
         [B] (valid input positions) -> logits [B, L, V]; positions past
         ``lens`` see zero LSTM outputs, as in JAX."""
         _check_f32(self.embed)
-        x = self.embed[tokens_in.long()]  # [B, L, E]
+        x = embed(self.embed, tokens_in)  # [B, L, E]
         for w_x, b, w_h in self.cells():
             x = lstm_scan(torch.matmul(x, w_x) + b, lens, w_h)
         return torch.matmul(x, self.out_w) + self.out_b

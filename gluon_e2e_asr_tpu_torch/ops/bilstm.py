@@ -80,6 +80,7 @@ above.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -234,8 +235,9 @@ _ENTRIES = {"bilstm_fwd": {"bilstm_fwd": (10, 8), "bilstm_fwd_proj": (6, 8),
                            "bilstm_v1_fwd": (8, 6),
                            "bilstm_fwd_recur": (6, 4),
                            "bilstm_fwd_cluster_plan": (2, 3)},
-            "bilstm_bwd": {"bilstm_bwd_products": (11, 8),
-                           "bilstm_v1_bwd": (10, 6),
+            "bilstm_bwd": {"bilstm_bwd_products": (12, 8),
+                           "bilstm_v1_bwd": (11, 6),
+                           "bilstm_bwd_workspace": (1, 6),
                            "bilstm_v1_gates": (7, 3),
                            "bilstm_bwd_recur": (7, 4),
                            "bilstm_bwd_cluster_plan": (2, 3)}}
@@ -535,6 +537,28 @@ bilstm_fused_fwd_recur_kernel.launches = 0
 bilstm_fused_fwd_recur_kernel.cluster_launches = 0
 
 
+@functools.lru_cache(maxsize=256)
+def _workspace_floats(dev: torch.device, B, T, D, H, with_x: bool,
+                      bf16: bool) -> int:
+    """The library's ``bilstm_bwd_workspace`` for a shape on ``dev`` (its
+    split plans take the card's SMs), asked once a shape."""
+    n = ctypes.c_longlong(0)
+    _launch("bilstm_bwd", "bilstm_bwd_workspace", dev, (
+        ctypes.addressof(n), B, T, D, H, int(with_x), int(bf16)),
+        f"B={B} T={T} D={D} H={H}")
+    return n.value
+
+
+def _products_workspace(dev, B, T, D, H, with_x: bool, bf16: bool):
+    """The workspace K1-bwd's products (``with_x``) or K7-bwd's dW_h take
+    at a shape, from PyTorch's caching allocator: the parts of their
+    split-K splits, which ``csrc/split_sum.cuh`` adds in the fixed order
+    0, 1, ..., S - 1. Returns (the tensor, its pointer or None)."""
+    n = _workspace_floats(dev, B, T, D, H, with_x, bf16)
+    ws = torch.empty(n, device=dev, dtype=torch.float32)
+    return ws, (ws.data_ptr() if n else None)
+
+
 def _h_rows(y):
     """The h stream y [B,T,2H] as the bf16 products' tensor maps take it:
     rows of a multiple of 16 bytes with the backward direction's h at a
@@ -643,11 +667,12 @@ def bilstm_fused_bwd_products_kernel(x, lens, w_x, y, dg,
         if D % 4:
             x = torch.nn.functional.pad(x, (0, -D % 4))
         y, yb = _h_rows(y)
+    ws, ws_ptr = _products_workspace(dev, B, T, D, H, True, bf16)
     _launch("bilstm_bwd", "bilstm_bwd_products", dev, (
         x.data_ptr(), lens.data_ptr(), w_x.data_ptr(),
         w_x16.data_ptr() if bf16 else None, y.data_ptr(),
         dg.data_ptr(), dx.data_ptr(), dw_x.data_ptr(), db.data_ptr(),
-        dw_hf.data_ptr(), dw_hb.data_ptr(), B, T, D, H, x.shape[-1],
+        dw_hf.data_ptr(), dw_hb.data_ptr(), ws_ptr, B, T, D, H, x.shape[-1],
         y.shape[-1], yb, int(bf16)), f"B={B} T={T} D={D} H={H}")
     bilstm_fused_bwd_products_kernel.launches += 1
     bilstm_fused_bwd_products_kernel.f32_launches += not bf16
@@ -939,11 +964,12 @@ def bilstm_pallas_bwd_kernel(lens, w_hf, w_hb, y, c, acts, dy,
             acts = _recompute_gates(xg, lens, w_hf, w_hb, y)
             bilstm_pallas_bwd_kernel.gate_launches += 1
         yh, yb = _h_rows(y) if bf16 else (y, H)
+        ws, ws_ptr = _products_workspace(dev, B, T, 0, H, False, bf16)
         _launch("bilstm_bwd", "bilstm_v1_bwd", dev, (
             lens.data_ptr(), wtf.data_ptr(), wtb.data_ptr(), yh.data_ptr(),
             c.data_ptr(), acts.data_ptr(), dy.data_ptr(), dg.data_ptr(),
-            dw_hf.data_ptr(), dw_hb.data_ptr(), B, T, H, yh.shape[-1], yb,
-            int(bf16)),
+            dw_hf.data_ptr(), dw_hb.data_ptr(), ws_ptr, B, T, H,
+            yh.shape[-1], yb, int(bf16)),
             f"B={B} T={T} H={H}")
         bilstm_pallas_bwd_kernel.launches += 1
         bilstm_pallas_bwd_kernel.cluster_launches += cluster

@@ -360,10 +360,11 @@ class CTCLoss(torch.autograd.Function):
         B, T, V = logp.shape
         post = ctc_beta_post(emit, time_mask, allow_skip, state_valid,
                              2 * label_lens, alpha, ll)  # [T,B,S]
-        # States -> vocabulary: the JAX package's one-hot product.
-        posterior = torch.zeros_like(logp).scatter_add_(
-            2, ext.long()[:, None, :].expand(B, T, ext.shape[1]),
-            post.permute(1, 0, 2))
+        # States -> vocabulary: the JAX package's one-hot product (a
+        # matmul sums in a fixed order; a scatter-add into the vocabulary
+        # would add atomically on the card, in an order that varies)
+        onehot = torch.nn.functional.one_hot(ext.long(), V).to(post.dtype)
+        posterior = torch.einsum("tbs,bsv->btv", post, onehot)
         grad = (torch.exp(logp) - posterior) * time_mask.T[:, :, None]
         grad = torch.where(ok[:, None, None], grad * g[:, None, None], 0.0)
         return grad, None, None, None, None

@@ -35,8 +35,10 @@ nothing else; with gradients enabled it runs through ``LASDecoderFused``,
 a ``torch.autograd.Function`` whose forward and backward dispatch the
 same way. The weight gradients that the JAX package computes outside its
 kernel as XLA einsums (``pallas_decoder.py:856-874``) are
-``torch.matmul`` / ``index_add_`` here, for both routes, the band's
-among them; the filter's gradient comes from the band's by autograd
+``torch.matmul`` here, for both routes, the band's among them (the
+embedding's a one-hot product, ``ops/onehot.py``: an ``index_add_``
+would add atomically on the card, in an order that varies from run to
+run); the filter's gradient comes from the band's by autograd
 through ``build_loc_band_cmajor``, as JAX's does. The gradient of
 ``enc_proj`` is accumulated inside the kernels.
 
@@ -63,6 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from gluon_e2e_asr_tpu_torch import _build
+from gluon_e2e_asr_tpu_torch.ops.onehot import embed, rows_sum
 
 NEG = -1e30
 ATT_KINDS = ("dot", "add", "loc")
@@ -176,7 +179,7 @@ def decoder_step(w: Weights, state, token, enc, enc_proj, enc_mask,
     B, T = enc.shape[0], enc.shape[1]
     A = w.att_q.shape[1]
     K = beams or 1
-    emb = r(w.embed[token.long()])
+    emb = r(embed(w.embed, token))
     x = torch.cat([emb, state["context"]], dim=-1)
     hs, cs = [], []
     for layer, (w_x, b_x, w_h) in enumerate(
@@ -364,7 +367,7 @@ las_decoder_bwd_plain.calls = 0
 def weight_grads(streams, resid, dlogits, w: Weights) -> Dict[str, torch.Tensor]:
     """The gradients the JAX package forms outside its backward kernel
     (``pallas_decoder.py:856-874``), from the kernel's per-step streams:
-    one product (or scatter) each, in f32. In loc mode also the band's,
+    one product each (the embedding's a one-hot product), in f32. In loc mode also the band's,
     d_band[s, k] = sum over (b, i) of att[b,i-1,s] dfct[b,i,k]."""
     h_seq, _, att_seq, ctx_seq, tok_seq = resid
     dgates, dqb = streams["dgates"], streams["dqb"]
@@ -380,8 +383,8 @@ def weight_grads(streams, resid, dlogits, w: Weights) -> Dict[str, torch.Tensor]
         "att_b": dqb.reshape(-1, A).sum(0),
         "w_out": flat(torch.cat([h_seq, ctx_seq], -1)).T @ flat(dlogits),
         "b_out": dlogits.reshape(-1, V).sum(0),
-        "embed": torch.zeros_like(w.embed, dtype=torch.float32).index_add_(
-            0, tok_seq.reshape(-1).long(), streams["demb"].reshape(-1, E)),
+        "embed": rows_sum(tok_seq.reshape(-1), streams["demb"].reshape(-1, E),
+                          w.embed.shape[0]),
         "enc": torch.bmm(att_seq.transpose(1, 2), streams["dctx"]),
     }
     if streams.get("dfct") is not None:

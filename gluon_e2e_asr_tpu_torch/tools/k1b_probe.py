@@ -68,12 +68,14 @@ import torch
 from gluon_e2e_asr_tpu_torch import _build
 from gluon_e2e_asr_tpu_torch.ops import bilstm as K
 
-# (name, B, T, D, H): the flagship's layers at the 4.0 s bucket and
-# milestone 2's first layer at its 4.0 s bucket.
+# (name, B, T, D, H): the flagship's layers at the 4.0 s bucket,
+# milestone 2's first layer at its 4.0 s bucket and ls100_full.yaml's
+# first layer at its 18.38 s bucket (its dynamic batch there).
 SHAPES = (("flagship layer 0", 96, 398, 80, 320),
           ("flagship layer 1", 96, 199, 1280, 320),
           ("flagship layer 2", 96, 100, 1280, 320),
-          ("milestone2 layer 0", 16, 398, 80, 256))
+          ("milestone2 layer 0", 16, 398, 80, 256),
+          ("ls100_full 18.38 s layer 0", 32, 1836, 80, 320))
 # name -> [(text of csrc/bilstm_bwd.cu or of csrc/common.cuh, its
 # replacement)]: each cuts one piece of bwd_cluster_kernel's step.
 CUTS = {
@@ -107,8 +109,13 @@ F32_SHAPES = (("milestone layer 0", 16, 398, 80, 256),
               ("milestone layer 1", 16, 199, 1024, 256),
               ("milestone layer 2", 16, 100, 1024, 256))
 # The f32 kernels' names (ring_kernel's namespace; the first kernels),
-# and the memsets of their zeroed outputs, in a profiler trace.
-F32_KERNELS = ("gemm_f32", "proj_f32_kernel", "colsum_kernel", "Memset")
+# the fixed-order sum of the splits' parts (split_sum_kernel) and the
+# memsets of the first kernels' zeroed outputs, in a profiler trace.
+F32_KERNELS = ("gemm_f32", "proj_f32_kernel", "colsum_kernel", "split_sum",
+               "Memset")
+# The bf16 products' kernels (dx_kernel, wgrad_kernel) and the fixed-order
+# sum of wgrad_kernel's splits, in a profiler trace.
+BF16_KERNELS = ("gemm_sm90", "split_sum")
 # The build variant of csrc/bilstm_bwd.cu and csrc/bilstm_fwd.cu with the
 # f32 route's first kernels in place of ring_kernel.
 F32_OLD = {"old": [("#define K1_F32_TILED 1", "#define K1_F32_TILED 0")]}
@@ -343,14 +350,14 @@ def products(iters: int, dev, card: str, ablate: bool) -> dict:
         run = lambda: K.bilstm_fused_bwd_products_kernel(  # noqa: E731
             x, lens, w_x, y, dg, bf)
         ms = {"wgmma": event_ms(run, iters)}
-        by_kernel = {"wgmma": kernel_ms(run, "gemm_sm90")}
+        by_kernel = {"wgmma": kernel_ms(run, BF16_KERNELS)}
         try:
             _build._libs["bilstm_bwd"] = wmma
             ms["wmma"] = event_ms(run, iters)
             for cut, lib in cuts.items():
                 _build._libs["bilstm_bwd"] = lib
                 ms[cut] = event_ms(run, iters)
-                by_kernel[cut] = kernel_ms(run, "gemm_sm90")
+                by_kernel[cut] = kernel_ms(run, BF16_KERNELS)
         finally:
             _build._libs["bilstm_bwd"] = kernel_lib
         ms["cublas"] = event_ms(products_library(x, w_x, y, dg), iters)

@@ -11,7 +11,7 @@ with the card and nvcc, run them with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_train.py``.
 
 Tolerances. f32: only the order of the sums differs (the weight
-gradients add split-K partial sums atomically), 1e-4 of the largest
+gradients sum split-K partial tiles), 1e-4 of the largest
 magnitude. bf16: the kernel reads the gate activations K1-fwd saved
 while the plain version recomputes them, so a bf16 rounding of dg can
 flip and travel through the reverse recursion: 2e-2 of the largest

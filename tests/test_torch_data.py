@@ -309,5 +309,5 @@ def test_the_port_imports_nothing_of_the_jax_package():
                  "tools.compute_cmvn", "tools.average_ckpts",
                  "tools.tune_decode", "tools.plot_attention", "utils.flops",
                  "tools.run_milestones", "tools.wer_ci",
-                 "tools.convergence"):
+                 "tools.convergence", "ops.onehot", "tools.step_probe"):
         assert f"gluon_e2e_asr_tpu_torch.{name}" in proc.stdout, name
