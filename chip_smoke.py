@@ -5,7 +5,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device, ``nvcc`` and ``nvidia-smi``; it imports no JAX. (``python3
 chip_smoke.py --dp-worker <dir>`` is one rank of phase 7b, which starts
 its ranks itself; ``--traces <out>`` the child process of phase 8;
-``--deterministic <out>`` that of phase 6e.)
+``--deterministic <out>`` that of phase 6e; ``--repeat-run <spec>`` the
+second training of a repeat, phases 14ar..14dr and 16r.)
 Phases, each printing JSON lines:
 
 1. device: the card, and ``nvidia-smi``'s name and power limit;
@@ -134,9 +135,11 @@ Phases, each printing JSON lines:
    versions, its bound and cuDNN's bidirectional LSTM; a step at the 4.0 s bucket with the VGG front's
    share (profiler, and the front alone by CUDA events) and a beam decode
    of that batch, timed;
-6e. reproducibility: each of REPRO_CASES (the dot and loc flagships at
-   bench.py's shape, add attention, vgg_blstm, milestone 5 in f32, and
-   on milestone 4 the stacked decoder and gradient accumulation) run twice for REPRO_STEPS updates from the
+6e. reproducibility: each of REPRO_CASES (ls100_full's largest bucket,
+   B=32 at 18.38 s on synthetic audio with its BPE 128 labels, the dot
+   and loc flagships at bench.py's shape, add attention, vgg_blstm,
+   milestone 5 in f32, and on milestone 4 the stacked decoder and
+   gradient accumulation) run twice for REPRO_STEPS updates from the
    same seed through the kernels, every parameter, gradient, optimizer
    slot and the generator state ``torch.equal``; then a step of each in
    a child process (``--deterministic``) under
@@ -273,7 +276,13 @@ its own:
    epoch's steps and of its logged lines). Where the config decodes by the
    joint beam, best.pt also by each branch alone (``ctc_beam``; ``beam``
    with ``decode.ctc_weight=0``), each with its intervals and paired
-   against the joint beam's and the TPU record (``<record>_{ctc,att}``);
+   against the joint beam's and the TPU record (``<record>_{ctc,att}``).
+   Several ``--set train.seed=N`` train each seed in turn.
+   ``14ar``..``14dr``: two runs at the seed, the second in a fresh child
+   process (``--repeat-run``), each with the checks above, equal bit for
+   bit in every logged train line, epoch line, step loss and batch and in
+   the SHA-256 digests of the final state and best.pt
+   (``<record>_repeat.json``); one decode;
 15. ``tools/run_milestones.py --device cuda``: the five milestones as
    shipped, every epoch, each best.pt decoded over the 192 dev utterances
    by its config's method; no plain call; each milestone's steps, train
@@ -301,8 +310,14 @@ its own:
    picked another epoch) decoded by the config's beam over the 2,700 dev
    utterances, the p50 latency, the records paired with the TPU record
    (a tie, a gap, or a fault: the paired interval wholly above +3
-   points). The records go to ``build/chip_smoke/
-   ls100_full_h100_dev2700.jsonl`` beside their epoch lines. ``--only
+   points), and with the port's committed records at this scale. The
+   records go to ``build/chip_smoke/ls100_full_h100_dev2700[_seed<N>]
+   .jsonl`` beside their epoch lines. ``--set train.seed=N`` trains at
+   another seed (steps and pad waste then equal to the sampler's plan at
+   that seed, ``ls100_full_plan``); several ``--set train.seed=N`` train
+   each seed in turn after one render. ``--only 16r``: two trainings at
+   the seed, the second in a child process, held equal bit for bit as
+   14's repeats are (``<record>_repeat.json``), one decode. ``--only
    16a`` stops after the CMVN with one timed dev evaluation of the
    untrained model, by the beam and greedily: the cost of an evaluation.
 
@@ -315,15 +330,18 @@ K2's, K3's and K4 loc's numbers at ls100's largest bucket) and, last,
 failed check exits non-zero before the last line. Artifacts go to
 ``build/chip_smoke/``. ``python3 chip_smoke.py --only 3,6c,6d,6e,11,12`` runs
 the build and those phases alone (``--only 13``, ``--only 14a [--set
-train.seed=1]``, ``--only 15``, ``--only 16``, ``--only 16a``: the phases
-above), reports every failed check and prints neither the kernels line
-nor the last line.
+train.seed=1]``, ``--only 14dr``, ``--only 15``, ``--only 16 [--set
+train.seed=1]``, ``--only 16r``, ``--only 16a``: the phases above),
+reports every failed check and prints neither the kernels line nor the
+last line.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import glob
+import hashlib
 import json
 import os
 import shutil
@@ -345,6 +363,7 @@ MILESTONES = {n: os.path.join(REPO, "configs", f"{f}.yaml") for n, f in (
     (1, "milestone1_bilstm_ctc"), (3, "milestone3_las"),
     (4, "milestone4_hybrid_dp"), (5, "milestone5_beam"))}
 VGG_CONFIG = os.path.join(REPO, "configs", "vgg_blstm.yaml")
+LS100_CONFIG = os.path.join(REPO, "configs", "ls100_full.yaml")
 M5_CONFIG = os.path.join(REPO, "configs", "english_m5.yaml")
 GOLD = os.path.join(REPO, "tests", "goldens")
 SEED = 0
@@ -455,12 +474,14 @@ OPT_STEPS = 8  # sgd, adadelta and the stacked decoder train this many steps
 RESUME_REFS = 2
 # Phase 6e: the training forms held to two identical runs of REPRO_STEPS
 # steps from one state (name, config, overrides, batch: "bench" for
-# bench.py's, else the config's 4.0 s bucket), each run equal bit for bit
-# in every parameter, gradient, optimizer slot and generator state; the
+# bench.py's, "largest" for the config's largest bucket on synthetic
+# audio, else the config's 4.0 s bucket), each run equal bit for bit in
+# every parameter, gradient, optimizer slot and generator state; the
 # same forms take a step each in a child process under
 # torch.use_deterministic_algorithms(True) (``--deterministic``).
 REPRO_STEPS = 3
 REPRO_CASES = (
+    ("ls100_full, largest bucket", LS100_CONFIG, (), "largest"),
     ("dot flagship, bench.py", CONFIG, (), "bench"),
     ("loc flagship, bench.py", LOC_CONFIG, (), "bench"),
     ("add attention, flagship_bf16", LOC_CONFIG, ("model.att_type=add",),
@@ -518,7 +539,6 @@ BENCH_SEC, BENCH_LABELS = 12.8, 96  # bench.py's shape
 # such passes (two evaluations, two decodes with their warm passes, two
 # of tune_decode's combinations), so the dev render is cut to 4, the
 # fewest that plot_attention's 4 need.
-LS100_CONFIG = os.path.join(REPO, "configs", "ls100_full.yaml")
 LS100_RENDER = {"text_mode": "english", "durations": "librispeech",
                 "jitter": 0.04, "noise": 0.05, "pool_split": "sentence",
                 "seed": 0}
@@ -552,6 +572,9 @@ LS_SHAPE_BYTES = 400e3  # an upper bound on one rendered FLAC file
 LS100_FULL = (28500, 2700)
 LS100_FULL_RECORD = "ls100_dev_decode_r5"
 LS100_FULL_NAME = "ls100_full_h100_dev2700"
+# The port's committed records of phase 16, which a new record is also
+# paired with.
+LS100_FULL_EVIDENCE = os.path.join(REPO, "gluon_e2e_asr_tpu_torch", "evidence")
 LS100_FULL_TPU = {"steps": (674, 674, 673, 673, 673),
                   "pad_waste": (0.1184, 0.1185, 0.1174, 0.1171, 0.1169),
                   "dev_wer": (0.6904, 0.1947, 0.1239, 0.0943, 0.0801),
@@ -581,6 +604,23 @@ CONVERGENCE = {"14a": ("english_flagship", "english_clean_flagship_dev192"),
                "14b": ("milestone5_beam", "m5_beam_dev192"),
                "14c": ("english_m5_bpe", "english_clean_bpe_beam_dev192"),
                "14d": ("flagship_bf16", "flagship_loc_dev192")}
+# Phases 14 and 16 repeated (``--only 14dr``, ``16r``): REPEAT_RUNS runs
+# of a config at one training seed in one chip call, the first in this
+# process and the others each in a fresh child process (``--repeat-run``,
+# REPEAT_TIMEOUT seconds), each from scratch through the train CLI, equal
+# bit for bit in each logged train line's
+# REPEAT_TRAIN_KEYS, each epoch line's REPEAT_EPOCH_KEYS, every step's
+# loss and batch, and the SHA-256 digests (state_digest) of the final
+# state and of best.pt.
+REPEAT_RUNS = 2
+REPEAT_TIMEOUT = {"14": 1500, "16": 1800}
+REPEAT_TRAIN_KEYS = ("step", "epoch", "bucket", "loss", "loss_ctc",
+                     "loss_att", "att_acc", "grad_norm")
+REPEAT_EPOCH_KEYS = ("epoch", "step", "pad_waste", "dev_wer", "dev_cer")
+# run_outputs' digests, printed for every run (a run at the same seed on
+# another call must give them again)
+RUN_DIGESTS = ("steps", "best_epoch", "step_losses_sha256", "batches_sha256",
+               "final_digest", "best_digest")
 # Phase 15: the milestones with a per-utterance TPU record under
 # docs/evidence/ (the others are compared by their intervals alone).
 MILESTONE_RECORDS = {"m5": "m5_beam_dev192"}
@@ -852,11 +892,12 @@ main_only = False  # --only: a failed check is reported and the run goes on
 
 def main(only=(), overrides=()) -> None:
     """The phases in order; ``only`` (phase names "3", "6c", "6d", "6e",
-    "11", "12", "13", "14a".."14d", "15", "16", "16a"): the device, the build
-    and those phases
+    "11", "12", "13", "14a".."14d", "14ar".."14dr", "15", "16", "16r",
+    "16a"): the device, the build and those phases
     alone, with no kernels line and no last line (a quicker run while a
-    phase is written; phase 14's runs, which take a chip call each);
-    ``overrides`` (``--set``), phase 14's training overrides."""
+    phase is written; phase 14's and 16's runs, which take a chip call
+    each); ``overrides`` (``--set``), phase 14's and 16's training
+    overrides (``train.seed=N``)."""
     import torch
 
     # 1. device
@@ -913,11 +954,15 @@ def main(only=(), overrides=()) -> None:
                   "6c": training_options, "6d": vgg_slice, "6e": repro_phase,
                   "11": lm_phase,
                   "12": ls100_phase, "13": ls_shape_phase,
-                  "15": milestones_phase, "16": ls100_full_phase,
+                  "15": milestones_phase,
+                  "16": lambda *a: ls100_full_phase(*a, overrides=overrides),
+                  "16r": lambda *a: ls100_full_phase(*a, repeat=True,
+                                                     overrides=overrides),
                   "16a": lambda *a: ls100_full_phase(*a, measure_only=True)}
         for name in only:
-            if name in CONVERGENCE:
-                convergence_phase(torch, dev, card, name, overrides)
+            if name.rstrip("r") in CONVERGENCE:
+                for sets in seed_runs(overrides):
+                    convergence_phase(torch, dev, card, name, sets)
             else:
                 phases[name](torch, dev, card)
         emit({"phases": list(only), "failed": FAILED,
@@ -2694,15 +2739,17 @@ def _max_diff(a, b) -> float:
     return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
 
 
-def _run_cli(torch, path, name, extra, record=None, resume=False):
-    """The train CLI on the card on the config at ``path`` with ``extra``
-    arguments, in OUT_DIR/``name`` (emptied first unless resuming); with
-    ``record``, a list that gets each step's (loss, the batch's labels and
-    lengths as bytes). Returns the trainer and its metrics lines."""
+def _run_cli(torch, path, name, extra, record=None, resume=False,
+             device="cuda", out_dir=OUT_DIR):
+    """The train CLI on the card (or ``device``) on the config at ``path``
+    with ``extra`` arguments, in ``out_dir``/``name`` (emptied first unless
+    resuming); with ``record``, a list that gets each step's (loss, the
+    batch's labels and lengths as bytes). Returns the trainer and its
+    metrics lines."""
     from gluon_e2e_asr_tpu_torch import train
     from gluon_e2e_asr_tpu_torch.training import trainer as TR
 
-    workdir = os.path.join(OUT_DIR, name)
+    workdir = os.path.join(out_dir, name)
     if not resume:
         shutil.rmtree(workdir, ignore_errors=True)
     make_step = TR.make_train_step
@@ -2721,11 +2768,12 @@ def _run_cli(torch, path, name, extra, record=None, resume=False):
         TR.make_train_step = recorded
     try:
         trainer = train.main(["--config", path, *extra, "--workdir", workdir,
-                              "--device", "cuda"] + (["--resume"] if resume
+                              "--device", device] + (["--resume"] if resume
                                                      else []))
     finally:
         TR.make_train_step = make_step
-    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.synchronize()
     with open(os.path.join(workdir, "metrics.jsonl")) as f:
         lines = [json.loads(line) for line in f]
     return trainer, lines
@@ -3111,20 +3159,48 @@ def f32_step_profile(card, wall_ms_per_step, by_kernel, layers, steps):
           "first kernels)")
 
 
-def state_of(torch, model, state) -> dict:
-    """A training run's state as tensors: every parameter and buffer, every
-    optimizer slot, the update count and the step's generator."""
-    out = {f"param {k}": v.detach().clone()
-           for k, v in model.state_dict().items()}
-    for slot, v in state.opt_state.items():
+def flat_state(torch, params, opt_state, step, generator) -> dict:
+    """A training state as tensors by name: every parameter and buffer
+    (``params``, a state dict), every optimizer slot, the update count and
+    the step's generator state (a uint8 tensor)."""
+    out = {f"param {k}": v.detach().clone() for k, v in params.items()}
+    for slot, v in opt_state.items():
         if isinstance(v, dict):
             out.update({f"{slot} {k}": t.detach().clone()
                         for k, t in v.items()})
         elif not isinstance(v, str):
             out[f"opt {slot}"] = torch.tensor(float(v), dtype=torch.float64)
-    out["step"] = torch.tensor(state.step)
-    out["generator"] = state.generator.get_state()
+    out["step"] = torch.tensor(step)
+    out["generator"] = generator.clone()
     return out
+
+
+def state_of(torch, model, state) -> dict:
+    """A training run's state as tensors (flat_state): the model's, its
+    optimizer's, the update count and the step's generator."""
+    return flat_state(torch, model.state_dict(), state.opt_state, state.step,
+                      state.generator.get_state())
+
+
+def checkpoint_state(torch, path: str) -> dict:
+    """flat_state of a training checkpoint (``save_train_checkpoint``'s
+    payload: parameters, optimizer state, step and generator)."""
+    ck = torch.load(path, map_location="cpu", weights_only=False)
+    return flat_state(torch, ck["params"], ck["opt_state"], ck["step"],
+                      ck["generator"])
+
+
+def state_digest(torch, state: dict) -> str:
+    """SHA-256 over a flat_state's entries in sorted key order: each key,
+    dtype, shape and the tensor's bytes. Equal states give equal digests
+    whatever the order their keys were inserted in; one bit of one entry
+    changes it."""
+    h = hashlib.sha256()
+    for k in sorted(state):
+        t = state[k].detach().cpu().contiguous()
+        h.update(f"{k}|{t.dtype}|{tuple(t.shape)}|".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def state_diff(torch, a: dict, b: dict) -> dict:
@@ -3218,15 +3294,32 @@ def repro_batch(torch, path, shape):
     """(batch on the host, tokenizer) of a REPRO_CASES entry, from the
     config at ``path`` as shipped (an entry's overrides leave its data
     alone, and an earlier phase's bucket_batch of the config serves it):
-    the config's 4.0 s bucket, or bench.py's batch (labels folded into
-    the vocabulary as bucket_batch folds them)."""
+    the config's 4.0 s bucket; its largest bucket on synth_batch's audio
+    (ls100_full: B = 32 at 18.38 s, T = 1836, labels of up to 320
+    tokens, the tokenizer built from ls100_full_manifest's train texts,
+    no corpus rendered); or bench.py's batch (labels folded into the
+    vocabulary as bucket_batch folds them)."""
     from gluon_e2e_asr_tpu_torch.config import load_config
+    from gluon_e2e_asr_tpu_torch.data.sampler import make_bucket_specs
     from gluon_e2e_asr_tpu_torch.training.trainer import (
         build_datasets, build_tokenizer)
 
     config = load_config(path)
     if shape == "bucket":
         b, tok, _, _ = bucket_batch(torch, config)
+    elif shape == "largest":
+        dc = config.data
+        spec = make_bucket_specs(dc.bucket_bounds_sec, dc.sample_rate,
+                                 dc.batch_size, dc.max_label_len,
+                                 config.frontend.hop_length,
+                                 dc.dynamic_batch)[-1]
+        texts = (u.text for u in ls100_full_manifest("train-clean-100"))
+        tok = build_tokenizer(config, texts)
+        sb = synth_batch(spec.batch_size, dc.bucket_bounds_sec[-1],
+                         spec.max_labels, SEED)
+        sb["labels"] = np.where(sb["labels"] > 0,
+                                4 + sb["labels"] % (tok.vocab_size - 4), 0)
+        b = types.SimpleNamespace(**sb)
     else:
         key = config.fingerprint()
         if key in _BATCH:
@@ -3255,15 +3348,17 @@ def repro_run(torch, config, tok, batch, dev, steps):
     opt = T.make_optimizer(config)
     state = T.create_train_state(config, model, opt, dev)
     batch = {k: v.to(dev) for k, v in batch.items()}
+    cmvn = repro_cmvn(torch, config, dev)
     if config.train.accum_grad_steps > 1:
-        grad_fn, acc = T.make_grad_step(model, config), T.Accumulator(model, opt)
+        grad_fn = T.make_grad_step(model, config, cmvn)
+        acc = T.Accumulator(model, opt)
         half = batch["audio"].shape[0] // 2
         for _ in range(steps):
             for rows in (slice(0, half), slice(half, None)):
                 acc.add(*grad_fn(state, {k: v[rows] for k, v in batch.items()}))
             acc.apply(state)
     else:
-        step = T.make_train_step(model, config, opt)
+        step = T.make_train_step(model, config, opt, cmvn)
         for _ in range(steps):
             step(state, batch)
     if dev.type == "cuda":
@@ -3272,6 +3367,19 @@ def repro_run(torch, config, tok, batch, dev, steps):
     out.update({f"grad {k}": p.grad.detach().clone()
                 for k, p in model.named_parameters() if p.grad is not None})
     return out
+
+
+def repro_cmvn(torch, config, dev):
+    """The global CMVN stats repro_run trains with where the config asks
+    for them (ls100_full): log-mel means and deviations drawn from SEED,
+    about those of speech; None otherwise."""
+    if config.frontend.cmvn != "global":
+        return None
+    rng = np.random.RandomState(SEED)
+    D = config.frontend.n_mels
+    mean = rng.uniform(-8.0, -2.0, D).astype(np.float32)
+    std = rng.uniform(1.5, 3.0, D).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(dev) for x in (mean, std))
 
 
 def repro_config(case):
@@ -5731,6 +5839,230 @@ def ls_shape_phase(torch, dev, card):
     return {"ls_shape_train": counts}
 
 
+def record_name(base: str, seed: int, repeat: bool = False) -> str:
+    """The name of a convergence run's outputs (phases 14 and 16):
+    ``base``, ``_repeat`` for a repeated run, ``_seed<N>`` at a training
+    seed other than 0."""
+    return base + ("_repeat" if repeat else "") + (f"_seed{seed}" if seed
+                                                   else "")
+
+
+def run_outputs(torch, trainer, lines, record) -> dict:
+    """What a run through the train CLI must give again at the same seed,
+    bit for bit: every logged train line's REPEAT_TRAIN_KEYS, every epoch
+    line's REPEAT_EPOCH_KEYS and the mean of its logged losses
+    (``loss_logged``), the best epoch, SHA-256 of every step's loss (f64)
+    and of every step's batch (_run_cli's ``record``: labels and lengths),
+    and state_digest of the final state and of ``best.pt`` (parameters,
+    Adam's two moments, the step and the generator)."""
+    from gluon_e2e_asr_tpu_torch.tools import convergence as CV
+
+    ckpt, best_epoch = CV.best_checkpoint(trainer)
+    losses = np.array([loss for loss, _ in record], np.float64)
+    return {
+        "steps": trainer.state.step,
+        "train_lines": [{k: r.get(k) for k in REPEAT_TRAIN_KEYS}
+                        for r in lines if r.get("event") == "train"],
+        "epochs": [{**{k: r.get(k) for k in REPEAT_EPOCH_KEYS},
+                    "loss_logged": r["loss_logged"]}
+                   for r in CV.epoch_records(lines)],
+        "best_epoch": best_epoch,
+        "step_losses_sha256": hashlib.sha256(losses.tobytes()).hexdigest(),
+        "batches_sha256": hashlib.sha256(
+            b"".join(b for _, b in record)).hexdigest(),
+        "final_digest": state_digest(torch, state_of(torch, trainer.model,
+                                                     trainer.state)),
+        "best_digest": state_digest(torch, checkpoint_state(torch, ckpt))}
+
+
+def repeat_report(outs, records) -> dict:
+    """Runs of one seed against the first: equal where every run_outputs
+    entry is; the entries that differ; the first step (from 1) whose loss
+    or batch differs between the runs' _run_cli records (None where none
+    does), where a replay would start."""
+    differ = sorted({k for o in outs[1:] for k in outs[0] if o[k] != outs[0][k]})
+    first = next((i + 1 for i, steps in enumerate(zip(*records))
+                  if any(s != steps[0] for s in steps[1:])), None)
+    if first is None and len({len(r) for r in records}) > 1:
+        first = min(len(r) for r in records) + 1
+    return {"equal": not differ and first is None, "differ": differ,
+            "first_parted_step": first}
+
+
+def write_repeat(path: str, outs, report: dict, **about) -> None:
+    """The runs of a repeat with its report, one JSON object (the runs'
+    ``run`` numbered from 1)."""
+    with open(path, "w") as f:
+        json.dump({**about, **report,
+                   "runs": [{"run": i + 1, **o} for i, o in enumerate(outs)]},
+                  f, indent=1)
+        f.write("\n")
+
+
+def json_copy(obj):
+    """``obj`` as it comes back from JSON (tuples as lists), so that a
+    run of this process compares equal with a child process's."""
+    return json.loads(json.dumps(obj))
+
+
+def step_keys(record) -> list:
+    """A _run_cli record as runs in different processes compare it: each
+    step's [loss, SHA-256 of its batch's labels and lengths]."""
+    return [[loss, hashlib.sha256(batch).hexdigest()]
+            for loss, batch in record]
+
+
+def seed_runs(overrides) -> list:
+    """``--set`` overrides split by training seed: one list for each
+    ``train.seed=N`` among them, in their order, each with the other
+    overrides; or the overrides alone where they name no seed."""
+    seeds = [o for o in overrides if o.startswith("train.seed=")]
+    rest = [o for o in overrides if not o.startswith("train.seed=")]
+    return [[*rest, s] for s in seeds] or [rest]
+
+
+def repeat_child(torch, kind, name, spec, card):
+    """One run of a repeat in a fresh process: this script with
+    ``--repeat-run OUT_DIR/<name>_spec.json`` (repeat_worker), which
+    trains as phase ``kind`` ("14": convergence_run, "16":
+    ls100_full_train) trains its first run, with the same checks, and
+    writes its run_outputs and step_keys; its lines go to this process's
+    standard output. Returns (outputs, step keys), or (None, None) where
+    the child failed (a failed check)."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    spec_path = os.path.join(OUT_DIR, f"{name}_spec.json")
+    out = os.path.join(OUT_DIR, f"{name}.json")
+    with open(spec_path, "w") as f:
+        json.dump({"kind": kind, "out": out, "card": card, **spec}, f)
+    if os.path.exists(out):
+        os.remove(out)
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--repeat-run",
+             spec_path], cwd=REPO, stderr=subprocess.PIPE, text=True,
+            timeout=REPEAT_TIMEOUT[kind])
+        rc, err = proc.returncode, proc.stderr
+    except subprocess.TimeoutExpired as e:
+        rc, err = "timeout", str(e.stderr or "")
+    result = {}
+    if rc == 0:
+        with open(out) as f:
+            result = json.load(f)
+    emit({"phase": "repeat_child", "kind": kind, "run": spec["run"],
+          "rc": rc, "failed": result.get("failed"),
+          "seconds": round(time.perf_counter() - t0, 1), "card": card})
+    check(rc == 0 and not result["failed"],
+          f"{kind}: the repeat's run {spec['run']} in its child process "
+          f"failed (rc {rc}): {result.get('failed')} {err[-3000:]}")
+    if rc != 0 or result["failed"]:
+        return None, None
+    return result["outputs"], result["steps"]
+
+
+def repeat_worker(spec_path: str) -> None:
+    """``chip_smoke.py --repeat-run <spec.json>`` (repeat_child starts it):
+    one run of a repeat, trained as the spec's phase trains its first run
+    (the spec's kind: "14", convergence_run on its id and overrides; "16",
+    ls100_full_train on its sets and expected plan) with the same checks;
+    writes {outputs: run_outputs, steps: step_keys, failed: the failed
+    checks} to the spec's ``out``."""
+    import torch
+
+    global main_only
+    main_only = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    card = spec["card"]
+    if spec["kind"] == "14":
+        trainer, _, lines, record = convergence_run(
+            torch, spec["pid"], spec["overrides"], spec["workdir"],
+            spec["run"], card)
+    else:
+        from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
+
+        config = load_config(LS100_CONFIG)
+        apply_overrides(config, spec["sets"])
+        expected = {k: tuple(v) for k, v in spec["expected"].items()}
+        trainer, _, lines, record = ls100_full_train(
+            torch, config, spec["sets"], spec["workdir"], expected, card,
+            spec["run"])
+    outs = run_outputs(torch, trainer, lines, record)
+    emit({"phase": "repeat_digests", "kind": spec["kind"], "run": spec["run"],
+          **{k: outs[k] for k in RUN_DIGESTS}})
+    with open(spec["out"], "w") as f:
+        json.dump({"outputs": outs, "steps": step_keys(record),
+                   "failed": FAILED}, f)
+
+
+def convergence_config(pid, overrides):
+    """(path, config with ``overrides``) of phase 14's id ``pid``."""
+    from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
+
+    path = os.path.join(REPO, "configs",
+                        f"{CONVERGENCE[pid.rstrip('r')][0]}.yaml")
+    config = load_config(path)
+    apply_overrides(config, list(overrides))
+    return path, config
+
+
+def convergence_run(torch, pid, overrides, workdir, run, card):
+    """One training of phase 14: the config of ``pid`` through the train
+    CLI in OUT_DIR/``workdir`` with ``overrides``, every epoch; phase 6's
+    launch counts, no plain call, a finite loss, the config's steps and
+    epochs, one line an epoch. Returns (trainer, the epoch records with
+    each epoch's mean step loss, the metrics lines, _run_cli's
+    record)."""
+    from gluon_e2e_asr_tpu_torch.tools import convergence as CV
+
+    path, config = convergence_config(pid, overrides)
+    extra = [a for o in overrides for a in ("--set", o)]
+    epochs = config.train.num_epochs
+    steps = epoch_steps(config, epochs)
+    record = []
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, lines = _run_cli(torch, path, workdir, extra, record)
+    train_s = time.perf_counter() - t0
+    launches, plain = read_counts()
+    losses = [loss for loss, _ in record]
+    ends = CV.epoch_records(lines)
+    dev_batches = len(list(trainer.dev_loader.sampler.epoch_batches(0)))
+    expect = expected_launches(config, steps, dev_batches * len(ends),
+                               trainer.model.use_decoder)
+    first = 0
+    for r in ends:
+        r["loss"] = float(np.mean(losses[first:r["step"]]))
+        emit({"phase": "convergence_epoch", "id": pid, "run": run,
+              "epoch": r["epoch"], "steps": r["step"], "loss": r["loss"],
+              "loss_logged": r["loss_logged"],
+              "dev_wer": r["dev_wer"], "dev_cer": r["dev_cer"],
+              "seconds": r["epoch_time_s"]})
+        first = r["step"]
+    _, best_epoch = CV.best_checkpoint(trainer)
+    emit({"phase": "convergence_train", "id": pid, "run": run,
+          "epochs": len(ends), "epochs_shipped": epochs,
+          "steps": trainer.state.step,
+          "expected_steps": steps, "train_s": round(train_s, 1),
+          "launches": launches, "expected_launches": expect,
+          "plain_calls": plain, "best_epoch": best_epoch,
+          "best_dev_wer": trainer.best_wer,
+          "world_size": trainer.world.size, "card": card})
+    check(trainer.state.step == steps == len(losses)
+          and len(ends) == epochs,
+          f"{pid}: {trainer.state.step} steps of {steps}, {len(ends)} "
+          f"epochs of {epochs}")
+    check(launches == expect, f"{pid}: training launches {launches}, "
+                              f"expected {expect}")
+    check(not any(plain.values()), f"{pid}: plain versions ran: {plain}")
+    check(all(np.isfinite(losses)), f"{pid}: a non-finite loss")
+    return trainer, ends, lines, record
+
+
 def convergence_phase(torch, dev, card, pid, overrides=()):
     """Phase 14 (``--only 14a`` .. ``14d``, one config an id): the config
     of CONVERGENCE[pid] through the train CLI as shipped (the ``--set``
@@ -5746,17 +6078,19 @@ def convergence_phase(torch, dev, card, pid, overrides=()):
     and the paired difference port - TPU with its interval and p(diff >=
     0) (tools/wer_ci.py, 10,000 resamples, seed 0, paired by utt_id). The
     records go to OUT_DIR/<config>_h100_dev192[_seed<n>].jsonl and, one a
-    line, to stdout."""
-    from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
+    line, to stdout. An id with an ``r`` (``14dr``) trains REPEAT_RUNS
+    runs at the seed, the first in this process and the others in child
+    processes (repeat_child), each from scratch with every check above,
+    and holds them equal bit for bit (run_outputs, repeat_report:
+    OUT_DIR/<config>_h100_dev192_repeat[_seed<n>].json); the first run's
+    best.pt is decoded once."""
     from gluon_e2e_asr_tpu_torch.tools import convergence as CV
 
     t_phase = time.perf_counter()
-    cfg_name, rec_name = CONVERGENCE[pid]
-    path = os.path.join(REPO, "configs", f"{cfg_name}.yaml")
+    repeat = pid.endswith("r")
+    cfg_name, rec_name = CONVERGENCE[pid.rstrip("r")]
+    path, config = convergence_config(pid, overrides)
     tpu = os.path.join(REPO, "docs", "evidence", f"{rec_name}.jsonl")
-    extra = [a for o in overrides for a in ("--set", o)]
-    config = load_config(path)
-    apply_overrides(config, list(overrides))
     refs = CV.dev_refs(config)
     tpu_records = CV.read_records(tpu)
     n_match = CV.refs_match(refs, tpu_records)
@@ -5771,45 +6105,39 @@ def convergence_phase(torch, dev, card, pid, overrides=()):
         return
     seed = config.train.seed
     sfx = f"_seed{seed}" if seed else ""
-    name = f"{cfg_name}_h100_dev192{sfx}"
+    name = record_name(f"{cfg_name}_h100_dev192", seed, repeat)
     epochs = config.train.num_epochs
     steps = epoch_steps(config, epochs)
-    record = []
-    reset_counts()
-    t0 = time.perf_counter()
-    trainer, lines = _run_cli(torch, path, f"conv_{pid}{sfx}", extra, record)
-    train_s = time.perf_counter() - t0
-    launches, plain = read_counts()
-    losses = [loss for loss, _ in record]
-    ends = CV.epoch_records(lines)
-    dev_batches = len(list(trainer.dev_loader.sampler.epoch_batches(0)))
-    expect = expected_launches(config, steps, dev_batches * len(ends),
-                               trainer.model.use_decoder)
-    first = 0
-    for r in ends:
-        r["loss"] = float(np.mean(losses[first:r["step"]]))
-        emit({"phase": "convergence_epoch", "id": pid, "epoch": r["epoch"],
-              "steps": r["step"], "loss": r["loss"],
-              "loss_logged": r["loss_logged"],
-              "dev_wer": r["dev_wer"], "dev_cer": r["dev_cer"],
-              "seconds": r["epoch_time_s"]})
-        first = r["step"]
+    workdir = f"conv_{pid}{sfx}"
+    trainer, ends, lines, record = convergence_run(
+        torch, pid, overrides, workdir + ("_run1" if repeat else ""), 1, card)
     CV.write_lines(os.path.join(OUT_DIR, f"{name}_epochs.jsonl"), ends)
     ckpt, best_epoch = CV.best_checkpoint(trainer)
-    emit({"phase": "convergence_train", "id": pid, "epochs": len(ends),
-          "epochs_shipped": epochs, "steps": trainer.state.step,
-          "expected_steps": steps, "train_s": round(train_s, 1),
-          "launches": launches, "expected_launches": expect,
-          "plain_calls": plain, "best_epoch": best_epoch,
-          "best_dev_wer": trainer.best_wer,
-          "world_size": trainer.world.size, "card": card})
-    check(trainer.state.step == steps == len(losses) and len(ends) == epochs,
-          f"{pid}: {trainer.state.step} steps of {steps}, {len(ends)} epochs "
-          f"of {epochs}")
-    check(launches == expect, f"{pid}: training launches {launches}, "
-                              f"expected {expect}")
-    check(not any(plain.values()), f"{pid}: plain versions ran: {plain}")
-    check(all(np.isfinite(losses)), f"{pid}: a non-finite loss")
+    outs = [json_copy(run_outputs(torch, trainer, lines, record))]
+    records = [step_keys(record)]
+    emit({"phase": "convergence_digests", "id": pid, "run": 1,
+          **{k: outs[-1][k] for k in RUN_DIGESTS}})
+    del lines, record
+    for run in range(2, (REPEAT_RUNS if repeat else 1) + 1):
+        out, steps_run = repeat_child(torch, "14", f"{name}_run{run}", {
+            "pid": pid, "overrides": list(overrides),
+            "workdir": f"{workdir}_run{run}", "run": run}, card)
+        if out is not None:
+            outs.append(out)
+            records.append(steps_run)
+    if repeat:
+        check(len(outs) == REPEAT_RUNS, f"{pid}: {len(outs)} of "
+                                        f"{REPEAT_RUNS} runs ended")
+        report = repeat_report(outs, records)
+        emit({"phase": "convergence_repeat", "id": pid, "runs": len(outs),
+              **report, "steps": [o["steps"] for o in outs],
+              "final_digests": [o["final_digest"] for o in outs],
+              "best_digests": [o["best_digest"] for o in outs],
+              "card": card})
+        write_repeat(os.path.join(OUT_DIR, f"{name}.json"), outs, report,
+                     config=os.path.relpath(path, REPO),
+                     overrides=list(overrides), seed=seed, card=card)
+        check(report["equal"], f"{pid}: runs of one seed differ: {report}")
     # the trained model's kernels at the config's own shapes: the first
     # batch of the longest bucket that has one
     bucket, idxs = max(trainer.sampler.epoch_batches(0), key=lambda x: x[0])
@@ -5863,9 +6191,9 @@ def convergence_phase(torch, dev, card, pid, overrides=()):
 
 
 def convergence_branches(pid, path, ckpt, name, overrides, refs, joint, tpu,
-                         card):
+                         card, n=192):
     """Phase 14's joint beam taken apart: ``best.pt`` decoded over the same
-    192 dev utterances by each branch alone, CTC (``ctc_beam``, the CTC
+    ``n`` dev utterances by each branch alone, CTC (``ctc_beam``, the CTC
     prefix beam with the config's partial scoring) and attention (``beam``
     with ``decode.ctc_weight=0``), no plain call; each record's WER and CER
     with 95% intervals, paired against the joint beam's record and the
@@ -5882,7 +6210,7 @@ def convergence_branches(pid, path, ckpt, name, overrides, refs, joint, tpu,
         seconds = time.perf_counter() - t0
         _, plain = read_counts()
         records = CV.read_records(out)
-        check(CV.refs_match(refs, records) == len(records) == 192
+        check(CV.refs_match(refs, records) == len(records) == n
               and not any(plain.values()),
               f"{pid} {branch}: {len(records)} records, plain {plain}")
         vs_joint, vs_tpu = CV.compare(out, joint), CV.compare(out, tpu)
@@ -5973,6 +6301,58 @@ def ls100_full_manifest(split: str) -> list:
     return sorted(utts, key=lambda u: u.utt_id)
 
 
+def ls100_full_plan(seed: int) -> dict:
+    """ls100_full.yaml's sampler over its corpus at its own scale (the
+    texts and durations of ls100_full_manifest, no audio rendered) at
+    training seed ``seed``: each of its epochs' steps and pad waste (1 -
+    real samples after speed perturbation over the batches' padded
+    samples, as the trainer counts it), and the utterances it skipped."""
+    import functools
+    from unittest import mock
+
+    from gluon_e2e_asr_tpu_torch.config import load_config
+    from gluon_e2e_asr_tpu_torch.data import sampler as S
+
+    config = load_config(LS100_CONFIG)
+    dc, sr = config.data, config.data.sample_rate
+    utts = ls100_full_manifest("train-clean-100")
+    samples = [round(u.duration * sr) for u in utts]
+    specs = S.make_bucket_specs(dc.bucket_bounds_sec, sr, dc.batch_size,
+                                dc.max_label_len, config.frontend.hop_length,
+                                dc.dynamic_batch)
+    sp = tuple(dc.speed_perturb)
+    # the sampler and the count below draw each factor once
+    factor = functools.lru_cache(maxsize=None)(S.perturb_factor)
+    with mock.patch.object(S, "perturb_factor", factor):
+        sampler = S.BucketSampler(
+            utts, specs, sr, seed=seed, shuffle=dc.shuffle,
+            drop_last=dc.drop_last, sortagrad_epochs=dc.sortagrad_epochs,
+            speed_perturb=sp, perturb_seed=seed,
+            static_placement=dc.static_placement)
+        steps, waste = [], []
+        for e in range(config.train.num_epochs):
+            real = padded = n = 0
+            for b, idxs in sampler.epoch_batches(e):
+                spec = specs[b]
+                n += 1
+                padded += spec.batch_size * spec.max_samples
+                for i in idxs:
+                    f = factor(seed, e, i, sp)
+                    real += (samples[i] if f == 1.0 else
+                             min(int(round(samples[i] / f)), spec.max_samples))
+            steps.append(n)
+            waste.append(round(1.0 - real / padded, 4))
+    return {"steps": tuple(steps), "pad_waste": tuple(waste),
+            "skipped": list(sampler.skipped)}
+
+
+def ls100_full_expected(seed: int) -> dict:
+    """The steps and pad waste by epoch phase 16 must see at ``seed``: the
+    TPU table's at 0, else ls100_full_plan's."""
+    table = LS100_FULL_TPU if seed == 0 else ls100_full_plan(seed)
+    return {k: tuple(table[k]) for k in ("steps", "pad_waste")}
+
+
 def peak_rss() -> tuple:
     """(bytes, source) of this process's peak resident set: ``VmHWM`` of
     /proc/self/status where the kernel reports it, else getrusage's
@@ -6047,39 +6427,19 @@ def ls100_full_eval_cost(torch, config, workdir, card):
     del trainer
 
 
-def ls100_full_phase(torch, dev, card, measure_only=False):
-    """Phase 16 (``--only 16``): configs/ls100_full.yaml as shipped at its
-    own scale, 28,500 train + 2,700 dev utterances for its 5 epochs. The
-    disk free where the corpus goes, against the corpus's 16-bit PCM and
-    LS100_FULL_SPARE_BYTES; the corpus rendered with the config's header
-    flags on every core (ls100_render: three files decoded to exactly the
-    encoder's PCM, the manifest walk timed), its walk equal to
-    ls100_full_manifest's utterances; the dev refs equal to the TPU
-    record's, 2,700/2,700 (else the comparison is void and the phase
-    stops); ``tools/compute_cmvn.py`` at the config's int16 transfer. With
-    ``measure_only`` (``--only 16a``) it stops there after
-    ls100_full_eval_cost. Otherwise the train CLI as shipped but for the
-    corpus, the stats path and LS100_FULL_EVAL (every epoch): phase 6's
-    launch counts, no plain call, a finite loss, one line an epoch (steps
-    and pad waste beside the TPU table's, which they must equal; the
-    prefetch occupancy; the training part's seconds, the epoch line's less
-    the dev evaluation's, and its utt/s; the evaluation's seconds; dev WER
-    and CER; the checkpoint's save seconds; the process's peak RSS; the
-    disk free); on the first batch of each bucket the trained model's
-    kernels against their plain versions (batch_kernel_checks: phase 3's
-    and 7's tolerances); best.pt decoded by the config's beam over the
-    2,700 dev utterances (and, where the evaluation was cut and picked an
-    earlier epoch, the last checkpoint too), the p50 latency, and the
-    records paired with the TPU record (tools/convergence.py: 95%
-    bootstrap intervals, port - TPU by utt_id, p(diff >= 0), 10,000
-    resamples, seed 0): a tie, a gap, or a fault (the paired interval
-    wholly above LS100_FULL_FAULT). The records go to
-    OUT_DIR/LS100_FULL_NAME.jsonl, the epoch lines beside them."""
+def ls100_full_corpus(torch, card):
+    """Phase 16's corpus and CMVN stats: ls100_full.yaml's corpus at its own
+    scale rendered into OUT_DIR/ls100_full_corpus (the disk free checked
+    against its 16-bit PCM and LS100_FULL_SPARE_BYTES first) and
+    ``tools/compute_cmvn.py`` at the config's int16 transfer.
+    The walk must equal ls100_full_manifest's utterances and the dev refs
+    the TPU record's, 2,700/2,700 (else the comparison is void and the
+    phase stops). Returns (config, its ``--set`` overrides, the dev refs,
+    the TPU record's path), or None where a check failed."""
     from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config
     from gluon_e2e_asr_tpu_torch.tools import convergence as CV
     from gluon_e2e_asr_tpu_torch.training import trainer as TR
 
-    t_phase = time.perf_counter()
     corpus = os.path.join(OUT_DIR, "ls100_full_corpus")
     plan = {s: ls100_full_manifest(s) for s in ("train-clean-100", "dev-clean")}
     sr = 16000
@@ -6087,7 +6447,7 @@ def ls100_full_phase(torch, dev, card, measure_only=False):
     shutil.rmtree(corpus, ignore_errors=True)
     if not disk_check("ls100_full_disk", pcm + LS100_FULL_SPARE_BYTES,
                       pcm_bytes=pcm, spare_bytes=LS100_FULL_SPARE_BYTES):
-        return
+        return None
     ls100_render(torch, corpus, card, *LS100_FULL)
     sets = [f"data.data_dir={corpus}"]
     config = load_config(LS100_CONFIG)
@@ -6109,23 +6469,29 @@ def ls100_full_phase(torch, dev, card, measure_only=False):
           f"16: {n_match} of the TPU record's refs equal the dev set's "
           f"{len(refs)}: the comparison is void")
     if FAILED:
-        return
+        return None
     stats = ls100_cmvn(torch, ["--set", sets[0]],
                        os.path.join(OUT_DIR, "ls100_full_cmvn"), card,
                        dtypes=("int16",))
+    if FAILED:
+        return None
     sets.append(f"frontend.cmvn_stats_path={stats}")
     apply_overrides(config, sets[1:])
-    if measure_only:
-        ls100_full_eval_cost(torch, config, os.path.join(OUT_DIR, "ls100_full_16a"),
-                             card)
-        emit({"phase": "ls100_full_done", "measure_only": True,
-              "seconds": round(time.perf_counter() - t_phase, 1)})
-        return
+    return config, sets, refs, tpu
 
-    # training: the train CLI, every epoch, one line an epoch
+
+def ls100_full_train(torch, config, sets, name, expected, card, run=1):
+    """One training of phase 16: the train CLI in OUT_DIR/``name`` as
+    shipped but for ``sets`` (the corpus, the stats, the phase's
+    overrides) and LS100_FULL_EVAL, every epoch, one line an epoch; phase
+    6's launch counts, no plain call, a finite loss, the steps and pad
+    waste by epoch equal to ``expected`` (ls100_full_expected). Returns
+    (trainer, the epoch rows, the metrics lines, _run_cli's record)."""
+    from gluon_e2e_asr_tpu_torch.tools import convergence as CV
+    from gluon_e2e_asr_tpu_torch.training import trainer as TR
+
     extra = [a for o in (*sets, *LS100_FULL_EVAL) for a in ("--set", o)]
-    metrics = os.path.join(OUT_DIR, "ls100_full", config.train.metrics_path)
-    evals, rows = [], []
+    evals, rows, record = [], [], []
     evaluate, checkpoint = TR.Trainer.evaluate, TR.Trainer._checkpoint
 
     def timed_evaluate(self):
@@ -6139,7 +6505,8 @@ def ls100_full_phase(torch, dev, card, measure_only=False):
         path = checkpoint(self, epoch, is_best, batches_done, dev_wer)
         if is_best is None:
             return path
-        with open(metrics) as f:
+        with open(os.path.join(self.workdir,
+                               self.config.train.metrics_path)) as f:
             lines = [json.loads(line) for line in f]
         rec = CV.epoch_records(lines)[-1]
         io = [r for r in lines if r["event"] == "ckpt_io"][-1]
@@ -6159,17 +6526,20 @@ def ls100_full_phase(torch, dev, card, measure_only=False):
             "free_disk_bytes": shutil.disk_usage(OUT_DIR).free,
             "epoch_time_s": rec["epoch_time_s"],
             "utt_per_sec_per_chip": rec["utt_per_sec_per_chip"],
-            "loss_logged": rec["loss_logged"], "tpu": tpu_e})
-        emit({"phase": "ls100_full_epoch", **rows[-1], "card": card})
+            "loss_logged": rec["loss_logged"],
+            "plan": {k: v[epoch] for k, v in expected.items()},
+            "tpu": tpu_e})
+        emit({"phase": "ls100_full_epoch", "run": run, **rows[-1],
+              "card": card})
         return path
 
     epochs = config.train.num_epochs
-    steps = sum(LS100_FULL_TPU["steps"])
+    steps = sum(expected["steps"])
     reset_counts()
     TR.Trainer.evaluate, TR.Trainer._checkpoint = timed_evaluate, epoch_line
     t0 = time.perf_counter()
     try:
-        trainer, _ = _run_cli(torch, LS100_CONFIG, "ls100_full", extra)
+        trainer, lines = _run_cli(torch, LS100_CONFIG, name, extra, record)
     finally:
         TR.Trainer.evaluate, TR.Trainer._checkpoint = evaluate, checkpoint
     train_s = time.perf_counter() - t0
@@ -6178,14 +6548,10 @@ def ls100_full_phase(torch, dev, card, measure_only=False):
     expect = expected_launches(trainer.config, trainer.state.step,
                                dev_batches * len(rows),
                                trainer.model.use_decoder)
-    CV.write_lines(os.path.join(OUT_DIR, f"{LS100_FULL_NAME}_epochs.jsonl"),
-                   rows)
-    ckpt, best_epoch = CV.best_checkpoint(trainer)
-    ckpt_dir = os.path.join(trainer.workdir, config.train.ckpt_dir)
-    last = os.path.join(ckpt_dir, f"ckpt_{trainer.state.step}.pt")
-    emit({"phase": "ls100_full_train", "epochs": len(rows),
+    _, best_epoch = CV.best_checkpoint(trainer)
+    emit({"phase": "ls100_full_train", "run": run, "epochs": len(rows),
           "epochs_shipped": epochs, "steps": trainer.state.step,
-          "tpu_steps": steps, "train_s": round(train_s, 1),
+          "expected_steps": steps, "train_s": round(train_s, 1),
           "evaluation": list(LS100_FULL_EVAL) or "as shipped",
           "launches": launches, "expected_launches": expect,
           "plain_calls": plain, "best_epoch": best_epoch,
@@ -6193,18 +6559,127 @@ def ls100_full_phase(torch, dev, card, measure_only=False):
           "data_skipped": {"train": len(trainer.sampler.skipped),
                            "dev": len(trainer.dev_loader.sampler.skipped)},
           "card": card})
-    check(trainer.state.step == steps and len(rows) == epochs,
+    check(trainer.state.step == steps == len(record) and len(rows) == epochs,
           f"16: {trainer.state.step} steps of {steps}, {len(rows)} epochs of "
           f"{epochs}")
     check([(r["steps"], r["pad_waste"]) for r in rows]
-          == list(zip(LS100_FULL_TPU["steps"], LS100_FULL_TPU["pad_waste"])),
-          f"16: steps and pad waste by epoch differ from the TPU run's: "
+          == list(zip(expected["steps"], expected["pad_waste"])),
+          f"16: steps and pad waste by epoch differ from the sampler's plan: "
           f"{[(r['steps'], r['pad_waste']) for r in rows]}")
     check(launches == expect, f"16: training launches {launches}, expected "
                               f"{expect}")
     check(not any(plain.values()), f"16: plain versions ran: {plain}")
-    check(all(np.isfinite(r["loss_logged"]) for r in rows),
+    check(all(np.isfinite(r["loss_logged"]) for r in rows)
+          and all(np.isfinite([loss for loss, _ in record])),
           "16: a non-finite loss")
+    return trainer, rows, lines, record
+
+
+def ls100_full_phase(torch, dev, card, measure_only=False, repeat=False,
+                     overrides=()):
+    """Phase 16 (``--only 16``): configs/ls100_full.yaml as shipped at its
+    own scale, 28,500 train + 2,700 dev utterances for its 5 epochs, at
+    each training seed the ``--set`` ``overrides`` give (``train.seed=N``,
+    each in turn after one render, seed_runs; 0 as shipped). The corpus
+    and its CMVN (ls100_full_corpus: the disk, three
+    files decoded to exactly the encoder's PCM, the walk equal to
+    ls100_full_manifest's utterances, the dev refs equal to the TPU
+    record's, 2,700/2,700, else the comparison is void and the phase
+    stops; ``tools/compute_cmvn.py`` at the config's int16 transfer). With
+    ``measure_only`` (``--only 16a``) it stops there after
+    ls100_full_eval_cost. Otherwise the train CLI as shipped but for the
+    corpus, the stats path, the overrides and LS100_FULL_EVAL
+    (ls100_full_train: phase 6's launch counts, no plain call, a finite
+    loss, one line an epoch with steps and pad waste, which must equal the
+    sampler's plan at the seed (ls100_full_expected: the TPU table's at
+    seed 0), the prefetch occupancy, the training part's seconds and
+    utt/s, the evaluation's seconds, dev WER and CER, the checkpoint's
+    save seconds, the process's peak RSS and the disk free). With
+    ``repeat`` (``--only 16r``) REPEAT_RUNS trainings at the seed, the
+    first in this process and the others in child processes
+    (repeat_child), held equal bit for bit (run_outputs, repeat_report;
+    OUT_DIR/<record>.json). On the first batch of each bucket the first
+    run's trained kernels against their plain versions
+    (batch_kernel_checks: phase 3's and 7's tolerances); the first run's
+    best.pt decoded by the config's beam over the 2,700 dev utterances
+    (and, where the evaluation was cut and picked an earlier epoch, the
+    last checkpoint too), the p50 latency, the records paired with the
+    TPU record (tools/convergence.py: 95% bootstrap intervals, port - TPU
+    by utt_id, p(diff >= 0), 10,000 resamples, seed 0): a tie, a gap, or
+    a fault (the paired interval wholly above LS100_FULL_FAULT), and with
+    every committed record of the port's at this scale
+    (LS100_FULL_EVIDENCE). Where best.pt's record is a fault, each branch
+    of the joint beam decodes it alone too (convergence_branches). The
+    records go to OUT_DIR/<record_name>.jsonl, the first run's epoch
+    lines beside them."""
+    t_phase = time.perf_counter()
+    prepared = ls100_full_corpus(torch, card)
+    if prepared is None:
+        return
+    config, sets, refs, tpu = prepared
+    if measure_only:
+        ls100_full_eval_cost(torch, config, os.path.join(OUT_DIR, "ls100_full_16a"),
+                             card)
+        emit({"phase": "ls100_full_done", "measure_only": True,
+              "seconds": round(time.perf_counter() - t_phase, 1)})
+        return
+    for seed_sets in seed_runs(overrides):
+        ls100_full_seed(torch, dev, card, copy.deepcopy(config), sets, refs,
+                        tpu, seed_sets, repeat)
+    emit({"phase": "ls100_full_done", "measure_only": False,
+          "seconds": round(time.perf_counter() - t_phase, 1)})
+
+
+def ls100_full_seed(torch, dev, card, config, sets, refs, tpu, overrides,
+                    repeat):
+    """Phase 16 at one training seed (ls100_full_phase), on the corpus
+    and stats of ls100_full_corpus: ``config`` and ``sets`` with them,
+    ``refs`` the dev refs, ``tpu`` the TPU record; ``overrides`` this
+    seed's."""
+    from gluon_e2e_asr_tpu_torch.config import apply_overrides
+    from gluon_e2e_asr_tpu_torch.tools import convergence as CV
+
+    apply_overrides(config, list(overrides))
+    sets = [*sets, *overrides]
+    seed = config.train.seed
+    name = record_name(LS100_FULL_NAME, seed, repeat)
+    expected = ls100_full_expected(seed)
+    epochs = config.train.num_epochs
+    workdir = "ls100_full" + name[len(LS100_FULL_NAME):]
+    trainer, rows, lines, record = ls100_full_train(
+        torch, config, sets, workdir + ("_run1" if repeat else ""), expected,
+        card)
+    CV.write_lines(os.path.join(OUT_DIR, f"{name}_epochs.jsonl"), rows)
+    ckpt, best_epoch = CV.best_checkpoint(trainer)
+    last = os.path.join(trainer.workdir, config.train.ckpt_dir,
+                        f"ckpt_{trainer.state.step}.pt")
+    outs = [json_copy(run_outputs(torch, trainer, lines, record))]
+    records = [step_keys(record)]
+    emit({"phase": "ls100_full_digests", "run": 1, "seed": seed,
+          **{k: outs[-1][k] for k in RUN_DIGESTS}})
+    del lines, record
+    for run in range(2, (REPEAT_RUNS if repeat else 1) + 1):
+        out, steps_run = repeat_child(torch, "16", f"{name}_run{run}", {
+            "sets": sets, "workdir": f"{workdir}_run{run}",
+            "expected": expected, "run": run}, card)
+        if out is not None:
+            outs.append(out)
+            records.append(steps_run)
+    if repeat:
+        check(len(outs) == REPEAT_RUNS, f"16r: {len(outs)} of {REPEAT_RUNS} "
+                                        "runs ended")
+        report = repeat_report(outs, records)
+        emit({"phase": "ls100_full_repeat", "runs": len(outs), **report,
+              "steps": [o["steps"] for o in outs],
+              "final_digests": [o["final_digest"] for o in outs],
+              "best_digests": [o["best_digest"] for o in outs],
+              "card": card})
+        write_repeat(os.path.join(OUT_DIR, f"{name}.json"), outs, report,
+                     config=os.path.relpath(LS100_CONFIG, REPO),
+                     overrides=[*LS100_FULL_EVAL, *overrides], seed=seed,
+                     card=card)
+        check(report["equal"], f"16r: runs of one seed differ: {report}")
+    del records
 
     # the trained model's kernels on the first batch of each bucket
     firsts = {}
@@ -6228,7 +6703,7 @@ def ls100_full_phase(torch, dev, card, measure_only=False):
     if LS100_FULL_EVAL and best_epoch != epochs - 1:
         decoded.append(("last", last, epochs - 1))
     for tag, path, epoch in decoded:
-        out = os.path.join(OUT_DIR, LS100_FULL_NAME + (
+        out = os.path.join(OUT_DIR, name + (
             "" if tag == "best" else "_last") + ".jsonl")
         reset_counts()
         t0 = time.perf_counter()
@@ -6247,7 +6722,10 @@ def ls100_full_phase(torch, dev, card, measure_only=False):
               "the dev set")
         stats = CV.compare(out, tpu)
         lo, hi = stats["wer_diff_ci95"]
+        verdict = ("tie" if lo <= 0.0 <= hi else "fault"
+                   if lo > LS100_FULL_FAULT else "gap")
         emit({"phase": "ls100_full", "ckpt": tag, "epoch": epoch,
+              "train_seed": seed, "overrides": list(overrides),
               "decode": {k: res[k] for k in (
                   "method", "num_utts", "num_batches", "warm_passes", "wer",
                   "cer", "p50_latency_s", "beam_steps_total",
@@ -6258,11 +6736,25 @@ def ls100_full_phase(torch, dev, card, measure_only=False):
               "decode_s": round(decode_s, 1), "k1_fwd_decode_launches": fwd,
               "tpu_record": os.path.relpath(tpu, REPO),
               "records": os.path.relpath(out, REPO), **stats,
-              "verdict": ("tie" if lo <= 0.0 <= hi else "fault"
-                          if lo > LS100_FULL_FAULT else "gap"),
-              "fault_above": LS100_FULL_FAULT, "card": card})
-    emit({"phase": "ls100_full_done", "measure_only": False,
-          "seconds": round(time.perf_counter() - t_phase, 1)})
+              "verdict": verdict, "fault_above": LS100_FULL_FAULT,
+              "card": card})
+        if tag != "best":
+            continue
+        for other in sorted(glob.glob(os.path.join(LS100_FULL_EVIDENCE,
+                                                   f"{LS100_FULL_NAME}*.jsonl"))):
+            if other.endswith(("_epochs.jsonl", "_ctc.jsonl", "_att.jsonl",
+                               os.path.basename(out))) or CV.refs_match(
+                    refs, CV.read_records(other)) != LS100_FULL[1]:
+                continue
+            vs = CV.compare(out, other)
+            emit({"phase": "ls100_full_pair", "records": os.path.relpath(
+                out, REPO), "reference": os.path.relpath(other, REPO),
+                  **{k: vs[k] for k in ("wer", "reference_wer", "wer_diff",
+                                        "wer_diff_ci95", "p_diff_ge_0")
+                     if k in vs}, "card": card})
+        if verdict == "fault":
+            convergence_branches("16", LS100_CONFIG, path, name, sets, refs,
+                                 out, tpu, card, n=LS100_FULL[1])
 
 
 def library_timing(torch, config, shapes, dev, card):
@@ -6669,6 +7161,8 @@ if __name__ == "__main__":
         trace_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--deterministic"]:
         deterministic_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--repeat-run"]:
+        repeat_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--only"]:
         sets = sys.argv[3:]
         if sets[::2] != ["--set"] * (len(sets) // 2) or len(sets) % 2:

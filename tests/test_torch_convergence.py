@@ -10,10 +10,16 @@
 - a tiny config through the phase's path (train every epoch, decode
   ``best.pt`` by its decode block, compare), compared with itself: a
   difference of 0;
+- ls100_full's sampler at its own scale at seeds 0-2: the steps and pad
+  waste phase 16 holds each seed's run to (seed 0: the TPU table);
+- phases 14dr and 16r's repeat: the state digest, where two runs part,
+  the output names by seed, two tiny runs through the train CLI equal on
+  the CPU, and each committed repeat's two runs identical;
 - the port's train step against the JAX package's over LONG_STEPS steps
-  of english_m5_bpe and milestone5_beam at test widths (the plain
-  versions, the same draws): the longest comparison of training the CPU
-  allows in a test, where rounding could drift that 2 steps cannot show;
+  of english_m5_bpe, milestone5_beam, ls100_full and flagship_bf16 (the
+  last two in f32) at test widths (the plain versions, the same draws):
+  the longest comparison of training the CPU allows in a test, where
+  rounding could drift that 2 steps cannot show;
 - the committed records (``gluon_e2e_asr_tpu_torch/evidence/``: the
   port's on the card, the JAX recipe's on the CPU) recomputed with the
   root ``tools/wer_ci.py`` against each reference their README names:
@@ -43,8 +49,10 @@ import test_torch_milestone_configs as MC  # noqa: E402
 from test_torch_data import _definitions  # noqa: E402
 
 from gluon_e2e_asr_tpu.config import load_config as jax_load_config  # noqa: E402
+from gluon_e2e_asr_tpu.models.asr import build_model as jax_build_model  # noqa: E402
 from gluon_e2e_asr_tpu.training import train_step as jts  # noqa: E402
 from gluon_e2e_asr_tpu_torch.config import apply_overrides, load_config  # noqa: E402
+from gluon_e2e_asr_tpu_torch.data.tokenizer import build_tokenizer  # noqa: E402
 from gluon_e2e_asr_tpu_torch.eval.metrics import cer, wer  # noqa: E402
 from gluon_e2e_asr_tpu_torch.frontend.features import num_frames  # noqa: E402
 from gluon_e2e_asr_tpu_torch.models.asr import build_model  # noqa: E402
@@ -137,51 +145,307 @@ def test_phase14_dev_sets_pair_with_their_records(pid):
             assert json.load(f)["wer"] == 0.0671
 
 
-def test_ls100_full_epochs_equal_the_tpu_table():
+@functools.lru_cache(maxsize=None)
+def _ls100_full_manifests():
+    return (chip_smoke.ls100_full_manifest("train-clean-100"),
+            chip_smoke.ls100_full_manifest("dev-clean"))
+
+
+# ls100_full's sampler at training seeds 1 and 2 (the shuffle and the
+# speed-perturbation draws follow train.seed): each epoch's steps and pad
+# waste, which phase 16 at that seed holds its run to.
+LS100_FULL_SEEDS = {1: {"steps": (673, 673, 673, 675, 673),
+                        "pad_waste": (0.117, 0.1167, 0.1174, 0.1193, 0.1171)},
+                    2: {"steps": (672, 674, 673, 673, 673),
+                        "pad_waste": (0.1161, 0.1182, 0.117, 0.1172, 0.1167)}}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ls100_full_epochs_equal_the_tpu_table(seed, monkeypatch):
     """ls100_full.yaml's sampler over its corpus at its own scale (the
     texts and durations drawn without rendering any audio): 101.3 h, under
     11.7 GB of 16-bit PCM, and each of its 5 epochs' steps and pad waste
     (1 - real samples after speed perturbation over the batches' padded
-    samples, as the trainer counts it) equal to the TPU run's epoch table:
-    the port's sampler is the JAX one's copy, both at world size 1."""
-    from gluon_e2e_asr_tpu_torch.data import sampler as S
-
+    samples, as the trainer counts it; chip_smoke.ls100_full_plan) equal
+    at seed 0 to the TPU run's epoch table (the port's sampler is the JAX
+    one's copy, both at world size 1), and at seeds 1 and 2 to
+    LS100_FULL_SEEDS; phase 16 holds its run at the seed to the same
+    (chip_smoke.ls100_full_expected: the TPU table at seed 0, the plan at
+    another)."""
     config = load_config(chip_smoke.LS100_CONFIG)
-    dc, sr = config.data, config.data.sample_rate
-    utts = chip_smoke.ls100_full_manifest("train-clean-100")
-    dev = chip_smoke.ls100_full_manifest("dev-clean")
-    samples = [round(u.duration * sr) for u in utts]
-    pcm = 2 * (sum(samples) + sum(round(u.duration * sr) for u in dev))
+    sr = config.data.sample_rate
+    utts, dev = _ls100_full_manifests()
+    pcm = 2 * sum(round(u.duration * sr) for u in utts + dev)
     assert len(utts) == 28500 and round(pcm / 2 / sr / 3600, 1) == 101.3
     assert pcm < 11.7e9
-    specs = S.make_bucket_specs(dc.bucket_bounds_sec, sr, dc.batch_size,
-                                dc.max_label_len, config.frontend.hop_length,
-                                dc.dynamic_batch)
-    sp = tuple(dc.speed_perturb)
-    seed = config.train.seed
-    factor = functools.lru_cache(maxsize=None)(S.perturb_factor)
-    with mock.patch.object(S, "perturb_factor", factor):
-        sampler = S.BucketSampler(
-            utts, specs, sr, seed=seed, shuffle=dc.shuffle,
-            drop_last=dc.drop_last, sortagrad_epochs=dc.sortagrad_epochs,
-            speed_perturb=sp, perturb_seed=seed,
-            static_placement=dc.static_placement)
-        steps, waste = [], []
-        for e in range(config.train.num_epochs):
-            real = padded = n = 0
-            for b, idxs in sampler.epoch_batches(e):
-                spec = specs[b]
-                n += 1
-                padded += spec.batch_size * spec.max_samples
-                for i in idxs:
-                    f = factor(seed, e, i, sp)
-                    real += (samples[i] if f == 1.0 else
-                             min(int(round(samples[i] / f)), spec.max_samples))
-            steps.append(n)
-            waste.append(round(1.0 - real / padded, 4))
-    assert not sampler.skipped
-    tpu = chip_smoke.LS100_FULL_TPU
-    assert tuple(steps) == tpu["steps"] and tuple(waste) == tpu["pad_waste"]
+    plan = chip_smoke.ls100_full_plan(seed)
+    assert not plan["skipped"]
+    want = (chip_smoke.LS100_FULL_TPU if seed == 0
+            else LS100_FULL_SEEDS[seed])
+    assert plan["steps"] == want["steps"]
+    assert plan["pad_waste"] == want["pad_waste"]
+    monkeypatch.setattr(chip_smoke, "ls100_full_plan",
+                        lambda s: plan if s == seed else None)
+    assert chip_smoke.ls100_full_expected(seed) == {
+        k: want[k] for k in ("steps", "pad_waste")}
+
+
+def _state(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return {"param w": torch.randn(3, 4, generator=g),
+            "param b16": torch.randn(5, generator=g).to(torch.bfloat16),
+            "mu w": torch.randn(3, 4, generator=g),
+            "opt count": torch.tensor(7.0, dtype=torch.float64),
+            "step": torch.tensor(7),
+            "generator": g.get_state()}
+
+
+def _one_ulp(t):
+    t = t.clone()
+    t[1, 2] = torch.nextafter(t[1, 2], torch.tensor(np.inf))
+    return t
+
+
+def _renamed(state):
+    state["nu w"] = state.pop("mu w")
+    return state
+
+
+@pytest.mark.parametrize("change", [
+    lambda st: dict(st, **{"param w": _one_ulp(st["param w"])}),
+    lambda st: dict(st, **{"param b16": (st["param b16"].view(torch.int16)
+                                         + 1).view(torch.bfloat16)}),
+    lambda st: dict(st, **{"mu w": st["mu w"].double()}),
+    lambda st: dict(st, **{"mu w": st["mu w"].reshape(4, 3)}),
+    lambda st: dict(st, step=st["step"] + 1),
+    _renamed], ids=["one_ulp", "bf16_bit", "dtype", "shape", "step", "key"])
+def test_state_digest_is_the_states_bits_in_key_order(change):
+    """chip_smoke.state_digest, which phases 14dr and 16r hold two runs'
+    final states and best.pt files to: equal states give equal digests
+    whatever order their keys went in; one ulp of one entry, one bit of a
+    bf16 entry, a dtype, a shape, the step or a key's name changes it."""
+    a = _state()
+    digest = chip_smoke.state_digest(torch, a)
+    assert len(digest) == 64 and int(digest, 16) >= 0
+    assert chip_smoke.state_digest(torch, _state()) == digest
+    assert chip_smoke.state_digest(
+        torch, dict(reversed(list(a.items())))) == digest
+    assert chip_smoke.state_digest(torch, change(_state())) != digest
+    assert chip_smoke.state_digest(torch, a) == digest  # a is unchanged
+
+
+def test_checkpoint_digest_equals_the_runs(tmp_path):
+    """A training checkpoint's flat state (chip_smoke.checkpoint_state:
+    parameters, Adam's moments, step, generator) has the digest of the
+    run's state it was saved from (chip_smoke.state_of), so a run whose
+    best epoch is its last gives best.pt its final digest; a step later
+    both move."""
+    from gluon_e2e_asr_tpu_torch.training.checkpoint import (
+        save_train_checkpoint)
+
+    config = load_config(TINY)
+    batch, tok = chip_smoke.repro_batch(torch, TINY, "bucket")
+    model = build_model(config, tok.vocab_size, train=True,
+                        sos_id=tok.sos_id, eos_id=tok.eos_id)
+    opt = T.make_optimizer(config)
+    state = T.create_train_state(config, model, opt, torch.device("cpu"))
+    step = T.make_train_step(model, config, opt)
+    step(state, batch)
+    path = save_train_checkpoint(
+        str(tmp_path), model.state_dict(), state.opt_state, state.step, {},
+        is_best=True, generator=state.generator.get_state())
+    run = chip_smoke.state_digest(torch, chip_smoke.state_of(torch, model,
+                                                             state))
+    best = os.path.join(str(tmp_path), "best.pt")
+    assert os.path.realpath(best) == os.path.realpath(path)
+    saved = chip_smoke.checkpoint_state(torch, best)
+    assert any(k.startswith("mu ") for k in saved) and any(
+        k.startswith("nu ") for k in saved)
+    assert chip_smoke.state_digest(torch, saved) == run
+    step(state, batch)
+    assert chip_smoke.state_digest(
+        torch, chip_smoke.state_of(torch, model, state)) != run
+
+
+@pytest.mark.parametrize("seed,repeat,name", [
+    (0, False, "ls100_full_h100_dev2700"),
+    (1, False, "ls100_full_h100_dev2700_seed1"),
+    (2, False, "ls100_full_h100_dev2700_seed2"),
+    (0, True, "ls100_full_h100_dev2700_repeat"),
+    (2, True, "ls100_full_h100_dev2700_repeat_seed2")])
+def test_phase16_outputs_take_the_seed(seed, repeat, name):
+    """Phase 16's records, epoch lines and repeat file are named as phase
+    14's: ``_seed<N>`` at a training seed other than 0, ``_repeat`` for
+    ``--only 16r``; phase 16 reads the seed from its ``--set``
+    overrides."""
+    assert chip_smoke.record_name(chip_smoke.LS100_FULL_NAME, seed,
+                                  repeat) == name
+    assert chip_smoke.record_name("flagship_bf16_h100_dev192", seed,
+                                  repeat) == name.replace(
+        "ls100_full_h100_dev2700", "flagship_bf16_h100_dev192")
+    config = load_config(chip_smoke.LS100_CONFIG)
+    apply_overrides(config, [f"train.seed={seed}"])
+    assert config.train.seed == seed
+
+
+def _outs(losses=(1.0, 0.5, 0.25), digest="0" * 64):
+    return {"steps": len(losses), "train_lines": [{"step": 1, "loss": 1.0}],
+            "epochs": [{"epoch": 0, "dev_wer": 0.5}], "best_epoch": 0,
+            "final_digest": digest, "best_digest": digest}
+
+
+@pytest.mark.parametrize("case", ["equal", "loss", "batch", "digest",
+                                  "shorter"])
+def test_repeat_report_finds_where_runs_part(case):
+    """chip_smoke.repeat_report: two runs equal in every run_outputs entry
+    and every step's loss and batch are equal; a step whose loss or batch
+    differs is the first step where they part (from 1); runs equal step
+    for step but not in a digest differ in that entry alone; a run that
+    stops early parts at the step after its last. The records are
+    compared as the phases compare them across processes
+    (chip_smoke.step_keys: each step's loss and its batch's SHA-256)."""
+    rec = [(1.0, b"a"), (0.5, b"b"), (0.25, b"c")]
+    other, outs = list(rec), _outs()
+    want_first, want_differ = None, []
+    if case == "loss":
+        other[1] = (np.nextafter(0.5, 1.0), b"b")
+        want_first = 2
+    elif case == "batch":
+        other[2] = (0.25, b"d")
+        want_first = 3
+    elif case == "digest":
+        outs = dict(outs, final_digest="1" * 64)
+        want_differ = ["final_digest"]
+    elif case == "shorter":
+        other = other[:2]
+        want_first = 3
+    report = chip_smoke.repeat_report(
+        [_outs(), outs], [chip_smoke.step_keys(r) for r in (rec, other)])
+    assert report == {"equal": case == "equal", "differ": want_differ,
+                      "first_parted_step": want_first}
+
+
+@pytest.mark.parametrize("overrides,want", [
+    ((), [[]]),
+    (("train.seed=1",), [["train.seed=1"]]),
+    (("train.seed=1", "train.seed=2"), [["train.seed=1"], ["train.seed=2"]]),
+    (("train.seed=2", "data.batch_size=8", "train.seed=1"),
+     [["data.batch_size=8", "train.seed=2"],
+      ["data.batch_size=8", "train.seed=1"]]),
+    (("data.batch_size=8",), [["data.batch_size=8"]])],
+    ids=["none", "one", "two", "mixed", "no_seed"])
+def test_seed_runs_train_each_seed_in_turn(overrides, want):
+    """chip_smoke.seed_runs: ``--only 16 --set train.seed=1 --set
+    train.seed=2`` trains each seed in turn (after one render), each with
+    the overrides that name no seed; without a seed, the overrides
+    alone. The last override wins for a seed (as apply_overrides does)."""
+    assert chip_smoke.seed_runs(overrides) == want
+    for sets in want:
+        config = load_config(chip_smoke.LS100_CONFIG)
+        apply_overrides(config, sets)
+        seeds = [o for o in sets if o.startswith("train.seed=")]
+        assert config.train.seed == (int(seeds[-1].split("=")[1]) if seeds
+                                     else 0)
+
+
+def _repeat_files():
+    return sorted(p for p in os.listdir(CARD_EVIDENCE)
+                  if p.endswith(".json") and "_repeat" in p)
+
+
+def _assert_repeat(directory, name, log_every=10):
+    """A repeat file (chip_smoke.write_repeat) holds REPEAT_RUNS runs
+    identical in every logged train line, every epoch line, the step
+    losses' and batches' digests and the final-state and best.pt digests,
+    and its epoch lines file (``<record>_epochs.jsonl``) the first run's
+    epochs, the same values."""
+    with open(os.path.join(directory, name)) as f:
+        rep = json.load(f)
+    assert rep["equal"] and rep["first_parted_step"] is None
+    assert not rep["differ"]
+    runs = [{k: v for k, v in r.items() if k != "run"} for r in rep["runs"]]
+    assert [r["run"] for r in rep["runs"]] == [1, 2]
+    assert len(runs) == chip_smoke.REPEAT_RUNS
+    assert all(r == runs[0] for r in runs[1:])
+    run = runs[0]
+    for k in ("final_digest", "best_digest", "step_losses_sha256",
+              "batches_sha256"):
+        assert len(run[k]) == 64 and int(run[k], 16) >= 0
+    assert run["steps"] == run["epochs"][-1]["step"]
+    assert len(run["train_lines"]) == run["steps"] // log_every
+    assert all(np.isfinite(line["loss"]) for line in run["train_lines"])
+    epochs = CV.read_records(os.path.join(
+        directory, name[:-len(".json")] + "_epochs.jsonl"))
+    assert [{k: e[k] for k in (*chip_smoke.REPEAT_EPOCH_KEYS, "loss_logged")}
+            for e in epochs] == run["epochs"]
+    return rep
+
+
+@pytest.mark.parametrize("name", _repeat_files())
+def test_committed_repeats_are_bit_equal(name):
+    """Each committed repeat (phases 16r and 14dr: two runs of one seed
+    in one chip call, the second in a child process) is equal bit for
+    bit (_assert_repeat), and the README names it beside its record."""
+    _assert_repeat(CARD_EVIDENCE, name)
+    with open(os.path.join(CARD_EVIDENCE, "README.md")) as f:
+        readme = f.read()
+    assert f"`{name[:-len('.json')]}.jsonl`" in readme and f"`{name}`" in readme
+
+
+def test_two_runs_of_one_seed_repeat_on_the_cpu(tmp_path):
+    """The repeat of phases 14dr and 16r on the CPU: the tiny config
+    twice through the train CLI (chip_smoke._run_cli) at one seed, each
+    run's run_outputs (logged lines, epoch lines, step losses and
+    batches, the final state's and best.pt's digests) equal, repeat_report
+    equal, and write_repeat's file passes the committed repeats' checks;
+    a run at another seed parts at its first step. The first run is kept
+    as the phase keeps its own (chip_smoke.json_copy, step_keys), the
+    others as a child process writes them (repeat_worker: through a JSON
+    file), and they compare equal."""
+    out = str(tmp_path)
+    sets = [a for o in TINY_SETS + ["train.log_every_steps=1"]
+            for a in ("--set", o)]
+    outs, records = [], []
+    for run in range(chip_smoke.REPEAT_RUNS):
+        record = []
+        trainer, lines = chip_smoke._run_cli(
+            torch, TINY, f"run{run + 1}", sets, record, device="cpu",
+            out_dir=out)
+        got = {"outputs": chip_smoke.run_outputs(torch, trainer, lines,
+                                                 record),
+               "steps": chip_smoke.step_keys(record)}
+        if run == 0:
+            got = chip_smoke.json_copy(got)
+        else:
+            path = os.path.join(out, f"run{run + 1}.json")
+            with open(path, "w") as f:
+                json.dump(got, f)
+            with open(path) as f:
+                got = json.load(f)
+        outs.append(got["outputs"])
+        records.append(got["steps"])
+        if run == 0:
+            CV.write_lines(os.path.join(out, "tiny_repeat_epochs.jsonl"),
+                           CV.epoch_records(lines))
+    report = chip_smoke.repeat_report(outs, records)
+    assert report == {"equal": True, "differ": [], "first_parted_step": None}
+    chip_smoke.write_repeat(os.path.join(out, "tiny_repeat.json"), outs,
+                            report, config=TINY, seed=0)
+    rep = _assert_repeat(out, "tiny_repeat.json", log_every=1)
+    assert rep["runs"][0]["steps"] == len(records[0]) > 2
+    assert all(len(h) == 64 for _, h in records[0])
+    assert rep["runs"][0]["best_epoch"] in (0, 1)
+    record = []
+    trainer, lines = chip_smoke._run_cli(
+        torch, TINY, "seed1", sets + ["--set", "train.seed=1"], record,
+        device="cpu", out_dir=out)
+    other = chip_smoke.json_copy(chip_smoke.run_outputs(torch, trainer, lines,
+                                                        record))
+    report = chip_smoke.repeat_report([outs[0], other],
+                                      [records[0], chip_smoke.step_keys(record)])
+    assert not report["equal"] and report["first_parted_step"] == 1
+    assert {"final_digest", "best_digest", "train_lines"} <= set(
+        report["differ"])
 
 
 def test_refs_that_differ_void_the_comparison(tmp_path):
@@ -281,24 +545,60 @@ def _long_batch(i, vocab):
             "label_len": label_len}
 
 
-@pytest.mark.parametrize("name", ["english_m5_bpe", "milestone5_beam"])
+def _long_cut(config):
+    """MC._cut, and f32 compute where the config trains in bf16: over
+    LONG_STEPS steps bf16's rounding, which XLA and PyTorch order
+    differently, keeps rtol 1e-5 out of reach for ls100_full and
+    flagship_bf16."""
+    config = MC._cut(config)
+    config.model.compute_dtype = "float32"
+    return config
+
+
+def _long_cmvn(config):
+    """Global CMVN stats (ls100_full) for both packages' steps: phase 6e's
+    seeded ones (chip_smoke.repro_cmvn); None for other CMVN modes."""
+    stats = chip_smoke.repro_cmvn(torch, config, torch.device("cpu"))
+    return None if stats is None else tuple(t.numpy() for t in stats)
+
+
+@pytest.mark.parametrize("name", ["english_m5_bpe", "milestone5_beam",
+                                  "ls100_full", "flagship_bf16"])
 def test_port_trains_like_jax_over_many_steps(name):
-    """LONG_STEPS train steps of the config at test widths (MC._cut) over 8
+    """LONG_STEPS train steps of the config at test widths (_long_cut: the
+    bf16 configs, ls100_full and flagship_bf16, in f32) over 8
     batches in turn, from the same parameters, the JAX step's SpecAugment
     draws and coins fed to the port's: every step's loss within rtol 1e-5
     of JAX's (tests/test_torch_train_step.py's), and the parameters at the
     end within 1% of the largest learning rate of JAX's (the milestone
-    test's bound for firm entries, here over every entry). Over 200 steps
+    test's bound for firm entries, here over every entry). ls100_full's
+    tokenizer is its BPE 128 over the train texts of its corpus at its own
+    scale (chip_smoke.ls100_full_manifest; no audio rendered), its global
+    CMVN the seeded stats of _long_cmvn, given to both steps. Over 200 steps
     of english_m5_bpe the losses stayed within 2.6e-7 and the parameters
     within 1.9e-6 (the LR 2e-3)."""
     path = os.path.join(REPO, "configs", f"{name}.yaml")
-    config = MC._cut(load_config(path))
-    jconfig = MC._cut(jax_load_config(path))
-    tok = MC._tokenizer(config)
+    config = _long_cut(load_config(path))
+    jconfig = _long_cut(jax_load_config(path))
+    if name == "ls100_full":
+        tok = build_tokenizer(config, (u.text for u in
+                                       chip_smoke.ls100_full_manifest(
+                                           "train-clean-100")))
+    else:
+        tok = MC._tokenizer(config)
     V = tok.vocab_size
     batches = [_long_batch(i % 8, V) for i in range(LONG_STEPS)]
-    jmodel, tx, step = MC._jax_step(jconfig, V, tok.sos_id, tok.eos_id)
-    st = jts.create_train_state(jconfig, jmodel, tx, batches[0])
+    cmvn = _long_cmvn(config)
+    if cmvn is None:
+        jmodel, tx, step = MC._jax_step(jconfig, V, tok.sos_id, tok.eos_id)
+    else:
+        jmodel = jax_build_model(jconfig, V, tok.sos_id, tok.eos_id)
+        tx = jts.make_optimizer(jconfig)
+        step = jts.make_train_step(jmodel, jconfig, tx,
+                                   cmvn_stats=tuple(map(jnp.asarray, cmvn)))
+    st = jts.create_train_state(
+        jconfig, jmodel, tx, batches[0],
+        cmvn_stats=None if cmvn is None else tuple(map(jnp.asarray, cmvn)))
     init = MC._flat(st.params)
     fc = config.frontend
     frames = num_frames(batches[0]["audio"].shape[1], fc.win_length,
@@ -327,7 +627,8 @@ def test_port_trains_like_jax_over_many_steps(name):
     state = T.TrainState(step=0,
                          opt_state=opt.init(dict(model.named_parameters())),
                          generator=torch.Generator().manual_seed(0))
-    fn = T.make_train_step(model, config, opt)
+    fn = T.make_train_step(model, config, opt, None if cmvn is None else
+                           tuple(map(torch.from_numpy, cmvn)))
     losses = []
     for b, (spec, coins) in zip(batches, draws):
         with mock.patch.object(T, "draw_spec_augment", lambda *a: spec), \

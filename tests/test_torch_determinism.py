@@ -589,3 +589,44 @@ def test_a_training_step_runs_no_accumulating_op(sets):
         chip_smoke.repro_run(torch, config, tok, batch, torch.device("cpu"),
                              1)
     assert audit.accumulating == {} and audit.convs == 0
+
+
+def test_largest_repro_case_is_ls100s_largest_bucket():
+    """Phase 6e's ``ls100_full, largest bucket`` case (REPRO_CASES'
+    "largest" batch): ls100_full.yaml's largest bucket on synthetic audio,
+    B = 32 at 18.38 s (T = 1836 frames), labels of up to 320 tokens in the
+    BPE 128 vocabulary built from the corpus's train texts (no audio
+    rendered), trained with repro_cmvn's global CMVN stats. Cut to two
+    rows of one second at test widths, it trains on the CPU under the
+    dispatch audit with no accumulating op, and two runs are equal."""
+    case = next(c for c in chip_smoke.REPRO_CASES if c[3] == "largest")
+    assert case[1] == chip_smoke.LS100_CONFIG
+    batch, tok = chip_smoke.repro_batch(torch, case[1], "largest")
+    config, shape = chip_smoke.repro_config(case)
+    fc = config.frontend
+    B, S = batch["audio"].shape
+    assert (B, num_frames(S, fc.win_length, fc.hop_length)) == (32, 1836)
+    assert chip_smoke.ls100_case()[1:] == (32, 320, (0, 1836, 80))
+    assert tok.vocab_size == config.data.bpe_vocab_size == 128
+    assert batch["labels"].shape == (32, 320)
+    assert int(batch["label_len"].max()) <= 320
+    assert 4 <= int(batch["labels"][batch["labels"] > 0].min())
+    assert int(batch["labels"].max()) < tok.vocab_size
+    mean, std = chip_smoke.repro_cmvn(torch, config, torch.device("cpu"))
+    assert mean.shape == std.shape == (fc.n_mels,) and bool((std > 0).all())
+    mc = config.model
+    mc.enc_hidden = mc.dec_hidden = 8
+    mc.dec_embed, mc.att_dim = 6, 8
+    mc.loc_conv_channels, mc.loc_conv_width = 4, 7
+    cut = {k: v[:2] for k, v in batch.items()}
+    cut["audio"] = cut["audio"][:, :16000].contiguous()
+    cut["audio_len"] = torch.clamp(cut["audio_len"], max=16000)
+    cut["labels"] = cut["labels"][:, :12].contiguous()
+    cut["label_len"] = torch.clamp(cut["label_len"], max=12)
+    audit = chip_smoke.accumulation_audit(torch, "cpu")
+    with audit:
+        runs = [chip_smoke.repro_run(torch, config, tok, cut,
+                                     torch.device("cpu"), 2)
+                for _ in range(2)]
+    assert audit.accumulating == {} and audit.convs == 0
+    assert chip_smoke.state_diff(torch, *runs)["equal"]
